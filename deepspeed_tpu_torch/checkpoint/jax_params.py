@@ -1,0 +1,48 @@
+"""Weights carried across from the JAX package.
+
+``gpt2_params_from_numpy`` turns a GPT-2 params tree as numpy arrays —
+``jax.device_get(engine.params)`` from ``deepspeed_tpu``, or the output
+of ``numpy_init_params`` — into the port's tree of tensors: the same
+names, the same stacked ``[L, ...]`` block layout, and the reference's
+``[in, out]`` orientation for every projection weight (the port computes
+``x @ w`` as the reference does; nothing is transposed anywhere).
+"""
+import numpy as np
+import torch
+
+GPT2_TOP_KEYS = ("wte", "wpe", "blocks", "lnf_scale", "lnf_bias")
+GPT2_BLOCK_KEYS = ("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "proj_w",
+                   "proj_b", "ln2_scale", "ln2_bias", "mlp_in_w",
+                   "mlp_in_b", "mlp_out_w", "mlp_out_b")
+
+
+def _to_tensor(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes bf16: no numpy bridge
+        a = a.astype(np.float32)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a, order="C")     # torch.from_numpy needs both
+    t = torch.from_numpy(a)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _check_keys(tree: dict, want, where: str):
+    got = set(tree)
+    if got != set(want):
+        raise ValueError(
+            f"gpt2_params_from_numpy: {where} keys {sorted(got)} != "
+            f"expected {sorted(want)}")
+
+
+def gpt2_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
+    """numpy GPT-2 params tree -> the port's params (floating leaves cast
+    to ``dtype`` when given, all placed on ``device``)."""
+    _check_keys(tree, GPT2_TOP_KEYS, "top-level")
+    _check_keys(tree["blocks"], GPT2_BLOCK_KEYS, "blocks")
+    out = {k: _to_tensor(v, device, dtype) for k, v in tree.items()
+           if k != "blocks"}
+    out["blocks"] = {k: _to_tensor(v, device, dtype)
+                     for k, v in tree["blocks"].items()}
+    return out

@@ -1,0 +1,227 @@
+// Decode attention: one query token per row attends to the first
+// cache_len[b] positions of a dense KV cache.
+//
+// Replaces: deepspeed_tpu/ops/pallas/decode_attention.py:_decode_kernel
+// (float cache, no ALiBi, no window floor).
+//
+// What bounds it on an H100: bytes.  Each (row, kv head) streams
+// cache_len[b] * 2 * head_dim values and does ~4 flops per value, far
+// below the ~295 flops per byte the card needs before its arithmetic is
+// the limit.  The design therefore reads every valid cache position once
+// and nothing past it:
+//   - one CTA per (kv head, row): the rep = H / KV query heads of a group
+//     share each K/V load, the query vectors sit in shared memory;
+//   - the CTA's warps stride over positions < cache_len[b] only (the TPU
+//     kernel skipped whole blocks past the longest row; here a short row
+//     stops at its own length), cache_len is read from device memory so
+//     the host never synchronises;
+//   - lanes own head-dim slots (coalesced 32-lane loads), each warp keeps
+//     a private online softmax (m, l, acc) over four positions in flight,
+//     and the warps merge through shared memory at the end.
+// The TPU kernel's block-diagonal query matmul filled a 128-lane MXU and
+// has no counterpart here.  A row with cache_len <= 0 returns zeros.
+//
+// C interface (loaded with ctypes): ds_decode_attention returns the
+// cudaError_t of the launch as an int.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kMaxRep = 8;
+constexpr int kPos = 4;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// q [B, H, HD], k/v [B, S_max, KV, HD], cache_len [B], out [B, H, HD];
+// all contiguous.  Grid (KV, B), block kWarps * 32 threads.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const int* __restrict__ cache_len,
+                        T* __restrict__ out, int H, int KV, int S_max,
+                        float sm_scale) {
+  constexpr int NI = (HD + 31) / 32;
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int rep = H / KV;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ float smem[];
+  float* q_s = smem;                       // [rep][HD]
+  float* acc_s = q_s + rep * HD;           // [kWarps][rep][HD]
+  float* m_s = acc_s + kWarps * rep * HD;  // [kWarps][rep]
+  float* l_s = m_s + kWarps * rep;         // [kWarps][rep]
+
+  // the group's query heads kvh*rep .. kvh*rep+rep-1, pre-scaled
+  const T* q_row = q + ((size_t)b * H + (size_t)kvh * rep) * HD;
+  for (int i = threadIdx.x; i < rep * HD; i += blockDim.x)
+    q_s[i] = to_f(q_row[i]) * sm_scale;
+  __syncthreads();
+
+  int len = cache_len[b];
+  len = len < S_max ? len : S_max;
+
+  float m[kMaxRep], l[kMaxRep], acc[kMaxRep][NI], qr[kMaxRep][NI];
+#pragma unroll
+  for (int r = 0; r < kMaxRep; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int d = lane + 32 * i;
+      acc[r][i] = 0.f;
+      qr[r][i] = (r < rep && d < HD) ? q_s[r * HD + d] : 0.f;
+    }
+  }
+
+  const size_t pos_stride = (size_t)KV * HD;
+  const T* k_base = k + (size_t)b * S_max * pos_stride + (size_t)kvh * HD;
+  const T* v_base = v + (size_t)b * S_max * pos_stride + (size_t)kvh * HD;
+
+  for (int s0 = warp * kPos; s0 < len; s0 += kWarps * kPos) {
+    float kx[kPos][NI], vx[kPos][NI];
+#pragma unroll
+    for (int j = 0; j < kPos; ++j) {
+      const int s = s0 + j;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int d = lane + 32 * i;
+        const bool ok = s < len && d < HD;
+        kx[j][i] = ok ? to_f(k_base[(size_t)s * pos_stride + d]) : 0.f;
+        vx[j][i] = ok ? to_f(v_base[(size_t)s * pos_stride + d]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) {
+      if (r < rep) {
+        float sc[kPos];
+#pragma unroll
+        for (int j = 0; j < kPos; ++j) {
+          float p = 0.f;
+#pragma unroll
+          for (int i = 0; i < NI; ++i) p += qr[r][i] * kx[j][i];
+          sc[j] = warp_sum(p);
+        }
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < kPos; ++j)
+          if (s0 + j < len) mx = fmaxf(mx, sc[j]);
+        const float corr = expf(m[r] - mx);
+        float pj[kPos];
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kPos; ++j) {
+          pj[j] = (s0 + j < len) ? expf(sc[j] - mx) : 0.f;
+          psum += pj[j];
+        }
+        l[r] = l[r] * corr + psum;
+        m[r] = mx;
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          float a = acc[r][i] * corr;
+#pragma unroll
+          for (int j = 0; j < kPos; ++j) a += pj[j] * vx[j][i];
+          acc[r][i] = a;
+        }
+      }
+    }
+  }
+
+  // merge the warps' partial softmax states
+#pragma unroll
+  for (int r = 0; r < kMaxRep; ++r) {
+    if (r < rep) {
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int d = lane + 32 * i;
+        if (d < HD) acc_s[(warp * rep + r) * HD + d] = acc[r][i];
+      }
+      if (lane == 0) {
+        m_s[warp * rep + r] = m[r];
+        l_s[warp * rep + r] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+  T* out_row = out + ((size_t)b * H + (size_t)kvh * rep) * HD;
+  for (int idx = threadIdx.x; idx < rep * HD; idx += blockDim.x) {
+    const int r = idx / HD;
+    const int d = idx - r * HD;
+    float M = kNegInf;
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, m_s[w * rep + r]);
+    float L = 0.f, O = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(m_s[w * rep + r] - M);
+      L += l_s[w * rep + r] * f;
+      O += acc_s[(w * rep + r) * HD + d] * f;
+    }
+    out_row[idx] = from_f<T>(O / fmaxf(L, 1e-30f));
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* cache_len, void* out, int B, int H, int KV,
+                   int S_max, float sm_scale, cudaStream_t stream) {
+  const int rep = H / KV;
+  const size_t smem =
+      (size_t)(rep * HD + kWarps * rep * HD + 2 * kWarps * rep) *
+      sizeof(float);
+  const dim3 grid(KV, B);
+  decode_attention_kernel<T, HD><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(cache_len),
+      static_cast<T*>(out), H, KV, S_max, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ds_decode_attention(const void* q, const void* k,
+                                   const void* v, const void* cache_len,
+                                   void* out, int B, int H, int KV,
+                                   int S_max, int head_dim, int is_bf16,
+                                   float sm_scale, void* stream) {
+  if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxRep)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DS_DECODE_CASE(HDV)                                               \
+  case HDV:                                                               \
+    return is_bf16 ? (int)launch<__nv_bfloat16, HDV>(                     \
+                         q, k, v, cache_len, out, B, H, KV, S_max,        \
+                         sm_scale, st)                                    \
+                   : (int)launch<float, HDV>(q, k, v, cache_len, out, B,  \
+                                             H, KV, S_max, sm_scale, st);
+  switch (head_dim) {
+    DS_DECODE_CASE(64)
+    DS_DECODE_CASE(80)
+    DS_DECODE_CASE(96)
+    DS_DECODE_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DS_DECODE_CASE
+}

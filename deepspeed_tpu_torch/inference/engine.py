@@ -1,0 +1,187 @@
+"""Inference engine (counterpart of ``deepspeed_tpu/inference/engine.py``
+``InferenceEngine``): casts and places the params on one device and runs
+the static generate loop.
+
+KV-cache path (default): prefill fills a [L, B, S_max, KV, hd] cache and
+each decode step runs the decode-attention kernel per layer, so a token
+costs O(S) cache streaming.  ``use_cache=False`` keeps the O(S^2)
+full-recompute loop as the numerics oracle.  Sampling: greedy /
+temperature / top-k / top-p with EOS early-stop.
+
+Refused here (not ported yet): int8 weights (``quant.enabled``), an int8
+KV cache and tensor parallelism (``tensor_parallel.tp_size > 1``).
+"""
+from typing import Optional
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.inference.sampling import sample
+from deepspeed_tpu_torch.utils.logging import logger
+
+
+def torch_dtype(name) -> torch.dtype:
+    """"bfloat16" / "float32" / torch.dtype -> torch.dtype."""
+    if isinstance(name, torch.dtype):
+        return name
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"unsupported dtype {name!r}")
+    return dt
+
+
+def refuse_unported(config: DeepSpeedInferenceConfig):
+    """NotImplementedError for inference settings not ported yet, naming
+    the ROADMAP.md item that brings them."""
+    tp = (config.tensor_parallel.tp_size
+          if config.tensor_parallel.enabled else 1)
+    checks = (
+        (config.quant.enabled, "quant.enabled (int8 weights)",
+         "Queue B: int8 serving"),
+        (config.kv_cache_dtype not in (None, config.dtype),
+         f"kv_cache_dtype={config.kv_cache_dtype!r} (int8 or a dtype other "
+         "than the compute dtype)", "Queue B: int8 serving"),
+        (tp > 1, f"tensor_parallel.tp_size={tp}",
+         "Queue A: tensor-parallel serving"),
+    )
+    for on, what, item in checks:
+        if on:
+            raise NotImplementedError(
+                f"{what}: not ported to deepspeed_tpu_torch yet "
+                f"(ROADMAP.md {item})")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+class InferenceEngine:
+    def __init__(self, model, config: DeepSpeedInferenceConfig,
+                 model_parameters=None, device=None):
+        """``model_parameters``: a params tree of tensors or of numpy
+        arrays (e.g. ``jax.device_get`` of the reference engine's
+        params); None draws the model's seeded host init (seed 0)."""
+        refuse_unported(config)
+        self.model = model
+        self._config = config
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(config.dtype)
+        cfg_dtype = getattr(model.config, "dtype", None)
+        if cfg_dtype is not None and torch_dtype(cfg_dtype) != self.dtype:
+            raise ValueError(
+                f"InferenceEngine: config dtype {config.dtype} differs from "
+                f"the model's compute dtype {cfg_dtype}; build the model "
+                f"with dtype={config.dtype!r}")
+        if model_parameters is None:
+            params = model.init(0, self.device, self.dtype)
+        else:
+            leaf = model_parameters["wte"]
+            if isinstance(leaf, np.ndarray):
+                params = model.params_from_numpy_fn(
+                    model_parameters, self.device, self.dtype)
+            else:
+                params = _tree_map(
+                    lambda t: t.to(self.device, self.dtype)
+                    if t.is_floating_point() else t.to(self.device),
+                    model_parameters)
+        self.params = params
+        logger.info(f"InferenceEngine: device={self.device}, "
+                    f"dtype={self.dtype}")
+
+    # --------------------------------------------------------------- generate
+    @staticmethod
+    def _pad_bucket(n: int, quantum: int = 64) -> int:
+        return max(quantum, -(-n // quantum) * quantum)
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0,
+                 eos_token_id: Optional[int] = None, seed: int = 0,
+                 use_cache: bool = True):
+        """Autoregressive generation; returns int32 numpy
+        [B, S + max_new_tokens].  Sampling draws from one
+        ``torch.Generator`` seeded with ``seed``."""
+        input_ids = np.asarray(input_ids)
+        if input_ids.ndim == 1:
+            input_ids = input_ids[None]
+        B, S = input_ids.shape
+        max_ctx = getattr(self.model.config, "max_seq_len",
+                          S + max_new_tokens)
+        if S + max_new_tokens > max_ctx:
+            raise ValueError(
+                f"generate: prompt {S} + max_new_tokens {max_new_tokens} "
+                f"exceeds model context {max_ctx}")
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        sampler = dict(do_sample=do_sample, temperature=temperature,
+                       top_k=int(top_k), top_p=float(top_p))
+        if use_cache:
+            out = self._generate_cached(input_ids, max_new_tokens, gen,
+                                        sampler, eos_token_id, max_ctx)
+        else:
+            out = self._generate_recompute(input_ids, max_new_tokens, gen,
+                                           sampler, eos_token_id)
+        return out.cpu().numpy()
+
+    def _generate_cached(self, input_ids, max_new, gen, sampler, eos_id,
+                         max_ctx):
+        """Prefill + per-token decode over the KV cache; the prompt pads
+        to a 64 bucket and the cache to a 64 multiple (the reference's
+        sizing)."""
+        B, S = input_ids.shape
+        dev = self.device
+        prompt_pad = min(self._pad_bucket(S), max_ctx - max_new)
+        if prompt_pad < S:
+            prompt_pad = S
+        total = prompt_pad + max_new
+        cache_size = -(-total // 64) * 64
+        tokens = torch.zeros((B, prompt_pad), dtype=torch.int32)
+        tokens[:, :S] = torch.from_numpy(input_ids.astype(np.int32))
+        tokens = tokens.to(dev)
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+        cache = self.model.init_cache_fn(B, cache_size, self.dtype, dev)
+        logits, cache = self.model.prefill_fn(
+            self.params, {"input_ids": tokens}, cache)
+        rows = torch.arange(B, device=dev)
+        nxt = sample(logits[rows, lengths.long() - 1], gen, **sampler)
+        done = (torch.zeros(B, dtype=torch.bool, device=dev)
+                if eos_id is None else nxt == eos_id)
+        gen_tokens = [nxt]
+        lens = lengths
+        for _ in range(max_new - 1):
+            logits, cache = self.model.decode_fn(self.params, nxt, cache,
+                                                 lens)
+            new = sample(logits, gen, **sampler)
+            if eos_id is not None:
+                new = torch.where(done, torch.full_like(new, eos_id), new)
+                done = done | (new == eos_id)
+            gen_tokens.append(new)
+            nxt, lens = new, lens + 1
+        out = torch.zeros((B, S + max_new), dtype=torch.int32, device=dev)
+        out[:, :S] = tokens[:, :S]
+        out[:, S:] = torch.stack(gen_tokens, dim=1)
+        return out
+
+    def _generate_recompute(self, input_ids, max_new, gen, sampler,
+                            eos_id):
+        """O(S^2) loop: a full forward per generated token (the oracle)."""
+        B, S = input_ids.shape
+        dev = self.device
+        total = S + max_new
+        toks = torch.zeros((B, total), dtype=torch.int32)
+        toks[:, :S] = torch.from_numpy(input_ids.astype(np.int32))
+        toks = toks.to(dev)
+        rows = torch.arange(B, device=dev)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        for cur in range(S, total):
+            logits = self.model.apply(self.params, {"input_ids": toks})
+            nxt = sample(logits[rows, cur - 1], gen, **sampler)
+            if eos_id is not None:
+                nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+                done = done | (nxt == eos_id)
+            toks[:, cur] = nxt
+        return toks

@@ -1,0 +1,239 @@
+"""GPT-2 family in PyTorch (counterpart of ``deepspeed_tpu/models/gpt2.py``).
+
+Plain functions over a params dict with the reference's names and
+stacked ``[L, ...]`` block layout; projection weights keep the
+reference's ``[in, out]`` orientation (``x @ w``).  The serving path is
+the reference's unfused one: prefill runs the flash forward per layer,
+each decode step writes the new K/V into the cache in place and runs the
+decode-attention kernel per layer.
+"""
+from dataclasses import dataclass
+from functools import partial
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from deepspeed_tpu_torch.models.model import Model, resolve_size
+from deepspeed_tpu_torch.models.serving import init_cache as _init_cache
+from deepspeed_tpu_torch.models.serving import write_token
+from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
+from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    max_seq_len: int = 1024
+    num_layers: int = 12
+    num_heads: int = 12
+    d_model: int = 768
+    layer_norm_eps: float = 1e-5
+    dtype: str = "float32"          # compute dtype
+    attention_impl: str = "auto"    # auto | flash (kernel) | plain (einsum)
+    activation: str = "gelu"        # gelu (tanh approx) | gelu_exact | relu
+    mlp_dim: int = 0                # 0 = the GPT-2 default 4*d_model
+
+    def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"GPT2Config.attention_impl="
+                             f"{self.attention_impl!r}: choose one of "
+                             f"{ATTENTION_IMPLS}")
+
+    @property
+    def d_mlp(self) -> int:
+        return self.mlp_dim or 4 * self.d_model
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.num_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
+GPT2_SIZES = {
+    "125m": dict(num_layers=12, num_heads=12, d_model=768),
+    "350m": dict(num_layers=24, num_heads=16, d_model=1024),
+    "760m": dict(num_layers=24, num_heads=16, d_model=1536),
+    "1.3b": dict(num_layers=24, num_heads=32, d_model=2048),
+    "2.7b": dict(num_layers=32, num_heads=32, d_model=2560),
+    "6.7b": dict(num_layers=32, num_heads=32, d_model=4096),
+    "13b": dict(num_layers=40, num_heads=40, d_model=5120),
+}
+
+
+def numpy_init_params(config: GPT2Config, seed: int = 0) -> dict:
+    """Host-side init with numpy's PCG64, a copy of the reference's
+    ``numpy_init_params``: the same seed gives the same values as
+    ``deepspeed_tpu.models.gpt2.numpy_init_params``."""
+    D, V, S, L, M = (config.d_model, config.vocab_size, config.max_seq_len,
+                     config.num_layers, config.d_mlp)
+    rng = np.random.default_rng(seed)
+    std = 0.02
+    res_std = std / (2 * L) ** 0.5
+
+    def norm(shape, scale):
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+
+    return {
+        "wte": norm((V, D), std),
+        "wpe": norm((S, D), std),
+        "blocks": {
+            "ln1_scale": np.ones((L, D), np.float32),
+            "ln1_bias": np.zeros((L, D), np.float32),
+            "qkv_w": norm((L, D, 3 * D), std),
+            "qkv_b": np.zeros((L, 3 * D), np.float32),
+            "proj_w": norm((L, D, D), res_std),
+            "proj_b": np.zeros((L, D), np.float32),
+            "ln2_scale": np.ones((L, D), np.float32),
+            "ln2_bias": np.zeros((L, D), np.float32),
+            "mlp_in_w": norm((L, D, M), std),
+            "mlp_in_b": np.zeros((L, M), np.float32),
+            "mlp_out_w": norm((L, M, D), res_std),
+            "mlp_out_b": np.zeros((L, D), np.float32),
+        },
+        "lnf_scale": np.ones((D,), np.float32),
+        "lnf_bias": np.zeros((D,), np.float32),
+    }
+
+
+def _layer_norm(x, scale, bias, eps):
+    """fp32 statistics, output in the input dtype (the reference's)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+def _block_qkv(x, layer, config: GPT2Config):
+    """LN1 + QKV projection; x [B, S, D] -> q/k/v [B, S, H, hd] (views
+    of one fused projection output)."""
+    H, hd = config.num_heads, config.head_dim
+    h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"],
+                    config.layer_norm_eps)
+    qkv = h @ layer["qkv_w"].to(h.dtype) + layer["qkv_b"].to(h.dtype)
+    q, kk, v = qkv.split(config.d_model, dim=-1)
+    return (q.unflatten(-1, (H, hd)), kk.unflatten(-1, (H, hd)),
+            v.unflatten(-1, (H, hd)))
+
+
+def _activation(h, config: GPT2Config):
+    if config.activation == "relu":
+        return F.relu(h)
+    if config.activation == "gelu_exact":
+        return F.gelu(h)
+    return F.gelu(h, approximate="tanh")
+
+
+def _block_finish(x, attn, layer, config: GPT2Config):
+    """Post-attention half: proj + residual + MLP; x/attn [..., D]."""
+    proj = attn @ layer["proj_w"].to(x.dtype) + layer["proj_b"].to(x.dtype)
+    x = x + proj
+    h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"],
+                    config.layer_norm_eps)
+    h = h @ layer["mlp_in_w"].to(h.dtype) + layer["mlp_in_b"].to(h.dtype)
+    h = _activation(h, config)
+    return x + (h @ layer["mlp_out_w"].to(x.dtype)
+                + layer["mlp_out_b"].to(x.dtype))
+
+
+def _layer(params, l: int) -> dict:
+    """Layer ``l``'s block params (views of the stacked tensors)."""
+    return {k: v[l] for k, v in params["blocks"].items()}
+
+
+def embed(params, batch, config: GPT2Config):
+    tokens = batch["input_ids"]
+    dtype = config.torch_dtype
+    S = tokens.shape[1]
+    return (params["wte"].to(dtype)[tokens.long()]
+            + params["wpe"].to(dtype)[:S])
+
+
+def head(params, x, config: GPT2Config):
+    """Final LN + tied-embedding logits."""
+    x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"],
+                    config.layer_norm_eps)
+    return x @ params["wte"].to(x.dtype).T
+
+
+def forward(params, batch, config: GPT2Config):
+    """Token ids [B, S] -> logits [B, S, V] (full causal forward)."""
+    x = embed(params, batch, config)
+    B, S, D = x.shape
+    seg = batch.get("segment_ids") if isinstance(batch, dict) else None
+    for l in range(config.num_layers):
+        layer = _layer(params, l)
+        q, kk, v = _block_qkv(x, layer, config)
+        attn = causal_attention(q, kk, v, impl=config.attention_impl,
+                                segment_ids=seg)
+        x = _block_finish(x, attn.reshape(B, S, D), layer, config)
+    return head(params, x, config)
+
+
+def init_cache(config: GPT2Config, batch_size: int, max_len: int,
+               dtype=None, device=None):
+    dtype = config.torch_dtype if dtype is None else dtype
+    if isinstance(dtype, str) and dtype != "int8":
+        dtype = getattr(torch, dtype)
+    return _init_cache(config.num_layers, config.num_heads, config.head_dim,
+                       batch_size, max_len, dtype, device)
+
+
+def prefill(params, batch, cache, config: GPT2Config):
+    """Causal forward over (right-padded) prompts [B, S], filling cache
+    positions [0, S) in place.  Returns (logits [B, S, V], cache)."""
+    x = embed(params, batch, config)
+    B, S, D = x.shape
+    for l in range(config.num_layers):
+        layer = _layer(params, l)
+        q, kk, v = _block_qkv(x, layer, config)
+        attn = causal_attention(q, kk, v, impl=config.attention_impl)
+        # in place: this layer's prompt K/V straight into the cache
+        cache["k"][l, :, :S] = kk
+        cache["v"][l, :, :S] = v
+        x = _block_finish(x, attn.reshape(B, S, D), layer, config)
+    return head(params, x, config), cache
+
+
+def decode_step(params, tokens, cache, lengths, config: GPT2Config):
+    """One decode step (the reference's unfused branch).  tokens [B],
+    lengths [B] int32 = current cache fill per row (the new token's
+    position).  Writes the new K/V into ``cache`` in place and returns
+    (logits [B, V], cache)."""
+    B = tokens.shape[0]
+    D = config.d_model
+    dtype = config.torch_dtype
+    x = (params["wte"].to(dtype)[tokens.long()]
+         + params["wpe"].to(dtype)[lengths.long()])               # [B, D]
+    kc, vc = cache["k"], cache["v"]
+    fill = (lengths + 1).to(torch.int32)
+    for l in range(config.num_layers):
+        layer = _layer(params, l)
+        q, kk, v = _block_qkv(x[:, None, :], layer, config)
+        write_token(kc, l, kk[:, 0], lengths)
+        write_token(vc, l, v[:, 0], lengths)
+        attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill)
+        x = _block_finish(x, attn.reshape(B, D).to(x.dtype), layer, config)
+    return head(params, x[:, None, :], config)[:, 0], cache
+
+
+def gpt2_model(size: str = "125m", **overrides) -> Model:
+    from deepspeed_tpu_torch.checkpoint.jax_params import \
+        gpt2_params_from_numpy
+    cfg_kwargs = resolve_size(GPT2_SIZES, size, "gpt2")
+    cfg_kwargs.update(overrides)
+    config = GPT2Config(**cfg_kwargs)
+    return Model(
+        config=config,
+        numpy_init_fn=partial(numpy_init_params, config),
+        params_from_numpy_fn=gpt2_params_from_numpy,
+        apply_fn=lambda p, b: forward(p, b, config),
+        init_cache_fn=lambda bs, ml, dtype=None, device=None: init_cache(
+            config, bs, ml, dtype, device),
+        prefill_fn=lambda p, b, c: prefill(p, b, c, config),
+        decode_fn=lambda p, t, c, l: decode_step(p, t, c, l, config),
+    )
