@@ -1,32 +1,48 @@
 #!/usr/bin/env python3
 """On-GPU smoke of deepspeed_tpu_torch: builds the CUDA kernels from the
 checkout, holds each against its plain PyTorch version on the card, then
-serves GPT-2 760M (random weights from the seeded host init) through the
-port's own entry points.
+serves GPT-2 760M and trains it (random weights from the seeded host
+init) through the port's own entry points.
 
     python3 chip_smoke.py
 
 Phases (any failed check exits non-zero before the final line):
   1. device: card name and power limit, torch/CUDA versions, kernel build
-     seconds;
+     seconds (one nvcc per source, all started together);
   2. kernels at the serving path's shapes: max |kernel - plain| within the
      stated tolerance, then median times of the kernel, the plain version
      and the PyTorch library call (scaled_dot_product_attention, timed
      here only) beside the least time the card could take;
-  3. fp32 at full width: init_inference -> scheduler with a pool small
-     enough to force a preemption; eight greedy requests must be
+  3. the flash backward kernels (dK/dV, dQ) against the plain backward,
+     fp32 and bf16, at the training shape, GQA, segment ids, non-causal,
+     a ragged S and strided fused-QKV views; then the forward and both
+     backward kernels timed at the training shape (B 12, S 1024, H 16,
+     hd 96, bf16) beside the plain version, SDPA and the bound;
+  4. fp32 serving at full width: init_inference -> scheduler with a pool
+     small enough to force a preemption; eight greedy requests must be
      token-identical to the static generate, two last-step decode logits
      within 1e-3 of a full forward with the plain attention, and the
      kernel launch counts must be 24 per prefill / per decode step;
-  4. bf16 over HTTP (the main path): eight concurrent requests, one of
-     them sampled and repeated; prefill / decode / gather times, tokens/s
-     and TTFT.
+  5. bf16 over HTTP (the serving main path): eight concurrent requests,
+     one of them sampled and repeated; prefill / decode / gather times,
+     tokens/s and TTFT;
+  6. fp32 training parity: 4 layers at the 760M widths, the flash kernels
+     against the plain attention through initialize -> train_batch (gas
+     2, WarmupLR, clipping), per-step losses within 1e-4 relative, final
+     params close, and exactly 2 L forward / L dK/dV / L dQ launches per
+     micro-step;
+  7. bf16 training at full width (the training main path): bench.py's
+     GPT-2 760M configuration (micro-batch 12, seq 1024, full remat, the
+     Kahan bf16 optimizer diet), 3 warm-up and 10 timed steps: step time,
+     tokens/s, MFU, peak memory, losses, launch counts, and one profiled
+     step (device busy share, top kernels).
 Earlier lines are JSON objects; the line before the last two is the
 ``kernels`` object, then the nvidia-smi line, and the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
 without one.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -48,6 +64,11 @@ MAX_NEW = 64
 DECODE_LENS = [1, 17, 255, 256, 511, 700, 1023, 1024]
 TOL = {"float32": {"o": 1e-4, "lse": 1e-4},
        "bfloat16": {"o": 2e-2, "lse": 1e-3}}
+# flash backward: fp32 abs (TF32 off); bf16 relative to each tensor's
+# max magnitude (P and dS enter the tensor-core products in bf16)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the training shape of bench.py's 760M configuration
+TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD = 12, 1024, 16, 96
 
 
 def emit(obj):
@@ -90,6 +111,42 @@ def nvidia_smi_line():
                          text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
         else "nvidia-smi: no output"
+
+
+def _kernel_name(mangled):
+    """``name<hd>`` from an Itanium-mangled ``...<len><name>ILi<hd>E``."""
+    import re
+    m = re.search(r"ILi(\d+)E", mangled)
+    if not m:
+        return mangled
+    end = m.start()
+    for n in range(1, 64):
+        name, digits = mangled[end - n:end], str(n)
+        if (name[:1].isalpha() or name[:1] == "_") and \
+                mangled[end - n - len(digits):end - n] == digits:
+            return f"{name}<{m.group(1)}>"
+    return mangled
+
+
+def kernel_resources(build_log):
+    """Registers and spill bytes per compiled kernel, from the
+    ``-Xptxas -v`` report of each build."""
+    import re
+    out = {}
+    for log in (r["log"] for r in build_log.values()):
+        name = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = _kernel_name(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and name:
+                out.setdefault(name, {})["spill_store_bytes"] = int(
+                    m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 # ----------------------------------------------------------------- kernels
@@ -451,6 +508,373 @@ def profile_decode(torch, sched, prompts):
             "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
 
 
+# ------------------------------------------------------- flash backward
+def attn_bound(B, S, H, KV, hd, products, causal, q_side, kv_side, rows,
+               itemsize=2):
+    """(bound_ms, bound_by) for attention-shaped work: ``products``
+    S x S x hd matrix products per (b, h) (halved when causal) on the
+    tensor cores, against ``q_side`` [B, S, H, hd] and ``kv_side``
+    [B, S, KV, hd] tensors moved once plus ``rows`` fp32 [B, H, S] rows."""
+    flops = products * 2.0 * S * S * hd * B * H * (0.5 if causal else 1.0)
+    bytes_ = (q_side * B * S * H * hd + kv_side * B * S * KV * hd) \
+        * itemsize + rows * B * H * S * 4
+    t_ops, t_bytes = flops / BF16_FLOPS, bytes_ / HBM_BPS
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def bwd_inputs(torch, fa, g, B, S, H, KV, hd, dt, causal, seg, fused):
+    """Seeded inputs, the forward kernel's (o, lse) and delta for one
+    backward case; V and dO drawn in [-1, 1) (see kernel_phase)."""
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g)
+
+    def unif(*shape):
+        return torch.rand(*shape, generator=g) * 2 - 1
+    if fused:
+        qkv = randn(B, S, 3 * H * hd)
+        qkv[..., 2 * H * hd:] = unif(B, S, H * hd)
+        q, k, v = (t.unflatten(-1, (H, hd)) for t in
+                   qkv.to(dev, dt).split(H * hd, dim=-1))
+    else:
+        q = randn(B, S, H, hd).to(dev, dt)
+        k = randn(B, S, KV, hd).to(dev, dt)
+        v = unif(B, S, KV, hd).to(dev, dt)
+    sg = None
+    if seg:     # three packed segments, the first a segment-0 pad
+        sg = torch.zeros(B, S, dtype=torch.int32)
+        sg[:, S // 3:] = 1
+        sg[:, 2 * S // 3:] = 2
+        sg = sg.to(dev)
+    do = unif(B, S, H, hd).to(dev, dt)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, sg, causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, sg
+
+
+def bwd_kernel_phase(torch, fa):
+    """dK/dV and dQ kernels against the plain backward on the card."""
+    g = torch.Generator(device="cpu").manual_seed(4321)
+    H, hd = TRAIN_H, TRAIN_HD
+    cases = [  # (B, S, H, KV, causal, segments, fused qkv views)
+        (2, TRAIN_S, H, H, True, False, False),     # the training shape
+        (2, TRAIN_S, 8, 2, True, False, False),     # GQA
+        (2, 272, H, 4, True, True, False),          # segment ids
+        (2, 272, H, H, False, False, False),        # non-causal
+        (2, 272, H, H, True, False, False),         # ragged S
+        (1, 912, H, H, True, False, True),          # strided fused views
+    ]
+    errs = {"ds_flash_bwd_dkv": 0.0, "ds_flash_bwd_dq": 0.0}
+    rel = {"ds_flash_bwd_dkv": 0.0, "ds_flash_bwd_dq": 0.0}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        tol = BWD_TOL[dt_name]
+        for (B, S, Hq, KV, causal, seg, fused) in cases:
+            q, k, v, do, lse, delta, sg = bwd_inputs(
+                torch, fa, g, B, S, Hq, KV, hd, dt, causal, seg, fused)
+            got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, delta, sg,
+                                              causal)
+            ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, sg,
+                                               causal)
+            torch.cuda.synchronize()
+            row = {"check": "ds_flash_bwd", "dtype": dt_name,
+                   "shape": [B, S, Hq, KV, hd], "causal": causal,
+                   "segments": seg, "fused_qkv_views": fused,
+                   "tol": tol, "tol_kind": ("abs" if dt_name == "float32"
+                                            else "rel_to_max")}
+            for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                e = float((a.float() - b.float()).abs().max())
+                r = e / max(float(b.float().abs().max()), 1e-30)
+                row[f"max_abs_err_{name}"] = e
+                row[f"rel_err_{name}"] = r
+                kern = "ds_flash_bwd_dq" if name == "dq" \
+                    else "ds_flash_bwd_dkv"
+                errs[kern] = max(errs[kern], e)
+                rel[kern] = max(rel[kern], r)
+                check((e if dt_name == "float32" else r) <= tol,
+                      f"ds_flash_bwd {dt_name} {(B, S, Hq, KV, hd)} "
+                      f"causal={causal} seg={seg} fused={fused}: {name} "
+                      f"err {e} (rel {r}) > {tol}")
+            emit(row)
+    return errs, rel
+
+
+def train_kernel_times(torch, F, fa):
+    """The forward and both backward kernels at the training shape
+    (bf16), beside the plain versions, SDPA and the bound."""
+    dev, dt = "cuda", torch.bfloat16
+    B, S, H, hd = TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD
+    g = torch.Generator(device="cpu").manual_seed(77)
+    q, k, v, do, lse, delta, _ = bwd_inputs(
+        torch, fa, g, B, S, H, H, hd, dt, True, False, False)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out = {}
+    fwd = {"kernel_ms": time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(
+               q, k, v), reps=5, inner=3),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True))}
+    fwd["bound_ms"], fwd["bound_by"] = attn_bound(B, S, H, H, hd, 2, True,
+                                                  2, 2, 1)
+    out["ds_flash_fwd"] = fwd
+    dkv = {"kernel_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+        q, k, v, do, lse, delta))}
+    dq = {"kernel_ms": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+        q, k, v, do, lse, delta))}
+    dkv["bound_ms"], dkv["bound_by"] = attn_bound(B, S, H, H, hd, 4, True,
+                                                  2, 4, 2)
+    dq["bound_ms"], dq["bound_by"] = attn_bound(B, S, H, H, hd, 3, True,
+                                                3, 2, 2)
+    # the plain version and SDPA compute both backward kernels' outputs
+    # at once: their times are the pair's, given on both rows
+    plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, do, lse, delta), reps=5, inner=3)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        torch.autograd.grad(o, (ql, kl, vl), dot)
+    lib = time_ms(sdpa_fwd_bwd) - time_ms(
+        lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True))
+    for r in (dkv, dq):
+        r["plain_ms"], r["library_ms"] = plain, lib
+        r["plain_and_library_are_for_the_pair"] = True
+    out["ds_flash_bwd_dkv"], out["ds_flash_bwd_dq"] = dkv, dq
+    # FlashAttention-2's five-product backward, for the later redesign
+    out["fa2_five_product_bwd_bound_ms"] = attn_bound(
+        B, S, H, H, hd, 5, True, 3, 4, 2)[0]
+    return out
+
+
+# -------------------------------------------------------------- training
+def train_config(micro, gas, lr, **extra):
+    cfg = {"train_micro_batch_size_per_gpu": micro,
+           "gradient_accumulation_steps": gas,
+           "optimizer": {"type": "AdamW", "params": {"lr": lr}},
+           "zero_optimization": {"stage": 2},
+           "steps_per_print": 0}
+    cfg.update(extra)
+    return cfg
+
+
+def launch_counts(fa):
+    return {"ds_flash_fwd": fa.flash_attention_fwd.launches,
+            "ds_flash_bwd_dkv": fa.flash_attention_bwd.dkv_launches,
+            "ds_flash_bwd_dq": fa.flash_attention_bwd.dq_launches}
+
+
+def reset_counts(da, fa):
+    da.decode_attention.launches = 0
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.dkv_launches = 0
+    fa.flash_attention_bwd.dq_launches = 0
+
+
+def fp32_train_phase(torch, dt, da, fa):
+    """4 layers at the 760M widths, fp32: the flash kernels (impl
+    "flash") against the plain einsum attention (impl "plain") through
+    initialize -> train_batch, from the same params and batches."""
+    import numpy as np
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_model
+    L, micro, gas, steps, lr = 4, 2, 2, 3, 1e-4
+    cfg = train_config(micro, gas, lr, gradient_clipping=1.0,
+                       scheduler={"type": "WarmupLR",
+                                  "params": {"warmup_num_steps": 3}})
+    runs = {}
+    init = None
+    for impl in ("flash", "plain"):
+        model = gpt2_model("custom", num_layers=L, num_heads=16,
+                           d_model=1536, max_seq_len=TRAIN_S,
+                           dtype="float32", remat=True, attention_impl=impl)
+        if init is None:
+            init = model.numpy_init_fn(0)
+        eng, *_ = dt.initialize(model=model, config=cfg,
+                                model_parameters=init)
+        rng = np.random.default_rng(5)
+        losses, per_step = [], []
+        for _ in range(steps):
+            b = {"input_ids": rng.integers(0, model.config.vocab_size,
+                                           (gas, micro, TRAIN_S),
+                                           dtype=np.int32)}
+            reset_counts(da, fa)
+            losses.append(float(eng.train_batch(batch=b)))
+            per_step.append(launch_counts(fa))
+        runs[impl] = (eng, losses, per_step)
+    (ef, lf, cf), (ep, lp, cp) = runs["flash"], runs["plain"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(lf, lp)]
+    want = {"ds_flash_fwd": 2 * L * gas, "ds_flash_bwd_dkv": L * gas,
+            "ds_flash_bwd_dq": L * gas}
+    # params: each leaf's difference against its own movement from the
+    # shared init (Adam moves every element ~lr per step, and gradient
+    # differences of summation order only move it by far less); the key
+    # bias has an analytically zero gradient whose rounding noise Adam
+    # turns into +-lr steps, so it is held to Adam's bound instead
+    sched = ef.lr_schedule
+    adam_bound = 2 * sum(sched(t) for t in range(steps))
+    ratios, kbias = {}, None
+    D = ef.model.config.d_model
+    for key in ("wte", "wpe", "lnf_scale", "lnf_bias"):
+        ratios[key] = _diff_ratio(torch, ef.params[key], ep.params[key],
+                                  init[key])
+    for key, pf in ef.params["blocks"].items():
+        pf, pp = pf.detach(), ep.params["blocks"][key].detach()
+        p0 = init["blocks"][key]
+        if key == "qkv_b":
+            kb = slice(D, 2 * D)
+            kbias = float((pf[:, kb] - pp[:, kb]).abs().max())
+            keep = list(range(D)) + list(range(2 * D, 3 * D))
+            pf, pp, p0 = pf[:, keep], pp[:, keep], p0[:, keep]
+        ratios[f"blocks/{key}"] = _diff_ratio(torch, pf, pp, p0)
+    report = {"phase": "fp32_train_parity", "layers": L, "micro": micro,
+              "gas": gas, "steps": steps, "losses_flash": lf,
+              "losses_plain": lp, "loss_rel_err": rel,
+              "launches_per_step_flash": cf, "launches_per_step_plain": cp,
+              "param_diff_over_movement": ratios,
+              "key_bias_max_abs_diff": kbias, "key_bias_adam_bound":
+              adam_bound, "param_tol": PARAM_TOL}
+    emit(report)
+    check(all(r <= 1e-4 for r in rel), f"fp32 train: losses differ {rel}")
+    check(all(c == want for c in cf), f"fp32 train: flash launches {cf} "
+          f"!= {want} per step")
+    check(all(all(v == 0 for v in c.values()) for c in cp),
+          f"fp32 train: the plain run launched kernels {cp}")
+    check(max(ratios.values()) <= PARAM_TOL,
+          f"fp32 train: params differ {ratios}")
+    check(kbias <= adam_bound, f"fp32 train: key bias {kbias} beyond "
+          f"Adam's bound {adam_bound}")
+    return report
+
+
+#: fp32 parity: |flash - plain| / |movement from init| per param leaf
+PARAM_TOL = 5e-2
+
+
+def _diff_ratio(torch, a, b, init):
+    p0 = torch.as_tensor(init, device=a.device, dtype=a.dtype)
+    return float((a.detach() - b.detach()).norm()
+                 / max(float((b.detach() - p0).norm()), 1e-30))
+
+
+def bf16_train_phase(torch, dt, da, fa):
+    """The training main path: bench.py's GPT-2 760M configuration at
+    full width through initialize -> train_batch."""
+    import numpy as np
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_model
+    model = gpt2_model("760m", max_seq_len=TRAIN_S, dtype="bfloat16",
+                       remat=True, remat_policy="nothing")
+    c = model.config
+    cfg = train_config(TRAIN_B, 1, 1e-4,
+                       bf16={"enabled": True,
+                             "master_weights_dtype": "bfloat16",
+                             "optimizer_states_dtype": "bfloat16"},
+                       data_types={"grad_accum_dtype": "bf16"})
+    t0 = time.perf_counter()
+    eng, *_ = dt.initialize(model=model, config=cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+
+    def batch():
+        return {"input_ids": rng.integers(0, c.vocab_size,
+                                          (1, TRAIN_B, TRAIN_S),
+                                          dtype=np.int32)}
+    losses = [eng.train_batch(batch=batch()) for _ in range(3)]
+    timed = [batch() for _ in range(10)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts set to 0 just before, read just after
+    reset_counts(da, fa)
+    t0 = time.perf_counter()
+    losses += [eng.train_batch(batch=b) for b in timed]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_s = wall / len(timed)
+    tokens_per_s = TRAIN_B * TRAIN_S / step_s
+    # bench.py's MFU accounting: 6 N + 6 L S D flops per token
+    flops_per_token = model.flops_per_token \
+        + 6.0 * c.num_layers * TRAIN_S * c.d_model
+    profile = profile_train_step(torch, eng, batch())   # gas 1
+    report = {"phase": "bf16_train", "model": "gpt2-760m",
+              "n_params": model.meta["n_params"], "micro_batch": TRAIN_B,
+              "seq": TRAIN_S, "init_s": init_s, "timed_steps": len(timed),
+              "step_s": step_s, "tokens_per_s": tokens_per_s,
+              "flops_per_token": flops_per_token,
+              "step_flops": flops_per_token * TRAIN_B * TRAIN_S,
+              "mfu": flops_per_token * tokens_per_s / BF16_FLOPS,
+              "peak_allocated_gb": peak / 1e9, "first_loss": losses[0],
+              "last_loss": losses[-1], "losses": losses,
+              "launches": launches, "train_profile": profile}
+    emit(report)
+    L = c.num_layers
+    want = {"ds_flash_fwd": 2 * L * len(timed),
+            "ds_flash_bwd_dkv": L * len(timed),
+            "ds_flash_bwd_dq": L * len(timed)}
+    check(launches == want, f"bf16 train: launches {launches} != {want}")
+    check(all(math.isfinite(x) for x in losses),
+          f"bf16 train: non-finite loss {losses}")
+    check(abs(losses[0] - math.log(c.vocab_size)) <= 0.5,
+          f"bf16 train: first loss {losses[0]} not near ln(V) = "
+          f"{math.log(c.vocab_size)}")
+    return launches, report
+
+
+#: device-time categories of the profiled train step, by kernel name
+KERNEL_CATEGORIES = (
+    ("flash attention (hand kernels)", ("flash_fwd_bf16", "dkv_bf16",
+                                        "dq_bf16")),
+    ("GEMM (cuBLAS / CUTLASS)", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("reductions (softmax, LayerNorm, norms)", ("reduce", "softmax",
+                                                 "norm", "nll")),
+    ("index / embedding", ("index", "scatter", "embedding")),
+    ("elementwise and casts", ("elementwise", "copy", "fill")),
+)
+
+
+def profile_train_step(torch, eng, batch):
+    """torch.profiler over one bf16 train step: the device's busy share
+    of the step's wall time, device time by kernel category and the
+    kernels that take the most; then one unprofiled step split by CUDA
+    events into loss + gradients and the optimizer update."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+    busy_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    by_cat = {}
+    for n, t in by_name.items():
+        cat = next((c for c, keys in KERNEL_CATEGORIES
+                    if any(k in n for k in keys)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + t / 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    _, grads = eng._loss_and_grads({k: v[0] for k, v in batch.items()})
+    ev[1].record()
+    eng._apply_grads(grads)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+            "device_ms_by_category": by_cat,
+            "split_ms": {"loss_and_grads": ev[0].elapsed_time(ev[1]),
+                         "optimizer_update": ev[1].elapsed_time(ev[2])},
+            "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
+
+
 def main():
     try:
         import torch
@@ -478,40 +902,71 @@ def main():
 
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    build.build(["decode_attention", "ds_flash_fwd"])
+    build.build(["decode_attention", "ds_flash_fwd", "ds_flash_bwd"])
     build_s = time.perf_counter() - t0
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": build_s,
           "build_s_by_source": {n: r["seconds"]
-                                for n, r in build.build_log.items()}})
+                                for n, r in build.build_log.items()},
+          "kernel_resources": kernel_resources(build.build_log)})
 
     errs, tols = kernel_phase(torch, da, fa)
     dec_t, fl_t, flash_by_s = kernel_times(torch, F, da, fa)
     emit({"phase": "kernel_times", "decode_attention": dec_t,
           "ds_flash_fwd_s1024": fl_t, "ds_flash_fwd_ms_by_bucket":
           flash_by_s})
+    bwd_errs, bwd_rel = bwd_kernel_phase(torch, fa)
+    train_t = train_kernel_times(torch, F, fa)
+    emit({"phase": "train_kernel_times",
+          "shape": [TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD], "dtype":
+          "bfloat16", "causal": True, **train_t})
+    torch.cuda.empty_cache()
 
     eng32 = fp32_phase(torch, dt, da, fa)
-    launches, report = bf16_phase(torch, eng32, da, fa)
+    serve_launches, report = bf16_phase(torch, eng32, da, fa)
     del eng32
     torch.cuda.empty_cache()
 
+    fp32_train_phase(torch, dt, da, fa)
+    torch.cuda.empty_cache()
+    train_launches, train_report = bf16_train_phase(torch, dt, da, fa)
+
+    pallas = "deepspeed_tpu/ops/pallas/"
+    fwd_t = dict(train_t["ds_flash_fwd"],
+                 serving_b1_s1024=fl_t)      # PR 1's serving-shape row
+    rows = (
+        ("decode_attention", dec_t, "decode_attention.cu",
+         "decode_attention.py:40", serve_launches["decode_attention"],
+         {"serve_http": serve_launches["decode_attention"]},
+         errs["decode_attention"], tols["decode_attention"]),
+        ("ds_flash_fwd", fwd_t, "ds_flash_fwd.cu", "ds_flash_attention.py:35",
+         serve_launches["ds_flash_fwd"] + train_launches["ds_flash_fwd"],
+         {"serve_http": serve_launches["ds_flash_fwd"],
+          "train_bf16": train_launches["ds_flash_fwd"]},
+         errs["ds_flash_fwd"], tols["ds_flash_fwd"]),
+        ("ds_flash_bwd_dkv", train_t["ds_flash_bwd_dkv"], "ds_flash_bwd.cu",
+         "ds_flash_attention.py:86", train_launches["ds_flash_bwd_dkv"],
+         {"train_bf16": train_launches["ds_flash_bwd_dkv"]},
+         bwd_errs["ds_flash_bwd_dkv"], BWD_TOL),
+        ("ds_flash_bwd_dq", train_t["ds_flash_bwd_dq"], "ds_flash_bwd.cu",
+         "ds_flash_attention.py:160", train_launches["ds_flash_bwd_dq"],
+         {"train_bf16": train_launches["ds_flash_bwd_dq"]},
+         bwd_errs["ds_flash_bwd_dq"], BWD_TOL))
     kernels = []
-    for name, t, src, replaces in (
-            ("decode_attention", dec_t,
-             "deepspeed_tpu_torch/csrc/decode_attention.cu",
-             "deepspeed_tpu/ops/pallas/decode_attention.py:40"),
-            ("ds_flash_fwd", fl_t, "deepspeed_tpu_torch/csrc/ds_flash_fwd.cu",
-             "deepspeed_tpu/ops/pallas/ds_flash_attention.py:35")):
+    for name, t, src, replaces, n, by_path, err, tol in rows:
+        check(n > 0, f"{name} was not launched on a main path")
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "tpu_kernel": replaces,
-            "launches": launches[name], "max_abs_err": errs[name],
-            "tol": tols[name], "ms": t["kernel_ms"],
+            "name": name, "route": "cuda",
+            "source": f"deepspeed_tpu_torch/csrc/{src}",
+            "replaces": pallas + replaces, "tpu_kernel": pallas + replaces,
+            "launches": n, "launches_by_path": by_path,
+            "max_abs_err": err, "tol": tol, "ms": t["kernel_ms"],
             "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        if name.startswith("ds_flash_bwd"):
+            kernels[-1]["max_rel_err_bf16"] = bwd_rel[name]
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

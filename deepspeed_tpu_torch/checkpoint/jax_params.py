@@ -6,9 +6,13 @@ of ``numpy_init_params`` — into the port's tree of tensors: the same
 names, the same stacked ``[L, ...]`` block layout, and the reference's
 ``[in, out]`` orientation for every projection weight (the port computes
 ``x @ w`` as the reference does; nothing is transposed anywhere).
+``gpt2_params_to_numpy`` is the way back, so trained params compare leaf
+by leaf with the JAX engine's.
 """
 import numpy as np
 import torch
+
+from deepspeed_tpu_torch.accelerator import resolve_device
 
 GPT2_TOP_KEYS = ("wte", "wpe", "blocks", "lnf_scale", "lnf_bias")
 GPT2_BLOCK_KEYS = ("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "proj_w",
@@ -23,9 +27,11 @@ def _to_tensor(a, device, dtype):
     if not (a.flags.writeable and a.flags.c_contiguous):
         a = np.array(a, order="C")     # torch.from_numpy needs both
     t = torch.from_numpy(a)
-    if dtype is not None and t.is_floating_point():
-        t = t.to(dtype)
-    return t.to(device)
+    if dtype is None or not t.is_floating_point():
+        dtype = t.dtype
+    # always a copy: a CPU tensor must not share the caller's array (the
+    # training engine updates its params in place)
+    return t.to(device=device, dtype=dtype, copy=True)
 
 
 def _check_keys(tree: dict, want, where: str):
@@ -38,11 +44,25 @@ def _check_keys(tree: dict, want, where: str):
 
 def gpt2_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     """numpy GPT-2 params tree -> the port's params (floating leaves cast
-    to ``dtype`` when given, all placed on ``device``)."""
+    to ``dtype`` when given, all placed on ``device``; ``None`` is the
+    GPU, see ``resolve_device``)."""
     _check_keys(tree, GPT2_TOP_KEYS, "top-level")
     _check_keys(tree["blocks"], GPT2_BLOCK_KEYS, "blocks")
+    device = resolve_device(device)
     out = {k: _to_tensor(v, device, dtype) for k, v in tree.items()
            if k != "blocks"}
     out["blocks"] = {k: _to_tensor(v, device, dtype)
                      for k, v in tree["blocks"].items()}
+    return out
+
+
+def gpt2_params_to_numpy(params: dict) -> dict:
+    """The reverse of :func:`gpt2_params_from_numpy`: the port's params ->
+    a numpy tree with the same names and layout (fp32 for floating
+    leaves, since numpy has no bfloat16)."""
+    def to_np(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+    out = {k: to_np(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: to_np(v) for k, v in params["blocks"].items()}
     return out

@@ -20,6 +20,7 @@ from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.sampling import sample
 from deepspeed_tpu_torch.utils.logging import logger
+from deepspeed_tpu_torch.utils.tree import tree_map
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -53,12 +54,6 @@ def refuse_unported(config: DeepSpeedInferenceConfig):
                 f"(ROADMAP.md {item})")
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 class InferenceEngine:
     def __init__(self, model, config: DeepSpeedInferenceConfig,
                  model_parameters=None, device=None):
@@ -84,7 +79,7 @@ class InferenceEngine:
                 params = model.params_from_numpy_fn(
                     model_parameters, self.device, self.dtype)
             else:
-                params = _tree_map(
+                params = tree_map(
                     lambda t: t.to(self.device, self.dtype)
                     if t.is_floating_point() else t.to(self.device),
                     model_parameters)

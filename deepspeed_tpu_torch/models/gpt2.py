@@ -5,7 +5,11 @@ stacked ``[L, ...]`` block layout; projection weights keep the
 reference's ``[in, out]`` orientation (``x @ w``).  The serving path is
 the reference's unfused one: prefill runs the flash forward per layer,
 each decode step writes the new K/V into the cache in place and runs the
-decode-attention kernel per layer.
+decode-attention kernel per layer.  Training differentiates ``forward``
+with autograd; with ``remat`` each layer runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with the
+"nothing" policy: only the layer inputs are kept, the whole layer,
+flash forward included, is recomputed in the backward pass).
 """
 from dataclasses import dataclass
 from functools import partial
@@ -13,6 +17,7 @@ from functools import partial
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.models.model import Model, resolve_size
 from deepspeed_tpu_torch.models.serving import init_cache as _init_cache
@@ -30,6 +35,8 @@ class GPT2Config:
     d_model: int = 768
     layer_norm_eps: float = 1e-5
     dtype: str = "float32"          # compute dtype
+    remat: bool = False             # activation checkpointing per layer
+    remat_policy: str = "nothing"   # the only policy ported ("nothing")
     attention_impl: str = "auto"    # auto | flash (kernel) | plain (einsum)
     activation: str = "gelu"        # gelu (tanh approx) | gelu_exact | relu
     mlp_dim: int = 0                # 0 = the GPT-2 default 4*d_model
@@ -39,6 +46,8 @@ class GPT2Config:
             raise ValueError(f"GPT2Config.attention_impl="
                              f"{self.attention_impl!r}: choose one of "
                              f"{ATTENTION_IMPLS}")
+        if self.remat:
+            check_remat_policy(self.remat_policy)
 
     @property
     def d_mlp(self) -> int:
@@ -51,6 +60,24 @@ class GPT2Config:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+
+#: the reference's remat policies (``models/gpt2.py`` ``remat_policy``);
+#: only full per-layer remat ("nothing") is ported
+REMAT_POLICIES = ("nothing", "nothing_saveable", "save_attn", "dots",
+                  "dots_saveable", "offload_attn")
+
+
+def check_remat_policy(name):
+    """Refuse an unknown policy (ValueError, as the reference) and an
+    unported one (NotImplementedError naming its ROADMAP item)."""
+    if name not in REMAT_POLICIES and name is not None:
+        raise ValueError(f"unknown remat policy {name!r}")
+    if name not in (None, "nothing", "nothing_saveable"):
+        raise NotImplementedError(
+            f"remat_policy={name!r}: not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP.md Queue A: remat policies); the port runs full "
+            "per-layer remat (\"nothing\")")
 
 
 GPT2_SIZES = {
@@ -160,17 +187,26 @@ def head(params, x, config: GPT2Config):
     return x @ params["wte"].to(x.dtype).T
 
 
+def _block(x, layer, config: GPT2Config, segment_ids=None):
+    """One transformer block; x [B, S, D]."""
+    B, S, D = x.shape
+    q, kk, v = _block_qkv(x, layer, config)
+    attn = causal_attention(q, kk, v, impl=config.attention_impl,
+                            segment_ids=segment_ids)
+    return _block_finish(x, attn.reshape(B, S, D), layer, config)
+
+
 def forward(params, batch, config: GPT2Config):
     """Token ids [B, S] -> logits [B, S, V] (full causal forward)."""
     x = embed(params, batch, config)
-    B, S, D = x.shape
     seg = batch.get("segment_ids") if isinstance(batch, dict) else None
     for l in range(config.num_layers):
         layer = _layer(params, l)
-        q, kk, v = _block_qkv(x, layer, config)
-        attn = causal_attention(q, kk, v, impl=config.attention_impl,
-                                segment_ids=seg)
-        x = _block_finish(x, attn.reshape(B, S, D), layer, config)
+        if config.remat:
+            x = checkpoint(_block, x, layer, config, seg,
+                           use_reentrant=False)
+        else:
+            x = _block(x, layer, config, seg)
     return head(params, x, config)
 
 
@@ -221,14 +257,24 @@ def decode_step(params, tokens, cache, lengths, config: GPT2Config):
     return head(params, x[:, None, :], config)[:, 0], cache
 
 
+def count_params(config: GPT2Config) -> int:
+    D, V, S, L, M = (config.d_model, config.vocab_size, config.max_seq_len,
+                     config.num_layers, config.d_mlp)
+    per_layer = 4 * D + 3 * D * D + 3 * D + D * D + D + 2 * D * M + M + D
+    return V * D + S * D + L * per_layer + 2 * D
+
+
 def gpt2_model(size: str = "125m", **overrides) -> Model:
     from deepspeed_tpu_torch.checkpoint.jax_params import \
         gpt2_params_from_numpy
     cfg_kwargs = resolve_size(GPT2_SIZES, size, "gpt2")
     cfg_kwargs.update(overrides)
     config = GPT2Config(**cfg_kwargs)
+    n_params = count_params(config)
     return Model(
         config=config,
+        flops_per_token=6.0 * n_params,
+        meta={"name": f"gpt2-{size}", "n_params": n_params},
         numpy_init_fn=partial(numpy_init_params, config),
         params_from_numpy_fn=gpt2_params_from_numpy,
         apply_fn=lambda p, b: forward(p, b, config),

@@ -1,12 +1,18 @@
 """Model protocol for the port's engines (counterpart of
-``deepspeed_tpu/models/model.py`` ``Model``, serving surface only).
+``deepspeed_tpu/models/model.py`` ``Model``: the serving surface, the
+training loss and the accounting the training engine reads).
 
 A model is a set of plain functions over a params dict of tensors with
 the reference's names and stacked ``[L, ...]`` block layout, so weights
 carry across from the JAX package unchanged
 (``checkpoint/jax_params.py``)."""
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from deepspeed_tpu_torch.accelerator import resolve_device
 
 
 def resolve_size(sizes: dict, size: str, family: str) -> dict:
@@ -31,6 +37,13 @@ class Model:
     params_from_numpy_fn: Optional[Callable] = None
     #: (params, batch) -> logits [B, S, V]
     apply_fn: Callable = None
+    #: (params, batch) -> scalar fp32 loss; defaults to the causal-LM
+    #: cross-entropy over ``apply_fn`` logits (:func:`default_lm_loss`)
+    loss_fn: Optional[Callable] = None
+    #: approximate training flops per token (6 N for dense LMs)
+    flops_per_token: Optional[float] = None
+    #: extra metadata (``n_params``, ``name``)
+    meta: dict = field(default_factory=dict)
     #: KV-cache serving surface:
     #: init_cache_fn(batch_size, max_len, dtype, device) -> cache dict;
     #: prefill_fn(params, batch, cache) -> (logits [B, S, V], cache);
@@ -40,11 +53,48 @@ class Model:
     prefill_fn: Optional[Callable] = None
     decode_fn: Optional[Callable] = None
 
+    def __post_init__(self):
+        if self.loss_fn is None and self.apply_fn is not None:
+            self.loss_fn = default_lm_loss(self.apply_fn)
+
     def init(self, seed: int = 0, device=None, dtype=None):
         """Params from the reference's seeded host init, placed on
-        ``device`` in ``dtype`` (floating leaves)."""
-        return self.params_from_numpy_fn(self.numpy_init_fn(seed), device,
-                                         dtype)
+        ``device`` (``None``: the GPU, see ``resolve_device``) in ``dtype``
+        (floating leaves)."""
+        return self.params_from_numpy_fn(self.numpy_init_fn(seed),
+                                         resolve_device(device), dtype)
 
     def apply(self, params, batch):
         return self.apply_fn(params, batch)
+
+    def loss(self, params, batch):
+        return self.loss_fn(params, batch)
+
+
+def default_lm_loss(apply_fn):
+    """The reference's ``_default_lm_loss``: fp32 cross-entropy of
+    ``logits[:, :-1]`` against ``input_ids[:, 1:]``, masked by
+    ``attention_mask[:, 1:]`` and, for packed sequences, by
+    ``segment_ids[:, 1:] == segment_ids[:, :-1]`` (the last token of one
+    segment is not scored against the first of the next); the mean over
+    the mask with a floor of one token."""
+
+    def loss_fn(params, batch):
+        tokens = batch["input_ids"]
+        logits = apply_fn(params, batch)[:, :-1].float()
+        targets = tokens[:, 1:].long()
+        losses = F.cross_entropy(logits.flatten(0, 1), targets.flatten(),
+                                 reduction="none").view(targets.shape)
+        m = None
+        mask = batch.get("attention_mask")
+        if mask is not None:
+            m = mask[:, 1:].float()
+        seg = batch.get("segment_ids")
+        if seg is not None:
+            same = (seg[:, 1:] == seg[:, :-1]).float()
+            m = same if m is None else m * same
+        if m is not None:
+            return (losses * m).sum() / torch.clamp(m.sum(), min=1.0)
+        return losses.mean()
+
+    return loss_fn

@@ -1,11 +1,13 @@
 """Attention dispatch for the port (counterpart of
 ``deepspeed_tpu/ops/attention.py``, single-device branch).
 
-``causal_attention`` with ``impl="auto"`` or ``"flash"`` runs the flash
-forward: the CUDA kernel for CUDA tensors at every prompt length (the
+``causal_attention`` with ``impl="auto"`` or ``"flash"`` runs the
+differentiable flash attention (``DSFlashAttention``): the CUDA forward
+and backward kernels for CUDA tensors at every sequence length (the
 reference's S >= 256 cut was a TPU launch-cost trade; on the GPU no plain
-path runs), the plain version for CPU tensors.  ``impl="plain"`` selects
-:func:`plain_causal_attention`, the einsum reference, explicitly.
+path runs), their plain versions for CPU tensors.  ``impl="plain"``
+selects :func:`plain_causal_attention`, the einsum reference (gradients
+by autograd through plain torch ops), explicitly.
 """
 import torch
 

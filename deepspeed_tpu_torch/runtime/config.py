@@ -1,18 +1,23 @@
-"""Serving configuration: a copy of ``deepspeed_tpu/runtime/config.py``
-``ServingConfig`` and its sub-sections, with the same field names,
-defaults and validation messages, so one JSON dict configures either
-package.
+"""Serving and training configuration: copies of
+``deepspeed_tpu/runtime/config.py`` ``ServingConfig`` and its sub-sections
+and of the training keys of ``DeepSpeedConfig``, with the same field
+names, defaults and validation messages, so one JSON dict configures
+either package.
 
-This port serves the reference's documented unfused configuration.
-Sections it does not port yet validate exactly as in the reference and
-then, when switched on, raise ``NotImplementedError`` naming the ROADMAP
-item that brings them (:func:`refuse_unported`) — never silently
-ignored.
+This port serves the reference's documented unfused configuration and
+trains on one device.  Sections it does not port yet validate exactly as
+in the reference and then, when switched on, raise
+``NotImplementedError`` naming the ROADMAP item that brings them
+(:func:`refuse_unported`, :func:`refuse_unported_training`) — never
+silently ignored.
 """
+import json
 import os
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Union
 
+from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
+from deepspeed_tpu_torch.utils.logging import logger
 
 #: ``serving.moe_dispatch`` values the reference accepts
 DISPATCH_MODES = ("auto", "einsum", "grouped")
@@ -588,3 +593,258 @@ def refuse_unported(cfg: ServingConfig):
                 f"{what}: not ported to deepspeed_tpu_torch yet "
                 f"(ROADMAP.md {item}); the port serves the unfused "
                 "single-device configuration")
+
+
+# ------------------------------------------------------------------ training
+class FP16Config(DeepSpeedConfigModel):
+    """``fp16`` (parsed as in the reference; ``enabled`` is refused)."""
+    enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = 0.0           # 0 = dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    consecutive_hysteresis: bool = False
+    min_loss_scale: float = 1.0
+
+
+class BF16Config(DeepSpeedConfigModel):
+    enabled: bool = False
+    immediate_grad_update: bool = False
+    # optimizer state dtypes (runtime/bf16_optimizer.py): "bfloat16"
+    # masters are Kahan-compensated; bf16 moments keep fp32 math
+    master_weights_dtype: str = "float32"      # float32 | bfloat16 (Kahan)
+    optimizer_states_dtype: Optional[str] = None   # None=float32 | bfloat16
+
+
+class OffloadParamConfig(DeepSpeedConfigModel):
+    device: str = "none"              # none | cpu | nvme
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    max_in_cpu: int = 1_000_000_000
+    pin_memory: bool = False
+    resident_layers: int = 2
+
+
+class OffloadOptimizerConfig(DeepSpeedConfigModel):
+    device: str = "none"              # none | cpu | nvme
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    ratio: float = 1.0
+
+
+class ZeroConfig(DeepSpeedConfigModel):
+    """``zero_optimization``: stages 0-3 are accepted; with one device
+    (data-parallel world 1) they shard nothing, as in the reference."""
+    stage: int = 0
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = 500_000_000
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = 500_000_000
+    overlap_comm: Optional[bool] = None
+    load_from_fp32_weights: bool = True
+    elastic_checkpoint: bool = False
+    offload_param: Optional[OffloadParamConfig] = None
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
+    sub_group_size: int = 1_000_000_000
+    cpu_offload: Optional[bool] = None   # deprecated bool; migrated below
+    prefetch_bucket_size: int = 50_000_000
+    param_persistence_threshold: int = 100_000
+    model_persistence_threshold: int = 2 ** 62
+    max_live_parameters: int = 1_000_000_000
+    max_reuse_distance: int = 1_000_000_000
+    gather_16bit_weights_on_model_save: bool = False
+    ignore_unused_parameters: bool = True
+    round_robin_gradients: bool = False
+    zero_hpz_partition_size: int = 1
+    zero_quantized_weights: bool = False
+    zero_quantized_nontrainable_weights: bool = False
+    zero_quantized_gradients: bool = False
+    mics_shard_size: int = -1
+    mics_hierarchical_params_gather: bool = False
+    memory_efficient_linear: bool = True
+
+    def __init__(self, **data):
+        # deprecated cpu_offload=True == offload_optimizer.device=cpu
+        if data.get("cpu_offload") and "offload_optimizer" not in data:
+            logger.warning("zero_optimization.cpu_offload is deprecated; use "
+                           "offload_optimizer: {device: cpu}")
+            data["offload_optimizer"] = {"device": "cpu"}
+        # the reference JSON spells the stage-3 knobs with a stage3_ prefix
+        for ref_key in ("prefetch_bucket_size", "param_persistence_threshold",
+                        "model_persistence_threshold", "max_live_parameters",
+                        "max_reuse_distance",
+                        "gather_16bit_weights_on_model_save"):
+            alias = f"stage3_{ref_key}"
+            if alias in data and ref_key not in data:
+                data[ref_key] = data.pop(alias)
+            else:
+                data.pop(alias, None)
+        super().__init__(**data)
+
+
+class MeshConfig(DeepSpeedConfigModel):
+    """Parallel dimension sizes (every size above 1 is refused here)."""
+    model_parallel_size: int = 1
+    pipe_parallel_size: int = 1
+    sequence_parallel_size: int = 1
+    sequence_parallel_impl: str = "ulysses"    # "ulysses" | "ring"
+    expert_parallel_size: int = 1
+    data_parallel_size: Optional[int] = None
+
+
+class DataTypesConfig(DeepSpeedConfigModel):
+    grad_accum_dtype: Optional[str] = None
+
+
+def _any_enabled(section) -> bool:
+    """Whether a nested config dict switches anything on (an
+    ``"enabled": true`` at any depth)."""
+    if not isinstance(section, dict):
+        return False
+    return bool(section.get("enabled")) or any(
+        _any_enabled(v) for v in section.values())
+
+
+class DeepSpeedConfig:
+    """The training keys of the reference's ``DeepSpeedConfig``: typed
+    sub-configs + batch math, for one device (data-parallel world 1)."""
+
+    def __init__(self, config: Union[str, Dict]):
+        if isinstance(config, str):
+            if not os.path.exists(config):
+                raise FileNotFoundError(
+                    f"DeepSpeed config path not found: {config}")
+            with open(config) as f:
+                self._param_dict = json.load(f)
+        elif isinstance(config, dict):
+            self._param_dict = dict(config)
+        else:
+            raise ValueError("config must be a dict or a path to a JSON "
+                             f"file, got {type(config)}")
+        d = self._param_dict
+        self.train_batch_size = d.get(C.TRAIN_BATCH_SIZE)
+        self.train_micro_batch_size_per_gpu = d.get(
+            C.TRAIN_MICRO_BATCH_SIZE_PER_GPU)
+        self.gradient_accumulation_steps = d.get(
+            C.GRADIENT_ACCUMULATION_STEPS)
+
+        self.optimizer_name = None
+        self.optimizer_params = None
+        opt = d.get(C.OPTIMIZER)
+        if opt:
+            self.optimizer_name = opt.get("type", "").lower()
+            self.optimizer_params = opt.get("params", {})
+        sched = d.get(C.SCHEDULER)
+        self.scheduler_name = sched.get("type") if sched else None
+        self.scheduler_params = sched.get("params", {}) if sched else {}
+
+        self.fp16 = FP16Config(**d.get(C.FP16, {}))
+        self.bf16 = BF16Config(**d.get(C.BF16, d.get("bfloat16", {})))
+        self.zero_config = ZeroConfig(**d.get(C.ZERO_OPTIMIZATION, {}))
+        self.mesh_config = MeshConfig(**d.get("mesh", {}))
+        self.data_types_config = DataTypesConfig(**d.get("data_types", {}))
+        self.gradient_clipping = float(d.get(C.GRADIENT_CLIPPING, 0.0))
+        self.steps_per_print = int(d.get(C.STEPS_PER_PRINT,
+                                         C.STEPS_PER_PRINT_DEFAULT))
+        self.seed = int(d.get("seed", 42))
+        self.compression_config = d.get("compression_training", {})
+        self.curriculum_learning = d.get("curriculum_learning", {})
+        self.pld_config = d.get("progressive_layer_drop", {})
+        self.data_efficiency_config = d.get("data_efficiency", {})
+        self.zero_optimization_stage = self.zero_config.stage
+
+        self._resolve_batch_sizes(1)
+        self._sanity_check()
+        refuse_unported_training(self)
+
+    def _resolve_batch_sizes(self, dp_world: Optional[int]):
+        """Batch-size triangulation: train = micro x gas x dp."""
+        dp = dp_world or 1
+        train, micro, gas = (self.train_batch_size,
+                             self.train_micro_batch_size_per_gpu,
+                             self.gradient_accumulation_steps)
+        if train is not None and micro is not None and gas is not None:
+            pass
+        elif train is not None and micro is not None:
+            gas = train // (micro * dp)
+        elif train is not None and gas is not None:
+            micro = train // (gas * dp)
+        elif micro is not None and gas is not None:
+            train = micro * gas * dp
+        elif train is not None:
+            gas = 1
+            micro = train // dp
+        elif micro is not None:
+            gas = 1
+            train = micro * dp
+        else:
+            raise ValueError(
+                "One of train_batch_size or train_micro_batch_size_per_gpu "
+                "must be set in the DeepSpeed config")
+        self.train_batch_size = train
+        self.train_micro_batch_size_per_gpu = micro
+        self.gradient_accumulation_steps = gas
+        self._dp_world_for_check = dp
+
+    def _sanity_check(self):
+        train, micro, gas = (self.train_batch_size,
+                             self.train_micro_batch_size_per_gpu,
+                             self.gradient_accumulation_steps)
+        dp = self._dp_world_for_check
+        if micro is None or micro <= 0 or gas is None or gas <= 0:
+            raise ValueError(
+                f"Invalid batch config: micro={micro} gas={gas} "
+                f"(train={train}, dp={dp})")
+        if train != micro * gas * dp:
+            raise ValueError(
+                f"Check batch-size settings: train_batch_size {train} != "
+                f"micro_batch {micro} × gradient_accumulation_steps {gas} × "
+                f"data-parallel world {dp}")
+        if self.fp16.enabled and self.bf16.enabled:
+            raise ValueError("fp16 and bf16 cannot both be enabled")
+        if self.zero_config.stage > 3:
+            raise ValueError(
+                f"ZeRO stage {self.zero_config.stage} > 3 is invalid")
+
+
+def refuse_unported_training(cfg: DeepSpeedConfig):
+    """Raise ``NotImplementedError`` for every switched-on training
+    section this port does not run yet, naming the ROADMAP.md item that
+    brings it."""
+    zc, mc = cfg.zero_config, cfg.mesh_config
+    offload = [f"zero_optimization.{k}.device={sec.device!r}"
+               for k, sec in (("offload_optimizer", zc.offload_optimizer),
+                              ("offload_param", zc.offload_param))
+               if sec is not None and sec.device != "none"]
+    sizes = [f"mesh.{k}={getattr(mc, k)}"
+             for k in ("model_parallel_size", "pipe_parallel_size",
+                       "sequence_parallel_size", "expert_parallel_size",
+                       "data_parallel_size")
+             if (getattr(mc, k) or 1) > 1]
+    checks = (
+        (cfg.fp16.enabled, "fp16.enabled", "Queue A: fp16 loss scaling"),
+        (bool(offload), ", ".join(offload), "Queue A: offload"),
+        (bool(sizes), ", ".join(sizes),
+         "Queue A: data parallel, ZeRO and model parallelism"),
+        (_any_enabled(cfg.compression_config), "compression_training",
+         "Queue A: data efficiency and compression"),
+        (_any_enabled(cfg.curriculum_learning),
+         "curriculum_learning.enabled",
+         "Queue A: data efficiency and compression"),
+        (_any_enabled(cfg.pld_config), "progressive_layer_drop.enabled",
+         "Queue A: data efficiency and compression"),
+        (_any_enabled(cfg.data_efficiency_config), "data_efficiency",
+         "Queue A: data efficiency and compression"),
+    )
+    for on, what, item in checks:
+        if on:
+            raise NotImplementedError(
+                f"{what}: not ported to deepspeed_tpu_torch yet "
+                f"(ROADMAP.md {item}); the port trains on one device")
