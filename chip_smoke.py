@@ -15,9 +15,11 @@ Phases (any failed check exits non-zero before the final line):
      here only) beside the least time the card could take;
   3. the flash backward kernels (dK/dV, dQ) against the plain backward,
      fp32 and bf16, at the training shape, GQA, segment ids, non-causal,
-     a ragged S and strided fused-QKV views; then the forward and both
-     backward kernels timed at the training shape (B 12, S 1024, H 16,
-     hd 96, bf16) beside the plain version, SDPA and the bound;
+     a ragged S and strided fused-QKV views; then, on the training main
+     path's own inputs (B 12, S 1024, H 16, hd 96, bf16, q/k/v strided
+     views of the fused QKV projection), the forward and both backward
+     kernels held against the plain versions and timed beside them,
+     SDPA and the bound;
   4. fp32 serving at full width: init_inference -> scheduler with a pool
      small enough to force a preemption; eight greedy requests must be
      token-identical to the static generate, two last-step decode logits
@@ -111,42 +113,6 @@ def nvidia_smi_line():
                          text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
         else "nvidia-smi: no output"
-
-
-def _kernel_name(mangled):
-    """``name<hd>`` from an Itanium-mangled ``...<len><name>ILi<hd>E``."""
-    import re
-    m = re.search(r"ILi(\d+)E", mangled)
-    if not m:
-        return mangled
-    end = m.start()
-    for n in range(1, 64):
-        name, digits = mangled[end - n:end], str(n)
-        if (name[:1].isalpha() or name[:1] == "_") and \
-                mangled[end - n - len(digits):end - n] == digits:
-            return f"{name}<{m.group(1)}>"
-    return mangled
-
-
-def kernel_resources(build_log):
-    """Registers and spill bytes per compiled kernel, from the
-    ``-Xptxas -v`` report of each build."""
-    import re
-    out = {}
-    for log in (r["log"] for r in build_log.values()):
-        name = None
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                name = _kernel_name(m.group(1))
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m and name:
-                out.setdefault(name, {})["spill_store_bytes"] = int(
-                    m.group(1))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and name:
-                out.setdefault(name, {})["registers"] = int(m.group(1))
-    return out
 
 
 # ----------------------------------------------------------------- kernels
@@ -603,12 +569,51 @@ def bwd_kernel_phase(torch, fa):
 
 def train_kernel_times(torch, F, fa):
     """The forward and both backward kernels at the training shape
-    (bf16), beside the plain versions, SDPA and the bound."""
-    dev, dt = "cuda", torch.bfloat16
+    (bf16) on the inputs the training main path gives them: q/k/v
+    strided views of one fused QKV projection (``_block_qkv``), dO
+    contiguous.  Each kernel's outputs are held against the plain
+    version's on the same inputs (TOL / BWD_TOL), then the kernels are
+    timed beside the plain versions, SDPA and the bound."""
+    dt = torch.bfloat16
     B, S, H, hd = TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD
     g = torch.Generator(device="cpu").manual_seed(77)
     q, k, v, do, lse, delta, _ = bwd_inputs(
-        torch, fa, g, B, S, H, H, hd, dt, True, False, False)
+        torch, fa, g, B, S, H, H, hd, dt, True, False, True)
+    # ---- outputs against the plain version at this shape
+    tol = TOL["bfloat16"]
+    o, lse_k = fa.flash_attention_fwd_cuda(q, k, v)
+    ro, rl = fa.flash_attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    errs = {"ds_flash_fwd": float((o.float() - ro.float()).abs().max())}
+    el = float((lse_k - rl).abs().max())
+    emit({"check": "ds_flash_fwd", "dtype": "bfloat16",
+          "shape": [B, S, H, H, hd], "causal": True, "segments": False,
+          "fused_qkv_views": True, "max_abs_err_o": errs["ds_flash_fwd"],
+          "max_abs_err_lse": el, "tol_o": tol["o"], "tol_lse": tol["lse"]})
+    check(errs["ds_flash_fwd"] <= tol["o"] and el <= tol["lse"],
+          f"ds_flash_fwd at the training shape: o err "
+          f"{errs['ds_flash_fwd']}, lse err {el}")
+    del o, ro, rl, lse_k
+    got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, delta)
+    ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    rel = {}
+    row = {"check": "ds_flash_bwd", "dtype": "bfloat16",
+           "shape": [B, S, H, H, hd], "causal": True, "segments": False,
+           "fused_qkv_views": True, "tol": BWD_TOL["bfloat16"],
+           "tol_kind": "rel_to_max"}
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        e = float((a.float() - b.float()).abs().max())
+        r = e / max(float(b.float().abs().max()), 1e-30)
+        row[f"max_abs_err_{name}"], row[f"rel_err_{name}"] = e, r
+        kern = "ds_flash_bwd_dq" if name == "dq" else "ds_flash_bwd_dkv"
+        errs[kern] = max(errs.get(kern, 0.0), e)
+        rel[kern] = max(rel.get(kern, 0.0), r)
+        check(r <= BWD_TOL["bfloat16"], f"ds_flash_bwd at the training "
+              f"shape: {name} err {e} (rel {r}) > {BWD_TOL['bfloat16']}")
+    emit(row)
+    del got, ref
+    # ---- times on the same inputs
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     out = {}
     fwd = {"kernel_ms": time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v)),
@@ -645,7 +650,7 @@ def train_kernel_times(torch, F, fa):
     # FlashAttention-2's five-product backward, for the later redesign
     out["fa2_five_product_bwd_bound_ms"] = attn_bound(
         B, S, H, H, hd, 5, True, 3, 4, 2)[0]
-    return out
+    return out, errs, rel
 
 
 # -------------------------------------------------------------- training
@@ -909,7 +914,11 @@ def main():
           "python": sys.version.split()[0], "build_s": build_s,
           "build_s_by_source": {n: r["seconds"]
                                 for n, r in build.build_log.items()},
-          "kernel_resources": kernel_resources(build.build_log)})
+          # the -Xptxas -v report: registers and spills per kernel
+          "ptxas": [ln.strip() for r in build.build_log.values()
+                    for ln in r["log"].splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]})
 
     errs, tols = kernel_phase(torch, da, fa)
     dec_t, fl_t, flash_by_s = kernel_times(torch, F, da, fa)
@@ -917,10 +926,15 @@ def main():
           "ds_flash_fwd_s1024": fl_t, "ds_flash_fwd_ms_by_bucket":
           flash_by_s})
     bwd_errs, bwd_rel = bwd_kernel_phase(torch, fa)
-    train_t = train_kernel_times(torch, F, fa)
+    train_t, train_errs, train_rel = train_kernel_times(torch, F, fa)
+    errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"],
+                               train_errs.pop("ds_flash_fwd"))
+    for kern, e in train_errs.items():
+        bwd_errs[kern] = max(bwd_errs[kern], e)
+        bwd_rel[kern] = max(bwd_rel[kern], train_rel[kern])
     emit({"phase": "train_kernel_times",
           "shape": [TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD], "dtype":
-          "bfloat16", "causal": True, **train_t})
+          "bfloat16", "causal": True, "fused_qkv_views": True, **train_t})
     torch.cuda.empty_cache()
 
     eng32 = fp32_phase(torch, dt, da, fa)

@@ -597,78 +597,36 @@ def refuse_unported(cfg: ServingConfig):
 
 # ------------------------------------------------------------------ training
 class FP16Config(DeepSpeedConfigModel):
-    """``fp16`` (parsed as in the reference; ``enabled`` is refused)."""
+    """``fp16``: only ``enabled`` is read, and refused."""
     enabled: bool = False
-    auto_cast: bool = False
-    loss_scale: float = 0.0           # 0 = dynamic
-    initial_scale_power: int = 16
-    loss_scale_window: int = 1000
-    hysteresis: int = 2
-    consecutive_hysteresis: bool = False
-    min_loss_scale: float = 1.0
 
 
 class BF16Config(DeepSpeedConfigModel):
     enabled: bool = False
-    immediate_grad_update: bool = False
     # optimizer state dtypes (runtime/bf16_optimizer.py): "bfloat16"
     # masters are Kahan-compensated; bf16 moments keep fp32 math
     master_weights_dtype: str = "float32"      # float32 | bfloat16 (Kahan)
     optimizer_states_dtype: Optional[str] = None   # None=float32 | bfloat16
 
 
-class OffloadParamConfig(DeepSpeedConfigModel):
+class OffloadConfig(DeepSpeedConfigModel):
+    """``offload_param`` / ``offload_optimizer``: a device other than
+    "none" is refused."""
     device: str = "none"              # none | cpu | nvme
-    nvme_path: Optional[str] = None
-    buffer_count: int = 5
-    buffer_size: int = 100_000_000
-    max_in_cpu: int = 1_000_000_000
-    pin_memory: bool = False
-    resident_layers: int = 2
-
-
-class OffloadOptimizerConfig(DeepSpeedConfigModel):
-    device: str = "none"              # none | cpu | nvme
-    nvme_path: Optional[str] = None
-    buffer_count: int = 4
-    pin_memory: bool = False
-    pipeline_read: bool = False
-    pipeline_write: bool = False
-    fast_init: bool = False
-    ratio: float = 1.0
 
 
 class ZeroConfig(DeepSpeedConfigModel):
     """``zero_optimization``: stages 0-3 are accepted; with one device
-    (data-parallel world 1) they shard nothing, as in the reference."""
+    (data-parallel world 1) they shard nothing, as in the reference.  The
+    bucket, overlap and stage-3 prefetch knobs act only across devices
+    and pass through unread; the ZeRO++ quantized switches are refused
+    until ZeRO++ is ported."""
     stage: int = 0
-    contiguous_gradients: bool = True
-    reduce_scatter: bool = True
-    reduce_bucket_size: int = 500_000_000
-    allgather_partitions: bool = True
-    allgather_bucket_size: int = 500_000_000
-    overlap_comm: Optional[bool] = None
-    load_from_fp32_weights: bool = True
-    elastic_checkpoint: bool = False
-    offload_param: Optional[OffloadParamConfig] = None
-    offload_optimizer: Optional[OffloadOptimizerConfig] = None
-    sub_group_size: int = 1_000_000_000
+    offload_param: Optional[OffloadConfig] = None
+    offload_optimizer: Optional[OffloadConfig] = None
     cpu_offload: Optional[bool] = None   # deprecated bool; migrated below
-    prefetch_bucket_size: int = 50_000_000
-    param_persistence_threshold: int = 100_000
-    model_persistence_threshold: int = 2 ** 62
-    max_live_parameters: int = 1_000_000_000
-    max_reuse_distance: int = 1_000_000_000
-    gather_16bit_weights_on_model_save: bool = False
-    ignore_unused_parameters: bool = True
-    round_robin_gradients: bool = False
-    zero_hpz_partition_size: int = 1
     zero_quantized_weights: bool = False
-    zero_quantized_nontrainable_weights: bool = False
     zero_quantized_gradients: bool = False
-    mics_shard_size: int = -1
-    mics_hierarchical_params_gather: bool = False
-    memory_efficient_linear: bool = True
 
     def __init__(self, **data):
         # deprecated cpu_offload=True == offload_optimizer.device=cpu
@@ -676,16 +634,6 @@ class ZeroConfig(DeepSpeedConfigModel):
             logger.warning("zero_optimization.cpu_offload is deprecated; use "
                            "offload_optimizer: {device: cpu}")
             data["offload_optimizer"] = {"device": "cpu"}
-        # the reference JSON spells the stage-3 knobs with a stage3_ prefix
-        for ref_key in ("prefetch_bucket_size", "param_persistence_threshold",
-                        "model_persistence_threshold", "max_live_parameters",
-                        "max_reuse_distance",
-                        "gather_16bit_weights_on_model_save"):
-            alias = f"stage3_{ref_key}"
-            if alias in data and ref_key not in data:
-                data[ref_key] = data.pop(alias)
-            else:
-                data.pop(alias, None)
         super().__init__(**data)
 
 
@@ -694,7 +642,6 @@ class MeshConfig(DeepSpeedConfigModel):
     model_parallel_size: int = 1
     pipe_parallel_size: int = 1
     sequence_parallel_size: int = 1
-    sequence_parallel_impl: str = "ulysses"    # "ulysses" | "ring"
     expert_parallel_size: int = 1
     data_parallel_size: Optional[int] = None
 
@@ -828,9 +775,14 @@ def refuse_unported_training(cfg: DeepSpeedConfig):
                        "sequence_parallel_size", "expert_parallel_size",
                        "data_parallel_size")
              if (getattr(mc, k) or 1) > 1]
+    quantized = [f"zero_optimization.{k}" for k in
+                 ("zero_quantized_weights", "zero_quantized_gradients")
+                 if getattr(zc, k)]
     checks = (
         (cfg.fp16.enabled, "fp16.enabled", "Queue A: fp16 loss scaling"),
         (bool(offload), ", ".join(offload), "Queue A: offload"),
+        (bool(quantized), ", ".join(quantized),
+         "Queue A: remaining parallelism (ZeRO++)"),
         (bool(sizes), ", ".join(sizes),
          "Queue A: data parallel, ZeRO and model parallelism"),
         (_any_enabled(cfg.compression_config), "compression_training",

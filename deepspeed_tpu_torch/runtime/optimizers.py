@@ -1,18 +1,19 @@
 """Optimizer registry (counterpart of
 ``deepspeed_tpu/runtime/optimizers.py`` ``build_optimizer``), Adam family
 only: ``adam``, ``adamw``, ``fusedadam`` and ``deepspeedcpuadam`` map to
-the same math (on the GPU "fused" is not a different algorithm).  The
-non-diet branches follow optax's ``adam`` / ``adamw`` step for step, and
-:func:`clip_by_global_norm` is optax's (``g * max_norm / norm`` only when
-``norm >= max_norm``).  Other optimizer names raise NotImplementedError.
+the same math (on the GPU "fused" is not a different algorithm): one
+:func:`mp_adamw`, which with fp32 masters and states is optax's ``adam``
+(no decay) / ``adamw`` up to fp32 rounding.  :func:`clip_by_global_norm`
+is optax's (``g * max_norm / norm`` only when ``norm >= max_norm``).
+Other optimizer names raise NotImplementedError.
 """
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.bf16_optimizer import (
-    GradientTransformation, mp_adamw, resolve_dtype, scalar)
+    GradientTransformation, mp_adamw, resolve_dtype)
 from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
 
 ADAM_FAMILY = (C.ADAM_OPTIMIZER, C.FUSED_ADAM, C.CPU_ADAM,
@@ -22,50 +23,6 @@ UNPORTED_OPTIMIZERS = (C.LAMB_OPTIMIZER, C.FUSED_LAMB, C.SGD_OPTIMIZER,
                        C.ADAGRAD_OPTIMIZER, C.LION_OPTIMIZER,
                        C.ONEBIT_ADAM_OPTIMIZER, C.ZERO_ONE_ADAM_OPTIMIZER,
                        C.ONEBIT_LAMB_OPTIMIZER)
-
-
-class AdamState(NamedTuple):
-    count: int
-    mu: dict
-    nu: dict
-
-
-def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8,
-         weight_decay: Optional[float] = None) -> GradientTransformation:
-    """optax ``adam`` (``weight_decay`` None) or ``adamw``: scale_by_adam
-    -> add_decayed_weights -> scale_by_learning_rate, the schedule read at
-    the pre-increment count."""
-
-    def init(params):
-        zeros = lambda p: torch.zeros_like(p)
-        return AdamState(0, tree_map(zeros, params), tree_map(zeros, params))
-
-    def update(grads, state, params=None):
-        if weight_decay is not None and params is None:
-            raise ValueError("adamw requires params")
-        count = state.count + 1
-        dev = tree_leaves(grads)[0].device
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
-        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
-                      state.nu)
-        c = scalar(count, dev)
-        bc1 = 1 - scalar(b1, dev) ** c
-        bc2 = 1 - scalar(b2, dev) ** c
-        lr = (learning_rate(state.count) if callable(learning_rate)
-              else learning_rate)
-
-        def leaf(m, v, p):
-            u = (m / bc1.to(m.dtype)) / (torch.sqrt(v / bc2.to(v.dtype))
-                                         + eps)
-            if weight_decay is not None:
-                u = u + weight_decay * p
-            return scalar(-lr, dev).to(u.dtype) * u
-
-        params = params if params is not None else mu
-        return tree_map(leaf, mu, nu, params), AdamState(count, mu, nu)
-
-    return GradientTransformation(init, update)
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
@@ -129,13 +86,9 @@ def build_optimizer(name: Optional[str], params: Optional[dict],
                 "(ROADMAP.md Queue A: other optimizers); the port trains "
                 f"with the Adam family {ADAM_FAMILY}")
         raise ValueError(f"Unknown optimizer {name!r} in DeepSpeed config")
-    adam_w_mode = params.get("adam_w_mode", True)
-    if mp_states:
-        if name != C.ADAMW_OPTIMIZER and not adam_w_mode:
-            wd = 0.0
-        return mp_adamw(lr, weight_decay=wd, mu_dtype=mu_dtype,
-                        nu_dtype=nu_dtype, master_dtype=master_dtype,
-                        **_adam_args(params))
-    if name == C.ADAMW_OPTIMIZER or (adam_w_mode and wd > 0):
-        return adam(lr, weight_decay=wd, **_adam_args(params))
-    return adam(lr, **_adam_args(params))
+    # Adam with adam_w_mode off drops the decay (the reference's optax.adam)
+    if name != C.ADAMW_OPTIMIZER and not params.get("adam_w_mode", True):
+        wd = 0.0
+    return mp_adamw(lr, weight_decay=wd, mu_dtype=mu_dtype,
+                    nu_dtype=nu_dtype, master_dtype=master_dtype,
+                    **_adam_args(params))

@@ -1,9 +1,10 @@
 """deepspeed_tpu_torch optimizers and LR schedules vs the JAX package.
 
 The port's ``mp_adamw`` (fp32 masters and states, bf16 moments, Kahan
-bf16 masters), its optax-order ``adam`` / ``adamw`` from
-``build_optimizer``, ``clip_by_global_norm`` and the five LR schedules run
-on the same seeded numpy leaves / steps as the JAX package's.
+bf16 masters), ``build_optimizer``'s Adam family (the same ``mp_adamw``,
+held to optax's ``adam`` / ``adamw``), ``clip_by_global_norm`` and the
+five LR schedules run on the same seeded numpy leaves / steps as the JAX
+package's.
 
 Tolerances: fp32 paths <= 1e-6 relative (the same formulas; scalar powers
 and schedule values are taken in a different order or precision); bf16
