@@ -37,7 +37,26 @@ Phases (any failed check exits non-zero before the final line):
      GPT-2 760M configuration (micro-batch 12, seq 1024, full remat, the
      Kahan bf16 optimizer diet), 3 warm-up and 10 timed steps: step time,
      tokens/s, MFU, peak memory, losses, launch counts, and one profiled
-     step (device busy share, top kernels).
+     step (device busy share, top kernels);
+  8. the int8-serving kernels at the 760M serving shapes against their
+     plain versions: the block quantizer on the four stacked block
+     leaves (exact), qgemm at M 8 / 64 / 900 for the four projections,
+     the int8-cache decode attention at DECODE_LENS, the fused layer at
+     B 8, W 1 and 4, float / int8 weights x float / int8 cache (fp32
+     <= 1e-4 abs, TF32 off; bf16 <= 2e-2 of each output's max; new int8
+     K/V codes within one code); then each timed over 24 layers' own
+     weights and caches beside its plain version and its bound (qgemm
+     also beside torch.matmul on the dequantized bf16 weights);
+  9. fp32 int8 weights + int8 KV cache at full width: the scheduler (a
+     pool that forces a preemption) token-identical to the static
+     generate with fused decode off and on; launch counts per decode
+     step: unfused 96 qgemm + 24 int8 decode, fused 24 fused layers and
+     no decode or qgemm, no qgemm in prefill; teacher-forced fused and
+     unfused decode logits within 1e-3;
+  10. bf16 int8 over HTTP (the slice's main path): the engine load (4
+     quantizer launches), then phase 5's eight requests with fused
+     decode off and on: tokens/s, TTFT, TPOT, a profiled decode window,
+     the params' device bytes.
 Earlier lines are JSON objects; the line before the last two is the
 ``kernels`` object, then the nvidia-smi line, and the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
@@ -69,6 +88,9 @@ TOL = {"float32": {"o": 1e-4, "lse": 1e-4},
 # flash backward: fp32 abs (TF32 off); bf16 relative to each tensor's
 # max magnitude (P and dS enter the tensor-core products in bf16)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: every kernel source of the port, built in parallel at start-up
+KERNEL_SOURCES = ("decode_attention", "ds_flash_fwd", "ds_flash_bwd",
+                  "quantization", "qgemm", "fused_decode")
 # the training shape of bench.py's 760M configuration
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD = 12, 1024, 16, 96
 
@@ -352,90 +374,45 @@ def bf16_phase(torch, eng32, da, fa):
     from deepspeed_tpu_torch.runtime.config import ServingConfig
     from deepspeed_tpu_torch.serving.scheduler import \
         ContinuousBatchingScheduler
-    from deepspeed_tpu_torch.serving.server import make_server
     model = gpt2_model("760m", dtype="bfloat16")
     eng = InferenceEngine(model, DeepSpeedInferenceConfig(dtype="bfloat16"),
                           model_parameters=eng32.params)
-    sched = ContinuousBatchingScheduler(model, eng.params, ServingConfig())
-    httpd, loop = make_server(sched, port=0)
-    server = threading.Thread(target=httpd.serve_forever, daemon=True)
-    loop.start()
-    server.start()
-    base = f"http://127.0.0.1:{httpd.server_port}"
-    try:
-        prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=1)
-        bodies = [{"input_ids": p.tolist(), "max_new_tokens": MAX_NEW}
-                  for p in prompts]
-        bodies[3].update(do_sample=True, seed=4242, temperature=0.8,
-                         top_k=50, top_p=0.95)
-        results = [None] * len(bodies)
+    sched = ContinuousBatchingScheduler(
+        model, eng.params, ServingConfig(fused_decode=False))
+    prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=1)
 
-        def worker(i):
-            results[i] = post(base + "/generate", bodies[i])
-
-        # the main path: counts set to 0 just before, read just after
+    def start():       # the main path: counts set to 0 just before ...
         da.decode_attention.launches = 0
         fa.flash_attention_fwd.launches = 0
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=worker, args=(i,))
-                   for i in range(len(bodies))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall_s = time.perf_counter() - t0
-        launches = {"decode_attention": da.decode_attention.launches,
-                    "ds_flash_fwd": fa.flash_attention_fwd.launches}
-        check(all(r is not None and r[0] == 200 for r in results),
-              f"bf16: not every /generate returned 200: "
-              f"{[r and r[0] for r in results]}")
-        outs = [r[1] for r in results]
-        check(all(len(o["output_ids"]) == MAX_NEW for o in outs),
-              "bf16: a request came back short")
-        vocab = model.config.vocab_size
-        check(all(0 <= t < vocab for o in outs for t in o["output_ids"]),
-              "bf16: token id out of range")
-        check(all(v > 0 for v in launches.values()),
-              f"bf16: a kernel was not launched on the main path "
-              f"{launches}")
-        _, again = post(base + "/generate", bodies[3])
-        check(again["output_ids"] == outs[3]["output_ids"],
-              "bf16: the sampled request did not repeat identically")
-        hs, hbody = get(base + "/healthz")
-        ms, mbody = get(base + "/metrics")
-        check(hs == 200 and json.loads(hbody)["state"] == "ready",
-              f"bf16: /healthz {hs} {hbody}")
-        check(ms == 200 and "kernel_launches{kernel=\"decode_attention\"}"
-              in mbody and "serving_generated_tokens" in mbody,
-              "bf16: /metrics is not the expected Prometheus text")
-    finally:
-        httpd.shutdown()
-        loop.shutdown()
-        httpd.server_close()
-        server.join(timeout=10)
+
+    def done():        # ... and read just after
+        return {"decode_attention": da.decode_attention.launches,
+                "ds_flash_fwd": fa.flash_attention_fwd.launches}
+    outs, wall_s, _, launches = serve_http(torch, sched, prompts, start,
+                                           done)
+    check(all(v > 0 for v in launches.values()),
+          f"bf16: a kernel was not launched on the main path {launches}")
     busy = profile_decode(torch, sched, prompts)
     m = sched.metrics
     prefill_ms = {}
     for n, sp, s in m.prefill_s:
         prefill_ms.setdefault(str(n), []).append(s * 1e3)
-    steps = sum(k for k, _, _ in m.decode_window_s)
-    decode_ms_per_step = sum(s for _, _, s in m.decode_window_s) \
-        / max(steps, 1) * 1e3
-    gen = sum(len(o["output_ids"]) for o in outs)
-    ttft = sorted(o["ttft_ms"] for o in outs)
     # the dense pool gather the decode step runs per step (k and v)
     pos_idx = torch.randint(0, sched.pool["k"].shape[1],
                             (sched.cfg.max_num_seqs, sched.s_pad),
                             device="cuda")
     gather_ms = time_ms(lambda: [p[:, pos_idx] for p in sched.pool.values()])
-    report = {"phase": "bf16_http", "requests": len(outs),
+    base = serve_report(sched, outs, wall_s)
+    report = {"phase": "bf16_http", "requests": base["requests"],
               "decode_profile": busy,
-              "wall_s": wall_s, "generated_tokens": gen,
-              "tokens_per_s": gen / wall_s,
-              "ttft_p50_ms": statistics.median(ttft),
+              "wall_s": wall_s, "generated_tokens": base["generated_tokens"],
+              "tokens_per_s": base["tokens_per_s"],
+              "ttft_p50_ms": base["ttft_p50_ms"],
+              "tpot_p50_ms": base["tpot_p50_ms"],
               "prefill_ms_by_prompt_len": prefill_ms,
-              "decode_ms_per_step": decode_ms_per_step,
-              "decode_steps": steps, "gather_ms_per_step": gather_ms,
+              "decode_ms_per_step": base["decode_ms_per_step"],
+              "decode_steps": base["decode_steps"],
+              "gather_ms_per_step": gather_ms,
               "launches": launches,
               "sampled_repeat_identical": True}
     emit(report)
@@ -880,6 +857,682 @@ def profile_train_step(torch, eng, batch):
             "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
 
 
+# ------------------------------------------------- int8 serving (slice 3)
+D760, M760, H760, HD760 = 1536, 6144, 16, 96
+#: the stacked block projections of gpt2:760m: name -> (K, N)
+PROJ_SHAPES = {"qkv_w": (D760, 3 * D760), "proj_w": (D760, D760),
+               "mlp_in_w": (D760, M760), "mlp_out_w": (M760, D760)}
+QGEMM_M = (8, 64, 900)
+#: qgemm (M, K, N) off the 760M shapes
+RAGGED_QGEMM = ((1, 700, 1000), (8, 700, 1000), (3, 1536, 300),
+                (9, 300, 1000), (2, 1536, 4608))
+#: fp32: abs (TF32 off); bf16: relative to each output's max magnitude
+INT8_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FUSED_W = (1, 4)
+
+
+def int8_modules():
+    from deepspeed_tpu_torch.ops.kernels import fused_decode as fd
+    from deepspeed_tpu_torch.ops.kernels import qgemm as qg
+    from deepspeed_tpu_torch.ops.kernels import quantization as qz
+    return qz, qg, fd
+
+
+def err_of(torch, got, ref, dt_name):
+    """(max |got - ref|, the value held to the tolerance): abs for fp32,
+    relative to max |ref| for bf16."""
+    e = float((got.float() - ref.float()).abs().max())
+    if dt_name == "float32":
+        return e, e
+    return e, e / max(float(ref.float().abs().max()), 1e-30)
+
+
+def device_ms(torch, fns, reps=5, one_kernel=False):
+    """Device milliseconds per call over ``reps`` sweeps of ``fns`` (one
+    per layer, each with its own weights, as a decode step streams
+    them): the kernels' own time from torch.profiler, without the host's
+    gaps between launches.  Returns (ms per call, kernels per call).
+    ``one_kernel``: each call launches exactly one kernel, so ms per call
+    is the mean kernel record (robust to records the profiler drops)."""
+    from torch.profiler import ProfilerActivity, profile
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for f in fns:
+                f()
+        torch.cuda.synchronize()
+    ts = [e.device_time for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = reps * len(fns)
+    check(ts, "device_ms: the profiler saw no device time")
+    per_call = sum(ts) / (len(ts) if one_kernel else calls)
+    return per_call / 1e3, len(ts) / calls
+
+
+def call_ms(fns):
+    """Milliseconds per call of back-to-back calls of ``fns`` by CUDA
+    events: the device time plus whatever host time the wrapper leaves
+    between launches."""
+    return time_ms(lambda: [f() for f in fns], reps=5, inner=2) / len(fns)
+
+
+def timed(torch, kernel, plain, plain_reps=2):
+    """kernel_ms and plain_ms (device time per call, see device_ms),
+    call_ms of the kernel (host gaps included) and the kernels per
+    call of each."""
+    k_ms, k_n = device_ms(torch, kernel, one_kernel=True)
+    p_ms, p_n = device_ms(torch, plain, reps=plain_reps)
+    return {"kernel_ms": k_ms, "plain_ms": p_ms, "call_ms": call_ms(kernel),
+            "kernels_per_call": k_n, "plain_kernels_per_call": p_n}
+
+
+def bound_of(bytes_, flops, peak):
+    t_b, t_o = bytes_ / HBM_BPS, flops / peak
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def quant_kernel_phase(torch, qz):
+    """The block quantizer on the four stacked block leaves of gpt2:760m
+    (bf16 values, as the engine quantizes them) and on ragged layouts:
+    codes and scales exactly the plain version's; times over the leaves
+    the engine quantizes at load."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    leaves = {n: (torch.randn(LAYERS, K, N, generator=g, device="cuda")
+                  * 0.02).to(torch.bfloat16)
+              for n, (K, N) in PROJ_SHAPES.items()}
+    cases = [(n, w) for n, w in leaves.items()]
+    for shape, dt in (((64, 1000), torch.float32), ((7, 300), torch.bfloat16),
+                      ((5, 3, 512), torch.float32)):
+        x = torch.randn(*shape, generator=g, device="cuda").to(dt)
+        x[0, ..., :128] = 0            # an all-zero group: scale 1.0
+        cases.append((f"ragged_{'x'.join(map(str, shape))}_{dt}"
+                      .replace("torch.", ""), x))
+    worst = 0
+    for name, x in cases:
+        q, s = qz.block_quantize_int8_cuda(x)
+        rq, rs = qz.block_quantize_int8_plain(x)
+        torch.cuda.synchronize()
+        codes = int((q.int() - rq.int()).abs().max())
+        sdiff = float((s - rs).abs().max())
+        emit({"check": "block_quantize_int8", "case": name,
+              "shape": list(x.shape), "dtype": str(x.dtype),
+              "max_code_diff": codes, "max_scale_diff": sdiff, "tol": 0})
+        check(codes == 0 and sdiff == 0.0,
+              f"block_quantize_int8 {name}: codes differ by {codes}, "
+              f"scales by {sdiff}")
+        worst = max(worst, codes, sdiff)
+    n = sum(w.numel() for w in leaves.values())
+    t = timed(torch, [lambda w=w: qz.block_quantize_int8_cuda(w)
+                      for w in leaves.values()],
+              [lambda w=w: qz.block_quantize_int8_plain(w)
+               for w in leaves.values()])
+    # per call above; the row's work is the four leaves
+    t = {k: v * 4 if k.endswith("_ms") else v for k, v in t.items()}
+    t.update(work="the four stacked block leaves of gpt2:760m, bf16 "
+                  "(4 launches, the engine load)", library_ms=None)
+    t["bound_ms"], t["bound_by"] = bound_of(n * (2 + 1) + n // 256 * 4,
+                                            n * 4, FP32_FLOPS)
+    emit({"phase": "quant_kernel_times", **t})
+    return leaves, float(worst), t
+
+
+def qgemm_kernel_phase(torch, qz, qg, leaves):
+    """qgemm against its plain version at M in QGEMM_M for the four
+    projection shapes, bf16 and fp32 x; then a decode step's 96
+    launches (M 8, bf16, 24 layers' own weights) timed beside the plain
+    version and torch.matmul on the pre-dequantized bf16 weights."""
+    g = torch.Generator(device="cuda").manual_seed(32)
+    qs = {n: qz.block_quantize_int8(w) for n, w in leaves.items()}
+    worst = 0.0
+    for name, (K, N) in PROJ_SHAPES.items():
+        q, s = qs[name]
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            for M in QGEMM_M:
+                x = torch.randn(M, K, generator=g, device="cuda").to(dt)
+                o = qg.qgemm_cuda(x, q[0], s[0])
+                r = qg.qgemm_plain(x, q[0], s[0])
+                torch.cuda.synchronize()
+                e, held = err_of(torch, o, r, dt_name)
+                emit({"check": "qgemm", "proj": name, "M": M, "K": K,
+                      "N": N, "dtype": dt_name, "max_abs_err": e,
+                      "held": held, "tol": INT8_TOL[dt_name],
+                      "tol_kind": "abs" if dt_name == "float32"
+                      else "rel_to_max"})
+                check(held <= INT8_TOL[dt_name], f"qgemm {name} M={M} "
+                      f"{dt_name}: err {e} (held {held})")
+                worst = max(worst, held)
+    # ragged layouts through both paths: scale groups that split a lane's
+    # 8 columns (N 1000: 4 groups of 250), N % 8 != 0 (element loads),
+    # K off the 64-row chunk, 1 to 8 rows and past the decode path
+    for M, K, N in RAGGED_QGEMM:
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            q, s = qz.block_quantize_int8(
+                torch.randn(K, N, generator=g, device="cuda"))
+            x = torch.randn(M, K, generator=g, device="cuda").to(dt)
+            o = qg.qgemm_cuda(x, q, s)
+            r = qg.qgemm_plain(x, q, s)
+            torch.cuda.synchronize()
+            e, held = err_of(torch, o, r, dt_name)
+            emit({"check": "qgemm", "proj": "ragged", "M": M, "K": K,
+                  "N": N, "groups": s.shape[-1], "dtype": dt_name,
+                  "max_abs_err": e, "held": held, "tol": INT8_TOL[dt_name]})
+            check(held <= INT8_TOL[dt_name], f"qgemm ragged {(M, K, N)} "
+                  f"{dt_name}: err {e} (held {held})")
+            worst = max(worst, held)
+    # a decode step: 24 layers x 4 projections at M = 8, bf16
+    x = {n: torch.randn(8, K, generator=g, device="cuda").to(torch.bfloat16)
+         for n, (K, N) in PROJ_SHAPES.items()}
+    calls = [(n, l) for l in range(LAYERS) for n in PROJ_SHAPES]
+    deq = {n: qz.block_dequantize_int8(*qs[n]).to(torch.bfloat16)
+           for n in PROJ_SHAPES}
+    per_proj = {}
+    for name, (K, N) in PROJ_SHAPES.items():
+        q, s = qs[name]
+        nb = s.shape[-1]
+        b, f = bound_of(K * N + K * nb * 4 + 8 * K * 2 + 8 * N * 2,
+                        2 * 8 * K * N, BF16_FLOPS)
+        per_proj[name] = {
+            "K": K, "N": N,
+            "kernel_ms": device_ms(torch, [
+                lambda l=l: qg.qgemm_cuda(x[name], q[l], s[l])
+                for l in range(LAYERS)], one_kernel=True)[0],
+            "matmul_bf16_ms": device_ms(torch, [
+                lambda l=l: x[name] @ deq[name][l]
+                for l in range(LAYERS)])[0],
+            "bound_ms": b, "bound_by": f}
+    step = timed(torch, [lambda n=n, l=l: qg.qgemm_cuda(
+        x[n], qs[n][0][l], qs[n][1][l]) for n, l in calls],
+        [lambda n=n, l=l: qg.qgemm_plain(x[n], qs[n][0][l], qs[n][1][l])
+         for n, l in calls])
+    step["matmul_bf16_ms"] = device_ms(torch, [
+        lambda n=n, l=l: x[n] @ deq[n][l] for n, l in calls])[0]
+    # per call above; a decode step is the 96 calls
+    step = {k: v * len(calls) if k.endswith("_ms") else v
+            for k, v in step.items()}
+    step.update(bound_ms=LAYERS * sum(p["bound_ms"]
+                                      for p in per_proj.values()),
+                launches=len(calls))
+    del deq
+    layer = {k: v / LAYERS if k.endswith("_ms") else v
+             for k, v in step.items() if k != "launches"}
+    layer.update(work="one layer's four decode projections (4 launches, "
+                      "M 8, bf16, each layer's own weights)",
+                 bound_by="bytes", library_ms=None)
+    emit({"phase": "qgemm_kernel_times", "per_projection": per_proj,
+          "decode_step": step, "per_layer": layer})
+    return worst, layer
+
+
+def decode_int8_kernel_phase(torch, da):
+    """The int8-cache decode kernel against its plain version (fp32 and
+    bf16 queries, MHA at the 760M shape and GQA), then timed at the 760M
+    serving shape over 24 layers' own caches."""
+    g = torch.Generator(device="cuda").manual_seed(33)
+    L = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    worst = 0.0
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for (B, H, KV, hd, S) in [(8, H760, H760, HD760, 1024),
+                                  (8, 32, 8, 128, 1024)]:
+            q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+            kq, ks = da.quantize_kv(torch.randn(B, S, KV, hd, generator=g,
+                                                device="cuda"))
+            vq, vs = da.quantize_kv(torch.rand(B, S, KV, hd, generator=g,
+                                               device="cuda") * 2 - 1)
+            o = da.decode_attention_cuda(q, kq, vq, L, k_scale=ks,
+                                         v_scale=vs)
+            r = da.decode_attention_plain(q, kq, vq, L, k_scale=ks,
+                                          v_scale=vs)
+            torch.cuda.synchronize()
+            e, held = err_of(torch, o, r, dt_name)
+            emit({"check": "decode_attention_int8", "dtype": dt_name,
+                  "shape": [B, H, KV, hd, S], "max_abs_err": e,
+                  "held": held, "tol": INT8_TOL[dt_name]})
+            check(held <= INT8_TOL[dt_name], f"decode_attention_int8 "
+                  f"{dt_name} {(B, H, KV, hd, S)}: err {e} (held {held})")
+            worst = max(worst, held)
+    B, H, hd, S = 8, H760, HD760, 1024
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(torch.bfloat16)
+    caches = []
+    for _ in range(LAYERS):
+        kq, ks = da.quantize_kv(torch.randn(B, S, H, hd, generator=g,
+                                            device="cuda"))
+        vq, vs = da.quantize_kv(torch.randn(B, S, H, hd, generator=g,
+                                            device="cuda"))
+        caches.append((kq, vq, ks, vs))
+    n = sum(DECODE_LENS)
+    t = timed(torch, [lambda c=c: da.decode_attention_cuda(
+        q, c[0], c[1], L, k_scale=c[2], v_scale=c[3]) for c in caches],
+        [lambda c=c: da.decode_attention_plain(
+            q, c[0], c[1], L, k_scale=c[2], v_scale=c[3]) for c in caches])
+    t.update(work="one layer, B 8, H 16, hd 96, S_max 1024, DECODE_LENS, "
+                  "bf16 query (24 layers' own caches)", library_ms=None)
+    t["bound_ms"], t["bound_by"] = bound_of(
+        n * 2 * H * hd + n * 2 * H * 4 + 2 * B * H * hd * 2 + 4 * B,
+        4 * n * H * hd, BF16_FLOPS)
+    emit({"phase": "decode_int8_kernel_times", **t})
+    return worst, t
+
+
+def fused_weights(torch, g, dt, int8_weights, qz):
+    """One GPT-2 760M layer's canonical fused weights, seeded (std 0.02
+    projections, LayerNorm scales near 1), int8 projections quantized
+    from the compute-dtype values."""
+    from deepspeed_tpu_torch.models.model import QuantizedTensor
+    D, M = D760, M760
+
+    def r(*shape, std=0.02, mean=0.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * std
+                + mean).to(dt)
+    cw = {"n1_s": r(D, std=0.1, mean=1.0), "n1_b": r(D, std=0.1),
+          "wqkv": r(D, 3 * D), "bqkv": r(3 * D), "wo": r(D, D), "bo": r(D),
+          "n2_s": r(D, std=0.1, mean=1.0), "n2_b": r(D, std=0.1),
+          "w_in": r(D, M), "b_in": r(M), "w_out": r(M, D), "b_out": r(D)}
+    if int8_weights:
+        for k in ("wqkv", "wo", "w_in", "w_out"):
+            cw[k] = QuantizedTensor(*qz.block_quantize_int8(cw[k]), dt)
+    return cw
+
+
+def fused_cache(torch, g, dt, int8_cache, da, B=8, S=1024):
+    k = torch.randn(B, S, H760, HD760, generator=g, device="cuda")
+    v = torch.rand(B, S, H760, HD760, generator=g, device="cuda") * 2 - 1
+    if int8_cache:
+        (kq, ks), (vq, vs) = da.quantize_kv(k), da.quantize_kv(v)
+        return kq, vq, ks, vs
+    return k.to(dt), v.to(dt), None, None
+
+
+def fused_phase_us(torch, fd, x, layers, caches, lens, spec):
+    """Microseconds of each phase of the fused kernel (its device-clock
+    stamps, fd.PHASES), median over one call per layer."""
+    st = torch.zeros(len(fd.PHASES) + 1, dtype=torch.int64, device="cuda")
+    rows = []
+    for cw, c in zip(layers, caches):
+        fd.fused_layer_cuda(x, cw, c[0], c[1], lens, spec, c[2], c[3],
+                            stamps=st)
+        t = st.tolist()
+        rows.append([(b - a) / 1e3 for a, b in zip(t, t[1:])])
+    return {name: statistics.median(r[i] for r in rows)
+            for i, name in enumerate(fd.PHASES)}
+
+
+def fused_kernel_phase(torch, qz, da, fd):
+    """The fused layer kernel against its plain version (the unfused
+    composition) at B 8, W 1 and 4, float / int8 weights x float / int8
+    cache, fp32 and bf16; then timed in bf16 at W 1 over 24 layers' own
+    weights and caches."""
+    from deepspeed_tpu_torch.models.gpt2 import _fused_spec, gpt2_model
+    spec = _fused_spec(gpt2_model("760m").config)
+    g = torch.Generator(device="cuda").manual_seed(34)
+    worst = 0.0
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for w8 in (False, True):
+            cw = fused_weights(torch, g, dt, w8, qz)
+            for c8 in (False, True):
+                k, v, ks, vs = fused_cache(torch, g, dt, c8, da)
+                for W in FUSED_W:
+                    lens = torch.tensor([min(n, 1024 - W)
+                                         for n in DECODE_LENS],
+                                        dtype=torch.int32, device="cuda")
+                    x = torch.randn(8, W, D760, generator=g,
+                                    device="cuda").to(dt)
+                    got = fd.fused_layer_cuda(x, cw, k, v, lens, spec, ks, vs)
+                    ref = fd.fused_layer_plain(x, cw, k, v, lens, spec, ks,
+                                               vs)
+                    torch.cuda.synchronize()
+                    row = {"check": "ds_fused_layer", "dtype": dt_name,
+                           "int8_weights": w8, "int8_cache": c8, "W": W,
+                           "tol": INT8_TOL[dt_name]}
+                    ok = True
+                    # an int8 cache: row (b, j) attends the window's codes
+                    # at positions <= j; where one of them rounds a step
+                    # apart (a last-bit difference of K or V on a rounding
+                    # boundary), the row attends different values, and
+                    # its x_out is held to the bf16-class bound instead
+                    flip = torch.zeros(8, W, dtype=torch.bool,
+                                       device="cuda")
+                    if c8:
+                        for a, b in zip(got[1:3], ref[1:3]):
+                            flip |= (a != b).flatten(2).any(-1)
+                        flip = flip.int().cummax(dim=1).values.bool()
+                        row["rows_with_a_code_step"] = int(flip.sum())
+                    for name, a, b in zip(("x_out", "new_k", "new_v",
+                                           "new_ks", "new_vs"), got, ref):
+                        if b is None:
+                            continue
+                        if b.dtype == torch.int8:
+                            d = int((a.int() - b.int()).abs().max())
+                            row[f"max_code_diff_{name}"] = d
+                            ok &= d <= 1
+                            continue
+                        if name == "x_out" and bool(flip.any()):
+                            _, hf = err_of(torch, a[flip], b[flip],
+                                           "bfloat16")
+                            row["held_x_out_code_step_rows"] = hf
+                            ok &= hf <= INT8_TOL["bfloat16"]
+                            if bool(flip.all()):
+                                continue
+                            a, b = a[~flip], b[~flip]
+                        e, held = err_of(torch, a, b, dt_name)
+                        if name in ("new_ks", "new_vs"):
+                            held = float(((a - b).abs() / b.abs()).max())
+                            row[f"max_rel_err_{name}"] = held
+                            ok &= held <= INT8_TOL[dt_name]
+                            continue
+                        row[f"max_abs_err_{name}"] = e
+                        row[f"held_{name}"] = held
+                        ok &= held <= INT8_TOL[dt_name]
+                        worst = max(worst, held)
+                    emit(row)
+                    check(ok, f"ds_fused_layer {dt_name} w8={w8} c8={c8} "
+                          f"W={W}: {row}")
+            del cw
+    # times: bf16, B 8, W 1, 24 layers' own weights and caches
+    dt = torch.bfloat16
+    lens = torch.tensor([min(n, 1023) for n in DECODE_LENS],
+                        dtype=torch.int32, device="cuda")
+    x = torch.randn(8, 1, D760, generator=g, device="cuda").to(dt)
+    n_pos = int(lens.sum())
+    times = {}
+    for w8 in (True, False):
+        layers = [fused_weights(torch, g, dt, w8, qz) for _ in range(LAYERS)]
+        for c8 in (True, False):
+            caches = [fused_cache(torch, g, dt, c8, da)
+                      for _ in range(LAYERS)]
+            fns = [lambda cw=cw, c=c: fd.fused_layer_cuda(
+                x, cw, c[0], c[1], lens, spec, c[2], c[3])
+                for cw, c in zip(layers, caches)]
+            plain = [lambda cw=cw, c=c: fd.fused_layer_plain(
+                x, cw, c[0], c[1], lens, spec, c[2], c[3])
+                for cw, c in zip(layers, caches)]
+            wbytes = sum((v.q.numel() + v.s.numel() * 4) if hasattr(v, "q")
+                         else v.numel() * v.element_size()
+                         for v in layers[0].values())
+            cbytes = n_pos * 2 * H760 * HD760 * (1 if c8 else 2) \
+                + (n_pos * 2 * H760 * 4 if c8 else 0)
+            flops = 2 * 8 * (D760 * 3 * D760 + D760 * D760
+                             + 2 * D760 * M760) + 4 * (n_pos + 8) * H760 \
+                * HD760
+            b, f = bound_of(wbytes + cbytes + 4 * 8 * D760 * 2, flops,
+                            BF16_FLOPS)
+            key = f"{'int8' if w8 else 'bf16'}_weights_" \
+                  f"{'int8' if c8 else 'bf16'}_cache"
+            times[key] = dict(timed(torch, fns, plain),
+                              bound_ms=b, bound_by=f, weight_bytes=wbytes,
+                              cache_bytes=cbytes, library_ms=None,
+                              phase_us=fused_phase_us(torch, fd, x, layers,
+                                                      caches, lens, spec))
+            del caches, fns, plain
+        del layers
+        torch.cuda.empty_cache()
+    emit({"phase": "fused_kernel_times", "B": 8, "W": 1,
+          "lens": lens.tolist(), "by_config": times})
+    main_t = dict(times["int8_weights_int8_cache"],
+                  work="one layer, B 8, W 1, DECODE_LENS (<= 1023), bf16, "
+                       "int8 weights and cache (24 layers' own)")
+    return worst, main_t, times
+
+
+def int8_kernel_phase(torch, da):
+    """Phase 8: the four int8-serving kernels at the 760M serving shapes.
+    Returns (times by kernel, max held error by kernel)."""
+    qz, qg, fd = int8_modules()
+    leaves, e_q, t_q = quant_kernel_phase(torch, qz)
+    e_g, t_g = qgemm_kernel_phase(torch, qz, qg, leaves)
+    del leaves
+    torch.cuda.empty_cache()
+    e_d, t_d = decode_int8_kernel_phase(torch, da)
+    torch.cuda.empty_cache()
+    e_f, t_f, _ = fused_kernel_phase(torch, qz, da, fd)
+    return ({"block_quantize_int8": t_q, "qgemm": t_g,
+             "decode_attention_int8": t_d, "ds_fused_layer": t_f},
+            {"block_quantize_int8": e_q, "qgemm": e_g,
+             "decode_attention_int8": e_d, "ds_fused_layer": e_f})
+
+
+def int8_counts(da, qz, qg, fd, fa):
+    return {"block_quantize_int8": qz.block_quantize_int8.launches,
+            "qgemm": qg.qgemm.launches,
+            "decode_attention_int8": da.decode_attention.int8_launches,
+            "ds_fused_layer": fd.ds_fused_layer.launches,
+            "decode_attention": da.decode_attention.launches,
+            "ds_flash_fwd": fa.flash_attention_fwd.launches}
+
+
+def reset_int8_counts(da, qz, qg, fd, fa):
+    qz.block_quantize_int8.launches = 0
+    qg.qgemm.launches = 0
+    da.decode_attention.int8_launches = 0
+    fd.ds_fused_layer.launches = 0
+    da.decode_attention.launches = 0
+    fa.flash_attention_fwd.launches = 0
+
+
+def int8_parity_phase(torch, da, fa):
+    """fp32, int8 weights and an int8 cache at full width: the scheduler
+    (a pool that forces a preemption) is token-identical to the static
+    generate with fused decode off and on, with the launch counts of
+    each path; teacher-forced fused and unfused decode logits agree."""
+    from deepspeed_tpu_torch.inference.config import \
+        DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_model
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                             RequestState, SamplingParams)
+    qz, qg, fd = int8_modules()
+    model = gpt2_model("760m", dtype="float32")
+    eng = InferenceEngine(model, DeepSpeedInferenceConfig(
+        dtype="float32", quant={"enabled": True}, kv_cache_dtype="int8"))
+    prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=2)
+    report = {"phase": "fp32_int8_parity"}
+    for fused in (False, True):
+        sched = ContinuousBatchingScheduler(
+            model, eng.params, ServingConfig(num_blocks=140,
+                                             fused_decode=fused),
+            kv_cache_dtype="int8")
+        reset_int8_counts(da, qz, qg, fd, fa)
+        reqs = [sched.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
+                for p in prompts]
+        sched.run_until_idle()
+        torch.cuda.synchronize()
+        n = int8_counts(da, qz, qg, fd, fa)
+        c = sched.metrics.counters
+        steps, prefills = c["decode_steps"], c["prefills"]
+        want = {"block_quantize_int8": 0, "decode_attention": 0,
+                "ds_flash_fwd": LAYERS * prefills,
+                "qgemm": 0 if fused else 4 * LAYERS * steps,
+                "decode_attention_int8": 0 if fused else LAYERS * steps,
+                "ds_fused_layer": LAYERS * steps if fused else 0}
+        mismatched = []
+        for p, r in zip(prompts, reqs):
+            ref = eng.generate(p, max_new_tokens=MAX_NEW,
+                               fused_decode=fused)[0, p.size:]
+            if list(ref) != list(r.output_ids):
+                mismatched.append(int(p.size))
+        key = "fused" if fused else "unfused"
+        report[key] = {"prefills": prefills, "decode_steps": steps,
+                       "preemptions": c["preemptions"], "launches": n,
+                       "want": want, "token_identical": not mismatched,
+                       "mismatched_prompts": mismatched}
+        check(all(r.state == RequestState.FINISHED
+                  and r.num_generated == MAX_NEW for r in reqs),
+              f"fp32 int8 {key}: not every request finished")
+        check(c["preemptions"] >= 1,
+              f"fp32 int8 {key}: the pool did not force a preemption")
+        check(n == want, f"fp32 int8 {key}: launches {n} != {want}")
+        check(not mismatched, f"fp32 int8 {key}: scheduler != static "
+              f"generate for prompt lengths {mismatched}")
+    # teacher-forced: the same tokens through fused and unfused decode
+    worst = 0.0
+    with torch.no_grad():
+        for i in (1, 5):
+            toks = torch.tensor(
+                [list(prompts[i]) + list(reqs[i].output_ids[:-1])],
+                dtype=torch.int32, device="cuda")
+            n0 = len(prompts[i])
+            size = -(-toks.shape[1] // 64) * 64
+            out = {}
+            for fused in (False, True):
+                cache = model.init_cache_fn(1, size, "int8", "cuda")
+                _, cache = model.prefill_fn(
+                    eng.params, {"input_ids": toks[:, :n0]}, cache)
+                out[fused] = torch.stack([model.decode_fn(
+                    eng.params, toks[:, pos], cache,
+                    torch.tensor([pos], dtype=torch.int32, device="cuda"),
+                    fused=fused)[0] for pos in range(n0, toks.shape[1])])
+            e = float((out[True] - out[False]).abs().max())
+            worst = max(worst, e)
+    report.update(teacher_forced_max_abs_err=worst, tol=1e-3)
+    emit(report)
+    check(worst <= 1e-3, f"fp32 int8: fused and unfused decode logits "
+          f"differ by {worst}")
+
+
+def serve_http(torch, sched, prompts, on_start, on_done):
+    """Eight concurrent /generate requests (one sampled, then repeated)
+    through the HTTP server over ``sched``: ``on_start`` runs just before
+    the first request, ``on_done`` just after the eight return.  Returns
+    (responses, wall seconds, /metrics text, ``on_done``'s value)."""
+    from deepspeed_tpu_torch.serving.server import make_server
+    httpd, loop = make_server(sched, port=0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    loop.start()
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_port}"
+    try:
+        bodies = [{"input_ids": p.tolist(), "max_new_tokens": MAX_NEW}
+                  for p in prompts]
+        bodies[3].update(do_sample=True, seed=4242, temperature=0.8,
+                         top_k=50, top_p=0.95)
+        results = [None] * len(bodies)
+
+        def worker(i):
+            results[i] = post(base + "/generate", bodies[i])
+
+        on_start()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall_s = time.perf_counter() - t0
+        done = on_done()
+        check(all(r is not None and r[0] == 200 for r in results),
+              f"http: not every /generate returned 200: "
+              f"{[r and r[0] for r in results]}")
+        outs = [r[1] for r in results]
+        check(all(len(o["output_ids"]) == MAX_NEW for o in outs),
+              "http: a request came back short")
+        vocab = sched.model.config.vocab_size
+        check(all(0 <= t < vocab for o in outs for t in o["output_ids"]),
+              "http: token id out of range")
+        _, again = post(base + "/generate", bodies[3])
+        check(again["output_ids"] == outs[3]["output_ids"],
+              "http: the sampled request did not repeat identically")
+        hs, hbody = get(base + "/healthz")
+        ms, mbody = get(base + "/metrics")
+        check(hs == 200 and json.loads(hbody)["state"] == "ready",
+              f"http: /healthz {hs} {hbody}")
+        check(ms == 200 and "kernel_launches{kernel=\"decode_attention\"}"
+              in mbody and "serving_generated_tokens" in mbody,
+              "http: /metrics is not the expected Prometheus text")
+    finally:
+        httpd.shutdown()
+        loop.shutdown()
+        httpd.server_close()
+        server.join(timeout=10)
+    return outs, wall_s, mbody, done
+
+
+def serve_report(sched, outs, wall_s):
+    m = sched.metrics
+    steps = sum(k for k, _, _ in m.decode_window_s)
+    gen = sum(len(o["output_ids"]) for o in outs)
+    ttft = sorted(o["ttft_ms"] for o in outs)
+    tpot = sorted((o["latency_ms"] - o["ttft_ms"]) / (len(o["output_ids"])
+                                                     - 1) for o in outs)
+    return {"requests": len(outs), "wall_s": wall_s,
+            "generated_tokens": gen, "tokens_per_s": gen / wall_s,
+            "ttft_p50_ms": statistics.median(ttft),
+            "tpot_p50_ms": statistics.median(tpot),
+            "decode_steps": steps,
+            "decode_ms_per_step": sum(s for _, _, s in m.decode_window_s)
+            / max(steps, 1) * 1e3}
+
+
+def int8_http_phase(torch, da, fa):
+    """The slice's main path: bf16 gpt2:760m with int8 weights and an
+    int8 KV cache over HTTP, fused decode off and on.  The engine load
+    (the block quantizer) and each serving run are counted from 0."""
+    from deepspeed_tpu_torch.inference.config import \
+        DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_model
+    from deepspeed_tpu_torch.models.model import QuantizedTensor
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving.scheduler import \
+        ContinuousBatchingScheduler
+    qz, qg, fd = int8_modules()
+    model = gpt2_model("760m", dtype="bfloat16")
+    torch.cuda.synchronize()
+    reset_int8_counts(da, qz, qg, fd, fa)
+    t0 = time.perf_counter()
+    # the seeded host init (numpy, fp32), quantized leaf by leaf
+    eng = InferenceEngine(model, DeepSpeedInferenceConfig(
+        dtype="bfloat16", quant={"enabled": True}, kv_cache_dtype="int8"))
+    torch.cuda.synchronize()
+    load = {"load_s": time.perf_counter() - t0,
+            "launches": int8_counts(da, qz, qg, fd, fa)}
+    check(load["launches"]["block_quantize_int8"] == 4,
+          f"int8 load: {load['launches']} (want 4 quantizer launches)")
+
+    def nbytes(t):
+        if isinstance(t, QuantizedTensor):
+            return nbytes(t.q) + nbytes(t.s)
+        if isinstance(t, dict):
+            return sum(nbytes(v) for v in t.values())
+        return t.numel() * t.element_size()
+    load["params_device_bytes"] = nbytes(eng.params)
+    load["blocks_device_bytes"] = nbytes(eng.params["blocks"])
+    prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=1)
+    runs = {}
+    for fused in (False, True):
+        key = "fused" if fused else "unfused"
+        sched = ContinuousBatchingScheduler(
+            model, eng.params, ServingConfig(fused_decode=fused),
+            kv_cache_dtype="int8")
+        outs, wall_s, mbody, n = serve_http(
+            torch, sched, prompts,
+            on_start=lambda: reset_int8_counts(da, qz, qg, fd, fa),
+            on_done=lambda: int8_counts(da, qz, qg, fd, fa))
+        path = ("ds_fused_layer",) if fused else ("qgemm",
+                                                  "decode_attention_int8")
+        idle = ("qgemm", "decode_attention_int8") if fused \
+            else ("ds_fused_layer",)
+        check(all(n[k] > 0 for k in path + ("ds_flash_fwd",))
+              and all(n[k] == 0 for k in idle + ("decode_attention",)),
+              f"int8 http {key}: launches {n}")
+        check('kernel_launches{kernel="qgemm"}' in mbody,
+              "int8 http: /metrics lacks the qgemm launch count")
+        runs[key] = {**serve_report(sched, outs, wall_s), "launches": n,
+                     "decode_profile": profile_decode(torch, sched,
+                                                      prompts),
+                     "outputs": [o["output_ids"][:8] for o in outs]}
+        del sched
+        torch.cuda.empty_cache()
+    emit({"phase": "bf16_int8_http", "engine_load": load, **runs})
+    return load, runs
+
+
 def main():
     try:
         import torch
@@ -907,7 +1560,7 @@ def main():
 
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    build.build(["decode_attention", "ds_flash_fwd", "ds_flash_bwd"])
+    build.build(KERNEL_SOURCES)
     build_s = time.perf_counter() - t0
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -945,6 +1598,13 @@ def main():
     fp32_train_phase(torch, dt, da, fa)
     torch.cuda.empty_cache()
     train_launches, train_report = bf16_train_phase(torch, dt, da, fa)
+    torch.cuda.empty_cache()
+
+    int8_t, int8_errs = int8_kernel_phase(torch, da)
+    torch.cuda.empty_cache()
+    int8_parity_phase(torch, da, fa)
+    torch.cuda.empty_cache()
+    int8_load, int8_runs = int8_http_phase(torch, da, fa)
 
     pallas = "deepspeed_tpu/ops/pallas/"
     fwd_t = dict(train_t["ds_flash_fwd"],
@@ -966,7 +1626,27 @@ def main():
         ("ds_flash_bwd_dq", train_t["ds_flash_bwd_dq"], "ds_flash_bwd.cu",
          "ds_flash_attention.py:160", train_launches["ds_flash_bwd_dq"],
          {"train_bf16": train_launches["ds_flash_bwd_dq"]},
-         bwd_errs["ds_flash_bwd_dq"], BWD_TOL))
+         bwd_errs["ds_flash_bwd_dq"], BWD_TOL),
+        ("block_quantize_int8", int8_t["block_quantize_int8"],
+         "quantization.cu", "quantization.py:57",
+         int8_load["launches"]["block_quantize_int8"],
+         {"int8_engine_load": int8_load["launches"]["block_quantize_int8"]},
+         int8_errs["block_quantize_int8"], 0),
+        ("qgemm", int8_t["qgemm"], "qgemm.cu", "qgemm.py:66",
+         int8_runs["unfused"]["launches"]["qgemm"],
+         {"int8_http_unfused": int8_runs["unfused"]["launches"]["qgemm"]},
+         int8_errs["qgemm"], INT8_TOL),
+        ("decode_attention_int8", int8_t["decode_attention_int8"],
+         "decode_attention.cu", "decode_attention.py:40",
+         int8_runs["unfused"]["launches"]["decode_attention_int8"],
+         {"int8_http_unfused":
+          int8_runs["unfused"]["launches"]["decode_attention_int8"]},
+         int8_errs["decode_attention_int8"], INT8_TOL),
+        ("ds_fused_layer", int8_t["ds_fused_layer"], "fused_decode.cu",
+         "fused_decode.py:480",
+         int8_runs["fused"]["launches"]["ds_fused_layer"],
+         {"int8_http_fused": int8_runs["fused"]["launches"]["ds_fused_layer"]},
+         int8_errs["ds_fused_layer"], INT8_TOL))
     kernels = []
     for name, t, src, replaces, n, by_path, err, tol in rows:
         check(n > 0, f"{name} was not launched on a main path")
@@ -981,6 +1661,16 @@ def main():
             "library_ms": t["library_ms"]})
         if name.startswith("ds_flash_bwd"):
             kernels[-1]["max_rel_err_bf16"] = bwd_rel[name]
+        if name in int8_t:
+            # fp32 checks abs, bf16 checks relative to each output's max
+            kernels[-1].update(err_kind="fp32 abs / bf16 rel_to_max",
+                               work=t["work"])
+        if name == "qgemm":
+            # context only: torch.matmul on the dequantized bf16 weights
+            kernels[-1]["matmul_bf16_ms"] = t["matmul_bf16_ms"]
+        if name == "decode_attention_int8":
+            kernels[-1]["replaces"] += " (quantized=True)"
+            kernels[-1]["tpu_kernel"] = kernels[-1]["replaces"]
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -54,7 +54,8 @@ def init_inference(model=None, config=None, device=None, **kwargs):
     """Create an inference engine (counterpart of
     ``deepspeed_tpu.init_inference``).  ``config`` is a dict or a
     :class:`DeepSpeedInferenceConfig`; keyword arguments merge into a
-    dict config.  ``device=None`` resolves to ``"cuda"``."""
+    dict config, e.g. ``quant={"enabled": True}`` (int8 weights) and
+    ``kv_cache_dtype="int8"``.  ``device=None`` resolves to ``"cuda"``."""
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
 

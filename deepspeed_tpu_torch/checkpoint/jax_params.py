@@ -8,11 +8,18 @@ names, the same stacked ``[L, ...]`` block layout, and the reference's
 ``x @ w`` as the reference does; nothing is transposed anywhere).
 ``gpt2_params_to_numpy`` is the way back, so trained params compare leaf
 by leaf with the JAX engine's.
+
+An int8 engine's block weights carry across as they are: a leaf given as
+a ``(q, s)`` pair, or as any object with ``q`` and ``s`` arrays (the JAX
+package's ``QuantizedTensor`` after ``jax.device_get``), becomes the
+port's ``QuantizedTensor`` with the same int8 codes and fp32 scales, so
+both packages serve the same bytes.
 """
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.models.model import QuantizedTensor
 
 GPT2_TOP_KEYS = ("wte", "wpe", "blocks", "lnf_scale", "lnf_bias")
 GPT2_BLOCK_KEYS = ("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "proj_w",
@@ -20,7 +27,24 @@ GPT2_BLOCK_KEYS = ("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "proj_w",
                    "mlp_in_b", "mlp_out_w", "mlp_out_b")
 
 
-def _to_tensor(a, device, dtype):
+def quantized_parts(leaf):
+    """``(q, s)`` of an int8 weight leaf (a port ``QuantizedTensor``, a
+    ``(q, s)`` pair, or an object with ``q``/``s`` arrays), else None."""
+    if isinstance(leaf, tuple) and len(leaf) == 2:
+        return leaf
+    q, s = getattr(leaf, "q", None), getattr(leaf, "s", None)
+    if q is not None and s is not None:
+        return q, s
+    return None
+
+
+def to_tensor(a, device, dtype):
+    """A numpy array or tensor as a new tensor on ``device`` (floating
+    values cast to ``dtype`` when given)."""
+    if isinstance(a, torch.Tensor):
+        if dtype is None or not a.is_floating_point():
+            dtype = a.dtype
+        return a.detach().to(device=device, dtype=dtype, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":      # ml_dtypes bf16: no numpy bridge
         a = a.astype(np.float32)
@@ -49,11 +73,24 @@ def gpt2_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     _check_keys(tree, GPT2_TOP_KEYS, "top-level")
     _check_keys(tree["blocks"], GPT2_BLOCK_KEYS, "blocks")
     device = resolve_device(device)
-    out = {k: _to_tensor(v, device, dtype) for k, v in tree.items()
+    out = {k: to_tensor(v, device, dtype) for k, v in tree.items()
            if k != "blocks"}
-    out["blocks"] = {k: _to_tensor(v, device, dtype)
+    out["blocks"] = {k: block_leaf(v, device, dtype)
                      for k, v in tree["blocks"].items()}
     return out
+
+
+def block_leaf(v, device, dtype):
+    """One block leaf on ``device``: int8 leaves (see
+    :func:`quantized_parts`) as a ``QuantizedTensor`` dequantizing to
+    ``dtype`` (fp32 when None), others as :func:`to_tensor`."""
+    parts = quantized_parts(v)
+    if parts is None:
+        return to_tensor(v, device, dtype)
+    q, s = parts
+    return QuantizedTensor(to_tensor(q, device, None),
+                           to_tensor(s, device, torch.float32),
+                           dtype or torch.float32)
 
 
 def gpt2_params_to_numpy(params: dict) -> dict:
@@ -61,6 +98,8 @@ def gpt2_params_to_numpy(params: dict) -> dict:
     a numpy tree with the same names and layout (fp32 for floating
     leaves, since numpy has no bfloat16)."""
     def to_np(t):
+        if isinstance(t, QuantizedTensor):
+            return to_np(t.q), to_np(t.s)
         t = t.detach().cpu()
         return (t.float() if t.is_floating_point() else t).numpy()
     out = {k: to_np(v) for k, v in params.items() if k != "blocks"}

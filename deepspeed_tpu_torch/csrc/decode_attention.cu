@@ -1,8 +1,11 @@
 // Decode attention: one query token per row attends to the first
 // cache_len[b] positions of a dense KV cache.
 //
-// Replaces: deepspeed_tpu/ops/pallas/decode_attention.py:_decode_kernel
-// (float cache, no ALiBi, no window floor).
+// Replaces: deepspeed_tpu/ops/pallas/decode_attention.py:_decode_kernel,
+// the float cache and the int8 cache (``quantized=True``: int8 k/v with
+// one fp32 scale per (position, kv head), dequantized in registers, the
+// query, scores, softmax and accumulation in fp32 as the Pallas kernel
+// does); no ALiBi, no window floor.
 //
 // What bounds it on an H100: bytes.  Each (row, kv head) streams
 // cache_len[b] * 2 * head_dim values and does ~4 flops per value, far
@@ -21,10 +24,16 @@
 // The TPU kernel's block-diagonal query matmul filled a 128-lane MXU and
 // has no counterpart here.  A row with cache_len <= 0 returns zeros.
 //
-// C interface (loaded with ctypes): ds_decode_attention returns the
-// cudaError_t of the launch as an int.
+// An int8 cache halves the bytes each position streams; the scales add
+// 8 bytes per (position, kv head) against 2 * head_dim bytes of codes.
+//
+// C interface (loaded with ctypes): ds_decode_attention and
+// ds_decode_attention_int8 return the cudaError_t of the launch as an int.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -37,6 +46,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -53,16 +63,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// q [B, H, HD], k/v [B, S_max, KV, HD], cache_len [B], out [B, H, HD];
-// all contiguous.  Grid (KV, B), block kWarps * 32 threads.
-template <typename T, int HD>
+// q [B, H, HD], k/v [B, S_max, KV, HD] (CT: T, or int8 with ks/vs
+// [B, S_max, KV] fp32 scales), cache_len [B], out [B, H, HD]; all
+// contiguous.  Grid (KV, B), block kWarps * 32 threads.
+template <typename T, typename CT, int HD>
 __global__ void __launch_bounds__(kWarps * 32)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
+decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
+                        const CT* __restrict__ v,
+                        const float* __restrict__ ks,
+                        const float* __restrict__ vs,
                         const int* __restrict__ cache_len,
                         T* __restrict__ out, int H, int KV, int S_max,
                         float sm_scale) {
   constexpr int NI = (HD + 31) / 32;
+  constexpr bool kQuant = sizeof(CT) == 1;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int rep = H / KV;
@@ -98,20 +112,30 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const size_t pos_stride = (size_t)KV * HD;
-  const T* k_base = k + (size_t)b * S_max * pos_stride + (size_t)kvh * HD;
-  const T* v_base = v + (size_t)b * S_max * pos_stride + (size_t)kvh * HD;
+  const CT* k_base = k + (size_t)b * S_max * pos_stride + (size_t)kvh * HD;
+  const CT* v_base = v + (size_t)b * S_max * pos_stride + (size_t)kvh * HD;
+  // per-position scales of this (row, kv head); unused for a float cache
+  const float* ks_base = kQuant ? ks + (size_t)b * S_max * KV + kvh : ks;
+  const float* vs_base = kQuant ? vs + (size_t)b * S_max * KV + kvh : vs;
 
   for (int s0 = warp * kPos; s0 < len; s0 += kWarps * kPos) {
     float kx[kPos][NI], vx[kPos][NI];
 #pragma unroll
     for (int j = 0; j < kPos; ++j) {
       const int s = s0 + j;
+      float kscale = 1.f, vscale = 1.f;
+      if (kQuant && s < len) {
+        kscale = __ldg(ks_base + (size_t)s * KV);
+        vscale = __ldg(vs_base + (size_t)s * KV);
+      }
 #pragma unroll
       for (int i = 0; i < NI; ++i) {
         const int d = lane + 32 * i;
         const bool ok = s < len && d < HD;
-        kx[j][i] = ok ? to_f(k_base[(size_t)s * pos_stride + d]) : 0.f;
-        vx[j][i] = ok ? to_f(v_base[(size_t)s * pos_stride + d]) : 0.f;
+        kx[j][i] =
+            ok ? to_f(k_base[(size_t)s * pos_stride + d]) * kscale : 0.f;
+        vx[j][i] =
+            ok ? to_f(v_base[(size_t)s * pos_stride + d]) * vscale : 0.f;
       }
     }
 #pragma unroll
@@ -182,39 +206,44 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, typename CT, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* cache_len, void* out, int B, int H, int KV,
-                   int S_max, float sm_scale, cudaStream_t stream) {
+                   const void* ks, const void* vs, const void* cache_len,
+                   void* out, int B, int H, int KV, int S_max,
+                   float sm_scale, cudaStream_t stream) {
   const int rep = H / KV;
   const size_t smem =
       (size_t)(rep * HD + kWarps * rep * HD + 2 * kWarps * rep) *
       sizeof(float);
   const dim3 grid(KV, B);
-  decode_attention_kernel<T, HD><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(cache_len),
+  decode_attention_kernel<T, CT, HD><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const CT*>(k),
+      static_cast<const CT*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(cache_len),
       static_cast<T*>(out), H, KV, S_max, sm_scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int ds_decode_attention(const void* q, const void* k,
-                                   const void* v, const void* cache_len,
-                                   void* out, int B, int H, int KV,
-                                   int S_max, int head_dim, int is_bf16,
-                                   float sm_scale, void* stream) {
+// one entry point per cache type; CT = T (float cache) or int8_t
+template <bool kInt8>
+int dispatch(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* cache_len, void* out, int B, int H,
+             int KV, int S_max, int head_dim, int is_bf16, float sm_scale,
+             void* stream) {
   if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxRep)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DS_DECODE_CASE(HDV)                                               \
-  case HDV:                                                               \
-    return is_bf16 ? (int)launch<__nv_bfloat16, HDV>(                     \
-                         q, k, v, cache_len, out, B, H, KV, S_max,        \
-                         sm_scale, st)                                    \
-                   : (int)launch<float, HDV>(q, k, v, cache_len, out, B,  \
-                                             H, KV, S_max, sm_scale, st);
+  using BF = __nv_bfloat16;
+  using CB = typename std::conditional<kInt8, int8_t, BF>::type;
+  using CF = typename std::conditional<kInt8, int8_t, float>::type;
+#define DS_DECODE_CASE(HDV)                                                \
+  case HDV:                                                                \
+    return is_bf16 ? (int)launch<BF, CB, HDV>(q, k, v, ks, vs, cache_len,  \
+                                              out, B, H, KV, S_max,        \
+                                              sm_scale, st)                \
+                   : (int)launch<float, CF, HDV>(q, k, v, ks, vs,          \
+                                                 cache_len, out, B, H, KV, \
+                                                 S_max, sm_scale, st);
   switch (head_dim) {
     DS_DECODE_CASE(64)
     DS_DECODE_CASE(80)
@@ -224,4 +253,25 @@ extern "C" int ds_decode_attention(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 #undef DS_DECODE_CASE
+}
+
+}  // namespace
+
+extern "C" int ds_decode_attention(const void* q, const void* k,
+                                   const void* v, const void* cache_len,
+                                   void* out, int B, int H, int KV,
+                                   int S_max, int head_dim, int is_bf16,
+                                   float sm_scale, void* stream) {
+  return dispatch<false>(q, k, v, nullptr, nullptr, cache_len, out, B, H,
+                         KV, S_max, head_dim, is_bf16, sm_scale, stream);
+}
+
+extern "C" int ds_decode_attention_int8(const void* q, const void* k,
+                                        const void* v, const void* ks,
+                                        const void* vs, const void* cache_len,
+                                        void* out, int B, int H, int KV,
+                                        int S_max, int head_dim, int is_bf16,
+                                        float sm_scale, void* stream) {
+  return dispatch<true>(q, k, v, ks, vs, cache_len, out, B, H, KV, S_max,
+                        head_dim, is_bf16, sm_scale, stream);
 }

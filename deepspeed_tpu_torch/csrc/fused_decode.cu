@@ -1,0 +1,659 @@
+// Fused per-layer decode step: one decoder layer's W-token window for B
+// rows in ONE launch (GPT-2 spec: LayerNorm, fused QKV with bias, serial
+// residual, gelu_tanh / gelu_exact / relu MLP with biases, num_kv_heads
+// == num_heads, no rotary, no ALiBi).
+//
+// Replaces: deepspeed_tpu/ops/pallas/fused_decode.py:_fused_kernel (the
+// GPT-2 spec of it).
+//
+//   LN1 -> QKV (+bias) -> new K/V (int8 quantize, or the cache dtype) ->
+//   attention over the cache plus the window's own tokens -> out-proj
+//   (+bias) + residual -> LN2 -> MLP-in (+bias) -> activation -> MLP-out
+//   (+bias) + residual
+//
+// What bounds it on an H100: bytes.  At decode shapes (B 8, W 1) the
+// layer's weights (28.3 MB int8 or 56.6 MB bf16 for 760M) and the KV
+// cache stream through once; everything else is a few KB.  The TPU kernel
+// kept the whole layer resident in 96 MiB of VMEM; Hopper has 227 KB of
+// shared memory per block, so this kernel streams each weight byte once
+// per call instead: it is ONE persistent cooperative launch (grid = the
+// CTAs the card keeps co-resident) that walks the phases above, with a
+// grid-wide barrier between phases.  In a GEMM phase the work items are
+// (column tile, K split) pairs over all B*W rows: at decode (B*W <= 8) a
+// 256-column tile whose weight rows stream straight into registers
+// (gemm_tile.cuh rows_mma), else 64-row x 64-column tiles through shared
+// memory (tile_mma).  Every weight tile is read by one CTA only;
+// its fp32 partial sums go to a small global scratch (L2-resident) and
+// the next phase reduces them in split order, so a row's result does not
+// depend on which other rows share the batch.  Activations between phases
+// live in the same scratch and are read back through L2 (ld.global.cg):
+// L1 is not coherent across SMs.
+//
+// Numerics are the reference's unfused composition (_ref_fused_layer):
+// every product is rounded to the compute dtype T and its bias added in
+// T; LayerNorm statistics and the activation run in fp32; the int8 weight
+// element dequantizes as (float)q * scale, rounded to T before the
+// product (gemm_tile.cuh); attention runs in fp32 with the new K/V as the
+// cache would hold them (int8 codes times their scale, or rounded through
+// the cache dtype).
+//
+// C interface (loaded with ctypes): ds_fused_layer takes one argument
+// block (FusedArgs) and returns the cudaError_t of the launch as an int;
+// ds_fused_layer_args_size returns sizeof(FusedArgs) for the wrapper's
+// layout check.
+#include "gemm_tile.cuh"
+
+// Everything one call needs; pointers are device pointers.  Matrices are
+// row-major and contiguous; "rows" are the B*W window tokens, row
+// r = b * W + j.  Declared outside the anonymous namespace: the C entry
+// point takes it, and a parameter type of internal linkage would give
+// that symbol internal linkage too.
+struct FusedArgs {
+  int B, W, D, H, KV, HD, M, S_max;
+  int act;                     // 0 gelu_tanh, 1 gelu_exact, 2 relu
+  float eps, sm_scale;
+  const void* x;               // [R, D] T
+  const int* lengths;          // [B] first window position per row
+  const void *n1_s, *n1_b, *bqkv, *bo, *n2_s, *n2_b, *b_in, *b_out;  // T
+  const void *wqkv, *wo, *w_in, *w_out;   // [K, N] T, or int8 codes
+  const float *sqkv, *so, *s_in, *s_out;  // [K, nb] fp32 (int8 weights)
+  int nb_qkv, nb_o, nb_in, nb_out;
+  const void *k_cache, *v_cache;          // [B, S_max, KV, HD] CT
+  const float *ks_cache, *vs_cache;       // [B, S_max, KV] (int8 cache)
+  void* x_out;                 // [R, D] T
+  void *new_k, *new_v;         // [R, KV * HD] CT
+  float *new_ks, *new_vs;      // [R, KV] (int8 cache)
+  // scratch
+  void* abuf;                  // [R, max(D, M)] T: the GEMM A operand
+  void* xres;                  // [R, D] T: x + attention output
+  float* part;                 // [kMaxSplit, R, max(3 D, M)] partials
+  float* qf;                   // [R, H * HD] the queries
+  float *kw, *vw;              // [R, KV * HD] the window's K/V, fp32
+  unsigned* bar;               // [2] barrier count (0 between calls), gen
+  int split_qkv, split_o, split_in, split_out;
+  // optional [12] %globaltimer readings of CTA 0 (null: none): the
+  // start, the exit of each of the ten grid barriers, and CTA 0's end
+  unsigned long long* stamps;
+};
+
+namespace {
+
+using namespace dstile;
+
+constexpr int kWarps = NT / 32;
+constexpr int kQMax = 8;       // query vectors per attention work item
+constexpr int kPos = 4;        // cache positions per warp iteration
+constexpr int kHDMax = 128;    // head_dim <= 128
+constexpr int kNI = kHDMax / 32;
+constexpr int kMaxSplit = 16;  // K splits per GEMM (scratch: kMaxSplit x)
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sense-free grid barrier over co-resident CTAs: bar[0] counts arrivals
+// (the last one returns it to 0), bar[1] is a generation number the
+// others wait on.  The fences make every write before the barrier visible
+// to every CTA after it (readers use L2 loads).
+__device__ __forceinline__ void grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// phase boundaries of one call, read by the wrapper's `stamps` option
+__device__ __forceinline__ void stamp(const FusedArgs& a, int i) {
+  if (a.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.stamps[i] = t;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float ld_in(const void* p, size_t i) {
+  return to_f(static_cast<const T*>(p)[i]);
+}
+
+__device__ __forceinline__ float activation(float v, int act) {
+  if (act == 2) return fmaxf(v, 0.f);
+  if (act == 1) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  const float inner = 0.7978845608028654f * (v + 0.044715f * v * v * v);
+  return 0.5f * v * (1.f + tanhf(inner));
+}
+
+// the sum of v over the CTA, returned to every thread (warp sums added in
+// warp order)
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float red[kWarps];
+  v = warp_sum(v);
+  __syncthreads();   // a previous call's readers are done with red
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s += red[w];
+  return s;
+}
+
+// LayerNorm of a row of D values at `src` (T; a kernel input or written
+// earlier in this launch, so read through L2) into `dst` (T), by the
+// whole CTA: statistics in fp32, as the reference.  Up to kLnPer values a
+// thread stay in registers, loaded together; a wider row reads src once
+// per pass.
+constexpr int kLnPer = 8;
+template <typename T>
+__device__ void layer_norm_cta(const T* src, T* dst, const void* scale,
+                               const void* bias, int D, float eps) {
+  float v[kLnPer];
+  const bool held = D <= kLnPer * NT;
+  float s = 0.f;
+  if (held) {
+#pragma unroll
+    for (int j = 0; j < kLnPer; ++j) {
+      const int c = threadIdx.x + j * NT;
+      v[j] = c < D ? to_f(ldcg_t<T>(src + c)) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kLnPer; ++j) s += v[j];
+  } else {
+    for (int c = threadIdx.x; c < D; c += NT) s += to_f(ldcg_t<T>(src + c));
+  }
+  const float mu = block_sum(s) / D;
+  float q = 0.f;
+  if (held) {
+#pragma unroll
+    for (int j = 0; j < kLnPer; ++j) {
+      const float d = threadIdx.x + j * NT < D ? v[j] - mu : 0.f;
+      q += d * d;
+    }
+  } else {
+    for (int c = threadIdx.x; c < D; c += NT) {
+      const float d = to_f(ldcg_t<T>(src + c)) - mu;
+      q += d * d;
+    }
+  }
+  const float rstd = rsqrtf(block_sum(q) / D + eps);
+  if (held) {
+#pragma unroll
+    for (int j = 0; j < kLnPer; ++j) {
+      const int c = threadIdx.x + j * NT;
+      if (c < D)
+        dst[c] = from_f<T>((v[j] - mu) * rstd * ld_in<T>(scale, c) +
+                           ld_in<T>(bias, c));
+    }
+  } else {
+    for (int c = threadIdx.x; c < D; c += NT) {
+      const float y = (to_f(ldcg_t<T>(src + c)) - mu) * rstd;
+      dst[c] = from_f<T>(y * ld_in<T>(scale, c) + ld_in<T>(bias, c));
+    }
+  }
+}
+
+// One GEMM phase: part[split][r][n] = sum over the split's K range of
+// A[r][k] * W~[k][n] for all R rows, every (row tile, column tile, split)
+// item taken by one CTA: [8 x 256] decode tiles (rows_mma) for R <= 8,
+// else [64 x 64] tiles (tile_mma).
+template <typename T, typename WT>
+__device__ void gemm_phase(const T* A, int lda, int R, const void* Wv,
+                           const float* sc, int nb, int N, int K, int nsplit,
+                           float* part, unsigned char* smem) {
+  const WT* Wt = static_cast<const WT*>(Wv);
+  const bool rows = use_rows(R, N, sizeof(WT) == 1 ? nb : 0);
+  const int bn = rows ? RBN : BN, rmax = rows ? RROWS : RPMAX;
+  const int tn = (N + bn - 1) / bn, tm = (R + rmax - 1) / rmax;
+  const int kch = (K + BK - 1) / BK;
+  const int chunks = (kch + nsplit - 1) / nsplit;
+  const int items = tn * tm * nsplit;
+  const int qblock = nb > 0 ? (N + nb - 1) / nb : 1;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int split = it % nsplit;
+    const int rest = it / nsplit;
+    const int tni = rest % tn, tmi = rest / tn;
+    const int m0 = tmi * rmax;
+    const int nrows = min(rmax, R - m0);
+    const int n0 = tni * bn;
+    const int kb = split * chunks * BK;
+    const int ke = min(K, kb + chunks * BK);
+    const float* ct =
+        rows ? rows_mma<T, WT>(A, lda, R, Wt, sc, nb, qblock, N, n0, kb, ke,
+                               smem)
+             : tile_mma<T, WT>(A + (size_t)m0 * lda, lda, nrows, Wt, sc, nb,
+                               qblock, N, n0, kb, ke, smem);
+    const int ldc = rows ? RBN : BN + CPAD;
+    float* dst = part + ((size_t)split * R + m0) * N + n0;
+    for (int e = threadIdx.x; e < nrows * bn; e += NT) {
+      const int r = e / bn, n = e - r * bn;
+      if (n0 + n < N) dst[(size_t)r * N + n] = ct[r * ldc + n];
+    }
+  }
+}
+
+// the split partial sums of element (r, n), in split order
+__device__ __forceinline__ float reduce_parts(const float* part, int nsplit,
+                                              int R, int N, int r, int n) {
+  return sum_splits<kMaxSplit>(part + (size_t)r * N + n, (size_t)R * N,
+                               nsplit);
+}
+
+template <typename T, typename WT, typename CT>
+__global__ void __launch_bounds__(NT)
+fused_layer_kernel(const FusedArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr bool kQCache = sizeof(CT) == 1;
+  const int R = a.B * a.W;
+  const int D = a.D, HD = a.HD, KV = a.KV, H = a.H;
+  const int Dq = H * HD, Dk = KV * HD, N3 = Dq + 2 * Dk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gwarp = blockIdx.x * kWarps + warp;
+  const int nwarps = gridDim.x * kWarps;
+  const int gtid = blockIdx.x * NT + threadIdx.x;
+  const int nthreads = gridDim.x * NT;
+  T* abuf = static_cast<T*>(a.abuf);
+  T* xres = static_cast<T*>(a.xres);
+  const T* x = static_cast<const T*>(a.x);
+  stamp(a, 0);
+
+  // ---- LN1: one CTA per row
+  for (int r = blockIdx.x; r < R; r += gridDim.x)
+    layer_norm_cta<T>(x + (size_t)r * D, abuf + (size_t)r * D, a.n1_s,
+                      a.n1_b, D, a.eps);
+  grid_sync(a.bar);
+  stamp(a, 1);
+
+  // ---- QKV projection partials
+  gemm_phase<T, WT>(abuf, D, R, a.wqkv, a.sqkv, a.nb_qkv, N3, D, a.split_qkv,
+                    a.part, smem);
+  grid_sync(a.bar);
+  stamp(a, 2);
+
+  // ---- QKV epilogue: one warp per (row, head segment of q | k | v);
+  // bias in T, the new K/V as the cache holds them
+  {
+    const int nseg = H + 2 * KV;
+    for (int wi = gwarp; wi < R * nseg; wi += nwarps) {
+      const int r = wi / nseg, seg = wi - r * nseg;
+      float val[kNI];
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < kNI; ++i) {
+        const int d = lane + 32 * i;
+        val[i] = 0.f;
+        if (d < HD) {
+          const int c = seg * HD + d;
+          const float p = round_t<T>(
+              reduce_parts(a.part, a.split_qkv, R, N3, r, c));
+          val[i] = round_t<T>(p + ld_in<T>(a.bqkv, c));
+          amax = fmaxf(amax, fabsf(val[i]));
+        }
+      }
+      if (seg < H) {
+#pragma unroll
+        for (int i = 0; i < kNI; ++i) {
+          const int d = lane + 32 * i;
+          if (d < HD) a.qf[(size_t)r * Dq + seg * HD + d] = val[i];
+        }
+        continue;
+      }
+      const bool is_k = seg < H + KV;
+      const int kvh = seg - H - (is_k ? 0 : KV);
+      CT* nout = static_cast<CT*>(is_k ? a.new_k : a.new_v);
+      float* win = is_k ? a.kw : a.vw;
+      const size_t base = (size_t)r * Dk + (size_t)kvh * HD;
+      float scale = 1.f;
+      if constexpr (kQCache) {
+        amax = warp_max(amax);
+        scale = amax > 0.f ? amax / 127.f : 1.f;
+        if (lane == 0) (is_k ? a.new_ks : a.new_vs)[(size_t)r * KV + kvh] =
+            scale;
+      }
+#pragma unroll
+      for (int i = 0; i < kNI; ++i) {
+        const int d = lane + 32 * i;
+        if (d >= HD) continue;
+        if constexpr (kQCache) {
+          const float code = fminf(fmaxf(rintf(val[i] / scale), -127.f),
+                                   127.f);
+          nout[base + d] = (int8_t)(int)code;
+          win[base + d] = code * scale;
+        } else {
+          nout[base + d] = from_f<CT>(val[i]);
+          win[base + d] = to_f(from_f<CT>(val[i]));
+        }
+      }
+    }
+  }
+  grid_sync(a.bar);
+  stamp(a, 3);
+
+  // ---- attention: one CTA per (row b, kv head, chunk of <= kQMax
+  // queries); query qi is window position qi / rep of head kvh * rep +
+  // qi % rep and sees the cache's first len positions plus window
+  // positions <= its own
+  {
+    const int rep = H / KV;
+    const int nq = a.W * rep;
+    const int nqc = (nq + kQMax - 1) / kQMax;
+    float* q_s = reinterpret_cast<float*>(smem);        // [kQMax][kHDMax]
+    float* acc_s = q_s + kQMax * kHDMax;                // [kWarps][kQMax][kHDMax]
+    float* m_s = acc_s + kWarps * kQMax * kHDMax;       // [kWarps][kQMax]
+    float* l_s = m_s + kWarps * kQMax;                  // [kWarps][kQMax]
+    const size_t pos_stride = (size_t)Dk;
+    for (int it = blockIdx.x; it < a.B * KV * nqc; it += gridDim.x) {
+      const int b = it / (KV * nqc);
+      const int kvh = (it / nqc) % KV;
+      const int q0 = (it % nqc) * kQMax;
+      const int qn = min(kQMax, nq - q0);
+      int len = a.lengths[b];
+      len = len < 0 ? 0 : (len > a.S_max ? a.S_max : len);
+      __syncthreads();    // the previous item's smem reads are done
+      for (int e = threadIdx.x; e < qn * HD; e += NT) {
+        const int qi = e / HD, d = e - qi * HD;
+        const int qq = q0 + qi;
+        const int j = qq / rep, h = kvh * rep + qq % rep;
+        q_s[qi * kHDMax + d] =
+            __ldcg(a.qf + (size_t)(b * a.W + j) * Dq + h * HD + d) *
+            a.sm_scale;
+      }
+      __syncthreads();
+      int lim[kQMax];
+#pragma unroll
+      for (int qi = 0; qi < kQMax; ++qi)
+        lim[qi] = qi < qn ? len + (q0 + qi) / rep + 1 : 0;
+      const int total = len + (q0 + qn - 1) / rep + 1;
+      float m[kQMax], l[kQMax], acc[kQMax][kNI];
+#pragma unroll
+      for (int qi = 0; qi < kQMax; ++qi) {
+        m[qi] = kNegInf;
+        l[qi] = 0.f;
+#pragma unroll
+        for (int i = 0; i < kNI; ++i) acc[qi][i] = 0.f;
+      }
+      const CT* kb_ = static_cast<const CT*>(a.k_cache) +
+                      (size_t)b * a.S_max * pos_stride + (size_t)kvh * HD;
+      const CT* vb_ = static_cast<const CT*>(a.v_cache) +
+                      (size_t)b * a.S_max * pos_stride + (size_t)kvh * HD;
+      for (int s0 = warp * kPos; s0 < total; s0 += kWarps * kPos) {
+        float kx[kPos][kNI], vx[kPos][kNI];
+#pragma unroll
+        for (int jp = 0; jp < kPos; ++jp) {
+          const int s = s0 + jp;
+          float ksc = 1.f, vsc = 1.f;
+          if constexpr (kQCache) {
+            if (s < len) {
+              ksc = __ldg(a.ks_cache + ((size_t)b * a.S_max + s) * KV + kvh);
+              vsc = __ldg(a.vs_cache + ((size_t)b * a.S_max + s) * KV + kvh);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kNI; ++i) {
+            const int d = lane + 32 * i;
+            float kv_k = 0.f, kv_v = 0.f;
+            if (d < HD) {
+              if (s < len) {
+                kv_k = to_f(kb_[(size_t)s * pos_stride + d]) * ksc;
+                kv_v = to_f(vb_[(size_t)s * pos_stride + d]) * vsc;
+              } else if (s < total) {
+                const size_t w = (size_t)(b * a.W + (s - len)) * Dk +
+                                 (size_t)kvh * HD + d;
+                kv_k = __ldcg(a.kw + w);
+                kv_v = __ldcg(a.vw + w);
+              }
+            }
+            kx[jp][i] = kv_k;
+            vx[jp][i] = kv_v;
+          }
+        }
+#pragma unroll
+        for (int qi = 0; qi < kQMax; ++qi) {
+          if (qi < qn) {
+            float sc[kPos];
+#pragma unroll
+            for (int jp = 0; jp < kPos; ++jp) {
+              float p = 0.f;
+#pragma unroll
+              for (int i = 0; i < kNI; ++i) {
+                const int d = lane + 32 * i;
+                if (d < HD) p += q_s[qi * kHDMax + d] * kx[jp][i];
+              }
+              sc[jp] = warp_sum(p);
+            }
+            float mx = m[qi];
+#pragma unroll
+            for (int jp = 0; jp < kPos; ++jp)
+              if (s0 + jp < lim[qi]) mx = fmaxf(mx, sc[jp]);
+            const float corr = expf(m[qi] - mx);
+            float pj[kPos];
+            float psum = 0.f;
+#pragma unroll
+            for (int jp = 0; jp < kPos; ++jp) {
+              pj[jp] = (s0 + jp < lim[qi]) ? expf(sc[jp] - mx) : 0.f;
+              psum += pj[jp];
+            }
+            l[qi] = l[qi] * corr + psum;
+            m[qi] = mx;
+#pragma unroll
+            for (int i = 0; i < kNI; ++i) {
+              float t = acc[qi][i] * corr;
+#pragma unroll
+              for (int jp = 0; jp < kPos; ++jp) t += pj[jp] * vx[jp][i];
+              acc[qi][i] = t;
+            }
+          }
+        }
+      }
+      // merge the warps' partial softmax states
+#pragma unroll
+      for (int qi = 0; qi < kQMax; ++qi) {
+        if (qi < qn) {
+#pragma unroll
+          for (int i = 0; i < kNI; ++i) {
+            const int d = lane + 32 * i;
+            if (d < HD) acc_s[(warp * kQMax + qi) * kHDMax + d] = acc[qi][i];
+          }
+          if (lane == 0) {
+            m_s[warp * kQMax + qi] = m[qi];
+            l_s[warp * kQMax + qi] = l[qi];
+          }
+        }
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < qn * HD; e += NT) {
+        const int qi = e / HD, d = e - qi * HD;
+        float Mx = kNegInf;
+        for (int w = 0; w < kWarps; ++w) Mx = fmaxf(Mx, m_s[w * kQMax + qi]);
+        float L = 0.f, O = 0.f;
+        for (int w = 0; w < kWarps; ++w) {
+          const float f = expf(m_s[w * kQMax + qi] - Mx);
+          L += l_s[w * kQMax + qi] * f;
+          O += acc_s[(w * kQMax + qi) * kHDMax + d] * f;
+        }
+        const int qq = q0 + qi;
+        const int j = qq / rep, h = kvh * rep + qq % rep;
+        abuf[(size_t)(b * a.W + j) * Dq + h * HD + d] =
+            from_f<T>(O / fmaxf(L, 1e-30f));
+      }
+    }
+  }
+  grid_sync(a.bar);
+  stamp(a, 4);
+
+  // ---- attention-out projection partials (A = the attention rows)
+  gemm_phase<T, WT>(abuf, Dq, R, a.wo, a.so, a.nb_o, D, Dq, a.split_o,
+                    a.part, smem);
+  grid_sync(a.bar);
+  stamp(a, 5);
+
+  // ---- + bias, + residual
+  for (int e = gtid; e < R * D; e += nthreads) {
+    const int r = e / D, c = e - r * D;
+    const float p = round_t<T>(reduce_parts(a.part, a.split_o, R, D, r, c));
+    const float proj = round_t<T>(p + ld_in<T>(a.bo, c));
+    xres[e] = from_f<T>(to_f(x[e]) + proj);
+  }
+  grid_sync(a.bar);
+  stamp(a, 6);
+
+  // ---- LN2: one CTA per row
+  for (int r = blockIdx.x; r < R; r += gridDim.x)
+    layer_norm_cta<T>(xres + (size_t)r * D, abuf + (size_t)r * D, a.n2_s,
+                      a.n2_b, D, a.eps);
+  grid_sync(a.bar);
+  stamp(a, 7);
+
+  // ---- MLP-in partials
+  gemm_phase<T, WT>(abuf, D, R, a.w_in, a.s_in, a.nb_in, a.M, D, a.split_in,
+                    a.part, smem);
+  grid_sync(a.bar);
+  stamp(a, 8);
+
+  // ---- + bias, activation (fp32), rounded to T
+  for (int e = gtid; e < R * a.M; e += nthreads) {
+    const int r = e / a.M, c = e - r * a.M;
+    const float p = round_t<T>(reduce_parts(a.part, a.split_in, R, a.M, r, c));
+    const float h = round_t<T>(p + ld_in<T>(a.b_in, c));
+    abuf[e] = from_f<T>(activation(h, a.act));
+  }
+  grid_sync(a.bar);
+  stamp(a, 9);
+
+  // ---- MLP-out partials (A = the activations, row stride M)
+  gemm_phase<T, WT>(abuf, a.M, R, a.w_out, a.s_out, a.nb_out, D, a.M,
+                    a.split_out, a.part, smem);
+  grid_sync(a.bar);
+  stamp(a, 10);
+
+  // ---- + bias, + residual
+  T* xo = static_cast<T*>(a.x_out);
+  for (int e = gtid; e < R * D; e += nthreads) {
+    const int r = e / D, c = e - r * D;
+    const float p = round_t<T>(reduce_parts(a.part, a.split_out, R, D, r, c));
+    const float m = round_t<T>(p + ld_in<T>(a.b_out, c));
+    xo[e] = from_f<T>(to_f(ldcg_t<T>(xres + e)) + m);
+  }
+  stamp(a, 11);
+}
+
+int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0)
+    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  return cached[dev];
+}
+
+template <typename T, typename WT>
+size_t smem_bytes() {
+  constexpr size_t attn =
+      (size_t)(kQMax * kHDMax + kWarps * kQMax * kHDMax + 2 * kWarps * kQMax) *
+      sizeof(float);
+  constexpr size_t tile = TileSmem<T, WT>::bytes;
+  constexpr size_t rows = RowsSmem<WT>::bytes;
+  constexpr size_t gemm = tile > rows ? tile : rows;
+  return gemm > attn ? gemm : attn;
+}
+
+// co-resident CTAs of the cooperative grid (at most two per SM), or a
+// negative cudaError_t; worked out once per device
+template <typename T, typename WT, typename CT>
+int grid_for() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return -(int)cudaErrorInvalidDevice;
+  if (cached[dev] > 0) return cached[dev];
+  const size_t smem = smem_bytes<T, WT>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_layer_kernel<T, WT, CT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  int occ = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, fused_layer_kernel<T, WT, CT>, NT, smem);
+  if (err != cudaSuccess) return -(int)err;
+  const int sms = sm_count();
+  if (occ < 1 || sms < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
+  cached[dev] = sms * (occ < 2 ? occ : 2);
+  return cached[dev];
+}
+
+// K splits for an [R x K] @ [K x N] phase (nb scale groups, 0 for
+// float weights) on `grid` CTAs: as many as keep the items within one
+// wave, at most kMaxSplit, none without a BK chunk of work
+int choose_split(int grid, int R, int N, int K, int nb) {
+  const bool rows = use_rows(R, N, nb);
+  const int bn = rows ? RBN : BN, rmax = rows ? RROWS : RPMAX;
+  const int tiles = ((N + bn - 1) / bn) * ((R + rmax - 1) / rmax);
+  const int kch = (K + BK - 1) / BK;
+  int s = grid / tiles;
+  s = s < 1 ? 1 : (s > kMaxSplit ? kMaxSplit : s);
+  s = s > kch ? kch : s;
+  const int chunks = (kch + s - 1) / s;
+  return (kch + chunks - 1) / chunks;
+}
+
+template <typename T, typename WT, typename CT>
+int launch(FusedArgs a, cudaStream_t stream) {
+  const int grid = grid_for<T, WT, CT>();
+  if (grid < 0) return -grid;
+  const int R = a.B * a.W;
+  const bool q8 = sizeof(WT) == 1;
+  a.split_qkv = choose_split(grid, R, a.H * a.HD + 2 * a.KV * a.HD, a.D,
+                             q8 ? a.nb_qkv : 0);
+  a.split_o = choose_split(grid, R, a.D, a.H * a.HD, q8 ? a.nb_o : 0);
+  a.split_in = choose_split(grid, R, a.M, a.D, q8 ? a.nb_in : 0);
+  a.split_out = choose_split(grid, R, a.D, a.M, q8 ? a.nb_out : 0);
+  void* params[] = {&a};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)fused_layer_kernel<T, WT, CT>, dim3(grid), dim3(NT),
+      params, smem_bytes<T, WT>(), stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_t(const FusedArgs& a, int w_int8, int c_int8, cudaStream_t st) {
+  if (w_int8)
+    return c_int8 ? launch<T, int8_t, int8_t>(a, st)
+                  : launch<T, int8_t, T>(a, st);
+  return c_int8 ? launch<T, T, int8_t>(a, st) : launch<T, T, T>(a, st);
+}
+
+}  // namespace
+
+extern "C" int ds_fused_layer_args_size() { return (int)sizeof(FusedArgs); }
+
+extern "C" int ds_fused_layer(const FusedArgs* args, int is_bf16, int w_int8,
+                              int c_int8, void* stream) {
+  const FusedArgs& a = *args;
+  if (a.B < 1 || a.W < 1 || a.KV < 1 || a.H % a.KV != 0 || a.HD < 1 ||
+      a.HD > kHDMax || a.D < 1 || a.M < 1 || a.S_max < 1 ||
+      a.act < 0 || a.act > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? dispatch_t<__nv_bfloat16>(a, w_int8, c_int8, st)
+                 : dispatch_t<float>(a, w_int8, c_int8, st);
+}

@@ -1,8 +1,8 @@
 """Inference config: a copy of ``deepspeed_tpu/inference/config.py``
 ``DeepSpeedInferenceConfig`` (dtype, kv_cache_dtype, tensor_parallel,
 moe, quant, ...), same field names and defaults.  The engine refuses the
-settings this port does not serve yet (int8 weights, an int8 KV cache,
-tensor parallelism)."""
+settings this port does not serve yet (tensor parallelism, a float KV
+cache in another dtype than the compute dtype)."""
 from typing import Any, Dict, Optional
 
 from pydantic import Field
@@ -28,8 +28,8 @@ class QuantizationConfig(DeepSpeedConfigModel):
 
 class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     dtype: str = "bfloat16"
-    #: "int8" = quantized KV cache in the reference (refused here);
-    #: None = compute dtype
+    #: "int8" = quantized KV cache (int8 codes plus one fp32 scale per
+    #: cached head vector); None = compute dtype
     kv_cache_dtype: Optional[str] = None
     tensor_parallel: DeepSpeedTPConfig = Field(
         default_factory=DeepSpeedTPConfig, alias="tp")

@@ -8,8 +8,18 @@ costs O(S) cache streaming.  ``use_cache=False`` keeps the O(S^2)
 full-recompute loop as the numerics oracle.  Sampling: greedy /
 temperature / top-k / top-p with EOS early-stop.
 
-Refused here (not ported yet): int8 weights (``quant.enabled``), an int8
-KV cache and tensor parallelism (``tensor_parallel.tp_size > 1``).
+Int8 serving, as the reference: ``quant.enabled`` stores every >= 3-dim
+floating leaf of the stacked ``blocks`` as a ``QuantizedTensor`` (int8
+codes plus fp32 per-256-lane scales from the block-quantization kernel),
+quantized from the COMPUTE dtype and leaf by leaf, so peak device memory
+is the int8 total plus one full-precision leaf; biases, norms, ``wte`` and
+``wpe`` stay in the compute dtype.  ``kv_cache_dtype="int8"`` gives the
+static generate an int8 KV cache.  ``generate(fused_decode=True)`` decodes
+with one fused-layer kernel per layer.
+
+Refused here (not ported yet): tensor parallelism
+(``tensor_parallel.tp_size > 1``) and a float KV cache in a dtype other
+than the compute dtype.
 """
 from typing import Optional
 
@@ -17,8 +27,11 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.checkpoint.jax_params import block_leaf, to_tensor
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.sampling import sample
+from deepspeed_tpu_torch.models.model import QuantizedTensor
+from deepspeed_tpu_torch.ops.kernels.quantization import block_quantize_int8
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.tree import tree_map
 
@@ -39,11 +52,10 @@ def refuse_unported(config: DeepSpeedInferenceConfig):
     tp = (config.tensor_parallel.tp_size
           if config.tensor_parallel.enabled else 1)
     checks = (
-        (config.quant.enabled, "quant.enabled (int8 weights)",
-         "Queue B: int8 serving"),
-        (config.kv_cache_dtype not in (None, config.dtype),
-         f"kv_cache_dtype={config.kv_cache_dtype!r} (int8 or a dtype other "
-         "than the compute dtype)", "Queue B: int8 serving"),
+        (config.kv_cache_dtype not in (None, "int8", config.dtype),
+         f"kv_cache_dtype={config.kv_cache_dtype!r} (a float cache in "
+         "another dtype than the compute dtype)",
+         "Queue A: serving extensions"),
         (tp > 1, f"tensor_parallel.tp_size={tp}",
          "Queue A: tensor-parallel serving"),
     )
@@ -71,7 +83,17 @@ class InferenceEngine:
                 f"InferenceEngine: config dtype {config.dtype} differs from "
                 f"the model's compute dtype {cfg_dtype}; build the model "
                 f"with dtype={config.dtype!r}")
-        if model_parameters is None:
+        #: the static generate's KV cache: "int8" or the compute dtype
+        self.cache_dtype = ("int8" if config.kv_cache_dtype == "int8"
+                            else self.dtype)
+        if config.quant.enabled:
+            if config.quant.bits != 8:
+                logger.warning(f"quant.bits={config.quant.bits}: only 8-bit "
+                               "weight quantization is implemented; using 8")
+            params = self._quantized_params(
+                model.numpy_init_fn(0) if model_parameters is None
+                else model_parameters)
+        elif model_parameters is None:
             params = model.init(0, self.device, self.dtype)
         else:
             leaf = model_parameters["wte"]
@@ -85,7 +107,37 @@ class InferenceEngine:
                     model_parameters)
         self.params = params
         logger.info(f"InferenceEngine: device={self.device}, "
-                    f"dtype={self.dtype}")
+                    f"dtype={self.dtype}, int8 weights="
+                    f"{config.quant.enabled}, kv cache={self.cache_dtype}")
+
+    def _quantized_params(self, tree) -> dict:
+        """Place ``tree`` (numpy arrays or tensors) with the stacked
+        ``blocks`` weights int8, leaf by leaf (the reference's
+        ``engine.py:79-163``): each >= 3-dim floating leaf goes to the
+        device in the compute dtype, is quantized there and freed before
+        the next one, so peak device memory is the int8 total plus one
+        full-precision leaf.  Leaves already quantized (a JAX int8
+        engine's ``QuantizedTensor``, a ``(q, s)`` pair) keep their bytes;
+        every other leaf is cast to the compute dtype."""
+        dev, dt = self.device, self.dtype
+        if "blocks" not in tree:
+            logger.warning("quant.enabled: params tree has no 'blocks' "
+                           "subtree — nothing to quantize, serving at full "
+                           "precision")
+            return {k: to_tensor(v, dev, dt) for k, v in tree.items()}
+
+        def pack(leaf):
+            t = block_leaf(leaf, dev, dt)
+            if isinstance(t, QuantizedTensor) or not t.is_floating_point() \
+                    or t.dim() < 3:
+                return t
+            q, s = block_quantize_int8(t)
+            return QuantizedTensor(q, s, dt)
+
+        out = {k: to_tensor(v, dev, dt) for k, v in tree.items()
+               if k != "blocks"}
+        out["blocks"] = {k: pack(v) for k, v in tree["blocks"].items()}
+        return out
 
     # --------------------------------------------------------------- generate
     @staticmethod
@@ -97,10 +149,12 @@ class InferenceEngine:
                  do_sample: bool = False, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 1.0,
                  eos_token_id: Optional[int] = None, seed: int = 0,
-                 use_cache: bool = True):
+                 use_cache: bool = True, fused_decode: bool = False):
         """Autoregressive generation; returns int32 numpy
         [B, S + max_new_tokens].  Sampling draws from one
-        ``torch.Generator`` seeded with ``seed``."""
+        ``torch.Generator`` seeded with ``seed``.  ``fused_decode``: decode
+        steps run one fused-layer kernel per layer (the scheduler's
+        ``serving.fused_decode``)."""
         input_ids = np.asarray(input_ids)
         if input_ids.ndim == 1:
             input_ids = input_ids[None]
@@ -116,14 +170,15 @@ class InferenceEngine:
                        top_k=int(top_k), top_p=float(top_p))
         if use_cache:
             out = self._generate_cached(input_ids, max_new_tokens, gen,
-                                        sampler, eos_token_id, max_ctx)
+                                        sampler, eos_token_id, max_ctx,
+                                        fused_decode)
         else:
             out = self._generate_recompute(input_ids, max_new_tokens, gen,
                                            sampler, eos_token_id)
         return out.cpu().numpy()
 
     def _generate_cached(self, input_ids, max_new, gen, sampler, eos_id,
-                         max_ctx):
+                         max_ctx, fused):
         """Prefill + per-token decode over the KV cache; the prompt pads
         to a 64 bucket and the cache to a 64 multiple (the reference's
         sizing)."""
@@ -138,7 +193,8 @@ class InferenceEngine:
         tokens[:, :S] = torch.from_numpy(input_ids.astype(np.int32))
         tokens = tokens.to(dev)
         lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
-        cache = self.model.init_cache_fn(B, cache_size, self.dtype, dev)
+        cache = self.model.init_cache_fn(B, cache_size, self.cache_dtype,
+                                         dev)
         logits, cache = self.model.prefill_fn(
             self.params, {"input_ids": tokens}, cache)
         rows = torch.arange(B, device=dev)
@@ -149,7 +205,7 @@ class InferenceEngine:
         lens = lengths
         for _ in range(max_new - 1):
             logits, cache = self.model.decode_fn(self.params, nxt, cache,
-                                                 lens)
+                                                 lens, fused=fused)
             new = sample(logits, gen, **sampler)
             if eos_id is not None:
                 new = torch.where(done, torch.full_like(new, eos_id), new)

@@ -2,10 +2,14 @@
 
 Plain functions over a params dict with the reference's names and
 stacked ``[L, ...]`` block layout; projection weights keep the
-reference's ``[in, out]`` orientation (``x @ w``).  The serving path is
-the reference's unfused one: prefill runs the flash forward per layer,
-each decode step writes the new K/V into the cache in place and runs the
-decode-attention kernel per layer.  Training differentiates ``forward``
+reference's ``[in, out]`` orientation (``x @ w``).  Serving: prefill runs
+the flash forward per layer (int8 weights dequantize per layer first, as
+the reference's ``maybe_stream``); a decode step either runs the
+reference's unfused composition — QKV, the new K/V written into the cache
+in place, the decode-attention kernel, the finish, with int8 projections
+through the qgemm kernel — or, with ``fused=True``, one fused-layer
+kernel per layer.  An int8 cache quantizes each new K/V vector
+(``quantize_kv``).  Training differentiates ``forward``
 with autograd; with ``remat`` each layer runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with the
 "nothing" policy: only the layer inputs are kept, the whole layer,
@@ -19,11 +23,15 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from deepspeed_tpu_torch.models.model import Model, resolve_size
+from deepspeed_tpu_torch.models.model import (Model, maybe_stream, qdot,
+                                              resolve_size)
+from deepspeed_tpu_torch.models.serving import (_fused_layer_pass,
+                                                fused_decode_active,
+                                                qgemm_active, write_token)
 from deepspeed_tpu_torch.models.serving import init_cache as _init_cache
-from deepspeed_tpu_torch.models.serving import write_token
 from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
-from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
+from deepspeed_tpu_torch.ops.kernels.decode_attention import (
+    decode_attention, quantize_kv, quantize_prefill_into_cache)
 
 
 @dataclass(frozen=True)
@@ -141,7 +149,7 @@ def _block_qkv(x, layer, config: GPT2Config):
     H, hd = config.num_heads, config.head_dim
     h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"],
                     config.layer_norm_eps)
-    qkv = h @ layer["qkv_w"].to(h.dtype) + layer["qkv_b"].to(h.dtype)
+    qkv = qdot(h, layer["qkv_w"]) + layer["qkv_b"].to(h.dtype)
     q, kk, v = qkv.split(config.d_model, dim=-1)
     return (q.unflatten(-1, (H, hd)), kk.unflatten(-1, (H, hd)),
             v.unflatten(-1, (H, hd)))
@@ -157,13 +165,13 @@ def _activation(h, config: GPT2Config):
 
 def _block_finish(x, attn, layer, config: GPT2Config):
     """Post-attention half: proj + residual + MLP; x/attn [..., D]."""
-    proj = attn @ layer["proj_w"].to(x.dtype) + layer["proj_b"].to(x.dtype)
+    proj = qdot(attn, layer["proj_w"]) + layer["proj_b"].to(x.dtype)
     x = x + proj
     h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"],
                     config.layer_norm_eps)
-    h = h @ layer["mlp_in_w"].to(h.dtype) + layer["mlp_in_b"].to(h.dtype)
+    h = qdot(h, layer["mlp_in_w"]) + layer["mlp_in_b"].to(h.dtype)
     h = _activation(h, config)
-    return x + (h @ layer["mlp_out_w"].to(x.dtype)
+    return x + (qdot(h, layer["mlp_out_w"])
                 + layer["mlp_out_b"].to(x.dtype))
 
 
@@ -212,6 +220,8 @@ def forward(params, batch, config: GPT2Config):
 
 def init_cache(config: GPT2Config, batch_size: int, max_len: int,
                dtype=None, device=None):
+    """``dtype="int8"`` selects the quantized cache (int8 payload plus one
+    fp32 scale per cached head vector)."""
     dtype = config.torch_dtype if dtype is None else dtype
     if isinstance(dtype, str) and dtype != "int8":
         dtype = getattr(torch, dtype)
@@ -219,40 +229,90 @@ def init_cache(config: GPT2Config, batch_size: int, max_len: int,
                        batch_size, max_len, dtype, device)
 
 
+def _fused_spec(config: GPT2Config, sm_scale=None):
+    """The fused-layer spec of a GPT-2 layer: LayerNorm, fused QKV with
+    bias, serial residual, the configured activation."""
+    from deepspeed_tpu_torch.ops.kernels.fused_decode import FusedLayerSpec
+    mlp = {"gelu": "gelu_tanh", "gelu_exact": "gelu_exact",
+           "relu": "relu"}.get(config.activation, "gelu_tanh")
+    return FusedLayerSpec(
+        num_heads=config.num_heads, num_kv_heads=config.num_heads,
+        head_dim=config.head_dim, d_model=config.d_model, norm="ln",
+        eps=config.layer_norm_eps, qkv="fused", qkv_bias=True,
+        out_bias=True, mlp=mlp, mlp_bias=True, sm_scale=sm_scale)
+
+
+def _fused_weights(layer):
+    return {"n1_s": layer["ln1_scale"], "n1_b": layer["ln1_bias"],
+            "wqkv": layer["qkv_w"], "bqkv": layer["qkv_b"],
+            "wo": layer["proj_w"], "bo": layer["proj_b"],
+            "n2_s": layer["ln2_scale"], "n2_b": layer["ln2_bias"],
+            "w_in": layer["mlp_in_w"], "b_in": layer["mlp_in_b"],
+            "w_out": layer["mlp_out_w"], "b_out": layer["mlp_out_b"]}
+
+
 def prefill(params, batch, cache, config: GPT2Config):
     """Causal forward over (right-padded) prompts [B, S], filling cache
-    positions [0, S) in place.  Returns (logits [B, S, V], cache)."""
+    positions [0, S) in place (an int8 cache gets the quantized K/V).
+    Int8 weights dequantize per layer (``maybe_stream``) for the torch
+    matmuls.  Returns (logits [B, S, V], cache)."""
     x = embed(params, batch, config)
     B, S, D = x.shape
+    quantized = "k_s" in cache
     for l in range(config.num_layers):
-        layer = _layer(params, l)
+        layer = maybe_stream(_layer(params, l))
         q, kk, v = _block_qkv(x, layer, config)
         attn = causal_attention(q, kk, v, impl=config.attention_impl)
         # in place: this layer's prompt K/V straight into the cache
-        cache["k"][l, :, :S] = kk
-        cache["v"][l, :, :S] = v
+        if quantized:
+            quantize_prefill_into_cache(
+                {name: c[l:l + 1] for name, c in cache.items()}, kk[None],
+                v[None])
+        else:
+            cache["k"][l, :, :S] = kk
+            cache["v"][l, :, :S] = v
         x = _block_finish(x, attn.reshape(B, S, D), layer, config)
     return head(params, x, config), cache
 
 
-def decode_step(params, tokens, cache, lengths, config: GPT2Config):
-    """One decode step (the reference's unfused branch).  tokens [B],
-    lengths [B] int32 = current cache fill per row (the new token's
-    position).  Writes the new K/V into ``cache`` in place and returns
-    (logits [B, V], cache)."""
+def decode_step(params, tokens, cache, lengths, config: GPT2Config,
+                fused: bool = False):
+    """One decode step.  tokens [B], lengths [B] int32 = current cache
+    fill per row (the new token's position).  Writes the new K/V into
+    ``cache`` in place and returns (logits [B, V], cache).  ``fused``:
+    one fused-layer kernel per layer; otherwise the reference's unfused
+    branch, int8 projections through qgemm (``keep_quantized``)."""
     B = tokens.shape[0]
     D = config.d_model
     dtype = config.torch_dtype
     x = (params["wte"].to(dtype)[tokens.long()]
          + params["wpe"].to(dtype)[lengths.long()])               # [B, D]
+    spec = _fused_spec(config)
+    if fused_decode_active(spec, fused):
+        x, cache = _fused_layer_pass(params, x[:, None, :], cache, lengths,
+                                     spec=spec, weights_fn=_fused_weights)
+        return head(params, x, config)[:, 0], cache
+    quantized = "k_s" in cache
+    keep_q = qgemm_active(params["blocks"])
     kc, vc = cache["k"], cache["v"]
     fill = (lengths + 1).to(torch.int32)
     for l in range(config.num_layers):
-        layer = _layer(params, l)
+        layer = maybe_stream(_layer(params, l), keep_quantized=keep_q)
         q, kk, v = _block_qkv(x[:, None, :], layer, config)
-        write_token(kc, l, kk[:, 0], lengths)
-        write_token(vc, l, v[:, 0], lengths)
-        attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill)
+        if quantized:
+            kq, ks1 = quantize_kv(kk[:, 0])
+            vq, vs1 = quantize_kv(v[:, 0])
+            write_token(kc, l, kq, lengths)
+            write_token(vc, l, vq, lengths)
+            write_token(cache["k_s"], l, ks1, lengths)
+            write_token(cache["v_s"], l, vs1, lengths)
+            attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill,
+                                    k_scale=cache["k_s"][l],
+                                    v_scale=cache["v_s"][l])
+        else:
+            write_token(kc, l, kk[:, 0], lengths)
+            write_token(vc, l, v[:, 0], lengths)
+            attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill)
         x = _block_finish(x, attn.reshape(B, D).to(x.dtype), layer, config)
     return head(params, x[:, None, :], config)[:, 0], cache
 
@@ -281,5 +341,6 @@ def gpt2_model(size: str = "125m", **overrides) -> Model:
         init_cache_fn=lambda bs, ml, dtype=None, device=None: init_cache(
             config, bs, ml, dtype, device),
         prefill_fn=lambda p, b, c: prefill(p, b, c, config),
-        decode_fn=lambda p, t, c, l: decode_step(p, t, c, l, config),
+        decode_fn=lambda p, t, c, l, fused=False: decode_step(
+            p, t, c, l, config, fused=fused),
     )

@@ -1,6 +1,7 @@
 """Model protocol for the port's engines (counterpart of
 ``deepspeed_tpu/models/model.py`` ``Model``: the serving surface, the
-training loss and the accounting the training engine reads).
+training loss and the accounting the training engine reads; and the
+int8 serving weights: ``QuantizedTensor``, ``qdot``, ``maybe_stream``).
 
 A model is a set of plain functions over a params dict of tensors with
 the reference's names and stacked ``[L, ...]`` block layout, so weights
@@ -13,6 +14,57 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+
+
+class QuantizedTensor:
+    """Weight-only int8 storage for serving (the reference's
+    ``QuantizedTensor``): int8 ``q`` [..., in, out] plus fp32 per-group
+    ``s`` [..., in, ceil(out / group)] in the ``block_quantize_int8``
+    layout, and the compute ``dtype`` the weight dequantizes to.
+    Indexing slices the leading (layer) dim of both."""
+
+    def __init__(self, q, s, dtype):
+        self.q, self.s, self.dtype = q, s, dtype
+
+    def __getitem__(self, idx):
+        return QuantizedTensor(self.q[idx], self.s[idx], self.dtype)
+
+    @property
+    def device(self):
+        return self.q.device
+
+    def dequantize(self):
+        """The weight in its compute dtype (plain PyTorch)."""
+        from deepspeed_tpu_torch.ops.kernels.quantization import \
+            block_dequantize_int8
+        return block_dequantize_int8(self.q, self.s).to(self.dtype)
+
+
+def qdot(x, w):
+    """Projection matmul that consumes int8 weights in place:
+    ``QuantizedTensor`` leaves go to the fused-dequant qgemm kernel
+    (``ops/kernels/qgemm.py``; its plain version for CPU tensors), plain
+    tensors take ``x @ w.to(x.dtype)``."""
+    if isinstance(w, QuantizedTensor):
+        from deepspeed_tpu_torch.ops.kernels.qgemm import qgemm
+        return qgemm(x, w.q, w.s)
+    return x @ w.to(x.dtype)
+
+
+def maybe_stream(layer, keep_quantized: bool = False):
+    """One layer's params with ``QuantizedTensor`` leaves rebuilt in their
+    compute dtype (plain PyTorch, the reference's ``_maybe_dequant``).
+    ``keep_quantized`` (the decode paths): 2-D quantized projection
+    weights stay quantized for the kernels that consume them in place
+    (qgemm, the fused decode kernel).  The reference's host/NVMe param
+    streaming modes are not ported (ROADMAP.md Queue A: offload)."""
+    def dq(w):
+        if not isinstance(w, QuantizedTensor):
+            return w
+        if keep_quantized and w.q.dim() == 2:
+            return w
+        return w.dequantize()
+    return {k: dq(v) for k, v in layer.items()}
 
 
 def resolve_size(sizes: dict, size: str, family: str) -> dict:
@@ -47,8 +99,9 @@ class Model:
     #: KV-cache serving surface:
     #: init_cache_fn(batch_size, max_len, dtype, device) -> cache dict;
     #: prefill_fn(params, batch, cache) -> (logits [B, S, V], cache);
-    #: decode_fn(params, tokens [B], cache, lengths [B]) ->
+    #: decode_fn(params, tokens [B], cache, lengths [B], fused=False) ->
     #: (logits [B, V], cache), writing the new K/V into ``cache`` in place
+    #: (``fused``: one fused-layer kernel per layer)
     init_cache_fn: Optional[Callable] = None
     prefill_fn: Optional[Callable] = None
     decode_fn: Optional[Callable] = None

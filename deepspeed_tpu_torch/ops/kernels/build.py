@@ -4,8 +4,8 @@ first use and load them with ``ctypes``.
 Each ``<name>.cu`` compiles on its own with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into
 ``build/torch_kernels/<name>-<hash>.so`` under the repository root; the
-hash covers the source and the flags, so an edited kernel rebuilds and an
-unchanged one loads from disk.  The sources expose a plain C interface
+hash covers the source, the shared ``csrc/*.cuh`` headers and the flags,
+so an edited kernel rebuilds and an unchanged one loads from disk.  The sources expose a plain C interface
 (pointers and the stream as ``void*``, each returning the launch's
 ``cudaError_t``), which keeps a build to seconds: no PyTorch headers.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -51,6 +51,8 @@ def find_nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):   # shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,23 +1,33 @@
 """Decode attention: one query token per row over a dense KV cache.
 
-Port of ``deepspeed_tpu/ops/pallas/decode_attention.py`` (float cache, no
-ALiBi, no window floor).  :func:`decode_attention` launches the CUDA
-kernel in ``csrc/decode_attention.cu`` for CUDA tensors and takes the
-plain PyTorch version :func:`decode_attention_plain` for CPU tensors.
+Port of ``deepspeed_tpu/ops/pallas/decode_attention.py``: the float
+cache and the int8 cache (no ALiBi, no window floor), plus the int8
+cache helpers ``quantize_kv`` / ``dequantize_kv`` /
+``quantize_prefill_into_cache``.  :func:`decode_attention` launches the
+CUDA kernel in ``csrc/decode_attention.cu`` for CUDA tensors and takes
+the plain PyTorch version :func:`decode_attention_plain` for CPU tensors.
 
 Layouts (the reference's public ones):
   q:         [B, H, hd]
   k/v cache: [B, S_max, KV, hd]   (H % KV == 0; query head h reads kv
                                    head h // (H // KV))
+  k/v scale: [B, S_max, KV] fp32, int8 caches only (one symmetric scale
+             per cached head vector)
   cache_len: [B] int32 — valid positions per row
   out:       [B, H, hd], the input dtype
 A row with ``cache_len <= 0`` returns zeros.
+
+int8 numerics follow the Pallas kernel: the cache dequantizes to fp32
+and the query, scores, softmax and weighted sum stay in fp32.  The
+reference's ``decode_attention_xla`` rounds the dequantized cache to the
+query's dtype first; for a bf16 query the two differ by that rounding.
 """
 import ctypes
 
 import torch
 
 from deepspeed_tpu_torch.ops.kernels import build
+from deepspeed_tpu_torch.ops.kernels.quantization import true_div127
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 80, 96, 128)
@@ -25,17 +35,49 @@ MAX_REP = 8
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def decode_attention_plain(q, k_cache, v_cache, cache_len, sm_scale=None):
-    """Plain PyTorch version (fp32 einsum + masked softmax), mirroring
-    ``decode_attention_xla``; rows with no valid position return zeros
-    as the kernel does."""
+def quantize_kv(x):
+    """[..., KV, hd] -> (int8 [..., KV, hd], fp32 scales [..., KV]): one
+    symmetric scale per head vector (the reference's ``quantize_kv``)."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, true_div127(amax), torch.ones_like(amax))
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale):
+    return q.float() * scale[..., None]
+
+
+def quantize_prefill_into_cache(cache, ks, vs):
+    """Quantize a prefill's K/V ([L, B, S, KV, hd]) into positions [0, S)
+    of the int8 cache dict, in place; returns ``cache``."""
+    S = ks.shape[2]
+    kq, ksc = quantize_kv(ks)
+    vq, vsc = quantize_kv(vs)
+    cache["k"][:, :, :S] = kq
+    cache["v"][:, :, :S] = vq
+    cache["k_s"][:, :, :S] = ksc
+    cache["v_s"][:, :, :S] = vsc
+    return cache
+
+
+def decode_attention_plain(q, k_cache, v_cache, cache_len, sm_scale=None,
+                           k_scale=None, v_scale=None):
+    """Plain PyTorch version (fp32 einsum + masked softmax); rows with no
+    valid position return zeros as the kernel does.  int8 caches pass
+    their fp32 scales."""
     B, H, hd = q.shape
     S_max, KV = k_cache.shape[1], k_cache.shape[2]
     if sm_scale is None:
         sm_scale = hd ** -0.5
     rep = H // KV
-    k = k_cache.float()
-    v = v_cache.float()
+    if k_scale is not None:
+        k = dequantize_kv(k_cache, k_scale)
+        v = dequantize_kv(v_cache, v_scale)
+    else:
+        k = k_cache.float()
+        v = v_cache.float()
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
@@ -47,18 +89,21 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, sm_scale=None):
     return torch.einsum("bhs,bshd->bhd", probs, v).to(q.dtype)
 
 
-def _lib():
+def _lib(quantized: bool):
     lib = build.load("decode_attention")
-    fn = lib.ds_decode_attention
+    fn = lib.ds_decode_attention_int8 if quantized \
+        else lib.ds_decode_attention
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = ([p] * (7 if quantized else 5) + [i] * 6
+                       + [ctypes.c_float, p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def decode_attention_cuda(q, k_cache, v_cache, cache_len, sm_scale=None):
+def decode_attention_cuda(q, k_cache, v_cache, cache_len, sm_scale=None,
+                          k_scale=None, v_scale=None):
     """Launch the CUDA kernel; raises on anything it does not take."""
     B, H, hd = q.shape
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
@@ -74,15 +119,27 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, sm_scale=None):
     if H % KV or H // KV > MAX_REP:
         raise ValueError(f"decode_attention: {H} query heads over {KV} kv "
                          f"heads (need H % KV == 0, H // KV <= {MAX_REP})")
-    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype \
-            or v_cache.dtype != q.dtype:
+    quantized = k_scale is not None
+    cache_dtype = torch.int8 if quantized else q.dtype
+    if q.dtype not in _DTYPES or k_cache.dtype != cache_dtype \
+            or v_cache.dtype != cache_dtype:
         raise ValueError(f"decode_attention: dtypes {q.dtype}/"
-                         f"{k_cache.dtype}/{v_cache.dtype}; need one of "
-                         f"{_DTYPES}")
+                         f"{k_cache.dtype}/{v_cache.dtype}; need q in "
+                         f"{_DTYPES} and a cache of q's dtype (or int8 "
+                         "with scales)")
     if cache_len.dtype != torch.int32 or cache_len.shape != (B,):
         raise ValueError("decode_attention: cache_len must be int32 [B]")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("cache_len", cache_len)):
+    tensors = [("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+               ("cache_len", cache_len)]
+    if quantized:
+        if v_scale is None or k_scale.shape != (B, S_max, KV) \
+                or v_scale.shape != (B, S_max, KV) \
+                or k_scale.dtype != torch.float32 \
+                or v_scale.dtype != torch.float32:
+            raise ValueError("decode_attention: int8 scales must be fp32 "
+                             f"[B, S_max, KV] = {(B, S_max, KV)}")
+        tensors += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in tensors:
         if t.device != q.device:
             raise ValueError(f"decode_attention: {name} on {t.device}, "
                              f"q on {q.device}")
@@ -93,26 +150,36 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, sm_scale=None):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                    cache_len.data_ptr(), out.data_ptr(), B, H, KV, S_max,
-                    hd, int(q.dtype == torch.bfloat16), float(sm_scale),
-                    stream)
+        ptrs = [q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()]
+        if quantized:
+            ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
+        rc = _lib(quantized)(*ptrs, cache_len.data_ptr(), out.data_ptr(),
+                             B, H, KV, S_max, hd,
+                             int(q.dtype == torch.bfloat16),
+                             float(sm_scale), stream)
     build.check(rc, "decode_attention")
-    decode_attention.launches += 1
+    if quantized:
+        decode_attention.int8_launches += 1
+    else:
+        decode_attention.launches += 1
     return out
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, sm_scale=None):
+def decode_attention(q, k_cache, v_cache, cache_len, sm_scale=None,
+                     k_scale=None, v_scale=None):
     """The serving path's decode attention: CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors.  int8 caches pass their fp32
+    ``k_scale`` / ``v_scale`` [B, S_max, KV]."""
     if q.device.type == "cuda":
         return decode_attention_cuda(q, k_cache, v_cache, cache_len,
-                                     sm_scale)
+                                     sm_scale, k_scale, v_scale)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
-                                      sm_scale)
+                                      sm_scale, k_scale, v_scale)
     raise ValueError(f"decode_attention: unsupported device {q.device}")
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0: ``launches`` for
+#: the float cache, ``int8_launches`` for the int8 cache
 decode_attention.launches = 0
+decode_attention.int8_launches = 0

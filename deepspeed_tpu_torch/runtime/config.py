@@ -440,15 +440,20 @@ class ServingConfig(DeepSpeedConfigModel):
     #: exactly when the first row could retire).  1 disables.  Power of
     #: two.
     max_fused_steps: int = 8
-    #: int8-weights decode loop-form threshold in the reference (int8
-    #: weights are refused here, so it has nothing to select)
+    #: int8-weights decode loop-form threshold in the reference (scan
+    #: form above it).  Validated, selects nothing here: the qgemm kernel
+    #: consumes every quantized projection in place, so no dequantized
+    #: residual is left to count, and the reference keeps its unrolled
+    #: loop in that case too; the port has no scan form
     quant_scan_threshold_mb: int = 512
     #: MoE expert dispatch formulation override in the reference; the
     #: ported model family (GPT-2) is dense, so it selects nothing here
     moe_dispatch: Optional[str] = None
-    #: fused decode megakernel toggle: None and False run the unfused
-    #: per-layer decode (the configuration this port serves); True
-    #: needs the megakernel, which is not ported yet and is refused
+    #: fused decode megakernel toggle: True runs one fused-layer kernel
+    #: per layer per decode step (``ops/kernels/fused_decode.py``); None
+    #: and False run the unfused per-layer decode.  The reference turns
+    #: None on by default on a single TPU; the port keeps None unfused
+    #: until the fused step is measured on the GPU (ROADMAP.md Queue C)
     fused_decode: Optional[bool] = None
     #: scheduler watchdog: seconds of pending work with step_count frozen
     #: before the server goes DEGRADED (waiting /generate handlers then
@@ -584,14 +589,12 @@ def refuse_unported(cfg: ServingConfig):
          "Queue A: tiered KV cache"),
         (cfg.slo.enabled, "serving.slo.enabled",
          "Queue A: SLO accounting and shedding"),
-        (bool(cfg.fused_decode), "serving.fused_decode=true",
-         "Queue B: fused_decode megakernel"),
     )
     for on, what, item in checks:
         if on:
             raise NotImplementedError(
                 f"{what}: not ported to deepspeed_tpu_torch yet "
-                f"(ROADMAP.md {item}); the port serves the unfused "
+                f"(ROADMAP.md {item}); the port serves the "
                 "single-device configuration")
 
 

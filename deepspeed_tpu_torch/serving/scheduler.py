@@ -20,6 +20,11 @@ Each ``step()`` is one engine iteration:
    whole window; the host reads them once at its end.  Finished rows
    retire immediately and their blocks recycle.
 
+The pool holds K/V in the compute dtype, or (``kv_cache_dtype="int8"``)
+int8 codes plus one fp32 scale per cached head vector, gathered and
+scattered alongside.  ``serving.fused_decode`` runs each decode step
+through the fused per-layer kernel instead of the unfused composition.
+
 The decode batch is always ``max_num_seqs`` rows wide and ``S_pad`` long
 — padding rows point at the reserved trash block and are ignored — so a
 row's arithmetic does not depend on which other requests share the batch.
@@ -45,6 +50,9 @@ from deepspeed_tpu_torch.inference.sampling import (gumbel_noise,
 from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
 from deepspeed_tpu_torch.ops.kernels.ds_flash_attention import \
     flash_attention_fwd
+from deepspeed_tpu_torch.ops.kernels.fused_decode import ds_fused_layer
+from deepspeed_tpu_torch.ops.kernels.qgemm import qgemm
+from deepspeed_tpu_torch.ops.kernels.quantization import block_quantize_int8
 from deepspeed_tpu_torch.runtime.config import refuse_unported
 from deepspeed_tpu_torch.serving.block_manager import BlockManager
 from deepspeed_tpu_torch.serving.request import (QueueFullError,
@@ -154,10 +162,14 @@ class ServingMetrics:
                     else "gauge")
             lines += [f"# TYPE {name} {kind}", f"{name} {value:g}"]
         lines.append("# TYPE kernel_launches counter")
-        for kernel, fn in (("decode_attention", decode_attention),
-                           ("ds_flash_fwd", flash_attention_fwd)):
-            lines.append(f'kernel_launches{{kernel="{kernel}"}} '
-                         f"{fn.launches}")
+        for kernel, n in (
+                ("decode_attention", decode_attention.launches),
+                ("decode_attention_int8", decode_attention.int8_launches),
+                ("ds_flash_fwd", flash_attention_fwd.launches),
+                ("qgemm", qgemm.launches),
+                ("ds_fused_layer", ds_fused_layer.launches),
+                ("block_quantize_int8", block_quantize_int8.launches)):
+            lines.append(f'kernel_launches{{kernel="{kernel}"}} {n}')
         return "\n".join(lines) + "\n"
 
 
@@ -170,7 +182,11 @@ class ContinuousBatchingScheduler:
 
     PROMPT_BUCKET = 16          # prefill shapes = distinct 16-token buckets
 
-    def __init__(self, model, params, config):
+    def __init__(self, model, params, config, kv_cache_dtype=None):
+        """``kv_cache_dtype="int8"``: the pool holds int8 K/V plus one fp32
+        scale per cached head vector (``k_s``/``v_s``); None keeps the
+        compute dtype.  ``config.fused_decode`` selects the fused
+        per-layer decode kernel."""
         if (model.init_cache_fn is None or model.prefill_fn is None
                 or model.decode_fn is None):
             raise ValueError("model does not expose the KV-cache serving "
@@ -181,9 +197,15 @@ class ContinuousBatchingScheduler:
         self.params = params
         self.cfg = config
         self.device = params["wte"].device
-        # the pool holds K/V in the compute dtype (an int8 or mixed-dtype
-        # cache is not ported)
-        self.cache_dtype = params["wte"].dtype
+        if kv_cache_dtype not in (None, "int8"):
+            raise NotImplementedError(
+                f"kv_cache_dtype={kv_cache_dtype!r}: not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP.md Queue A: serving "
+                "extensions); the pool holds int8 or the compute dtype")
+        self.kv_cache_dtype = kv_cache_dtype
+        self.cache_dtype = ("int8" if kv_cache_dtype == "int8"
+                            else params["wte"].dtype)
+        self.fused_decode = bool(config.fused_decode)
         self.block_mgr = BlockManager(config.num_blocks, config.block_size)
         bs = config.block_size
         model_ctx = int(getattr(model.config, "max_seq_len", 1 << 30))
@@ -219,7 +241,8 @@ class ContinuousBatchingScheduler:
     def _init_pool(self):
         """Position-flat physical cache {"k", "v"}: [L, num_blocks *
         block_size, KV, hd] (the cache layout with the batch dim collapsed
-        into the pool)."""
+        into the pool), plus {"k_s", "v_s"} [L, num_blocks * block_size,
+        KV] for an int8 pool."""
         n_pos = self.cfg.num_blocks * self.cfg.block_size
         cache = self.model.init_cache_fn(1, n_pos, self.cache_dtype,
                                          self.device)
@@ -530,8 +553,8 @@ class ContinuousBatchingScheduler:
             out = []
             for j in range(k):
                 dense = {n: p[:, pos_idx_t] for n, p in self.pool.items()}
-                logits, dense = self.model.decode_fn(self.params, toks,
-                                                     dense, lens)
+                logits, dense = self.model.decode_fn(
+                    self.params, toks, dense, lens, fused=self.fused_decode)
                 # the ONE vector decode wrote per row, back to the pool
                 for n, p in self.pool.items():
                     p[:, dests_t[j]] = dense[n][:, rows, lens.long()]

@@ -21,6 +21,9 @@ enqueue and wait on the request's done event.
 Run it:
     python -m deepspeed_tpu_torch.serving.server --model gpt2:760m \\
         --dtype bfloat16 --port 8000
+int8 weights (qgemm), an int8 KV cache and the fused per-layer decode:
+    python -m deepspeed_tpu_torch.serving.server --model gpt2:760m \\
+        --int8-weights --kv-cache-dtype int8 --fused-decode on
 """
 import argparse
 import enum
@@ -325,7 +328,9 @@ def serve_forever(scheduler, host: str = "127.0.0.1", port: int = 8000,
         httpd.server_close()
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The server's command line (the reference's ``bin/ds_serve``
+    spelling for the flags it shares)."""
     p = argparse.ArgumentParser(
         prog="python -m deepspeed_tpu_torch.serving.server",
         description="deepspeed_tpu_torch continuous-batching inference "
@@ -342,8 +347,23 @@ def main(argv=None):
                    help="compute dtype (bfloat16 or float32)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
-    args = p.parse_args(argv)
+    p.add_argument("--kv-cache-dtype", default=None, choices=["int8"],
+                   help="int8 = quantized KV-cache pool (half the decode "
+                        "bandwidth; the int8 decode-attention kernel)")
+    p.add_argument("--int8-weights", action="store_true",
+                   help="weight-only int8 serving (quant.enabled): decode "
+                        "projections through the fused-dequant qgemm "
+                        "kernel")
+    p.add_argument("--fused-decode", default=None, choices=["on", "off"],
+                   help="fused per-layer decode kernel (overrides the "
+                        "'serving.fused_decode' config key): one launch "
+                        "per layer per decode step; default off")
+    return p
 
+
+def build_scheduler(args, model=None):
+    """Engine and scheduler for parsed ``args``; ``model`` overrides the
+    ``--model`` spec (built with ``--dtype``).  Returns the scheduler."""
     from deepspeed_tpu_torch.inference.config import \
         DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
@@ -356,12 +376,22 @@ def main(argv=None):
         with open(args.config) as f:
             raw = json.load(f)
     serving_cfg = ServingConfig(**raw.get("serving", {}))
-    model = model_from_spec(args.model, dtype=args.dtype)
-    eng = InferenceEngine(model, DeepSpeedInferenceConfig(dtype=args.dtype),
-                          device=args.device)
-    sched = ContinuousBatchingScheduler(model, eng.params, serving_cfg)
+    if args.fused_decode is not None:
+        serving_cfg.fused_decode = args.fused_decode == "on"
+    if model is None:
+        model = model_from_spec(args.model, dtype=args.dtype)
+    eng = InferenceEngine(model, DeepSpeedInferenceConfig(
+        dtype=args.dtype, kv_cache_dtype=args.kv_cache_dtype,
+        quant={"enabled": args.int8_weights}), device=args.device)
+    return ContinuousBatchingScheduler(model, eng.params, serving_cfg,
+                                       kv_cache_dtype=args.kv_cache_dtype)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    sched = build_scheduler(args)
     serve_forever(sched, host=args.host, port=args.port,
-                  default_timeout_s=serving_cfg.request_timeout_s)
+                  default_timeout_s=sched.cfg.request_timeout_s)
     return 0
 
 

@@ -76,6 +76,21 @@ print(json.dumps({"modules": mods, "bad": bad}))
         assert m in res["modules"]
 
 
+@pytest.mark.parametrize("module", [
+    "ops.kernels.fused_decode", "ops.kernels.qgemm",
+    "ops.kernels.quantization", "ops.kernels.decode_attention",
+    "models.model", "serving.server"])
+def test_each_module_imports_on_its_own(module):
+    """Imported first in a fresh interpreter (as chip_smoke.py and a user
+    script may): no import cycle between the kernels and the models."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", f"import deepspeed_tpu_torch.{module}"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
 def test_entry_points_refuse_cpu_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the refusal needs none")
@@ -105,6 +120,20 @@ def test_cpu_tensors_never_launch_kernels():
     torch.testing.assert_close(lse, rl)
     assert da.decode_attention.launches == 0
     assert fa.flash_attention_fwd.launches == 0
+    # the int8 wrappers: quantizer, qgemm, int8 decode
+    from deepspeed_tpu_torch.ops.kernels import qgemm as qg
+    from deepspeed_tpu_torch.ops.kernels import quantization as qz
+    for fn in (qz.block_quantize_int8, qg.qgemm):
+        fn.launches = 0
+    da.decode_attention.int8_launches = 0
+    q8, s8 = qz.block_quantize_int8(torch.randn(64, 96, generator=g))
+    assert qg.qgemm(torch.randn(3, 64, generator=g), q8, s8).shape == \
+        (3, 96)
+    kq, ks = da.quantize_kv(k)
+    da.decode_attention(q, kq, kq, L, k_scale=ks, v_scale=ks)
+    assert qz.block_quantize_int8.launches == 0
+    assert qg.qgemm.launches == 0
+    assert da.decode_attention.int8_launches == 0
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch, tmp_path):
@@ -129,7 +158,8 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_cuda_sources_exist():
-    for name in ("decode_attention", "ds_flash_fwd"):
+    for name in ("decode_attention", "ds_flash_fwd", "ds_flash_bwd",
+                 "quantization", "qgemm", "fused_decode"):
         src = build.CSRC_DIR / f"{name}.cu"
         assert src.is_file(), src
         assert "extern \"C\"" in src.read_text()

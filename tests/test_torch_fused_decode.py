@@ -1,0 +1,259 @@
+"""deepspeed_tpu_torch fused per-layer decode vs the JAX package.
+
+The port's plain fused layer (what ``ds_fused_layer`` runs for CPU
+tensors; the CUDA megakernel is held against it on the card by
+chip_smoke.py) is compared with the JAX Pallas ``_fused_kernel`` in
+interpret mode and with the JAX reference composition
+``_ref_fused_layer``, for the GPT-2 spec in the four weight x cache
+combinations (float / int8 weights x float / int8 cache) at window
+W = 1 and W = 3, on the same seeded numpy inputs.
+
+Tolerances (fp32): x_out and float K/V within 2e-4 abs of the Pallas
+kernel (the JAX package's own kernel-vs-reference bound: the kernel
+streams the cache in blocks with an online softmax and dequantizes
+weights through a selector matmul), within 1e-5 of the reference
+composition; int8 K/V codes within one code and their scales within
+1e-6 relative of both.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from deepspeed_tpu.models.model import QuantizedTensor as JaxQuantized
+from deepspeed_tpu.ops.pallas.decode_attention import \
+    quantize_kv as jax_quantize_kv
+from deepspeed_tpu.ops.pallas.fused_decode import \
+    FusedLayerSpec as JaxSpec
+from deepspeed_tpu.ops.pallas.fused_decode import (_ref_fused_layer,
+                                                   _weight_order)
+from deepspeed_tpu.ops.pallas.fused_decode import \
+    ds_fused_layer as jax_fused_layer
+from deepspeed_tpu.ops.pallas.quantization import _ref_quantize
+from deepspeed_tpu_torch.models import gpt2 as pgpt2
+from deepspeed_tpu_torch.models.gpt2 import gpt2_model
+from deepspeed_tpu_torch.models.model import QuantizedTensor
+from deepspeed_tpu_torch.ops.kernels import fused_decode as fd
+
+D, H, HD, M = 32, 4, 8, 128
+ATOL_KERNEL = 2e-4
+ATOL_REF = 1e-5
+
+
+def _spec(mod, **kw):
+    args = dict(num_heads=H, num_kv_heads=H, head_dim=HD, d_model=D,
+                norm="ln", qkv="fused", mlp="gelu_tanh")
+    args.update(kw)
+    return mod(**args)
+
+
+def _weights(seed):
+    rng = np.random.default_rng(seed)
+
+    def mk(shape, scale=0.2):
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+    return dict(n1_s=mk((D,), 0.1) + 1, n1_b=mk((D,)),
+                wqkv=mk((D, 3 * D)), bqkv=mk((3 * D,)),
+                wo=mk((D, D)), bo=mk((D,)),
+                n2_s=mk((D,), 0.1) + 1, n2_b=mk((D,)),
+                w_in=mk((D, M)), b_in=mk((M,)),
+                w_out=mk((M, D)), b_out=mk((D,)))
+
+
+MATS = ("wqkv", "wo", "w_in", "w_out")
+
+
+def _both(cw, int8_weights):
+    """The same weights as JAX arrays and torch tensors; int8 weights
+    quantized once (16-lane groups) and handed to both as the same
+    bytes."""
+    jw, pw = {}, {}
+    for k, v in cw.items():
+        if int8_weights and k in MATS:
+            q, s = (np.asarray(a) for a in _ref_quantize(jnp.asarray(v), 16))
+            jw[k] = JaxQuantized(jnp.asarray(q), jnp.asarray(s), "float32")
+            pw[k] = QuantizedTensor(torch.from_numpy(q), torch.from_numpy(s),
+                                    torch.float32)
+        else:
+            jw[k], pw[k] = jnp.asarray(v), torch.from_numpy(v.copy())
+    return jw, pw
+
+
+def _inputs(W, int8_cache, seed, B=2, S=64):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, W, D), dtype=np.float32) * 0.2
+    k = rng.standard_normal((B, S, H, HD), dtype=np.float32)
+    v = rng.standard_normal((B, S, H, HD), dtype=np.float32)
+    lengths = np.asarray([5, 17][:B], np.int32)
+    if int8_cache:
+        kq, ks = (np.asarray(a) for a in jax_quantize_kv(jnp.asarray(k)))
+        vq, vs = (np.asarray(a) for a in jax_quantize_kv(jnp.asarray(v)))
+        return x, kq, vq, lengths, ks, vs
+    return x, k, v, lengths, None, None
+
+
+def _run(W, int8_weights, int8_cache, seed=3):
+    spec_j, spec_p = _spec(JaxSpec), _spec(fd.FusedLayerSpec)
+    jw, pw = _both(_weights(seed), int8_weights)
+    x, k, v, L, ks, vs = _inputs(W, int8_cache, seed + 1)
+    J = lambda a: None if a is None else jnp.asarray(a)      # noqa: E731
+    T = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    kern = jax_fused_layer(J(x), jw, J(k), J(v), J(L), spec_j, ks_l=J(ks),
+                           vs_l=J(vs), interpret=True)
+    ref = _ref_fused_layer(J(x), jw, J(k), J(v), J(L), spec_j, J(ks), J(vs),
+                           None)
+    got = fd.ds_fused_layer(T(x), pw, T(k), T(v), T(L), spec_p, ks_l=T(ks),
+                            vs_l=T(vs))
+    return got, kern, ref
+
+
+def _close(got, want, atol):
+    names = ("x_out", "new_k", "new_v", "new_ks", "new_vs")
+    for name, a, b in zip(names, got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        a = a.float().numpy() if a.is_floating_point() else a.numpy()
+        b = np.asarray(b)
+        if b.dtype == np.int8:
+            d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+            assert d.max() <= 1, (name, d.max())
+        elif name in ("new_ks", "new_vs"):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=0,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(a, b.astype(np.float32), atol=atol,
+                                       rtol=0, err_msg=name)
+
+
+COMBOS = [(w8, c8, W) for w8 in (False, True) for c8 in (False, True)
+          for W in (1, 3)]
+
+
+@pytest.mark.parametrize("int8_weights,int8_cache,W", COMBOS)
+def test_plain_matches_pallas_interpret_and_reference(int8_weights,
+                                                      int8_cache, W):
+    got, kern, ref = _run(W, int8_weights, int8_cache)
+    assert got[0].shape == (2, W, D)
+    assert got[1].dtype == (torch.int8 if int8_cache else torch.float32)
+    _close(got, kern, ATOL_KERNEL)
+    _close(got, ref, ATOL_REF)
+
+
+def test_weight_order_matches_the_reference():
+    for kw in ({}, {"mlp": "relu"}, {"qkv_bias": False}):
+        assert fd._weight_order(_spec(fd.FusedLayerSpec, **kw)) == \
+            _weight_order(_spec(JaxSpec, **kw))
+
+
+@pytest.mark.parametrize("kw", [
+    {"norm": "rms"}, {"qkv": "split"}, {"num_kv_heads": 2},
+    {"rotary_dims": HD}, {"alibi": True}, {"residual": "parallel"},
+    {"mlp": "swiglu"}, {"mlp": "none"}, {"qkv_bias": False}])
+def test_non_gpt2_specs_raise(kw):
+    spec = _spec(fd.FusedLayerSpec, **kw)
+    assert not spec.supported()
+    _, pw = _both(_weights(0), False)
+    x, k, v, L, _, _ = _inputs(1, False, 1)
+    args = (torch.from_numpy(x), pw, torch.from_numpy(k),
+            torch.from_numpy(v), torch.from_numpy(L), spec)
+    for fn in (fd.ds_fused_layer, fd.fused_layer_cuda):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fn(*args)
+
+
+def test_cuda_wrapper_validates_before_any_launch():
+    spec = _spec(fd.FusedLayerSpec)
+    _, pw = _both(_weights(0), True)
+    x, k, v, L, ks, vs = _inputs(1, True, 2)
+    T = torch.from_numpy
+    with pytest.raises(ValueError, match="ks_l and vs_l"):
+        fd.fused_layer_cuda(T(x), pw, T(k), T(v), T(L), spec, ks_l=T(ks))
+    with pytest.raises(ValueError, match="lengths"):
+        fd.fused_layer_cuda(T(x), pw, T(k), T(v), T(L).long(), spec,
+                            ks_l=T(ks), vs_l=T(vs))
+    mixed = dict(pw, wo=torch.zeros(D, D))
+    with pytest.raises(ValueError, match="all int8 or all float"):
+        fd.fused_layer_cuda(T(x), mixed, T(k), T(v), T(L), spec, ks_l=T(ks),
+                            vs_l=T(vs))
+    # the phase stamps take one int64 per phase boundary
+    with pytest.raises(ValueError, match="stamps"):
+        fd.fused_layer_cuda(T(x), pw, T(k), T(v), T(L), spec, ks_l=T(ks),
+                            vs_l=T(vs), stamps=torch.zeros(
+                                len(fd.PHASES), dtype=torch.int64))
+
+
+# ------------------------------------------------------ the decode step
+def _tiny(dtype="float32"):
+    return gpt2_model("custom", vocab_size=128, max_seq_len=64, num_layers=2,
+                      num_heads=H, d_model=D, dtype=dtype)
+
+
+def _params(model, int8_weights):
+    from deepspeed_tpu_torch.inference.config import \
+        DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    return InferenceEngine(model, DeepSpeedInferenceConfig(
+        dtype="float32", quant={"enabled": int8_weights}),
+        device="cpu").params
+
+
+class _Count:
+    def __init__(self, fn):
+        self.fn, self.n = fn, 0
+
+    def __call__(self, *a, **kw):
+        self.n += 1
+        return self.fn(*a, **kw)
+
+
+@pytest.mark.parametrize("int8_weights,int8_cache",
+                         [(w8, c8) for w8 in (False, True)
+                          for c8 in (False, True)])
+def test_fused_decode_step_matches_unfused(monkeypatch, int8_weights,
+                                           int8_cache):
+    """Teacher-forced decode: the fused step's logits and cache equal the
+    unfused step's (the plain fused layer is the unfused composition), and
+    each path calls what it should: fused = L fused layers and no decode
+    attention or qgemm; unfused = 4 L qgemm (int8 weights) and L decode
+    attentions per step; prefill no qgemm."""
+    from deepspeed_tpu_torch.ops.kernels import qgemm as qg
+    model = _tiny()
+    params = _params(model, int8_weights)
+    L_ = model.config.num_layers
+    cdt = "int8" if int8_cache else None
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(1, 128, (2, 12)).astype(np.int32))
+    counts = {"fused": _Count(fd.ds_fused_layer),
+              "decode": _Count(pgpt2.decode_attention),
+              "qgemm": _Count(qg.qgemm)}
+    monkeypatch.setattr(fd, "ds_fused_layer", counts["fused"])
+    monkeypatch.setattr(pgpt2, "decode_attention", counts["decode"])
+    monkeypatch.setattr(qg, "qgemm", counts["qgemm"])
+    runs = {}
+    for fused in (False, True):
+        cache = model.init_cache_fn(2, 64, cdt, "cpu")
+        _, cache = model.prefill_fn(params, {"input_ids": toks[:, :6]},
+                                    cache)
+        assert counts["qgemm"].n == 0          # prefill dequantizes
+        before = {k: c.n for k, c in counts.items()}
+        logits = []
+        for pos in range(6, 12):
+            lg, cache = model.decode_fn(
+                params, toks[:, pos], cache,
+                torch.full((2,), pos, dtype=torch.int32), fused=fused)
+            logits.append(lg)
+        steps = 6
+        got = {k: c.n - before[k] for k, c in counts.items()}
+        if fused:
+            assert got == {"fused": L_ * steps, "decode": 0, "qgemm": 0}
+        else:
+            assert got == {"fused": 0, "decode": L_ * steps,
+                           "qgemm": 4 * L_ * steps if int8_weights else 0}
+        for c in counts.values():
+            c.n = 0
+        runs[fused] = (torch.stack(logits), cache)
+    (lu, cu), (lf, cf) = runs[False], runs[True]
+    torch.testing.assert_close(lf, lu, atol=1e-6, rtol=0)
+    for name in cu:
+        torch.testing.assert_close(cf[name], cu[name], atol=1e-6, rtol=0)

@@ -107,6 +107,7 @@ VALID = [
     {"max_fused_steps": 1, "max_queued": 3, "request_timeout_s": 2.5},
     {"slo": {"classes": {"gold": {"priority": 2, "ttft_ms": 50}}}},
     {"moe_dispatch": "einsum", "fused_decode": False},
+    {"fused_decode": True},
 ]
 INVALID = [
     {"block_size": 0},
@@ -127,7 +128,7 @@ UNPORTED = [
     {"adapters": {"enabled": True}},
     {"fleet": {"num_replicas": 2}},
     {"prefix_cache": {"enabled": True}, "kv_tiering": {"enabled": True}},
-    {"fused_decode": True},
+    {"chunked_prefill": {"enabled": True, "chunk_tokens": 64}},
     {"slo": {"enabled": True}},
 ]
 
@@ -165,13 +166,23 @@ def test_unported_features_refused(raw):
 
 
 def test_unported_inference_settings_refused():
+    """Tensor parallelism and a float cache in another dtype stay
+    refused; int8 weights and the int8 KV cache are served now."""
+    from deepspeed_tpu_torch.models.model import QuantizedTensor
     pm = gpt2_model("custom", vocab_size=32, max_seq_len=16, num_layers=1,
                     num_heads=2, d_model=16, dtype="float32")
-    for cfg in ({"quant": {"enabled": True}}, {"kv_cache_dtype": "int8"},
-                {"tensor_parallel": {"tp_size": 2}}):
+    for cfg in ({"tensor_parallel": {"tp_size": 2}},
+                {"kv_cache_dtype": "bfloat16"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             deepspeed_tpu_torch.init_inference(
                 pm, {"dtype": "float32", **cfg}, device="cpu")
+    eng = deepspeed_tpu_torch.init_inference(
+        pm, {"dtype": "float32", "quant": {"enabled": True},
+             "kv_cache_dtype": "int8"}, device="cpu")
+    assert isinstance(eng.params["blocks"]["qkv_w"], QuantizedTensor)
+    assert eng.cache_dtype == "int8"
+    out = eng.generate(np.array([[1, 2, 3]], np.int32), max_new_tokens=3)
+    assert out.shape == (1, 6)
 
 
 # ----------------------------------------------------------------- parity
