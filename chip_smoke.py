@@ -2,7 +2,8 @@
 """On-GPU smoke of deepspeed_tpu_torch: builds the CUDA kernels from the
 checkout, holds each against its plain PyTorch version on the card, then
 serves GPT-2 760M and trains it (random weights from the seeded host
-init) through the port's own entry points.
+init), and serves Mixtral-8x7B's widths at 16 of its 32 layers (random
+weights drawn on the card), through the port's own entry points.
 
     python3 chip_smoke.py
 
@@ -56,7 +57,25 @@ Phases (any failed check exits non-zero before the final line):
   10. bf16 int8 over HTTP (the slice's main path): the engine load (4
      quantizer launches), then phase 5's eight requests with fused
      decode off and on: tokens/s, TTFT, TPOT, a profiled decode window,
-     the params' device bytes.
+     the params' device bytes;
+  11. the grouped-GEMM kernels at Mixtral-8x7B's expert shapes (gate/in
+     4096 -> 14336, out 14336 -> 4096) against their plain versions:
+     ds_ggemm_slots at R 1 / 16 / 128, ds_ggemm at R 129 / 1800, random,
+     all-on-one-expert and two-empty-expert routing (fp32 <= 1e-4 abs,
+     bf16 <= 2e-2 of the output's max; ds_ggemm's padding tiles zero),
+     each timed at the main path's shapes beside its plain version, its
+     bound and torch._grouped_mm; the flash forward and the float decode
+     kernel held at H 32 / KV 8 / hd 128;
+  12. fp32 Mixtral-8x7B widths at 4 layers, float and int8 KV cache: the
+     scheduler (a pool that forces a preemption) token-identical to the
+     static generate, exact launch counts (per decode step 3 L slot + L
+     decode; per prefill L flash + 3 L ggemm above a 64-token bucket,
+     else 3 L slot), teacher-forced decode logits within 1e-3 of a full
+     forward with the plain kernels;
+  13. bf16 Mixtral-8x7B widths at 16 of its 32 layers over HTTP (the
+     slice's main path): the device init, phase 5's eight requests,
+     tokens/s, TTFT, TPOT, decode ms per step, a profiled decode window,
+     the params' device bytes and peak memory.
 Earlier lines are JSON objects; the line before the last two is the
 ``kernels`` object, then the nvidia-smi line, and the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
@@ -90,7 +109,7 @@ TOL = {"float32": {"o": 1e-4, "lse": 1e-4},
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: every kernel source of the port, built in parallel at start-up
 KERNEL_SOURCES = ("decode_attention", "ds_flash_fwd", "ds_flash_bwd",
-                  "quantization", "qgemm", "fused_decode")
+                  "quantization", "qgemm", "fused_decode", "grouped_gemm")
 # the training shape of bench.py's 760M configuration
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD = 12, 1024, 16, 96
 
@@ -388,8 +407,8 @@ def bf16_phase(torch, eng32, da, fa):
     def done():        # ... and read just after
         return {"decode_attention": da.decode_attention.launches,
                 "ds_flash_fwd": fa.flash_attention_fwd.launches}
-    outs, wall_s, _, launches = serve_http(torch, sched, prompts, start,
-                                           done)
+    outs, wall_s, _, launches, window = serve_http(torch, sched, prompts,
+                                                   start, done)
     check(all(v > 0 for v in launches.values()),
           f"bf16: a kernel was not launched on the main path {launches}")
     busy = profile_decode(torch, sched, prompts)
@@ -402,7 +421,7 @@ def bf16_phase(torch, eng32, da, fa):
                             (sched.cfg.max_num_seqs, sched.s_pad),
                             device="cuda")
     gather_ms = time_ms(lambda: [p[:, pos_idx] for p in sched.pool.values()])
-    base = serve_report(sched, outs, wall_s)
+    base = serve_report(outs, wall_s, window)
     report = {"phase": "bf16_http", "requests": base["requests"],
               "decode_profile": busy,
               "wall_s": wall_s, "generated_tokens": base["generated_tokens"],
@@ -412,6 +431,8 @@ def bf16_phase(torch, eng32, da, fa):
               "prefill_ms_by_prompt_len": prefill_ms,
               "decode_ms_per_step": base["decode_ms_per_step"],
               "decode_steps": base["decode_steps"],
+              "full_batch_decode_ms_per_step":
+              base["full_batch_decode_ms_per_step"],
               "gather_ms_per_step": gather_ms,
               "launches": launches,
               "sampled_repeat_identical": True}
@@ -1399,7 +1420,9 @@ def serve_http(torch, sched, prompts, on_start, on_done):
     """Eight concurrent /generate requests (one sampled, then repeated)
     through the HTTP server over ``sched``: ``on_start`` runs just before
     the first request, ``on_done`` just after the eight return.  Returns
-    (responses, wall seconds, /metrics text, ``on_done``'s value)."""
+    (responses, wall seconds, /metrics text, ``on_done``'s value, the
+    scheduler's decode-window entries of the eight requests' run alone:
+    not the sampled request's replay after it)."""
     from deepspeed_tpu_torch.serving.server import make_server
     httpd, loop = make_server(sched, port=0)
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -1416,6 +1439,7 @@ def serve_http(torch, sched, prompts, on_start, on_done):
         def worker(i):
             results[i] = post(base + "/generate", bodies[i])
 
+        n0 = len(sched.metrics.decode_window_s)
         on_start()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=worker, args=(i,))
@@ -1426,6 +1450,7 @@ def serve_http(torch, sched, prompts, on_start, on_done):
             t.join(timeout=900)
         wall_s = time.perf_counter() - t0
         done = on_done()
+        window = list(sched.metrics.decode_window_s)[n0:]
         check(all(r is not None and r[0] == 200 for r in results),
               f"http: not every /generate returned 200: "
               f"{[r and r[0] for r in results]}")
@@ -1450,12 +1475,16 @@ def serve_http(torch, sched, prompts, on_start, on_done):
         loop.shutdown()
         httpd.server_close()
         server.join(timeout=10)
-    return outs, wall_s, mbody, done
+    return outs, wall_s, mbody, done, window
 
 
-def serve_report(sched, outs, wall_s):
-    m = sched.metrics
-    steps = sum(k for k, _, _ in m.decode_window_s)
+def serve_report(outs, wall_s, window):
+    """End-to-end numbers of one ``serve_http`` run; decode ms per step
+    over the run's decode window (``window``: (steps, batch, seconds)
+    entries), and over its steps with every request active."""
+    steps = sum(k for k, _, _ in window)
+    full = [(k, s) for k, b, s in window if b == len(outs)]
+    full_steps = sum(k for k, _ in full)
     gen = sum(len(o["output_ids"]) for o in outs)
     ttft = sorted(o["ttft_ms"] for o in outs)
     tpot = sorted((o["latency_ms"] - o["ttft_ms"]) / (len(o["output_ids"])
@@ -1465,8 +1494,11 @@ def serve_report(sched, outs, wall_s):
             "ttft_p50_ms": statistics.median(ttft),
             "tpot_p50_ms": statistics.median(tpot),
             "decode_steps": steps,
-            "decode_ms_per_step": sum(s for _, _, s in m.decode_window_s)
-            / max(steps, 1) * 1e3}
+            "decode_ms_per_step": sum(s for _, _, s in window)
+            / max(steps, 1) * 1e3,
+            "full_batch_decode_steps": full_steps,
+            "full_batch_decode_ms_per_step": sum(s for _, s in full)
+            / max(full_steps, 1) * 1e3}
 
 
 def int8_http_phase(torch, da, fa):
@@ -1510,7 +1542,7 @@ def int8_http_phase(torch, da, fa):
         sched = ContinuousBatchingScheduler(
             model, eng.params, ServingConfig(fused_decode=fused),
             kv_cache_dtype="int8")
-        outs, wall_s, mbody, n = serve_http(
+        outs, wall_s, mbody, n, window = serve_http(
             torch, sched, prompts,
             on_start=lambda: reset_int8_counts(da, qz, qg, fd, fa),
             on_done=lambda: int8_counts(da, qz, qg, fd, fa))
@@ -1523,7 +1555,7 @@ def int8_http_phase(torch, da, fa):
               f"int8 http {key}: launches {n}")
         check('kernel_launches{kernel="qgemm"}' in mbody,
               "int8 http: /metrics lacks the qgemm launch count")
-        runs[key] = {**serve_report(sched, outs, wall_s), "launches": n,
+        runs[key] = {**serve_report(outs, wall_s, window), "launches": n,
                      "decode_profile": profile_decode(torch, sched,
                                                       prompts),
                      "outputs": [o["output_ids"][:8] for o in outs]}
@@ -1531,6 +1563,369 @@ def int8_http_phase(torch, da, fa):
         torch.cuda.empty_cache()
     emit({"phase": "bf16_int8_http", "engine_load": load, **runs})
     return load, runs
+
+
+# ------------------------------------------------ Mixtral serving (slice 4)
+#: Mixtral-8x7B widths (MIXTRAL_SIZES["8x7b"]); the main path runs 16 of
+#: its 32 layers (bf16 weights of all 32 do not fit 80 GB)
+MIX_D, MIX_F, MIX_E, MIX_K = 4096, 14336, 8, 2
+MIX_LAYERS = 16
+MIX_PARITY_LAYERS = 4
+#: the two expert projections: name -> (K, N)
+MOE_SHAPES = {"gate_in": (MIX_D, MIX_F), "out": (MIX_F, MIX_D)}
+SLOT_R = (1, 16, 128)
+GROUP_R = (129, 1800)
+
+
+def moe_modules():
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    return gg
+
+
+def routed(torch, g, R, skew):
+    """Expert ids of R routed rows: random over the 8 experts, all on one
+    expert, or two experts left empty."""
+    e = torch.randint(0, MIX_E, (R,), generator=g, device="cuda")
+    if skew == "one_expert":
+        e[:] = 5
+    elif skew == "two_empty":
+        e = e % (MIX_E - 2)
+    return e.int()
+
+
+def ggemm_io(gg, x, e, R):
+    """(plan, kernel input) of one routed batch: raw rows and a slot plan
+    for R <= SLOT_MAX_ROWS, else group-padded rows and a group plan."""
+    if R <= gg.SLOT_MAX_ROWS:
+        return gg.make_slot_plan(e, MIX_E), x
+    plan = gg.make_group_plan(e, MIX_E)
+    return plan, gg.scatter_to_groups(x, plan)
+
+
+def ggemm_bound(torch, gg, plan, xin, R, K, N):
+    """(bound_ms, bound_by) of one grouped GEMM on this batch (bf16): the
+    R routed input rows read once (a padded layout's padding rows are
+    zeros the function never needs to read), the weights of the experts
+    that have rows read once and every output row written once (the
+    padded layout's too), against 2 R K N operations on the real rows."""
+    if isinstance(plan, gg.SlotPlan):
+        experts = int(plan.valid.sum())
+    else:
+        experts = int((plan.counts > 0).sum())
+    out_rows = xin.shape[0]
+    return bound_of(experts * K * N * 2 + R * K * 2 + out_rows * N * 2,
+                    2 * R * K * N, BF16_FLOPS)
+
+
+def grouped_mm_library(torch, gg, x, w, e):
+    """One PyTorch call on the same rows sorted by expert:
+    ``torch._grouped_mm`` where this torch has it, else None and the
+    reason (context only; the port never calls it)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch has no _grouped_mm"
+    order = torch.argsort(e.long(), stable=True)
+    xs = x[order].contiguous()
+    counts = torch.bincount(e.long(), minlength=MIX_E)
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    try:
+        fn(xs, w, offs=offs)
+        torch.cuda.synchronize()
+        return time_ms(lambda: fn(xs, w, offs=offs), reps=5, inner=5), None
+    except Exception as err:           # the library call's own limits
+        return None, f"torch._grouped_mm refused: {str(err)[:160]}"
+
+
+def moe_kernel_phase(torch, gg, da, fa):
+    """Phase 11: ds_ggemm and ds_ggemm_slots against their plain versions
+    at Mixtral's expert shapes (R 1, 16, 128 slot; 129, 1800 group;
+    random, all-on-one-expert and two-empty routing; fp32 <= 1e-4 abs
+    with TF32 off, bf16 <= 2e-2 of the output's max), timed beside the
+    plain version, the bound and torch._grouped_mm; then the flash forward
+    and the float decode kernel at H 32 / KV 8 / hd 128."""
+    g = torch.Generator(device="cuda").manual_seed(41)
+    worst = {"ds_ggemm": 0.0, "ds_ggemm_slots": 0.0}
+    times = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for proj, (K, N) in MOE_SHAPES.items():
+            w = (torch.randn(MIX_E, K, N, generator=g, device="cuda")
+                 * 0.02).to(dt)
+            for R in SLOT_R + GROUP_R:
+                x = torch.randn(R, K, generator=g, device="cuda").to(dt)
+                for skew in ("random", "one_expert", "two_empty"):
+                    e = routed(torch, g, R, skew)
+                    plan, xin = ggemm_io(gg, x, e, R)
+                    slot = R <= gg.SLOT_MAX_ROWS
+                    name = "ds_ggemm_slots" if slot else "ds_ggemm"
+                    if slot:
+                        got = gg.ggemm_slots_cuda(xin, w, plan)
+                        ref = gg.ggemm_slots_plain(xin, w, plan)
+                    else:
+                        got = gg.ggemm_cuda(xin, w, plan)
+                        ref = gg.ggemm_plain(xin, w, plan)
+                    torch.cuda.synchronize()
+                    e_abs, held = err_of(torch, got, ref, dt_name)
+                    # padding tiles must hold zeros, as the Pallas kernel's
+                    zeros = True
+                    if not slot:
+                        pad = torch.ones(got.shape[0], dtype=torch.bool,
+                                         device="cuda")
+                        pad[plan.row_to_padded.long()] = False
+                        zeros = not bool(got[pad].any())
+                    emit({"check": name, "dtype": dt_name, "proj": proj,
+                          "R": R, "K": K, "N": N, "routing": skew,
+                          "max_abs_err": e_abs, "held": held,
+                          "tol": INT8_TOL[dt_name],
+                          "padding_zeros": zeros})
+                    check(held <= INT8_TOL[dt_name] and zeros,
+                          f"{name} {dt_name} {proj} R {R} {skew}: err "
+                          f"{held} > {INT8_TOL[dt_name]} or padding not 0")
+                    worst[name] = max(worst[name], held)
+            del w
+            torch.cuda.empty_cache()
+    # times at the main path's shapes, bf16: a decode step's slot launch
+    # (batch 8: R 16 over all 8 experts) and a 900-token prompt's
+    # group-padded launch (R 1800, random routing)
+    dt = torch.bfloat16
+    for proj, (K, N) in MOE_SHAPES.items():
+        w = (torch.randn(MIX_E, K, N, generator=g, device="cuda")
+             * 0.02).to(dt)
+        for R, e in ((16, torch.arange(16, device="cuda").int() % MIX_E),
+                     (1800, routed(torch, g, 1800, "random"))):
+            x = torch.randn(R, K, generator=g, device="cuda").to(dt)
+            plan, xin = ggemm_io(gg, x, e, R)
+            if R <= gg.SLOT_MAX_ROWS:
+                name, kern, plain = ("ds_ggemm_slots", gg.ggemm_slots_cuda,
+                                     gg.ggemm_slots_plain)
+            else:
+                name, kern, plain = ("ds_ggemm", gg.ggemm_cuda,
+                                     gg.ggemm_plain)
+            t = {"kernel_ms": time_ms(lambda: kern(xin, w, plan), reps=5,
+                                      inner=5),
+                 "plain_ms": time_ms(lambda: plain(xin, w, plan), reps=3,
+                                     inner=2)}
+            t["bound_ms"], t["bound_by"] = ggemm_bound(torch, gg, plan, xin,
+                                                       R, K, N)
+            t["library_ms"], why = grouped_mm_library(torch, gg, x, w, e)
+            if why:
+                t["library_note"] = why
+            t.update(work=f"{proj} K {K} N {N}, R {R}, bf16", R=R)
+            emit({"phase": "moe_kernel_times", "kernel": name, "proj": proj,
+                  **t})
+            times.setdefault(name, {})[proj] = t
+        del w
+        torch.cuda.empty_cache()
+    # the ported attention kernels at Mixtral's heads (first time there)
+    attn = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        tol = TOL[dt_name]
+        q = torch.randn(1, 912, 32, 128, generator=g, device="cuda").to(dt)
+        k = torch.randn(1, 912, 8, 128, generator=g, device="cuda").to(dt)
+        v = (torch.rand(1, 912, 8, 128, generator=g, device="cuda") * 2
+             - 1).to(dt)
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v)
+        ro, rl = fa.flash_attention_fwd_plain(q, k, v)
+        qd = torch.randn(8, 32, 128, generator=g, device="cuda").to(dt)
+        kd = torch.randn(8, 1024, 8, 128, generator=g, device="cuda").to(dt)
+        vd = (torch.rand(8, 1024, 8, 128, generator=g, device="cuda") * 2
+              - 1).to(dt)
+        L = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+        od = da.decode_attention_cuda(qd, kd, vd, L)
+        rd = da.decode_attention_plain(qd, kd, vd, L)
+        torch.cuda.synchronize()
+        errs = {"ds_flash_fwd": float((o.float() - ro.float()).abs().max()),
+                "ds_flash_fwd_lse": float((lse - rl).abs().max()),
+                "decode_attention": float((od.float() - rd.float()).abs()
+                                          .max())}
+        emit({"check": "attention_at_mixtral_heads", "dtype": dt_name,
+              "H": 32, "KV": 8, "hd": 128, **errs, "tol_o": tol["o"],
+              "tol_lse": tol["lse"]})
+        check(errs["ds_flash_fwd"] <= tol["o"]
+              and errs["ds_flash_fwd_lse"] <= tol["lse"]
+              and errs["decode_attention"] <= tol["o"],
+              f"attention at H 32 / KV 8 / hd 128, {dt_name}: {errs}")
+        attn[dt_name] = errs
+    return times, worst, attn
+
+
+def moe_counts(gg, da, fa):
+    return {"ds_ggemm": gg.ds_ggemm.launches,
+            "ds_ggemm_slots": gg.ds_ggemm_slots.launches,
+            "ds_flash_fwd": fa.flash_attention_fwd.launches,
+            "decode_attention": da.decode_attention.launches,
+            "decode_attention_int8": da.decode_attention.int8_launches}
+
+
+def reset_moe_counts(gg, da, fa):
+    gg.ds_ggemm.launches = gg.ds_ggemm_slots.launches = 0
+    fa.flash_attention_fwd.launches = 0
+    da.decode_attention.launches = da.decode_attention.int8_launches = 0
+
+
+class plain_grouped_gemm:
+    """Within the block, the MoE layer's grouped GEMMs take their plain
+    versions on the card (the full-forward oracle); the wrappers and
+    their counts are restored after."""
+
+    def __init__(self, gg):
+        self.gg = gg
+
+    def __enter__(self):
+        gg = self.gg
+        self.saved = gg.ds_ggemm, gg.ds_ggemm_slots
+        gg.ds_ggemm = lambda x, w, plan, **kw: gg.ggemm_plain(x, w, plan)
+        gg.ds_ggemm_slots = \
+            lambda x, w, plan, **kw: gg.ggemm_slots_plain(x, w, plan)
+
+    def __exit__(self, *exc):
+        self.gg.ds_ggemm, self.gg.ds_ggemm_slots = self.saved
+
+
+def mixtral_parity_phase(torch, gg, da, fa):
+    """Phase 12: fp32 Mixtral-8x7B widths at 4 layers, float and int8 KV
+    cache: the scheduler (a pool that forces a preemption) token-identical
+    to the static generate; exact launch counts (per decode step 3 L slot
+    + L decode, no ggemm; per prefill L flash plus 3 L ggemm for a prompt
+    bucket above 64 tokens, else 3 L slot); teacher-forced decode logits
+    within 1e-3 of a full forward with the plain kernels."""
+    from deepspeed_tpu_torch.inference.config import \
+        DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                             RequestState, SamplingParams)
+    import deepspeed_tpu_torch as dt
+    L = MIX_PARITY_LAYERS
+    torch.cuda.synchronize()
+    report = {"phase": "fp32_mixtral_parity", "layers": L,
+              "memory_allocated_at_start": torch.cuda.memory_allocated()}
+    t0 = time.perf_counter()
+    model = mixtral_model("8x7b", num_layers=L, dtype="float32")
+    eng = dt.init_inference(model, {"dtype": "float32"})
+    torch.cuda.synchronize()
+    report["init_s"] = time.perf_counter() - t0
+    prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=5)
+    for kv in (None, "int8"):
+        if kv:      # the same weights, an int8 cache for the generate
+            eng = InferenceEngine(model, DeepSpeedInferenceConfig(
+                dtype="float32", kv_cache_dtype="int8"),
+                model_parameters=eng.params)
+        sched = ContinuousBatchingScheduler(
+            model, eng.params, ServingConfig(num_blocks=140),
+            kv_cache_dtype=kv)
+        reset_moe_counts(gg, da, fa)
+        reqs = [sched.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
+                for p in prompts]
+        sched.run_until_idle()
+        torch.cuda.synchronize()
+        n = moe_counts(gg, da, fa)
+        c = sched.metrics.counters
+        steps, prefills = c["decode_steps"], c["prefills"]
+        big = sum(1 for _, sp, _ in sched.metrics.prefill_s if 2 * sp > 128)
+        want = {"ds_ggemm": 3 * L * big,
+                "ds_ggemm_slots": 3 * L * (steps + prefills - big),
+                "ds_flash_fwd": L * prefills,
+                "decode_attention": 0 if kv else L * steps,
+                "decode_attention_int8": L * steps if kv else 0}
+        mismatched = []
+        for p, r in zip(prompts, reqs):
+            ref = eng.generate(p, max_new_tokens=MAX_NEW)[0, p.size:]
+            if list(ref) != list(r.output_ids):
+                mismatched.append(int(p.size))
+        key = "int8_kv" if kv else "float_kv"
+        report[key] = {"prefills": prefills, "long_prefills": big,
+                       "decode_steps": steps,
+                       "preemptions": c["preemptions"], "launches": n,
+                       "want": want, "token_identical": not mismatched,
+                       "mismatched_prompts": mismatched}
+        check(all(r.state == RequestState.FINISHED
+                  and r.num_generated == MAX_NEW for r in reqs),
+              f"fp32 mixtral {key}: not every request finished")
+        check(c["preemptions"] >= 1,
+              f"fp32 mixtral {key}: the pool did not force a preemption")
+        check(n == want, f"fp32 mixtral {key}: launches {n} != {want}")
+        check(not mismatched, f"fp32 mixtral {key}: scheduler != static "
+              f"generate for prompt lengths {mismatched}")
+        del sched
+    # teacher-forced decode (float cache) against a full forward with the
+    # plain attention and the plain grouped GEMMs
+    plain = mixtral_model("8x7b", num_layers=L, dtype="float32",
+                          attention_impl="plain")
+    eng = InferenceEngine(model, DeepSpeedInferenceConfig(dtype="float32"),
+                          model_parameters=eng.params)
+    worst = 0.0
+    with torch.no_grad():
+        for i in (2, 6):
+            toks = list(prompts[i]) + list(reqs[i].output_ids[:-1])
+            n0 = len(prompts[i])
+            ids = torch.tensor([toks], dtype=torch.int32, device="cuda")
+            cache = model.init_cache_fn(1, -(-len(toks) // 64) * 64,
+                                        torch.float32, "cuda")
+            logits, cache = model.prefill_fn(
+                eng.params, {"input_ids": ids[:, :n0]}, cache)
+            for pos in range(n0, len(toks)):
+                logits, cache = model.decode_fn(
+                    eng.params, ids[:, pos], cache,
+                    torch.tensor([pos], dtype=torch.int32, device="cuda"))
+            with plain_grouped_gemm(gg):
+                full = plain.apply(eng.params, {"input_ids": ids})[:, -1]
+            e = float((logits - full).abs().max())
+            worst = max(worst, e)
+    report.update(teacher_forced_max_abs_err=worst, tol=1e-3)
+    emit(report)
+    check(worst <= 1e-3, f"fp32 mixtral: decode logits differ from the "
+          f"plain full forward by {worst}")
+
+
+def mixtral_http_phase(torch, gg, da, fa):
+    """Phase 13, the slice's main path: init_inference(mixtral_model(
+    "8x7b", num_layers=16), bf16) -> scheduler -> HTTP with phase 5's
+    eight requests: device-init seconds, params' device bytes, tokens/s,
+    TTFT, TPOT, decode ms per step, a profiled decode window, peak
+    memory; the launch counts of the run."""
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving.scheduler import \
+        ContinuousBatchingScheduler
+    import deepspeed_tpu_torch as dt
+    torch.cuda.synchronize()
+    at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = mixtral_model("8x7b", num_layers=MIX_LAYERS, dtype="bfloat16")
+    eng = dt.init_inference(model, {"dtype": "bfloat16"})
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def nbytes(t):
+        if isinstance(t, dict):
+            return sum(nbytes(v) for v in t.values())
+        return t.numel() * t.element_size()
+    params_bytes = nbytes(eng.params)
+    sched = ContinuousBatchingScheduler(model, eng.params, ServingConfig())
+    prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=1)
+    outs, wall_s, mbody, n, window = serve_http(
+        torch, sched, prompts, on_start=lambda: reset_moe_counts(gg, da, fa),
+        on_done=lambda: moe_counts(gg, da, fa))
+    check(all(n[k] > 0 for k in ("ds_ggemm", "ds_ggemm_slots",
+                                 "ds_flash_fwd", "decode_attention"))
+          and n["decode_attention_int8"] == 0,
+          f"mixtral http: launches {n}")
+    check('kernel_launches{kernel="ds_ggemm_slots"}' in mbody,
+          "mixtral http: /metrics lacks the grouped-GEMM launch counts")
+    report = {"phase": "bf16_mixtral_http", "layers": MIX_LAYERS,
+              "memory_allocated_at_start": at_start, "init_s": init_s,
+              "params": model.meta["n_params"],
+              "params_device_bytes": params_bytes,
+              **serve_report(outs, wall_s, window), "launches": n,
+              "outputs": [o["output_ids"][:8] for o in outs]}
+    report["decode_profile"] = profile_decode(torch, sched, prompts)
+    report["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(report)
+    return report
 
 
 def main():
@@ -1605,19 +2000,38 @@ def main():
     int8_parity_phase(torch, da, fa)
     torch.cuda.empty_cache()
     int8_load, int8_runs = int8_http_phase(torch, da, fa)
+    torch.cuda.empty_cache()
+
+    gg = moe_modules()
+    emit({"phase": "moe_start",
+          "memory_allocated": torch.cuda.memory_allocated()})
+    moe_t, moe_errs, attn_errs = moe_kernel_phase(torch, gg, da, fa)
+    torch.cuda.empty_cache()
+    mixtral_parity_phase(torch, gg, da, fa)
+    torch.cuda.empty_cache()
+    mix = mixtral_http_phase(torch, gg, da, fa)
+    mix_n = mix["launches"]
 
     pallas = "deepspeed_tpu/ops/pallas/"
     fwd_t = dict(train_t["ds_flash_fwd"],
                  serving_b1_s1024=fl_t)      # PR 1's serving-shape row
+    for dt_name, e in attn_errs.items():
+        errs["decode_attention"] = max(errs["decode_attention"],
+                                       e["decode_attention"])
+        errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"], e["ds_flash_fwd"])
     rows = (
         ("decode_attention", dec_t, "decode_attention.cu",
-         "decode_attention.py:40", serve_launches["decode_attention"],
-         {"serve_http": serve_launches["decode_attention"]},
+         "decode_attention.py:40",
+         serve_launches["decode_attention"] + mix_n["decode_attention"],
+         {"serve_http": serve_launches["decode_attention"],
+          "mixtral_http": mix_n["decode_attention"]},
          errs["decode_attention"], tols["decode_attention"]),
         ("ds_flash_fwd", fwd_t, "ds_flash_fwd.cu", "ds_flash_attention.py:35",
-         serve_launches["ds_flash_fwd"] + train_launches["ds_flash_fwd"],
+         serve_launches["ds_flash_fwd"] + train_launches["ds_flash_fwd"]
+         + mix_n["ds_flash_fwd"],
          {"serve_http": serve_launches["ds_flash_fwd"],
-          "train_bf16": train_launches["ds_flash_fwd"]},
+          "train_bf16": train_launches["ds_flash_fwd"],
+          "mixtral_http": mix_n["ds_flash_fwd"]},
          errs["ds_flash_fwd"], tols["ds_flash_fwd"]),
         ("ds_flash_bwd_dkv", train_t["ds_flash_bwd_dkv"], "ds_flash_bwd.cu",
          "ds_flash_attention.py:86", train_launches["ds_flash_bwd_dkv"],
@@ -1646,7 +2060,15 @@ def main():
          "fused_decode.py:480",
          int8_runs["fused"]["launches"]["ds_fused_layer"],
          {"int8_http_fused": int8_runs["fused"]["launches"]["ds_fused_layer"]},
-         int8_errs["ds_fused_layer"], INT8_TOL))
+         int8_errs["ds_fused_layer"], INT8_TOL),
+        ("ds_ggemm", moe_t["ds_ggemm"]["gate_in"], "grouped_gemm.cu",
+         "grouped_gemm.py:163", mix_n["ds_ggemm"],
+         {"mixtral_http": mix_n["ds_ggemm"]}, moe_errs["ds_ggemm"],
+         INT8_TOL),
+        ("ds_ggemm_slots", moe_t["ds_ggemm_slots"]["gate_in"],
+         "grouped_gemm.cu", "grouped_gemm.py:433", mix_n["ds_ggemm_slots"],
+         {"mixtral_http": mix_n["ds_ggemm_slots"]},
+         moe_errs["ds_ggemm_slots"], INT8_TOL))
     kernels = []
     for name, t, src, replaces, n, by_path, err, tol in rows:
         check(n > 0, f"{name} was not launched on a main path")
@@ -1661,10 +2083,12 @@ def main():
             "library_ms": t["library_ms"]})
         if name.startswith("ds_flash_bwd"):
             kernels[-1]["max_rel_err_bf16"] = bwd_rel[name]
-        if name in int8_t:
+        if name in int8_t or name in moe_t:
             # fp32 checks abs, bf16 checks relative to each output's max
             kernels[-1].update(err_kind="fp32 abs / bf16 rel_to_max",
                                work=t["work"])
+        if name in moe_t:
+            kernels[-1]["times_by_proj"] = moe_t[name]
         if name == "qgemm":
             # context only: torch.matmul on the dequantized bf16 weights
             kernels[-1]["matmul_bf16_ms"] = t["matmul_bf16_ms"]

@@ -7,7 +7,9 @@ names, the same stacked ``[L, ...]`` block layout, and the reference's
 ``[in, out]`` orientation for every projection weight (the port computes
 ``x @ w`` as the reference does; nothing is transposed anywhere).
 ``gpt2_params_to_numpy`` is the way back, so trained params compare leaf
-by leaf with the JAX engine's.
+by leaf with the JAX engine's.  ``mixtral_params_from_numpy`` /
+``mixtral_params_to_numpy`` do the same for a Mixtral tree, whose
+``blocks`` nest the experts' stacks under ``moe``.
 
 An int8 engine's block weights carry across as they are: a leaf given as
 a ``(q, s)`` pair, or as any object with ``q`` and ``s`` arrays (the JAX
@@ -58,12 +60,16 @@ def to_tensor(a, device, dtype):
     return t.to(device=device, dtype=dtype, copy=True)
 
 
-def _check_keys(tree: dict, want, where: str):
+MIXTRAL_TOP_KEYS = ("wte", "blocks", "final_norm", "lm_head")
+MIXTRAL_BLOCK_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "moe")
+MIXTRAL_MOE_KEYS = ("router", "w_gate", "w_in", "w_out")
+
+
+def _check_keys(tree: dict, want, where: str, fn="gpt2_params_from_numpy"):
     got = set(tree)
     if got != set(want):
         raise ValueError(
-            f"gpt2_params_from_numpy: {where} keys {sorted(got)} != "
-            f"expected {sorted(want)}")
+            f"{fn}: {where} keys {sorted(got)} != expected {sorted(want)}")
 
 
 def gpt2_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
@@ -105,3 +111,32 @@ def gpt2_params_to_numpy(params: dict) -> dict:
     out = {k: to_np(v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = {k: to_np(v) for k, v in params["blocks"].items()}
     return out
+
+
+def mixtral_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
+    """numpy Mixtral params tree (``jax.device_get`` of the JAX engine's
+    params) -> the port's params: the same names and nested layout, every
+    leaf copied onto ``device`` (``None``: the GPU), floating leaves cast
+    to ``dtype`` when given."""
+    fn = "mixtral_params_from_numpy"
+    _check_keys(tree, MIXTRAL_TOP_KEYS, "top-level", fn)
+    _check_keys(tree["blocks"], MIXTRAL_BLOCK_KEYS, "blocks", fn)
+    _check_keys(tree["blocks"]["moe"], MIXTRAL_MOE_KEYS, "blocks.moe", fn)
+    device = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return to_tensor(t, device, dtype)
+    return conv(tree)
+
+
+def mixtral_params_to_numpy(params: dict) -> dict:
+    """The reverse of :func:`mixtral_params_from_numpy` (fp32 for floating
+    leaves, since numpy has no bfloat16)."""
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+    return conv(params)

@@ -555,16 +555,6 @@ fused_layer_kernel(const FusedArgs a) {
   stamp(a, 11);
 }
 
-int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cached[dev] == 0)
-    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
-                           dev);
-  return cached[dev];
-}
-
 template <typename T, typename WT>
 size_t smem_bytes() {
   constexpr size_t attn =

@@ -3,8 +3,9 @@
 // tile_mma ([up to 64 rows x 64 columns], a cp.async ring through shared
 // memory, tensor cores for bf16) and, for the decode shape of at most 8
 // rows, rows_mma ([8 x 256], weights straight into registers).  Shared by
-// csrc/qgemm.cu (the fused-dequant GEMM) and csrc/fused_decode.cu (the
-// per-layer megakernel's projection phases).
+// csrc/qgemm.cu (the fused-dequant GEMM), csrc/fused_decode.cu (the
+// per-layer megakernel's projection phases) and csrc/grouped_gemm.cu (the
+// grouped GEMMs).
 //
 // Numerics are the reference's (deepspeed_tpu/ops/pallas/qgemm.py
 // _qgemm_kernel): an int8 weight element becomes (float)q * scale and is
@@ -552,6 +553,18 @@ __device__ float* rows_mma(const T* __restrict__ A, int lda, int R,
   }
   __syncthreads();
   return red;
+}
+
+// Multiprocessors of the current device (cached per device; 0 on error),
+// for the launchers' split-K choice.
+inline int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0)
+    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  return cached[dev];
 }
 
 }  // namespace dstile

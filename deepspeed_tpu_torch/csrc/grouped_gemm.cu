@@ -1,0 +1,436 @@
+// Grouped GEMM for routed experts: rows against the stacked expert
+// weights w [E, K, N] (bf16 or fp32, the rows' dtype), fp32 accumulation,
+// output in the rows' dtype.  Two kernels:
+//
+// ds_ggemm — replaces deepspeed_tpu/ops/pallas/grouped_gemm.py
+// _ggemm_kernel (:163, the forward form).  x [Mp, K] holds the routed
+// rows sorted by expert and padded per expert to 64-row tiles (the
+// wrapper's GroupPlan); M-tile i contracts against w[block_group_ids[i]],
+// which the CTA loads itself.  One CTA per (M-tile, 64-column N-tile),
+// the K loop inside the CTA (the Pallas grid's sequential K axis and its
+// VMEM accumulator become csrc/gemm_tile.cuh's tile_mma: a cp.async ring
+// of [64 x 64] chunks, wmma bf16 m16n16k16 or fmaf for fp32, no TF32).
+// tile_rows[i] real rows are a prefix of the tile: the CTA loads only
+// those, and a tile with none (an empty expert's tile, a trailing tile
+// past the last group) writes zeros without a fetch, as the Pallas
+// kernel's product over zero rows does.  M-tiles vary fastest in the
+// grid, so the CTAs in flight share their weight columns in L2.
+// What bounds it on an H100: at a long prefill (R = 1800 routed rows of
+// a 900-token prompt, K 4096, N 14336) the distinct experts' weights,
+// 0.94 GB (0.28 ms at 3.35 TB/s), against 211 GFLOP on the real rows
+// (0.21 ms at 989 TFLOP/s): bytes and operations within a factor 1.3.
+//
+// ds_ggemm_slots — replaces grouped_gemm.py _slot_kernel (:433).  x
+// [R <= 128, K] holds the raw routed rows (no padding).  The Pallas
+// kernel walks slots innermost in a sequential grid and carries its
+// accumulator across them; here each CTA owns a 128-column N-tile and a
+// K range and loops over the slots itself.  For a valid slot s it
+// streams w[active[s]]'s K x 128 tile once (a cp.async ring) and computes
+// only the rows routed to that expert — row_order[slot_offsets[s] ..
+// slot_offsets[s + 1]), gathered straight from x — with mma.sync
+// m16n8k16 for bf16 (fmaf for fp32).  Every row belongs to exactly one
+// slot, so a row's product comes from its own expert alone, and rows of
+// other experts never enter it (the Pallas kernel's select).  A slot with
+// valid == 0 (a repeated trailing id) is skipped without a fetch.  A
+// skinny N leaves too few tiles for 132 SMs, so K splits across up to
+// kSlotMaxSplit CTAs per tile; each writes an fp32 partial to a
+// workspace and the last to arrive (an int atomic per tile, returned to
+// 0 by that CTA) sums the partials in split order: no float atomics, the
+// same bits every run, and the split depends only on N and K, so a row's
+// result does not depend on the other rows.
+// What bounds it: bytes.  At decode (batch 8, R = 16, ~8 distinct
+// experts) one gate or in launch streams <= 8 x 4096 x 14336 x 2 B =
+// 0.94 GB, 0.28 ms at 3.35 TB/s; its products are ~2 flops per weight
+// byte.
+//
+// C interface (loaded with ctypes): each entry point returns the
+// cudaError_t of its launch as an int.
+#include "gemm_tile.cuh"
+
+namespace {
+
+using namespace dstile;
+
+// ------------------------------------------------------------- ds_ggemm
+// grid (num M-tiles, N / BN); the plan's tile is RPMAX = 64 rows
+template <typename T>
+__global__ void __launch_bounds__(NT)
+ggemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+             const int* __restrict__ gids, const int* __restrict__ tile_rows,
+             T* __restrict__ out, int K, int N, int E) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int mt = blockIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const size_t m0 = (size_t)mt * RPMAX;
+  const int e = gids[mt];
+  const int R = (e >= 0 && e < E) ? min(max(tile_rows[mt], 0), RPMAX) : 0;
+  const float* ct = nullptr;
+  if (R > 0)   // uniform over the CTA
+    ct = tile_mma<T, T>(x + m0 * K, K, R, w + (size_t)e * K * N, nullptr,
+                        0, 1, N, n0, 0, K, smem);
+  for (int i = threadIdx.x; i < RPMAX * BN; i += NT) {
+    const int r = i / BN, n = i - r * BN;
+    if (n0 + n < N)
+      out[(m0 + r) * N + n0 + n] =
+          r < R ? from_f<T>(ct[r * (BN + CPAD) + n]) : from_f<T>(0.f);
+  }
+}
+
+template <typename T>
+cudaError_t launch_ggemm(const void* x, const void* w, const int* gids,
+                         const int* tile_rows, void* out, int nblocks, int K,
+                         int N, int E, cudaStream_t stream) {
+  const size_t smem = TileSmem<T, T>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      ggemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nblocks, (N + BN - 1) / BN);
+  ggemm_kernel<T><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), gids, tile_rows,
+      static_cast<T*>(out), K, N, E);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------- ds_ggemm_slots
+constexpr int kSlotBN = 128;      // output columns per CTA
+constexpr int kSlotBK = 64;       // K per pipeline stage
+constexpr int kSlotRows = 64;     // rows per pass (four m16 fragments)
+constexpr int kSlotMaxSplit = 16;
+constexpr int kSlotPad = 8;       // row pad (elements) of the smem tiles
+static_assert(NT / 32 * 16 == kSlotBN, "a warp owns 16 columns");
+
+template <typename T>
+struct SlotSmem {
+  static constexpr int ST = sizeof(T) == 2 ? 4 : 3;   // stages in flight
+  static constexpr int LDW = kSlotBN + kSlotPad;
+  static constexpr int LDA = kSlotBK + kSlotPad;
+  static constexpr size_t wstage = (size_t)kSlotBK * LDW * sizeof(T);
+  static constexpr size_t astage = (size_t)kSlotRows * LDA * sizeof(T);
+  static constexpr size_t a = ST * wstage;
+  static constexpr size_t idx = a + ST * astage;
+  static constexpr size_t bytes = idx + kSlotRows * sizeof(int);
+};
+
+// one stage: W rows [kc0, kc0 + kSlotBK) x columns [n0, n0 + kSlotBN) and
+// the rows idx[r < nrow] of x at columns [kc0, kc0 + kSlotBK), rows
+// [nrow, nrow_pad) as zeros, as one cp.async group; what lies past k_end
+// or N arrives as zeros (element-wise loads where 16-byte vectors do not
+// fit, complete when this returns)
+template <typename T>
+__device__ __forceinline__ void slot_load(
+    T* wdst, const T* __restrict__ W, int N, int n0, T* adst,
+    const T* __restrict__ x, int K, const int* idx, int nrow, int nrow_pad,
+    int kc0, int k_end, bool wvec, bool avec) {
+  using SM = SlotSmem<T>;
+  constexpr int VEC = 16 / sizeof(T);
+  if (wvec) {
+    constexpr int VPR = kSlotBN / VEC;
+    for (int v = threadIdx.x; v < kSlotBK * VPR; v += NT) {
+      const int kk = v / VPR, vv = v - kk * VPR;
+      const int k = kc0 + kk, n = n0 + vv * VEC;
+      const bool ok = k < k_end && n < N;   // N % VEC == 0: whole vectors
+      cp_async16(wdst + kk * SM::LDW + vv * VEC,
+                 ok ? (const void*)(W + (size_t)k * N + n) : (const void*)W,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kSlotBK * kSlotBN; i += NT) {
+      const int kk = i / kSlotBN, nn = i - kk * kSlotBN;
+      const int k = kc0 + kk, n = n0 + nn;
+      wdst[kk * SM::LDW + nn] =
+          (k < k_end && n < N) ? W[(size_t)k * N + n] : from_f<T>(0.f);
+    }
+  }
+  if (avec) {
+    constexpr int VPR = kSlotBK / VEC;
+    for (int v = threadIdx.x; v < nrow_pad * VPR; v += NT) {
+      const int r = v / VPR, vv = v - r * VPR;
+      const int k = kc0 + vv * VEC;
+      const int valid = r < nrow ? min(VEC, k_end - k) : 0;
+      cp_async16(adst + r * SM::LDA + vv * VEC,
+                 valid > 0 ? (const void*)(x + (size_t)idx[r] * K + k)
+                           : (const void*)x,
+                 valid > 0 ? valid * (int)sizeof(T) : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrow_pad * kSlotBK; i += NT) {
+      const int r = i / kSlotBK, kk = i - r * kSlotBK;
+      const int k = kc0 + kk;
+      adst[r * SM::LDA + kk] = (r < nrow && k < k_end)
+                                   ? x[(size_t)idx[r] * K + k]
+                                   : from_f<T>(0.f);
+    }
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p,
+                                        bool trans) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  if (trans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(s));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(s));
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the pass's result for row r < nrow (position in the pass), column n of
+// the tile: straight to out (no K split) or to this split's workspace
+template <typename T>
+__device__ __forceinline__ void slot_store(
+    T* __restrict__ out, float* __restrict__ wsp, const int* idx, int r,
+    int nrow, int n, int N, int R, int split, int nsplit, float v) {
+  if (r >= nrow || n >= N) return;
+  const size_t row = (size_t)idx[r];
+  if (nsplit == 1)
+    out[row * N + n] = from_f<T>(v);
+  else
+    wsp[((size_t)split * R + row) * N + n] = v;
+}
+
+// grid (N / kSlotBN, nsplit), K split in `kper` rows (a kSlotBK multiple)
+template <typename T>
+__global__ void __launch_bounds__(NT)
+slot_kernel(const T* __restrict__ x, const T* __restrict__ w,
+            const int* __restrict__ active, const int* __restrict__ valid,
+            const int* __restrict__ order, const int* __restrict__ offs,
+            T* __restrict__ out, float* __restrict__ wsp,
+            int* __restrict__ counters, int R, int K, int N, int E, int S,
+            int nsplit, int kper) {
+  using SM = SlotSmem<T>;
+  constexpr int ST = SM::ST;
+  constexpr bool kTensorCore = sizeof(T) == 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* idx = reinterpret_cast<int*>(smem + SM::idx);
+  auto wstage = [&](int s) {
+    return reinterpret_cast<T*>(smem + (size_t)s * SM::wstage);
+  };
+  auto astage = [&](int s) {
+    return reinterpret_cast<T*>(smem + SM::a + (size_t)s * SM::astage);
+  };
+  const int n0 = blockIdx.x * kSlotBN;
+  const int split = blockIdx.y;
+  const int k_begin = split * kper;
+  const int k_end = min(K, k_begin + kper);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool avec = ((size_t)K * sizeof(T)) % 16 == 0 &&
+                    (uintptr_t)x % 16 == 0;
+
+  for (int s = 0; s < S; ++s) {
+    if (!valid[s]) continue;                 // repeated slot: no fetch
+    const int e = active[s];
+    const bool live = e >= 0 && e < E;       // else its rows get zeros
+    const int nch =
+        live && k_end > k_begin ? (k_end - k_begin + kSlotBK - 1) / kSlotBK
+                                : 0;
+    const T* We = w + (size_t)(live ? e : 0) * K * N;
+    const bool wvec = ((size_t)N * sizeof(T)) % 16 == 0 &&
+                      (uintptr_t)We % 16 == 0;
+    for (int rb = offs[s]; rb < offs[s + 1]; rb += kSlotRows) {
+      const int nrow = min(kSlotRows, offs[s + 1] - rb);
+      const int nfr = (nrow + 15) / 16;
+      __syncthreads();   // the previous pass is done with idx and stages
+      for (int i = threadIdx.x; i < nrow; i += NT) idx[i] = order[rb + i];
+      __syncthreads();
+      float acc[kSlotRows / 2];   // fp32: rows tid / kSlotBN + 2 i
+      float mac[4][2][4];         // bf16: [row fragment][n8][c0..c3]
+      if constexpr (kTensorCore) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) mac[f][j][c] = 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < kSlotRows / 2; ++i) acc[i] = 0.f;
+      }
+      auto load = [&](int c) {
+        slot_load<T>(wstage(c % ST), We, N, n0, astage(c % ST), x, K, idx,
+                     nrow, nfr * 16, k_begin + c * kSlotBK, k_end, wvec,
+                     avec);
+      };
+#pragma unroll
+      for (int c = 0; c < ST - 1; ++c) {
+        if (c < nch) load(c);
+        else cp_async_commit();
+      }
+      for (int c = 0; c < nch; ++c) {
+        if (c + ST - 1 < nch) load(c + ST - 1);
+        else cp_async_commit();
+        cp_async_wait<ST - 1>();
+        __syncthreads();
+        const T* ws_ = wstage(c % ST);
+        const T* as_ = astage(c % ST);
+        if constexpr (kTensorCore) {
+          const int j = lane >> 3, rr = lane & 7;
+#pragma unroll
+          for (int ks = 0; ks < kSlotBK / 16; ++ks) {
+            unsigned b[4];   // two n8 fragments of the warp's 16 columns
+            ldsm_x4(b,
+                    ws_ + (ks * 16 + (j & 1) * 8 + rr) * SM::LDW +
+                        warp * 16 + (j >> 1) * 8,
+                    true);
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              if (f < nfr) {
+                unsigned a[4];
+                ldsm_x4(a,
+                        as_ + (f * 16 + (j & 1) * 8 + rr) * SM::LDA +
+                            ks * 16 + (j >> 1) * 8,
+                        false);
+                mma_bf16(mac[f][0], a, b);
+                mma_bf16(mac[f][1], a, b + 2);
+              }
+            }
+          }
+        } else {
+          const int col = threadIdx.x % kSlotBN, rg = threadIdx.x / kSlotBN;
+          for (int kk = 0; kk < kSlotBK; ++kk) {
+            const float wv = to_f(ws_[kk * SM::LDW + col]);
+#pragma unroll
+            for (int i = 0; i < kSlotRows / 2; ++i) {
+              const int r = rg + 2 * i;
+              if (r < nrow)
+                acc[i] = fmaf(to_f(as_[r * SM::LDA + kk]), wv, acc[i]);
+            }
+          }
+        }
+        __syncthreads();
+      }
+      cp_async_wait<0>();
+      if constexpr (kTensorCore) {
+        const int g = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+#pragma unroll
+          for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int q = 0; q < 2; ++q)
+                slot_store<T>(out, wsp, idx, f * 16 + g + 8 * h, nrow,
+                              n0 + warp * 16 + jn * 8 + c2 + q, N, R, split,
+                              nsplit, mac[f][jn][2 * h + q]);
+      } else {
+        const int col = threadIdx.x % kSlotBN, rg = threadIdx.x / kSlotBN;
+#pragma unroll
+        for (int i = 0; i < kSlotRows / 2; ++i)
+          slot_store<T>(out, wsp, idx, rg + 2 * i, nrow, n0 + col, N, R,
+                        split, nsplit, acc[i]);
+      }
+    }
+  }
+  if (nsplit == 1) return;
+  // the last of the tile's nsplit CTAs sums the partials in split order
+  __shared__ int s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(counters + blockIdx.x, 1) == nsplit - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int ncols = min(kSlotBN, N - n0);
+  const size_t stride = (size_t)R * N;
+  for (int i = threadIdx.x; i < R * ncols; i += NT) {
+    const int r = i / ncols, n = n0 + (i - r * ncols);
+    out[(size_t)r * N + n] = from_f<T>(
+        sum_splits<kSlotMaxSplit>(wsp + (size_t)r * N + n, stride, nsplit));
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;
+}
+
+// K splits per N-tile: enough CTAs for two per SM, no split without a
+// kSlotBK chunk of work; depends on N and K only
+int slot_splits(int K, int N, int* kper) {
+  const int tiles = (N + kSlotBN - 1) / kSlotBN;
+  const int kch = (K + kSlotBK - 1) / kSlotBK;
+  const int sms = sm_count();
+  if (sms <= 0) return 0;
+  int nsplit = (2 * sms + tiles - 1) / tiles;
+  nsplit = max(1, min(nsplit, min(kSlotMaxSplit, kch)));
+  const int chunks = (kch + nsplit - 1) / nsplit;
+  nsplit = (kch + chunks - 1) / chunks;
+  if (kper) *kper = chunks * kSlotBK;
+  return nsplit;
+}
+
+template <typename T>
+cudaError_t launch_slots(const void* x, const void* w, const int* active,
+                         const int* valid, const int* order, const int* offs,
+                         void* out, void* wsp, void* counters, int R, int K,
+                         int N, int E, int S, cudaStream_t stream) {
+  int kper = 0;
+  const int nsplit = slot_splits(K, N, &kper);
+  if (nsplit <= 0) return cudaErrorInvalidDevice;
+  const size_t smem = SlotSmem<T>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      slot_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kSlotBN - 1) / kSlotBN, nsplit);
+  slot_kernel<T><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), active, valid,
+      order, offs, static_cast<T*>(out), static_cast<float*>(wsp),
+      static_cast<int*>(counters), R, K, N, E, S, nsplit, kper);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ds_ggemm(const void* x, const void* w, const void* gids,
+                        const void* tile_rows, void* out, int nblocks, int K,
+                        int N, int E, int is_bf16, void* stream) {
+  if (nblocks < 1 || K < 1 || N < 1 || E < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* g = static_cast<const int*>(gids);
+  const int* tr = static_cast<const int*>(tile_rows);
+  return is_bf16 ? (int)launch_ggemm<__nv_bfloat16>(x, w, g, tr, out,
+                                                    nblocks, K, N, E, st)
+                 : (int)launch_ggemm<float>(x, w, g, tr, out, nblocks, K, N,
+                                            E, st);
+}
+
+// the slot kernel's K splits at (K, N) on the current device (the
+// wrapper sizes its workspace by it); 0 when the device is unknown
+extern "C" int ds_ggemm_slots_splits(int K, int N) {
+  if (K < 1 || N < 1) return 0;
+  return slot_splits(K, N, nullptr);
+}
+
+extern "C" int ds_ggemm_slots(const void* x, const void* w,
+                              const void* active, const void* valid,
+                              const void* order, const void* offs, void* out,
+                              void* wsp, void* counters, int R, int K, int N,
+                              int E, int S, int is_bf16, void* stream) {
+  if (R < 1 || R > 128 || K < 1 || N < 1 || E < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* a = static_cast<const int*>(active);
+  const int* v = static_cast<const int*>(valid);
+  const int* o = static_cast<const int*>(order);
+  const int* f = static_cast<const int*>(offs);
+  return is_bf16 ? (int)launch_slots<__nv_bfloat16>(
+                       x, w, a, v, o, f, out, wsp, counters, R, K, N, E, S,
+                       st)
+                 : (int)launch_slots<float>(x, w, a, v, o, f, out, wsp,
+                                            counters, R, K, N, E, S, st);
+}

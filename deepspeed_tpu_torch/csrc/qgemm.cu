@@ -130,16 +130,6 @@ qgemm_rows_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
                  blockIdx.x, split, nsplit);
 }
 
-int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cached[dev] == 0)
-    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
-                           dev);
-  return cached[dev];
-}
-
 template <typename T>
 cudaError_t launch(const void* x, const void* q, const void* s, void* out,
                    void* ws, void* counters, int M, int N, int K, int nb,

@@ -17,9 +17,14 @@ is the int8 total plus one full-precision leaf; biases, norms, ``wte`` and
 static generate an int8 KV cache.  ``generate(fused_decode=True)`` decodes
 with one fused-layer kernel per layer.
 
+Mixture-of-experts models (Mixtral) serve in the compute dtype with a
+float or int8 KV cache; their params are drawn on the device
+(``Model.init_fn``) when none are given.
+
 Refused here (not ported yet): tensor parallelism
-(``tensor_parallel.tp_size > 1``) and a float KV cache in a dtype other
-than the compute dtype.
+(``tensor_parallel.tp_size > 1``), expert parallelism
+(``moe.ep_size > 1``), int8 weights for a model with stacked experts, and
+a float KV cache in a dtype other than the compute dtype.
 """
 from typing import Optional
 
@@ -46,12 +51,19 @@ def torch_dtype(name) -> torch.dtype:
     return dt
 
 
-def refuse_unported(config: DeepSpeedInferenceConfig):
+def refuse_unported(config: DeepSpeedInferenceConfig, model=None):
     """NotImplementedError for inference settings not ported yet, naming
     the ROADMAP.md item that brings them."""
     tp = (config.tensor_parallel.tp_size
           if config.tensor_parallel.enabled else 1)
+    moe = bool(model is not None and model.meta.get("num_experts"))
     checks = (
+        (config.quant.enabled and moe,
+         "quant.enabled on a model with stacked expert weights (int8 "
+         "expert stacks need the quantized grouped-GEMM kernels)",
+         "Queue B: int8 MoE, port slice 5"),
+        (config.moe.ep_size > 1, f"moe.ep_size={config.moe.ep_size}",
+         "Queue A item 4: data parallel, ZeRO and model parallelism"),
         (config.kv_cache_dtype not in (None, "int8", config.dtype),
          f"kv_cache_dtype={config.kv_cache_dtype!r} (a float cache in "
          "another dtype than the compute dtype)",
@@ -72,7 +84,7 @@ class InferenceEngine:
         """``model_parameters``: a params tree of tensors or of numpy
         arrays (e.g. ``jax.device_get`` of the reference engine's
         params); None draws the model's seeded host init (seed 0)."""
-        refuse_unported(config)
+        refuse_unported(config, model)
         self.model = model
         self._config = config
         self.device = resolve_device(device)

@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from deepspeed_tpu_torch.models.model import (Model, maybe_stream, qdot,
+from deepspeed_tpu_torch.models.model import (Model, layer_params,
+                                              maybe_stream, qdot,
                                               resolve_size)
 from deepspeed_tpu_torch.models.serving import (_fused_layer_pass,
                                                 fused_decode_active,
@@ -175,11 +176,6 @@ def _block_finish(x, attn, layer, config: GPT2Config):
                 + layer["mlp_out_b"].to(x.dtype))
 
 
-def _layer(params, l: int) -> dict:
-    """Layer ``l``'s block params (views of the stacked tensors)."""
-    return {k: v[l] for k, v in params["blocks"].items()}
-
-
 def embed(params, batch, config: GPT2Config):
     tokens = batch["input_ids"]
     dtype = config.torch_dtype
@@ -209,7 +205,7 @@ def forward(params, batch, config: GPT2Config):
     x = embed(params, batch, config)
     seg = batch.get("segment_ids") if isinstance(batch, dict) else None
     for l in range(config.num_layers):
-        layer = _layer(params, l)
+        layer = layer_params(params["blocks"], l)
         if config.remat:
             x = checkpoint(_block, x, layer, config, seg,
                            use_reentrant=False)
@@ -260,7 +256,7 @@ def prefill(params, batch, cache, config: GPT2Config):
     B, S, D = x.shape
     quantized = "k_s" in cache
     for l in range(config.num_layers):
-        layer = maybe_stream(_layer(params, l))
+        layer = maybe_stream(layer_params(params["blocks"], l))
         q, kk, v = _block_qkv(x, layer, config)
         attn = causal_attention(q, kk, v, impl=config.attention_impl)
         # in place: this layer's prompt K/V straight into the cache
@@ -297,7 +293,8 @@ def decode_step(params, tokens, cache, lengths, config: GPT2Config,
     kc, vc = cache["k"], cache["v"]
     fill = (lengths + 1).to(torch.int32)
     for l in range(config.num_layers):
-        layer = maybe_stream(_layer(params, l), keep_quantized=keep_q)
+        layer = maybe_stream(layer_params(params["blocks"], l),
+                             keep_quantized=keep_q)
         q, kk, v = _block_qkv(x[:, None, :], layer, config)
         if quantized:
             kq, ks1 = quantize_kv(kk[:, 0])
@@ -343,4 +340,5 @@ def gpt2_model(size: str = "125m", **overrides) -> Model:
         prefill_fn=lambda p, b, c: prefill(p, b, c, config),
         decode_fn=lambda p, t, c, l, fused=False: decode_step(
             p, t, c, l, config, fused=fused),
+        fused_spec=_fused_spec(config),
     )

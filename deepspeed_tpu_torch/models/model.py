@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.utils.tree import tree_map
 
 
 class QuantizedTensor:
@@ -67,6 +68,13 @@ def maybe_stream(layer, keep_quantized: bool = False):
     return {k: dq(v) for k, v in layer.items()}
 
 
+def layer_params(blocks, l: int) -> dict:
+    """Layer ``l`` of the stacked ``[L, ...]`` blocks: views (int8 leaves
+    slice both their codes and scales), nested dicts such as Mixtral's
+    ``moe`` keeping their structure."""
+    return tree_map(lambda a: a[l], blocks)
+
+
 def resolve_size(sizes: dict, size: str, family: str) -> dict:
     """Look up a size preset, refusing typos; ``size="custom"`` opts into
     the config defaults + overrides explicitly."""
@@ -105,15 +113,23 @@ class Model:
     init_cache_fn: Optional[Callable] = None
     prefill_fn: Optional[Callable] = None
     decode_fn: Optional[Callable] = None
+    #: (seed, device, dtype) -> params drawn on the device, for families
+    #: too large for a host init (Mixtral); None: ``numpy_init_fn``
+    init_fn: Optional[Callable] = None
+    #: the family's fused-layer spec (``ops/kernels/fused_decode.py``
+    #: ``FusedLayerSpec``), checked when a caller asks for fused decode
+    fused_spec: Any = None
 
     def __post_init__(self):
         if self.loss_fn is None and self.apply_fn is not None:
             self.loss_fn = default_lm_loss(self.apply_fn)
 
     def init(self, seed: int = 0, device=None, dtype=None):
-        """Params from the reference's seeded host init, placed on
-        ``device`` (``None``: the GPU, see ``resolve_device``) in ``dtype``
-        (floating leaves)."""
+        """Seeded params on ``device`` (``None``: the GPU, see
+        ``resolve_device``) in ``dtype`` (floating leaves): the family's
+        device init where it has one, else the reference's host init."""
+        if self.init_fn is not None:
+            return self.init_fn(seed, resolve_device(device), dtype)
         return self.params_from_numpy_fn(self.numpy_init_fn(seed),
                                          resolve_device(device), dtype)
 

@@ -1,6 +1,8 @@
-"""KV-cache helpers shared by the serving paths (counterpart of
-``deepspeed_tpu/models/serving.py`` ``write_token`` / ``select_token`` /
-``init_cache``, the int8-weights routing and the fused per-layer pass).
+"""KV-cache serving paths shared by the model families (counterpart of
+``deepspeed_tpu/models/serving.py``): ``write_token`` / ``select_token`` /
+``init_cache``, the int8-weights routing, the fused per-layer pass, and
+the generic hook-driven ``prefill`` (:416) and ``decode_step`` (:466)
+that Mixtral serves through (GPT-2 keeps its own in ``models/gpt2.py``).
 
 The reference is functional: a write returns a new cache.  Here the
 cache is updated in place — ``index_put_`` on one layer's slice — which
@@ -18,7 +20,11 @@ unrolled loop in that case too.
 """
 import torch
 
-from deepspeed_tpu_torch.models.model import QuantizedTensor, maybe_stream
+from deepspeed_tpu_torch.models.model import (QuantizedTensor, layer_params,
+                                              maybe_stream)
+from deepspeed_tpu_torch.ops.attention import causal_attention
+from deepspeed_tpu_torch.ops.kernels.decode_attention import (
+    decode_attention, quantize_kv, quantize_prefill_into_cache)
 
 
 def select_token(c_l, new, lengths):
@@ -67,11 +73,23 @@ def qgemm_active(blocks) -> bool:
 
 def fused_decode_active(spec, fused_decode) -> bool:
     """Whether decode takes the fused per-layer path: the caller asked for
-    it (``serving.fused_decode``) and the family wired a spec the port's
-    kernel covers.  ``None`` is the unfused path (the reference turns it
-    on by default on a TPU; the port leaves it off until the fused step
-    is measured on the GPU)."""
-    return bool(fused_decode) and spec is not None and spec.supported()
+    it (``serving.fused_decode``).  ``None`` and ``False`` are the unfused
+    path (the reference turns ``None`` on by default on a TPU; the port
+    leaves it off until the fused step is measured on the GPU).  An
+    explicit request on a family whose spec the port's kernel does not
+    cover raises ``NotImplementedError`` naming the spec feature: it never
+    quietly runs the unfused path."""
+    if not fused_decode:
+        return False
+    why = "the family wires no fused-layer spec" if spec is None \
+        else spec.unsupported()
+    if why is not None:
+        raise NotImplementedError(
+            f"serving.fused_decode=true: the fused layer's {why} variant is "
+            "not ported to deepspeed_tpu_torch yet (ROADMAP.md Queue B: "
+            "fused_decode's other specs, port slice 6); serve with "
+            "fused_decode off")
+    return True
 
 
 def _fused_keep_quantized(blocks) -> bool:
@@ -109,3 +127,72 @@ def _fused_layer_pass(params, x, cache, lengths, *, spec, weights_fn):
                 write_token(ksc, l, nks[:, j], lengths + j)
                 write_token(vsc, l, nvs[:, j], lengths + j)
     return x, cache
+
+
+def prefill(params, batch, cache, *, embed_fn, qkv_fn, finish_fn, head_fn,
+            num_heads, attention_impl):
+    """Causal forward over right-padded prompts [B, S] filling cache
+    positions [0, S) in place (the reference's hook-driven ``prefill``;
+    an int8 cache gets the quantized K/V).  ``qkv_fn(x, layer, positions)``
+    -> q [B, S, H, hd], k/v [B, S, KV, hd] (KV heads not repeated: the
+    cache stays compact); ``finish_fn(x, attn [B, S, H * hd], layer)`` ->
+    x.  Returns (logits [B, S, V], cache)."""
+    tokens = batch["input_ids"]
+    B, S = tokens.shape
+    x = embed_fn(params, tokens)
+    quantized = "k_s" in cache
+    for l in range(cache["k"].shape[0]):
+        layer = maybe_stream(layer_params(params["blocks"], l))
+        q, kk, v = qkv_fn(x, layer, None)
+        attn = causal_attention(q, kk, v, impl=attention_impl)
+        if quantized:
+            quantize_prefill_into_cache(
+                {name: c[l:l + 1] for name, c in cache.items()}, kk[None],
+                v[None])
+        else:
+            cache["k"][l, :, :S] = kk
+            cache["v"][l, :, :S] = v
+        x = finish_fn(x, attn.reshape(B, S, num_heads * q.shape[-1]), layer)
+    return head_fn(params, x), cache
+
+
+def decode_step(params, tokens, cache, lengths, *, embed_fn, qkv_fn,
+                finish_fn, head_fn, num_heads, fused=False, fused_spec=None):
+    """One decode step (the reference's hook-driven ``decode_step``):
+    tokens [B], lengths [B] int32 = current cache fill per row.  Rotary
+    positions are per row (``lengths``); the GQA cache stays compact and
+    the decode-attention kernel maps query heads to KV heads.  Writes the
+    new K/V (quantized for an int8 cache) into ``cache`` in place and
+    returns (logits [B, V], cache).  ``fused=True`` raises in
+    :func:`fused_decode_active`: no spec wired through these hooks is one
+    the fused kernel covers yet."""
+    fused_decode_active(fused_spec, fused)
+    B = tokens.shape[0]
+    x = embed_fn(params, tokens[:, None])[:, 0]                 # [B, D]
+    quantized = "k_s" in cache
+    keep_q = qgemm_active(params["blocks"])
+    kc, vc = cache["k"], cache["v"]
+    fill = (lengths + 1).to(torch.int32)
+    for l in range(kc.shape[0]):
+        layer = maybe_stream(layer_params(params["blocks"], l),
+                             keep_quantized=keep_q)
+        q, kk, v = qkv_fn(x[:, None, :], layer, lengths[:, None])
+        hd = q.shape[-1]
+        if quantized:
+            kq, ks1 = quantize_kv(kk[:, 0])
+            vq, vs1 = quantize_kv(v[:, 0])
+            write_token(kc, l, kq, lengths)
+            write_token(vc, l, vq, lengths)
+            write_token(cache["k_s"], l, ks1, lengths)
+            write_token(cache["v_s"], l, vs1, lengths)
+            attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill,
+                                    k_scale=cache["k_s"][l],
+                                    v_scale=cache["v_s"][l])
+        else:
+            write_token(kc, l, kk[:, 0], lengths)
+            write_token(vc, l, v[:, 0], lengths)
+            attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill)
+        x = finish_fn(x[:, None, :],
+                      attn.reshape(B, 1, num_heads * hd).to(x.dtype),
+                      layer)[:, 0, :]
+    return head_fn(params, x[:, None, :])[:, 0], cache

@@ -9,6 +9,7 @@ so an edited kernel rebuilds and an unchanged one loads from disk.  The sources 
 (pointers and the stream as ``void*``, each returning the launch's
 ``cudaError_t``), which keeps a build to seconds: no PyTorch headers.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
+:func:`scratch` holds the split-K workspace the GEMM wrappers share.
 """
 import ctypes
 import hashlib
@@ -19,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -105,3 +108,22 @@ def check(rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f"deepspeed_tpu_torch: {what} launch failed "
                            f"(cudaError_t {rc})")
+
+
+_workspace = {}
+
+
+def scratch(device, n_floats: int, n_counters: int):
+    """Per-device split-K workspace (fp32 partial tiles) and per-tile
+    arrival counters, shared by the split-K kernels (``qgemm``,
+    ``ds_ggemm_slots``): each kernel returns every counter to 0, so both
+    are allocated once, grown when a launch needs more, and reused in
+    stream order."""
+    ws = _workspace.get(device)
+    if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_counters:
+        nf = max(n_floats, ws[0].numel() if ws else 0)
+        nc = max(n_counters, ws[1].numel() if ws else 0)
+        ws = (torch.empty(nf, dtype=torch.float32, device=device),
+              torch.zeros(nc, dtype=torch.int32, device=device))
+        _workspace[device] = ws
+    return ws

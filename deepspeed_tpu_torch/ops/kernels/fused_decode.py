@@ -127,9 +127,9 @@ def _check_spec(spec: FusedLayerSpec):
     if why is not None:
         raise NotImplementedError(
             f"ds_fused_layer: {why}: only the GPT-2 spec is ported to "
-            "deepspeed_tpu_torch (ROADMAP.md Queue B: the fused layer's "
-            "rotary/GQA/RMSNorm/SwiGLU variants come with port slice 4, "
-            "its MoE (mlp='none') variant with slice 5)")
+            "deepspeed_tpu_torch (ROADMAP.md Queue B: fused_decode's other "
+            "specs — rotary, GQA, RMSNorm, SwiGLU and the MoE "
+            "(mlp='none') variant — port slice 6)")
 
 
 # ------------------------------------------------------------ plain version

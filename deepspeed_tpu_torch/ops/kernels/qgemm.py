@@ -44,23 +44,6 @@ def _lib():
     return fn
 
 
-_workspace = {}
-
-
-def _scratch(device, n_floats: int, n_counters: int):
-    """Per-device split-K workspace (fp32 partial tiles) and per-tile
-    arrival counters; the kernel returns every counter to 0, so both are
-    allocated once and reused, stream-ordered."""
-    ws = _workspace.get(device)
-    if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_counters:
-        nf = max(n_floats, ws[0].numel() if ws else 0)
-        nc = max(n_counters, ws[1].numel() if ws else 0)
-        ws = (torch.empty(nf, dtype=torch.float32, device=device),
-              torch.zeros(nc, dtype=torch.int32, device=device))
-        _workspace[device] = ws
-    return ws
-
-
 def qgemm_cuda(x, q, scales):
     """Launch the CUDA kernel; raises on anything it does not take."""
     if q.dim() != 2 or scales.dim() != 2:
@@ -88,7 +71,7 @@ def qgemm_cuda(x, q, scales):
         return out
     # workspace bound over both paths, and one counter per output tile
     tiles = -(-N // 64) * -(-M // 64)
-    ws, counters = _scratch(
+    ws, counters = build.scratch(
         x.device, max(MAX_SPLIT * tiles * 64 * 64,
                       ROWS_MAX_SPLIT * -(-N // 256) * 8 * 256), tiles)
     with torch.cuda.device(x.device):

@@ -446,8 +446,9 @@ class ServingConfig(DeepSpeedConfigModel):
     #: residual is left to count, and the reference keeps its unrolled
     #: loop in that case too; the port has no scan form
     quant_scan_threshold_mb: int = 512
-    #: MoE expert dispatch formulation override in the reference; the
-    #: ported model family (GPT-2) is dense, so it selects nothing here
+    #: MoE expert dispatch formulation override: "auto" and "grouped"
+    #: serve the grouped dispatch (the only one ported); "einsum" is
+    #: refused by the scheduler of an MoE model; dense models ignore it
     moe_dispatch: Optional[str] = None
     #: fused decode megakernel toggle: True runs one fused-layer kernel
     #: per layer per decode step (``ops/kernels/fused_decode.py``); None

@@ -23,7 +23,10 @@ Each ``step()`` is one engine iteration:
 The pool holds K/V in the compute dtype, or (``kv_cache_dtype="int8"``)
 int8 codes plus one fp32 scale per cached head vector, gathered and
 scattered alongside.  ``serving.fused_decode`` runs each decode step
-through the fused per-layer kernel instead of the unfused composition.
+through the fused per-layer kernel instead of the unfused composition
+(a family whose spec the kernel does not cover raises).  A mixture-of-
+experts model serves its experts through the grouped dispatch
+(``serving.moe_dispatch`` "auto" or "grouped"; "einsum" raises).
 
 The decode batch is always ``max_num_seqs`` rows wide and ``S_pad`` long
 — padding rows point at the reserved trash block and are ignored — so a
@@ -50,7 +53,11 @@ from deepspeed_tpu_torch.inference.sampling import (gumbel_noise,
 from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
 from deepspeed_tpu_torch.ops.kernels.ds_flash_attention import \
     flash_attention_fwd
+from deepspeed_tpu_torch.models.serving import fused_decode_active
+from deepspeed_tpu_torch.moe.layer import resolve_dispatch_mode
 from deepspeed_tpu_torch.ops.kernels.fused_decode import ds_fused_layer
+from deepspeed_tpu_torch.ops.kernels.grouped_gemm import (ds_ggemm,
+                                                          ds_ggemm_slots)
 from deepspeed_tpu_torch.ops.kernels.qgemm import qgemm
 from deepspeed_tpu_torch.ops.kernels.quantization import block_quantize_int8
 from deepspeed_tpu_torch.runtime.config import refuse_unported
@@ -168,7 +175,9 @@ class ServingMetrics:
                 ("ds_flash_fwd", flash_attention_fwd.launches),
                 ("qgemm", qgemm.launches),
                 ("ds_fused_layer", ds_fused_layer.launches),
-                ("block_quantize_int8", block_quantize_int8.launches)):
+                ("block_quantize_int8", block_quantize_int8.launches),
+                ("ds_ggemm", ds_ggemm.launches),
+                ("ds_ggemm_slots", ds_ggemm_slots.launches)):
             lines.append(f'kernel_launches{{kernel="{kernel}"}} {n}')
         return "\n".join(lines) + "\n"
 
@@ -205,7 +214,14 @@ class ContinuousBatchingScheduler:
         self.kv_cache_dtype = kv_cache_dtype
         self.cache_dtype = ("int8" if kv_cache_dtype == "int8"
                             else params["wte"].dtype)
-        self.fused_decode = bool(config.fused_decode)
+        # an explicit fused request on a spec the kernel does not cover
+        # raises here, not at the first decode step
+        self.fused_decode = fused_decode_active(
+            getattr(model, "fused_spec", None), config.fused_decode)
+        moe = getattr(model.config, "moe", None)
+        if moe is not None:     # the grouped dispatch, or a refusal
+            resolve_dispatch_mode(moe, train=False,
+                                  override=config.moe_dispatch)
         self.block_mgr = BlockManager(config.num_blocks, config.block_size)
         bs = config.block_size
         model_ctx = int(getattr(model.config, "max_seq_len", 1 << 30))

@@ -21,6 +21,10 @@ enqueue and wait on the request's done event.
 Run it:
     python -m deepspeed_tpu_torch.serving.server --model gpt2:760m \\
         --dtype bfloat16 --port 8000
+Mixtral (bf16 weights and KV cache, grouped-GEMM expert kernels; 16 of
+the 32 layers fit one 80 GB card in bf16):
+    python -m deepspeed_tpu_torch.serving.server --model mixtral:8x7b \\
+        --num-layers 16 --port 8000
 int8 weights (qgemm), an int8 KV cache and the fused per-layer decode:
     python -m deepspeed_tpu_torch.serving.server --model gpt2:760m \\
         --int8-weights --kv-cache-dtype int8 --fused-decode on
@@ -40,10 +44,12 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 
 def model_from_spec(spec: str, **overrides):
-    """``arch:size`` -> Model, e.g. ``gpt2:760m``.  The port has the
-    GPT-2 family only; other architectures raise."""
+    """``arch:size`` -> Model, e.g. ``gpt2:760m`` or ``mixtral:8x7b``.
+    The port has the GPT-2 and Mixtral families; other architectures
+    raise."""
     from deepspeed_tpu_torch.models.gpt2 import gpt2_model
-    registry = {"gpt2": gpt2_model}
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    registry = {"gpt2": gpt2_model, "mixtral": mixtral_model}
     arch, _, size = spec.partition(":")
     if arch not in registry:
         raise ValueError(
@@ -354,6 +360,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weight-only int8 serving (quant.enabled): decode "
                         "projections through the fused-dequant qgemm "
                         "kernel")
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="override the model's depth (e.g. 16 for "
+                        "mixtral:8x7b on one 80 GB card)")
     p.add_argument("--fused-decode", default=None, choices=["on", "off"],
                    help="fused per-layer decode kernel (overrides the "
                         "'serving.fused_decode' config key): one launch "
@@ -379,7 +388,9 @@ def build_scheduler(args, model=None):
     if args.fused_decode is not None:
         serving_cfg.fused_decode = args.fused_decode == "on"
     if model is None:
-        model = model_from_spec(args.model, dtype=args.dtype)
+        depth = {} if args.num_layers is None \
+            else {"num_layers": args.num_layers}
+        model = model_from_spec(args.model, dtype=args.dtype, **depth)
     eng = InferenceEngine(model, DeepSpeedInferenceConfig(
         dtype=args.dtype, kv_cache_dtype=args.kv_cache_dtype,
         quant={"enabled": args.int8_weights}), device=args.device)

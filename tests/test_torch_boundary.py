@@ -72,14 +72,20 @@ print(json.dumps({"modules": mods, "bad": bad}))
     for m in ("deepspeed_tpu_torch.serving.server",
               "deepspeed_tpu_torch.serving.scheduler",
               "deepspeed_tpu_torch.ops.kernels.build",
-              "deepspeed_tpu_torch.checkpoint.jax_params"):
+              "deepspeed_tpu_torch.checkpoint.jax_params",
+              "deepspeed_tpu_torch.ops.kernels.grouped_gemm",
+              "deepspeed_tpu_torch.moe.layer",
+              "deepspeed_tpu_torch.moe.sharded_moe",
+              "deepspeed_tpu_torch.models.mixtral",
+              "deepspeed_tpu_torch.models.llama"):
         assert m in res["modules"]
 
 
 @pytest.mark.parametrize("module", [
     "ops.kernels.fused_decode", "ops.kernels.qgemm",
     "ops.kernels.quantization", "ops.kernels.decode_attention",
-    "models.model", "serving.server"])
+    "models.model", "serving.server", "ops.kernels.grouped_gemm",
+    "moe.layer", "models.mixtral", "models.serving"])
 def test_each_module_imports_on_its_own(module):
     """Imported first in a fresh interpreter (as chip_smoke.py and a user
     script may): no import cycle between the kernels and the models."""
@@ -134,6 +140,17 @@ def test_cpu_tensors_never_launch_kernels():
     assert qz.block_quantize_int8.launches == 0
     assert qg.qgemm.launches == 0
     assert da.decode_attention.int8_launches == 0
+    # the grouped-GEMM wrappers
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+    gg.ds_ggemm.launches = gg.ds_ggemm_slots.launches = 0
+    eids = torch.tensor([0, 2, 2, 1], dtype=torch.int32)
+    x, w = torch.randn(4, 16, generator=g), torch.randn(3, 16, 8, generator=g)
+    plan = gg.make_group_plan(eids, 3)
+    torch.testing.assert_close(
+        gg.gather_from_groups(gg.ds_ggemm(gg.scatter_to_groups(x, plan), w,
+                                          plan), plan),
+        gg.ds_ggemm_slots(x, w, gg.make_slot_plan(eids, 3)))
+    assert gg.ds_ggemm.launches == gg.ds_ggemm_slots.launches == 0
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch, tmp_path):
@@ -159,7 +176,7 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
 
 def test_cuda_sources_exist():
     for name in ("decode_attention", "ds_flash_fwd", "ds_flash_bwd",
-                 "quantization", "qgemm", "fused_decode"):
+                 "quantization", "qgemm", "fused_decode", "grouped_gemm"):
         src = build.CSRC_DIR / f"{name}.cu"
         assert src.is_file(), src
         assert "extern \"C\"" in src.read_text()

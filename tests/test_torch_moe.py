@@ -1,0 +1,102 @@
+"""deepspeed_tpu_torch MoE layer against the JAX package: top-k routing
+(indices exact, gates and aux loss to 1e-6, fp32) and the grouped
+``moe_layer`` on the same seeded params and inputs, with the JAX side
+running its Pallas grouped-GEMM kernels in interpret mode
+(``DS_GGEMM_INTERPRET=1``: the slot branch at T * k <= 128, the
+group-padded branch above it, as the port), to 1e-5.  The unported
+formulations raise."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.moe.layer import MoEConfig as JaxMoEConfig
+from deepspeed_tpu.moe.layer import init_moe_params
+from deepspeed_tpu.moe.layer import moe_layer as jax_moe_layer
+from deepspeed_tpu.moe.sharded_moe import topk_routing as jax_topk_routing
+from deepspeed_tpu_torch.moe.layer import (MoEConfig, moe_layer,
+                                           resolve_dispatch_mode)
+from deepspeed_tpu_torch.moe.sharded_moe import topk_routing
+from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+
+D, F, E, K = 32, 48, 4, 2
+
+
+def _logits(T, E_, seed):
+    rng = np.random.default_rng(seed)
+    lg = rng.standard_normal((T, E_), dtype=np.float32)
+    lg[1, :2] = 3.0            # an exact tie: the first maximum wins
+    lg[2, :] = 0.0             # all tied
+    return lg
+
+
+@pytest.mark.parametrize("T,E_,k,z", [(40, 8, 2, 0.0), (7, 4, 1, 0.0),
+                                      (33, 8, 3, 1e-3)])
+def test_topk_routing_matches_jax(T, E_, k, z):
+    lg = _logits(T, E_, seed=T)
+    ref = jax_topk_routing(jnp.asarray(lg), k, z_loss_coef=z)
+    got = topk_routing(torch.from_numpy(lg), k, z_loss_coef=z)
+    np.testing.assert_array_equal(got.expert_idx.numpy(),
+                                  np.asarray(ref.expert_idx))
+    np.testing.assert_allclose(got.gate_weights.numpy(),
+                               np.asarray(ref.gate_weights), atol=1e-6,
+                               rtol=0)
+    for a, b in ((got.l_aux, ref.l_aux),
+                 (got.router_z_loss, ref.router_z_loss)):
+        np.testing.assert_allclose(float(a), float(b), atol=1e-6, rtol=0)
+
+
+def _params(seed=0):
+    jc = JaxMoEConfig(d_model=D, d_ff=F, num_experts=E, top_k=K,
+                      dispatch_mode="grouped")
+    p = jax.device_get(init_moe_params(jc, jax.random.PRNGKey(seed)))
+    return jc, p, {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("B,S", [(1, 8), (2, 32), (1, 64), (2, 40),
+                                 (1, 104)])
+def test_grouped_moe_layer_matches_jax(B, S, monkeypatch):
+    """T * k = 16, 128, 128 (slot branch), 160, 208 (group branch); T a
+    multiple of 8, as the JAX layer's token sharding over the test mesh
+    needs."""
+    monkeypatch.setenv("DS_GGEMM_INTERPRET", "1")
+    jc, jp, pp = _params(seed=B * 100 + S)
+    x = np.random.default_rng(S).standard_normal((B, S, D),
+                                                 dtype=np.float32)
+    ref, ref_aux = jax_moe_layer(jp, jnp.asarray(x), jc, train=False)
+    gg.ds_ggemm.launches = gg.ds_ggemm_slots.launches = 0
+    got, aux = moe_layer(pp, torch.from_numpy(x),
+                         MoEConfig(d_model=D, d_ff=F, num_experts=E,
+                                   top_k=K, dispatch_mode="auto"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(float(aux), float(ref_aux), atol=1e-6,
+                               rtol=0)
+    assert gg.ds_ggemm.launches == gg.ds_ggemm_slots.launches == 0
+
+
+def test_refusals():
+    cfg = MoEConfig(d_model=D, d_ff=F, num_experts=E, top_k=K)
+    x = torch.zeros(1, 3, D)
+    _, _, pp = _params()
+    assert resolve_dispatch_mode(cfg, train=False, override="auto") == \
+        "grouped"
+    assert resolve_dispatch_mode(
+        MoEConfig(D, F, dispatch_mode="auto"), train=False) == "grouped"
+    with pytest.raises(NotImplementedError, match="einsum"):
+        moe_layer(pp, x, cfg)             # the reference's default mode
+    with pytest.raises(NotImplementedError, match="einsum"):
+        resolve_dispatch_mode(cfg, False, override="einsum")
+    grouped = MoEConfig(d_model=D, d_ff=F, num_experts=E, top_k=K,
+                        dispatch_mode="grouped")
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        moe_layer(pp, x, grouped, train=True)
+    with pytest.raises(NotImplementedError, match="use_residual"):
+        moe_layer(pp, x, MoEConfig(d_model=D, d_ff=F, num_experts=E,
+                                   top_k=K, dispatch_mode="grouped",
+                                   use_residual=True))
+    with pytest.raises(NotImplementedError, match="noisy gate"):
+        topk_routing(torch.zeros(3, E), K, noise_rng=0)
+    with pytest.raises(ValueError, match="dispatch mode"):
+        resolve_dispatch_mode(cfg, False, override="bogus")
