@@ -2,8 +2,10 @@
 """On-GPU smoke of deepspeed_tpu_torch: builds the CUDA kernels from the
 checkout, holds each against its plain PyTorch version on the card, then
 serves GPT-2 760M and trains it (random weights from the seeded host
-init), and serves Mixtral-8x7B's widths at 16 of its 32 layers (random
-weights drawn on the card), through the port's own entry points.
+init), serves Mixtral-8x7B's widths at 16 of its 32 layers in bf16, and
+Mixtral-8x7B whole (all 32 layers) with int8 weights and an int8 KV
+cache (random weights drawn on the card), through the port's own entry
+points.
 
     python3 chip_smoke.py
 
@@ -75,7 +77,32 @@ Phases (any failed check exits non-zero before the final line):
   13. bf16 Mixtral-8x7B widths at 16 of its 32 layers over HTTP (the
      slice's main path): the device init, phase 5's eight requests,
      tokens/s, TTFT, TPOT, decode ms per step, a profiled decode window,
-     the params' device bytes and peak memory.
+     the params' device bytes and peak memory;
+  14. the int8 grouped-GEMM kernels at Mixtral-8x7B's expert shapes
+     against their plain versions: ds_ggemm_slots_q at R 1 / 16 / 128,
+     ds_ggemm_q at R 129 / 192 / 1800, random, one-expert and two-empty
+     routing (fp32 <= 1e-4 abs, bf16 <= 2e-2 of the output's max; padding
+     tiles zero), each timed at the main path's shapes (R 16 at 8
+     sequences, R 192 at 96) beside its plain version, its bound (codes
+     and scales) and torch._grouped_mm on the dequantized bf16 stack
+     (context only); qgemm held and timed at M 8 / 96 for N 4096 and
+     1024 (bf16) and the router's N 8 (fp32 rows);
+  15. fp32 int8 Mixtral-8x7B widths at 4 layers, at max_num_seqs 8 and
+     96, each with a float and an int8 KV cache (a pool that forces a
+     preemption): exact launch counts (per decode step 3 L slot-q or 3 L
+     ggemm-q, 5 L qgemm, L decode of the cache's kind; no int8 grouped or
+     qgemm launch in prefill); on the float cache the scheduler
+     token-identical to the static generate and teacher-forced decode
+     logits within 1e-3 of a full forward with the plain kernels; on the
+     int8 cache identity with the static generate reported, not held
+     (see the phase's docstring), and every request not preempted
+     token-identical to itself in a run with the prompts reordered;
+  16. bf16 int8 Mixtral-8x7B at all 32 layers over HTTP (the int8 slice's
+     main path): the quantizing device init (seconds, quantizer
+     launches, params' device bytes), then phase 5's eight requests at
+     max_num_seqs 8 and 96 requests of 16-256 prompt tokens and 32 new
+     tokens at max_num_seqs 96: tokens/s, TTFT, TPOT, decode ms per step,
+     a profiled decode window, peak memory.
 Earlier lines are JSON objects; the line before the last two is the
 ``kernels`` object, then the nvidia-smi line, and the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
@@ -440,13 +467,13 @@ def bf16_phase(torch, eng32, da, fa):
     return launches, report
 
 
-def profile_decode(torch, sched, prompts):
+def profile_decode(torch, sched, prompts, max_new=MAX_NEW):
     """torch.profiler over one decode window of the bf16 scheduler with
-    all eight requests active: the device's busy share of the window's
+    all of ``prompts`` active: the device's busy share of the window's
     wall time and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.serving import RequestState, SamplingParams
-    reqs = [sched.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
+    reqs = [sched.submit(p, SamplingParams(max_new_tokens=max_new))
             for p in prompts]
     while not all(r.state == RequestState.DECODE for r in reqs):
         sched.step()
@@ -463,12 +490,13 @@ def profile_decode(torch, sched, prompts):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
-    busy_ms = sum(by_name.values()) / 1e3
+    # None: the profiler recorded no device time (not measured)
+    busy_ms = sum(by_name.values()) / 1e3 if by_name else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     sched.run_until_idle()
     return {"window_steps": steps, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+            "device_busy_share": busy_ms / wall_ms if busy_ms else None,
             "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
 
 
@@ -855,7 +883,8 @@ def profile_train_step(torch, eng, batch):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
-    busy_ms = sum(by_name.values()) / 1e3
+    # None: the profiler recorded no device time (not measured)
+    busy_ms = sum(by_name.values()) / 1e3 if by_name else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     by_cat = {}
     for n, t in by_name.items():
@@ -871,7 +900,7 @@ def profile_train_step(torch, eng, batch):
     ev[2].record()
     torch.cuda.synchronize()
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+            "device_busy_share": busy_ms / wall_ms if busy_ms else None,
             "device_ms_by_category": by_cat,
             "split_ms": {"loss_and_grads": ev[0].elapsed_time(ev[1]),
                          "optimizer_update": ev[1].elapsed_time(ev[2])},
@@ -914,22 +943,37 @@ def device_ms(torch, fns, reps=5, one_kernel=False):
     them): the kernels' own time from torch.profiler, without the host's
     gaps between launches.  Returns (ms per call, kernels per call).
     ``one_kernel``: each call launches exactly one kernel, so ms per call
-    is the mean kernel record (robust to records the profiler drops)."""
+    is the mean kernel record (robust to records the profiler drops).
+    CUPTI now and then hands back a window with no device record at all;
+    the window is then profiled once more, and if that one is empty too
+    the same sweeps are timed by CUDA events (host gaps included, kernels
+    per call None) and a note goes to stderr."""
     from torch.profiler import ProfilerActivity, profile
     for f in fns:
         f()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for f in fns:
-                f()
-        torch.cuda.synchronize()
-    ts = [e.device_time for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
     calls = reps * len(fns)
-    check(ts, "device_ms: the profiler saw no device time")
-    per_call = sum(ts) / (len(ts) if one_kernel else calls)
-    return per_call / 1e3, len(ts) / calls
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for f in fns:
+                    f()
+            torch.cuda.synchronize()
+        ts = [e.device_time for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ts:
+            per_call = sum(ts) / (len(ts) if one_kernel else calls)
+            return per_call / 1e3, len(ts) / calls
+    print("chip_smoke: device_ms: the profiler saw no device time twice; "
+          "timed by CUDA events instead", file=sys.stderr, flush=True)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        for f in fns:
+            f()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls, None
 
 
 def call_ms(fns):
@@ -1416,13 +1460,14 @@ def int8_parity_phase(torch, da, fa):
           f"differ by {worst}")
 
 
-def serve_http(torch, sched, prompts, on_start, on_done):
-    """Eight concurrent /generate requests (one sampled, then repeated)
-    through the HTTP server over ``sched``: ``on_start`` runs just before
-    the first request, ``on_done`` just after the eight return.  Returns
-    (responses, wall seconds, /metrics text, ``on_done``'s value, the
-    scheduler's decode-window entries of the eight requests' run alone:
-    not the sampled request's replay after it)."""
+def serve_http(torch, sched, prompts, on_start, on_done, max_new=MAX_NEW):
+    """Concurrent /generate requests, one per prompt (the fourth sampled,
+    then repeated), of ``max_new`` tokens each, through the HTTP server
+    over ``sched``: ``on_start`` runs just before the first request,
+    ``on_done`` just after they all return.  Returns (responses, wall
+    seconds, /metrics text, ``on_done``'s value, the scheduler's
+    decode-window entries of the concurrent run alone: not the sampled
+    request's replay after it)."""
     from deepspeed_tpu_torch.serving.server import make_server
     httpd, loop = make_server(sched, port=0)
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -1430,7 +1475,7 @@ def serve_http(torch, sched, prompts, on_start, on_done):
     server.start()
     base = f"http://127.0.0.1:{httpd.server_port}"
     try:
-        bodies = [{"input_ids": p.tolist(), "max_new_tokens": MAX_NEW}
+        bodies = [{"input_ids": p.tolist(), "max_new_tokens": max_new}
                   for p in prompts]
         bodies[3].update(do_sample=True, seed=4242, temperature=0.8,
                          top_k=50, top_p=0.95)
@@ -1455,7 +1500,7 @@ def serve_http(torch, sched, prompts, on_start, on_done):
               f"http: not every /generate returned 200: "
               f"{[r and r[0] for r in results]}")
         outs = [r[1] for r in results]
-        check(all(len(o["output_ids"]) == MAX_NEW for o in outs),
+        check(all(len(o["output_ids"]) == max_new for o in outs),
               "http: a request came back short")
         vocab = sched.model.config.vocab_size
         check(all(0 <= t < vocab for o in outs for t in o["output_ids"]),
@@ -1773,11 +1818,19 @@ class plain_grouped_gemm:
         self.gg = gg
 
     def __enter__(self):
+        from deepspeed_tpu_torch.models.model import quantized_parts
         gg = self.gg
         self.saved = gg.ds_ggemm, gg.ds_ggemm_slots
-        gg.ds_ggemm = lambda x, w, plan, **kw: gg.ggemm_plain(x, w, plan)
-        gg.ds_ggemm_slots = \
-            lambda x, w, plan, **kw: gg.ggemm_slots_plain(x, w, plan)
+
+        def plain(float_form, int8_form):
+            def mm(x, w, plan, **kw):
+                qs = quantized_parts(w)
+                return float_form(x, w, plan) if qs is None \
+                    else int8_form(x, *qs, plan)
+            return mm
+        gg.ds_ggemm = plain(gg.ggemm_plain, gg.ggemm_q_plain)
+        gg.ds_ggemm_slots = plain(gg.ggemm_slots_plain,
+                                  gg.ggemm_slots_q_plain)
 
     def __exit__(self, *exc):
         self.gg.ds_ggemm, self.gg.ds_ggemm_slots = self.saved
@@ -1925,7 +1978,468 @@ def mixtral_http_phase(torch, gg, da, fa):
     report["decode_profile"] = profile_decode(torch, sched, prompts)
     report["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(report)
+    del sched, eng      # the next phase needs the card's memory back
     return report
+
+
+# ------------------------------------------- int8 Mixtral serving (slice 5)
+#: the int8 slice's main path: Mixtral-8x7B at all 32 layers (int8
+#: weights: 47.7 GB), bf16 compute, int8 KV cache
+MIX_Q_LAYERS = 32
+SLOT_Q_R = (1, 16, 128)
+GROUP_Q_R = (129, 192, 1800)
+#: the wide-batch arm: max_num_seqs 96 (R = 192 routed rows a decode
+#: step: the group-padded int8 kernel), 96 requests of 16-256 prompt
+#: tokens and 32 new tokens; the pool holds every request's 18 blocks
+WIDE_SEQS, WIDE_NEW, WIDE_BLOCKS_PER_SEQ = 96, 32, 18
+#: qgemm at Mixtral's decode projections: (M, K, N, x dtype); N 8 is the
+#: router, whose rows enter in fp32
+MIX_QGEMM = ((8, MIX_D, MIX_D, "bfloat16"), (96, MIX_D, MIX_D, "bfloat16"),
+             (8, MIX_D, 1024, "bfloat16"), (96, MIX_D, 1024, "bfloat16"),
+             (8, MIX_D, MIX_E, "float32"), (96, MIX_D, MIX_E, "float32"))
+#: the >= 3-dim block leaves the int8 engine quantizes
+MIX_Q_LEAVES = (("wq",), ("wk",), ("wv",), ("wo",), ("moe", "router"),
+                ("moe", "w_gate"), ("moe", "w_in"), ("moe", "w_out"))
+
+
+def ggemm_q_bound(torch, gg, plan, xin, R, K, N, nb):
+    """(bound_ms, bound_by) of one int8 grouped GEMM (bf16 rows): the R
+    routed input rows, the codes AND scales of the experts that have rows
+    read once, every output row (the padded layout's too) written once,
+    against 2 R K N operations on the real rows."""
+    if isinstance(plan, gg.SlotPlan):
+        experts = int(plan.valid.sum())
+    else:
+        experts = int((plan.counts > 0).sum())
+    return bound_of(experts * K * (N + nb * 4) + R * K * 2
+                    + xin.shape[0] * N * 2, 2 * R * K * N, BF16_FLOPS)
+
+
+def moe_int8_kernel_phase(torch, gg, qz, qg):
+    """Phase 14: ds_ggemm_slots_q (R 1, 16, 128) and ds_ggemm_q (R 129,
+    192, 1800) against their plain versions at Mixtral's expert shapes,
+    random, all-on-one-expert and two-empty routing (fp32 <= 1e-4 abs,
+    bf16 <= 2e-2 of the output's max; padding tiles zero); each timed at
+    the main path's shapes (a decode step's R 16 over 8 experts at 8
+    sequences, R 192 at 96) beside its plain version, its bound and
+    torch._grouped_mm on the dequantized bf16 stack (context only); qgemm
+    held and timed at Mixtral's projection and router shapes."""
+    g = torch.Generator(device="cuda").manual_seed(51)
+    worst = {"ds_ggemm_q": 0.0, "ds_ggemm_slots_q": 0.0, "qgemm": 0.0}
+    # the slot kernel stages at most kSlotSG scale groups a 128-column
+    # tile meets: a finer layout (4-lane groups) is refused at launch
+    x = torch.randn(16, 64, generator=g, device="cuda")
+    plan, xin = ggemm_io(gg, x, routed(torch, g, 16, "random"), 16)
+    q = torch.ones(MIX_E, 64, 96, dtype=torch.int8, device="cuda")
+    try:
+        gg.ggemm_slots_q_cuda(xin, q, torch.ones(MIX_E, 64, 24,
+                                                 device="cuda"), plan)
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, "ds_ggemm_slots_q computed a scale layout of more "
+          "groups a tile than it stages")
+    times = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for proj, (K, N) in MOE_SHAPES.items():
+            q, s = qz.block_quantize_int8(
+                (torch.randn(MIX_E, K, N, generator=g, device="cuda")
+                 * 0.02).to(dt))
+            for R in SLOT_Q_R + GROUP_Q_R:
+                x = torch.randn(R, K, generator=g, device="cuda").to(dt)
+                for skew in ("random", "one_expert", "two_empty"):
+                    e = routed(torch, g, R, skew)
+                    plan, xin = ggemm_io(gg, x, e, R)
+                    slot = R <= gg.SLOT_MAX_ROWS
+                    if slot:
+                        name = "ds_ggemm_slots_q"
+                        got = gg.ggemm_slots_q_cuda(xin, q, s, plan)
+                        ref = gg.ggemm_slots_q_plain(xin, q, s, plan)
+                    else:
+                        name = "ds_ggemm_q"
+                        got = gg.ggemm_q_cuda(xin, q, s, plan)
+                        ref = gg.ggemm_q_plain(xin, q, s, plan)
+                    torch.cuda.synchronize()
+                    e_abs, held = err_of(torch, got, ref, dt_name)
+                    zeros = True
+                    if not slot:
+                        pad = torch.ones(got.shape[0], dtype=torch.bool,
+                                         device="cuda")
+                        pad[plan.row_to_padded.long()] = False
+                        zeros = not bool(got[pad].any())
+                    emit({"check": name, "dtype": dt_name, "proj": proj,
+                          "R": R, "K": K, "N": N, "routing": skew,
+                          "max_abs_err": e_abs, "held": held,
+                          "tol": INT8_TOL[dt_name],
+                          "padding_zeros": zeros})
+                    check(held <= INT8_TOL[dt_name] and zeros,
+                          f"{name} {dt_name} {proj} R {R} {skew}: err "
+                          f"{held} > {INT8_TOL[dt_name]} or padding not 0")
+                    worst[name] = max(worst[name], held)
+            del q, s
+            torch.cuda.empty_cache()
+    dt = torch.bfloat16
+    for proj, (K, N) in MOE_SHAPES.items():
+        q, s = qz.block_quantize_int8(
+            (torch.randn(MIX_E, K, N, generator=g, device="cuda")
+             * 0.02).to(dt))
+        wdq = gg.dequant_experts(q, s, dt)    # context only
+        for R, e in ((16, torch.arange(16, device="cuda").int() % MIX_E),
+                     (2 * WIDE_SEQS, routed(torch, g, 2 * WIDE_SEQS,
+                                            "random"))):
+            x = torch.randn(R, K, generator=g, device="cuda").to(dt)
+            plan, xin = ggemm_io(gg, x, e, R)
+            if R <= gg.SLOT_MAX_ROWS:
+                name, kern, plain = ("ds_ggemm_slots_q",
+                                     gg.ggemm_slots_q_cuda,
+                                     gg.ggemm_slots_q_plain)
+            else:
+                name, kern, plain = ("ds_ggemm_q", gg.ggemm_q_cuda,
+                                     gg.ggemm_q_plain)
+            t = {"kernel_ms": time_ms(lambda: kern(xin, q, s, plan), reps=5,
+                                      inner=5),
+                 "plain_ms": time_ms(lambda: plain(xin, q, s, plan), reps=3,
+                                     inner=2),
+                 "library_ms": None}
+            t["bound_ms"], t["bound_by"] = ggemm_q_bound(
+                torch, gg, plan, xin, R, K, N, s.shape[-1])
+            t["grouped_mm_bf16_ms"], why = grouped_mm_library(torch, gg, x,
+                                                              wdq, e)
+            if why:
+                t["library_note"] = why
+            t.update(work=f"{proj} K {K} N {N}, R {R}, bf16 rows, int8 "
+                          f"experts", R=R, padded_rows=xin.shape[0])
+            emit({"phase": "moe_int8_kernel_times", "kernel": name,
+                  "proj": proj, **t})
+            times.setdefault(name, {})[proj] = t
+        del q, s, wdq
+        torch.cuda.empty_cache()
+    qtimes = {}
+    for M, K, N, dt_name in MIX_QGEMM:
+        dt = getattr(torch, dt_name)
+        q, s = qz.block_quantize_int8(
+            (torch.randn(K, N, generator=g, device="cuda") * 0.02)
+            .to(torch.bfloat16))
+        x = torch.randn(M, K, generator=g, device="cuda").to(dt)
+        got = qg.qgemm_cuda(x, q, s)
+        ref = qg.qgemm_plain(x, q, s)
+        torch.cuda.synchronize()
+        e_abs, held = err_of(torch, got, ref, dt_name)
+        t = {"kernel_ms": time_ms(lambda: qg.qgemm_cuda(x, q, s), reps=5,
+                                  inner=10),
+             "plain_ms": time_ms(lambda: qg.qgemm_plain(x, q, s), reps=3,
+                                 inner=4)}
+        xb = x.element_size()
+        t["bound_ms"], t["bound_by"] = bound_of(
+            K * N + s.numel() * 4 + M * K * xb + M * N * xb, 2 * M * K * N,
+            BF16_FLOPS)
+        key = f"M{M}_K{K}_N{N}_{dt_name}"
+        emit({"check": "qgemm_mixtral", "shape": key, "max_abs_err": e_abs,
+              "held": held, "tol": INT8_TOL[dt_name], **t})
+        check(held <= INT8_TOL[dt_name], f"qgemm {key}: err {held}")
+        worst["qgemm"] = max(worst["qgemm"], held)
+        qtimes[key] = t
+    return times, worst, qtimes
+
+
+def moe_int8_counts(gg, qz, qg, da, fa):
+    return {"ds_ggemm_q": gg.ds_ggemm.int8_launches,
+            "ds_ggemm_slots_q": gg.ds_ggemm_slots.int8_launches,
+            "qgemm": qg.qgemm.launches,
+            "block_quantize_int8": qz.block_quantize_int8.launches,
+            **moe_counts(gg, da, fa)}
+
+
+def reset_moe_int8_counts(gg, qz, qg, da, fa):
+    gg.ds_ggemm.int8_launches = gg.ds_ggemm_slots.int8_launches = 0
+    qg.qgemm.launches = qz.block_quantize_int8.launches = 0
+    reset_moe_counts(gg, da, fa)
+
+
+def first_diffs(prompts, reqs, refs):
+    """{prompt length: first differing token} of each request whose
+    output differs from its reference token list."""
+    out = {}
+    for p, r, ref in zip(prompts, reqs, refs):
+        got = list(r.output_ids)
+        if got != list(ref):
+            out[int(p.size)] = next(j for j, (a, b) in
+                                    enumerate(zip(got, ref)) if a != b)
+    return out
+
+
+def batch_invariance(torch, model, params, prompts, reqs, seqs, key):
+    """The int8-cache arm's held identity: the prompts again, submitted
+    in reverse order to a scheduler of the same max_num_seqs and int8
+    cache whose pool preempts nothing; every request of the first run
+    that was not preempted must come out token-identical (the preempted
+    ones are re-prefilled at another length and only reported)."""
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                             SamplingParams)
+    sched = ContinuousBatchingScheduler(
+        model, params, ServingConfig(max_num_seqs=seqs),
+        kv_cache_dtype="int8")
+    again = [sched.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
+             for p in prompts[::-1]][::-1]
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    check(sched.metrics.counters["preemptions"] == 0,
+          f"fp32 int8 mixtral {key}: the reordered run preempted")
+    kept = [i for i, r in enumerate(reqs) if r.num_preemptions == 0]
+    diff = first_diffs([prompts[i] for i in kept], [reqs[i] for i in kept],
+                       [again[i].output_ids for i in kept])
+    preempted = [i for i in range(len(reqs)) if i not in kept]
+    report = {"reordered_identical_not_preempted": not diff,
+              "not_preempted": len(kept),
+              "reordered_first_diff_by_prompt_len": diff,
+              "preempted_first_diff_by_prompt_len": first_diffs(
+                  [prompts[i] for i in preempted],
+                  [reqs[i] for i in preempted],
+                  [again[i].output_ids for i in preempted])}
+    check(kept and not diff, f"fp32 int8 mixtral {key}: requests that were "
+          f"not preempted differ from the reordered run {diff}")
+    return report
+
+
+def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
+    """Phase 15: fp32 int8 Mixtral-8x7B widths at 4 layers, at
+    max_num_seqs 8 (the slot arm) and 96 (the group-padded arm), each
+    with a float and an int8 KV cache and a pool that forces a
+    preemption.  Launch counts exact in every run (per decode step 3 L of
+    the arm's int8 grouped kernel, 5 L qgemm, L decode of the cache's
+    kind; per prefill L flash and 3 L float grouped GEMMs on the
+    dequantized layer, no int8 grouped or qgemm launch).  Float cache:
+    the scheduler token-identical to the static generate, and
+    teacher-forced decode logits within 1e-3 of a full forward with the
+    plain kernels.  Int8 cache: identity with the static generate is
+    reported, NOT held — the generate prefills at another padded length
+    and a preempted request is re-prefilled, cuBLAS's fp32 prefill GEMMs
+    are not row-independent across M, and an int8 cache turns a last-bit
+    difference into a whole code step.  What is held there is identical
+    by construction: the scheduler fixes every shape (a request's own
+    16-token prefill bucket, max_num_seqs decode rows), so a request's
+    tokens must not depend on the requests around it — every request
+    that was not preempted is token-identical to the same request in a
+    second run of the arm with the prompts submitted in reverse order
+    and a pool that preempts nothing."""
+    from deepspeed_tpu_torch.inference.config import \
+        DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                             RequestState, SamplingParams)
+    import deepspeed_tpu_torch as dt
+    L = MIX_PARITY_LAYERS
+    torch.cuda.synchronize()
+    report = {"phase": "fp32_mixtral_int8_parity", "layers": L,
+              "memory_allocated_at_start": torch.cuda.memory_allocated()}
+    t0 = time.perf_counter()
+    model = mixtral_model("8x7b", num_layers=L, dtype="float32")
+    engines = {"int8": dt.init_inference(model, {"dtype": "float32"},
+                                         quant={"enabled": True},
+                                         kv_cache_dtype="int8")}
+    torch.cuda.synchronize()
+    report["init_s"] = time.perf_counter() - t0
+    # the same int8 weights, a float cache for the static generate
+    engines[None] = InferenceEngine(model, DeepSpeedInferenceConfig(
+        dtype="float32", quant={"enabled": True}),
+        model_parameters=engines["int8"].params)
+    params = engines["int8"].params
+    prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=6)
+    static = {}
+    for kv, eng in engines.items():
+        t0 = time.perf_counter()
+        static[kv] = [list(eng.generate(p, max_new_tokens=MAX_NEW)
+                           [0, p.size:]) for p in prompts]
+        report[f"static_generate_s_{kv or 'float'}_kv"] = \
+            time.perf_counter() - t0
+    for seqs in (8, WIDE_SEQS):
+        for kv in (None, "int8"):
+            sched = ContinuousBatchingScheduler(
+                model, params, ServingConfig(num_blocks=140,
+                                             max_num_seqs=seqs),
+                kv_cache_dtype=kv)
+            reset_moe_int8_counts(gg, qz, qg, da, fa)
+            t0 = time.perf_counter()
+            reqs = [sched.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
+                    for p in prompts]
+            sched.run_until_idle()
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            n = moe_int8_counts(gg, qz, qg, da, fa)
+            c = sched.metrics.counters
+            steps, prefills = c["decode_steps"], c["prefills"]
+            big = sum(1 for _, sp, _ in sched.metrics.prefill_s
+                      if 2 * sp > 128)
+            slot = 2 * seqs <= gg.SLOT_MAX_ROWS
+            want = {"ds_ggemm_slots_q": 3 * L * steps if slot else 0,
+                    "ds_ggemm_q": 0 if slot else 3 * L * steps,
+                    "qgemm": 5 * L * steps, "block_quantize_int8": 0,
+                    "ds_ggemm": 3 * L * big,
+                    "ds_ggemm_slots": 3 * L * (prefills - big),
+                    "ds_flash_fwd": L * prefills,
+                    "decode_attention": 0 if kv else L * steps,
+                    "decode_attention_int8": L * steps if kv else 0}
+            first_diff = first_diffs(prompts, reqs, static[kv])
+            key = f"max_num_seqs_{seqs}_{'int8' if kv else 'float'}_kv"
+            report[key] = {"prefills": prefills, "long_prefills": big,
+                           "decode_steps": steps, "serve_s": serve_s,
+                           "preemptions": c["preemptions"], "launches": n,
+                           "want": want, "token_identical": not first_diff,
+                           "first_diff_by_prompt_len": first_diff}
+            check(all(r.state == RequestState.FINISHED
+                      and r.num_generated == MAX_NEW for r in reqs),
+                  f"fp32 int8 mixtral {key}: not every request finished")
+            check(c["preemptions"] >= 1,
+                  f"fp32 int8 mixtral {key}: the pool did not force a "
+                  "preemption")
+            check(n == want,
+                  f"fp32 int8 mixtral {key}: launches {n} != {want}")
+            check(kv or not first_diff,
+                  f"fp32 int8 mixtral {key}: scheduler != static generate "
+                  f"(prompt length: first differing token) {first_diff}")
+            if kv:
+                report[key].update(batch_invariance(
+                    torch, model, params, prompts, reqs, seqs, key))
+            if slot and not kv:
+                forced = reqs
+            del sched
+    del engines[None]
+    # teacher-forced decode through the int8 kernels (float cache) against
+    # a full forward on the dequantized layers with the plain kernels
+    plain = mixtral_model("8x7b", num_layers=L, dtype="float32",
+                          attention_impl="plain")
+    worst = 0.0
+    with torch.no_grad():
+        for i in (2, 6):
+            toks = list(prompts[i]) + list(forced[i].output_ids[:-1])
+            n0 = len(prompts[i])
+            ids = torch.tensor([toks], dtype=torch.int32, device="cuda")
+            cache = model.init_cache_fn(1, -(-len(toks) // 64) * 64,
+                                        torch.float32, "cuda")
+            logits, cache = model.prefill_fn(
+                params, {"input_ids": ids[:, :n0]}, cache)
+            for pos in range(n0, len(toks)):
+                logits, cache = model.decode_fn(
+                    params, ids[:, pos], cache,
+                    torch.tensor([pos], dtype=torch.int32, device="cuda"))
+            with plain_grouped_gemm(gg):
+                full = plain.apply(params, {"input_ids": ids})[:, -1]
+            worst = max(worst, float((logits - full).abs().max()))
+    report.update(teacher_forced_max_abs_err=worst, tol=1e-3)
+    check(worst <= 1e-3, f"fp32 int8 mixtral: decode logits differ from "
+          f"the plain full forward by {worst}")
+    emit(report)
+    return report
+
+
+def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
+    """Phase 16, the slice's main path: init_inference(mixtral_model(
+    "8x7b"), bf16, quant enabled, int8 KV cache) at all 32 layers (the
+    quantizing device init: seconds, quantizer launches, params' device
+    bytes) -> scheduler -> HTTP, two arms: phase 5's eight requests at
+    max_num_seqs 8 (the slot kernel), and 96 requests of 16-256 prompt
+    tokens, 32 new tokens each, at max_num_seqs 96 (the group-padded
+    kernel).  Each arm: tokens/s, TTFT, TPOT, decode ms per step of the
+    timed run, launch counts, a profiled decode window, peak memory."""
+    import gc
+    import numpy as np
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    from deepspeed_tpu_torch.models.model import QuantizedTensor
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving.scheduler import \
+        ContinuousBatchingScheduler
+    import deepspeed_tpu_torch as dt
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    at_start = torch.cuda.memory_allocated()
+    emit({"phase": "mixtral_int8_start", "memory_allocated": at_start})
+    check(at_start < 4e9, f"int8 mixtral: {at_start} bytes still allocated "
+          "before the 32-layer load (an earlier engine was not freed)")
+    torch.cuda.reset_peak_memory_stats()
+    reset_moe_int8_counts(gg, qz, qg, da, fa)
+    t0 = time.perf_counter()
+    model = mixtral_model("8x7b", dtype="bfloat16")
+    eng = dt.init_inference(model, {"dtype": "bfloat16"},
+                            quant={"enabled": True}, kv_cache_dtype="int8")
+    torch.cuda.synchronize()
+    L = model.config.num_layers
+
+    def nbytes(t):
+        if isinstance(t, QuantizedTensor):
+            return nbytes(t.q) + nbytes(t.s)
+        if isinstance(t, dict):
+            return sum(nbytes(v) for v in t.values())
+        return t.numel() * t.element_size()
+
+    def leaf(path):
+        t = eng.params["blocks"]
+        for k in path:
+            t = t[k]
+        return t
+    load = {"init_s": time.perf_counter() - t0, "layers": L,
+            "launches": moe_int8_counts(gg, qz, qg, da, fa),
+            "params": model.meta["n_params"],
+            "params_device_bytes": nbytes(eng.params),
+            "blocks_device_bytes": nbytes(eng.params["blocks"]),
+            "memory_allocated": torch.cuda.memory_allocated(),
+            "peak_memory_allocated": torch.cuda.max_memory_allocated()}
+    want_q = L * (5 + 3 * MIX_E)   # per layer: 4 projections + router, and
+    #                                 every [layer, expert] expert slice
+    check(L == MIX_Q_LAYERS and all(isinstance(leaf(p), QuantizedTensor)
+                                    for p in MIX_Q_LEAVES)
+          and load["launches"]["block_quantize_int8"] == want_q,
+          f"int8 mixtral load: {L} layers, launches {load['launches']} "
+          f"(want {want_q} quantizer launches and every block leaf int8)")
+    rng = np.random.default_rng(7)
+    arms = {
+        "max_num_seqs_8": (ServingConfig(),
+                           prompts_for(PROMPT_LENS, model.config.vocab_size,
+                                       seed=1), MAX_NEW,
+                           "ds_ggemm_slots_q", "ds_ggemm_q"),
+        f"max_num_seqs_{WIDE_SEQS}": (
+            ServingConfig(max_num_seqs=WIDE_SEQS,
+                          num_blocks=WIDE_SEQS * WIDE_BLOCKS_PER_SEQ + 1,
+                          max_blocks_per_seq=WIDE_BLOCKS_PER_SEQ),
+            prompts_for(rng.integers(16, 257, WIDE_SEQS),
+                        model.config.vocab_size, seed=2), WIDE_NEW,
+            "ds_ggemm_q", "ds_ggemm_slots_q"),
+    }
+    runs = {}
+    for key, (cfg, prompts, max_new, kern, idle) in arms.items():
+        torch.cuda.reset_peak_memory_stats()
+        sched = ContinuousBatchingScheduler(model, eng.params, cfg,
+                                            kv_cache_dtype="int8")
+        outs, wall_s, mbody, n, window = serve_http(
+            torch, sched, prompts,
+            on_start=lambda: reset_moe_int8_counts(gg, qz, qg, da, fa),
+            on_done=lambda: moe_int8_counts(gg, qz, qg, da, fa),
+            max_new=max_new)
+        check(all(n[k] > 0 for k in (kern, "qgemm", "decode_attention_int8",
+                                     "ds_flash_fwd"))
+              and n[idle] == 0 and n["decode_attention"] == 0
+              and n["ds_ggemm"] + n["ds_ggemm_slots"] > 0,
+              f"int8 mixtral http {key}: launches {n}")
+        check(f'kernel_launches{{kernel="{kern}"}}' in mbody,
+              f"int8 mixtral http {key}: /metrics lacks {kern}")
+        run = {**serve_report(outs, wall_s, window), "launches": n,
+               "prompt_tokens": int(sum(p.size for p in prompts)),
+               "outputs": [o["output_ids"][:8] for o in outs[:8]]}
+        # the decode batch is max_num_seqs rows whatever is active, so
+        # eight of the prompts give the arm's per-step device work
+        run["decode_profile"] = profile_decode(torch, sched, prompts[:8],
+                                               max_new)
+        run["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
+        runs[key] = run
+        del sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "bf16_mixtral_int8_http", "engine_load": load, **runs})
+    return load, runs
 
 
 def main():
@@ -2011,6 +2525,22 @@ def main():
     torch.cuda.empty_cache()
     mix = mixtral_http_phase(torch, gg, da, fa)
     mix_n = mix["launches"]
+    del mix
+    qz, qg, _ = int8_modules()
+    moeq_t, moeq_errs, qgemm_mix_t = moe_int8_kernel_phase(torch, gg, qz, qg)
+    torch.cuda.empty_cache()
+    mixq_par = mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa)
+    torch.cuda.empty_cache()
+    mixq_load, mixq = mixtral_int8_http_phase(torch, gg, qz, qg, da, fa)
+    mq8 = mixq["max_num_seqs_8"]["launches"]
+    mq96 = mixq[f"max_num_seqs_{WIDE_SEQS}"]["launches"]
+
+    def paths_of(name, **earlier):
+        """The kernel's launches on each main path (those given, then the
+        int8 Mixtral arms'), and their sum."""
+        paths = {**earlier, "mixtral_int8_http_8": mq8[name],
+                 f"mixtral_int8_http_{WIDE_SEQS}": mq96[name]}
+        return sum(paths.values()), paths
 
     pallas = "deepspeed_tpu/ops/pallas/"
     fwd_t = dict(train_t["ds_flash_fwd"],
@@ -2027,11 +2557,10 @@ def main():
           "mixtral_http": mix_n["decode_attention"]},
          errs["decode_attention"], tols["decode_attention"]),
         ("ds_flash_fwd", fwd_t, "ds_flash_fwd.cu", "ds_flash_attention.py:35",
-         serve_launches["ds_flash_fwd"] + train_launches["ds_flash_fwd"]
-         + mix_n["ds_flash_fwd"],
-         {"serve_http": serve_launches["ds_flash_fwd"],
-          "train_bf16": train_launches["ds_flash_fwd"],
-          "mixtral_http": mix_n["ds_flash_fwd"]},
+         *paths_of("ds_flash_fwd",
+                  serve_http=serve_launches["ds_flash_fwd"],
+                  train_bf16=train_launches["ds_flash_fwd"],
+                  mixtral_http=mix_n["ds_flash_fwd"]),
          errs["ds_flash_fwd"], tols["ds_flash_fwd"]),
         ("ds_flash_bwd_dkv", train_t["ds_flash_bwd_dkv"], "ds_flash_bwd.cu",
          "ds_flash_attention.py:86", train_launches["ds_flash_bwd_dkv"],
@@ -2043,18 +2572,20 @@ def main():
          bwd_errs["ds_flash_bwd_dq"], BWD_TOL),
         ("block_quantize_int8", int8_t["block_quantize_int8"],
          "quantization.cu", "quantization.py:57",
-         int8_load["launches"]["block_quantize_int8"],
-         {"int8_engine_load": int8_load["launches"]["block_quantize_int8"]},
+         int8_load["launches"]["block_quantize_int8"]
+         + mixq_load["launches"]["block_quantize_int8"],
+         {"int8_engine_load": int8_load["launches"]["block_quantize_int8"],
+          "mixtral_int8_load":
+          mixq_load["launches"]["block_quantize_int8"]},
          int8_errs["block_quantize_int8"], 0),
         ("qgemm", int8_t["qgemm"], "qgemm.cu", "qgemm.py:66",
-         int8_runs["unfused"]["launches"]["qgemm"],
-         {"int8_http_unfused": int8_runs["unfused"]["launches"]["qgemm"]},
-         int8_errs["qgemm"], INT8_TOL),
+         *paths_of("qgemm", int8_http_unfused=int8_runs["unfused"]
+                  ["launches"]["qgemm"]),
+         max(int8_errs["qgemm"], moeq_errs["qgemm"]), INT8_TOL),
         ("decode_attention_int8", int8_t["decode_attention_int8"],
          "decode_attention.cu", "decode_attention.py:40",
-         int8_runs["unfused"]["launches"]["decode_attention_int8"],
-         {"int8_http_unfused":
-          int8_runs["unfused"]["launches"]["decode_attention_int8"]},
+         *paths_of("decode_attention_int8", int8_http_unfused=int8_runs[
+             "unfused"]["launches"]["decode_attention_int8"]),
          int8_errs["decode_attention_int8"], INT8_TOL),
         ("ds_fused_layer", int8_t["ds_fused_layer"], "fused_decode.cu",
          "fused_decode.py:480",
@@ -2062,13 +2593,20 @@ def main():
          {"int8_http_fused": int8_runs["fused"]["launches"]["ds_fused_layer"]},
          int8_errs["ds_fused_layer"], INT8_TOL),
         ("ds_ggemm", moe_t["ds_ggemm"]["gate_in"], "grouped_gemm.cu",
-         "grouped_gemm.py:163", mix_n["ds_ggemm"],
-         {"mixtral_http": mix_n["ds_ggemm"]}, moe_errs["ds_ggemm"],
-         INT8_TOL),
+         "grouped_gemm.py:163",
+         *paths_of("ds_ggemm", mixtral_http=mix_n["ds_ggemm"]),
+         moe_errs["ds_ggemm"], INT8_TOL),
         ("ds_ggemm_slots", moe_t["ds_ggemm_slots"]["gate_in"],
-         "grouped_gemm.cu", "grouped_gemm.py:433", mix_n["ds_ggemm_slots"],
-         {"mixtral_http": mix_n["ds_ggemm_slots"]},
-         moe_errs["ds_ggemm_slots"], INT8_TOL))
+         "grouped_gemm.cu", "grouped_gemm.py:433",
+         *paths_of("ds_ggemm_slots", mixtral_http=mix_n["ds_ggemm_slots"]),
+         moe_errs["ds_ggemm_slots"], INT8_TOL),
+        ("ds_ggemm_q", moeq_t["ds_ggemm_q"]["gate_in"], "grouped_gemm.cu",
+         "grouped_gemm.py:200", *paths_of("ds_ggemm_q"),
+         moeq_errs["ds_ggemm_q"], INT8_TOL),
+        ("ds_ggemm_slots_q", moeq_t["ds_ggemm_slots_q"]["gate_in"],
+         "grouped_gemm.cu", "grouped_gemm.py:452",
+         *paths_of("ds_ggemm_slots_q"), moeq_errs["ds_ggemm_slots_q"],
+         INT8_TOL))
     kernels = []
     for name, t, src, replaces, n, by_path, err, tol in rows:
         check(n > 0, f"{name} was not launched on a main path")
@@ -2083,15 +2621,28 @@ def main():
             "library_ms": t["library_ms"]})
         if name.startswith("ds_flash_bwd"):
             kernels[-1]["max_rel_err_bf16"] = bwd_rel[name]
-        if name in int8_t or name in moe_t:
+        if name in int8_t or name in moe_t or name in moeq_t:
             # fp32 checks abs, bf16 checks relative to each output's max
             kernels[-1].update(err_kind="fp32 abs / bf16 rel_to_max",
                                work=t["work"])
         if name in moe_t:
             kernels[-1]["times_by_proj"] = moe_t[name]
+        if name in moeq_t:
+            # context only: torch._grouped_mm on the dequantized bf16 stack
+            kernels[-1]["times_by_proj"] = moeq_t[name]
+            kernels[-1]["grouped_mm_bf16_ms"] = t["grouped_mm_bf16_ms"]
+            # phase 15, int8 cache: identity with the static generate
+            # reported, not held; identity across batch orders held
+            seqs = 8 if name == "ds_ggemm_slots_q" else WIDE_SEQS
+            run = mixq_par[f"max_num_seqs_{seqs}_int8_kv"]
+            kernels[-1].update(
+                int8_kv_static_generate_identity="reported, not held",
+                int8_kv_reordered_identity=f"held for the "
+                f"{run['not_preempted']} requests not preempted")
         if name == "qgemm":
             # context only: torch.matmul on the dequantized bf16 weights
             kernels[-1]["matmul_bf16_ms"] = t["matmul_bf16_ms"]
+            kernels[-1]["times_at_mixtral_shapes"] = qgemm_mix_t
         if name == "decode_attention_int8":
             kernels[-1]["replaces"] += " (quantized=True)"
             kernels[-1]["tpu_kernel"] = kernels[-1]["replaces"]

@@ -15,29 +15,20 @@ An int8 engine's block weights carry across as they are: a leaf given as
 a ``(q, s)`` pair, or as any object with ``q`` and ``s`` arrays (the JAX
 package's ``QuantizedTensor`` after ``jax.device_get``), becomes the
 port's ``QuantizedTensor`` with the same int8 codes and fp32 scales, so
-both packages serve the same bytes.
+both packages serve the same bytes (for Mixtral: the 3-D projections and
+router, and the 4-D expert stacks under ``moe``).  The ``*_to_numpy``
+functions give such leaves back as ``(q, s)`` pairs.
 """
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
-from deepspeed_tpu_torch.models.model import QuantizedTensor
+from deepspeed_tpu_torch.models.model import QuantizedTensor, quantized_parts
 
 GPT2_TOP_KEYS = ("wte", "wpe", "blocks", "lnf_scale", "lnf_bias")
 GPT2_BLOCK_KEYS = ("ln1_scale", "ln1_bias", "qkv_w", "qkv_b", "proj_w",
                    "proj_b", "ln2_scale", "ln2_bias", "mlp_in_w",
                    "mlp_in_b", "mlp_out_w", "mlp_out_b")
-
-
-def quantized_parts(leaf):
-    """``(q, s)`` of an int8 weight leaf (a port ``QuantizedTensor``, a
-    ``(q, s)`` pair, or an object with ``q``/``s`` arrays), else None."""
-    if isinstance(leaf, tuple) and len(leaf) == 2:
-        return leaf
-    q, s = getattr(leaf, "q", None), getattr(leaf, "s", None)
-    if q is not None and s is not None:
-        return q, s
-    return None
 
 
 def to_tensor(a, device, dtype):
@@ -103,21 +94,26 @@ def gpt2_params_to_numpy(params: dict) -> dict:
     """The reverse of :func:`gpt2_params_from_numpy`: the port's params ->
     a numpy tree with the same names and layout (fp32 for floating
     leaves, since numpy has no bfloat16)."""
-    def to_np(t):
-        if isinstance(t, QuantizedTensor):
-            return to_np(t.q), to_np(t.s)
-        t = t.detach().cpu()
-        return (t.float() if t.is_floating_point() else t).numpy()
-    out = {k: to_np(v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = {k: to_np(v) for k, v in params["blocks"].items()}
-    return out
+    return _to_numpy(params)
+
+
+def _to_numpy(t):
+    """A params tree of tensors -> numpy (fp32 for floating leaves; a
+    ``QuantizedTensor`` as its ``(q, s)`` pair)."""
+    if isinstance(t, dict):
+        return {k: _to_numpy(v) for k, v in t.items()}
+    if isinstance(t, QuantizedTensor):
+        return _to_numpy(t.q), _to_numpy(t.s)
+    t = t.detach().cpu()
+    return (t.float() if t.is_floating_point() else t).numpy()
 
 
 def mixtral_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     """numpy Mixtral params tree (``jax.device_get`` of the JAX engine's
     params) -> the port's params: the same names and nested layout, every
     leaf copied onto ``device`` (``None``: the GPU), floating leaves cast
-    to ``dtype`` when given."""
+    to ``dtype`` when given; int8 block leaves as ``QuantizedTensor``s
+    (:func:`block_leaf`)."""
     fn = "mixtral_params_from_numpy"
     _check_keys(tree, MIXTRAL_TOP_KEYS, "top-level", fn)
     _check_keys(tree["blocks"], MIXTRAL_BLOCK_KEYS, "blocks", fn)
@@ -127,16 +123,14 @@ def mixtral_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
-        return to_tensor(t, device, dtype)
-    return conv(tree)
+        return block_leaf(t, device, dtype)
+    out = {k: to_tensor(v, device, dtype) for k, v in tree.items()
+           if k != "blocks"}
+    out["blocks"] = conv(tree["blocks"])
+    return out
 
 
 def mixtral_params_to_numpy(params: dict) -> dict:
     """The reverse of :func:`mixtral_params_from_numpy` (fp32 for floating
-    leaves, since numpy has no bfloat16)."""
-    def conv(t):
-        if isinstance(t, dict):
-            return {k: conv(v) for k, v in t.items()}
-        t = t.detach().cpu()
-        return (t.float() if t.is_floating_point() else t).numpy()
-    return conv(params)
+    leaves, since numpy has no bfloat16; int8 leaves as ``(q, s)``)."""
+    return _to_numpy(params)

@@ -5,7 +5,7 @@
 // rows, rows_mma ([8 x 256], weights straight into registers).  Shared by
 // csrc/qgemm.cu (the fused-dequant GEMM), csrc/fused_decode.cu (the
 // per-layer megakernel's projection phases) and csrc/grouped_gemm.cu (the
-// grouped GEMMs).
+// grouped GEMMs, float and int8).
 //
 // Numerics are the reference's (deepspeed_tpu/ops/pallas/qgemm.py
 // _qgemm_kernel): an int8 weight element becomes (float)q * scale and is
@@ -58,6 +58,16 @@ __device__ __forceinline__ int8_t from_f<int8_t>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_t(float x) {
   return to_f(from_f<T>(x));
+}
+
+// One int8 weight element as the product sees it: (float)q * scale,
+// rounded to the compute dtype T (the reference's qgemm dequant and
+// grouped_gemm.py _dequant_tile).  Every int8 GEMM of the port (qgemm,
+// the fused layer, both int8 grouped GEMMs) dequantizes through this
+// one function, so the scale math cannot diverge between them.
+template <typename T>
+__device__ __forceinline__ T dequant_w(float q, float scale) {
+  return from_f<T>(q * scale);
 }
 
 // L2-only loads: data another CTA wrote earlier in this launch
@@ -239,9 +249,11 @@ __device__ float* tile_mma(const T* __restrict__ A, int lda, int R,
 #pragma unroll
     for (int i = 0; i < WPT; ++i) {
       const int kk = kk0 + (NT / BN) * i;
-      float w = to_f(src[kk * BN + nn]);
-      if constexpr (kQuant) w *= sv[i];
-      wt[kk * (BN + PAD) + nn] = from_f<T>(w);
+      const float w = to_f(src[kk * BN + nn]);
+      if constexpr (kQuant)
+        wt[kk * (BN + PAD) + nn] = dequant_w<T>(w, sv[i]);
+      else
+        wt[kk * (BN + PAD) + nn] = from_f<T>(w);
     }
     __syncthreads();
     if constexpr (kTensorCore) {
@@ -518,7 +530,7 @@ __device__ float* rows_mma(const T* __restrict__ A, int lda, int R,
             const float s1 = hi ? __ldg(scales + k * nb + g1) : s0;
 #pragma unroll
             for (int c = 0; c < 8; ++c)
-              w[c] = round_t<T>(w[c] * (((hi >> c) & 1u) ? s1 : s0));
+              w[c] = to_f(dequant_w<T>(w[c], ((hi >> c) & 1u) ? s1 : s0));
           }
           const float4 a0 = *reinterpret_cast<const float4*>(as + kk * RROWS);
           const float4 a1 =

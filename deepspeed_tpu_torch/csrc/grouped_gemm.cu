@@ -1,6 +1,6 @@
 // Grouped GEMM for routed experts: rows against the stacked expert
 // weights w [E, K, N] (bf16 or fp32, the rows' dtype), fp32 accumulation,
-// output in the rows' dtype.  Two kernels:
+// output in the rows' dtype.  Two kernels, each with an int8-expert form:
 //
 // ds_ggemm — replaces deepspeed_tpu/ops/pallas/grouped_gemm.py
 // _ggemm_kernel (:163, the forward form).  x [Mp, K] holds the routed
@@ -43,6 +43,30 @@
 // 0.94 GB, 0.28 ms at 3.35 TB/s; its products are ~2 flops per weight
 // byte.
 //
+// int8 experts (ds_ggemm_q, ds_ggemm_slots_q) — replace _ggemm_q_kernel
+// (:200) and _slot_q_kernel (:452).  The same two kernels, instantiated
+// with int8 weights q [E, K, N] and fp32 scales s [E, K, nb] in the
+// block_quantize_int8 layout (group width qblock = ceil(N / nb) of the
+// unpadded N).  Each weight element becomes dequant_w<T>(q, scale)
+// (csrc/gemm_tile.cuh: (float)q * scale rounded to x's dtype, the
+// reference's _dequant_tile) before its product; products accumulate in
+// fp32 and the output rounds once to x's dtype.  ds_ggemm_q is
+// ds_ggemm's CTA driving qgemm's int8 tile path (tile_mma<T, int8_t>,
+// the expert's scales at s + e K nb).  ds_ggemm_slots_q keeps the slot
+// kernel's CTA layout; its cp.async ring carries the int8 [128 x 128]
+// weight stage (16 KB, the bf16 stage's bytes at twice the K) and that
+// stage's scale rows (the at most kSlotSG groups the 128 columns meet).
+// For bf16 rows each warp dequantizes its 16 columns straight into the
+// mma.sync m16n8k16 B fragments (the layout ldmatrix.trans gives the float
+// kernel), so every weight of the stage is dequantized once per CTA, by
+// one thread, with no extra shared-memory pass or barrier; for fp32 rows
+// the CTA dequantizes the stage once into an fp32 tile that feeds fmaf.
+// No per-row dequantization in either.
+// What bounds them: bytes, as the float forms, at half the weight bytes:
+// a decode step's gate/in slot launch (batch 8, R 16 over 8 experts)
+// streams 8 x 4096 x 14336 int8 codes + 7.3 MB of scales, 0.142 ms at
+// 3.35 TB/s.
+//
 // C interface (loaded with ctypes): each entry point returns the
 // cudaError_t of its launch as an int.
 #include "gemm_tile.cuh"
@@ -51,13 +75,16 @@ namespace {
 
 using namespace dstile;
 
-// ------------------------------------------------------------- ds_ggemm
-// grid (num M-tiles, N / BN); the plan's tile is RPMAX = 64 rows
-template <typename T>
+// ------------------------------------------------------ ds_ggemm(_q)
+// grid (num M-tiles, N / BN); the plan's tile is RPMAX = 64 rows.  WT =
+// T: float experts (scales null); WT = int8_t: int8 experts with scales
+// s [E, K, nb], group width qblock.
+template <typename T, typename WT>
 __global__ void __launch_bounds__(NT)
-ggemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-             const int* __restrict__ gids, const int* __restrict__ tile_rows,
-             T* __restrict__ out, int K, int N, int E) {
+ggemm_kernel(const T* __restrict__ x, const WT* __restrict__ w,
+             const float* __restrict__ s, const int* __restrict__ gids,
+             const int* __restrict__ tile_rows, T* __restrict__ out, int K,
+             int N, int E, int nb, int qblock) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int mt = blockIdx.x;
   const int n0 = blockIdx.y * BN;
@@ -66,8 +93,9 @@ ggemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int R = (e >= 0 && e < E) ? min(max(tile_rows[mt], 0), RPMAX) : 0;
   const float* ct = nullptr;
   if (R > 0)   // uniform over the CTA
-    ct = tile_mma<T, T>(x + m0 * K, K, R, w + (size_t)e * K * N, nullptr,
-                        0, 1, N, n0, 0, K, smem);
+    ct = tile_mma<T, WT>(x + m0 * K, K, R, w + (size_t)e * K * N,
+                         s ? s + (size_t)e * K * nb : nullptr, nb, qblock,
+                         N, n0, 0, K, smem);
   for (int i = threadIdx.x; i < RPMAX * BN; i += NT) {
     const int r = i / BN, n = i - r * BN;
     if (n0 + n < N)
@@ -76,57 +104,79 @@ ggemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T>
-cudaError_t launch_ggemm(const void* x, const void* w, const int* gids,
-                         const int* tile_rows, void* out, int nblocks, int K,
-                         int N, int E, cudaStream_t stream) {
-  const size_t smem = TileSmem<T, T>::bytes;
+template <typename T, typename WT>
+cudaError_t launch_ggemm(const void* x, const void* w, const float* s,
+                         const int* gids, const int* tile_rows, void* out,
+                         int nblocks, int K, int N, int E, int nb,
+                         cudaStream_t stream) {
+  const size_t smem = TileSmem<T, WT>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      ggemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ggemm_kernel<T, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
+  const int qblock = nb > 0 ? (N + nb - 1) / nb : 1;
   const dim3 grid(nblocks, (N + BN - 1) / BN);
-  ggemm_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), gids, tile_rows,
-      static_cast<T*>(out), K, N, E);
+  ggemm_kernel<T, WT><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const WT*>(w), s, gids,
+      tile_rows, static_cast<T*>(out), K, N, E, nb, qblock);
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------- ds_ggemm_slots
+// ---------------------------------------------------- ds_ggemm_slots(_q)
 constexpr int kSlotBN = 128;      // output columns per CTA
-constexpr int kSlotBK = 64;       // K per pipeline stage
 constexpr int kSlotRows = 64;     // rows per pass (four m16 fragments)
 constexpr int kSlotMaxSplit = 16;
-constexpr int kSlotPad = 8;       // row pad (elements) of the smem tiles
+constexpr int kSlotPad = 8;       // row pad (elements) of the T tiles
+constexpr int kSlotSG = 4;        // int8: scale groups a column tile meets
 static_assert(NT / 32 * 16 == kSlotBN, "a warp owns 16 columns");
 
-template <typename T>
+// shared-memory carve-up (bytes) and K per pipeline stage (BK): ST raw
+// weight stages (WT, rows padded to a 16-byte multiple), ST A stages, for
+// int8 ST scale stages [BK][kSlotSG], for int8 weights with fp32 rows the
+// stage's dequantized fp32 tile, the row ids.  int8 weights with bf16
+// rows take BK = 128 (a 16 KB stage, as bf16's at 64) and dequantize in
+// registers as the mma B fragments are built (no tile).
+template <typename T, typename WT>
 struct SlotSmem {
+  static constexpr bool kQuant = sizeof(WT) == 1;
+  static constexpr bool kTile = kQuant && sizeof(T) == 4;
+  static constexpr int BK = kQuant && sizeof(T) == 2 ? 128 : 64;
   static constexpr int ST = sizeof(T) == 2 ? 4 : 3;   // stages in flight
-  static constexpr int LDW = kSlotBN + kSlotPad;
-  static constexpr int LDA = kSlotBK + kSlotPad;
-  static constexpr size_t wstage = (size_t)kSlotBK * LDW * sizeof(T);
+  static constexpr int LDW = kSlotBN + (kQuant ? 16 : kSlotPad);
+  static constexpr int LDA = BK + kSlotPad;
+  static constexpr int LDT = kSlotBN + kSlotPad;   // float weights' stride
+  static constexpr size_t wstage = (size_t)BK * LDW * sizeof(WT);
   static constexpr size_t astage = (size_t)kSlotRows * LDA * sizeof(T);
+  static constexpr size_t sstage =
+      kQuant ? (size_t)BK * kSlotSG * sizeof(float) : 0;
   static constexpr size_t a = ST * wstage;
-  static constexpr size_t idx = a + ST * astage;
+  static constexpr size_t s = a + ST * astage;
+  static constexpr size_t t = s + ST * sstage;
+  static constexpr size_t idx =
+      t + (kTile ? (size_t)BK * LDT * sizeof(T) : 0);
   static constexpr size_t bytes = idx + kSlotRows * sizeof(int);
+  static_assert(kQuant || LDW == LDT, "float weights feed mma in place");
+  static_assert(BK % (NT / 32) == 0, "the fp32 dequant pass's rows");
 };
 
-// one stage: W rows [kc0, kc0 + kSlotBK) x columns [n0, n0 + kSlotBN) and
-// the rows idx[r < nrow] of x at columns [kc0, kc0 + kSlotBK), rows
-// [nrow, nrow_pad) as zeros, as one cp.async group; what lies past k_end
-// or N arrives as zeros (element-wise loads where 16-byte vectors do not
+// one stage: W rows [kc0, kc0 + BK) x columns [n0, n0 + kSlotBN), for
+// int8 the scales of those rows at groups [g0, g0 + kSlotSG), and the
+// rows idx[r < nrow] of x at columns [kc0, kc0 + BK), rows [nrow,
+// nrow_pad) as zeros, as one cp.async group; what lies past k_end, N or
+// nb arrives as zeros (element-wise loads where 16-byte vectors do not
 // fit, complete when this returns)
-template <typename T>
+template <typename T, typename WT>
 __device__ __forceinline__ void slot_load(
-    T* wdst, const T* __restrict__ W, int N, int n0, T* adst,
+    WT* wdst, const WT* __restrict__ W, int N, int n0, float* sdst,
+    const float* __restrict__ S, int nb, int g0, T* adst,
     const T* __restrict__ x, int K, const int* idx, int nrow, int nrow_pad,
     int kc0, int k_end, bool wvec, bool avec) {
-  using SM = SlotSmem<T>;
-  constexpr int VEC = 16 / sizeof(T);
+  using SM = SlotSmem<T, WT>;
+  constexpr int BK = SM::BK;
   if (wvec) {
+    constexpr int VEC = 16 / sizeof(WT);
     constexpr int VPR = kSlotBN / VEC;
-    for (int v = threadIdx.x; v < kSlotBK * VPR; v += NT) {
+    for (int v = threadIdx.x; v < BK * VPR; v += NT) {
       const int kk = v / VPR, vv = v - kk * VPR;
       const int k = kc0 + kk, n = n0 + vv * VEC;
       const bool ok = k < k_end && n < N;   // N % VEC == 0: whole vectors
@@ -135,15 +185,27 @@ __device__ __forceinline__ void slot_load(
                  ok ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < kSlotBK * kSlotBN; i += NT) {
+    for (int i = threadIdx.x; i < BK * kSlotBN; i += NT) {
       const int kk = i / kSlotBN, nn = i - kk * kSlotBN;
       const int k = kc0 + kk, n = n0 + nn;
       wdst[kk * SM::LDW + nn] =
-          (k < k_end && n < N) ? W[(size_t)k * N + n] : from_f<T>(0.f);
+          (k < k_end && n < N) ? W[(size_t)k * N + n] : from_f<WT>(0.f);
     }
   }
+  if constexpr (SM::kQuant) {
+    for (int v = threadIdx.x; v < BK * kSlotSG; v += NT) {
+      const int kk = v / kSlotSG, j = v - kk * kSlotSG;
+      const int k = kc0 + kk, g = g0 + j;
+      const bool ok = k < k_end && g < nb;
+      cp_async_ca<4>(sdst + v,
+                     ok ? (const void*)(S + (size_t)k * nb + g)
+                        : (const void*)S,
+                     ok ? 4 : 0);
+    }
+  }
+  constexpr int VEC = 16 / sizeof(T);
   if (avec) {
-    constexpr int VPR = kSlotBK / VEC;
+    constexpr int VPR = BK / VEC;
     for (int v = threadIdx.x; v < nrow_pad * VPR; v += NT) {
       const int r = v / VPR, vv = v - r * VPR;
       const int k = kc0 + vv * VEC;
@@ -154,8 +216,8 @@ __device__ __forceinline__ void slot_load(
                  valid > 0 ? valid * (int)sizeof(T) : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < nrow_pad * kSlotBK; i += NT) {
-      const int r = i / kSlotBK, kk = i - r * kSlotBK;
+    for (int i = threadIdx.x; i < nrow_pad * BK; i += NT) {
+      const int r = i / BK, kk = i - r * BK;
       const int k = kc0 + kk;
       adst[r * SM::LDA + kk] = (r < nrow && k < k_end)
                                    ? x[(size_t)idx[r] * K + k]
@@ -163,6 +225,29 @@ __device__ __forceinline__ void slot_load(
     }
   }
   cp_async_commit();
+}
+
+// int8 weights, fp32 rows: the landed stage's [BK x kSlotBN] codes and
+// scales -> the dequantized fp32 tile (row stride LDT), each weight once.
+// Thread t owns the 4 columns 4 (t % 32) .. + 3 (scale group offsets gi,
+// fixed for the CTA) of rows t / 32 + 8 i: one 32-bit word of codes a row.
+__device__ __forceinline__ void slot_dequant(float* wt, const int8_t* wq,
+                                             const float* ss,
+                                             const int* gi) {
+  using SM = SlotSmem<float, int8_t>;
+  const int c4 = threadIdx.x & 31, kr0 = threadIdx.x >> 5;
+#pragma unroll 4
+  for (int i = 0; i < SM::BK / (NT / 32); ++i) {
+    const int kk = kr0 + (NT / 32) * i;
+    const unsigned word =
+        *reinterpret_cast<const unsigned*>(wq + kk * SM::LDW + c4 * 4);
+    const float* sr = ss + kk * kSlotSG;
+    float* dst = wt + kk * SM::LDT + c4 * 4;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      dst[c] = dequant_w<float>((float)(int8_t)(word >> (8 * c)),
+                                sr[gi[c]]);
+  }
 }
 
 __device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p,
@@ -179,6 +264,34 @@ __device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p,
         "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
         : "r"(s));
+}
+
+// int8 weights, bf16 rows: the warp's two n8 B fragments of k block ks,
+// dequantized from the int8 stage in registers, in the layout
+// ldmatrix.trans gives the float kernel (b[2 jn + h] holds rows ks 16 +
+// 8 h + 2 (lane % 4) and + 1 of column warp 16 + 8 jn + lane / 4, whose
+// scale group offset is gj[jn]).  Each weight of the stage is
+// dequantized by exactly one thread of the CTA.
+__device__ __forceinline__ void slot_bfrag_q(unsigned* b, const int8_t* wq,
+                                             const float* ss, int ks,
+                                             int warp, int lane,
+                                             const int* gj) {
+  using SM = SlotSmem<__nv_bfloat16, int8_t>;
+  const int t = lane & 3, g = lane >> 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = ks * 16 + 8 * h + 2 * t;
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn) {
+      const int n = warp * 16 + jn * 8 + g;
+      __nv_bfloat162 v;
+      v.x = dequant_w<__nv_bfloat16>((float)wq[k * SM::LDW + n],
+                                     ss[k * kSlotSG + gj[jn]]);
+      v.y = dequant_w<__nv_bfloat16>((float)wq[(k + 1) * SM::LDW + n],
+                                     ss[(k + 1) * kSlotSG + gj[jn]]);
+      b[2 * jn + h] = *reinterpret_cast<const unsigned*>(&v);
+    }
+  }
 }
 
 __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
@@ -204,25 +317,32 @@ __device__ __forceinline__ void slot_store(
     wsp[((size_t)split * R + row) * N + n] = v;
 }
 
-// grid (N / kSlotBN, nsplit), K split in `kper` rows (a kSlotBK multiple)
-template <typename T>
+// grid (N / kSlotBN, nsplit), K split in `kper` rows (a BK multiple).
+// WT = T: float experts (scales null); WT = int8_t: int8 experts with
+// scales s [E, K, nb], group width qblock.
+template <typename T, typename WT>
 __global__ void __launch_bounds__(NT)
-slot_kernel(const T* __restrict__ x, const T* __restrict__ w,
+slot_kernel(const T* __restrict__ x, const WT* __restrict__ w,
+            const float* __restrict__ scales,
             const int* __restrict__ active, const int* __restrict__ valid,
             const int* __restrict__ order, const int* __restrict__ offs,
             T* __restrict__ out, float* __restrict__ wsp,
             int* __restrict__ counters, int R, int K, int N, int E, int S,
-            int nsplit, int kper) {
-  using SM = SlotSmem<T>;
-  constexpr int ST = SM::ST;
+            int nsplit, int kper, int nb, int qblock) {
+  using SM = SlotSmem<T, WT>;
+  constexpr int ST = SM::ST, BK = SM::BK;
   constexpr bool kTensorCore = sizeof(T) == 2;
+  constexpr bool kQuant = SM::kQuant;
   extern __shared__ __align__(128) unsigned char smem[];
   int* idx = reinterpret_cast<int*>(smem + SM::idx);
   auto wstage = [&](int s) {
-    return reinterpret_cast<T*>(smem + (size_t)s * SM::wstage);
+    return reinterpret_cast<WT*>(smem + (size_t)s * SM::wstage);
   };
   auto astage = [&](int s) {
     return reinterpret_cast<T*>(smem + SM::a + (size_t)s * SM::astage);
+  };
+  auto sstage = [&](int s) {
+    return reinterpret_cast<float*>(smem + SM::s + (size_t)s * SM::sstage);
   };
   const int n0 = blockIdx.x * kSlotBN;
   const int split = blockIdx.y;
@@ -231,16 +351,34 @@ slot_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool avec = ((size_t)K * sizeof(T)) % 16 == 0 &&
                     (uintptr_t)x % 16 == 0;
+  // int8: the tile's first scale group, and the group offsets from it of
+  // this thread's columns: gi the fp32 dequant pass's 4, gj the bf16 B
+  // fragments' 2 (columns past N hold zero codes; they read group 0)
+  const int g0 = kQuant ? n0 / qblock : 0;
+  int gi[4] = {0, 0, 0, 0}, gj[2] = {0, 0};
+  if constexpr (kQuant) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = n0 + lane * 4 + c;
+      gi[c] = n < N ? n / qblock - g0 : 0;
+    }
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn) {
+      const int n = n0 + warp * 16 + jn * 8 + (lane >> 2);
+      gj[jn] = n < N ? n / qblock - g0 : 0;
+    }
+  }
 
   for (int s = 0; s < S; ++s) {
     if (!valid[s]) continue;                 // repeated slot: no fetch
     const int e = active[s];
     const bool live = e >= 0 && e < E;       // else its rows get zeros
     const int nch =
-        live && k_end > k_begin ? (k_end - k_begin + kSlotBK - 1) / kSlotBK
-                                : 0;
-    const T* We = w + (size_t)(live ? e : 0) * K * N;
-    const bool wvec = ((size_t)N * sizeof(T)) % 16 == 0 &&
+        live && k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+    const WT* We = w + (size_t)(live ? e : 0) * K * N;
+    const float* Se =
+        kQuant ? scales + (size_t)(live ? e : 0) * K * nb : nullptr;
+    const bool wvec = ((size_t)N * sizeof(WT)) % 16 == 0 &&
                       (uintptr_t)We % 16 == 0;
     for (int rb = offs[s]; rb < offs[s + 1]; rb += kSlotRows) {
       const int nrow = min(kSlotRows, offs[s + 1] - rb);
@@ -262,9 +400,9 @@ slot_kernel(const T* __restrict__ x, const T* __restrict__ w,
         for (int i = 0; i < kSlotRows / 2; ++i) acc[i] = 0.f;
       }
       auto load = [&](int c) {
-        slot_load<T>(wstage(c % ST), We, N, n0, astage(c % ST), x, K, idx,
-                     nrow, nfr * 16, k_begin + c * kSlotBK, k_end, wvec,
-                     avec);
+        slot_load<T, WT>(wstage(c % ST), We, N, n0, sstage(c % ST), Se,
+                         nb, g0, astage(c % ST), x, K, idx, nrow, nfr * 16,
+                         k_begin + c * BK, k_end, wvec, avec);
       };
 #pragma unroll
       for (int c = 0; c < ST - 1; ++c) {
@@ -276,17 +414,20 @@ slot_kernel(const T* __restrict__ x, const T* __restrict__ w,
         else cp_async_commit();
         cp_async_wait<ST - 1>();
         __syncthreads();
-        const T* ws_ = wstage(c % ST);
+        const WT* wst = wstage(c % ST);
         const T* as_ = astage(c % ST);
         if constexpr (kTensorCore) {
           const int j = lane >> 3, rr = lane & 7;
 #pragma unroll
-          for (int ks = 0; ks < kSlotBK / 16; ++ks) {
+          for (int ks = 0; ks < BK / 16; ++ks) {
             unsigned b[4];   // two n8 fragments of the warp's 16 columns
-            ldsm_x4(b,
-                    ws_ + (ks * 16 + (j & 1) * 8 + rr) * SM::LDW +
-                        warp * 16 + (j >> 1) * 8,
-                    true);
+            if constexpr (kQuant)
+              slot_bfrag_q(b, wst, sstage(c % ST), ks, warp, lane, gj);
+            else
+              ldsm_x4(b,
+                      wst + (ks * 16 + (j & 1) * 8 + rr) * SM::LDT +
+                          warp * 16 + (j >> 1) * 8,
+                      true);
 #pragma unroll
             for (int f = 0; f < 4; ++f) {
               if (f < nfr) {
@@ -301,9 +442,18 @@ slot_kernel(const T* __restrict__ x, const T* __restrict__ w,
             }
           }
         } else {
+          const T* ws_;   // the stage's weights in fp32, row stride LDT
+          if constexpr (kQuant) {
+            float* wt = reinterpret_cast<float*>(smem + SM::t);
+            slot_dequant(wt, wst, sstage(c % ST), gi);
+            __syncthreads();
+            ws_ = wt;
+          } else {
+            ws_ = wst;
+          }
           const int col = threadIdx.x % kSlotBN, rg = threadIdx.x / kSlotBN;
-          for (int kk = 0; kk < kSlotBK; ++kk) {
-            const float wv = to_f(ws_[kk * SM::LDW + col]);
+          for (int kk = 0; kk < BK; ++kk) {
+            const float wv = to_f(ws_[kk * SM::LDT + col]);
 #pragma unroll
             for (int i = 0; i < kSlotRows / 2; ++i) {
               const int r = rg + 2 * i;
@@ -357,39 +507,52 @@ slot_kernel(const T* __restrict__ x, const T* __restrict__ w,
   if (threadIdx.x == 0) counters[blockIdx.x] = 0;
 }
 
-// K splits per N-tile: enough CTAs for two per SM, no split without a
-// kSlotBK chunk of work; depends on N and K only
-int slot_splits(int K, int N, int* kper) {
+// K splits per N-tile at stage depth bk: enough CTAs for two per SM, no
+// split without a bk chunk of work; depends on N and K only
+int slot_splits(int K, int N, int bk, int* kper) {
   const int tiles = (N + kSlotBN - 1) / kSlotBN;
-  const int kch = (K + kSlotBK - 1) / kSlotBK;
+  const int kch = (K + bk - 1) / bk;
   const int sms = sm_count();
   if (sms <= 0) return 0;
   int nsplit = (2 * sms + tiles - 1) / tiles;
   nsplit = max(1, min(nsplit, min(kSlotMaxSplit, kch)));
   const int chunks = (kch + nsplit - 1) / nsplit;
   nsplit = (kch + chunks - 1) / chunks;
-  if (kper) *kper = chunks * kSlotBK;
+  if (kper) *kper = chunks * bk;
   return nsplit;
 }
 
-template <typename T>
-cudaError_t launch_slots(const void* x, const void* w, const int* active,
-                         const int* valid, const int* order, const int* offs,
-                         void* out, void* wsp, void* counters, int R, int K,
-                         int N, int E, int S, cudaStream_t stream) {
+// the most scale groups any kSlotBN-column tile of an N-column weight
+// with groups of qblock columns meets
+int slot_groups(int N, int qblock) {
+  int most = 0;
+  for (int n0 = 0; n0 < N; n0 += kSlotBN)
+    most = max(most, (min(n0 + kSlotBN, N) - 1) / qblock - n0 / qblock + 1);
+  return most;
+}
+
+template <typename T, typename WT>
+cudaError_t launch_slots(const void* x, const void* w, const float* scales,
+                         const int* active, const int* valid,
+                         const int* order, const int* offs, void* out,
+                         void* wsp, void* counters, int R, int K, int N,
+                         int E, int S, int nb, cudaStream_t stream) {
   int kper = 0;
-  const int nsplit = slot_splits(K, N, &kper);
+  const int nsplit = slot_splits(K, N, SlotSmem<T, WT>::BK, &kper);
   if (nsplit <= 0) return cudaErrorInvalidDevice;
-  const size_t smem = SlotSmem<T>::bytes;
+  const int qblock = nb > 0 ? (N + nb - 1) / nb : 1;
+  if (nb > 0 && slot_groups(N, qblock) > kSlotSG)
+    return cudaErrorInvalidValue;
+  const size_t smem = SlotSmem<T, WT>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      slot_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      slot_kernel<T, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kSlotBN - 1) / kSlotBN, nsplit);
-  slot_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), active, valid,
-      order, offs, static_cast<T*>(out), static_cast<float*>(wsp),
-      static_cast<int*>(counters), R, K, N, E, S, nsplit, kper);
+  slot_kernel<T, WT><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const WT*>(w), scales, active,
+      valid, order, offs, static_cast<T*>(out), static_cast<float*>(wsp),
+      static_cast<int*>(counters), R, K, N, E, S, nsplit, kper, nb, qblock);
   return cudaGetLastError();
 }
 
@@ -403,17 +566,39 @@ extern "C" int ds_ggemm(const void* x, const void* w, const void* gids,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* g = static_cast<const int*>(gids);
   const int* tr = static_cast<const int*>(tile_rows);
-  return is_bf16 ? (int)launch_ggemm<__nv_bfloat16>(x, w, g, tr, out,
-                                                    nblocks, K, N, E, st)
-                 : (int)launch_ggemm<float>(x, w, g, tr, out, nblocks, K, N,
-                                            E, st);
+  return is_bf16 ? (int)launch_ggemm<__nv_bfloat16, __nv_bfloat16>(
+                       x, w, nullptr, g, tr, out, nblocks, K, N, E, 0, st)
+                 : (int)launch_ggemm<float, float>(x, w, nullptr, g, tr, out,
+                                                   nblocks, K, N, E, 0, st);
 }
 
-// the slot kernel's K splits at (K, N) on the current device (the
-// wrapper sizes its workspace by it); 0 when the device is unknown
-extern "C" int ds_ggemm_slots_splits(int K, int N) {
+// int8 experts q [E, K, N] with scales s [E, K, nb], 1 <= nb <= N
+extern "C" int ds_ggemm_q(const void* x, const void* q, const void* s,
+                          const void* gids, const void* tile_rows, void* out,
+                          int nblocks, int K, int N, int E, int nb,
+                          int is_bf16, void* stream) {
+  if (nblocks < 1 || K < 1 || N < 1 || E < 1 || nb < 1 || nb > N)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(s);
+  const int* g = static_cast<const int*>(gids);
+  const int* tr = static_cast<const int*>(tile_rows);
+  return is_bf16 ? (int)launch_ggemm<__nv_bfloat16, int8_t>(
+                       x, q, sc, g, tr, out, nblocks, K, N, E, nb, st)
+                 : (int)launch_ggemm<float, int8_t>(x, q, sc, g, tr, out,
+                                                    nblocks, K, N, E, nb, st);
+}
+
+// the slot kernel's K splits at (K, N) on the current device for int8
+// or float weights and bf16 or fp32 rows (the wrapper sizes its
+// workspace by it); 0 when the device is unknown
+extern "C" int ds_ggemm_slots_splits(int K, int N, int is_int8,
+                                     int is_bf16) {
   if (K < 1 || N < 1) return 0;
-  return slot_splits(K, N, nullptr);
+  const int bk = is_int8 ? (is_bf16 ? SlotSmem<__nv_bfloat16, int8_t>::BK
+                                    : SlotSmem<float, int8_t>::BK)
+                         : SlotSmem<float, float>::BK;
+  return slot_splits(K, N, bk, nullptr);
 }
 
 extern "C" int ds_ggemm_slots(const void* x, const void* w,
@@ -428,9 +613,33 @@ extern "C" int ds_ggemm_slots(const void* x, const void* w,
   const int* v = static_cast<const int*>(valid);
   const int* o = static_cast<const int*>(order);
   const int* f = static_cast<const int*>(offs);
-  return is_bf16 ? (int)launch_slots<__nv_bfloat16>(
-                       x, w, a, v, o, f, out, wsp, counters, R, K, N, E, S,
-                       st)
-                 : (int)launch_slots<float>(x, w, a, v, o, f, out, wsp,
-                                            counters, R, K, N, E, S, st);
+  return is_bf16 ? (int)launch_slots<__nv_bfloat16, __nv_bfloat16>(
+                       x, w, nullptr, a, v, o, f, out, wsp, counters, R, K,
+                       N, E, S, 0, st)
+                 : (int)launch_slots<float, float>(x, w, nullptr, a, v, o, f,
+                                                   out, wsp, counters, R, K,
+                                                   N, E, S, 0, st);
+}
+
+extern "C" int ds_ggemm_slots_q(const void* x, const void* q, const void* s,
+                                const void* active, const void* valid,
+                                const void* order, const void* offs,
+                                void* out, void* wsp, void* counters, int R,
+                                int K, int N, int E, int S, int nb,
+                                int is_bf16, void* stream) {
+  if (R < 1 || R > 128 || K < 1 || N < 1 || E < 1 || S < 1 || nb < 1 ||
+      nb > N)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(s);
+  const int* a = static_cast<const int*>(active);
+  const int* v = static_cast<const int*>(valid);
+  const int* o = static_cast<const int*>(order);
+  const int* f = static_cast<const int*>(offs);
+  return is_bf16 ? (int)launch_slots<__nv_bfloat16, int8_t>(
+                       x, q, sc, a, v, o, f, out, wsp, counters, R, K, N, E,
+                       S, nb, st)
+                 : (int)launch_slots<float, int8_t>(x, q, sc, a, v, o, f,
+                                                    out, wsp, counters, R, K,
+                                                    N, E, S, nb, st);
 }

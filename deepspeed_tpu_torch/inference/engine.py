@@ -9,22 +9,27 @@ full-recompute loop as the numerics oracle.  Sampling: greedy /
 temperature / top-k / top-p with EOS early-stop.
 
 Int8 serving, as the reference: ``quant.enabled`` stores every >= 3-dim
-floating leaf of the stacked ``blocks`` as a ``QuantizedTensor`` (int8
-codes plus fp32 per-256-lane scales from the block-quantization kernel),
-quantized from the COMPUTE dtype and leaf by leaf, so peak device memory
-is the int8 total plus one full-precision leaf; biases, norms, ``wte`` and
-``wpe`` stay in the compute dtype.  ``kv_cache_dtype="int8"`` gives the
-static generate an int8 KV cache.  ``generate(fused_decode=True)`` decodes
-with one fused-layer kernel per layer.
+floating leaf of the stacked ``blocks`` (nested dicts such as Mixtral's
+``moe`` included) as a ``QuantizedTensor`` (int8 codes plus fp32
+per-256-lane scales from the block-quantization kernel), quantized from
+the COMPUTE dtype and leaf by leaf — a 4-D expert stack [L, E, K, N]
+slice by [layer, expert] slice — so peak device memory is the int8 total
+plus one full-precision leaf (or expert slice); biases, norms, ``wte``,
+``wpe`` and ``lm_head`` stay in the compute dtype.  A model with a device
+init draws its int8 weights with ``Model.quantized_init_fn`` when no
+params are given (Mixtral-8x7B: all 32 layers on one 80 GB card).
+``kv_cache_dtype="int8"`` gives the static generate an int8 KV cache.
+``generate(fused_decode=True)`` decodes with one fused-layer kernel per
+layer.
 
-Mixture-of-experts models (Mixtral) serve in the compute dtype with a
-float or int8 KV cache; their params are drawn on the device
+Mixture-of-experts models (Mixtral) serve with float or int8 weights and
+a float or int8 KV cache; their params are drawn on the device
 (``Model.init_fn``) when none are given.
 
 Refused here (not ported yet): tensor parallelism
 (``tensor_parallel.tp_size > 1``), expert parallelism
-(``moe.ep_size > 1``), int8 weights for a model with stacked experts, and
-a float KV cache in a dtype other than the compute dtype.
+(``moe.ep_size > 1``), and a float KV cache in a dtype other than the
+compute dtype.
 """
 from typing import Optional
 
@@ -35,8 +40,9 @@ from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.checkpoint.jax_params import block_leaf, to_tensor
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.sampling import sample
-from deepspeed_tpu_torch.models.model import QuantizedTensor
-from deepspeed_tpu_torch.ops.kernels.quantization import block_quantize_int8
+from deepspeed_tpu_torch.models.model import QuantizedTensor, quantized_parts
+from deepspeed_tpu_torch.ops.kernels.quantization import (block_quantize_int8,
+                                                          block_quantize_stack)
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.tree import tree_map
 
@@ -51,17 +57,21 @@ def torch_dtype(name) -> torch.dtype:
     return dt
 
 
-def refuse_unported(config: DeepSpeedInferenceConfig, model=None):
+def _is_float(a) -> bool:
+    """Whether a tensor or numpy leaf holds floating values (ml_dtypes'
+    bfloat16 included)."""
+    if torch.is_tensor(a):
+        return a.is_floating_point()
+    dt = np.asarray(a).dtype
+    return dt.kind == "f" or dt.name == "bfloat16"
+
+
+def refuse_unported(config: DeepSpeedInferenceConfig):
     """NotImplementedError for inference settings not ported yet, naming
     the ROADMAP.md item that brings them."""
     tp = (config.tensor_parallel.tp_size
           if config.tensor_parallel.enabled else 1)
-    moe = bool(model is not None and model.meta.get("num_experts"))
     checks = (
-        (config.quant.enabled and moe,
-         "quant.enabled on a model with stacked expert weights (int8 "
-         "expert stacks need the quantized grouped-GEMM kernels)",
-         "Queue B: int8 MoE, port slice 5"),
         (config.moe.ep_size > 1, f"moe.ep_size={config.moe.ep_size}",
          "Queue A item 4: data parallel, ZeRO and model parallelism"),
         (config.kv_cache_dtype not in (None, "int8", config.dtype),
@@ -84,7 +94,7 @@ class InferenceEngine:
         """``model_parameters``: a params tree of tensors or of numpy
         arrays (e.g. ``jax.device_get`` of the reference engine's
         params); None draws the model's seeded host init (seed 0)."""
-        refuse_unported(config, model)
+        refuse_unported(config)
         self.model = model
         self._config = config
         self.device = resolve_device(device)
@@ -102,9 +112,13 @@ class InferenceEngine:
             if config.quant.bits != 8:
                 logger.warning(f"quant.bits={config.quant.bits}: only 8-bit "
                                "weight quantization is implemented; using 8")
-            params = self._quantized_params(
-                model.numpy_init_fn(0) if model_parameters is None
-                else model_parameters)
+            if model_parameters is None \
+                    and model.quantized_init_fn is not None:
+                params = model.quantized_init_fn(0, self.device, self.dtype)
+            else:
+                params = self._quantized_params(
+                    model.numpy_init_fn(0) if model_parameters is None
+                    else model_parameters)
         elif model_parameters is None:
             params = model.init(0, self.device, self.dtype)
         else:
@@ -125,12 +139,14 @@ class InferenceEngine:
     def _quantized_params(self, tree) -> dict:
         """Place ``tree`` (numpy arrays or tensors) with the stacked
         ``blocks`` weights int8, leaf by leaf (the reference's
-        ``engine.py:79-163``): each >= 3-dim floating leaf goes to the
-        device in the compute dtype, is quantized there and freed before
-        the next one, so peak device memory is the int8 total plus one
-        full-precision leaf.  Leaves already quantized (a JAX int8
-        engine's ``QuantizedTensor``, a ``(q, s)`` pair) keep their bytes;
-        every other leaf is cast to the compute dtype."""
+        ``engine.py:79-163``; nested dicts such as Mixtral's ``moe``
+        included): each >= 3-dim floating leaf goes to the device in the
+        compute dtype, is quantized there and freed before the next one —
+        a 4-D expert stack one [layer, expert] slice at a time, into
+        preallocated int8 / fp32 stacks — so peak device memory is the
+        int8 total plus one full-precision leaf.  Leaves already quantized
+        (a JAX int8 engine's ``QuantizedTensor``, a ``(q, s)`` pair) keep
+        their bytes; every other leaf is cast to the compute dtype."""
         dev, dt = self.device, self.dtype
         if "blocks" not in tree:
             logger.warning("quant.enabled: params tree has no 'blocks' "
@@ -139,16 +155,23 @@ class InferenceEngine:
             return {k: to_tensor(v, dev, dt) for k, v in tree.items()}
 
         def pack(leaf):
-            t = block_leaf(leaf, dev, dt)
-            if isinstance(t, QuantizedTensor) or not t.is_floating_point() \
-                    or t.dim() < 3:
-                return t
-            q, s = block_quantize_int8(t)
+            if isinstance(leaf, dict):
+                return {k: pack(v) for k, v in leaf.items()}
+            if quantized_parts(leaf) is not None:
+                return block_leaf(leaf, dev, dt)
+            if not _is_float(leaf) or len(leaf.shape) < 3:
+                return to_tensor(leaf, dev, dt)
+            if len(leaf.shape) == 3:       # [L, in, out]: one launch
+                q, s = block_quantize_int8(to_tensor(leaf, dev, dt))
+            else:                          # expert stacks: by slice
+                q, s = block_quantize_stack(
+                    tuple(leaf.shape),
+                    lambda idx: to_tensor(leaf[idx], dev, dt), dev)
             return QuantizedTensor(q, s, dt)
 
         out = {k: to_tensor(v, dev, dt) for k, v in tree.items()
                if k != "blocks"}
-        out["blocks"] = {k: pack(v) for k, v in tree["blocks"].items()}
+        out["blocks"] = pack(tree["blocks"])
         return out
 
     # --------------------------------------------------------------- generate

@@ -13,18 +13,28 @@ Serving goes through the generic hook-driven ``prefill`` / ``decode_step``
 of ``models/serving.py``: prefill runs the flash forward per layer over
 the compact GQA cache ([L, B, S, KV, hd]); decode writes the new K/V in
 place, runs the decode-attention kernel (rotary positions per row), and
-the MoE FFN rides the slot kernel (R = B * top_k <= 128) or, for long
-prefills, the group-padded kernel.  The fused per-layer decode kernel
+the MoE FFN rides the slot kernel (R = B * top_k <= 128) or the
+group-padded kernel (larger R: long prefills, wide decode batches); with
+int8 weights decode keeps the expert stacks, projections and router
+quantized into the int8 grouped GEMMs and qgemm, and prefill dequantizes
+each layer whole.  The fused per-layer decode kernel
 does not cover Mixtral's spec yet: an explicit ``fused_decode`` request
 raises (``models/serving.py fused_decode_active``).
 
 Initialisation: :func:`init_params` draws the weights ON THE DEVICE with
 a ``torch.Generator`` seeded there, leaf by leaf and, for the stacks,
 layer by layer (and expert by expert), writing straight into stacks of
-the requested dtype: a host init of 23.5 B values, or an fp32 copy of a
-bf16 stack, would not fit.  Its values are not the JAX package's
-(``jax.random`` and torch draw different numbers from a seed); tests
-carry the JAX init across with ``checkpoint/jax_params.py``.
+the requested dtype: a host init of 46.7 B values, or an fp32 copy of a
+bf16 stack, would not fit.  :func:`init_quantized_params` draws the same
+values and quantizes each slice as it is drawn (int8 serving).  Their
+values are not the JAX package's (``jax.random`` and torch draw
+different numbers from a seed); tests carry the JAX init across with
+``checkpoint/jax_params.py``.
+
+Depth on one 80 GB card: Mixtral-8x7B's 32 layers are 93.4 GB in bf16,
+so bf16 serving runs a cut depth (``num_layers=16``); with int8 weights
+(``quant.enabled``: int8 experts, projections and router, 47.7 GB in
+all) the whole published model fits.
 """
 import itertools
 from dataclasses import dataclass
@@ -35,9 +45,9 @@ import torch
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.models import serving
 from deepspeed_tpu_torch.models.llama import _rms_norm, rope
-from deepspeed_tpu_torch.models.model import (Model, layer_params,
-                                              maybe_stream, qdot,
-                                              resolve_size)
+from deepspeed_tpu_torch.models.model import (Model, QuantizedTensor,
+                                              layer_params, maybe_stream,
+                                              qdot, resolve_size)
 from deepspeed_tpu_torch.moe.layer import MoEConfig, moe_layer
 from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
 
@@ -127,6 +137,39 @@ def _shapes(config: MixtralConfig) -> dict:
     }
 
 
+def _init(config: MixtralConfig, seed, device, dtype, quantize: bool):
+    """The seeded device init of :func:`init_params`; ``quantize``: every
+    >= 3-dim leaf of ``blocks`` is stored as a ``QuantizedTensor`` whose
+    codes and scales are ``block_quantize_int8`` of that slice of the
+    float init, slice by slice into preallocated int8 / fp32 stacks."""
+    from deepspeed_tpu_torch.ops.kernels.quantization import \
+        block_quantize_stack
+    dev = resolve_device(device)
+    dt = dtype or torch.float32
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+    def leaf(spec, in_blocks):
+        if isinstance(spec, dict):
+            return {k: leaf(v, in_blocks or k == "blocks")
+                    for k, v in spec.items()}
+        shape, scale = spec
+        if scale is None:
+            return torch.ones(shape, dtype=dt, device=dev)
+
+        def draw(idx):
+            return (torch.randn(shape[-2:], generator=gen, device=dev,
+                                dtype=torch.float32) * scale).to(dt)
+        if quantize and in_blocks and len(shape) >= 3:
+            return QuantizedTensor(*block_quantize_stack(shape, draw, dev),
+                                   dt)
+        out = torch.empty(shape, dtype=dt, device=dev)
+        for idx in itertools.product(*map(range, shape[:-2])):
+            out[idx].copy_(draw(idx))
+        return out
+
+    return leaf(_shapes(config), False)
+
+
 def init_params(config: MixtralConfig, seed: int = 0, device=None,
                 dtype=None) -> dict:
     """Seeded normal init (the reference's scales: 0.02, and 0.02 /
@@ -135,24 +178,22 @@ def init_params(config: MixtralConfig, seed: int = 0, device=None,
     when None).  Each stacked leaf fills one [layer (, expert)] slice at a
     time, so the fp32 draw never exceeds one slice.  Not the JAX package's
     values (see the module docstring)."""
-    dev = resolve_device(device)
-    dt = dtype or torch.float32
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return _init(config, seed, device, dtype, quantize=False)
 
-    def leaf(spec):
-        if isinstance(spec, dict):
-            return {k: leaf(v) for k, v in spec.items()}
-        shape, scale = spec
-        if scale is None:
-            return torch.ones(shape, dtype=dt, device=dev)
-        out = torch.empty(shape, dtype=dt, device=dev)
-        for idx in itertools.product(*map(range, shape[:-2])):
-            sl = out[idx]
-            sl.copy_(torch.randn(sl.shape, generator=gen, device=dev,
-                                 dtype=torch.float32) * scale)
-        return out
 
-    return leaf(_shapes(config))
+def init_quantized_params(config: MixtralConfig, seed: int = 0,
+                          device=None, dtype=None) -> dict:
+    """The int8 serving weights of :func:`init_params` drawn on the
+    device: exactly ``block_quantize_int8`` of each >= 3-dim ``blocks``
+    leaf of ``init_params(config, seed, device, dtype)`` (the projections,
+    the router and the expert stacks, as ``QuantizedTensor``s dequantizing
+    to ``dtype``), the rest as ``init_params`` gives it.  Each [layer (,
+    expert)] slice is drawn, rounded to ``dtype``, quantized and written
+    into preallocated int8 / fp32 stacks — the groups run along the last
+    dim, so this is the reference engine's leaf-by-leaf load — and the
+    peak is the int8 total plus one slice: Mixtral-8x7B's 30 GB bf16
+    expert leaf never exists."""
+    return _init(config, seed, device, dtype, quantize=True)
 
 
 def embed(params, tokens, config: MixtralConfig):
@@ -281,6 +322,7 @@ def mixtral_model(size: str = "8x7b", **overrides) -> Model:
     return Model(
         config=config,
         init_fn=partial(init_params, config),
+        quantized_init_fn=partial(init_quantized_params, config),
         params_from_numpy_fn=mixtral_params_from_numpy,
         apply_fn=lambda p, b: forward_with_aux(p, b, config)[0],
         flops_per_token=6.0 * active,

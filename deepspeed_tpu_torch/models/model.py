@@ -41,6 +41,18 @@ class QuantizedTensor:
         return block_dequantize_int8(self.q, self.s).to(self.dtype)
 
 
+def quantized_parts(leaf):
+    """``(q, s)`` of an int8 weight leaf (a ``QuantizedTensor``, a
+    ``(q, s)`` pair, or any object with ``q`` / ``s`` arrays such as the
+    JAX package's ``QuantizedTensor``), else None."""
+    if isinstance(leaf, tuple) and len(leaf) == 2:
+        return leaf
+    q, s = getattr(leaf, "q", None), getattr(leaf, "s", None)
+    if q is not None and s is not None:
+        return q, s
+    return None
+
+
 def qdot(x, w):
     """Projection matmul that consumes int8 weights in place:
     ``QuantizedTensor`` leaves go to the fused-dequant qgemm kernel
@@ -54,18 +66,21 @@ def qdot(x, w):
 
 def maybe_stream(layer, keep_quantized: bool = False):
     """One layer's params with ``QuantizedTensor`` leaves rebuilt in their
-    compute dtype (plain PyTorch, the reference's ``_maybe_dequant``).
-    ``keep_quantized`` (the decode paths): 2-D quantized projection
-    weights stay quantized for the kernels that consume them in place
-    (qgemm, the fused decode kernel).  The reference's host/NVMe param
+    compute dtype (plain PyTorch, the reference's ``_maybe_dequant``),
+    nested dicts (Mixtral's ``moe``) included.  ``keep_quantized`` (the
+    decode paths): quantized leaves stay quantized for the kernels that
+    consume them in place — 2-D projections and routers for qgemm and
+    the fused decode kernel, 3-D [E, K, N] expert stacks for the int8
+    grouped GEMMs (the reference's ``keep_gemm_weights`` and
+    ``keep_moe_weights`` together).  The reference's host/NVMe param
     streaming modes are not ported (ROADMAP.md Queue A: offload)."""
     def dq(w):
-        if not isinstance(w, QuantizedTensor):
-            return w
-        if keep_quantized and w.q.dim() == 2:
+        if isinstance(w, dict):
+            return {k: dq(v) for k, v in w.items()}
+        if not isinstance(w, QuantizedTensor) or keep_quantized:
             return w
         return w.dequantize()
-    return {k: dq(v) for k, v in layer.items()}
+    return dq(layer)
 
 
 def layer_params(blocks, l: int) -> dict:
@@ -116,6 +131,10 @@ class Model:
     #: (seed, device, dtype) -> params drawn on the device, for families
     #: too large for a host init (Mixtral); None: ``numpy_init_fn``
     init_fn: Optional[Callable] = None
+    #: (seed, device, dtype) -> ``init_fn``'s params with the >= 3-dim
+    #: block leaves int8 (quantized slice by slice as they are drawn), for
+    #: the int8 engine's load; None: quantize the host init leaf by leaf
+    quantized_init_fn: Optional[Callable] = None
     #: the family's fused-layer spec (``ops/kernels/fused_decode.py``
     #: ``FusedLayerSpec``), checked when a caller asks for fused decode
     fused_spec: Any = None

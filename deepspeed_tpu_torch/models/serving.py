@@ -14,9 +14,11 @@ vector, ``ops/kernels/decode_attention.py`` helpers).
 
 The reference's scan-form decode for large int8 models
 (``use_scan_decode`` / ``quant_scan_threshold``) is not ported: with the
-qgemm kernel consuming every quantized projection in place nothing is
-left to dequantize inside the decode loop, and the reference keeps its
-unrolled loop in that case too.
+qgemm kernel consuming every quantized projection and router in place,
+and the int8 grouped GEMMs every expert stack, nothing is left to
+dequantize inside the decode loop, and the reference keeps its unrolled
+loop in that case too (int8 Mixtral at any scale).  Prefill dequantizes
+each layer whole, as the reference's prefill does.
 """
 import torch
 
@@ -61,14 +63,20 @@ def init_cache(num_layers, num_kv_heads, head_dim, batch_size, max_len,
 
 
 def qgemm_active(blocks) -> bool:
-    """Whether the decode path hands the layer's int8 projection weights
-    (``QuantizedTensor`` leaves of [L, in, out]) to the qgemm kernel in
-    place of a dequantized copy.  The reference turns this on where its
-    kernel is real (TPU); the port's wrapper is real on CUDA and its plain
-    version on the CPU computes the same dequantize-then-matmul as the
+    """Whether the decode path hands the layer's int8 weights to the
+    kernels that consume them in place — projections and routers
+    (``QuantizedTensor`` leaves of [L, in, out], nested dicts such as
+    Mixtral's ``moe`` included) to qgemm, and, through the same flag,
+    expert stacks ([L, E, in, out]) to the int8 grouped GEMMs — in place
+    of a dequantized copy.  The reference turns this on where its kernels
+    are real (TPU); the port's wrappers are real on CUDA and their plain
+    versions on the CPU compute the same dequantize-then-matmul as the
     reference's jnp path, so it is on whenever the blocks are quantized."""
-    return any(isinstance(w, QuantizedTensor) and w.q.dim() == 3
-               for w in blocks.values())
+    def any_stacked_projection(tree):
+        return any(any_stacked_projection(w) if isinstance(w, dict)
+                   else isinstance(w, QuantizedTensor) and w.q.dim() == 3
+                   for w in tree.values())
+    return any_stacked_projection(blocks)
 
 
 def fused_decode_active(spec, fused_decode) -> bool:
@@ -161,8 +169,10 @@ def decode_step(params, tokens, cache, lengths, *, embed_fn, qkv_fn,
     """One decode step (the reference's hook-driven ``decode_step``):
     tokens [B], lengths [B] int32 = current cache fill per row.  Rotary
     positions are per row (``lengths``); the GQA cache stays compact and
-    the decode-attention kernel maps query heads to KV heads.  Writes the
-    new K/V (quantized for an int8 cache) into ``cache`` in place and
+    the decode-attention kernel maps query heads to KV heads.  Int8
+    blocks keep their projections, routers and expert stacks quantized
+    into qgemm and the int8 grouped GEMMs (:func:`qgemm_active`).  Writes
+    the new K/V (quantized for an int8 cache) into ``cache`` in place and
     returns (logits [B, V], cache).  ``fused=True`` raises in
     :func:`fused_decode_active`: no spec wired through these hooks is one
     the fused kernel covers yet."""

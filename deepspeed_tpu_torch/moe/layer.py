@@ -10,7 +10,10 @@ Grouped (megablocks-style, drop-free) dispatch: the [T, k] routed
 R = T * k <= ``SLOT_MAX_ROWS`` (decode, short prefills) takes the slot
 kernel over the raw rows; a larger R sorts and pads the rows per expert
 for the group-padded kernel.  On CPU tensors the same rule picks between
-the two plain versions.
+the two plain versions.  Int8 serving: expert stacks that arrive as
+``QuantizedTensor`` leaves (the decode path's ``keep_quantized``) go
+to the int8 grouped kernels as they are, and a quantized router goes
+through qgemm in fp32 (the reference's ``qdot``).
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: the einsum (GShard capacity) dispatch and ``train=True`` (MoE
@@ -23,6 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.models.model import qdot
 from deepspeed_tpu_torch.moe.sharded_moe import topk_routing
 from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
 
@@ -71,8 +75,10 @@ def resolve_dispatch_mode(config: MoEConfig, train: bool,
 
 
 def _routing_logits(params, xt):
-    """Router matmul in fp32 ([T, D] @ [D, E])."""
-    return xt.float() @ params["router"].float()
+    """Router matmul in fp32 ([T, D] @ [D, E]) through ``qdot``: an int8
+    router stays quantized into qgemm (fp32 x), a float one is cast to
+    fp32."""
+    return qdot(xt.float(), params["router"])
 
 
 def _glu(mm, x, w_gate, w_in, config: MoEConfig):

@@ -2,19 +2,24 @@
 ``deepspeed_tpu/ops/pallas/grouped_gemm.py``): the megablocks-style
 expert dispatch of the MoE layer's serving path.
 
-Two forms, both against the stacked expert weights ``w`` [E, K, N]:
+Two forms, both against the stacked expert weights ``w`` [E, K, N] —
+a float tensor, or int8 experts as a ``QuantizedTensor`` or a ``(q int8
+[E, K, N], s fp32 [E, K, nb])`` pair in the ``block_quantize_int8``
+layout (the reference wrappers' contract):
 
 - :func:`ds_ggemm` — rows sorted by expert and padded per expert to a
   multiple of the M-tile (:func:`make_group_plan`,
   :func:`scatter_to_groups`, :func:`gather_from_groups`); each M-tile
-  contracts against its expert's [K, N] slice.  The CUDA kernel
-  (``csrc/grouped_gemm.cu`` ``ds_ggemm``) replaces ``_ggemm_kernel``
-  (``grouped_gemm.py:163``, forward form).
+  contracts against its expert's [K, N] slice.  The CUDA kernels
+  (``csrc/grouped_gemm.cu``) ``ds_ggemm`` and, for int8 experts,
+  ``ds_ggemm_q`` replace ``_ggemm_kernel`` (``grouped_gemm.py:163``,
+  forward form) and ``_ggemm_q_kernel`` (``:200``).
 - :func:`ds_ggemm_slots` — at most :data:`SLOT_MAX_ROWS` raw routed rows
   (no padding, no scatter): each DISTINCT routed expert's weights stream
   once (:func:`make_slot_plan`), and each row takes only its own
-  expert's product.  The CUDA kernel (``ds_ggemm_slots``) replaces
-  ``_slot_kernel`` (``grouped_gemm.py:433``).
+  expert's product.  The CUDA kernels ``ds_ggemm_slots`` and
+  ``ds_ggemm_slots_q`` replace ``_slot_kernel`` (``grouped_gemm.py:433``)
+  and ``_slot_q_kernel`` (``:452``).
 
 The plans are plain torch ops on the tensors' device (XLA computed them
 in the reference) with static shapes, so the decode path never waits on
@@ -23,19 +28,27 @@ the host: the kernels read ``block_group_ids`` / ``tile_rows`` and
 memory.  Each wrapper takes its plain version only for CPU tensors: for a
 CUDA tensor it launches its kernel or raises.
 
-The quantised (``_ggemm_q_kernel``, ``_slot_q_kernel``), transposed-RHS
-and backward (``_tgmm_kernel``) forms are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+The transposed-RHS and backward (``_tgmm_kernel``) forms are not ported
+yet and raise ``NotImplementedError`` naming their ROADMAP item; int8
+experts with ``transpose_rhs`` raise ``ValueError``, as in the reference.
 
 Numerics: fp32 accumulation (tensor cores for bf16, fmaf for fp32 — no
 TF32), output rounded once to ``x``'s dtype, as the reference's kernels.
+An int8 weight is dequantized in fp32 with the group width
+``ceil(N / nb)`` of the unpadded N and rounded to ``x``'s dtype before
+its product (the reference's ``_dequant_tile``).  ``<wrapper>.launches``
+counts the float kernel's launches, ``<wrapper>.int8_launches`` the int8
+kernel's.
 """
 import ctypes
 from typing import NamedTuple
 
 import torch
 
+from deepspeed_tpu_torch.models.model import quantized_parts
 from deepspeed_tpu_torch.ops.kernels import build
+from deepspeed_tpu_torch.ops.kernels.quantization import \
+    block_dequantize_int8
 
 #: the port's M-tile: the CUDA kernel's 64-row tile (the reference's
 #: default is 128; the layout rule is the same for any ``block_m``)
@@ -49,7 +62,6 @@ SLOT_BN = 128
 SLOT_MAX_SPLIT = 16
 _DTYPES = (torch.float32, torch.bfloat16)
 
-_INT8_ITEM = "ROADMAP.md Queue B: int8 MoE (port slice 5)"
 _TRAIN_ITEM = "ROADMAP.md Queue B: MoE training (port slice 7)"
 
 
@@ -194,6 +206,27 @@ def ggemm_slots_plain(x, w, plan: SlotPlan):
     return out.to(x.dtype)
 
 
+def dequant_experts(q, s, dtype):
+    """int8 experts (q [E, K, N], s [E, K, nb]) as the kernels see them:
+    dequantized in fp32 with the group width ceil(N / nb), rounded to
+    ``dtype`` (x's)."""
+    return block_dequantize_int8(q, s).to(dtype)
+
+
+def ggemm_q_plain(x, q, s, plan: GroupPlan):
+    """Plain version of the int8 group-padded form (the reference's
+    ``_ref_ggemm_q``): the float plain version on the dequantized
+    experts."""
+    return ggemm_plain(x, dequant_experts(q, s, x.dtype), plan)
+
+
+def ggemm_slots_q_plain(x, q, s, plan: SlotPlan):
+    """Plain version of the int8 slot form (the reference's int8
+    ``_ref_ggemm_rows`` branch, with the weight rounded to x's dtype as
+    its ``_slot_q_kernel`` does)."""
+    return ggemm_slots_plain(x, dequant_experts(q, s, x.dtype), plan)
+
+
 # ------------------------------------------------------------------ kernels
 def _fn(name, nargs_ptr, nargs_int, stream=True):
     """C entry point ``name`` of the built library: ``nargs_ptr``
@@ -208,17 +241,31 @@ def _fn(name, nargs_ptr, nargs_int, stream=True):
 
 
 def _check_common(what, x, w, ints):
-    if not torch.is_tensor(w):
-        raise NotImplementedError(
-            f"{what}: int8 expert weights are not ported to "
-            f"deepspeed_tpu_torch yet ({_INT8_ITEM})")
     if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
         raise ValueError(f"{what}: x {tuple(x.shape)} against w "
                          f"{tuple(w.shape)} (need x [M, K], w [E, K, N])")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise ValueError(f"{what}: dtypes x {x.dtype}, w {w.dtype}; need "
                          f"both one of {_DTYPES}")
-    for name, t in (("x", x), ("w", w)) + tuple(ints):
+    _check_placed(what, x, (("w", w),), ints)
+
+
+def _check_q(what, x, q, s, ints):
+    if x.dim() != 2 or q.dim() != 3 or s.dim() != 3 \
+            or x.shape[1] != q.shape[1] or s.shape[:2] != q.shape[:2] \
+            or not 1 <= s.shape[2] <= q.shape[2]:
+        raise ValueError(f"{what}: x {tuple(x.shape)} against int8 experts "
+                         f"q {tuple(q.shape)}, s {tuple(s.shape)} (need x "
+                         "[M, K], q [E, K, N], s [E, K, nb], 1 <= nb <= N)")
+    if x.dtype not in _DTYPES or q.dtype != torch.int8 \
+            or s.dtype != torch.float32:
+        raise ValueError(f"{what}: dtypes x {x.dtype}, q {q.dtype}, s "
+                         f"{s.dtype}; need x one of {_DTYPES}, int8, fp32")
+    _check_placed(what, x, (("q", q), ("s", s)), ints)
+
+
+def _check_placed(what, x, weights, ints):
+    for name, t in (("x", x),) + tuple(weights) + tuple(ints):
         if t.device != x.device:
             raise ValueError(f"{what}: {name} on {t.device}, x on "
                              f"{x.device}")
@@ -233,21 +280,55 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def ggemm_cuda(x, w, plan: GroupPlan):
-    """Launch ``ds_ggemm``; raises on anything the kernel does not take."""
-    _check_common("ds_ggemm", x, w,
-                  (("block_group_ids", plan.block_group_ids),
-                   ("tile_rows", plan.tile_rows)))
-    Mp, K = x.shape
-    E, _, N = w.shape
-    if plan.block_m != DEFAULT_BLOCK_M or Mp != plan.padded_rows \
+def _check_group_fit(what, x, E, plan: GroupPlan):
+    if plan.block_m != DEFAULT_BLOCK_M or x.shape[0] != plan.padded_rows \
             or plan.block_group_ids.shape != (plan.num_blocks,) \
             or plan.tile_rows.shape != (plan.num_blocks,) \
             or plan.num_experts != E:
-        raise ValueError(f"ds_ggemm: x {tuple(x.shape)} does not fit the "
+        raise ValueError(f"{what}: x {tuple(x.shape)} does not fit the "
                          f"plan (block_m {plan.block_m}, padded rows "
                          f"{plan.padded_rows}, {plan.num_experts} experts); "
                          f"the kernel's tile is {DEFAULT_BLOCK_M} rows")
+
+
+def _check_slot_fit(what, x, E, plan: SlotPlan):
+    R, S = x.shape[0], plan.num_slots
+    if not 1 <= R <= SLOT_MAX_ROWS or S != min(R, E) \
+            or plan.row_order.shape != (R,) \
+            or plan.slot_offsets.shape != (S + 1,):
+        raise ValueError(f"{what}: x {tuple(x.shape)} does not fit the "
+                         f"plan ({S} slots over {E} experts), or R outside "
+                         f"[1, {SLOT_MAX_ROWS}]")
+
+
+def _group_ints(plan: GroupPlan):
+    return (("block_group_ids", plan.block_group_ids),
+            ("tile_rows", plan.tile_rows))
+
+
+def _slot_ints(plan: SlotPlan):
+    return (("active", plan.active), ("valid", plan.valid),
+            ("row_order", plan.row_order),
+            ("slot_offsets", plan.slot_offsets))
+
+
+def _slot_scratch(what, x, K, N, int8):
+    """The slot kernels' split-K workspace and tile counters for [R, N]
+    outputs at depth K (the split the kernel will take)."""
+    nsplit = _fn("ds_ggemm_slots_splits", 0, 4, stream=False)(
+        K, N, int(int8), int(x.dtype == torch.bfloat16))
+    if not 1 <= nsplit <= SLOT_MAX_SPLIT:
+        raise RuntimeError(f"{what}: no K split for K {K}, N {N} on "
+                           f"{x.device}")
+    return build.scratch(x.device, nsplit * x.shape[0] * N, -(-N // SLOT_BN))
+
+
+def ggemm_cuda(x, w, plan: GroupPlan):
+    """Launch ``ds_ggemm``; raises on anything the kernel does not take."""
+    _check_common("ds_ggemm", x, w, _group_ints(plan))
+    Mp, K = x.shape
+    E, _, N = w.shape
+    _check_group_fit("ds_ggemm", x, E, plan)
     out = torch.empty((Mp, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = _fn("ds_ggemm", 5, 5)(
@@ -259,72 +340,117 @@ def ggemm_cuda(x, w, plan: GroupPlan):
     return out
 
 
+def ggemm_q_cuda(x, q, s, plan: GroupPlan):
+    """Launch ``ds_ggemm_q`` (int8 experts q [E, K, N], scales s [E, K,
+    nb]); raises on anything the kernel does not take."""
+    _check_q("ds_ggemm_q", x, q, s, _group_ints(plan))
+    Mp, K = x.shape
+    E, _, N = q.shape
+    _check_group_fit("ds_ggemm_q", x, E, plan)
+    out = torch.empty((Mp, N), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _fn("ds_ggemm_q", 6, 6)(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(),
+            plan.block_group_ids.data_ptr(), plan.tile_rows.data_ptr(),
+            out.data_ptr(), plan.num_blocks, K, N, E, s.shape[2],
+            int(x.dtype == torch.bfloat16), _stream(x.device))
+    build.check(rc, "ds_ggemm_q")
+    ds_ggemm.int8_launches += 1
+    return out
+
+
 def ggemm_slots_cuda(x, w, plan: SlotPlan):
     """Launch ``ds_ggemm_slots``; raises on anything the kernel does not
     take."""
-    _check_common("ds_ggemm_slots", x, w,
-                  (("active", plan.active), ("valid", plan.valid),
-                   ("row_order", plan.row_order),
-                   ("slot_offsets", plan.slot_offsets)))
+    _check_common("ds_ggemm_slots", x, w, _slot_ints(plan))
     R, K = x.shape
     E, _, N = w.shape
-    S = plan.num_slots
-    if not 1 <= R <= SLOT_MAX_ROWS or S != min(R, E) \
-            or plan.row_order.shape != (R,) \
-            or plan.slot_offsets.shape != (S + 1,):
-        raise ValueError(f"ds_ggemm_slots: x {tuple(x.shape)} does not fit "
-                         f"the plan ({S} slots over {E} experts), or R "
-                         f"outside [1, {SLOT_MAX_ROWS}]")
+    _check_slot_fit("ds_ggemm_slots", x, E, plan)
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        nsplit = _fn("ds_ggemm_slots_splits", 0, 2, stream=False)(K, N)
-        if not 1 <= nsplit <= SLOT_MAX_SPLIT:
-            raise RuntimeError(f"ds_ggemm_slots: no K split for K {K}, "
-                               f"N {N} on {x.device}")
-        ws, counters = build.scratch(x.device, nsplit * R * N,
-                                -(-N // SLOT_BN))
+        ws, counters = _slot_scratch("ds_ggemm_slots", x, K, N, False)
         rc = _fn("ds_ggemm_slots", 9, 6)(
             x.data_ptr(), w.data_ptr(), plan.active.data_ptr(),
             plan.valid.data_ptr(), plan.row_order.data_ptr(),
             plan.slot_offsets.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            counters.data_ptr(), R, K, N, E, S,
+            counters.data_ptr(), R, K, N, E, plan.num_slots,
             int(x.dtype == torch.bfloat16), _stream(x.device))
     build.check(rc, "ds_ggemm_slots")
     ds_ggemm_slots.launches += 1
     return out
 
 
+def ggemm_slots_q_cuda(x, q, s, plan: SlotPlan):
+    """Launch ``ds_ggemm_slots_q`` (int8 experts); raises on anything the
+    kernel does not take.  The kernel itself refuses (cudaErrorInvalidValue)
+    a scale layout whose 128-column tiles meet more groups than it stages
+    (``kSlotSG``); Mixtral's 256-lane groups meet one."""
+    _check_q("ds_ggemm_slots_q", x, q, s, _slot_ints(plan))
+    R, K = x.shape
+    E, _, N = q.shape
+    nb = s.shape[2]
+    _check_slot_fit("ds_ggemm_slots_q", x, E, plan)
+    out = torch.empty((R, N), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        ws, counters = _slot_scratch("ds_ggemm_slots_q", x, K, N, True)
+        rc = _fn("ds_ggemm_slots_q", 10, 7)(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), plan.active.data_ptr(),
+            plan.valid.data_ptr(), plan.row_order.data_ptr(),
+            plan.slot_offsets.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            counters.data_ptr(), R, K, N, E, plan.num_slots, nb,
+            int(x.dtype == torch.bfloat16), _stream(x.device))
+    build.check(rc, "ds_ggemm_slots_q")
+    ds_ggemm_slots.int8_launches += 1
+    return out
+
+
 def ds_ggemm(x, w, plan: GroupPlan, *, transpose_rhs=False):
     """Grouped GEMM over a :class:`GroupPlan`-padded ``x`` [Mp, K] against
-    ``w`` [E, K, N]: row r takes ``w[expert of r's tile]``; [Mp, N] in x's
-    dtype, zeros on padding tiles.  CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  ``transpose_rhs`` (the backward's form)
-    raises."""
+    ``w`` [E, K, N] (float, or int8 experts: a ``QuantizedTensor`` or a
+    ``(q, s)`` pair): row r takes ``w[expert of r's tile]``; [Mp, N] in
+    x's dtype, zeros on padding tiles.  CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  ``transpose_rhs`` (the backward's
+    form) raises: ``ValueError`` for int8 experts (the reference has no
+    such form), ``NotImplementedError`` for float ones (not ported)."""
+    qs = quantized_parts(w)
     if transpose_rhs:
+        if qs is not None:
+            raise ValueError("int8 grouped GEMM has no transposed-RHS form "
+                             "(backward is float-only)")
         raise NotImplementedError(
             "ds_ggemm(transpose_rhs=True): the backward form is not ported "
             f"to deepspeed_tpu_torch yet ({_TRAIN_ITEM})")
     if x.device.type == "cuda":
-        return ggemm_cuda(x, w, plan)
+        return ggemm_cuda(x, w, plan) if qs is None \
+            else ggemm_q_cuda(x, *qs, plan)
     if x.device.type == "cpu":
-        _check_common("ds_ggemm", x, w, ())
-        return ggemm_plain(x, w, plan)
+        if qs is None:
+            _check_common("ds_ggemm", x, w, ())
+            return ggemm_plain(x, w, plan)
+        _check_q("ds_ggemm_q", x, *qs, ())
+        return ggemm_q_plain(x, *qs, plan)
     raise ValueError(f"ds_ggemm: unsupported device {x.device}")
 
 
 def ds_ggemm_slots(x, w, plan: SlotPlan):
     """Small-M grouped GEMM over raw routed rows ``x`` [R, K]
-    (R <= SLOT_MAX_ROWS): row r contracts against ``w[eids[r]]``; [R, N]
-    in x's dtype.  CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    (R <= SLOT_MAX_ROWS): row r contracts against ``w[eids[r]]`` (float,
+    or int8 experts as for :func:`ds_ggemm`); [R, N] in x's dtype.  CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    qs = quantized_parts(w)
     if x.device.type == "cuda":
-        return ggemm_slots_cuda(x, w, plan)
+        return ggemm_slots_cuda(x, w, plan) if qs is None \
+            else ggemm_slots_q_cuda(x, *qs, plan)
     if x.device.type == "cpu":
-        _check_common("ds_ggemm_slots", x, w, ())
-        return ggemm_slots_plain(x, w, plan)
+        if qs is None:
+            _check_common("ds_ggemm_slots", x, w, ())
+            return ggemm_slots_plain(x, w, plan)
+        _check_q("ds_ggemm_slots_q", x, *qs, ())
+        return ggemm_slots_q_plain(x, *qs, plan)
     raise ValueError(f"ds_ggemm_slots: unsupported device {x.device}")
 
 
-#: kernel launches since the count was last set to 0
-ds_ggemm.launches = 0
-ds_ggemm_slots.launches = 0
+#: kernel launches since the count was last set to 0: the float kernels
+#: (``launches``) and the int8 ones (``int8_launches``)
+ds_ggemm.launches = ds_ggemm.int8_launches = 0
+ds_ggemm_slots.launches = ds_ggemm_slots.int8_launches = 0

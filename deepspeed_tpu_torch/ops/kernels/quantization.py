@@ -17,6 +17,7 @@ only dequantizes outside a kernel in prefill, where a layer's weights are
 rebuilt once for a torch matmul.
 """
 import ctypes
+import itertools
 
 import torch
 
@@ -53,7 +54,7 @@ def block_quantize_int8_plain(x, block: int = BLOCK):
     scale = torch.where(amax > 0, true_div127(amax), torch.ones_like(amax))
     # torch.round is half-to-even, as jnp.round
     q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
-    return q.reshape(*lead, nb * gw)[..., :C], scale[..., 0]
+    return q.reshape(*lead, nb * gw)[..., :C].contiguous(), scale[..., 0]
 
 
 def block_dequantize_int8(q, scales):
@@ -113,6 +114,24 @@ def block_quantize_int8(x, block: int = BLOCK):
     if x.device.type == "cpu":
         return block_quantize_int8_plain(x, block)
     raise ValueError(f"block_quantize_int8: unsupported device {x.device}")
+
+
+def block_quantize_stack(shape, slice_fn, device):
+    """``block_quantize_int8`` of a stacked [..., K, N] weight built one
+    [K, N] slice at a time (the groups run along the last dim, so this is
+    the whole stack's quantization): ``slice_fn(index)`` gives the slice
+    at ``index`` (a tuple over the leading dims, visited in order) in the
+    compute dtype.  Returns (q int8, scales fp32) stacks on ``device``;
+    the peak is the int8 stack plus one slice."""
+    nb = _layout(shape[-1], BLOCK)[0]
+    q = torch.empty(shape, dtype=torch.int8, device=device)
+    s = torch.empty(tuple(shape[:-1]) + (nb,), dtype=torch.float32,
+                    device=device)
+    for idx in itertools.product(*map(range, shape[:-2])):
+        qi, si = block_quantize_int8(slice_fn(idx))
+        q[idx].copy_(qi)
+        s[idx].copy_(si)
+    return q, s
 
 
 #: kernel launches since the count was last set to 0

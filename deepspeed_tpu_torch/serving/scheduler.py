@@ -177,7 +177,9 @@ class ServingMetrics:
                 ("ds_fused_layer", ds_fused_layer.launches),
                 ("block_quantize_int8", block_quantize_int8.launches),
                 ("ds_ggemm", ds_ggemm.launches),
-                ("ds_ggemm_slots", ds_ggemm_slots.launches)):
+                ("ds_ggemm_slots", ds_ggemm_slots.launches),
+                ("ds_ggemm_q", ds_ggemm.int8_launches),
+                ("ds_ggemm_slots_q", ds_ggemm_slots.int8_launches)):
             lines.append(f'kernel_launches{{kernel="{kernel}"}} {n}')
         return "\n".join(lines) + "\n"
 

@@ -21,8 +21,14 @@ enqueue and wait on the request's done event.
 Run it:
     python -m deepspeed_tpu_torch.serving.server --model gpt2:760m \\
         --dtype bfloat16 --port 8000
-Mixtral (bf16 weights and KV cache, grouped-GEMM expert kernels; 16 of
-the 32 layers fit one 80 GB card in bf16):
+Mixtral-8x7B at all 32 layers on one 80 GB card: int8 weights (experts
+through the int8 grouped GEMMs, projections and router through qgemm;
+drawn on the card from a seed) and an int8 KV cache; a JSON config such
+as ``{"serving": {"max_num_seqs": 96, "num_blocks": 1729,
+"max_blocks_per_seq": 18}}`` (``--config``) serves a wide batch:
+    python -m deepspeed_tpu_torch.serving.server --model mixtral:8x7b \\
+        --int8-weights --kv-cache-dtype int8 --port 8000
+Mixtral in bf16 (16 of the 32 layers fit one 80 GB card):
     python -m deepspeed_tpu_torch.serving.server --model mixtral:8x7b \\
         --num-layers 16 --port 8000
 int8 weights (qgemm), an int8 KV cache and the fused per-layer decode:
@@ -283,6 +289,14 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(429 if req.reject_reason is not None else 200, resp)
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+    #: listen backlog: a burst of clients as wide as the scheduler's queue
+    #: waits in the kernel's accept queue instead of being reset
+    #: (socketserver's default is 5 connections)
+    request_queue_size = 128
+
+
 def make_server(scheduler, host: str = "127.0.0.1", port: int = 8000,
                 default_timeout_s: float = 0.0):
     """(ThreadingHTTPServer, ServingLoop) — the caller starts and stops
@@ -291,9 +305,7 @@ def make_server(scheduler, host: str = "127.0.0.1", port: int = 8000,
     handler = type("Handler", (_Handler,),
                    {"scheduler": scheduler, "health": loop.health,
                     "default_timeout_s": default_timeout_s})
-    httpd = ThreadingHTTPServer((host, port), handler)
-    httpd.daemon_threads = True
-    return httpd, loop
+    return _HTTPServer((host, port), handler), loop
 
 
 def serve_forever(scheduler, host: str = "127.0.0.1", port: int = 8000,
@@ -359,10 +371,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--int8-weights", action="store_true",
                    help="weight-only int8 serving (quant.enabled): decode "
                         "projections through the fused-dequant qgemm "
-                        "kernel")
+                        "kernel, MoE experts through the int8 grouped "
+                        "GEMMs")
     p.add_argument("--num-layers", type=int, default=None,
-                   help="override the model's depth (e.g. 16 for "
-                        "mixtral:8x7b on one 80 GB card)")
+                   help="override the model's depth (e.g. 16 for bf16 "
+                        "mixtral:8x7b on one 80 GB card; with "
+                        "--int8-weights all 32 layers fit)")
     p.add_argument("--fused-decode", default=None, choices=["on", "off"],
                    help="fused per-layer decode kernel (overrides the "
                         "'serving.fused_decode' config key): one launch "

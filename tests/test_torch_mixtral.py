@@ -28,6 +28,7 @@ from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.engine import InferenceEngine
 from deepspeed_tpu_torch.models import mixtral as pmix
 from deepspeed_tpu_torch.models.llama import _rms_norm, rope
+from deepspeed_tpu_torch.models.model import QuantizedTensor
 from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
 from deepspeed_tpu_torch.runtime.config import ServingConfig
 from deepspeed_tpu_torch.serving import (ContinuousBatchingScheduler,
@@ -293,10 +294,14 @@ def test_explicit_fused_decode_raises_never_falls_back(served):
 def test_unported_settings_raise(served):
     _, jeng, pm, peng = served
     tree = jax.device_get(jeng.params)
-    with pytest.raises(NotImplementedError, match="int8 MoE"):
-        InferenceEngine(pm, DeepSpeedInferenceConfig(
-            dtype="float32", quant={"enabled": True}),
-            model_parameters=tree, device="cpu")
+    # int8 weights on the stacked experts are served (the int8 grouped
+    # GEMMs): the engine quantizes the expert stacks, router included
+    int8 = InferenceEngine(pm, DeepSpeedInferenceConfig(
+        dtype="float32", quant={"enabled": True}),
+        model_parameters=tree, device="cpu")
+    moe = int8.params["blocks"]["moe"]
+    assert all(isinstance(moe[k], QuantizedTensor)
+               for k in ("router", "w_gate", "w_in", "w_out"))
     with pytest.raises(NotImplementedError, match="moe.ep_size=2"):
         InferenceEngine(pm, DeepSpeedInferenceConfig(
             dtype="float32", moe={"ep_size": 2}), model_parameters=tree,

@@ -3,22 +3,29 @@
 ``moe_layer`` on the same seeded params and inputs, with the JAX side
 running its Pallas grouped-GEMM kernels in interpret mode
 (``DS_GGEMM_INTERPRET=1``: the slot branch at T * k <= 128, the
-group-padded branch above it, as the port), to 1e-5.  The unported
-formulations raise."""
+group-padded branch above it, as the port), to 1e-5 — with float and with
+int8 experts and router (the same codes on both sides; the JAX side's
+``_slot_q_kernel`` / ``_ggemm_q_kernel``).  The unported formulations
+raise."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu.models.model import QuantizedTensor as JaxQuantized
 from deepspeed_tpu.moe.layer import MoEConfig as JaxMoEConfig
 from deepspeed_tpu.moe.layer import init_moe_params
 from deepspeed_tpu.moe.layer import moe_layer as jax_moe_layer
 from deepspeed_tpu.moe.sharded_moe import topk_routing as jax_topk_routing
+from deepspeed_tpu_torch.models.model import QuantizedTensor
 from deepspeed_tpu_torch.moe.layer import (MoEConfig, moe_layer,
                                            resolve_dispatch_mode)
 from deepspeed_tpu_torch.moe.sharded_moe import topk_routing
 from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+from deepspeed_tpu_torch.ops.kernels import qgemm as qg
+from deepspeed_tpu_torch.ops.kernels.quantization import \
+    block_quantize_int8
 
 D, F, E, K = 32, 48, 4, 2
 
@@ -74,6 +81,50 @@ def test_grouped_moe_layer_matches_jax(B, S, monkeypatch):
     np.testing.assert_allclose(float(aux), float(ref_aux), atol=1e-6,
                                rtol=0)
     assert gg.ds_ggemm.launches == gg.ds_ggemm_slots.launches == 0
+
+
+class _Spy:
+    """Counts the calls of a plain version (the CPU side's launches)."""
+
+    def __init__(self, monkeypatch, module, name):
+        self.n, fn = 0, getattr(module, name)
+
+        def counted(*a, **kw):
+            self.n += 1
+            return fn(*a, **kw)
+        monkeypatch.setattr(module, name, counted)
+
+
+@pytest.mark.parametrize("B,S", [(1, 8), (2, 32), (2, 40), (1, 104)])
+def test_grouped_moe_layer_int8_matches_jax(B, S, monkeypatch):
+    """int8 experts ([E, K, N] slices) and an int8 router ([D, E]), fp32:
+    T * k = 16, 128 (slot branch: ``_slot_q_kernel``) and 160, 208 (group
+    branch: ``_ggemm_q_kernel``); the router goes through qgemm with fp32
+    rows on both sides."""
+    monkeypatch.setenv("DS_GGEMM_INTERPRET", "1")
+    jc, jp, _ = _params(seed=B * 10 + S)
+    jq, pq = {}, {}
+    for k, v in jp.items():
+        q, s = block_quantize_int8(torch.from_numpy(np.array(v)))
+        jq[k] = JaxQuantized(jnp.asarray(q.numpy()), jnp.asarray(s.numpy()),
+                             "float32")
+        pq[k] = QuantizedTensor(q, s, torch.float32)
+    x = np.random.default_rng(S).standard_normal((B, S, D),
+                                                 dtype=np.float32)
+    ref, ref_aux = jax_moe_layer(jq, jnp.asarray(x), jc, train=False)
+    slot_q = _Spy(monkeypatch, gg, "ggemm_slots_q_plain")
+    group_q = _Spy(monkeypatch, gg, "ggemm_q_plain")
+    router = _Spy(monkeypatch, qg, "qgemm_plain")
+    got, aux = moe_layer(pq, torch.from_numpy(x),
+                         MoEConfig(d_model=D, d_ff=F, num_experts=E,
+                                   top_k=K, dispatch_mode="auto"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(float(aux), float(ref_aux), atol=1e-6,
+                               rtol=0)
+    slot = B * S * K <= gg.SLOT_MAX_ROWS
+    assert (slot_q.n, group_q.n) == ((3, 0) if slot else (0, 3))
+    assert router.n == 1
 
 
 def test_refusals():
