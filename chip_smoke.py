@@ -2,12 +2,15 @@
 """On-GPU smoke of deepspeed_tpu_torch: builds the CUDA kernels from the
 checkout, holds each against its plain PyTorch version on the card, then
 serves GPT-2 760M and trains it (random weights from the seeded host
-init), serves Mixtral-8x7B's widths at 16 of its 32 layers in bf16, and
+init), serves Mixtral-8x7B's widths at 8 of its 32 layers in bf16,
 Mixtral-8x7B whole (all 32 layers) with int8 weights and an int8 KV
-cache (random weights drawn on the card), through the port's own entry
-points.
+cache, and Llama-2 7B whole in bf16 and with int8 weights and cache,
+fused decode off and on (random weights drawn on the card), through the
+port's own entry points.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase
+    python3 chip_smoke.py --only 17,18   # the build, then phases 12, 15-19
+                                         # as listed (no kernels line)
 
 Phases (any failed check exits non-zero before the final line):
   1. device: card name and power limit, torch/CUDA versions, kernel build
@@ -68,14 +71,17 @@ Phases (any failed check exits non-zero before the final line):
      each timed at the main path's shapes beside its plain version, its
      bound and torch._grouped_mm; the flash forward and the float decode
      kernel held at H 32 / KV 8 / hd 128;
-  12. fp32 Mixtral-8x7B widths at 4 layers, float and int8 KV cache: the
+  12. fp32 Mixtral-8x7B widths at 2 layers, float and int8 KV cache: the
      scheduler (a pool that forces a preemption) token-identical to the
-     static generate, exact launch counts (per decode step 3 L slot + L
-     decode; per prefill L flash + 3 L ggemm above a 64-token bucket,
-     else 3 L slot), teacher-forced decode logits within 1e-3 of a full
-     forward with the plain kernels;
-  13. bf16 Mixtral-8x7B widths at 16 of its 32 layers over HTTP (the
-     slice's main path): the device init, phase 5's eight requests,
+     static generate, and its fused arm (the fused layer over each
+     layer's attention half) token-identical to it; exact launch counts
+     (per decode step 3 L slot + L decode, fused 3 L slot + L fused; per
+     prefill L flash + 3 L ggemm above a 64-token bucket, else 3 L
+     slot), teacher-forced decode logits within 1e-3 of a full forward
+     with the plain kernels;
+  13. bf16 Mixtral-8x7B widths at 8 of its 32 layers over HTTP (slice
+     4's main path, its depth cut for the smoke's time limit): the
+     device init, phase 5's eight requests,
      tokens/s, TTFT, TPOT, decode ms per step, a profiled decode window,
      the params' device bytes and peak memory;
   14. the int8 grouped-GEMM kernels at Mixtral-8x7B's expert shapes
@@ -87,22 +93,49 @@ Phases (any failed check exits non-zero before the final line):
      and scales) and torch._grouped_mm on the dequantized bf16 stack
      (context only); qgemm held and timed at M 8 / 96 for N 4096 and
      1024 (bf16) and the router's N 8 (fp32 rows);
-  15. fp32 int8 Mixtral-8x7B widths at 4 layers, at max_num_seqs 8 and
+  15. fp32 int8 Mixtral-8x7B widths at 2 layers, at max_num_seqs 8 and
      96, each with a float and an int8 KV cache (a pool that forces a
-     preemption): exact launch counts (per decode step 3 L slot-q or 3 L
-     ggemm-q, 5 L qgemm, L decode of the cache's kind; no int8 grouped or
-     qgemm launch in prefill); on the float cache the scheduler
-     token-identical to the static generate and teacher-forced decode
-     logits within 1e-3 of a full forward with the plain kernels; on the
-     int8 cache identity with the static generate reported, not held
-     (see the phase's docstring), and every request not preempted
-     token-identical to itself in a run with the prompts reordered;
+     preemption), and at 8 the fused arm: exact launch counts (per decode
+     step 3 L slot-q or 3 L ggemm-q, 5 L qgemm, L decode of the cache's
+     kind; fused L fused, L qgemm (the router) and no decode; no int8
+     grouped or qgemm launch in prefill); the scheduler token-identical
+     to the static generate (int8 cache at 8 sequences: every request
+     not preempted; at 96: reported, with a report of which kernels'
+     row bits change with M), the fused arm to the unfused one; on the
+     float cache teacher-forced
+     decode logits within 1e-3 of a full forward with the plain kernels;
+     on the int8 cache every request not preempted token-identical to
+     itself in a run with the prompts reordered;
   16. bf16 int8 Mixtral-8x7B at all 32 layers over HTTP (the int8 slice's
      main path): the quantizing device init (seconds, quantizer
      launches, params' device bytes), then phase 5's eight requests at
-     max_num_seqs 8 and 96 requests of 16-256 prompt tokens and 32 new
-     tokens at max_num_seqs 96: tokens/s, TTFT, TPOT, decode ms per step,
-     a profiled decode window, peak memory.
+     max_num_seqs 8, unfused and fused, and 96 requests of 16-256 prompt
+     tokens and 32 new tokens at max_num_seqs 96: tokens/s, TTFT, TPOT,
+     decode ms per step, a profiled decode window, peak memory;
+  17. the fused layer kernel at the Llama-2 7B spec (RMSNorm, split QKV,
+     rotary, SwiGLU), Mixtral-8x7B's attention half (GQA rep 4, mlp
+     "none") and a small GQA + SwiGLU + biases spec with head_dim 96,
+     against its plain version at B 8, W 1 and 4, float / int8 weights x
+     float / int8 cache (fp32 <= 1e-4 abs, TF32 off; bf16 <= 2e-2 of
+     each output's max; new int8 K/V codes within one code); then timed
+     in bf16 at B 8, W 1 over 32 layers' own weights and caches beside
+     its plain version and its bound (weights + cache bytes at 3.35
+     TB/s; no library call computes it);
+  18. fp32 Llama-2 7B widths at 4 layers (cut for time), float and int8
+     weights x float and int8 cache, a pool that forces a preemption:
+     the scheduler token-identical to the static generate (int8 cache:
+     fused and unfused each to its own, every request not preempted),
+     fused token-identical to unfused, exact launch
+     counts (per decode step unfused L decode + 7 L qgemm with int8
+     weights, fused L fused and no decode or qgemm; per prefill L flash
+     and no qgemm), teacher-
+     forced decode logits, fused and unfused, within 1e-3 of a full
+     forward with the plain attention;
+  19. Llama-2 7B at all 32 layers over HTTP (the slice's main path): bf16,
+     and int8 weights with an int8 KV cache, each with fused decode off
+     and on: the device init (seconds, quantizer launches, params'
+     device bytes), phase 5's eight requests, tokens/s, TTFT, TPOT,
+     decode ms per step, a profiled decode window, peak memory.
 Earlier lines are JSON objects; the line before the last two is the
 ``kernels`` object, then the nvidia-smi line, and the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
@@ -141,7 +174,13 @@ KERNEL_SOURCES = ("decode_attention", "ds_flash_fwd", "ds_flash_bwd",
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD = 12, 1024, 16, 96
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1203,15 +1242,6 @@ def fused_weights(torch, g, dt, int8_weights, qz):
     return cw
 
 
-def fused_cache(torch, g, dt, int8_cache, da, B=8, S=1024):
-    k = torch.randn(B, S, H760, HD760, generator=g, device="cuda")
-    v = torch.rand(B, S, H760, HD760, generator=g, device="cuda") * 2 - 1
-    if int8_cache:
-        (kq, ks), (vq, vs) = da.quantize_kv(k), da.quantize_kv(v)
-        return kq, vq, ks, vs
-    return k.to(dt), v.to(dt), None, None
-
-
 def fused_phase_us(torch, fd, x, layers, caches, lens, spec):
     """Microseconds of each phase of the fused kernel (its device-clock
     stamps, fd.PHASES), median over one call per layer."""
@@ -1224,6 +1254,53 @@ def fused_phase_us(torch, fd, x, layers, caches, lens, spec):
         rows.append([(b - a) / 1e3 for a, b in zip(t, t[1:])])
     return {name: statistics.median(r[i] for r in rows)
             for i, name in enumerate(fd.PHASES)}
+
+
+def fused_check(torch, got, ref, dt_name, row):
+    """Hold the fused kernel's outputs ``got`` against the plain version's
+    ``ref`` (x_out, new_k, new_v, new_ks, new_vs), recording into
+    ``row``: fp32 <= 1e-4 abs, bf16 <= 2e-2 of each output's max, new
+    int8 K/V codes within one code, their scales within the tolerance
+    relative.  Returns (ok, the worst held float error)."""
+    ok, worst = True, 0.0
+    B, W = got[0].shape[:2]
+    # an int8 cache: row (b, j) attends the window's codes at positions
+    # <= j; where one of them rounds a step apart (a last-bit difference
+    # of K or V on a rounding boundary), the row attends different values,
+    # and its x_out is held to the bf16-class bound instead
+    flip = torch.zeros(B, W, dtype=torch.bool, device=got[0].device)
+    if got[3] is not None:
+        for a, b in zip(got[1:3], ref[1:3]):
+            flip |= (a != b).flatten(2).any(-1)
+        flip = flip.int().cummax(dim=1).values.bool()
+        row["rows_with_a_code_step"] = int(flip.sum())
+    for name, a, b in zip(("x_out", "new_k", "new_v", "new_ks", "new_vs"),
+                          got, ref):
+        if b is None:
+            continue
+        if b.dtype == torch.int8:
+            d = int((a.int() - b.int()).abs().max())
+            row[f"max_code_diff_{name}"] = d
+            ok &= d <= 1
+            continue
+        if name == "x_out" and bool(flip.any()):
+            _, hf = err_of(torch, a[flip], b[flip], "bfloat16")
+            row["held_x_out_code_step_rows"] = hf
+            ok &= hf <= INT8_TOL["bfloat16"]
+            if bool(flip.all()):
+                continue
+            a, b = a[~flip], b[~flip]
+        e, held = err_of(torch, a, b, dt_name)
+        if name in ("new_ks", "new_vs"):
+            held = float(((a - b).abs() / b.abs()).max())
+            row[f"max_rel_err_{name}"] = held
+            ok &= held <= INT8_TOL[dt_name]
+            continue
+        row[f"max_abs_err_{name}"] = e
+        row[f"held_{name}"] = held
+        ok &= held <= INT8_TOL[dt_name]
+        worst = max(worst, held)
+    return bool(ok), worst
 
 
 def fused_kernel_phase(torch, qz, da, fd):
@@ -1240,7 +1317,7 @@ def fused_kernel_phase(torch, qz, da, fd):
         for w8 in (False, True):
             cw = fused_weights(torch, g, dt, w8, qz)
             for c8 in (False, True):
-                k, v, ks, vs = fused_cache(torch, g, dt, c8, da)
+                k, v, ks, vs = spec_cache(torch, g, dt, c8, da, H760, HD760)
                 for W in FUSED_W:
                     lens = torch.tensor([min(n, 1024 - W)
                                          for n in DECODE_LENS],
@@ -1250,50 +1327,11 @@ def fused_kernel_phase(torch, qz, da, fd):
                     got = fd.fused_layer_cuda(x, cw, k, v, lens, spec, ks, vs)
                     ref = fd.fused_layer_plain(x, cw, k, v, lens, spec, ks,
                                                vs)
-                    torch.cuda.synchronize()
                     row = {"check": "ds_fused_layer", "dtype": dt_name,
                            "int8_weights": w8, "int8_cache": c8, "W": W,
                            "tol": INT8_TOL[dt_name]}
-                    ok = True
-                    # an int8 cache: row (b, j) attends the window's codes
-                    # at positions <= j; where one of them rounds a step
-                    # apart (a last-bit difference of K or V on a rounding
-                    # boundary), the row attends different values, and
-                    # its x_out is held to the bf16-class bound instead
-                    flip = torch.zeros(8, W, dtype=torch.bool,
-                                       device="cuda")
-                    if c8:
-                        for a, b in zip(got[1:3], ref[1:3]):
-                            flip |= (a != b).flatten(2).any(-1)
-                        flip = flip.int().cummax(dim=1).values.bool()
-                        row["rows_with_a_code_step"] = int(flip.sum())
-                    for name, a, b in zip(("x_out", "new_k", "new_v",
-                                           "new_ks", "new_vs"), got, ref):
-                        if b is None:
-                            continue
-                        if b.dtype == torch.int8:
-                            d = int((a.int() - b.int()).abs().max())
-                            row[f"max_code_diff_{name}"] = d
-                            ok &= d <= 1
-                            continue
-                        if name == "x_out" and bool(flip.any()):
-                            _, hf = err_of(torch, a[flip], b[flip],
-                                           "bfloat16")
-                            row["held_x_out_code_step_rows"] = hf
-                            ok &= hf <= INT8_TOL["bfloat16"]
-                            if bool(flip.all()):
-                                continue
-                            a, b = a[~flip], b[~flip]
-                        e, held = err_of(torch, a, b, dt_name)
-                        if name in ("new_ks", "new_vs"):
-                            held = float(((a - b).abs() / b.abs()).max())
-                            row[f"max_rel_err_{name}"] = held
-                            ok &= held <= INT8_TOL[dt_name]
-                            continue
-                        row[f"max_abs_err_{name}"] = e
-                        row[f"held_{name}"] = held
-                        ok &= held <= INT8_TOL[dt_name]
-                        worst = max(worst, held)
+                    ok, held = fused_check(torch, got, ref, dt_name, row)
+                    worst = max(worst, held)
                     emit(row)
                     check(ok, f"ds_fused_layer {dt_name} w8={w8} c8={c8} "
                           f"W={W}: {row}")
@@ -1308,7 +1346,7 @@ def fused_kernel_phase(torch, qz, da, fd):
     for w8 in (True, False):
         layers = [fused_weights(torch, g, dt, w8, qz) for _ in range(LAYERS)]
         for c8 in (True, False):
-            caches = [fused_cache(torch, g, dt, c8, da)
+            caches = [spec_cache(torch, g, dt, c8, da, H760, HD760)
                       for _ in range(LAYERS)]
             fns = [lambda cw=cw, c=c: fd.fused_layer_cuda(
                 x, cw, c[0], c[1], lens, spec, c[2], c[3])
@@ -1554,7 +1592,6 @@ def int8_http_phase(torch, da, fa):
         DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     from deepspeed_tpu_torch.models.gpt2 import gpt2_model
-    from deepspeed_tpu_torch.models.model import QuantizedTensor
     from deepspeed_tpu_torch.runtime.config import ServingConfig
     from deepspeed_tpu_torch.serving.scheduler import \
         ContinuousBatchingScheduler
@@ -1571,13 +1608,6 @@ def int8_http_phase(torch, da, fa):
             "launches": int8_counts(da, qz, qg, fd, fa)}
     check(load["launches"]["block_quantize_int8"] == 4,
           f"int8 load: {load['launches']} (want 4 quantizer launches)")
-
-    def nbytes(t):
-        if isinstance(t, QuantizedTensor):
-            return nbytes(t.q) + nbytes(t.s)
-        if isinstance(t, dict):
-            return sum(nbytes(v) for v in t.values())
-        return t.numel() * t.element_size()
     load["params_device_bytes"] = nbytes(eng.params)
     load["blocks_device_bytes"] = nbytes(eng.params["blocks"])
     prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=1)
@@ -1611,11 +1641,12 @@ def int8_http_phase(torch, da, fa):
 
 
 # ------------------------------------------------ Mixtral serving (slice 4)
-#: Mixtral-8x7B widths (MIXTRAL_SIZES["8x7b"]); the main path runs 16 of
-#: its 32 layers (bf16 weights of all 32 do not fit 80 GB)
+#: Mixtral-8x7B widths (MIXTRAL_SIZES["8x7b"]); the bf16 main path runs 8
+#: of its 32 layers (all 32 in bf16 do not fit 80 GB; 8 keep the smoke
+#: inside its time limit)
 MIX_D, MIX_F, MIX_E, MIX_K = 4096, 14336, 8, 2
-MIX_LAYERS = 16
-MIX_PARITY_LAYERS = 4
+MIX_LAYERS = 8
+MIX_PARITY_LAYERS = 2       # phases 12 and 15, cut for the time limit
 #: the two expert projections: name -> (K, N)
 MOE_SHAPES = {"gate_in": (MIX_D, MIX_F), "out": (MIX_F, MIX_D)}
 SLOT_R = (1, 16, 128)
@@ -1796,7 +1827,9 @@ def moe_kernel_phase(torch, gg, da, fa):
 
 
 def moe_counts(gg, da, fa):
-    return {"ds_ggemm": gg.ds_ggemm.launches,
+    from deepspeed_tpu_torch.ops.kernels.fused_decode import ds_fused_layer
+    return {"ds_fused_layer": ds_fused_layer.launches,
+            "ds_ggemm": gg.ds_ggemm.launches,
             "ds_ggemm_slots": gg.ds_ggemm_slots.launches,
             "ds_flash_fwd": fa.flash_attention_fwd.launches,
             "decode_attention": da.decode_attention.launches,
@@ -1804,6 +1837,8 @@ def moe_counts(gg, da, fa):
 
 
 def reset_moe_counts(gg, da, fa):
+    from deepspeed_tpu_torch.ops.kernels.fused_decode import ds_fused_layer
+    ds_fused_layer.launches = 0
     gg.ds_ggemm.launches = gg.ds_ggemm_slots.launches = 0
     fa.flash_attention_fwd.launches = 0
     da.decode_attention.launches = da.decode_attention.int8_launches = 0
@@ -1837,12 +1872,16 @@ class plain_grouped_gemm:
 
 
 def mixtral_parity_phase(torch, gg, da, fa):
-    """Phase 12: fp32 Mixtral-8x7B widths at 4 layers, float and int8 KV
+    """Phase 12: fp32 Mixtral-8x7B widths at 2 layers, float and int8 KV
     cache: the scheduler (a pool that forces a preemption) token-identical
-    to the static generate; exact launch counts (per decode step 3 L slot
-    + L decode, no ggemm; per prefill L flash plus 3 L ggemm for a prompt
-    bucket above 64 tokens, else 3 L slot); teacher-forced decode logits
-    within 1e-3 of a full forward with the plain kernels."""
+    to the static generate; its fused arm (the fused layer over each
+    layer's attention half, the experts after it) token-identical to the
+    unfused scheduler on both caches; exact launch counts (per decode
+    step 3 L slot + L decode, fused: 3 L slot + L fused and no decode,
+    no ggemm; per
+    prefill L flash plus 3 L ggemm for a prompt bucket above 64 tokens,
+    else 3 L slot); teacher-forced decode logits within 1e-3 of a full
+    forward with the plain kernels."""
     from deepspeed_tpu_torch.inference.config import \
         DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
@@ -1866,43 +1905,57 @@ def mixtral_parity_phase(torch, gg, da, fa):
             eng = InferenceEngine(model, DeepSpeedInferenceConfig(
                 dtype="float32", kv_cache_dtype="int8"),
                 model_parameters=eng.params)
-        sched = ContinuousBatchingScheduler(
-            model, eng.params, ServingConfig(num_blocks=140),
-            kv_cache_dtype=kv)
-        reset_moe_counts(gg, da, fa)
-        reqs = [sched.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
-                for p in prompts]
-        sched.run_until_idle()
-        torch.cuda.synchronize()
-        n = moe_counts(gg, da, fa)
-        c = sched.metrics.counters
-        steps, prefills = c["decode_steps"], c["prefills"]
-        big = sum(1 for _, sp, _ in sched.metrics.prefill_s if 2 * sp > 128)
-        want = {"ds_ggemm": 3 * L * big,
-                "ds_ggemm_slots": 3 * L * (steps + prefills - big),
-                "ds_flash_fwd": L * prefills,
-                "decode_attention": 0 if kv else L * steps,
-                "decode_attention_int8": L * steps if kv else 0}
-        mismatched = []
-        for p, r in zip(prompts, reqs):
-            ref = eng.generate(p, max_new_tokens=MAX_NEW)[0, p.size:]
-            if list(ref) != list(r.output_ids):
-                mismatched.append(int(p.size))
-        key = "int8_kv" if kv else "float_kv"
-        report[key] = {"prefills": prefills, "long_prefills": big,
-                       "decode_steps": steps,
-                       "preemptions": c["preemptions"], "launches": n,
-                       "want": want, "token_identical": not mismatched,
-                       "mismatched_prompts": mismatched}
-        check(all(r.state == RequestState.FINISHED
-                  and r.num_generated == MAX_NEW for r in reqs),
-              f"fp32 mixtral {key}: not every request finished")
-        check(c["preemptions"] >= 1,
-              f"fp32 mixtral {key}: the pool did not force a preemption")
-        check(n == want, f"fp32 mixtral {key}: launches {n} != {want}")
-        check(not mismatched, f"fp32 mixtral {key}: scheduler != static "
-              f"generate for prompt lengths {mismatched}")
-        del sched
+        outs = {}
+        for fused in (False, True):
+            sched = ContinuousBatchingScheduler(
+                model, eng.params, ServingConfig(num_blocks=140,
+                                                 fused_decode=fused),
+                kv_cache_dtype=kv)
+            reset_moe_counts(gg, da, fa)
+            reqs = [sched.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
+                    for p in prompts]
+            sched.run_until_idle()
+            torch.cuda.synchronize()
+            n = moe_counts(gg, da, fa)
+            c = sched.metrics.counters
+            steps, prefills = c["decode_steps"], c["prefills"]
+            big = sum(1 for _, sp, _ in sched.metrics.prefill_s
+                      if 2 * sp > 128)
+            dec = 0 if fused else L * steps
+            want = {"ds_fused_layer": L * steps if fused else 0,
+                    "ds_ggemm": 3 * L * big,
+                    "ds_ggemm_slots": 3 * L * (steps + prefills - big),
+                    "ds_flash_fwd": L * prefills,
+                    "decode_attention": 0 if kv else dec,
+                    "decode_attention_int8": dec if kv else 0}
+            outs[fused] = [list(r.output_ids) for r in reqs]
+            key = ("int8_kv" if kv else "float_kv") \
+                + ("_fused" if fused else "")
+            report[key] = {"prefills": prefills, "long_prefills": big,
+                           "decode_steps": steps,
+                           "preemptions": c["preemptions"], "launches": n,
+                           "want": want}
+            check(all(r.state == RequestState.FINISHED
+                      and r.num_generated == MAX_NEW for r in reqs),
+                  f"fp32 mixtral {key}: not every request finished")
+            check(c["preemptions"] >= 1,
+                  f"fp32 mixtral {key}: the pool did not force a preemption")
+            check(n == want, f"fp32 mixtral {key}: launches {n} != {want}")
+            if fused:   # the fused arm: token-identical to the unfused one
+                same = outs[True] == outs[False]
+                report[key]["token_identical_to_unfused"] = same
+                check(same, f"fp32 mixtral {key}: fused tokens != unfused")
+            else:
+                mismatched = []
+                for p, r in zip(prompts, reqs):
+                    ref = eng.generate(p, max_new_tokens=MAX_NEW)[0, p.size:]
+                    if list(ref) != list(r.output_ids):
+                        mismatched.append(int(p.size))
+                report[key].update(token_identical=not mismatched,
+                                   mismatched_prompts=mismatched)
+                check(not mismatched, f"fp32 mixtral {key}: scheduler != "
+                      f"static generate for prompt lengths {mismatched}")
+            del sched
     # teacher-forced decode (float cache) against a full forward with the
     # plain attention and the plain grouped GEMMs
     plain = mixtral_model("8x7b", num_layers=L, dtype="float32",
@@ -1952,11 +2005,6 @@ def mixtral_http_phase(torch, gg, da, fa):
     eng = dt.init_inference(model, {"dtype": "bfloat16"})
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-
-    def nbytes(t):
-        if isinstance(t, dict):
-            return sum(nbytes(v) for v in t.values())
-        return t.numel() * t.element_size()
     params_bytes = nbytes(eng.params)
     sched = ContinuousBatchingScheduler(model, eng.params, ServingConfig())
     prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=1)
@@ -2203,27 +2251,75 @@ def batch_invariance(torch, model, params, prompts, reqs, seqs, key):
     return report
 
 
+def row_dependence(torch, gg, qg, params, D):
+    """Phase 15's evidence for its 96-sequence arm: whether the bits of
+    one row's output change with the rows computed beside it, on fp32
+    rows and layer 0's int8 weights.  qgemm (wq, the router) at M 1 (the
+    static generate), 8 (the decode path) and 96 (the tile path); the
+    gate experts through ds_ggemm_slots_q at R 2 (one token's two routed
+    rows, as the generate runs them) and R 16, and ds_ggemm_q at R 192
+    (96 tokens), the first token's rows compared; the lm_head GEMM
+    (cuBLAS) at M 1, 8 and 96."""
+    from deepspeed_tpu_torch.models.model import layer_params
+    g = torch.Generator(device="cuda").manual_seed(71)
+    x = torch.randn(96, D, generator=g, device="cuda")
+    layer = layer_params(params["blocks"], 0)
+
+    def same(fn, sizes):
+        ref = fn(sizes[0])
+        return {f"{n}_equals_{sizes[0]}": bool(torch.equal(fn(n), ref))
+                for n in sizes[1:]}
+    out = {}
+    for name, w in (("qgemm_wq", layer["wq"]),
+                    ("qgemm_router", layer["moe"]["router"])):
+        out[name] = same(lambda M, w=w: qg.qgemm(x[:M], w.q, w.s)[0],
+                         (1, 8, 96))
+    out["cublas_lm_head"] = same(lambda M: (x[:M] @ params["lm_head"])[0],
+                                 (1, 8, 96))
+    wg = layer["moe"]["w_gate"]
+    E = wg.q.shape[0]
+    eids = torch.randint(0, E, (192,), generator=g, device="cuda")
+    rows = x.repeat_interleave(2, dim=0)
+
+    def slots(R):
+        plan = gg.make_slot_plan(eids[:R], E)
+        return gg.ds_ggemm_slots(rows[:R], wg, plan)[:2]
+
+    def group(R):
+        plan = gg.make_group_plan(eids[:R], E)
+        return gg.gather_from_groups(gg.ds_ggemm(gg.scatter_to_groups(
+            rows[:R], plan), wg, plan), plan)[:2]
+    ref = slots(2)
+    out["experts"] = {
+        "slot_q_16_equals_slot_q_2": bool(torch.equal(slots(16), ref)),
+        "ggemm_q_192_equals_slot_q_2": bool(torch.equal(group(192), ref))}
+    return out
+
+
 def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
-    """Phase 15: fp32 int8 Mixtral-8x7B widths at 4 layers, at
-    max_num_seqs 8 (the slot arm) and 96 (the group-padded arm), each
-    with a float and an int8 KV cache and a pool that forces a
-    preemption.  Launch counts exact in every run (per decode step 3 L of
-    the arm's int8 grouped kernel, 5 L qgemm, L decode of the cache's
-    kind; per prefill L flash and 3 L float grouped GEMMs on the
-    dequantized layer, no int8 grouped or qgemm launch).  Float cache:
-    the scheduler token-identical to the static generate, and
-    teacher-forced decode logits within 1e-3 of a full forward with the
-    plain kernels.  Int8 cache: identity with the static generate is
-    reported, NOT held — the generate prefills at another padded length
-    and a preempted request is re-prefilled, cuBLAS's fp32 prefill GEMMs
-    are not row-independent across M, and an int8 cache turns a last-bit
-    difference into a whole code step.  What is held there is identical
-    by construction: the scheduler fixes every shape (a request's own
-    16-token prefill bucket, max_num_seqs decode rows), so a request's
-    tokens must not depend on the requests around it — every request
-    that was not preempted is token-identical to the same request in a
-    second run of the arm with the prompts submitted in reverse order
-    and a pool that preempts nothing."""
+    """Phase 15: fp32 int8 Mixtral-8x7B widths at 2 layers, at
+    max_num_seqs 8 (the slot arm, unfused and fused) and 96 (the
+    group-padded arm), each with a float and an int8 KV cache and a pool
+    that forces a preemption.  Launch counts exact in every run (per
+    decode step 3 L of the arm's int8 grouped kernel, 5 L qgemm, L decode
+    of the cache's kind; fused: L fused, L qgemm (the router), no decode;
+    per prefill L flash and 3 L float grouped GEMMs on the dequantized
+    layer, no int8 grouped or qgemm launch).  Float cache: the scheduler
+    token-identical to the static generate, the fused arm to the unfused
+    one, and teacher-forced decode logits within 1e-3 of a full forward
+    with the plain kernels.  Int8 cache: the generate prefills at the
+    scheduler's 16-token bucket, so at max_num_seqs 8 every request that
+    was not preempted is held token-identical to the static generate; a
+    preempted request re-prefills its generated tail (its K/V then come
+    from the prefill's GEMMs, not the decode's, and an int8 cache turns
+    a last-bit difference into a whole code step), so its identity is
+    reported, as is the 96-row arm's (its decode runs qgemm's tile path
+    and ds_ggemm_q, the one-row generate qgemm's decode path and the slot
+    kernel: the ``row_dependence`` report).  Also held there: the fused
+    arm token-identical to the unfused one, and every request that was
+    not preempted token-identical to the same request in a second run of
+    the arm with the prompts submitted in reverse order and a pool that
+    preempts nothing."""
     from deepspeed_tpu_torch.inference.config import \
         DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
@@ -2258,55 +2354,91 @@ def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
             time.perf_counter() - t0
     for seqs in (8, WIDE_SEQS):
         for kv in (None, "int8"):
-            sched = ContinuousBatchingScheduler(
-                model, params, ServingConfig(num_blocks=140,
-                                             max_num_seqs=seqs),
-                kv_cache_dtype=kv)
-            reset_moe_int8_counts(gg, qz, qg, da, fa)
-            t0 = time.perf_counter()
-            reqs = [sched.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
-                    for p in prompts]
-            sched.run_until_idle()
-            torch.cuda.synchronize()
-            serve_s = time.perf_counter() - t0
-            n = moe_int8_counts(gg, qz, qg, da, fa)
-            c = sched.metrics.counters
-            steps, prefills = c["decode_steps"], c["prefills"]
-            big = sum(1 for _, sp, _ in sched.metrics.prefill_s
-                      if 2 * sp > 128)
-            slot = 2 * seqs <= gg.SLOT_MAX_ROWS
-            want = {"ds_ggemm_slots_q": 3 * L * steps if slot else 0,
-                    "ds_ggemm_q": 0 if slot else 3 * L * steps,
-                    "qgemm": 5 * L * steps, "block_quantize_int8": 0,
-                    "ds_ggemm": 3 * L * big,
-                    "ds_ggemm_slots": 3 * L * (prefills - big),
-                    "ds_flash_fwd": L * prefills,
-                    "decode_attention": 0 if kv else L * steps,
-                    "decode_attention_int8": L * steps if kv else 0}
-            first_diff = first_diffs(prompts, reqs, static[kv])
-            key = f"max_num_seqs_{seqs}_{'int8' if kv else 'float'}_kv"
-            report[key] = {"prefills": prefills, "long_prefills": big,
-                           "decode_steps": steps, "serve_s": serve_s,
-                           "preemptions": c["preemptions"], "launches": n,
-                           "want": want, "token_identical": not first_diff,
-                           "first_diff_by_prompt_len": first_diff}
-            check(all(r.state == RequestState.FINISHED
-                      and r.num_generated == MAX_NEW for r in reqs),
-                  f"fp32 int8 mixtral {key}: not every request finished")
-            check(c["preemptions"] >= 1,
-                  f"fp32 int8 mixtral {key}: the pool did not force a "
-                  "preemption")
-            check(n == want,
-                  f"fp32 int8 mixtral {key}: launches {n} != {want}")
-            check(kv or not first_diff,
-                  f"fp32 int8 mixtral {key}: scheduler != static generate "
-                  f"(prompt length: first differing token) {first_diff}")
-            if kv:
-                report[key].update(batch_invariance(
-                    torch, model, params, prompts, reqs, seqs, key))
-            if slot and not kv:
-                forced = reqs
-            del sched
+            unfused = None
+            for fused in (False, True) if seqs == 8 else (False,):
+                sched = ContinuousBatchingScheduler(
+                    model, params, ServingConfig(num_blocks=140,
+                                                 max_num_seqs=seqs,
+                                                 fused_decode=fused),
+                    kv_cache_dtype=kv)
+                reset_moe_int8_counts(gg, qz, qg, da, fa)
+                t0 = time.perf_counter()
+                reqs = [sched.submit(p, SamplingParams(
+                    max_new_tokens=MAX_NEW)) for p in prompts]
+                sched.run_until_idle()
+                torch.cuda.synchronize()
+                serve_s = time.perf_counter() - t0
+                n = moe_int8_counts(gg, qz, qg, da, fa)
+                c = sched.metrics.counters
+                steps, prefills = c["decode_steps"], c["prefills"]
+                big = sum(1 for _, sp, _ in sched.metrics.prefill_s
+                          if 2 * sp > 128)
+                slot = 2 * seqs <= gg.SLOT_MAX_ROWS
+                dec = 0 if fused else L * steps
+                # fused: the projections run in the fused layer, qgemm
+                # takes the router alone
+                want = {"ds_fused_layer": L * steps if fused else 0,
+                        "ds_ggemm_slots_q": 3 * L * steps if slot else 0,
+                        "ds_ggemm_q": 0 if slot else 3 * L * steps,
+                        "qgemm": (1 if fused else 5) * L * steps,
+                        "block_quantize_int8": 0,
+                        "ds_ggemm": 3 * L * big,
+                        "ds_ggemm_slots": 3 * L * (prefills - big),
+                        "ds_flash_fwd": L * prefills,
+                        "decode_attention": 0 if kv else dec,
+                        "decode_attention_int8": dec if kv else 0}
+                first_diff = first_diffs(prompts, reqs, static[kv])
+                preempted = [int(p.size) for p, r in zip(prompts, reqs)
+                             if r.num_preemptions]
+                kept_diff = {n0: t for n0, t in first_diff.items()
+                             if n0 not in preempted}
+                key = f"max_num_seqs_{seqs}_{'int8' if kv else 'float'}_kv" \
+                    + ("_fused" if fused else "")
+                report[key] = {"prefills": prefills, "long_prefills": big,
+                               "decode_steps": steps, "serve_s": serve_s,
+                               "preemptions": c["preemptions"],
+                               "preempted_prompt_lens": preempted,
+                               "launches": n, "want": want,
+                               "token_identical": not first_diff,
+                               "first_diff_by_prompt_len": first_diff}
+                check(all(r.state == RequestState.FINISHED
+                          and r.num_generated == MAX_NEW for r in reqs),
+                      f"fp32 int8 mixtral {key}: not every request finished")
+                check(c["preemptions"] >= 1,
+                      f"fp32 int8 mixtral {key}: the pool did not force a "
+                      "preemption")
+                check(n == want,
+                      f"fp32 int8 mixtral {key}: launches {n} != {want}")
+                outs = [list(r.output_ids) for r in reqs]
+                if fused:
+                    same = outs == unfused
+                    report[key]["token_identical_to_unfused"] = same
+                    check(same, f"fp32 int8 mixtral {key}: fused tokens "
+                          "!= unfused tokens")
+                    del sched
+                    continue
+                unfused = outs
+                # float cache: every request; int8 cache, slot arm: every
+                # request that was not preempted (a resumed one
+                # re-prefills its generated tail, whose K/V then come from
+                # the prefill's GEMMs, not the decode's).  Int8 cache at
+                # 96 rows: reported, not held (its decode runs qgemm's
+                # tile path and ds_ggemm_q where the one-row generate runs
+                # qgemm's decode path and the slot kernel: other sums,
+                # see row_dependence)
+                check(not (kept_diff if kv else first_diff)
+                      or (kv and not slot),
+                      f"fp32 int8 mixtral {key}: scheduler != static "
+                      f"generate (prompt length: first differing token) "
+                      f"{first_diff}")
+                if kv:
+                    report[key].update(batch_invariance(
+                        torch, model, params, prompts, reqs, seqs, key))
+                if slot and not kv:
+                    forced = reqs
+                del sched
+    report["row_dependence"] = row_dependence(torch, gg, qg, params,
+                                              model.config.d_model)
     del engines[None]
     # teacher-forced decode through the int8 kernels (float cache) against
     # a full forward on the dequantized layers with the plain kernels
@@ -2340,8 +2472,9 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
     """Phase 16, the slice's main path: init_inference(mixtral_model(
     "8x7b"), bf16, quant enabled, int8 KV cache) at all 32 layers (the
     quantizing device init: seconds, quantizer launches, params' device
-    bytes) -> scheduler -> HTTP, two arms: phase 5's eight requests at
-    max_num_seqs 8 (the slot kernel), and 96 requests of 16-256 prompt
+    bytes) -> scheduler -> HTTP, three arms: phase 5's eight requests at
+    max_num_seqs 8 (the slot kernel), unfused and fused (the fused layer
+    over each layer's attention half), and 96 requests of 16-256 prompt
     tokens, 32 new tokens each, at max_num_seqs 96 (the group-padded
     kernel).  Each arm: tokens/s, TTFT, TPOT, decode ms per step of the
     timed run, launch counts, a profiled decode window, peak memory."""
@@ -2369,13 +2502,6 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
     torch.cuda.synchronize()
     L = model.config.num_layers
 
-    def nbytes(t):
-        if isinstance(t, QuantizedTensor):
-            return nbytes(t.q) + nbytes(t.s)
-        if isinstance(t, dict):
-            return sum(nbytes(v) for v in t.values())
-        return t.numel() * t.element_size()
-
     def leaf(path):
         t = eng.params["blocks"]
         for k in path:
@@ -2396,11 +2522,13 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
           f"int8 mixtral load: {L} layers, launches {load['launches']} "
           f"(want {want_q} quantizer launches and every block leaf int8)")
     rng = np.random.default_rng(7)
+    prompts8 = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=1)
     arms = {
-        "max_num_seqs_8": (ServingConfig(),
-                           prompts_for(PROMPT_LENS, model.config.vocab_size,
-                                       seed=1), MAX_NEW,
+        "max_num_seqs_8": (ServingConfig(), prompts8, MAX_NEW,
                            "ds_ggemm_slots_q", "ds_ggemm_q"),
+        # the fused arm: each layer's attention half in the fused layer
+        "max_num_seqs_8_fused": (ServingConfig(fused_decode=True), prompts8,
+                                 MAX_NEW, "ds_ggemm_slots_q", "ds_ggemm_q"),
         f"max_num_seqs_{WIDE_SEQS}": (
             ServingConfig(max_num_seqs=WIDE_SEQS,
                           num_blocks=WIDE_SEQS * WIDE_BLOCKS_PER_SEQ + 1,
@@ -2419,9 +2547,12 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
             on_start=lambda: reset_moe_int8_counts(gg, qz, qg, da, fa),
             on_done=lambda: moe_int8_counts(gg, qz, qg, da, fa),
             max_new=max_new)
-        check(all(n[k] > 0 for k in (kern, "qgemm", "decode_attention_int8",
-                                     "ds_flash_fwd"))
+        attn = "ds_fused_layer" if cfg.fused_decode \
+            else "decode_attention_int8"
+        check(all(n[k] > 0 for k in (kern, "qgemm", attn, "ds_flash_fwd"))
               and n[idle] == 0 and n["decode_attention"] == 0
+              and n["ds_fused_layer" if attn != "ds_fused_layer"
+                    else "decode_attention_int8"] == 0
               and n["ds_ggemm"] + n["ds_ggemm_slots"] > 0,
               f"int8 mixtral http {key}: launches {n}")
         check(f'kernel_launches{{kernel="{kern}"}}' in mbody,
@@ -2442,7 +2573,421 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
     return load, runs
 
 
+# --------------------------------------------- Llama serving (slice 6)
+LLAMA_D, LLAMA_M, LLAMA_KV, LLAMA_HD = 4096, 11008, 32, 128
+LLAMA_LAYERS = 32           # llama:7b, nothing cut
+LLAMA_PARITY_LAYERS = 4
+
+
+def family_specs():
+    """(name, spec, d_mlp) of phase 17: Llama-2 7B's layer, Mixtral-8x7B's
+    attention half, and a small spec where GQA (rep 4), SwiGLU, the
+    InternLM biases and head_dim 96 (a rotary half of 48) meet."""
+    from deepspeed_tpu_torch.models import llama, mixtral
+    small = llama.LlamaConfig(d_model=1536, num_heads=16, num_kv_heads=4,
+                              d_mlp=4096, attn_bias=True)
+    return (("llama_7b", llama.fused_spec(llama.LlamaConfig()), LLAMA_M),
+            ("mixtral_8x7b", mixtral.fused_spec(mixtral.MixtralConfig()), 0),
+            ("gqa_swiglu_biased", llama.fused_spec(small), small.d_mlp))
+
+
+def spec_weights(torch, g, spec, M, dt, int8_weights, qz):
+    """A layer's canonical fused weights for ``spec``, seeded (std 0.02
+    projections and biases, norm scales near 1), int8 projections
+    quantized from the compute-dtype values."""
+    from deepspeed_tpu_torch.models.model import QuantizedTensor
+    from deepspeed_tpu_torch.ops.kernels.fused_decode import _weight_order
+    D = spec.d_model
+    Dq = spec.num_heads * spec.head_dim
+    Dk = spec.num_kv_heads * spec.head_dim
+    shapes = {"n1_s": (D,), "n2_s": (D,), "wq": (D, Dq), "wk": (D, Dk),
+              "wv": (D, Dk), "bq": (Dq,), "bk": (Dk,), "bv": (Dk,),
+              "wo": (Dq, D), "bo": (D,), "w_gate": (D, M), "w_up": (D, M),
+              "w_down": (M, D)}
+    cw = {}
+    for key in _weight_order(spec):
+        t = torch.randn(*shapes[key], generator=g, device="cuda")
+        cw[key] = (t * 0.1 + 1 if key.endswith("_s") else t * 0.02).to(dt)
+        if int8_weights and key.startswith("w"):
+            cw[key] = QuantizedTensor(*qz.block_quantize_int8(cw[key]), dt)
+    return cw
+
+
+def spec_cache(torch, g, dt, int8_cache, da, KV, hd, B=8, S=1024):
+    k = torch.randn(B, S, KV, hd, generator=g, device="cuda")
+    v = torch.rand(B, S, KV, hd, generator=g, device="cuda") * 2 - 1
+    if int8_cache:
+        (kq, ks), (vq, vs) = da.quantize_kv(k), da.quantize_kv(v)
+        return kq, vq, ks, vs
+    return k.to(dt), v.to(dt), None, None
+
+
+def nbytes(t):
+    """Device bytes of a tensor, a ``QuantizedTensor`` (codes and scales)
+    or a tree of them."""
+    if isinstance(t, dict):
+        return sum(nbytes(v) for v in t.values())
+    if hasattr(t, "q"):
+        return nbytes(t.q) + nbytes(t.s)
+    return t.numel() * t.element_size()
+
+
+def fused_bound(spec, M, cw, lens, int8_cache, B=8):
+    """(bound_ms, bound_by) of one fused layer call at W 1: its weight
+    bytes, the cache positions it reads (codes and scales for an int8
+    cache), x in and out; products 2 B (weights) plus the attention's
+    4 (positions + B) H hd, at the bf16 peak."""
+    KV, H, hd = spec.num_kv_heads, spec.num_heads, spec.head_dim
+    n_pos = int(lens.sum())
+    wbytes = nbytes(cw)
+    cbytes = n_pos * 2 * KV * hd * (1 if int8_cache else 2) \
+        + (n_pos * 2 * KV * 4 if int8_cache else 0)
+    weights = sum((w.q if hasattr(w, "q") else w).numel()
+                  for k, w in cw.items() if k.startswith("w"))
+    flops = 2 * B * weights + 4 * (n_pos + B) * H * hd
+    b, f = bound_of(wbytes + cbytes + 2 * B * spec.d_model * 2, flops,
+                    BF16_FLOPS)
+    return b, f, wbytes, cbytes
+
+
+def fused_family_phase(torch, qz, da, fd):
+    """Phase 17: the fused layer kernel at the Llama-2 7B spec, Mixtral-
+    8x7B's attention-half spec and a small GQA + SwiGLU + biases spec,
+    against its plain version at B 8, W 1 and 4, float / int8 weights x
+    float / int8 cache, fp32 and bf16 (then :func:`fused_family_times`).
+    Returns the worst held error by spec."""
+    g = torch.Generator(device="cuda").manual_seed(61)
+    worst = {}
+    for name, spec, M in family_specs():
+        KV, hd, D = spec.num_kv_heads, spec.head_dim, spec.d_model
+        for dt_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dt_name)
+            for w8 in (False, True):
+                cw = spec_weights(torch, g, spec, M, dt, w8, qz)
+                for c8 in (False, True):
+                    k, v, ks, vs = spec_cache(torch, g, dt, c8, da, KV, hd)
+                    for W in FUSED_W:
+                        lens = torch.tensor([min(n, 1024 - W)
+                                             for n in DECODE_LENS],
+                                            dtype=torch.int32, device="cuda")
+                        x = torch.randn(8, W, D, generator=g,
+                                        device="cuda").to(dt)
+                        got = fd.fused_layer_cuda(x, cw, k, v, lens, spec,
+                                                  ks, vs)
+                        ref = fd.fused_layer_plain(x, cw, k, v, lens, spec,
+                                                   ks, vs)
+                        row = {"check": "ds_fused_layer", "spec": name,
+                               "dtype": dt_name, "int8_weights": w8,
+                               "int8_cache": c8, "W": W,
+                               "tol": INT8_TOL[dt_name]}
+                        ok, held = fused_check(torch, got, ref, dt_name, row)
+                        worst[name] = max(worst.get(name, 0.0), held)
+                        emit(row)
+                        check(ok, f"ds_fused_layer {name} {dt_name} "
+                              f"w8={w8} c8={c8} W={W}: {row}")
+                    del k, v, ks, vs
+                del cw
+        torch.cuda.empty_cache()
+    return worst
+
+
+def fused_family_times(torch, qz, da, fd):
+    """Phase 17's times: bf16, B 8, W 1, over 32 layers' own weights and
+    caches (Llama: its four weight x cache configurations; Mixtral: bf16
+    and int8 weights and cache), beside the plain version and the bound.
+    Returns the times of each family's main-path configuration."""
+    g = torch.Generator(device="cuda").manual_seed(62)
+    dt = torch.bfloat16
+    lens = torch.tensor([min(n, 1023) for n in DECODE_LENS],
+                        dtype=torch.int32, device="cuda")
+    times = {}
+    configs = {"llama_7b": ((False, False), (False, True), (True, False),
+                            (True, True)),
+               "mixtral_8x7b": ((False, False), (True, True))}
+    for name, spec, M in family_specs():
+        if name not in configs:
+            continue
+        x = torch.randn(8, 1, spec.d_model, generator=g,
+                        device="cuda").to(dt)
+        by = {}
+        for w8, c8 in configs[name]:
+            layers = [spec_weights(torch, g, spec, M, dt, w8, qz)
+                      for _ in range(LLAMA_LAYERS)]
+            caches = [spec_cache(torch, g, dt, c8, da, spec.num_kv_heads,
+                                 spec.head_dim) for _ in range(LLAMA_LAYERS)]
+            fns = [lambda cw=cw, c=c: fd.fused_layer_cuda(
+                x, cw, c[0], c[1], lens, spec, c[2], c[3])
+                for cw, c in zip(layers, caches)]
+            plain = [lambda cw=cw, c=c: fd.fused_layer_plain(
+                x, cw, c[0], c[1], lens, spec, c[2], c[3])
+                for cw, c in zip(layers, caches)]
+            b, f, wbytes, cbytes = fused_bound(spec, M, layers[0], lens, c8)
+            key = f"{'int8' if w8 else 'bf16'}_weights_" \
+                  f"{'int8' if c8 else 'bf16'}_cache"
+            by[key] = dict(timed(torch, fns, plain),
+                           bound_ms=b, bound_by=f, weight_bytes=wbytes,
+                           cache_bytes=cbytes, library_ms=None,
+                           phase_us=fused_phase_us(torch, fd, x, layers,
+                                                   caches, lens, spec))
+            del layers, caches, fns, plain
+            torch.cuda.empty_cache()
+        times[name] = by
+    emit({"phase": "fused_family_kernel_times", "B": 8, "W": 1,
+          "lens": lens.tolist(), "layers": LLAMA_LAYERS, "by_spec": times})
+    main_t = {
+        "llama_7b": dict(times["llama_7b"]["bf16_weights_bf16_cache"],
+                         work="one Llama-2 7B layer, B 8, W 1, DECODE_LENS "
+                              "(<= 1023), bf16 weights and cache (32 "
+                              "layers' own)"),
+        "mixtral_8x7b": dict(times["mixtral_8x7b"]["int8_weights_int8_cache"],
+                             work="one Mixtral-8x7B attention half, B 8, W "
+                                  "1, DECODE_LENS (<= 1023), bf16, int8 "
+                                  "weights and cache (32 layers' own)")}
+    return main_t
+
+
+def llama_parity_phase(torch, da, fa):
+    """Phase 18: fp32 Llama-2 7B widths at 4 layers (cut for time), float
+    and int8 weights, each with a float and an int8 KV cache, a pool that
+    forces a preemption.  Held: exact launch counts (per decode step
+    unfused L decode of the cache's kind and 7 L qgemm with int8 weights,
+    fused L fused layers and no decode or qgemm; per prefill L flash and
+    no qgemm); the fused scheduler token-identical to the unfused one; on
+    the float cache the unfused scheduler token-identical to the static
+    generate; on the int8 cache each path's scheduler token-identical to
+    its own static generate for every request not preempted (the
+    preempted one reported); teacher-forced decode logits,
+    fused and unfused, within 1e-3 of a full forward with the plain
+    attention (float cache)."""
+    from deepspeed_tpu_torch.inference.config import \
+        DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.models.llama import llama_model
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                             RequestState, SamplingParams)
+    qz, qg, fd = int8_modules()
+    L = LLAMA_PARITY_LAYERS
+    model = llama_model("7b", num_layers=L, dtype="float32")
+    plain = llama_model("7b", num_layers=L, dtype="float32",
+                        attention_impl="plain")
+    prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=8)
+    report = {"phase": "fp32_llama_parity", "layers": L}
+    for w8 in (False, True):
+        t0 = time.perf_counter()
+        engines = {"int8": InferenceEngine(model, DeepSpeedInferenceConfig(
+            dtype="float32", quant={"enabled": w8}, kv_cache_dtype="int8"))}
+        engines[None] = InferenceEngine(model, DeepSpeedInferenceConfig(
+            dtype="float32", quant={"enabled": w8}),
+            model_parameters=engines["int8"].params)
+        params = engines[None].params
+        torch.cuda.synchronize()
+        wkey = "int8_weights" if w8 else "fp32_weights"
+        report[f"{wkey}_init_s"] = time.perf_counter() - t0
+        for kv, eng in engines.items():
+            outs = {}
+            for fused in (False, True):
+                if kv or not fused:
+                    static = [list(eng.generate(
+                        p, max_new_tokens=MAX_NEW, fused_decode=fused)
+                        [0, p.size:]) for p in prompts]
+                sched = ContinuousBatchingScheduler(
+                    model, params, ServingConfig(num_blocks=140,
+                                                 fused_decode=fused),
+                    kv_cache_dtype=kv)
+                reset_int8_counts(da, qz, qg, fd, fa)
+                reqs = [sched.submit(p, SamplingParams(
+                    max_new_tokens=MAX_NEW)) for p in prompts]
+                sched.run_until_idle()
+                torch.cuda.synchronize()
+                n = int8_counts(da, qz, qg, fd, fa)
+                c = sched.metrics.counters
+                steps, prefills = c["decode_steps"], c["prefills"]
+                dec = 0 if fused else L * steps
+                want = {"block_quantize_int8": 0,
+                        "ds_flash_fwd": L * prefills,
+                        "qgemm": 7 * L * steps if w8 and not fused else 0,
+                        "decode_attention": 0 if kv else dec,
+                        "decode_attention_int8": dec if kv else 0,
+                        "ds_fused_layer": L * steps if fused else 0}
+                outs[fused] = [list(r.output_ids) for r in reqs]
+                key = f"{wkey}_{'int8' if kv else 'float'}_kv_" \
+                      f"{'fused' if fused else 'unfused'}"
+                diff = first_diffs(prompts, reqs, static)
+                preempted = [int(p.size) for p, r in zip(prompts, reqs)
+                             if r.num_preemptions]
+                kept = {n0: t for n0, t in diff.items()
+                        if n0 not in preempted}
+                report[key] = {"prefills": prefills, "decode_steps": steps,
+                               "preemptions": c["preemptions"],
+                               "preempted_prompt_lens": preempted,
+                               "launches": n, "want": want,
+                               "static_first_diff_by_prompt_len": diff}
+                check(all(r.state == RequestState.FINISHED
+                          and r.num_generated == MAX_NEW for r in reqs),
+                      f"fp32 llama {key}: not every request finished")
+                check(c["preemptions"] >= 1,
+                      f"fp32 llama {key}: the pool did not force a "
+                      "preemption")
+                check(n == want, f"fp32 llama {key}: launches {n} != {want}")
+                if fused:
+                    same = outs[True] == outs[False]
+                    report[key]["token_identical_to_unfused"] = same
+                    check(same, f"fp32 llama {key}: fused tokens != "
+                          "unfused tokens")
+                # float cache: the unfused scheduler is the static
+                # generate, every request.  int8 cache: each path's
+                # scheduler is its own static generate for every request
+                # not preempted (a resumed request re-prefills its
+                # generated tail, whose K/V then come from the prefill's
+                # GEMMs, and one last bit can move a cache code)
+                if kv:
+                    check(not kept, f"fp32 llama {key}: scheduler != static "
+                          f"generate for requests not preempted (prompt "
+                          f"length: first differing token) {diff}")
+                elif not fused:
+                    check(not diff, f"fp32 llama {key}: scheduler != static "
+                          f"generate (prompt length: first differing token) "
+                          f"{diff}")
+                del sched
+        # teacher-forced decode (float cache), fused and unfused, against
+        # a full forward with the plain attention
+        worst = 0.0
+        with torch.no_grad():
+            for i in (1, 5):
+                toks = list(prompts[i]) + outs[False][i][:-1]
+                n0 = len(prompts[i])
+                ids = torch.tensor([toks], dtype=torch.int32, device="cuda")
+                full = plain.apply(params, {"input_ids": ids})[:, -1]
+                for fused in (False, True):
+                    cache = model.init_cache_fn(1, -(-len(toks) // 64) * 64,
+                                                torch.float32, "cuda")
+                    logits, cache = model.prefill_fn(
+                        params, {"input_ids": ids[:, :n0]}, cache)
+                    for pos in range(n0, len(toks)):
+                        logits, cache = model.decode_fn(
+                            params, ids[:, pos], cache,
+                            torch.tensor([pos], dtype=torch.int32,
+                                         device="cuda"), fused=fused)
+                    worst = max(worst, float((logits - full).abs().max()))
+        report[f"{wkey}_teacher_forced_max_abs_err"] = worst
+        check(worst <= 1e-3, f"fp32 llama {wkey}: decode logits differ from "
+              f"the plain full forward by {worst}")
+        del engines, params
+        torch.cuda.empty_cache()
+    report["tol"] = 1e-3
+    emit(report)
+
+
+def llama_http_phase(torch, da, fa):
+    """Phase 19, the slice's main path: init_inference(llama_model("7b"))
+    at all 32 layers and full width, bf16, over HTTP, two engines (bf16
+    weights and cache; int8 weights and an int8 KV cache), each served
+    with fused decode off and on: the device init (seconds, quantizer
+    launches, params' device bytes), then phase 5's eight requests:
+    tokens/s, TTFT, TPOT, decode ms per step, launch counts, a profiled
+    decode window, peak memory.  Returns ({weights: load}, {arm: run})."""
+    import gc
+    from deepspeed_tpu_torch.models.llama import llama_model
+    from deepspeed_tpu_torch.models.model import QuantizedTensor
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving.scheduler import \
+        ContinuousBatchingScheduler
+    import deepspeed_tpu_torch as dt
+    qz, qg, fd = int8_modules()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = llama_model("7b", dtype="bfloat16")
+    L = model.config.num_layers
+    prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=1)
+    out = {"phase": "bf16_llama_http", "layers": L,
+           "params": model.meta["n_params"]}
+    loads, runs = {}, {}
+    for w8 in (False, True):
+        wkey = "int8" if w8 else "bf16"
+        kv = "int8" if w8 else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_int8_counts(da, qz, qg, fd, fa)
+        t0 = time.perf_counter()
+        eng = dt.init_inference(model, {"dtype": "bfloat16"},
+                                quant={"enabled": w8}, kv_cache_dtype=kv)
+        torch.cuda.synchronize()
+        load = {"init_s": time.perf_counter() - t0,
+                "launches": int8_counts(da, qz, qg, fd, fa),
+                "params_device_bytes": nbytes(eng.params),
+                "blocks_device_bytes": nbytes(eng.params["blocks"]),
+                "peak_memory_allocated": torch.cuda.max_memory_allocated()}
+        want_q = 7 * L if w8 else 0
+        proj = [w for k, w in eng.params["blocks"].items()
+                if not k.endswith("norm")]
+        check(load["launches"]["block_quantize_int8"] == want_q
+              and len(proj) == 7
+              and all(isinstance(w, QuantizedTensor) == w8 for w in proj),
+              f"llama {wkey} load: launches {load['launches']} (want "
+              f"{want_q} quantizer launches, the 7 projections "
+              f"{'int8' if w8 else 'bf16'})")
+        loads[wkey] = load
+        for fused in (False, True):
+            key = f"{wkey}_{'fused' if fused else 'unfused'}"
+            torch.cuda.reset_peak_memory_stats()
+            sched = ContinuousBatchingScheduler(
+                model, eng.params, ServingConfig(fused_decode=fused),
+                kv_cache_dtype=kv)
+            outs, wall_s, mbody, n, window = serve_http(
+                torch, sched, prompts,
+                on_start=lambda: reset_int8_counts(da, qz, qg, fd, fa),
+                on_done=lambda: int8_counts(da, qz, qg, fd, fa))
+            dec = "decode_attention_int8" if kv else "decode_attention"
+            path = ("ds_fused_layer",) if fused else (
+                (dec, "qgemm") if w8 else (dec,))
+            idle = {"ds_fused_layer", "qgemm", "decode_attention",
+                    "decode_attention_int8", "block_quantize_int8"} \
+                - set(path)
+            check(all(n[k] > 0 for k in path + ("ds_flash_fwd",))
+                  and all(n[k] == 0 for k in idle),
+                  f"llama http {key}: launches {n}")
+            check('kernel_launches{kernel="ds_fused_layer"}' in mbody,
+                  "llama http: /metrics lacks the fused-layer launch count")
+            run = {**serve_report(outs, wall_s, window), "launches": n,
+                   "outputs": [o["output_ids"][:8] for o in outs]}
+            run["decode_profile"] = profile_decode(torch, sched, prompts)
+            run["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
+            runs[key] = run
+            del sched
+            gc.collect()
+            torch.cuda.empty_cache()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({**out, "engine_load": loads, **runs})
+    return loads, runs
+
+
+def run_only(torch, only, da, fa):
+    """``--only``: the listed phases among 12 and 15-19 alone, after the
+    build, for work on one path (no kernels line)."""
+    gg = moe_modules()
+    qz, qg, fd = int8_modules()
+    table = {
+        12: lambda: mixtral_parity_phase(torch, gg, da, fa),
+        15: lambda: mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa),
+        16: lambda: mixtral_int8_http_phase(torch, gg, qz, qg, da, fa),
+        17: lambda: (fused_family_phase(torch, qz, da, fd),
+                     fused_family_times(torch, qz, da, fd)),
+        18: lambda: llama_parity_phase(torch, da, fa),
+        19: lambda: llama_http_phase(torch, da, fa)}
+    for n in only:
+        check(n in table, f"--only: phase {n} is not one of {sorted(table)}")
+        table[n]()
+        torch.cuda.empty_cache()
+
+
 def main():
+    only = []
+    if "--only" in sys.argv[1:]:
+        i = sys.argv.index("--only")
+        only = [int(n) for n in sys.argv[i + 1].split(",")]
     try:
         import torch
     except ImportError:
@@ -2481,6 +3026,15 @@ def main():
                     for ln in r["log"].splitlines()
                     if "registers" in ln or "spill" in ln
                     or "Compiling entry" in ln]})
+
+    if only:
+        run_only(torch, only, da, fa)
+        print(smi, flush=True)
+        emit({"ok": True, "only": only,
+              "device": {"platform": "gpu",
+                         "kind": torch.cuda.get_device_name(0),
+                         "count": torch.cuda.device_count()}})
+        return 0
 
     errs, tols = kernel_phase(torch, da, fa)
     dec_t, fl_t, flash_by_s = kernel_times(torch, F, da, fa)
@@ -2526,20 +3080,34 @@ def main():
     mix = mixtral_http_phase(torch, gg, da, fa)
     mix_n = mix["launches"]
     del mix
-    qz, qg, _ = int8_modules()
+    qz, qg, fd = int8_modules()
     moeq_t, moeq_errs, qgemm_mix_t = moe_int8_kernel_phase(torch, gg, qz, qg)
     torch.cuda.empty_cache()
     mixq_par = mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa)
     torch.cuda.empty_cache()
     mixq_load, mixq = mixtral_int8_http_phase(torch, gg, qz, qg, da, fa)
     mq8 = mixq["max_num_seqs_8"]["launches"]
+    mq8f = mixq["max_num_seqs_8_fused"]["launches"]
     mq96 = mixq[f"max_num_seqs_{WIDE_SEQS}"]["launches"]
+    torch.cuda.empty_cache()
+
+    fam_errs = fused_family_phase(torch, qz, da, fd)
+    torch.cuda.empty_cache()
+    fam_t = fused_family_times(torch, qz, da, fd)
+    torch.cuda.empty_cache()
+    llama_parity_phase(torch, da, fa)
+    torch.cuda.empty_cache()
+    llama_loads, llama = llama_http_phase(torch, da, fa)
+    lq = {arm: run["launches"] for arm, run in llama.items()}
 
     def paths_of(name, **earlier):
         """The kernel's launches on each main path (those given, then the
-        int8 Mixtral arms'), and their sum."""
+        int8 Mixtral arms' and the Llama arms'), and their sum."""
         paths = {**earlier, "mixtral_int8_http_8": mq8[name],
-                 f"mixtral_int8_http_{WIDE_SEQS}": mq96[name]}
+                 "mixtral_int8_http_8_fused": mq8f[name],
+                 f"mixtral_int8_http_{WIDE_SEQS}": mq96[name],
+                 **{f"llama_http_{arm}": n[name] for arm, n in lq.items()
+                    if name in n}}
         return sum(paths.values()), paths
 
     pallas = "deepspeed_tpu/ops/pallas/"
@@ -2549,12 +3117,15 @@ def main():
         errs["decode_attention"] = max(errs["decode_attention"],
                                        e["decode_attention"])
         errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"], e["ds_flash_fwd"])
+    llama_load_q = llama_loads["int8"]["launches"]["block_quantize_int8"]
+    llama_fused = {f"llama_http_{arm}": n["ds_fused_layer"]
+                   for arm, n in lq.items() if arm.endswith("_fused")}
     rows = (
         ("decode_attention", dec_t, "decode_attention.cu",
          "decode_attention.py:40",
-         serve_launches["decode_attention"] + mix_n["decode_attention"],
-         {"serve_http": serve_launches["decode_attention"],
-          "mixtral_http": mix_n["decode_attention"]},
+         *paths_of("decode_attention",
+                   serve_http=serve_launches["decode_attention"],
+                   mixtral_http=mix_n["decode_attention"]),
          errs["decode_attention"], tols["decode_attention"]),
         ("ds_flash_fwd", fwd_t, "ds_flash_fwd.cu", "ds_flash_attention.py:35",
          *paths_of("ds_flash_fwd",
@@ -2573,10 +3144,11 @@ def main():
         ("block_quantize_int8", int8_t["block_quantize_int8"],
          "quantization.cu", "quantization.py:57",
          int8_load["launches"]["block_quantize_int8"]
-         + mixq_load["launches"]["block_quantize_int8"],
+         + mixq_load["launches"]["block_quantize_int8"] + llama_load_q,
          {"int8_engine_load": int8_load["launches"]["block_quantize_int8"],
           "mixtral_int8_load":
-          mixq_load["launches"]["block_quantize_int8"]},
+          mixq_load["launches"]["block_quantize_int8"],
+          "llama_int8_load": llama_load_q},
          int8_errs["block_quantize_int8"], 0),
         ("qgemm", int8_t["qgemm"], "qgemm.cu", "qgemm.py:66",
          *paths_of("qgemm", int8_http_unfused=int8_runs["unfused"]
@@ -2592,6 +3164,13 @@ def main():
          int8_runs["fused"]["launches"]["ds_fused_layer"],
          {"int8_http_fused": int8_runs["fused"]["launches"]["ds_fused_layer"]},
          int8_errs["ds_fused_layer"], INT8_TOL),
+        ("ds_fused_layer_llama_spec", fam_t["llama_7b"], "fused_decode.cu",
+         "fused_decode.py:480", sum(llama_fused.values()), llama_fused,
+         fam_errs["llama_7b"], INT8_TOL),
+        ("ds_fused_layer_mixtral_spec", fam_t["mixtral_8x7b"],
+         "fused_decode.cu", "fused_decode.py:480", mq8f["ds_fused_layer"],
+         {"mixtral_int8_http_8_fused": mq8f["ds_fused_layer"]},
+         fam_errs["mixtral_8x7b"], INT8_TOL),
         ("ds_ggemm", moe_t["ds_ggemm"]["gate_in"], "grouped_gemm.cu",
          "grouped_gemm.py:163",
          *paths_of("ds_ggemm", mixtral_http=mix_n["ds_ggemm"]),
@@ -2621,7 +3200,8 @@ def main():
             "library_ms": t["library_ms"]})
         if name.startswith("ds_flash_bwd"):
             kernels[-1]["max_rel_err_bf16"] = bwd_rel[name]
-        if name in int8_t or name in moe_t or name in moeq_t:
+        if name in int8_t or name in moe_t or name in moeq_t \
+                or name.endswith("_spec"):
             # fp32 checks abs, bf16 checks relative to each output's max
             kernels[-1].update(err_kind="fp32 abs / bf16 rel_to_max",
                                work=t["work"])
@@ -2631,20 +3211,30 @@ def main():
             # context only: torch._grouped_mm on the dequantized bf16 stack
             kernels[-1]["times_by_proj"] = moeq_t[name]
             kernels[-1]["grouped_mm_bf16_ms"] = t["grouped_mm_bf16_ms"]
-            # phase 15, int8 cache: identity with the static generate
-            # reported, not held; identity across batch orders held
-            seqs = 8 if name == "ds_ggemm_slots_q" else WIDE_SEQS
-            run = mixq_par[f"max_num_seqs_{seqs}_int8_kv"]
+            # phase 15, int8 cache: identity with the static generate held
+            # for the requests not preempted at 8 rows (the slot arm),
+            # reported at 96; identity across batch orders held in both
+            slot = name == "ds_ggemm_slots_q"
+            run = mixq_par[f"max_num_seqs_{8 if slot else WIDE_SEQS}_int8_kv"]
+            held = f"held for the {run['not_preempted']} requests not " \
+                "preempted"
             kernels[-1].update(
-                int8_kv_static_generate_identity="reported, not held",
-                int8_kv_reordered_identity=f"held for the "
-                f"{run['not_preempted']} requests not preempted")
+                int8_kv_static_generate_identity=held if slot
+                else "reported, not held",
+                int8_kv_reordered_identity=held)
         if name == "qgemm":
             # context only: torch.matmul on the dequantized bf16 weights
             kernels[-1]["matmul_bf16_ms"] = t["matmul_bf16_ms"]
             kernels[-1]["times_at_mixtral_shapes"] = qgemm_mix_t
         if name == "decode_attention_int8":
             kernels[-1]["replaces"] += " (quantized=True)"
+            kernels[-1]["tpu_kernel"] = kernels[-1]["replaces"]
+        if name.endswith("_spec"):
+            kernels[-1]["replaces"] += (
+                " (Llama spec: RMSNorm, split QKV, rotary, SwiGLU)"
+                if "llama" in name else
+                " (Mixtral spec: RMSNorm, split QKV, rotary, GQA rep 4, "
+                "mlp none)")
             kernels[-1]["tpu_kernel"] = kernels[-1]["replaces"]
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})

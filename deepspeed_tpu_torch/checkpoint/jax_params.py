@@ -9,14 +9,17 @@ names, the same stacked ``[L, ...]`` block layout, and the reference's
 ``gpt2_params_to_numpy`` is the way back, so trained params compare leaf
 by leaf with the JAX engine's.  ``mixtral_params_from_numpy`` /
 ``mixtral_params_to_numpy`` do the same for a Mixtral tree, whose
-``blocks`` nest the experts' stacks under ``moe``.
+``blocks`` nest the experts' stacks under ``moe``, and
+``llama_params_from_numpy`` / ``llama_params_to_numpy`` for a Llama tree
+(with or without the ``attn_bias`` biases).
 
 An int8 engine's block weights carry across as they are: a leaf given as
 a ``(q, s)`` pair, or as any object with ``q`` and ``s`` arrays (the JAX
 package's ``QuantizedTensor`` after ``jax.device_get``), becomes the
 port's ``QuantizedTensor`` with the same int8 codes and fp32 scales, so
 both packages serve the same bytes (for Mixtral: the 3-D projections and
-router, and the 4-D expert stacks under ``moe``).  The ``*_to_numpy``
+router, and the 4-D expert stacks under ``moe``; for Llama: the seven
+projections).  The ``*_to_numpy``
 functions give such leaves back as ``(q, s)`` pairs.
 """
 import numpy as np
@@ -132,5 +135,37 @@ def mixtral_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
 
 def mixtral_params_to_numpy(params: dict) -> dict:
     """The reverse of :func:`mixtral_params_from_numpy` (fp32 for floating
+    leaves, since numpy has no bfloat16; int8 leaves as ``(q, s)``)."""
+    return _to_numpy(params)
+
+
+LLAMA_TOP_KEYS = ("wte", "blocks", "final_norm", "lm_head")
+LLAMA_BLOCK_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
+                    "w_gate", "w_up", "w_down")
+#: the ``attn_bias`` (InternLM) variant's extra block leaves
+LLAMA_BIAS_KEYS = ("wq_b", "wk_b", "wv_b", "wo_b")
+
+
+def llama_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
+    """numpy Llama params tree (``jax.device_get`` of the JAX engine's
+    params, or ``numpy_init_params``) -> the port's params: the same names
+    and layout, every leaf copied onto ``device`` (``None``: the GPU),
+    floating leaves cast to ``dtype`` when given; int8 block leaves as
+    ``QuantizedTensor``s (:func:`block_leaf`)."""
+    fn = "llama_params_from_numpy"
+    _check_keys(tree, LLAMA_TOP_KEYS, "top-level", fn)
+    blocks = tree["blocks"]
+    want = LLAMA_BLOCK_KEYS + (LLAMA_BIAS_KEYS if "wq_b" in blocks else ())
+    _check_keys(blocks, want, "blocks", fn)
+    device = resolve_device(device)
+    out = {k: to_tensor(v, device, dtype) for k, v in tree.items()
+           if k != "blocks"}
+    out["blocks"] = {k: block_leaf(v, device, dtype)
+                     for k, v in blocks.items()}
+    return out
+
+
+def llama_params_to_numpy(params: dict) -> dict:
+    """The reverse of :func:`llama_params_from_numpy` (fp32 for floating
     leaves, since numpy has no bfloat16; int8 leaves as ``(q, s)``)."""
     return _to_numpy(params)

@@ -1,41 +1,54 @@
 // Fused per-layer decode step: one decoder layer's W-token window for B
-// rows in ONE launch (GPT-2 spec: LayerNorm, fused QKV with bias, serial
-// residual, gelu_tanh / gelu_exact / relu MLP with biases, num_kv_heads
-// == num_heads, no rotary, no ALiBi).
+// rows in ONE launch.  Specs: LayerNorm or RMSNorm; fused [D, 3D] QKV or
+// split wq / wk / wv; each projection's bias optional; grouped-query
+// attention (num_kv_heads dividing num_heads); no rotary or full rotary
+// (split-half pairing); MLP gelu_tanh / gelu_exact / relu, SwiGLU, or
+// none (the layer ends after the attention-out residual: a mixture-of-
+// experts layer runs its experts outside); serial residual; no ALiBi.
 //
 // Replaces: deepspeed_tpu/ops/pallas/fused_decode.py:_fused_kernel (the
-// GPT-2 spec of it).
+// GPT-2, Llama and Mixtral specs of it).
 //
-//   LN1 -> QKV (+bias) -> new K/V (int8 quantize, or the cache dtype) ->
-//   attention over the cache plus the window's own tokens -> out-proj
-//   (+bias) + residual -> LN2 -> MLP-in (+bias) -> activation -> MLP-out
-//   (+bias) + residual
+//   norm1 -> QKV (+bias) -> rotary -> new K/V (int8 quantize, or the
+//   cache dtype) -> attention over the cache plus the window's own
+//   tokens -> out-proj (+bias) + residual -> norm2 -> MLP-in (+bias) ->
+//   activation (or silu(gate) * up) -> MLP-out (+bias) + residual
 //
 // What bounds it on an H100: bytes.  At decode shapes (B 8, W 1) the
-// layer's weights (28.3 MB int8 or 56.6 MB bf16 for 760M) and the KV
-// cache stream through once; everything else is a few KB.  The TPU kernel
-// kept the whole layer resident in 96 MiB of VMEM; Hopper has 227 KB of
-// shared memory per block, so this kernel streams each weight byte once
-// per call instead: it is ONE persistent cooperative launch (grid = the
-// CTAs the card keeps co-resident) that walks the phases above, with a
-// grid-wide barrier between phases.  In a GEMM phase the work items are
-// (column tile, K split) pairs over all B*W rows: at decode (B*W <= 8) a
-// 256-column tile whose weight rows stream straight into registers
-// (gemm_tile.cuh rows_mma), else 64-row x 64-column tiles through shared
-// memory (tile_mma).  Every weight tile is read by one CTA only;
+// layer's weights (28.3 MB int8 or 56.6 MB bf16 for GPT-2 760M, 202 MB
+// bf16 for Llama-2 7B) and the KV cache stream through once; everything
+// else is a few KB.  The TPU kernel kept the whole layer resident in 96
+// MiB of VMEM; Hopper has 227 KB of shared memory per block, so this
+// kernel streams each weight byte once per call instead: it is ONE
+// persistent cooperative launch (grid = the CTAs the card keeps
+// co-resident) that walks the phases above, with a grid-wide barrier
+// between phases.  In a GEMM phase the work items are (projection,
+// column tile, K split) triples over all B*W rows: a phase's projections
+// (wq / wk / wv, or w_gate / w_up) share one item space, so the split
+// projections fill the grid together.  At decode (B*W <= 8) a
+// 256-column tile's weight rows stream straight into registers
+// (gemm_tile.cuh rows_mma), else 64-row x 64-column tiles go through
+// shared memory (tile_mma).  Every weight tile is read by one CTA only;
 // its fp32 partial sums go to a small global scratch (L2-resident) and
 // the next phase reduces them in split order, so a row's result does not
 // depend on which other rows share the batch.  Activations between phases
 // live in the same scratch and are read back through L2 (ld.global.cg):
-// L1 is not coherent across SMs.
+// L1 is not coherent across SMs.  Grouped-query attention indexes KV
+// head h / rep: one work item holds up to kQMax query vectors of one KV
+// head, so each cache position is read once per group (the Pallas
+// kernel's selector matmuls are a TPU layout device, not needed here).
+// The spec's features are runtime fields of FusedArgs, not template
+// parameters: one instantiation per (compute, weight, cache) dtype.
 //
 // Numerics are the reference's unfused composition (_ref_fused_layer):
 // every product is rounded to the compute dtype T and its bias added in
-// T; LayerNorm statistics and the activation run in fp32; the int8 weight
-// element dequantizes as (float)q * scale, rounded to T before the
-// product (gemm_tile.cuh); attention runs in fp32 with the new K/V as the
-// cache would hold them (int8 codes times their scale, or rounded through
-// the cache dtype).
+// T; norm statistics and the activation run in fp32; rotary takes the
+// unfused path's own frequency table (an input), the angle position *
+// frequency in fp32, cosf / sinf, and x1 cos - x2 sin without
+// contraction, rounded to T; the int8 weight element dequantizes as
+// (float)q * scale, rounded to T before the product (gemm_tile.cuh);
+// attention runs in fp32 with the new K/V as the cache would hold them
+// (int8 codes times their scale, or rounded through the cache dtype).
 //
 // C interface (loaded with ctypes): ds_fused_layer takes one argument
 // block (FusedArgs) and returns the cudaError_t of the launch as an int;
@@ -43,34 +56,49 @@
 // layout check.
 #include "gemm_tile.cuh"
 
+// One projection of a GEMM phase: W [K, N] row-major (T, or int8 codes
+// with [K, nb] fp32 scales), an optional [N] T bias, and its partial sums
+// [split, R, N] in the scratch (part and split are set at launch).
+// Declared outside the anonymous namespace, as FusedArgs.
+struct Mat {
+  const void* w;
+  const float* s;
+  const void* bias;            // null: no bias
+  float* part;
+  int nb, N, split;
+};
+
 // Everything one call needs; pointers are device pointers.  Matrices are
 // row-major and contiguous; "rows" are the B*W window tokens, row
 // r = b * W + j.  Declared outside the anonymous namespace: the C entry
 // point takes it, and a parameter type of internal linkage would give
 // that symbol internal linkage too.
 struct FusedArgs {
-  int B, W, D, H, KV, HD, M, S_max;
-  int act;                     // 0 gelu_tanh, 1 gelu_exact, 2 relu
+  int B, W, D, H, KV, HD, S_max;
+  int norm;                    // 0 LayerNorm (scale + bias), 1 RMSNorm
+  int mlp;                     // 0 gelu_tanh 1 gelu_exact 2 relu 3 swiglu
+                               // 4 none
+  int nqkv;                    // 1: fused [D, (H + 2 KV) HD]; 3: wq wk wv
+  int nmlp_in;                 // 1: w_in; 2: w_gate, w_up; 0 (mlp none)
   float eps, sm_scale;
   const void* x;               // [R, D] T
   const int* lengths;          // [B] first window position per row
-  const void *n1_s, *n1_b, *bqkv, *bo, *n2_s, *n2_b, *b_in, *b_out;  // T
-  const void *wqkv, *wo, *w_in, *w_out;   // [K, N] T, or int8 codes
-  const float *sqkv, *so, *s_in, *s_out;  // [K, nb] fp32 (int8 weights)
-  int nb_qkv, nb_o, nb_in, nb_out;
+  const void *n1_s, *n1_b, *n2_s, *n2_b;  // [D] T (biases: LayerNorm)
+  const float* rope;           // [HD / 2] frequencies, or null: no rotary
+  Mat qkv[3], o, mlp_in[2], mlp_out;
   const void *k_cache, *v_cache;          // [B, S_max, KV, HD] CT
   const float *ks_cache, *vs_cache;       // [B, S_max, KV] (int8 cache)
   void* x_out;                 // [R, D] T
   void *new_k, *new_v;         // [R, KV * HD] CT
   float *new_ks, *new_vs;      // [R, KV] (int8 cache)
   // scratch
-  void* abuf;                  // [R, max(D, M)] T: the GEMM A operand
+  void* abuf;                  // [R, max(D, H HD, M)] T: GEMM A operand
   void* xres;                  // [R, D] T: x + attention output
-  float* part;                 // [kMaxSplit, R, max(3 D, M)] partials
+  float* part;                 // partial sums, part_floats of them
+  long long part_floats;
   float* qf;                   // [R, H * HD] the queries
   float *kw, *vw;              // [R, KV * HD] the window's K/V, fp32
   unsigned* bar;               // [2] barrier count (0 between calls), gen
-  int split_qkv, split_o, split_in, split_out;
   // optional [12] %globaltimer readings of CTA 0 (null: none): the
   // start, the exit of each of the ten grid barriers, and CTA 0's end
   unsigned long long* stamps;
@@ -85,7 +113,8 @@ constexpr int kQMax = 8;       // query vectors per attention work item
 constexpr int kPos = 4;        // cache positions per warp iteration
 constexpr int kHDMax = 128;    // head_dim <= 128
 constexpr int kNI = kHDMax / 32;
-constexpr int kMaxSplit = 16;  // K splits per GEMM (scratch: kMaxSplit x)
+constexpr int kMaxSplit = 16;  // K splits per GEMM
+constexpr int kMlpSwiglu = 3, kMlpNone = 4;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -157,30 +186,36 @@ __device__ __forceinline__ float block_sum(float v) {
   return s;
 }
 
-// LayerNorm of a row of D values at `src` (T; a kernel input or written
-// earlier in this launch, so read through L2) into `dst` (T), by the
-// whole CTA: statistics in fp32, as the reference.  Up to kLnPer values a
-// thread stay in registers, loaded together; a wider row reads src once
-// per pass.
+// LayerNorm (rms = false: (x - mean) * rstd * scale + bias) or RMSNorm
+// (rms = true: x * rstd * scale, rstd from the mean square) of a row of D
+// values at `src` (T; a kernel input or written earlier in this launch,
+// so read through L2) into `dst` (T), by the whole CTA: statistics in
+// fp32, as the reference.  Up to kLnPer values a thread stay in
+// registers, loaded together; a wider row reads src once per pass.
 constexpr int kLnPer = 8;
 template <typename T>
-__device__ void layer_norm_cta(const T* src, T* dst, const void* scale,
-                               const void* bias, int D, float eps) {
+__device__ void norm_cta(const T* src, T* dst, const void* scale,
+                         const void* bias, int D, float eps, bool rms) {
   float v[kLnPer];
   const bool held = D <= kLnPer * NT;
-  float s = 0.f;
+  float mu = 0.f;
   if (held) {
 #pragma unroll
     for (int j = 0; j < kLnPer; ++j) {
       const int c = threadIdx.x + j * NT;
       v[j] = c < D ? to_f(ldcg_t<T>(src + c)) : 0.f;
     }
-#pragma unroll
-    for (int j = 0; j < kLnPer; ++j) s += v[j];
-  } else {
-    for (int c = threadIdx.x; c < D; c += NT) s += to_f(ldcg_t<T>(src + c));
   }
-  const float mu = block_sum(s) / D;
+  if (!rms) {
+    float s = 0.f;
+    if (held) {
+#pragma unroll
+      for (int j = 0; j < kLnPer; ++j) s += v[j];
+    } else {
+      for (int c = threadIdx.x; c < D; c += NT) s += to_f(ldcg_t<T>(src + c));
+    }
+    mu = block_sum(s) / D;
+  }
   float q = 0.f;
   if (held) {
 #pragma unroll
@@ -195,54 +230,70 @@ __device__ void layer_norm_cta(const T* src, T* dst, const void* scale,
     }
   }
   const float rstd = rsqrtf(block_sum(q) / D + eps);
+  auto out = [&](float xv, int c) {
+    dst[c] = from_f<T>(
+        rms ? __fmul_rn(__fmul_rn(xv, rstd), ld_in<T>(scale, c))
+            : (xv - mu) * rstd * ld_in<T>(scale, c) + ld_in<T>(bias, c));
+  };
   if (held) {
 #pragma unroll
     for (int j = 0; j < kLnPer; ++j) {
       const int c = threadIdx.x + j * NT;
-      if (c < D)
-        dst[c] = from_f<T>((v[j] - mu) * rstd * ld_in<T>(scale, c) +
-                           ld_in<T>(bias, c));
+      if (c < D) out(v[j], c);
     }
   } else {
-    for (int c = threadIdx.x; c < D; c += NT) {
-      const float y = (to_f(ldcg_t<T>(src + c)) - mu) * rstd;
-      dst[c] = from_f<T>(y * ld_in<T>(scale, c) + ld_in<T>(bias, c));
-    }
+    for (int c = threadIdx.x; c < D; c += NT) out(to_f(ldcg_t<T>(src + c)), c);
   }
 }
 
-// One GEMM phase: part[split][r][n] = sum over the split's K range of
-// A[r][k] * W~[k][n] for all R rows, every (row tile, column tile, split)
-// item taken by one CTA: [8 x 256] decode tiles (rows_mma) for R <= 8,
-// else [64 x 64] tiles (tile_mma).
-template <typename T, typename WT>
-__device__ void gemm_phase(const T* A, int lda, int R, const void* Wv,
-                           const float* sc, int nb, int N, int K, int nsplit,
-                           float* part, unsigned char* smem) {
-  const WT* Wt = static_cast<const WT*>(Wv);
-  const bool rows = use_rows(R, N, sizeof(WT) == 1 ? nb : 0);
+// work items of one projection: (row tile, column tile, K split) triples
+__host__ __device__ inline int mat_tiles(int R, int N, int nb) {
+  const bool rows = use_rows(R, N, nb);
   const int bn = rows ? RBN : BN, rmax = rows ? RROWS : RPMAX;
-  const int tn = (N + bn - 1) / bn, tm = (R + rmax - 1) / rmax;
+  return ((N + bn - 1) / bn) * ((R + rmax - 1) / rmax);
+}
+
+// One GEMM phase over `nmat` projections sharing A and K:
+// mats[j].part[split][r][n] = sum over the split's K range of A[r][k] *
+// W~j[k][n] for all R rows, every (projection, row tile, column tile,
+// split) item taken by one CTA: [8 x 256] decode tiles (rows_mma) for
+// R <= 8, else [64 x 64] tiles (tile_mma).
+template <typename T, typename WT>
+__device__ void gemm_phase(const T* A, int lda, int R, int K,
+                           const Mat* mats, int nmat, unsigned char* smem) {
   const int kch = (K + BK - 1) / BK;
-  const int chunks = (kch + nsplit - 1) / nsplit;
-  const int items = tn * tm * nsplit;
-  const int qblock = nb > 0 ? (N + nb - 1) / nb : 1;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int split = it % nsplit;
-    const int rest = it / nsplit;
+  int items[3], total = 0;
+  for (int j = 0; j < nmat; ++j) {
+    items[j] = mat_tiles(R, mats[j].N, sizeof(WT) == 1 ? mats[j].nb : 0) *
+               mats[j].split;
+    total += items[j];
+  }
+  for (int it = blockIdx.x; it < total; it += gridDim.x) {
+    int j = 0, local = it;
+    while (local >= items[j]) local -= items[j++];
+    const Mat& m = mats[j];
+    const int N = m.N, nb = sizeof(WT) == 1 ? m.nb : 0, nsplit = m.split;
+    const bool rows = use_rows(R, N, nb);
+    const int bn = rows ? RBN : BN, rmax = rows ? RROWS : RPMAX;
+    const int tn = (N + bn - 1) / bn;
+    const int chunks = (kch + nsplit - 1) / nsplit;
+    const int qblock = nb > 0 ? (N + nb - 1) / nb : 1;
+    const int split = local % nsplit;
+    const int rest = local / nsplit;
     const int tni = rest % tn, tmi = rest / tn;
     const int m0 = tmi * rmax;
     const int nrows = min(rmax, R - m0);
     const int n0 = tni * bn;
     const int kb = split * chunks * BK;
     const int ke = min(K, kb + chunks * BK);
+    const WT* Wt = static_cast<const WT*>(m.w);
     const float* ct =
-        rows ? rows_mma<T, WT>(A, lda, R, Wt, sc, nb, qblock, N, n0, kb, ke,
+        rows ? rows_mma<T, WT>(A, lda, R, Wt, m.s, nb, qblock, N, n0, kb, ke,
                                smem)
-             : tile_mma<T, WT>(A + (size_t)m0 * lda, lda, nrows, Wt, sc, nb,
+             : tile_mma<T, WT>(A + (size_t)m0 * lda, lda, nrows, Wt, m.s, nb,
                                qblock, N, n0, kb, ke, smem);
     const int ldc = rows ? RBN : BN + CPAD;
-    float* dst = part + ((size_t)split * R + m0) * N + n0;
+    float* dst = m.part + ((size_t)split * R + m0) * N + n0;
     for (int e = threadIdx.x; e < nrows * bn; e += NT) {
       const int r = e / bn, n = e - r * bn;
       if (n0 + n < N) dst[(size_t)r * N + n] = ct[r * ldc + n];
@@ -250,11 +301,15 @@ __device__ void gemm_phase(const T* A, int lda, int R, const void* Wv,
   }
 }
 
-// the split partial sums of element (r, n), in split order
-__device__ __forceinline__ float reduce_parts(const float* part, int nsplit,
-                                              int R, int N, int r, int n) {
-  return sum_splits<kMaxSplit>(part + (size_t)r * N + n, (size_t)R * N,
-                               nsplit);
+// element (r, n) of a projection: its split partial sums added in split
+// order, rounded to T, plus its bias in T (the reference's qdot + b)
+template <typename T>
+__device__ __forceinline__ float proj_value(const Mat& m, int R, int r,
+                                            int n) {
+  float p = round_t<T>(sum_splits<kMaxSplit>(m.part + (size_t)r * m.N + n,
+                                             (size_t)R * m.N, m.split));
+  if (m.bias != nullptr) p = round_t<T>(p + ld_in<T>(m.bias, n));
+  return p;
 }
 
 template <typename T, typename WT, typename CT>
@@ -264,7 +319,9 @@ fused_layer_kernel(const FusedArgs a) {
   constexpr bool kQCache = sizeof(CT) == 1;
   const int R = a.B * a.W;
   const int D = a.D, HD = a.HD, KV = a.KV, H = a.H;
-  const int Dq = H * HD, Dk = KV * HD, N3 = Dq + 2 * Dk;
+  const int Dq = H * HD, Dk = KV * HD;
+  const int M = a.mlp_in[0].N;
+  const bool rms = a.norm == 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gwarp = blockIdx.x * kWarps + warp;
   const int nwarps = gridDim.x * kWarps;
@@ -275,38 +332,56 @@ fused_layer_kernel(const FusedArgs a) {
   const T* x = static_cast<const T*>(a.x);
   stamp(a, 0);
 
-  // ---- LN1: one CTA per row
+  // ---- norm1: one CTA per row
   for (int r = blockIdx.x; r < R; r += gridDim.x)
-    layer_norm_cta<T>(x + (size_t)r * D, abuf + (size_t)r * D, a.n1_s,
-                      a.n1_b, D, a.eps);
+    norm_cta<T>(x + (size_t)r * D, abuf + (size_t)r * D, a.n1_s, a.n1_b, D,
+                a.eps, rms);
   grid_sync(a.bar);
   stamp(a, 1);
 
-  // ---- QKV projection partials
-  gemm_phase<T, WT>(abuf, D, R, a.wqkv, a.sqkv, a.nb_qkv, N3, D, a.split_qkv,
-                    a.part, smem);
+  // ---- QKV projection partials (one fused matrix, or wq / wk / wv)
+  gemm_phase<T, WT>(abuf, D, R, D, a.qkv, a.nqkv, smem);
   grid_sync(a.bar);
   stamp(a, 2);
 
   // ---- QKV epilogue: one warp per (row, head segment of q | k | v);
-  // bias in T, the new K/V as the cache holds them
+  // bias in T, rotary on q and k at position lengths[b] + j, the new
+  // K/V as the cache holds them
   {
     const int nseg = H + 2 * KV;
+    const int half = HD / 2;
+    float* rbuf = reinterpret_cast<float*>(smem) + warp * kHDMax;
     for (int wi = gwarp; wi < R * nseg; wi += nwarps) {
       const int r = wi / nseg, seg = wi - r * nseg;
+      // the segment's projection and its first column there
+      int mi = 0, c0 = seg * HD;
+      while (mi + 1 < a.nqkv && c0 >= a.qkv[mi].N) c0 -= a.qkv[mi++].N;
+      const Mat& m = a.qkv[mi];
       float val[kNI];
-      float amax = 0.f;
 #pragma unroll
       for (int i = 0; i < kNI; ++i) {
         const int d = lane + 32 * i;
-        val[i] = 0.f;
-        if (d < HD) {
-          const int c = seg * HD + d;
-          const float p = round_t<T>(
-              reduce_parts(a.part, a.split_qkv, R, N3, r, c));
-          val[i] = round_t<T>(p + ld_in<T>(a.bqkv, c));
-          amax = fmaxf(amax, fabsf(val[i]));
+        val[i] = d < HD ? proj_value<T>(m, R, r, c0 + d) : 0.f;
+      }
+      if (a.rope != nullptr && seg < H + KV) {
+        const float pos = (float)(a.lengths[r / a.W] + r % a.W);
+#pragma unroll
+        for (int i = 0; i < kNI; ++i)
+          if (lane + 32 * i < HD) rbuf[lane + 32 * i] = val[i];
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < kNI; ++i) {
+          const int d = lane + 32 * i;
+          if (d >= HD) continue;
+          const int f = d < half ? d : d - half;
+          const float x1 = rbuf[f], x2 = rbuf[f + half];
+          const float ang = __fmul_rn(pos, __ldg(a.rope + f));
+          const float cs = cosf(ang), sn = sinf(ang);
+          val[i] = round_t<T>(
+              d < half ? __fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn))
+                       : __fadd_rn(__fmul_rn(x1, sn), __fmul_rn(x2, cs)));
         }
+        __syncwarp();   // every lane has read rbuf before the next item
       }
       if (seg < H) {
 #pragma unroll
@@ -323,6 +398,9 @@ fused_layer_kernel(const FusedArgs a) {
       const size_t base = (size_t)r * Dk + (size_t)kvh * HD;
       float scale = 1.f;
       if constexpr (kQCache) {
+        float amax = 0.f;
+#pragma unroll
+        for (int i = 0; i < kNI; ++i) amax = fmaxf(amax, fabsf(val[i]));
         amax = warp_max(amax);
         scale = amax > 0.f ? amax / 127.f : 1.f;
         if (lane == 0) (is_k ? a.new_ks : a.new_vs)[(size_t)r * KV + kvh] =
@@ -382,10 +460,10 @@ fused_layer_kernel(const FusedArgs a) {
       for (int qi = 0; qi < kQMax; ++qi)
         lim[qi] = qi < qn ? len + (q0 + qi) / rep + 1 : 0;
       const int total = len + (q0 + qn - 1) / rep + 1;
-      float m[kQMax], l[kQMax], acc[kQMax][kNI];
+      float mx_[kQMax], l[kQMax], acc[kQMax][kNI];
 #pragma unroll
       for (int qi = 0; qi < kQMax; ++qi) {
-        m[qi] = kNegInf;
+        mx_[qi] = kNegInf;
         l[qi] = 0.f;
 #pragma unroll
         for (int i = 0; i < kNI; ++i) acc[qi][i] = 0.f;
@@ -439,11 +517,11 @@ fused_layer_kernel(const FusedArgs a) {
               }
               sc[jp] = warp_sum(p);
             }
-            float mx = m[qi];
+            float mx = mx_[qi];
 #pragma unroll
             for (int jp = 0; jp < kPos; ++jp)
               if (s0 + jp < lim[qi]) mx = fmaxf(mx, sc[jp]);
-            const float corr = expf(m[qi] - mx);
+            const float corr = expf(mx_[qi] - mx);
             float pj[kPos];
             float psum = 0.f;
 #pragma unroll
@@ -452,7 +530,7 @@ fused_layer_kernel(const FusedArgs a) {
               psum += pj[jp];
             }
             l[qi] = l[qi] * corr + psum;
-            m[qi] = mx;
+            mx_[qi] = mx;
 #pragma unroll
             for (int i = 0; i < kNI; ++i) {
               float t = acc[qi][i] * corr;
@@ -473,7 +551,7 @@ fused_layer_kernel(const FusedArgs a) {
             if (d < HD) acc_s[(warp * kQMax + qi) * kHDMax + d] = acc[qi][i];
           }
           if (lane == 0) {
-            m_s[warp * kQMax + qi] = m[qi];
+            m_s[warp * kQMax + qi] = mx_[qi];
             l_s[warp * kQMax + qi] = l[qi];
           }
         }
@@ -500,57 +578,64 @@ fused_layer_kernel(const FusedArgs a) {
   stamp(a, 4);
 
   // ---- attention-out projection partials (A = the attention rows)
-  gemm_phase<T, WT>(abuf, Dq, R, a.wo, a.so, a.nb_o, D, Dq, a.split_o,
-                    a.part, smem);
+  gemm_phase<T, WT>(abuf, Dq, R, Dq, &a.o, 1, smem);
   grid_sync(a.bar);
   stamp(a, 5);
 
-  // ---- + bias, + residual
+  // ---- (+ bias), + residual; mlp "none" ends the layer here
+  T* xo = static_cast<T*>(a.x_out);
+  const bool last = a.mlp == kMlpNone;
   for (int e = gtid; e < R * D; e += nthreads) {
     const int r = e / D, c = e - r * D;
-    const float p = round_t<T>(reduce_parts(a.part, a.split_o, R, D, r, c));
-    const float proj = round_t<T>(p + ld_in<T>(a.bo, c));
-    xres[e] = from_f<T>(to_f(x[e]) + proj);
+    const T y = from_f<T>(to_f(x[e]) + proj_value<T>(a.o, R, r, c));
+    (last ? xo : xres)[e] = y;
+  }
+  if (last) {
+    for (int i = 6; i < 12; ++i) stamp(a, i);
+    return;
   }
   grid_sync(a.bar);
   stamp(a, 6);
 
-  // ---- LN2: one CTA per row
+  // ---- norm2: one CTA per row
   for (int r = blockIdx.x; r < R; r += gridDim.x)
-    layer_norm_cta<T>(xres + (size_t)r * D, abuf + (size_t)r * D, a.n2_s,
-                      a.n2_b, D, a.eps);
+    norm_cta<T>(xres + (size_t)r * D, abuf + (size_t)r * D, a.n2_s, a.n2_b,
+                D, a.eps, rms);
   grid_sync(a.bar);
   stamp(a, 7);
 
-  // ---- MLP-in partials
-  gemm_phase<T, WT>(abuf, D, R, a.w_in, a.s_in, a.nb_in, a.M, D, a.split_in,
-                    a.part, smem);
+  // ---- MLP-in partials (w_in, or w_gate and w_up)
+  gemm_phase<T, WT>(abuf, D, R, D, a.mlp_in, a.nmlp_in, smem);
   grid_sync(a.bar);
   stamp(a, 8);
 
-  // ---- + bias, activation (fp32), rounded to T
-  for (int e = gtid; e < R * a.M; e += nthreads) {
-    const int r = e / a.M, c = e - r * a.M;
-    const float p = round_t<T>(reduce_parts(a.part, a.split_in, R, a.M, r, c));
-    const float h = round_t<T>(p + ld_in<T>(a.b_in, c));
-    abuf[e] = from_f<T>(activation(h, a.act));
+  // ---- (+ bias) and the activation in fp32, or silu(gate) in fp32
+  // rounded to T times up in T; the result rounded to T
+  for (int e = gtid; e < R * M; e += nthreads) {
+    const int r = e / M, c = e - r * M;
+    const float h = proj_value<T>(a.mlp_in[0], R, r, c);
+    float y;
+    if (a.mlp == kMlpSwiglu) {
+      const float up = proj_value<T>(a.mlp_in[1], R, r, c);
+      y = __fmul_rn(round_t<T>(h / (1.f + expf(-h))), up);
+    } else {
+      y = activation(h, a.mlp);
+    }
+    abuf[e] = from_f<T>(y);
   }
   grid_sync(a.bar);
   stamp(a, 9);
 
   // ---- MLP-out partials (A = the activations, row stride M)
-  gemm_phase<T, WT>(abuf, a.M, R, a.w_out, a.s_out, a.nb_out, D, a.M,
-                    a.split_out, a.part, smem);
+  gemm_phase<T, WT>(abuf, M, R, M, &a.mlp_out, 1, smem);
   grid_sync(a.bar);
   stamp(a, 10);
 
-  // ---- + bias, + residual
-  T* xo = static_cast<T*>(a.x_out);
+  // ---- (+ bias), + residual
   for (int e = gtid; e < R * D; e += nthreads) {
     const int r = e / D, c = e - r * D;
-    const float p = round_t<T>(reduce_parts(a.part, a.split_out, R, D, r, c));
-    const float m = round_t<T>(p + ld_in<T>(a.b_out, c));
-    xo[e] = from_f<T>(to_f(ldcg_t<T>(xres + e)) + m);
+    xo[e] = from_f<T>(to_f(ldcg_t<T>(xres + e)) +
+                      proj_value<T>(a.mlp_out, R, r, c));
   }
   stamp(a, 11);
 }
@@ -590,19 +675,31 @@ int grid_for() {
   return cached[dev];
 }
 
-// K splits for an [R x K] @ [K x N] phase (nb scale groups, 0 for
-// float weights) on `grid` CTAs: as many as keep the items within one
-// wave, at most kMaxSplit, none without a BK chunk of work
-int choose_split(int grid, int R, int N, int K, int nb) {
-  const bool rows = use_rows(R, N, nb);
-  const int bn = rows ? RBN : BN, rmax = rows ? RROWS : RPMAX;
-  const int tiles = ((N + bn - 1) / bn) * ((R + rmax - 1) / rmax);
+// K splits of a phase's projections (all over the same K) on `grid`
+// CTAs: as many as keep their items together within one wave, at most
+// kMaxSplit, none without a BK chunk of work; each projection's partial
+// sums then take split * R * N floats of the scratch from `*used` on.
+// Returns false when the scratch (part_floats) is too small.
+bool plan_phase(Mat* mats, int n, int grid, int R, int K, bool q8,
+                const FusedArgs& a, long long* used) {
+  int tiles = 0;
+  for (int j = 0; j < n; ++j) tiles += mat_tiles(R, mats[j].N,
+                                                 q8 ? mats[j].nb : 0);
+  if (n == 0) return true;
   const int kch = (K + BK - 1) / BK;
   int s = grid / tiles;
   s = s < 1 ? 1 : (s > kMaxSplit ? kMaxSplit : s);
   s = s > kch ? kch : s;
   const int chunks = (kch + s - 1) / s;
-  return (kch + chunks - 1) / chunks;
+  s = (kch + chunks - 1) / chunks;
+  long long off = 0;
+  for (int j = 0; j < n; ++j) {
+    mats[j].split = s;
+    mats[j].part = a.part + off;
+    off += (long long)s * R * mats[j].N;
+  }
+  *used = off > *used ? off : *used;
+  return off <= a.part_floats;
 }
 
 template <typename T, typename WT, typename CT>
@@ -611,11 +708,15 @@ int launch(FusedArgs a, cudaStream_t stream) {
   if (grid < 0) return -grid;
   const int R = a.B * a.W;
   const bool q8 = sizeof(WT) == 1;
-  a.split_qkv = choose_split(grid, R, a.H * a.HD + 2 * a.KV * a.HD, a.D,
-                             q8 ? a.nb_qkv : 0);
-  a.split_o = choose_split(grid, R, a.D, a.H * a.HD, q8 ? a.nb_o : 0);
-  a.split_in = choose_split(grid, R, a.M, a.D, q8 ? a.nb_in : 0);
-  a.split_out = choose_split(grid, R, a.D, a.M, q8 ? a.nb_out : 0);
+  const int M = a.mlp_in[0].N;
+  long long used = 0;
+  // every phase's partial sums start at the scratch's base: the phases
+  // are separated by grid barriers
+  if (!plan_phase(a.qkv, a.nqkv, grid, R, a.D, q8, a, &used) ||
+      !plan_phase(&a.o, 1, grid, R, a.H * a.HD, q8, a, &used) ||
+      !plan_phase(a.mlp_in, a.nmlp_in, grid, R, a.D, q8, a, &used) ||
+      !plan_phase(&a.mlp_out, a.nmlp_in > 0, grid, R, M, q8, a, &used))
+    return (int)cudaErrorInvalidValue;
   void* params[] = {&a};
   cudaError_t err = cudaLaunchCooperativeKernel(
       (const void*)fused_layer_kernel<T, WT, CT>, dim3(grid), dim3(NT),
@@ -632,6 +733,23 @@ int dispatch_t(const FusedArgs& a, int w_int8, int c_int8, cudaStream_t st) {
   return c_int8 ? launch<T, T, int8_t>(a, st) : launch<T, T, T>(a, st);
 }
 
+// the projections' shapes agree with the spec fields
+bool shapes_ok(const FusedArgs& a) {
+  const int Dq = a.H * a.HD, Dk = a.KV * a.HD;
+  if (a.nqkv == 1) {
+    if (a.qkv[0].N != Dq + 2 * Dk) return false;
+  } else if (a.nqkv != 3 || a.qkv[0].N != Dq || a.qkv[1].N != Dk ||
+             a.qkv[2].N != Dk) {
+    return false;
+  }
+  if (a.o.N != a.D) return false;
+  const int want_in = a.mlp == kMlpNone ? 0 : (a.mlp == kMlpSwiglu ? 2 : 1);
+  if (a.nmlp_in != want_in) return false;
+  if (want_in == 0) return true;
+  if (a.mlp_in[0].N < 1 || a.mlp_out.N != a.D) return false;
+  return want_in == 1 || a.mlp_in[1].N == a.mlp_in[0].N;
+}
+
 }  // namespace
 
 extern "C" int ds_fused_layer_args_size() { return (int)sizeof(FusedArgs); }
@@ -640,8 +758,9 @@ extern "C" int ds_fused_layer(const FusedArgs* args, int is_bf16, int w_int8,
                               int c_int8, void* stream) {
   const FusedArgs& a = *args;
   if (a.B < 1 || a.W < 1 || a.KV < 1 || a.H % a.KV != 0 || a.HD < 1 ||
-      a.HD > kHDMax || a.D < 1 || a.M < 1 || a.S_max < 1 ||
-      a.act < 0 || a.act > 2)
+      a.HD > kHDMax || a.D < 1 || a.S_max < 1 || a.norm < 0 || a.norm > 1 ||
+      a.mlp < 0 || a.mlp > kMlpNone || (a.rope != nullptr && a.HD % 2) ||
+      !shapes_ok(a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch_t<__nv_bfloat16>(a, w_int8, c_int8, st)

@@ -43,6 +43,7 @@ from deepspeed_tpu_torch.inference.sampling import sample
 from deepspeed_tpu_torch.models.model import QuantizedTensor, quantized_parts
 from deepspeed_tpu_torch.ops.kernels.quantization import (block_quantize_int8,
                                                           block_quantize_stack)
+from deepspeed_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.tree import tree_map
 
@@ -73,7 +74,7 @@ def refuse_unported(config: DeepSpeedInferenceConfig):
           if config.tensor_parallel.enabled else 1)
     checks = (
         (config.moe.ep_size > 1, f"moe.ep_size={config.moe.ep_size}",
-         "Queue A item 4: data parallel, ZeRO and model parallelism"),
+         "Queue A: data parallel, ZeRO and model parallelism"),
         (config.kv_cache_dtype not in (None, "int8", config.dtype),
          f"kv_cache_dtype={config.kv_cache_dtype!r} (a float cache in "
          "another dtype than the compute dtype)",
@@ -176,7 +177,12 @@ class InferenceEngine:
 
     # --------------------------------------------------------------- generate
     @staticmethod
-    def _pad_bucket(n: int, quantum: int = 64) -> int:
+    def _pad_bucket(n: int,
+                    quantum: int = ContinuousBatchingScheduler.PROMPT_BUCKET
+                    ) -> int:
+        """The prefill length of an n-token prompt: the scheduler's own
+        bucket, so both prefill at the same GEMM shapes (the reference
+        pads generate's prompts to 64)."""
         return max(quantum, -(-n // quantum) * quantum)
 
     @torch.no_grad()
@@ -215,8 +221,8 @@ class InferenceEngine:
     def _generate_cached(self, input_ids, max_new, gen, sampler, eos_id,
                          max_ctx, fused):
         """Prefill + per-token decode over the KV cache; the prompt pads
-        to a 64 bucket and the cache to a 64 multiple (the reference's
-        sizing)."""
+        to the scheduler's 16-token bucket (:meth:`_pad_bucket`) and the
+        cache to a 64 multiple."""
         B, S = input_ids.shape
         dev = self.device
         prompt_pad = min(self._pad_bucket(S), max_ctx - max_new)

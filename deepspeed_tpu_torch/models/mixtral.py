@@ -17,9 +17,11 @@ the MoE FFN rides the slot kernel (R = B * top_k <= 128) or the
 group-padded kernel (larger R: long prefills, wide decode batches); with
 int8 weights decode keeps the expert stacks, projections and router
 quantized into the int8 grouped GEMMs and qgemm, and prefill dequantizes
-each layer whole.  The fused per-layer decode kernel
-does not cover Mixtral's spec yet: an explicit ``fused_decode`` request
-raises (``models/serving.py fused_decode_active``).
+each layer whole.  With ``fused=True`` a decode step runs the fused
+per-layer kernel over each layer's attention half (RMSNorm, Q/K/V,
+rotary, GQA attention, attention-out + residual: ``mlp="none"``) and
+then the expert FFN on the grouped-GEMM kernels (``moe_tail``), as the
+reference wires it.
 
 Initialisation: :func:`init_params` draws the weights ON THE DEVICE with
 a ``torch.Generator`` seeded there, leaf by leaf and, for the stacks,
@@ -36,18 +38,17 @@ so bf16 serving runs a cut depth (``num_layers=16``); with int8 weights
 (``quant.enabled``: int8 experts, projections and router, 47.7 GB in
 all) the whole published model fits.
 """
-import itertools
 from dataclasses import dataclass
 from functools import partial
 
 import torch
 
-from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.models import serving
 from deepspeed_tpu_torch.models.llama import _rms_norm, rope
-from deepspeed_tpu_torch.models.model import (Model, QuantizedTensor,
-                                              layer_params, maybe_stream,
-                                              qdot, resolve_size)
+from deepspeed_tpu_torch.models.model import (Model, layer_params,
+                                              maybe_stream, qdot,
+                                              resolve_size,
+                                              seeded_device_init)
 from deepspeed_tpu_torch.moe.layer import MoEConfig, moe_layer
 from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
 
@@ -137,39 +138,6 @@ def _shapes(config: MixtralConfig) -> dict:
     }
 
 
-def _init(config: MixtralConfig, seed, device, dtype, quantize: bool):
-    """The seeded device init of :func:`init_params`; ``quantize``: every
-    >= 3-dim leaf of ``blocks`` is stored as a ``QuantizedTensor`` whose
-    codes and scales are ``block_quantize_int8`` of that slice of the
-    float init, slice by slice into preallocated int8 / fp32 stacks."""
-    from deepspeed_tpu_torch.ops.kernels.quantization import \
-        block_quantize_stack
-    dev = resolve_device(device)
-    dt = dtype or torch.float32
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-
-    def leaf(spec, in_blocks):
-        if isinstance(spec, dict):
-            return {k: leaf(v, in_blocks or k == "blocks")
-                    for k, v in spec.items()}
-        shape, scale = spec
-        if scale is None:
-            return torch.ones(shape, dtype=dt, device=dev)
-
-        def draw(idx):
-            return (torch.randn(shape[-2:], generator=gen, device=dev,
-                                dtype=torch.float32) * scale).to(dt)
-        if quantize and in_blocks and len(shape) >= 3:
-            return QuantizedTensor(*block_quantize_stack(shape, draw, dev),
-                                   dt)
-        out = torch.empty(shape, dtype=dt, device=dev)
-        for idx in itertools.product(*map(range, shape[:-2])):
-            out[idx].copy_(draw(idx))
-        return out
-
-    return leaf(_shapes(config), False)
-
-
 def init_params(config: MixtralConfig, seed: int = 0, device=None,
                 dtype=None) -> dict:
     """Seeded normal init (the reference's scales: 0.02, and 0.02 /
@@ -178,7 +146,8 @@ def init_params(config: MixtralConfig, seed: int = 0, device=None,
     when None).  Each stacked leaf fills one [layer (, expert)] slice at a
     time, so the fp32 draw never exceeds one slice.  Not the JAX package's
     values (see the module docstring)."""
-    return _init(config, seed, device, dtype, quantize=False)
+    return seeded_device_init(_shapes(config), seed, device, dtype,
+                              quantize=False)
 
 
 def init_quantized_params(config: MixtralConfig, seed: int = 0,
@@ -193,7 +162,8 @@ def init_quantized_params(config: MixtralConfig, seed: int = 0,
     dim, so this is the reference engine's leaf-by-leaf load — and the
     peak is the int8 total plus one slice: Mixtral-8x7B's 30 GB bf16
     expert leaf never exists."""
-    return _init(config, seed, device, dtype, quantize=True)
+    return seeded_device_init(_shapes(config), seed, device, dtype,
+                              quantize=True)
 
 
 def embed(params, tokens, config: MixtralConfig):
@@ -263,6 +233,21 @@ def fused_spec(config: MixtralConfig):
         rope_theta=config.rope_theta)
 
 
+def fused_weights(layer):
+    """The attention half of a layer as the fused layer's canonical
+    weights (the reference's ``fused_weights``)."""
+    return {"n1_s": layer["attn_norm"], "wq": layer["wq"], "wk": layer["wk"],
+            "wv": layer["wv"], "wo": layer["wo"]}
+
+
+def moe_tail(x, layer, config: MixtralConfig):
+    """RMSNorm + the routed-expert FFN + residual after the fused layer's
+    attention half (the reference's ``moe_tail``): the experts stay on the
+    grouped-GEMM kernels."""
+    h = _rms_norm(x, layer["mlp_norm"], config.rms_norm_eps)
+    return x + moe_layer(layer["moe"], h, config.moe, train=False)[0]
+
+
 def _serving_fns(config: MixtralConfig):
     """(init_cache_fn, prefill_fn, decode_fn): the generic hook-driven
     serving forms (``models/serving.py``) with Mixtral's hooks (the
@@ -289,7 +274,10 @@ def _serving_fns(config: MixtralConfig):
 
     def decode_fn(p, t, c, lengths, fused=False):
         return serving.decode_step(p, t, c, lengths, fused=fused,
-                                   fused_spec=spec, **hooks)
+                                   fused_spec=spec,
+                                   fused_weights_fn=fused_weights,
+                                   moe_tail_fn=lambda x, layer: moe_tail(
+                                       x, layer, config), **hooks)
 
     return init_cache_fn, prefill_fn, decode_fn
 

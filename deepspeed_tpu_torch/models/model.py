@@ -7,6 +7,7 @@ A model is a set of plain functions over a params dict of tensors with
 the reference's names and stacked ``[L, ...]`` block layout, so weights
 carry across from the JAX package unchanged
 (``checkpoint/jax_params.py``)."""
+import itertools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
@@ -88,6 +89,48 @@ def layer_params(blocks, l: int) -> dict:
     slice both their codes and scales), nested dicts such as Mixtral's
     ``moe`` keeping their structure."""
     return tree_map(lambda a: a[l], blocks)
+
+
+def seeded_device_init(shapes: dict, seed, device, dtype,
+                       quantize: bool) -> dict:
+    """A params tree drawn ON ``device`` from a ``torch.Generator`` seeded
+    with ``seed``: ``shapes`` maps each leaf to ``(shape, scale)``, drawn
+    N(0, scale) into ``dtype`` (fp32 when None), ones for scale None and
+    zeros for scale 0.  Stacked leaves fill one slice of their last two
+    dims at a time, so the fp32 draw never exceeds one slice.
+    ``quantize``: every >= 3-dim leaf under ``blocks`` is stored as a
+    ``QuantizedTensor`` whose codes and scales are ``block_quantize_int8``
+    of each slice as it is drawn, into preallocated int8 / fp32 stacks.
+    Not the JAX package's values (``jax.random`` and torch draw different
+    numbers from a seed)."""
+    from deepspeed_tpu_torch.ops.kernels.quantization import \
+        block_quantize_stack
+    dev = resolve_device(device)
+    dt = dtype or torch.float32
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+    def leaf(spec, in_blocks):
+        if isinstance(spec, dict):
+            return {k: leaf(v, in_blocks or k == "blocks")
+                    for k, v in spec.items()}
+        shape, scale = spec
+        if scale is None:
+            return torch.ones(shape, dtype=dt, device=dev)
+        if scale == 0:
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        def draw(idx):
+            return (torch.randn(shape[-2:], generator=gen, device=dev,
+                                dtype=torch.float32) * scale).to(dt)
+        if quantize and in_blocks and len(shape) >= 3:
+            return QuantizedTensor(*block_quantize_stack(shape, draw, dev),
+                                   dt)
+        out = torch.empty(shape, dtype=dt, device=dev)
+        for idx in itertools.product(*map(range, shape[:-2])):
+            out[idx].copy_(draw(idx))
+        return out
+
+    return leaf(shapes, False)
 
 
 def resolve_size(sizes: dict, size: str, family: str) -> dict:

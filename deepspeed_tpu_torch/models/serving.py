@@ -2,7 +2,8 @@
 ``deepspeed_tpu/models/serving.py``): ``write_token`` / ``select_token`` /
 ``init_cache``, the int8-weights routing, the fused per-layer pass, and
 the generic hook-driven ``prefill`` (:416) and ``decode_step`` (:466)
-that Mixtral serves through (GPT-2 keeps its own in ``models/gpt2.py``).
+that Llama and Mixtral serve through (GPT-2 keeps its own in
+``models/gpt2.py``).
 
 The reference is functional: a write returns a new cache.  Here the
 cache is updated in place — ``index_put_`` on one layer's slice — which
@@ -83,8 +84,8 @@ def fused_decode_active(spec, fused_decode) -> bool:
     """Whether decode takes the fused per-layer path: the caller asked for
     it (``serving.fused_decode``).  ``None`` and ``False`` are the unfused
     path (the reference turns ``None`` on by default on a TPU; the port
-    leaves it off until the fused step is measured on the GPU).  An
-    explicit request on a family whose spec the port's kernel does not
+    leaves it off until the fused step is measured against CUDA graphs).
+    An explicit request on a family whose spec the port's kernel does not
     cover raises ``NotImplementedError`` naming the spec feature: it never
     quietly runs the unfused path."""
     if not fused_decode:
@@ -94,8 +95,8 @@ def fused_decode_active(spec, fused_decode) -> bool:
     if why is not None:
         raise NotImplementedError(
             f"serving.fused_decode=true: the fused layer's {why} variant is "
-            "not ported to deepspeed_tpu_torch yet (ROADMAP.md Queue B: "
-            "fused_decode's other specs, port slice 6); serve with "
+            "not ported to deepspeed_tpu_torch yet (ROADMAP.md Queue B: the "
+            "fused decode kernel's NeoX and BLOOM specs); serve with "
             "fused_decode off")
     return True
 
@@ -108,12 +109,16 @@ def _fused_keep_quantized(blocks) -> bool:
     return qgemm_active(blocks)
 
 
-def _fused_layer_pass(params, x, cache, lengths, *, spec, weights_fn):
+def _fused_layer_pass(params, x, cache, lengths, *, spec, weights_fn,
+                      moe_tail_fn=None):
     """The fused per-layer loop (W = 1 for decode): ONE ``ds_fused_layer``
-    call per layer replaces the QKV / cache write / decode attention /
-    finish composition, then the window's new K/V (and, for an int8
-    cache, their scales) land in the stacked cache with ``write_token``.
-    Returns (x [B, W, D], cache)."""
+    call per layer replaces the QKV / rotary / cache write / decode
+    attention / finish composition, then the window's new K/V (and, for
+    an int8 cache, their scales) land in the stacked cache with
+    ``write_token``.  ``moe_tail_fn(x, layer) -> x`` runs a family's
+    routed-expert FFN after the kernel (``mlp="none"`` specs: the experts
+    stay on the grouped-GEMM kernels), as the reference's.  Returns (x
+    [B, W, D], cache)."""
     from deepspeed_tpu_torch.ops.kernels.fused_decode import ds_fused_layer
     blocks = params["blocks"]
     quantized = "k_s" in cache
@@ -122,8 +127,7 @@ def _fused_layer_pass(params, x, cache, lengths, *, spec, weights_fn):
     ksc, vsc = (cache["k_s"], cache["v_s"]) if quantized else (None, None)
     W = x.shape[1]
     for l in range(kc.shape[0]):
-        layer = maybe_stream({k: v[l] for k, v in blocks.items()},
-                             keep_quantized=keep_q)
+        layer = maybe_stream(layer_params(blocks, l), keep_quantized=keep_q)
         x, nk, nv, nks, nvs = ds_fused_layer(
             x, weights_fn(layer), kc[l], vc[l], lengths, spec,
             ks_l=ksc[l] if quantized else None,
@@ -134,6 +138,8 @@ def _fused_layer_pass(params, x, cache, lengths, *, spec, weights_fn):
             if quantized:
                 write_token(ksc, l, nks[:, j], lengths + j)
                 write_token(vsc, l, nvs[:, j], lengths + j)
+        if moe_tail_fn is not None:
+            x = moe_tail_fn(x, layer)
     return x, cache
 
 
@@ -165,7 +171,8 @@ def prefill(params, batch, cache, *, embed_fn, qkv_fn, finish_fn, head_fn,
 
 
 def decode_step(params, tokens, cache, lengths, *, embed_fn, qkv_fn,
-                finish_fn, head_fn, num_heads, fused=False, fused_spec=None):
+                finish_fn, head_fn, num_heads, fused=False, fused_spec=None,
+                fused_weights_fn=None, moe_tail_fn=None):
     """One decode step (the reference's hook-driven ``decode_step``):
     tokens [B], lengths [B] int32 = current cache fill per row.  Rotary
     positions are per row (``lengths``); the GQA cache stays compact and
@@ -173,12 +180,18 @@ def decode_step(params, tokens, cache, lengths, *, embed_fn, qkv_fn,
     blocks keep their projections, routers and expert stacks quantized
     into qgemm and the int8 grouped GEMMs (:func:`qgemm_active`).  Writes
     the new K/V (quantized for an int8 cache) into ``cache`` in place and
-    returns (logits [B, V], cache).  ``fused=True`` raises in
-    :func:`fused_decode_active`: no spec wired through these hooks is one
-    the fused kernel covers yet."""
-    fused_decode_active(fused_spec, fused)
+    returns (logits [B, V], cache).  ``fused=True`` (checked by
+    :func:`fused_decode_active`): one ``ds_fused_layer`` per layer with
+    ``fused_spec`` over ``fused_weights_fn(layer)``, then
+    ``moe_tail_fn`` where the family has one (Mixtral's experts)."""
     B = tokens.shape[0]
     x = embed_fn(params, tokens[:, None])[:, 0]                 # [B, D]
+    if fused_decode_active(fused_spec, fused):
+        x, cache = _fused_layer_pass(params, x[:, None, :], cache, lengths,
+                                     spec=fused_spec,
+                                     weights_fn=fused_weights_fn,
+                                     moe_tail_fn=moe_tail_fn)
+        return head_fn(params, x)[:, 0], cache
     quantized = "k_s" in cache
     keep_q = qgemm_active(params["blocks"])
     kc, vc = cache["k"], cache["v"]

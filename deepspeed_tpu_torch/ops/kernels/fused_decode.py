@@ -3,24 +3,30 @@
 decoder layer's W-token window step in one kernel launch, so a decode
 step issues L launches for its layers instead of about six per layer.
 
-    norm1 -> QKV (+bias) -> new K/V (int8 quantize for an int8 cache) ->
-    attention over the cache AND the window's own tokens -> attn-out
-    (+bias) + residual -> norm2 -> MLP (+biases) + residual
+    norm1 -> QKV (+bias) -> rotary -> new K/V (int8 quantize for an int8
+    cache) -> attention over the cache AND the window's own tokens ->
+    attn-out (+bias) + residual -> norm2 -> MLP (+biases) + residual
 
 :func:`ds_fused_layer` launches the CUDA kernel in ``csrc/fused_decode.cu``
 for CUDA tensors and takes :func:`fused_layer_plain` for CPU tensors.  The
 plain version is the reference's ``_ref_fused_layer``: exactly the unfused
-per-layer composition (the same LayerNorm, projections, ``quantize_kv``
-and decode attention, in plain PyTorch), so fused and unfused decode agree
-bitwise on the CPU.
+per-layer composition (the same norms, projections, rotary,
+``quantize_kv`` and decode attention, in plain PyTorch), so fused and
+unfused decode agree bitwise on the CPU.
 
-The kernel covers the GPT-2 spec: ``norm="ln"``, ``qkv="fused"`` with
-biases, ``mlp`` in gelu_tanh / gelu_exact / relu with biases, the serial
-residual, ``num_kv_heads == num_heads``, no rotary and no ALiBi, any
-window W >= 1, head_dim <= 128.  Every other spec raises
-NotImplementedError (ROADMAP.md Queue B: the other families' variants).
-The reference's VMEM-budget fallback is not ported: the kernel streams
-each weight once per call and needs no resident layer.
+Specs covered: ``norm`` "ln" or "rms"; ``qkv`` "fused" ([D, 3D] thirds)
+or "split" (``wq`` / ``wk`` / ``wv``); the QKV, attention-out and GELU /
+ReLU MLP biases each optional; grouped-query attention (``num_kv_heads``
+dividing ``num_heads``); no rotary or full rotary (``rotary_dims ==
+head_dim``, the split-half pairing); ``mlp`` gelu_tanh / gelu_exact /
+relu, ``swiglu`` (``w_gate``, ``w_up``, ``w_down``) or ``none`` (the
+layer ends after the attention-out residual: a mixture-of-experts layer
+runs its experts outside); the serial residual; any window W >= 1;
+head_dim <= 128.  Head-major QKV, partial or interleaved rotary, the
+parallel residual and ALiBi raise NotImplementedError (ROADMAP.md Queue
+B: the fused decode kernel's NeoX and BLOOM specs).  The reference's
+VMEM-budget fallback is not ported: the kernel streams each weight once
+per call and needs no resident layer.
 
 The cache is input-only: the new K/V (int8 codes plus fp32 scales for an
 int8 cache) come back as outputs and the caller writes them with
@@ -43,7 +49,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
 #: K splits per GEMM phase the kernel may use (csrc kMaxSplit)
 MAX_SPLIT = 16
-_ACTS = {"gelu_tanh": 0, "gelu_exact": 1, "relu": 2}
+#: the kernel's MLP kinds (csrc FusedArgs.mlp)
+_MLPS = {"gelu_tanh": 0, "gelu_exact": 1, "relu": 2, "swiglu": 3, "none": 4}
 
 
 @dataclass(frozen=True)
@@ -73,19 +80,22 @@ class FusedLayerSpec:
         return self.num_heads // self.num_kv_heads
 
     def unsupported(self) -> Optional[str]:
-        """Why the port cannot run this spec yet, or None (the GPT-2
-        spec)."""
+        """Why the port cannot run this spec yet, or None."""
         checks = (
-            (self.norm != "ln", f"norm={self.norm!r}"),
-            (self.qkv != "fused", f"qkv={self.qkv!r}"),
-            (not (self.qkv_bias and self.out_bias and self.mlp_bias),
-             "a projection without bias"),
-            (self.mlp not in _ACTS, f"mlp={self.mlp!r}"),
+            (self.norm not in ("ln", "rms"), f"norm={self.norm!r}"),
+            (self.qkv not in ("fused", "split"), f"qkv={self.qkv!r}"),
+            (self.mlp not in _MLPS, f"mlp={self.mlp!r}"),
             (self.residual != "serial", f"residual={self.residual!r}"),
-            (self.num_kv_heads != self.num_heads,
-             f"num_kv_heads={self.num_kv_heads} != num_heads="
-             f"{self.num_heads}"),
-            (self.rotary_dims != 0, f"rotary_dims={self.rotary_dims}"),
+            (self.num_kv_heads < 1 or self.num_heads % self.num_kv_heads,
+             f"num_heads={self.num_heads} over num_kv_heads="
+             f"{self.num_kv_heads}"),
+            (self.qkv == "fused" and self.num_kv_heads != self.num_heads,
+             "qkv='fused' with grouped-query attention"),
+            (self.rotary_dims not in (0, self.head_dim)
+             or self.rotary_dims % 2,
+             f"partial rotary (rotary_dims={self.rotary_dims} of head_dim "
+             f"{self.head_dim})"),
+            (self.rotary_interleaved, "rotary_interleaved"),
             (self.alibi, "alibi"),
         )
         for bad, what in checks:
@@ -126,10 +136,9 @@ def _check_spec(spec: FusedLayerSpec):
     why = spec.unsupported()
     if why is not None:
         raise NotImplementedError(
-            f"ds_fused_layer: {why}: only the GPT-2 spec is ported to "
-            "deepspeed_tpu_torch (ROADMAP.md Queue B: fused_decode's other "
-            "specs — rotary, GQA, RMSNorm, SwiGLU and the MoE "
-            "(mlp='none') variant — port slice 6)")
+            f"ds_fused_layer: {why}: not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP.md Queue B: the fused decode kernel's NeoX and BLOOM "
+            "specs)")
 
 
 # ------------------------------------------------------------ plain version
@@ -139,6 +148,14 @@ def _layer_norm(x, scale, bias, eps):
     var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale + bias).to(x.dtype)
+
+
+def _norm(x, spec, scale, bias):
+    """The spec's norm as the families' unfused blocks compute it."""
+    from deepspeed_tpu_torch.models.llama import _rms_norm
+    if spec.norm == "rms":
+        return _rms_norm(x, scale, spec.eps)
+    return _layer_norm(x, scale, bias, spec.eps)
 
 
 def _dot(x, w):
@@ -155,21 +172,70 @@ def _act(h, mlp):
     return F.gelu(h, approximate="tanh" if mlp == "gelu_tanh" else "none")
 
 
+def _ref_qkv(x, cw, spec: FusedLayerSpec, positions):
+    """norm1 + QKV (+ biases) + rotary (the reference's ``_ref_qkv``):
+    q [B, W, H, hd], k / v [B, W, KV, hd]."""
+    from deepspeed_tpu_torch.models.llama import rope
+    H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    h = _norm(x, spec, cw["n1_s"], cw.get("n1_b"))
+    dt = h.dtype
+    if spec.qkv == "split":
+        q, kk, v = (_dot(h, cw[k]) for k in ("wq", "wk", "wv"))
+        if spec.qkv_bias:
+            q, kk, v = (t + cw[k].to(dt)
+                        for t, k in zip((q, kk, v), ("bq", "bk", "bv")))
+    else:
+        qkv = _dot(h, cw["wqkv"])
+        if spec.qkv_bias:
+            qkv = qkv + cw["bqkv"].to(dt)
+        q, kk, v = qkv.split(H * hd, dim=-1)
+    q = q.unflatten(-1, (H, hd))
+    kk, v = kk.unflatten(-1, (KV, hd)), v.unflatten(-1, (KV, hd))
+    if spec.rotary_dims:
+        q = rope(q, spec.rope_theta, positions)
+        kk = rope(kk, spec.rope_theta, positions)
+    return q, kk, v
+
+
+def _ref_finish(x, attn_flat, cw, spec: FusedLayerSpec):
+    """attn-out (+ bias) + residual, then norm2 + MLP + residual (the
+    reference's ``_ref_finish``, serial residual); ``mlp="none"`` stops
+    after the attention residual."""
+    dt = x.dtype
+    attn_out = _dot(attn_flat, cw["wo"])
+    if spec.out_bias:
+        attn_out = attn_out + cw["bo"].to(dt)
+    x = x + attn_out
+    if spec.mlp == "none":
+        return x
+    h2 = _norm(x, spec, cw["n2_s"], cw.get("n2_b"))
+    if spec.mlp == "swiglu":
+        gated = F.silu(_dot(h2, cw["w_gate"])) * _dot(h2, cw["w_up"])
+        return x + _dot(gated, cw["w_down"])
+    m = _dot(h2, cw["w_in"])
+    if spec.mlp_bias:
+        m = m + cw["b_in"].to(dt)
+    m = _dot(_act(m, spec.mlp), cw["w_out"])
+    if spec.mlp_bias:
+        m = m + cw["b_out"].to(dt)
+    return x + m
+
+
 def fused_layer_plain(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
                       ks_l=None, vs_l=None):
     """Plain PyTorch version (the reference's ``_ref_fused_layer``): the
     unfused per-layer body on copies of the cache, window position j
-    written at ``lengths + j`` and attending ``lengths + j + 1``
-    positions.  Returns ``(x_out, new_k, new_v, new_ks, new_vs)``."""
+    rotated and written at ``lengths + j`` and attending ``lengths + j +
+    1`` positions.  Returns ``(x_out, new_k, new_v, new_ks, new_vs)``."""
     _check_spec(spec)
     B, W, D = x.shape
     H, hd = spec.num_heads, spec.head_dim
     dt = x.dtype
     quantized = ks_l is not None
     rows = torch.arange(B, device=x.device)
-    h = _layer_norm(x, cw["n1_s"], cw["n1_b"], spec.eps)
-    qkv = _dot(h, cw["wqkv"]) + cw["bqkv"].to(dt)
-    q, kk, v = (t.unflatten(-1, (H, hd)) for t in qkv.split(H * hd, dim=-1))
+    positions = lengths[:, None] + torch.arange(W, dtype=lengths.dtype,
+                                                device=x.device)
+    q, kk, v = _ref_qkv(x, cw, spec, positions)
     k_l, v_l = k_l.clone(), v_l.clone()
     if quantized:
         ks_l, vs_l = ks_l.clone(), vs_l.clone()
@@ -194,10 +260,7 @@ def fused_layer_plain(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
             q[:, j].contiguous(), k_l, v_l, (lengths + j + 1).to(torch.int32),
             spec.sm_scale, ks_l, vs_l))
     attn = torch.stack(cols, dim=1).reshape(B, W, H * hd).to(dt)
-    x = x + (_dot(attn, cw["wo"]) + cw["bo"].to(dt))
-    h2 = _layer_norm(x, cw["n2_s"], cw["n2_b"], spec.eps)
-    m = _act(_dot(h2, cw["w_in"]) + cw["b_in"].to(dt), spec.mlp)
-    x_out = x + (_dot(m, cw["w_out"]) + cw["b_out"].to(dt))
+    x_out = _ref_finish(x, attn, cw, spec)
     out = (x_out, torch.stack(new_k, 1), torch.stack(new_v, 1))
     if quantized:
         return out + (torch.stack(new_ks, 1), torch.stack(new_vs, 1))
@@ -205,31 +268,39 @@ def fused_layer_plain(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
 
 
 # ------------------------------------------------------------------ kernel
-_PTRS = ("x", "lengths", "n1_s", "n1_b", "bqkv", "bo", "n2_s", "n2_b",
-         "b_in", "b_out", "wqkv", "wo", "w_in", "w_out", "sqkv", "so",
-         "s_in", "s_out")
-_OUT_PTRS = ("k_cache", "v_cache", "ks_cache", "vs_cache", "x_out", "new_k",
-             "new_v", "new_ks", "new_vs", "abuf", "xres", "part", "qf", "kw",
-             "vw", "bar")
+class _Mat(ctypes.Structure):
+    """``Mat`` of csrc/fused_decode.cu: one projection of a GEMM phase."""
+    _fields_ = [("w", ctypes.c_void_p), ("s", ctypes.c_void_p),
+                ("bias", ctypes.c_void_p), ("part", ctypes.c_void_p),
+                ("nb", ctypes.c_int), ("N", ctypes.c_int),
+                ("split", ctypes.c_int)]
 
 
 class _FusedArgs(ctypes.Structure):
     """``FusedArgs`` of csrc/fused_decode.cu, field for field."""
     _fields_ = (
-        [(n, ctypes.c_int) for n in ("B", "W", "D", "H", "KV", "HD", "M",
-                                     "S_max", "act")]
+        [(n, ctypes.c_int) for n in ("B", "W", "D", "H", "KV", "HD",
+                                     "S_max", "norm", "mlp", "nqkv",
+                                     "nmlp_in")]
         + [("eps", ctypes.c_float), ("sm_scale", ctypes.c_float)]
-        + [(n, ctypes.c_void_p) for n in _PTRS]
-        + [(n, ctypes.c_int) for n in ("nb_qkv", "nb_o", "nb_in", "nb_out")]
-        + [(n, ctypes.c_void_p) for n in _OUT_PTRS]
-        + [(n, ctypes.c_int) for n in ("split_qkv", "split_o", "split_in",
-                                       "split_out")]
-        + [("stamps", ctypes.c_void_p)])
+        + [(n, ctypes.c_void_p) for n in ("x", "lengths", "n1_s", "n1_b",
+                                          "n2_s", "n2_b", "rope")]
+        + [("qkv", _Mat * 3), ("o", _Mat), ("mlp_in", _Mat * 2),
+           ("mlp_out", _Mat)]
+        + [(n, ctypes.c_void_p) for n in ("k_cache", "v_cache", "ks_cache",
+                                          "vs_cache", "x_out", "new_k",
+                                          "new_v", "new_ks", "new_vs",
+                                          "abuf", "xres", "part")]
+        + [("part_floats", ctypes.c_longlong)]
+        + [(n, ctypes.c_void_p) for n in ("qf", "kw", "vw", "bar",
+                                          "stamps")])
 
 #: the intervals between the kernel's phase stamps (``stamps`` option of
-#: :func:`fused_layer_cuda`); the last is CTA 0's share of the final phase
-PHASES = ("ln1", "qkv_gemm", "qkv_epilogue", "attention", "out_proj_gemm",
-          "residual", "ln2", "mlp_in_gemm", "mlp_in_epilogue",
+#: :func:`fused_layer_cuda`); the last is CTA 0's share of the final
+#: phase.  An ``mlp="none"`` layer ends at "residual": the later
+#: intervals read 0
+PHASES = ("norm1", "qkv_gemm", "qkv_epilogue", "attention", "out_proj_gemm",
+          "residual", "norm2", "mlp_in_gemm", "mlp_in_epilogue",
           "mlp_out_gemm", "mlp_out_epilogue_cta0")
 
 
@@ -250,6 +321,8 @@ def _lib():
 #: per device: the grid barrier's [count, generation] (the count is 0
 #: between launches; launches on one device are stream-ordered)
 _barriers = {}
+#: per (rope theta, head_dim, device): the rotary frequencies
+_rope_tables = {}
 
 
 def _barrier(device):
@@ -260,6 +333,18 @@ def _barrier(device):
     return bar
 
 
+def _rope_table(theta, head_dim, device):
+    """``rope_freqs(theta, head_dim)`` on ``device``, made once: the unfused
+    path's own frequencies, so the kernel's angles are its angles."""
+    from deepspeed_tpu_torch.models.llama import rope_freqs
+    key = (float(theta), int(head_dim), device)
+    table = _rope_tables.get(key)
+    if table is None:
+        table = rope_freqs(theta, head_dim, device).contiguous()
+        _rope_tables[key] = table
+    return table
+
+
 def _expect(name, t, shape, dtype, device):
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype \
             or t.device != device or not t.is_contiguous():
@@ -267,6 +352,28 @@ def _expect(name, t, shape, dtype, device):
             f"ds_fused_layer: {name} is {tuple(t.shape)} {t.dtype} on "
             f"{t.device} (contiguous: {t.is_contiguous()}); need "
             f"{tuple(shape)} {dtype} contiguous on {device}")
+
+
+def _phases(spec: FusedLayerSpec, D, M):
+    """The projections of each GEMM phase as (weight key, bias key or
+    None, K, N), in the kernel's order: QKV, attention-out, MLP-in,
+    MLP-out (the MLP phases empty for ``mlp="none"``)."""
+    Dq = spec.num_heads * spec.head_dim
+    Dk = spec.num_kv_heads * spec.head_dim
+    if spec.qkv == "split":
+        qkv = [(w, b if spec.qkv_bias else None, D, n) for w, b, n in
+               (("wq", "bq", Dq), ("wk", "bk", Dk), ("wv", "bv", Dk))]
+    else:
+        qkv = [("wqkv", "bqkv" if spec.qkv_bias else None, D, Dq + 2 * Dk)]
+    o = [("wo", "bo" if spec.out_bias else None, Dq, D)]
+    if spec.mlp == "none":
+        return qkv, o, [], []
+    if spec.mlp == "swiglu":
+        return (qkv, o, [("w_gate", None, D, M), ("w_up", None, D, M)],
+                [("w_down", None, M, D)])
+    bias = spec.mlp_bias
+    return (qkv, o, [("w_in", "b_in" if bias else None, D, M)],
+            [("w_out", "b_out" if bias else None, M, D)])
 
 
 def fused_layer_cuda(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
@@ -298,41 +405,50 @@ def fused_layer_cuda(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
         for name, t in (("ks_l", ks_l), ("vs_l", vs_l)):
             _expect(name, t, (B, S, KV), torch.float32, dev)
     _expect("lengths", lengths, (B,), torch.int32, dev)
-    mats = {"wqkv": (D, 3 * D), "wo": (D, D)}
-    w_in = cw["w_in"]
-    M = (w_in.q if isinstance(w_in, QuantizedTensor) else w_in).shape[-1]
-    mats.update(w_in=(D, M), w_out=(M, D))
-    w_int8 = isinstance(cw["wqkv"], QuantizedTensor)
-    a = _FusedArgs(B=B, W=W, D=D, H=H, KV=KV, HD=hd, M=M, S_max=S,
-                   act=_ACTS[spec.mlp], eps=float(spec.eps),
+    M = 0
+    if spec.mlp != "none":
+        w_in = cw["w_gate" if spec.mlp == "swiglu" else "w_in"]
+        M = (w_in.q if isinstance(w_in, QuantizedTensor) else w_in).shape[-1]
+    phases = _phases(spec, D, M)
+    w_int8 = isinstance(cw[phases[0][0][0]], QuantizedTensor)
+    a = _FusedArgs(B=B, W=W, D=D, H=H, KV=KV, HD=hd, S_max=S,
+                   norm=int(spec.norm == "rms"), mlp=_MLPS[spec.mlp],
+                   nqkv=len(phases[0]), nmlp_in=len(phases[2]),
+                   eps=float(spec.eps),
                    sm_scale=float(spec.sm_scale if spec.sm_scale is not None
                                   else hd ** -0.5))
-    for key, scale_key, nb_key in (("wqkv", "sqkv", "nb_qkv"),
-                                   ("wo", "so", "nb_o"),
-                                   ("w_in", "s_in", "nb_in"),
-                                   ("w_out", "s_out", "nb_out")):
-        w = cw[key]
-        K, N = mats[key]
-        if isinstance(w, QuantizedTensor) != w_int8:
-            raise ValueError("ds_fused_layer: the four projection weights "
-                             "must be all int8 or all float")
-        if w_int8:
-            nb = w.s.shape[-1]
-            _expect(key, w.q, (K, N), torch.int8, dev)
-            _expect(scale_key, w.s, (K, nb), torch.float32, dev)
-            if not 1 <= nb <= N:
-                raise ValueError(f"ds_fused_layer: {key} has {nb} scale "
-                                 f"groups over {N} columns")
-            setattr(a, key, w.q.data_ptr())
-            setattr(a, scale_key, w.s.data_ptr())
-            setattr(a, nb_key, nb)
-        else:
-            _expect(key, w, (K, N), dt, dev)
-            setattr(a, key, w.data_ptr())
-    for key, n in (("n1_s", D), ("n1_b", D), ("bqkv", 3 * D), ("bo", D),
-                   ("n2_s", D), ("n2_b", D), ("b_in", M), ("b_out", D)):
-        _expect(key, cw[key], (n,), dt, dev)
-        setattr(a, key, cw[key].data_ptr())
+    slots = (a.qkv, (a.o,), a.mlp_in, (a.mlp_out,))
+    for mats, slot in zip(phases, slots):
+        for (key, bkey, K, N), m in zip(mats, slot):
+            w = cw[key]
+            if isinstance(w, QuantizedTensor) != w_int8:
+                raise ValueError("ds_fused_layer: the projection weights "
+                                 "must be all int8 or all float")
+            if w_int8:
+                nb = w.s.shape[-1]
+                _expect(key, w.q, (K, N), torch.int8, dev)
+                _expect(f"{key} scales", w.s, (K, nb), torch.float32, dev)
+                if not 1 <= nb <= N:
+                    raise ValueError(f"ds_fused_layer: {key} has {nb} scale "
+                                     f"groups over {N} columns")
+                m.w, m.s, m.nb = w.q.data_ptr(), w.s.data_ptr(), nb
+            else:
+                _expect(key, w, (K, N), dt, dev)
+                m.w = w.data_ptr()
+            m.N = N
+            if bkey is not None:
+                _expect(bkey, cw[bkey], (N,), dt, dev)
+                m.bias = cw[bkey].data_ptr()
+    norms = [("n1_s", "n1_b")] + ([("n2_s", "n2_b")]
+                                  if spec.mlp != "none" else [])
+    for s_key, b_key in norms:
+        _expect(s_key, cw[s_key], (D,), dt, dev)
+        setattr(a, s_key, cw[s_key].data_ptr())
+        if spec.norm == "ln":
+            _expect(b_key, cw[b_key], (D,), dt, dev)
+            setattr(a, b_key, cw[b_key].data_ptr())
+    if spec.rotary_dims:
+        a.rope = _rope_table(spec.rope_theta, hd, dev).data_ptr()
     R = B * W
     x_out = torch.empty_like(x)
     new_k = torch.empty((B, W, KV, hd), dtype=cdt, device=dev)
@@ -343,11 +459,13 @@ def fused_layer_cuda(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
         new_vs = torch.empty_like(new_ks)
         a.ks_cache, a.vs_cache = ks_l.data_ptr(), vs_l.data_ptr()
         a.new_ks, a.new_vs = new_ks.data_ptr(), new_vs.data_ptr()
-    # scratch of one call (stream-ordered caching allocator)
-    abuf = torch.empty((R, max(D, M)), dtype=dt, device=dev)
+    # scratch of one call (stream-ordered caching allocator); the partial
+    # sums of a phase's projections lie side by side in `part`
+    cols = max(sum(n for *_, n in mats) for mats in phases)
+    abuf = torch.empty((R, max(D, H * hd, M)), dtype=dt, device=dev)
     xres = torch.empty((R, D), dtype=dt, device=dev)
-    part = torch.empty((MAX_SPLIT, R, max(3 * D, M)), dtype=torch.float32,
-                       device=dev)
+    part = torch.empty((MAX_SPLIT, R, cols), dtype=torch.float32, device=dev)
+    a.part_floats = part.numel()
     qf = torch.empty((R, H * hd), dtype=torch.float32, device=dev)
     kw = torch.empty((R, KV * hd), dtype=torch.float32, device=dev)
     vw = torch.empty_like(kw)
@@ -388,4 +506,3 @@ def ds_fused_layer(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
 
 #: kernel launches since the count was last set to 0
 ds_fused_layer.launches = 0
-

@@ -32,12 +32,21 @@ The decode batch is always ``max_num_seqs`` rows wide and ``S_pad`` long
 — padding rows point at the reserved trash block and are ignored — so a
 row's arithmetic does not depend on which other requests share the batch.
 
-Greedy decoding is token-for-token identical to the static
-``InferenceEngine.generate`` path (same prefill, same decode kernel, same
-cache values), including across preemption.  Sampled requests draw from
-a ``torch.Generator`` seeded from (seed, absolute position): the draw is
-deterministic per (seed, position) and stable across preemption, but it
-does not reproduce JAX's ``fold_in`` bits.
+Greedy decoding follows the static ``InferenceEngine.generate`` path:
+both prefill at this scheduler's 16-token bucket (``PROMPT_BUCKET``) and
+decode through the same kernels.  What the card holds (``chip_smoke.py``
+phases 12, 15 and 18): with a float KV cache the tokens are identical,
+preemption included; with an int8 cache they are identical for every
+request that was not preempted, at a decode batch of up to 8 rows.  A
+resumed request re-prefills its generated tail, so those K/V come from
+the prefill's GEMMs instead of the decode's, and a wider batch takes
+qgemm's tile path and the group-padded expert kernel, which sum in
+another order than the one-row generate: an int8 cache can turn such a
+last-bit difference into a whole code step, and the tokens then part.
+Sampled requests draw from a ``torch.Generator`` seeded from (seed,
+absolute position): the draw is deterministic per (seed, position) and
+stable across preemption, but it does not reproduce JAX's ``fold_in``
+bits.
 """
 import collections
 import os

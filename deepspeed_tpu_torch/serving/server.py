@@ -34,6 +34,11 @@ Mixtral in bf16 (16 of the 32 layers fit one 80 GB card):
 int8 weights (qgemm), an int8 KV cache and the fused per-layer decode:
     python -m deepspeed_tpu_torch.serving.server --model gpt2:760m \\
         --int8-weights --kv-cache-dtype int8 --fused-decode on
+Llama-2 7B (all 32 layers, weights drawn on the card from a seed), with
+the fused per-layer decode kernel (also on for Mixtral, whose experts
+stay on the grouped kernels):
+    python -m deepspeed_tpu_torch.serving.server --model llama:7b \\
+        --fused-decode on --port 8000
 """
 import argparse
 import enum
@@ -50,12 +55,14 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 
 def model_from_spec(spec: str, **overrides):
-    """``arch:size`` -> Model, e.g. ``gpt2:760m`` or ``mixtral:8x7b``.
-    The port has the GPT-2 and Mixtral families; other architectures
-    raise."""
+    """``arch:size`` -> Model, e.g. ``gpt2:760m``, ``llama:7b`` or
+    ``mixtral:8x7b``.  The port has the GPT-2, Llama and Mixtral families;
+    other architectures raise."""
     from deepspeed_tpu_torch.models.gpt2 import gpt2_model
+    from deepspeed_tpu_torch.models.llama import llama_model
     from deepspeed_tpu_torch.models.mixtral import mixtral_model
-    registry = {"gpt2": gpt2_model, "mixtral": mixtral_model}
+    registry = {"gpt2": gpt2_model, "llama": llama_model,
+                "mixtral": mixtral_model}
     arch, _, size = spec.partition(":")
     if arch not in registry:
         raise ValueError(
@@ -355,7 +362,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "server (paged KV cache, CUDA decode and flash "
                     "attention kernels)")
     p.add_argument("--model", default="gpt2:125m",
-                   help="arch:size spec (gpt2:125m, gpt2:760m, ...)")
+                   help="arch:size spec (gpt2:760m, llama:7b, "
+                        "mixtral:8x7b, ...)")
     p.add_argument("--config", default=None,
                    help="DS-style JSON config; its 'serving' section "
                         "configures the scheduler")

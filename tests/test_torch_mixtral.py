@@ -210,26 +210,33 @@ def test_model_from_spec_and_counts():
                 **{**jmix.MIXTRAL_SIZES[size], **kw}))
     assert pmix.count_params(pmix.MixtralConfig(num_layers=16)) == \
         23_482_470_400
-    with pytest.raises(ValueError, match="not ported"):
-        model_from_spec("llama:7b")
+    # Llama is ported: llama:7b builds with the reference's count
+    from deepspeed_tpu.models import llama as jll
+    llama = model_from_spec("llama:7b")
+    assert llama.meta["n_params"] == jll.count_params(jll.LlamaConfig(
+        **jll.LLAMA_SIZES["7b"])) == 6_738_415_616
 
 
 def test_server_cli_builds_a_mixtral_scheduler():
     """``--model mixtral:tiny --num-layers 1``: the CLI's depth override,
-    an int8 pool, a request served; ``--fused-decode on`` raises."""
+    an int8 pool, a request served; with ``--fused-decode on`` the fused
+    scheduler serves the same tokens."""
     argv = ["--model", "mixtral:tiny", "--num-layers", "1", "--dtype",
             "float32", "--device", "cpu", "--kv-cache-dtype", "int8"]
-    sched = build_scheduler(build_parser().parse_args(argv))
-    assert sched.model.config.num_layers == 1
-    assert sched.pool["k"].dtype == torch.int8
-    assert sched.pool["k"].shape[0] == 1
-    req = sched.submit(np.arange(1, 9, dtype=np.int32),
-                       SamplingParams(max_new_tokens=4))
-    sched.run_until_idle()
-    assert req.state == RequestState.FINISHED and req.num_generated == 4
-    with pytest.raises(NotImplementedError, match="fused_decode"):
-        build_scheduler(build_parser().parse_args(
-            argv + ["--fused-decode", "on"]))
+    outs = {}
+    for fused in ("off", "on"):
+        sched = build_scheduler(build_parser().parse_args(
+            argv + ["--fused-decode", fused]))
+        assert sched.fused_decode is (fused == "on")
+        assert sched.model.config.num_layers == 1
+        assert sched.pool["k"].dtype == torch.int8
+        assert sched.pool["k"].shape[0] == 1
+        req = sched.submit(np.arange(1, 9, dtype=np.int32),
+                           SamplingParams(max_new_tokens=4))
+        sched.run_until_idle()
+        assert req.state == RequestState.FINISHED and req.num_generated == 4
+        outs[fused] = req.output_ids
+    assert outs["on"] == outs["off"]
 
 
 def test_params_carry_across_and_back(served):
@@ -276,19 +283,42 @@ def test_device_init_is_seeded_and_shaped():
 
 # --------------------------------------------------------------- refusals
 def test_explicit_fused_decode_raises_never_falls_back(served):
-    _, _, pm, peng = served
-    with pytest.raises(NotImplementedError, match="norm='rms'.*ROADMAP"):
-        ContinuousBatchingScheduler(pm, peng.params,
-                                    ServingConfig(fused_decode=True))
+    """Mixtral's fused arm (the attention half in the fused layer, the
+    experts after it on the grouped kernels) serves: its scheduler is
+    token-identical to the unfused one across a preemption, float and
+    int8 cache, and its decode logits equal the unfused step's bitwise on
+    the CPU.  A spec the kernel does not cover still raises."""
+    jm, jeng, pm, peng = served
+    for kv in (None, "int8"):
+        out = {}
+        for fused in (False, True):
+            ps = ContinuousBatchingScheduler(
+                pm, peng.params, ServingConfig(
+                    block_size=8, num_blocks=14, max_num_seqs=3,
+                    max_num_batched_tokens=256, fused_decode=fused),
+                kv_cache_dtype=kv)
+            reqs = [ps.submit(p, SamplingParams(max_new_tokens=n),
+                              priority=pr)
+                    for p, n, pr in zip(_prompts(), (8, 6, 10, 7),
+                                        (1, 0, 0, 1))]
+            ps.run_until_idle()
+            assert ps.fused_decode is fused
+            assert ps.metrics.counters["preemptions"] >= 1
+            out[fused] = [r.output_ids for r in reqs]
+        assert out[True] == out[False]
     cache = pm.init_cache_fn(1, 64, torch.float32, "cpu")
     args = (peng.params, torch.tensor([5]), cache,
             torch.tensor([0], dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="fused_decode"):
-        pm.decode_fn(*args, fused=True)
+    fused = pm.decode_fn(*args, fused=True)[0]
+    assert torch.equal(fused, pm.decode_fn(*args, fused=False)[0])
     for off in (None, False):       # None and False are the unfused path
-        ContinuousBatchingScheduler(pm, peng.params,
-                                    ServingConfig(fused_decode=off))
-    assert pm.decode_fn(*args, fused=False)[0].shape == (1, 256)
+        assert not ContinuousBatchingScheduler(
+            pm, peng.params, ServingConfig(fused_decode=off)).fused_decode
+    from dataclasses import replace
+    alibi = replace(pm, fused_spec=replace(pm.fused_spec, alibi=True))
+    with pytest.raises(NotImplementedError, match="alibi.*ROADMAP"):
+        ContinuousBatchingScheduler(alibi, peng.params,
+                                    ServingConfig(fused_decode=True))
 
 
 def test_unported_settings_raise(served):
