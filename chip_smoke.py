@@ -2,14 +2,16 @@
 """On-GPU smoke of deepspeed_tpu_torch: builds the CUDA kernels from the
 checkout, holds each against its plain PyTorch version on the card, then
 serves GPT-2 760M and trains it (random weights from the seeded host
-init), serves Mixtral-8x7B's widths at 8 of its 32 layers in bf16,
-Mixtral-8x7B whole (all 32 layers) with int8 weights and an int8 KV
-cache, and Llama-2 7B whole in bf16 and with int8 weights and cache,
-fused decode off and on (random weights drawn on the card), through the
-port's own entry points.
+init), serves Mixtral-8x7B's widths at 4 of its 32 layers in bf16,
+Mixtral-8x7B at 16 of its 32 layers with int8 weights and an int8 KV
+cache, Llama-2 7B whole in bf16 and with int8 weights and cache,
+fused decode off and on, GPT-NeoX-20B whole (all 44 layers) in bf16
+fused off and on and with int8 weights and cache, BLOOM-560m and GPT-Neo
+2.7B (random weights drawn on the card), through the port's own entry
+points.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --only 17,18   # the build, then phases 12, 15-19
+    python3 chip_smoke.py --only 20,21   # the build, then phases 12, 15-23
                                          # as listed (no kernels line)
 
 Phases (any failed check exits non-zero before the final line):
@@ -79,7 +81,7 @@ Phases (any failed check exits non-zero before the final line):
      prefill L flash + 3 L ggemm above a 64-token bucket, else 3 L
      slot), teacher-forced decode logits within 1e-3 of a full forward
      with the plain kernels;
-  13. bf16 Mixtral-8x7B widths at 8 of its 32 layers over HTTP (slice
+  13. bf16 Mixtral-8x7B widths at 4 of its 32 layers over HTTP (slice
      4's main path, its depth cut for the smoke's time limit): the
      device init, phase 5's eight requests,
      tokens/s, TTFT, TPOT, decode ms per step, a profiled decode window,
@@ -106,7 +108,8 @@ Phases (any failed check exits non-zero before the final line):
      decode logits within 1e-3 of a full forward with the plain kernels;
      on the int8 cache every request not preempted token-identical to
      itself in a run with the prompts reordered;
-  16. bf16 int8 Mixtral-8x7B at all 32 layers over HTTP (the int8 slice's
+  16. bf16 int8 Mixtral-8x7B at 16 of its 32 layers (cut for the time
+     limit; all 32 fit the card) over HTTP (the int8 slice's
      main path): the quantizing device init (seconds, quantizer
      launches, params' device bytes), then phase 5's eight requests at
      max_num_seqs 8, unfused and fused, and 96 requests of 16-256 prompt
@@ -135,7 +138,36 @@ Phases (any failed check exits non-zero before the final line):
      and int8 weights with an int8 KV cache, each with fused decode off
      and on: the device init (seconds, quantizer launches, params'
      device bytes), phase 5's eight requests, tokens/s, TTFT, TPOT,
-     decode ms per step, a profiled decode window, peak memory.
+     decode ms per step, a profiled decode window, peak memory;
+  20. the decode kernel's ALiBi variant (BLOOM-560m's shape, B 8, H 16,
+     hd 64, and GQA H 32 / KV 8, hd 128) and windowed variant (GPT-Neo
+     2.7B's shape, H 20, hd 128, window 256, sm_scale 1, floors from
+     DECODE_LENS, the positions below them poisoned; and the GQA shape),
+     each over a float and an int8 cache, fp32 and bf16; the fused layer
+     at the GPT-NeoX-20B, Pythia-160m and BLOOM-560m specs at B 8, W 1
+     and 4, float / int8 weights x float / int8 cache; all against their
+     plain versions (fp32 <= 1e-4 abs, TF32 off; bf16 <= 2e-2 of each
+     output's max; new int8 K/V codes within one code), then timed in
+     bf16 over the model's own layers (ALiBi 24, window 32, NeoX-20B 44,
+     BLOOM 24) beside the plain version, the bound and SDPA with the
+     same mask (float cache);
+  21. fp32 GPT-NeoX-20B, BLOOM-560m and GPT-Neo 2.7B widths at 4 layers
+     (GPT-Neo: 2 global, 2 local), fp32 and int8 weights x float and
+     int8 KV cache, NeoX and BLOOM fused off and on, a pool that forces a
+     preemption: exact launch counts per prefill and decode step (NeoX L
+     flash, L decode or L fused; BLOOM no flash, L ALiBi decode or L
+     fused; GPT-Neo no flash, L windowed decode; unfused int8 weights 4 L
+     qgemm besides), fused token-identical to unfused, the scheduler to the
+     static generate (int8 cache: every request not preempted), teacher-
+     forced decode logits within 1e-3 of a plain full forward;
+  22. GPT-NeoX-20B at all 44 layers over HTTP (the slice's main path):
+     bf16 fused off and on, int8 weights + int8 KV cache fused on: load
+     seconds, quantizer launches (176), params' device bytes, phase 5's
+     eight requests, tokens/s, TTFT, TPOT, decode ms per step, a profiled
+     decode window, peak memory;
+  23. BLOOM-560m (bf16 fused off and on; int8 weights + int8 cache
+     unfused) and GPT-Neo 2.7B (bf16; int8 weights + int8 cache) at all
+     their layers over HTTP, as phase 22.
 Earlier lines are JSON objects; the line before the last two is the
 ``kernels`` object, then the nvidia-smi line, and the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
@@ -506,7 +538,13 @@ def bf16_phase(torch, eng32, da, fa):
     return launches, report
 
 
-def profile_decode(torch, sched, prompts, max_new=MAX_NEW):
+#: new tokens of a profiling run: the profiled window is the scheduler's
+#: first full-size decode window (8 steps) with every prompt active; the
+#: tokens after it only drain the requests
+PROFILE_NEW = 16
+
+
+def profile_decode(torch, sched, prompts, max_new=PROFILE_NEW):
     """torch.profiler over one decode window of the bf16 scheduler with
     all of ``prompts`` active: the device's busy share of the window's
     wall time and the kernels that take the most device time."""
@@ -1242,14 +1280,15 @@ def fused_weights(torch, g, dt, int8_weights, qz):
     return cw
 
 
-def fused_phase_us(torch, fd, x, layers, caches, lens, spec):
+def fused_phase_us(torch, fd, x, layers, caches, lens, spec,
+                   alibi_slopes=None):
     """Microseconds of each phase of the fused kernel (its device-clock
     stamps, fd.PHASES), median over one call per layer."""
     st = torch.zeros(len(fd.PHASES) + 1, dtype=torch.int64, device="cuda")
     rows = []
     for cw, c in zip(layers, caches):
         fd.fused_layer_cuda(x, cw, c[0], c[1], lens, spec, c[2], c[3],
-                            stamps=st)
+                            alibi_slopes, stamps=st)
         t = st.tolist()
         rows.append([(b - a) / 1e3 for a, b in zip(t, t[1:])])
     return {name: statistics.median(r[i] for r in rows)
@@ -1641,11 +1680,11 @@ def int8_http_phase(torch, da, fa):
 
 
 # ------------------------------------------------ Mixtral serving (slice 4)
-#: Mixtral-8x7B widths (MIXTRAL_SIZES["8x7b"]); the bf16 main path runs 8
-#: of its 32 layers (all 32 in bf16 do not fit 80 GB; 8 keep the smoke
+#: Mixtral-8x7B widths (MIXTRAL_SIZES["8x7b"]); the bf16 main path runs 4
+#: of its 32 layers (all 32 in bf16 do not fit 80 GB; 4 keep the smoke
 #: inside its time limit)
 MIX_D, MIX_F, MIX_E, MIX_K = 4096, 14336, 8, 2
-MIX_LAYERS = 8
+MIX_LAYERS = 4             # phase 13, cut for the time limit
 MIX_PARITY_LAYERS = 2       # phases 12 and 15, cut for the time limit
 #: the two expert projections: name -> (K, N)
 MOE_SHAPES = {"gate_in": (MIX_D, MIX_F), "out": (MIX_F, MIX_D)}
@@ -2031,9 +2070,10 @@ def mixtral_http_phase(torch, gg, da, fa):
 
 
 # ------------------------------------------- int8 Mixtral serving (slice 5)
-#: the int8 slice's main path: Mixtral-8x7B at all 32 layers (int8
-#: weights: 47.7 GB), bf16 compute, int8 KV cache
-MIX_Q_LAYERS = 32
+#: the int8 slice's main path: Mixtral-8x7B with int8 weights (all 32
+#: layers, 47.7 GB, fit one card), bf16 compute, int8 KV cache; the
+#: smoke serves 16 of them, cut for its time limit
+MIX_Q_LAYERS = 16
 SLOT_Q_R = (1, 16, 128)
 GROUP_Q_R = (129, 192, 1800)
 #: the wide-batch arm: max_num_seqs 96 (R = 192 routed rows a decode
@@ -2470,7 +2510,7 @@ def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
 
 def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
     """Phase 16, the slice's main path: init_inference(mixtral_model(
-    "8x7b"), bf16, quant enabled, int8 KV cache) at all 32 layers (the
+    "8x7b"), bf16, quant enabled, int8 KV cache) at MIX_Q_LAYERS (the
     quantizing device init: seconds, quantizer launches, params' device
     bytes) -> scheduler -> HTTP, three arms: phase 5's eight requests at
     max_num_seqs 8 (the slot kernel), unfused and fused (the fused layer
@@ -2492,11 +2532,12 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
     at_start = torch.cuda.memory_allocated()
     emit({"phase": "mixtral_int8_start", "memory_allocated": at_start})
     check(at_start < 4e9, f"int8 mixtral: {at_start} bytes still allocated "
-          "before the 32-layer load (an earlier engine was not freed)")
+          "before the load (an earlier engine was not freed)")
     torch.cuda.reset_peak_memory_stats()
     reset_moe_int8_counts(gg, qz, qg, da, fa)
     t0 = time.perf_counter()
-    model = mixtral_model("8x7b", dtype="bfloat16")
+    model = mixtral_model("8x7b", num_layers=MIX_Q_LAYERS,
+                          dtype="bfloat16")
     eng = dt.init_inference(model, {"dtype": "bfloat16"},
                             quant={"enabled": True}, kv_cache_dtype="int8")
     torch.cuda.synchronize()
@@ -2562,8 +2603,7 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
                "outputs": [o["output_ids"][:8] for o in outs[:8]]}
         # the decode batch is max_num_seqs rows whatever is active, so
         # eight of the prompts give the arm's per-step device work
-        run["decode_profile"] = profile_decode(torch, sched, prompts[:8],
-                                               max_new)
+        run["decode_profile"] = profile_decode(torch, sched, prompts[:8])
         run["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
         runs[key] = run
         del sched
@@ -2591,23 +2631,27 @@ def family_specs():
             ("gqa_swiglu_biased", llama.fused_spec(small), small.d_mlp))
 
 
-def spec_weights(torch, g, spec, M, dt, int8_weights, qz):
+def spec_weights(torch, g, spec, M, dt, int8_weights, qz, res_std=0.02):
     """A layer's canonical fused weights for ``spec``, seeded (std 0.02
-    projections and biases, norm scales near 1), int8 projections
-    quantized from the compute-dtype values."""
+    projections and biases, ``res_std`` for the projections that feed
+    the residual stream, norm scales near 1), int8 projections quantized
+    from the compute-dtype values."""
     from deepspeed_tpu_torch.models.model import QuantizedTensor
     from deepspeed_tpu_torch.ops.kernels.fused_decode import _weight_order
     D = spec.d_model
     Dq = spec.num_heads * spec.head_dim
     Dk = spec.num_kv_heads * spec.head_dim
-    shapes = {"n1_s": (D,), "n2_s": (D,), "wq": (D, Dq), "wk": (D, Dk),
-              "wv": (D, Dk), "bq": (Dq,), "bk": (Dk,), "bv": (Dk,),
-              "wo": (Dq, D), "bo": (D,), "w_gate": (D, M), "w_up": (D, M),
-              "w_down": (M, D)}
+    shapes = {"n1_s": (D,), "n2_s": (D,), "n1_b": (D,), "n2_b": (D,),
+              "wq": (D, Dq), "wk": (D, Dk), "wv": (D, Dk), "bq": (Dq,),
+              "bk": (Dk,), "bv": (Dk,), "wqkv": (D, Dq + 2 * Dk),
+              "bqkv": (Dq + 2 * Dk,), "wo": (Dq, D), "bo": (D,),
+              "w_gate": (D, M), "w_up": (D, M), "w_down": (M, D),
+              "w_in": (D, M), "b_in": (M,), "w_out": (M, D), "b_out": (D,)}
     cw = {}
     for key in _weight_order(spec):
         t = torch.randn(*shapes[key], generator=g, device="cuda")
-        cw[key] = (t * 0.1 + 1 if key.endswith("_s") else t * 0.02).to(dt)
+        std = res_std if key in ("wo", "w_out", "w_down") else 0.02
+        cw[key] = (t * 0.1 + 1 if key.endswith("_s") else t * std).to(dt)
         if int8_weights and key.startswith("w"):
             cw[key] = QuantizedTensor(*qz.block_quantize_int8(cw[key]), dt)
     return cw
@@ -2964,9 +3008,653 @@ def llama_http_phase(torch, da, fa):
     return loads, runs
 
 
+# ------------------------------------------- slice 7: NeoX, BLOOM, GPT-Neo
+NEOX_LAYERS = 44            # neox:20b, nothing cut
+FAMILY_PARITY_LAYERS = 4
+GPTNEO_WINDOW = 256
+
+
+def slice7_counts(da, qz, qg, fd, fa):
+    """:func:`int8_counts` and the decode kernel's ALiBi and windowed
+    counters."""
+    return {**int8_counts(da, qz, qg, fd, fa),
+            "decode_attention_alibi": da.decode_attention.alibi_launches,
+            "decode_attention_windowed":
+            da.decode_attention.windowed_launches}
+
+
+def reset_slice7_counts(da, qz, qg, fd, fa):
+    reset_int8_counts(da, qz, qg, fd, fa)
+    da.decode_attention.alibi_launches = 0
+    da.decode_attention.windowed_launches = 0
+
+
+def slice7_specs():
+    """(name, spec, d_mlp, the std of the residual projections) of phase
+    20's fused layer: GPT-NeoX-20B's layer (head-major QKV, 24 of 96 dims
+    rotary, exact GELU, parallel residual), Pythia-160m's (hd 64, 16
+    rotary dims) and BLOOM-560m's (head-major QKV, ALiBi, tanh GELU,
+    serial residual); weights at the families' own init scales (0.02,
+    and 0.02 / sqrt(2 L) for ``dense_w`` and ``mlp_out_w``)."""
+    from deepspeed_tpu_torch.models import bloom, neox
+    out = []
+    for name, mod, cfg in (
+            ("neox_20b", neox, neox.NeoXConfig(**neox.NEOX_SIZES["20b"])),
+            ("pythia_160m", neox,
+             neox.NeoXConfig(**neox.NEOX_SIZES["pythia-160m"])),
+            ("bloom_560m", bloom,
+             bloom.BloomConfig(**bloom.BLOOM_SIZES["560m"]))):
+        out.append((name, mod.fused_spec(cfg), cfg.d_mlp,
+                     0.02 / (2 * cfg.num_layers) ** 0.5))
+    return out
+
+
+def decode_variant_cases(torch, g, variant):
+    """Phase 20's decode inputs: (B, H, KV, hd, floors or None, slopes or
+    None, sm_scale) — ALiBi at BLOOM-560m's shape (B 8, H 16, hd 64) and
+    at a GQA shape (H 32 over KV 8, hd 128); the window at GPT-Neo
+    2.7B's (H 20, hd 128, window 256, sm_scale 1) and the same GQA
+    shape, floors max(len - 256, 0) from DECODE_LENS."""
+    from deepspeed_tpu_torch.models.bloom import slopes_on
+    L = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    floors = torch.clamp(L - GPTNEO_WINDOW, min=0).to(torch.int32)
+    if variant == "alibi":
+        return [(8, 16, 16, 64, None, slopes_on(16, "cuda"), None),
+                (8, 32, 8, 128, None, slopes_on(32, "cuda"), None)]
+    return [(8, 20, 20, 128, floors, None, 1.0),
+            (8, 32, 8, 128, floors, None, None)]
+
+
+def decode_variant_inputs(torch, da, g, B, H, KV, hd, floors, dt,
+                          int8_cache, S=1024):
+    """q and a cache (positions below a row's floor poisoned with large
+    values, so a kernel that reads one of them cannot agree)."""
+    q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+    k = torch.randn(B, S, KV, hd, generator=g, device="cuda")
+    v = torch.rand(B, S, KV, hd, generator=g, device="cuda") * 2 - 1
+    if floors is not None:
+        below = (torch.arange(S, device="cuda")[None, :]
+                 < floors[:, None])[..., None, None]
+        k = torch.where(below, torch.full_like(k, 100.0), k)
+        v = torch.where(below, torch.full_like(v, -100.0), v)
+    if int8_cache:
+        (kq, ks), (vq, vs) = da.quantize_kv(k), da.quantize_kv(v)
+        return q, kq, vq, ks, vs
+    return q, k.to(dt), v.to(dt), None, None
+
+
+def decode_variant_phase(torch, F, da):
+    """Phase 20, decode: the ALiBi and windowed variants, each over a
+    float and an int8 cache, fp32 and bf16 queries, against the plain
+    version; then each timed in bf16 over the model's own layers' caches
+    (ALiBi: 24 BLOOM-560m layers; window: 32 GPT-Neo 2.7B local layers)
+    beside the plain version, SDPA with the same mask and the bound.
+    Returns ({variant: worst held error}, {variant: {cache: times}})."""
+    g = torch.Generator(device="cuda").manual_seed(71)
+    L = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    worst, times = {}, {}
+    for variant in ("alibi", "windowed"):
+        worst[variant] = 0.0
+        for dt_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dt_name)
+            for B, H, KV, hd, floors, slopes, sm in decode_variant_cases(
+                    torch, g, variant):
+                for c8 in (False, True):
+                    q, k, v, ks, vs = decode_variant_inputs(
+                        torch, da, g, B, H, KV, hd, floors, dt, c8)
+                    kw = dict(sm_scale=sm, k_scale=ks, v_scale=vs,
+                              alibi_slopes=slopes, min_pos=floors)
+                    o = da.decode_attention_cuda(q, k, v, L, **kw)
+                    r = da.decode_attention_plain(q, k, v, L, **kw)
+                    torch.cuda.synchronize()
+                    e, held = err_of(torch, o, r, dt_name)
+                    emit({"check": f"decode_attention_{variant}",
+                          "dtype": dt_name, "int8_cache": c8,
+                          "shape": [B, H, KV, hd, 1024], "max_abs_err": e,
+                          "held": held, "tol": INT8_TOL[dt_name],
+                          "finite": bool(torch.isfinite(o).all())})
+                    check(held <= INT8_TOL[dt_name]
+                          and bool(torch.isfinite(o).all()),
+                          f"decode_attention {variant} {dt_name} int8_cache="
+                          f"{c8} {(B, H, KV, hd)}: err {e} (held {held})")
+                    worst[variant] = max(worst[variant], held)
+        # times: bf16, the model's own shape, one cache per layer
+        B, H, KV, hd, floors, slopes, sm = decode_variant_cases(
+            torch, g, variant)[0]
+        layers = 24 if variant == "alibi" else 32
+        first = (torch.zeros_like(L) if floors is None else floors)
+        n = int((L - first).sum())       # the positions the rows attend
+        pos = torch.arange(1024, device="cuda")
+        valid = (pos[None, :] < L[:, None]) & (pos[None, :] >= first[:, None])
+        by_cache = {}
+        for c8 in (False, True):
+            caches = [decode_variant_inputs(torch, da, g, B, H, KV, hd,
+                                            floors, torch.bfloat16, c8)
+                      for _ in range(layers)]
+            q = caches[0][0]
+            kw = [dict(sm_scale=sm, k_scale=c[3], v_scale=c[4],
+                       alibi_slopes=slopes, min_pos=floors) for c in caches]
+            t = timed(torch, [lambda c=c, w=w: da.decode_attention_cuda(
+                q, c[1], c[2], L, **w) for c, w in zip(caches, kw)],
+                [lambda c=c, w=w: da.decode_attention_plain(
+                    q, c[1], c[2], L, **w) for c, w in zip(caches, kw)])
+            per_pos = 2 * H * hd * (1 if c8 else 2) + (2 * H * 4 if c8 else 0)
+            t["bound_ms"], t["bound_by"] = bound_of(
+                n * per_pos + 2 * B * H * hd * 2 + 4 * B
+                + (4 * H if slopes is not None else 4 * B),
+                4 * n * H * hd, BF16_FLOPS)
+            t["attended_positions"] = n
+            t["library_ms"] = None
+            if not c8:      # SDPA on the float cache with the same mask
+                if slopes is not None:
+                    mask = torch.where(valid[:, None, None, :],
+                                       slopes[None, :, None, None]
+                                       * pos.float(), float("-inf"))
+                    mask = mask.to(torch.bfloat16)
+                else:
+                    mask = valid[:, None, None, :]
+                kt = [(c[1].transpose(1, 2), c[2].transpose(1, 2))
+                      for c in caches]
+                qt = q[:, :, None]
+                t["library_ms"] = device_ms(torch, [
+                    lambda a=a: F.scaled_dot_product_attention(
+                        qt, a[0], a[1], attn_mask=mask, scale=sm)
+                    for a in kt])[0]
+                del kt
+            by_cache["int8" if c8 else "bf16"] = t
+            del caches
+            torch.cuda.empty_cache()
+        times[variant] = by_cache
+    emit({"phase": "decode_variant_kernel_times", "lens": DECODE_LENS,
+          "alibi_work": "one BLOOM-560m layer: B 8, H 16, hd 64, S_max "
+                        "1024, bf16 query (24 layers' own caches)",
+          "windowed_work": "one GPT-Neo 2.7B local layer: B 8, H 20, hd "
+                           "128, window 256, sm_scale 1, bf16 query (32 "
+                           "layers' own caches)", **times})
+    return worst, times
+
+
+def slice7_fused_phase(torch, qz, da, fd):
+    """Phase 20, fused: the fused layer at the NeoX-20B, Pythia-160m and
+    BLOOM-560m specs against its plain version at B 8, W 1 and 4, float
+    / int8 weights x float / int8 cache, fp32 and bf16; then timed in
+    bf16 at W 1 over the model's own layers (NeoX-20B: 44, bf16 and
+    int8 weights and cache; BLOOM-560m: 24, bf16) beside the plain
+    version and the bound.  Returns (worst held error by spec, times by
+    spec)."""
+    from deepspeed_tpu_torch.models.bloom import slopes_on
+    g = torch.Generator(device="cuda").manual_seed(72)
+    worst = {}
+    specs = slice7_specs()
+    for name, spec, M, res in specs:
+        KV, hd, D = spec.num_kv_heads, spec.head_dim, spec.d_model
+        sl = slopes_on(spec.num_heads, "cuda") if spec.alibi else None
+        for dt_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dt_name)
+            for w8 in (False, True):
+                cw = spec_weights(torch, g, spec, M, dt, w8, qz, res)
+                for c8 in (False, True):
+                    k, v, ks, vs = spec_cache(torch, g, dt, c8, da, KV, hd)
+                    for W in FUSED_W:
+                        lens = torch.tensor([min(n, 1024 - W)
+                                             for n in DECODE_LENS],
+                                            dtype=torch.int32, device="cuda")
+                        x = torch.randn(8, W, D, generator=g,
+                                        device="cuda").to(dt)
+                        got = fd.fused_layer_cuda(x, cw, k, v, lens, spec,
+                                                  ks, vs, sl)
+                        ref = fd.fused_layer_plain(x, cw, k, v, lens, spec,
+                                                   ks, vs, sl)
+                        row = {"check": "ds_fused_layer", "spec": name,
+                               "dtype": dt_name, "int8_weights": w8,
+                               "int8_cache": c8, "W": W,
+                               "tol": INT8_TOL[dt_name]}
+                        ok, held = fused_check(torch, got, ref, dt_name, row)
+                        worst[name] = max(worst.get(name, 0.0), held)
+                        emit(row)
+                        check(ok, f"ds_fused_layer {name} {dt_name} "
+                              f"w8={w8} c8={c8} W={W}: {row}")
+                    del k, v, ks, vs
+                del cw
+        torch.cuda.empty_cache()
+    dt = torch.bfloat16
+    lens = torch.tensor([min(n, 1023) for n in DECODE_LENS],
+                        dtype=torch.int32, device="cuda")
+    configs = {"neox_20b": (NEOX_LAYERS, ((False, False), (True, True))),
+               "bloom_560m": (24, ((False, False),))}
+    times = {}
+    for name, spec, M, res in specs:
+        if name not in configs:
+            continue
+        n_layers, arms = configs[name]
+        sl = slopes_on(spec.num_heads, "cuda") if spec.alibi else None
+        x = torch.randn(8, 1, spec.d_model, generator=g, device="cuda").to(dt)
+        by = {}
+        for w8, c8 in arms:
+            layers = [spec_weights(torch, g, spec, M, dt, w8, qz, res)
+                      for _ in range(n_layers)]
+            caches = [spec_cache(torch, g, dt, c8, da, spec.num_kv_heads,
+                                 spec.head_dim) for _ in range(n_layers)]
+            fns = [lambda cw=cw, c=c: fd.fused_layer_cuda(
+                x, cw, c[0], c[1], lens, spec, c[2], c[3], sl)
+                for cw, c in zip(layers, caches)]
+            plain = [lambda cw=cw, c=c: fd.fused_layer_plain(
+                x, cw, c[0], c[1], lens, spec, c[2], c[3], sl)
+                for cw, c in zip(layers, caches)]
+            b, f, wbytes, cbytes = fused_bound(spec, M, layers[0], lens, c8)
+            key = f"{'int8' if w8 else 'bf16'}_weights_" \
+                  f"{'int8' if c8 else 'bf16'}_cache"
+            by[key] = dict(timed(torch, fns, plain),
+                           bound_ms=b, bound_by=f, weight_bytes=wbytes,
+                           cache_bytes=cbytes, library_ms=None,
+                           phase_us=fused_phase_us(torch, fd, x, layers,
+                                                   caches, lens, spec, sl))
+            del layers, caches, fns, plain
+            torch.cuda.empty_cache()
+        times[name] = by
+    emit({"phase": "slice7_fused_kernel_times", "B": 8, "W": 1,
+          "lens": lens.tolist(), "by_spec": times})
+    return worst, times
+
+
+def slice7_kernel_phase(torch, F, da):
+    """Phase 20: the decode kernel's ALiBi and windowed variants and the
+    fused layer's NeoX and BLOOM specs against their plain versions, then
+    timed.  Returns (worst held error by variant, times by variant)."""
+    qz, qg, fd = int8_modules()
+    dec_err, dec_t = decode_variant_phase(torch, F, da)
+    torch.cuda.empty_cache()
+    fus_err, fus_t = slice7_fused_phase(torch, qz, da, fd)
+    return ({"decode_attention_alibi": dec_err["alibi"],
+             "decode_attention_windowed": dec_err["windowed"],
+             "ds_fused_layer_neox_spec": fus_err["neox_20b"],
+             "ds_fused_layer_pythia_spec": fus_err["pythia_160m"],
+             "ds_fused_layer_bloom_spec": fus_err["bloom_560m"]},
+            {"decode_attention_alibi": dict(
+                dec_t["alibi"]["bf16"], times_by_cache=dec_t["alibi"],
+                work="one BLOOM-560m layer, B 8, H 16, hd 64, S_max 1024, "
+                     "DECODE_LENS, bf16 (24 layers' own caches)"),
+             "decode_attention_windowed": dict(
+                 dec_t["windowed"]["bf16"], times_by_cache=dec_t["windowed"],
+                 work="one GPT-Neo 2.7B local layer, B 8, H 20, hd 128, "
+                      "window 256, DECODE_LENS, bf16 (32 layers' own "
+                      "caches)"),
+             "ds_fused_layer_neox_spec": dict(
+                 fus_t["neox_20b"]["bf16_weights_bf16_cache"],
+                 times_by_config=fus_t["neox_20b"],
+                 work="one GPT-NeoX-20B layer, B 8, W 1, DECODE_LENS "
+                      "(<= 1023), bf16 weights and cache (44 layers' own)"),
+             "ds_fused_layer_bloom_spec": dict(
+                 fus_t["bloom_560m"]["bf16_weights_bf16_cache"],
+                 work="one BLOOM-560m layer, B 8, W 1, DECODE_LENS "
+                      "(<= 1023), bf16 weights and cache (24 layers' "
+                      "own)")})
+
+
+def slice7_families(layers=None):
+    """{family: (model constructor, size, depth overrides)} of phase 21 at
+    the published widths; ``layers`` cuts the depth (GPT-Neo keeps its
+    alternating global / local pattern)."""
+    from deepspeed_tpu_torch.models.bloom import bloom_model
+    from deepspeed_tpu_torch.models.gptneo import gptneo_model
+    from deepspeed_tpu_torch.models.neox import neox_model
+    depth = {} if layers is None else {"num_layers": layers}
+    return {"neox_20b": (neox_model, "20b", depth),
+            "bloom_560m": (bloom_model, "560m", depth),
+            "gptneo_2.7b": (gptneo_model, "2.7b", depth)}
+
+
+def slice7_want(family, L, prefills, steps, w8, kv, fused):
+    """Exact launches of a serving run: NeoX per prefill L flash, per
+    decode step L decode of the cache's kind or L fused; BLOOM no flash
+    (the ALiBi einsum), L ALiBi decode or L fused; GPT-Neo no flash, L
+    windowed decode (every layer: floor 0 on the global ones); unfused
+    with int8 weights 4 L qgemm a step besides."""
+    plain_dec = family == "neox_20b" and not fused
+    dec = L * steps
+    return {"block_quantize_int8": 0,
+            "ds_flash_fwd": L * prefills if family == "neox_20b" else 0,
+            "qgemm": 4 * dec if w8 and not fused else 0,
+            "decode_attention": dec if plain_dec and not kv else 0,
+            "decode_attention_int8": dec if plain_dec and kv else 0,
+            "decode_attention_alibi":
+            dec if family == "bloom_560m" and not fused else 0,
+            "decode_attention_windowed": dec if family == "gptneo_2.7b"
+            else 0,
+            "ds_fused_layer": dec if fused else 0}
+
+
+def norm_row_dependence(torch):
+    """Whether a row's norm output changes with the rows beside it on the
+    card (row 0 at B 2, 4 and 8 against B 1, fp32, the widths of BLOOM-
+    560m, GPT-2 760M, GPT-Neo 2.7B and NeoX-20B): LayerNorm by torch's
+    ``mean`` (the reference's arithmetic), the port's LayerNorm
+    (``F.layer_norm`` on the card), Llama's RMSNorm, and cuBLAS's fp32
+    ``x @ W`` at [D, D]."""
+    from deepspeed_tpu_torch.models.gpt2 import _layer_norm
+    from deepspeed_tpu_torch.models.llama import _rms_norm
+
+    def mean_ln(t, s, b):
+        mu = t.mean(-1, keepdim=True)
+        var = ((t - mu) ** 2).mean(-1, keepdim=True)
+        return (t - mu) * torch.rsqrt(var + 1e-5) * s + b
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for D in (1024, 1536, 2560, 6144):
+        x = torch.randn(8, 1, D, generator=g, device="cuda")
+        s = torch.rand(D, generator=g, device="cuda") + 0.5
+        b = torch.randn(D, generator=g, device="cuda") * 0.1
+        w = torch.randn(D, D, generator=g, device="cuda") * 0.02
+        for name, fn in (("mean_layer_norm", lambda t: mean_ln(t, s, b)),
+                         ("port_layer_norm", lambda t: _layer_norm(
+                             t, s, b, 1e-5)),
+                         ("rms_norm", lambda t: _rms_norm(t, s, 1e-5)),
+                         ("cublas_fp32_gemm", lambda t: t @ w)):
+            ref = fn(x[:1])[0]
+            out[f"{name}_d{D}"] = [bool(torch.equal(fn(x[:B])[0], ref))
+                                   for B in (2, 4, 8)]
+    return out
+
+
+def slice7_parity_phase(torch, da, fa):
+    """Phase 21: fp32 GPT-NeoX-20B, BLOOM-560m and GPT-Neo 2.7B at their
+    published widths and 4 layers (GPT-Neo: 2 global, 2 local), fp32
+    and int8 weights x float and int8 KV cache, NeoX and BLOOM with
+    fused decode off and on, a pool that forces a preemption.  Held:
+    exact launch counts (:func:`slice7_want`); the fused scheduler
+    token-identical to the unfused one; on the float cache the unfused
+    scheduler token-identical to the static generate; on the int8 cache
+    each path's scheduler token-identical to its own static generate for
+    every request not preempted; teacher-forced decode logits (float
+    cache, each path) within 1e-3 of a full forward with plain
+    attention."""
+    from deepspeed_tpu_torch.inference.config import \
+        DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                             RequestState, SamplingParams)
+    qz, qg, fd = int8_modules()
+    L = FAMILY_PARITY_LAYERS
+    report = {"phase": "fp32_slice7_parity", "layers": L,
+              "row_0_equal_at_B_2_4_8": norm_row_dependence(torch)}
+    emit({"phase": "row_dependence_slice7",
+          "row_0_equal_at_B_2_4_8": report["row_0_equal_at_B_2_4_8"]})
+    check(all(all(v) for k, v in report["row_0_equal_at_B_2_4_8"]
+              .items() if k.startswith("port_layer_norm")),
+          "the port's LayerNorm changes a row's bits with the rows beside "
+          f"it: {report['row_0_equal_at_B_2_4_8']}")
+    for family, (make, size, depth) in slice7_families(L).items():
+        model = make(size, dtype="float32", **depth)
+        plain = (make(size, dtype="float32", attention_impl="plain", **depth)
+                 if family == "neox_20b" else model)
+        has_fused = model.fused_spec is not None
+        prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=21)
+        for w8 in (False, True):
+            t0 = time.perf_counter()
+            engines = {"int8": InferenceEngine(
+                model, DeepSpeedInferenceConfig(
+                    dtype="float32", quant={"enabled": w8},
+                    kv_cache_dtype="int8"))}
+            engines[None] = InferenceEngine(
+                model, DeepSpeedInferenceConfig(dtype="float32",
+                                                quant={"enabled": w8}),
+                model_parameters=engines["int8"].params)
+            params = engines[None].params
+            torch.cuda.synchronize()
+            wkey = f"{family}_{'int8' if w8 else 'fp32'}_weights"
+            report[f"{wkey}_init_s"] = time.perf_counter() - t0
+            outs = {}
+            for kv, eng in engines.items():
+                for fused in ((False, True) if has_fused else (False,)):
+                    static = [list(eng.generate(
+                        p, max_new_tokens=MAX_NEW, fused_decode=fused)
+                        [0, p.size:]) for p in prompts] \
+                        if kv or not fused else None
+                    sched = ContinuousBatchingScheduler(
+                        model, params, ServingConfig(num_blocks=140,
+                                                     fused_decode=fused),
+                        kv_cache_dtype=kv)
+                    reset_slice7_counts(da, qz, qg, fd, fa)
+                    reqs = [sched.submit(p, SamplingParams(
+                        max_new_tokens=MAX_NEW)) for p in prompts]
+                    sched.run_until_idle()
+                    torch.cuda.synchronize()
+                    n = slice7_counts(da, qz, qg, fd, fa)
+                    c = sched.metrics.counters
+                    want = slice7_want(family, model.config.num_layers,
+                                       c["prefills"], c["decode_steps"], w8,
+                                       kv, fused)
+                    key = f"{wkey}_{'int8' if kv else 'float'}_kv_" \
+                          f"{'fused' if fused else 'unfused'}"
+                    got = [list(r.output_ids) for r in reqs]
+                    outs[(kv, fused)] = got
+                    preempted = [int(p.size) for p, r in zip(prompts, reqs)
+                                 if r.num_preemptions]
+                    row = {"prefills": c["prefills"],
+                           "decode_steps": c["decode_steps"],
+                           "preemptions": c["preemptions"],
+                           "preempted_prompt_lens": preempted,
+                           "launches": n, "want": want}
+                    check(all(r.state == RequestState.FINISHED
+                              and r.num_generated == MAX_NEW for r in reqs),
+                          f"fp32 {key}: not every request finished")
+                    check(c["preemptions"] >= 1,
+                          f"fp32 {key}: the pool did not force a preemption")
+                    check(n == want, f"fp32 {key}: launches {n} != {want}")
+                    if static is not None:
+                        diff = first_diffs(prompts, reqs, static)
+                        row["static_first_diff_by_prompt_len"] = diff
+                        kept = {n0: t for n0, t in diff.items()
+                                if n0 not in preempted}
+                        # GPT-Neo, fp32 weights, int8 cache: reported.
+                        # cuBLAS's fp32 GEMM rows change with M (the
+                        # row_0_equal report), so new K/V codes flip by a
+                        # step between the 8-row and the one-row decode,
+                        # and the unscaled scores turn them into other
+                        # tokens; int8 weights (qgemm rows are independent
+                        # of M) hold it
+                        held = not (kv and family == "gptneo_2.7b"
+                                    and not w8)
+                        row["static_identity_held"] = held
+                        check(not held or not (kept if kv else diff),
+                              f"fp32 {key}: scheduler != static generate "
+                              f"(prompt length: first differing token) "
+                              f"{diff}")
+                    if fused:
+                        same = got == outs[(kv, False)]
+                        row["token_identical_to_unfused"] = same
+                        check(same, f"fp32 {key}: fused tokens != unfused")
+                    report[key] = row
+                    del sched
+            # teacher-forced decode (float cache) against a full forward
+            # with plain attention
+            worst = 0.0
+            with torch.no_grad():
+                for i in (1, 5):
+                    toks = list(prompts[i]) + outs[(None, False)][i][:-1]
+                    n0 = len(prompts[i])
+                    ids = torch.tensor([toks], dtype=torch.int32,
+                                       device="cuda")
+                    full = plain.apply(params, {"input_ids": ids})[:, -1]
+                    for fused in ((False, True) if has_fused else (False,)):
+                        cache = model.init_cache_fn(
+                            1, -(-len(toks) // 64) * 64, torch.float32,
+                            "cuda")
+                        logits, cache = model.prefill_fn(
+                            params, {"input_ids": ids[:, :n0]}, cache)
+                        for pos in range(n0, len(toks)):
+                            logits, cache = model.decode_fn(
+                                params, ids[:, pos], cache,
+                                torch.tensor([pos], dtype=torch.int32,
+                                             device="cuda"), fused=fused)
+                        worst = max(worst,
+                                    float((logits - full).abs().max()))
+            report[f"{wkey}_teacher_forced_max_abs_err"] = worst
+            check(worst <= 1e-3, f"fp32 {wkey}: decode logits differ from "
+                  f"the plain full forward by {worst}")
+            del engines, params
+            torch.cuda.empty_cache()
+    report["tol"] = 1e-3
+    emit(report)
+
+
+def family_http(torch, da, fa, model, label, arms, load_quantizer):
+    """Serve ``model`` (bf16) over HTTP in each of ``arms`` ((int8
+    weights and cache, fused) pairs; the engines in arm order, each
+    freed before the next): the device init (seconds, quantizer
+    launches == ``load_quantizer`` with int8 weights, params' device
+    bytes), then phase 5's eight requests per arm: tokens/s, TTFT, TPOT,
+    decode ms per step, launches, a profiled decode window, peak memory.
+    Returns ({weights: load}, {arm: run})."""
+    import gc
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving.scheduler import \
+        ContinuousBatchingScheduler
+    import deepspeed_tpu_torch as dt
+    qz, qg, fd = int8_modules()
+    prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=1)
+    loads, runs = {}, {}
+    for w8 in sorted({w for w, _ in arms}):
+        wkey = "int8" if w8 else "bf16"
+        kv = "int8" if w8 else None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_slice7_counts(da, qz, qg, fd, fa)
+        t0 = time.perf_counter()
+        eng = dt.init_inference(model, {"dtype": "bfloat16"},
+                                quant={"enabled": w8}, kv_cache_dtype=kv)
+        torch.cuda.synchronize()
+        load = {"init_s": time.perf_counter() - t0,
+                "launches": slice7_counts(da, qz, qg, fd, fa),
+                "params_device_bytes": nbytes(eng.params),
+                "blocks_device_bytes": nbytes(eng.params["blocks"]),
+                "peak_memory_allocated": torch.cuda.max_memory_allocated()}
+        check(load["launches"]["block_quantize_int8"]
+              == (load_quantizer if w8 else 0),
+              f"{label} {wkey} load: launches {load['launches']}")
+        loads[wkey] = load
+        for fused in [f for w, f in arms if w == w8]:
+            key = f"{wkey}_{'fused' if fused else 'unfused'}"
+            torch.cuda.reset_peak_memory_stats()
+            sched = ContinuousBatchingScheduler(
+                model, eng.params, ServingConfig(fused_decode=fused),
+                kv_cache_dtype=kv)
+            outs, wall_s, mbody, n, window = serve_http(
+                torch, sched, prompts,
+                on_start=lambda: reset_slice7_counts(da, qz, qg, fd, fa),
+                on_done=lambda: slice7_counts(da, qz, qg, fd, fa))
+            run = {**serve_report(outs, wall_s, window), "launches": n,
+                   "outputs": [o["output_ids"][:8] for o in outs]}
+            run["decode_profile"] = profile_decode(torch, sched, prompts)
+            run["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
+            runs[key] = run
+            del sched
+            gc.collect()
+            torch.cuda.empty_cache()
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loads, runs
+
+
+def check_path(label, key, n, path):
+    """The run launched each kernel of ``path`` and none of the other
+    serving kernels (the flash forward aside: prefill's)."""
+    serving = {"ds_fused_layer", "qgemm", "decode_attention",
+               "decode_attention_int8", "decode_attention_alibi",
+               "decode_attention_windowed", "block_quantize_int8"}
+    check(all(n[k] > 0 for k in path)
+          and all(n[k] == 0 for k in serving - set(path)),
+          f"{label} http {key}: launches {n} (want {path} and no other)")
+
+
+def neox_http_phase(torch, da, fa):
+    """Phase 22, the slice's main path: init_inference(neox_model("20b"))
+    at all 44 layers and full width, bf16, over HTTP: bf16 fused off and
+    on, then int8 weights + int8 KV cache fused on."""
+    from deepspeed_tpu_torch.models.neox import neox_model
+    model = neox_model("20b", dtype="bfloat16")
+    L = model.config.num_layers
+    loads, runs = family_http(
+        torch, da, fa, model, "neox",
+        ((False, False), (False, True), (True, True)), 4 * L)
+    check_path("neox", "bf16_unfused", runs["bf16_unfused"]["launches"],
+               ("decode_attention", "ds_flash_fwd"))
+    check_path("neox", "bf16_fused", runs["bf16_fused"]["launches"],
+               ("ds_fused_layer", "ds_flash_fwd"))
+    check_path("neox", "int8_fused", runs["int8_fused"]["launches"],
+               ("ds_fused_layer", "ds_flash_fwd"))
+    emit({"phase": "bf16_neox_http", "layers": L,
+          "params": model.meta["n_params"], "engine_load": loads, **runs})
+    return loads, runs
+
+
+def bloom_gptneo_http_phase(torch, da, fa):
+    """Phase 23: BLOOM-560m (bf16 fused off and on; int8 weights + int8
+    cache unfused: ALiBi over the int8 cache) and GPT-Neo 2.7B (bf16;
+    int8 weights + int8 cache), all layers, over HTTP."""
+    from deepspeed_tpu_torch.models.bloom import bloom_model
+    from deepspeed_tpu_torch.models.gptneo import gptneo_model
+    out = {}
+    model = bloom_model("560m", dtype="bfloat16")
+    L = model.config.num_layers
+    loads, runs = family_http(
+        torch, da, fa, model, "bloom",
+        ((False, False), (False, True), (True, False)), 4 * L)
+    check_path("bloom", "bf16_unfused", runs["bf16_unfused"]["launches"],
+               ("decode_attention_alibi",))
+    check_path("bloom", "bf16_fused", runs["bf16_fused"]["launches"],
+               ("ds_fused_layer",))
+    check_path("bloom", "int8_unfused", runs["int8_unfused"]["launches"],
+               ("decode_attention_alibi", "qgemm"))
+    out["bloom_560m"] = {"layers": L, "params": model.meta["n_params"],
+                         "engine_load": loads, **runs}
+    model = gptneo_model("2.7b", dtype="bfloat16")
+    L = model.config.num_layers
+    loads, runs = family_http(torch, da, fa, model, "gptneo",
+                              ((False, False), (True, False)), 4 * L)
+    check_path("gptneo", "bf16_unfused", runs["bf16_unfused"]["launches"],
+               ("decode_attention_windowed",))
+    check_path("gptneo", "int8_unfused", runs["int8_unfused"]["launches"],
+               ("decode_attention_windowed", "qgemm"))
+    out["gptneo_2.7b"] = {"layers": L, "params": model.meta["n_params"],
+                          "engine_load": loads, **runs}
+    emit({"phase": "bf16_bloom_gptneo_http", **out})
+    return out
+
+
+#: what each variant row of the kernels line replaces, beside the TPU
+#: kernel's file and line
+VARIANT_NOTES = {
+    "ds_fused_layer_llama_spec":
+    " (Llama spec: RMSNorm, split QKV, rotary, SwiGLU)",
+    "ds_fused_layer_mixtral_spec":
+    " (Mixtral spec: RMSNorm, split QKV, rotary, GQA rep 4, mlp none)",
+    "ds_fused_layer_neox_spec":
+    " (NeoX spec: head-major QKV, partial rotary, parallel residual, "
+    "exact GELU)",
+    "ds_fused_layer_bloom_spec":
+    " (BLOOM spec: head-major QKV, ALiBi, tanh GELU, serial residual)",
+    "decode_attention_alibi": " (alibi=True)",
+    "decode_attention_windowed": " (windowed=True)",
+}
+
+
+def fused_paths(runs, prefix):
+    """The fused layer's launches on the fused arms whose names start with
+    ``prefix`` (by arm), and their sum."""
+    paths = {arm: n["ds_fused_layer"] for arm, n in runs.items()
+             if arm.startswith(prefix) and arm.endswith("_fused")}
+    return sum(paths.values()), paths
+
+
 def run_only(torch, only, da, fa):
-    """``--only``: the listed phases among 12 and 15-19 alone, after the
+    """``--only``: the listed phases among 12 and 15-23 alone, after the
     build, for work on one path (no kernels line)."""
+    import torch.nn.functional as F
     gg = moe_modules()
     qz, qg, fd = int8_modules()
     table = {
@@ -2976,7 +3664,11 @@ def run_only(torch, only, da, fa):
         17: lambda: (fused_family_phase(torch, qz, da, fd),
                      fused_family_times(torch, qz, da, fd)),
         18: lambda: llama_parity_phase(torch, da, fa),
-        19: lambda: llama_http_phase(torch, da, fa)}
+        19: lambda: llama_http_phase(torch, da, fa),
+        20: lambda: slice7_kernel_phase(torch, F, da),
+        21: lambda: slice7_parity_phase(torch, da, fa),
+        22: lambda: neox_http_phase(torch, da, fa),
+        23: lambda: bloom_gptneo_http_phase(torch, da, fa)}
     for n in only:
         check(n in table, f"--only: phase {n} is not one of {sorted(table)}")
         table[n]()
@@ -3099,15 +3791,34 @@ def main():
     torch.cuda.empty_cache()
     llama_loads, llama = llama_http_phase(torch, da, fa)
     lq = {arm: run["launches"] for arm, run in llama.items()}
+    torch.cuda.empty_cache()
+
+    s7_errs, s7_t = slice7_kernel_phase(torch, F, da)
+    torch.cuda.empty_cache()
+    slice7_parity_phase(torch, da, fa)
+    torch.cuda.empty_cache()
+    neox_loads, neox = neox_http_phase(torch, da, fa)
+    torch.cuda.empty_cache()
+    bg = bloom_gptneo_http_phase(torch, da, fa)
+    s7 = {f"neox_http_{arm}": run["launches"] for arm, run in neox.items()}
+    s7_loads = {"neox_int8_load": neox_loads}
+    for fam, label in (("bloom_560m", "bloom"), ("gptneo_2.7b", "gptneo")):
+        s7.update({f"{label}_http_{arm}": run["launches"]
+                   for arm, run in bg[fam].items()
+                   if isinstance(run, dict) and "launches" in run})
+        s7_loads[f"{label}_int8_load"] = bg[fam]["engine_load"]
 
     def paths_of(name, **earlier):
         """The kernel's launches on each main path (those given, then the
-        int8 Mixtral arms' and the Llama arms'), and their sum."""
-        paths = {**earlier, "mixtral_int8_http_8": mq8[name],
-                 "mixtral_int8_http_8_fused": mq8f[name],
-                 f"mixtral_int8_http_{WIDE_SEQS}": mq96[name],
+        int8 Mixtral arms', the Llama arms' and slice 7's), and their
+        sum."""
+        paths = {**earlier, "mixtral_int8_http_8": mq8.get(name, 0),
+                 "mixtral_int8_http_8_fused": mq8f.get(name, 0),
+                 f"mixtral_int8_http_{WIDE_SEQS}": mq96.get(name, 0),
                  **{f"llama_http_{arm}": n[name] for arm, n in lq.items()
-                    if name in n}}
+                    if name in n},
+                 **{arm: n[name] for arm, n in s7.items() if name in n}}
+        paths = {k: v for k, v in paths.items() if v}
         return sum(paths.values()), paths
 
     pallas = "deepspeed_tpu/ops/pallas/"
@@ -3118,6 +3829,8 @@ def main():
                                        e["decode_attention"])
         errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"], e["ds_flash_fwd"])
     llama_load_q = llama_loads["int8"]["launches"]["block_quantize_int8"]
+    s7_load_q = {k: v["int8"]["launches"]["block_quantize_int8"]
+                 for k, v in s7_loads.items()}
     llama_fused = {f"llama_http_{arm}": n["ds_fused_layer"]
                    for arm, n in lq.items() if arm.endswith("_fused")}
     rows = (
@@ -3144,11 +3857,12 @@ def main():
         ("block_quantize_int8", int8_t["block_quantize_int8"],
          "quantization.cu", "quantization.py:57",
          int8_load["launches"]["block_quantize_int8"]
-         + mixq_load["launches"]["block_quantize_int8"] + llama_load_q,
+         + mixq_load["launches"]["block_quantize_int8"] + llama_load_q
+         + sum(s7_load_q.values()),
          {"int8_engine_load": int8_load["launches"]["block_quantize_int8"],
           "mixtral_int8_load":
           mixq_load["launches"]["block_quantize_int8"],
-          "llama_int8_load": llama_load_q},
+          "llama_int8_load": llama_load_q, **s7_load_q},
          int8_errs["block_quantize_int8"], 0),
         ("qgemm", int8_t["qgemm"], "qgemm.cu", "qgemm.py:66",
          *paths_of("qgemm", int8_http_unfused=int8_runs["unfused"]
@@ -3164,6 +3878,23 @@ def main():
          int8_runs["fused"]["launches"]["ds_fused_layer"],
          {"int8_http_fused": int8_runs["fused"]["launches"]["ds_fused_layer"]},
          int8_errs["ds_fused_layer"], INT8_TOL),
+        ("decode_attention_alibi", s7_t["decode_attention_alibi"],
+         "decode_attention.cu", "decode_attention.py:40",
+         *paths_of("decode_attention_alibi"),
+         s7_errs["decode_attention_alibi"], INT8_TOL),
+        ("decode_attention_windowed", s7_t["decode_attention_windowed"],
+         "decode_attention.cu", "decode_attention.py:40",
+         *paths_of("decode_attention_windowed"),
+         s7_errs["decode_attention_windowed"], INT8_TOL),
+        ("ds_fused_layer_neox_spec", s7_t["ds_fused_layer_neox_spec"],
+         "fused_decode.cu", "fused_decode.py:480",
+         *fused_paths(s7, "neox_http_"),
+         max(s7_errs["ds_fused_layer_neox_spec"],
+             s7_errs["ds_fused_layer_pythia_spec"]), INT8_TOL),
+        ("ds_fused_layer_bloom_spec", s7_t["ds_fused_layer_bloom_spec"],
+         "fused_decode.cu", "fused_decode.py:480",
+         *fused_paths(s7, "bloom_http_"),
+         s7_errs["ds_fused_layer_bloom_spec"], INT8_TOL),
         ("ds_fused_layer_llama_spec", fam_t["llama_7b"], "fused_decode.cu",
          "fused_decode.py:480", sum(llama_fused.values()), llama_fused,
          fam_errs["llama_7b"], INT8_TOL),
@@ -3201,7 +3932,7 @@ def main():
         if name.startswith("ds_flash_bwd"):
             kernels[-1]["max_rel_err_bf16"] = bwd_rel[name]
         if name in int8_t or name in moe_t or name in moeq_t \
-                or name.endswith("_spec"):
+                or name.endswith("_spec") or name in s7_t:
             # fp32 checks abs, bf16 checks relative to each output's max
             kernels[-1].update(err_kind="fp32 abs / bf16 rel_to_max",
                                work=t["work"])
@@ -3229,13 +3960,13 @@ def main():
         if name == "decode_attention_int8":
             kernels[-1]["replaces"] += " (quantized=True)"
             kernels[-1]["tpu_kernel"] = kernels[-1]["replaces"]
-        if name.endswith("_spec"):
-            kernels[-1]["replaces"] += (
-                " (Llama spec: RMSNorm, split QKV, rotary, SwiGLU)"
-                if "llama" in name else
-                " (Mixtral spec: RMSNorm, split QKV, rotary, GQA rep 4, "
-                "mlp none)")
+        if name in VARIANT_NOTES:
+            kernels[-1]["replaces"] += VARIANT_NOTES[name]
             kernels[-1]["tpu_kernel"] = kernels[-1]["replaces"]
+        if name in s7_t:
+            for extra in ("times_by_cache", "times_by_config"):
+                if extra in s7_t[name]:
+                    kernels[-1][extra] = s7_t[name][extra]
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

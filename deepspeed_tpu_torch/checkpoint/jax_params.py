@@ -11,7 +11,12 @@ by leaf with the JAX engine's.  ``mixtral_params_from_numpy`` /
 ``mixtral_params_to_numpy`` do the same for a Mixtral tree, whose
 ``blocks`` nest the experts' stacks under ``moe``, and
 ``llama_params_from_numpy`` / ``llama_params_to_numpy`` for a Llama tree
-(with or without the ``attn_bias`` biases).
+(with or without the ``attn_bias`` biases), ``neox_params_from_numpy`` /
+``neox_params_to_numpy`` for a GPT-NeoX tree (the untied ``embed_out``,
+and ``embed_out_b`` where GPT-J's ``head_bias`` gives one) and
+``bloom_params_from_numpy`` / ``bloom_params_to_numpy`` for a BLOOM tree
+(the embedding LayerNorm, the head tied to ``wte``).  GPT-Neo has GPT-2's
+layout and takes GPT-2's converters.
 
 An int8 engine's block weights carry across as they are: a leaf given as
 a ``(q, s)`` pair, or as any object with ``q`` and ``s`` arrays (the JAX
@@ -168,4 +173,58 @@ def llama_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
 def llama_params_to_numpy(params: dict) -> dict:
     """The reverse of :func:`llama_params_from_numpy` (fp32 for floating
     leaves, since numpy has no bfloat16; int8 leaves as ``(q, s)``)."""
+    return _to_numpy(params)
+
+
+NEOX_TOP_KEYS = ("wte", "blocks", "lnf_scale", "lnf_bias", "embed_out")
+#: the block leaves of GPT-NeoX and BLOOM (one layout)
+NEOX_BLOCK_KEYS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias",
+                   "qkv_w", "qkv_b", "dense_w", "dense_b", "mlp_in_w",
+                   "mlp_in_b", "mlp_out_w", "mlp_out_b")
+BLOOM_TOP_KEYS = ("wte", "emb_ln_scale", "emb_ln_bias", "blocks",
+                  "lnf_scale", "lnf_bias")
+
+
+def _flat_family_from_numpy(tree, top, fn, device, dtype):
+    """A tree with one flat ``blocks`` dict of NEOX_BLOCK_KEYS: keys
+    checked, every leaf copied onto ``device`` (floating leaves cast to
+    ``dtype`` when given), int8 block leaves as ``QuantizedTensor``s."""
+    _check_keys(tree, top, "top-level", fn)
+    _check_keys(tree["blocks"], NEOX_BLOCK_KEYS, "blocks", fn)
+    device = resolve_device(device)
+    out = {k: to_tensor(v, device, dtype) for k, v in tree.items()
+           if k != "blocks"}
+    out["blocks"] = {k: block_leaf(v, device, dtype)
+                     for k, v in tree["blocks"].items()}
+    return out
+
+
+def neox_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
+    """numpy GPT-NeoX params tree (``jax.device_get`` of the JAX engine's
+    params, or ``numpy_init_params``) -> the port's params: the untied
+    ``embed_out`` head, and ``embed_out_b`` where the tree has it (GPT-J's
+    ``head_bias``)."""
+    top = NEOX_TOP_KEYS + (("embed_out_b",) if "embed_out_b" in tree
+                           else ())
+    return _flat_family_from_numpy(tree, top, "neox_params_from_numpy",
+                                   device, dtype)
+
+
+def neox_params_to_numpy(params: dict) -> dict:
+    """The reverse of :func:`neox_params_from_numpy` (fp32 for floating
+    leaves; int8 leaves as ``(q, s)``)."""
+    return _to_numpy(params)
+
+
+def bloom_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
+    """numpy BLOOM params tree -> the port's params: the embedding
+    LayerNorm, the NeoX block layout, and no head leaf (tied to
+    ``wte``)."""
+    return _flat_family_from_numpy(tree, BLOOM_TOP_KEYS,
+                                   "bloom_params_from_numpy", device, dtype)
+
+
+def bloom_params_to_numpy(params: dict) -> dict:
+    """The reverse of :func:`bloom_params_from_numpy` (fp32 for floating
+    leaves; int8 leaves as ``(q, s)``)."""
     return _to_numpy(params)

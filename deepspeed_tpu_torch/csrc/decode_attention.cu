@@ -5,7 +5,11 @@
 // the float cache and the int8 cache (``quantized=True``: int8 k/v with
 // one fp32 scale per (position, kv head), dequantized in registers, the
 // query, scores, softmax and accumulation in fp32 as the Pallas kernel
-// does); no ALiBi, no window floor.
+// does), each with the ALiBi variant (``alibi=True``: the score of key
+// position s for query head h gets slopes[h] * s before the softmax) and
+// the windowed variant (``windowed=True``: positions below a per-row
+// floor min_pos[b] are masked).  Both extras are runtime pointers, null
+// when off, so the two cache types stay the only template instances.
 //
 // What bounds it on an H100: bytes.  Each (row, kv head) streams
 // cache_len[b] * 2 * head_dim values and does ~4 flops per value, far
@@ -26,9 +30,16 @@
 //
 // An int8 cache halves the bytes each position streams; the scales add
 // 8 bytes per (position, kv head) against 2 * head_dim bytes of codes.
+// The window floor starts each row's loop at min_pos[b] instead of
+// masking from position 0, so a sliding-window layer reads only the
+// positions it attends (at most the window).  ALiBi adds one product and
+// one sum per score, each rounded on its own (__fmul_rn / __fadd_rn, no
+// contraction), as the fused layer kernel does, so the two agree.
 //
 // C interface (loaded with ctypes): ds_decode_attention and
-// ds_decode_attention_int8 return the cudaError_t of the launch as an int.
+// ds_decode_attention_int8 return the cudaError_t of the launch as an int;
+// `slopes` ([H] fp32, query-head order) and `min_pos` ([B] int32) may be
+// null.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,7 +76,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // q [B, H, HD], k/v [B, S_max, KV, HD] (CT: T, or int8 with ks/vs
 // [B, S_max, KV] fp32 scales), cache_len [B], out [B, H, HD]; all
-// contiguous.  Grid (KV, B), block kWarps * 32 threads.
+// contiguous.  slopes [H] (ALiBi) and min_pos [B] (window floor) or null.
+// Grid (KV, B), block kWarps * 32 threads.
 template <typename T, typename CT, int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
@@ -73,6 +85,8 @@ decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
                         const float* __restrict__ ks,
                         const float* __restrict__ vs,
                         const int* __restrict__ cache_len,
+                        const float* __restrict__ slopes,
+                        const int* __restrict__ min_pos,
                         T* __restrict__ out, int H, int KV, int S_max,
                         float sm_scale) {
   constexpr int NI = (HD + 31) / 32;
@@ -97,12 +111,16 @@ decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
 
   int len = cache_len[b];
   len = len < S_max ? len : S_max;
+  int first = min_pos != nullptr ? min_pos[b] : 0;
+  first = first > 0 ? first : 0;
 
   float m[kMaxRep], l[kMaxRep], acc[kMaxRep][NI], qr[kMaxRep][NI];
+  float slope[kMaxRep];
 #pragma unroll
   for (int r = 0; r < kMaxRep; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
+    slope[r] = (slopes != nullptr && r < rep) ? slopes[kvh * rep + r] : 0.f;
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const int d = lane + 32 * i;
@@ -118,7 +136,7 @@ decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
   const float* ks_base = kQuant ? ks + (size_t)b * S_max * KV + kvh : ks;
   const float* vs_base = kQuant ? vs + (size_t)b * S_max * KV + kvh : vs;
 
-  for (int s0 = warp * kPos; s0 < len; s0 += kWarps * kPos) {
+  for (int s0 = first + warp * kPos; s0 < len; s0 += kWarps * kPos) {
     float kx[kPos][NI], vx[kPos][NI];
 #pragma unroll
     for (int j = 0; j < kPos; ++j) {
@@ -148,6 +166,8 @@ decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
 #pragma unroll
           for (int i = 0; i < NI; ++i) p += qr[r][i] * kx[j][i];
           sc[j] = warp_sum(p);
+          if (slopes != nullptr)
+            sc[j] = __fadd_rn(sc[j], __fmul_rn(slope[r], (float)(s0 + j)));
         }
         float mx = m[r];
 #pragma unroll
@@ -209,8 +229,9 @@ decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
 template <typename T, typename CT, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ks, const void* vs, const void* cache_len,
-                   void* out, int B, int H, int KV, int S_max,
-                   float sm_scale, cudaStream_t stream) {
+                   const void* slopes, const void* min_pos, void* out, int B,
+                   int H, int KV, int S_max, float sm_scale,
+                   cudaStream_t stream) {
   const int rep = H / KV;
   const size_t smem =
       (size_t)(rep * HD + kWarps * rep * HD + 2 * kWarps * rep) *
@@ -220,6 +241,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const CT*>(k),
       static_cast<const CT*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(cache_len),
+      static_cast<const float*>(slopes), static_cast<const int*>(min_pos),
       static_cast<T*>(out), H, KV, S_max, sm_scale);
   return cudaGetLastError();
 }
@@ -227,9 +249,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // one entry point per cache type; CT = T (float cache) or int8_t
 template <bool kInt8>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* cache_len, void* out, int B, int H,
-             int KV, int S_max, int head_dim, int is_bf16, float sm_scale,
-             void* stream) {
+             const void* vs, const void* cache_len, const void* slopes,
+             const void* min_pos, void* out, int B, int H, int KV, int S_max,
+             int head_dim, int is_bf16, float sm_scale, void* stream) {
   if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kMaxRep)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -238,12 +260,13 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
   using CF = typename std::conditional<kInt8, int8_t, float>::type;
 #define DS_DECODE_CASE(HDV)                                                \
   case HDV:                                                                \
-    return is_bf16 ? (int)launch<BF, CB, HDV>(q, k, v, ks, vs, cache_len,  \
-                                              out, B, H, KV, S_max,        \
-                                              sm_scale, st)                \
-                   : (int)launch<float, CF, HDV>(q, k, v, ks, vs,          \
-                                                 cache_len, out, B, H, KV, \
-                                                 S_max, sm_scale, st);
+    return is_bf16                                                         \
+               ? (int)launch<BF, CB, HDV>(q, k, v, ks, vs, cache_len,      \
+                                          slopes, min_pos, out, B, H, KV,  \
+                                          S_max, sm_scale, st)             \
+               : (int)launch<float, CF, HDV>(q, k, v, ks, vs, cache_len,   \
+                                             slopes, min_pos, out, B, H,   \
+                                             KV, S_max, sm_scale, st);
   switch (head_dim) {
     DS_DECODE_CASE(64)
     DS_DECODE_CASE(80)
@@ -259,19 +282,23 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
 
 extern "C" int ds_decode_attention(const void* q, const void* k,
                                    const void* v, const void* cache_len,
+                                   const void* slopes, const void* min_pos,
                                    void* out, int B, int H, int KV,
                                    int S_max, int head_dim, int is_bf16,
                                    float sm_scale, void* stream) {
-  return dispatch<false>(q, k, v, nullptr, nullptr, cache_len, out, B, H,
-                         KV, S_max, head_dim, is_bf16, sm_scale, stream);
+  return dispatch<false>(q, k, v, nullptr, nullptr, cache_len, slopes,
+                         min_pos, out, B, H, KV, S_max, head_dim, is_bf16,
+                         sm_scale, stream);
 }
 
 extern "C" int ds_decode_attention_int8(const void* q, const void* k,
                                         const void* v, const void* ks,
                                         const void* vs, const void* cache_len,
-                                        void* out, int B, int H, int KV,
-                                        int S_max, int head_dim, int is_bf16,
+                                        const void* slopes,
+                                        const void* min_pos, void* out,
+                                        int B, int H, int KV, int S_max,
+                                        int head_dim, int is_bf16,
                                         float sm_scale, void* stream) {
-  return dispatch<true>(q, k, v, ks, vs, cache_len, out, B, H, KV, S_max,
-                        head_dim, is_bf16, sm_scale, stream);
+  return dispatch<true>(q, k, v, ks, vs, cache_len, slopes, min_pos, out, B,
+                        H, KV, S_max, head_dim, is_bf16, sm_scale, stream);
 }

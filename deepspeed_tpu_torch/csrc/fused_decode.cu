@@ -1,13 +1,17 @@
 // Fused per-layer decode step: one decoder layer's W-token window for B
-// rows in ONE launch.  Specs: LayerNorm or RMSNorm; fused [D, 3D] QKV or
-// split wq / wk / wv; each projection's bias optional; grouped-query
-// attention (num_kv_heads dividing num_heads); no rotary or full rotary
-// (split-half pairing); MLP gelu_tanh / gelu_exact / relu, SwiGLU, or
-// none (the layer ends after the attention-out residual: a mixture-of-
-// experts layer runs its experts outside); serial residual; no ALiBi.
+// rows in ONE launch.  Specs: LayerNorm or RMSNorm; fused [D, 3D] QKV
+// (thirds, or head-major: per head [q|k|v]) or split wq / wk / wv; each
+// projection's bias optional; grouped-query attention (num_kv_heads
+// dividing num_heads); no rotary, full or partial rotary (the first rot
+// dims of each head, split-half pairing over rot / 2); ALiBi (slopes[h] *
+// key position added to each score); MLP gelu_tanh / gelu_exact / relu,
+// SwiGLU, or none (the layer ends after the attention-out residual: a
+// mixture-of-experts layer runs its experts outside); serial or parallel
+// residual (norm2 reads the layer input; out = (x + attn) + mlp).
 //
-// Replaces: deepspeed_tpu/ops/pallas/fused_decode.py:_fused_kernel (the
-// GPT-2, Llama and Mixtral specs of it).
+// Replaces: deepspeed_tpu/ops/pallas/fused_decode.py:_fused_kernel (its
+// GPT-2, Llama, Mixtral, GPT-NeoX and BLOOM specs; GPT-J's interleaved
+// rotary is refused there too).
 //
 //   norm1 -> QKV (+bias) -> rotary -> new K/V (int8 quantize, or the
 //   cache dtype) -> attention over the cache plus the window's own
@@ -43,9 +47,12 @@
 // Numerics are the reference's unfused composition (_ref_fused_layer):
 // every product is rounded to the compute dtype T and its bias added in
 // T; norm statistics and the activation run in fp32; rotary takes the
-// unfused path's own frequency table (an input), the angle position *
-// frequency in fp32, cosf / sinf, and x1 cos - x2 sin without
-// contraction, rounded to T; the int8 weight element dequantizes as
+// unfused path's own frequency table (an input, rot / 2 entries), the
+// angle position * frequency in fp32, cosf / sinf, and x1 cos - x2 sin
+// without contraction, rounded to T; the ALiBi bias is added to the
+// scaled score as one rounded product and one rounded sum, as the decode
+// attention kernel does; each residual add rounds to T in the unfused
+// order; the int8 weight element dequantizes as
 // (float)q * scale, rounded to T before the product (gemm_tile.cuh);
 // attention runs in fp32 with the new K/V as the cache would hold them
 // (int8 codes times their scale, or rounded through the cache dtype).
@@ -80,11 +87,15 @@ struct FusedArgs {
                                // 4 none
   int nqkv;                    // 1: fused [D, (H + 2 KV) HD]; 3: wq wk wv
   int nmlp_in;                 // 1: w_in; 2: w_gate, w_up; 0 (mlp none)
+  int headmajor;               // fused QKV packed per head [q|k|v] (KV == H)
+  int rot;                     // rotary dims (rope set): even, <= HD
+  int parallel;                // parallel residual
   float eps, sm_scale;
   const void* x;               // [R, D] T
   const int* lengths;          // [B] first window position per row
   const void *n1_s, *n1_b, *n2_s, *n2_b;  // [D] T (biases: LayerNorm)
-  const float* rope;           // [HD / 2] frequencies, or null: no rotary
+  const float* rope;           // [rot / 2] frequencies, or null: no rotary
+  const float* alibi;          // [H] ALiBi slopes, or null: no ALiBi
   Mat qkv[3], o, mlp_in[2], mlp_out;
   const void *k_cache, *v_cache;          // [B, S_max, KV, HD] CT
   const float *ks_cache, *vs_cache;       // [B, S_max, KV] (int8 cache)
@@ -345,16 +356,22 @@ fused_layer_kernel(const FusedArgs a) {
   stamp(a, 2);
 
   // ---- QKV epilogue: one warp per (row, head segment of q | k | v);
-  // bias in T, rotary on q and k at position lengths[b] + j, the new
-  // K/V as the cache holds them
+  // bias in T, rotary on the first rot dims of q and k at position
+  // lengths[b] + j, the new K/V as the cache holds them
   {
     const int nseg = H + 2 * KV;
-    const int half = HD / 2;
+    const int half = a.rot / 2;
     float* rbuf = reinterpret_cast<float*>(smem) + warp * kHDMax;
     for (int wi = gwarp; wi < R * nseg; wi += nwarps) {
       const int r = wi / nseg, seg = wi - r * nseg;
-      // the segment's projection and its first column there
+      // the segment's projection and its first column there: thirds
+      // [q heads | k heads | v heads] across one or three matrices, or
+      // head-major (head h's q, k, v at h * 3 HD + {0, 1, 2} HD)
       int mi = 0, c0 = seg * HD;
+      if (a.headmajor) {
+        const int kind = seg < H ? 0 : (seg < H + KV ? 1 : 2);
+        c0 = (seg - kind * H) * 3 * HD + kind * HD;
+      }
       while (mi + 1 < a.nqkv && c0 >= a.qkv[mi].N) c0 -= a.qkv[mi++].N;
       const Mat& m = a.qkv[mi];
       float val[kNI];
@@ -372,7 +389,7 @@ fused_layer_kernel(const FusedArgs a) {
 #pragma unroll
         for (int i = 0; i < kNI; ++i) {
           const int d = lane + 32 * i;
-          if (d >= HD) continue;
+          if (d >= a.rot) continue;    // past the rotary dims: as projected
           const int f = d < half ? d : d - half;
           const float x1 = rbuf[f], x2 = rbuf[f + half];
           const float ang = __fmul_rn(pos, __ldg(a.rope + f));
@@ -456,9 +473,14 @@ fused_layer_kernel(const FusedArgs a) {
       }
       __syncthreads();
       int lim[kQMax];
+      float slope[kQMax];
 #pragma unroll
-      for (int qi = 0; qi < kQMax; ++qi)
+      for (int qi = 0; qi < kQMax; ++qi) {
         lim[qi] = qi < qn ? len + (q0 + qi) / rep + 1 : 0;
+        slope[qi] = (a.alibi != nullptr && qi < qn)
+                        ? __ldg(a.alibi + kvh * rep + (q0 + qi) % rep)
+                        : 0.f;
+      }
       const int total = len + (q0 + qn - 1) / rep + 1;
       float mx_[kQMax], l[kQMax], acc[kQMax][kNI];
 #pragma unroll
@@ -516,6 +538,11 @@ fused_layer_kernel(const FusedArgs a) {
                 if (d < HD) p += q_s[qi * kHDMax + d] * kx[jp][i];
               }
               sc[jp] = warp_sum(p);
+              // ALiBi: position s0 + jp (a cache position, or the window
+              // token at lengths[b] + (s - len))
+              if (a.alibi != nullptr)
+                sc[jp] = __fadd_rn(sc[jp],
+                                   __fmul_rn(slope[qi], (float)(s0 + jp)));
             }
             float mx = mx_[qi];
 #pragma unroll
@@ -597,10 +624,12 @@ fused_layer_kernel(const FusedArgs a) {
   grid_sync(a.bar);
   stamp(a, 6);
 
-  // ---- norm2: one CTA per row
+  // ---- norm2: one CTA per row, over x + attn (serial residual) or the
+  // layer input x (parallel residual)
+  const T* n2_src = a.parallel ? x : xres;
   for (int r = blockIdx.x; r < R; r += gridDim.x)
-    norm_cta<T>(xres + (size_t)r * D, abuf + (size_t)r * D, a.n2_s, a.n2_b,
-                D, a.eps, rms);
+    norm_cta<T>(n2_src + (size_t)r * D, abuf + (size_t)r * D, a.n2_s,
+                a.n2_b, D, a.eps, rms);
   grid_sync(a.bar);
   stamp(a, 7);
 
@@ -631,7 +660,7 @@ fused_layer_kernel(const FusedArgs a) {
   grid_sync(a.bar);
   stamp(a, 10);
 
-  // ---- (+ bias), + residual
+  // ---- (+ bias), + residual: (x + attn) + mlp in both residual forms
   for (int e = gtid; e < R * D; e += nthreads) {
     const int r = e / D, c = e - r * D;
     xo[e] = from_f<T>(to_f(ldcg_t<T>(xres + e)) +
@@ -742,6 +771,7 @@ bool shapes_ok(const FusedArgs& a) {
              a.qkv[2].N != Dk) {
     return false;
   }
+  if (a.headmajor && (a.nqkv != 1 || a.KV != a.H)) return false;
   if (a.o.N != a.D) return false;
   const int want_in = a.mlp == kMlpNone ? 0 : (a.mlp == kMlpSwiglu ? 2 : 1);
   if (a.nmlp_in != want_in) return false;
@@ -759,7 +789,8 @@ extern "C" int ds_fused_layer(const FusedArgs* args, int is_bf16, int w_int8,
   const FusedArgs& a = *args;
   if (a.B < 1 || a.W < 1 || a.KV < 1 || a.H % a.KV != 0 || a.HD < 1 ||
       a.HD > kHDMax || a.D < 1 || a.S_max < 1 || a.norm < 0 || a.norm > 1 ||
-      a.mlp < 0 || a.mlp > kMlpNone || (a.rope != nullptr && a.HD % 2) ||
+      a.mlp < 0 || a.mlp > kMlpNone ||
+      (a.rope != nullptr && (a.rot < 2 || a.rot > a.HD || a.rot % 2)) ||
       !shapes_ok(a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -9,11 +9,14 @@ reference's unfused composition — QKV, the new K/V written into the cache
 in place, the decode-attention kernel, the finish, with int8 projections
 through the qgemm kernel — or, with ``fused=True``, one fused-layer
 kernel per layer.  An int8 cache quantizes each new K/V vector
-(``quantize_kv``).  Training differentiates ``forward``
-with autograd; with ``remat`` each layer runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with the
-"nothing" policy: only the layer inputs are kept, the whole layer,
-flash forward included, is recomputed in the backward pass).
+(``quantize_kv``).  GPT-Neo serves through two hooks of these functions
+(the reference's): a prefill ``attn_fn`` and, at decode, ``sm_scale``
+and a per-layer window floor ``min_pos_fn`` for the decode kernel.
+Training differentiates ``forward`` with autograd; with ``remat`` each
+layer runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` with the "nothing" policy: only the layer inputs are
+kept, the whole layer, flash forward included, is recomputed in the
+backward pass).
 """
 from dataclasses import dataclass
 from functools import partial
@@ -135,8 +138,38 @@ def numpy_init_params(config: GPT2Config, seed: int = 0) -> dict:
     }
 
 
+def param_shapes(config: GPT2Config) -> dict:
+    """Leaf shapes and init scales of :func:`numpy_init_params` (None:
+    ones, 0: zeros) for ``models/model.py seeded_device_init``: a tree
+    too large for the host init is drawn on the device (GPT-Neo 2.7B)."""
+    D, V, S, L, M = (config.d_model, config.vocab_size, config.max_seq_len,
+                     config.num_layers, config.d_mlp)
+    std = 0.02
+    res = std / (2 * L) ** 0.5
+    return {
+        "wte": ((V, D), std), "wpe": ((S, D), std),
+        "blocks": {
+            "ln1_scale": ((L, D), None), "ln1_bias": ((L, D), 0),
+            "qkv_w": ((L, D, 3 * D), std), "qkv_b": ((L, 3 * D), 0),
+            "proj_w": ((L, D, D), res), "proj_b": ((L, D), 0),
+            "ln2_scale": ((L, D), None), "ln2_bias": ((L, D), 0),
+            "mlp_in_w": ((L, D, M), std), "mlp_in_b": ((L, M), 0),
+            "mlp_out_w": ((L, M, D), res), "mlp_out_b": ((L, D), 0)},
+        "lnf_scale": ((D,), None), "lnf_bias": ((D,), 0)}
+
+
 def _layer_norm(x, scale, bias, eps):
-    """fp32 statistics, output in the input dtype (the reference's)."""
+    """fp32 statistics, output in the input dtype (the reference's).  On
+    the card the statistics come from ``F.layer_norm``'s kernel, one block
+    per row, so a row's bits do not depend on the rows beside it: torch's
+    ``mean`` over the last dim changes its summation order with the row
+    count (``chip_smoke.py`` phase 21's ``row_0_equal_at_B_2_4_8``),
+    which parts a decode batch from the one-row static generate.  On the
+    CPU the reference's arithmetic (the fused layer's plain version
+    shares it)."""
+    if x.device.type == "cuda":
+        return F.layer_norm(x.float(), x.shape[-1:], scale.float(),
+                            bias.float(), eps).to(x.dtype)
     x32 = x.float()
     mu = x32.mean(-1, keepdim=True)
     var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
@@ -247,18 +280,21 @@ def _fused_weights(layer):
             "w_out": layer["mlp_out_w"], "b_out": layer["mlp_out_b"]}
 
 
-def prefill(params, batch, cache, config: GPT2Config):
+def prefill(params, batch, cache, config: GPT2Config, attn_fn=None):
     """Causal forward over (right-padded) prompts [B, S], filling cache
     positions [0, S) in place (an int8 cache gets the quantized K/V).
     Int8 weights dequantize per layer (``maybe_stream``) for the torch
-    matmuls.  Returns (logits [B, S, V], cache)."""
+    matmuls.  ``attn_fn(q, k, v, layer_idx)`` replaces the causal
+    attention (GPT-Neo's banded, unscaled form).  Returns (logits [B, S,
+    V], cache)."""
     x = embed(params, batch, config)
     B, S, D = x.shape
     quantized = "k_s" in cache
     for l in range(config.num_layers):
         layer = maybe_stream(layer_params(params["blocks"], l))
         q, kk, v = _block_qkv(x, layer, config)
-        attn = causal_attention(q, kk, v, impl=config.attention_impl)
+        attn = (causal_attention(q, kk, v, impl=config.attention_impl)
+                if attn_fn is None else attn_fn(q, kk, v, l))
         # in place: this layer's prompt K/V straight into the cache
         if quantized:
             quantize_prefill_into_cache(
@@ -272,18 +308,22 @@ def prefill(params, batch, cache, config: GPT2Config):
 
 
 def decode_step(params, tokens, cache, lengths, config: GPT2Config,
-                fused: bool = False):
+                fused: bool = False, sm_scale=None, min_pos_fn=None):
     """One decode step.  tokens [B], lengths [B] int32 = current cache
     fill per row (the new token's position).  Writes the new K/V into
     ``cache`` in place and returns (logits [B, V], cache).  ``fused``:
     one fused-layer kernel per layer; otherwise the reference's unfused
-    branch, int8 projections through qgemm (``keep_quantized``)."""
+    branch, int8 projections through qgemm (``keep_quantized``).
+    GPT-Neo's hooks: ``sm_scale`` overrides the score scale and
+    ``min_pos_fn(layer_idx, lengths) -> [B] int32`` gives each layer's
+    window floor to the decode kernel; a ``min_pos_fn`` keeps the unfused
+    path (no fused spec takes a window), so ``fused`` raises with one."""
     B = tokens.shape[0]
     D = config.d_model
     dtype = config.torch_dtype
     x = (params["wte"].to(dtype)[tokens.long()]
          + params["wpe"].to(dtype)[lengths.long()])               # [B, D]
-    spec = _fused_spec(config)
+    spec = _fused_spec(config, sm_scale) if min_pos_fn is None else None
     if fused_decode_active(spec, fused):
         x, cache = _fused_layer_pass(params, x[:, None, :], cache, lengths,
                                      spec=spec, weights_fn=_fused_weights)
@@ -303,13 +343,15 @@ def decode_step(params, tokens, cache, lengths, config: GPT2Config,
             write_token(vc, l, vq, lengths)
             write_token(cache["k_s"], l, ks1, lengths)
             write_token(cache["v_s"], l, vs1, lengths)
-            attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill,
-                                    k_scale=cache["k_s"][l],
-                                    v_scale=cache["v_s"][l])
+            kw = dict(k_scale=cache["k_s"][l], v_scale=cache["v_s"][l])
         else:
             write_token(kc, l, kk[:, 0], lengths)
             write_token(vc, l, v[:, 0], lengths)
-            attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill)
+            kw = {}
+        if min_pos_fn is not None:
+            kw["min_pos"] = min_pos_fn(l, lengths)
+        attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill,
+                                sm_scale=sm_scale, **kw)
         x = _block_finish(x, attn.reshape(B, D).to(x.dtype), layer, config)
     return head(params, x[:, None, :], config)[:, 0], cache
 

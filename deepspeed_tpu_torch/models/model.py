@@ -133,6 +133,27 @@ def seeded_device_init(shapes: dict, seed, device, dtype,
     return leaf(shapes, False)
 
 
+def numpy_seeded_init(shapes: dict, seed) -> dict:
+    """The host counterpart of :func:`seeded_device_init`: a numpy fp32
+    params tree drawn with numpy's PCG64 from ``seed`` in the order of
+    ``shapes`` (N(0, scale); ones for scale None, zeros for scale 0), for
+    families whose reference draws with ``jax.random`` (the tests hand
+    the same tree to both packages)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def leaf(spec):
+        if isinstance(spec, dict):
+            return {k: leaf(v) for k, v in spec.items()}
+        shape, scale = spec
+        if scale is None:
+            return np.ones(shape, np.float32)
+        if scale == 0:
+            return np.zeros(shape, np.float32)
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+    return leaf(shapes)
+
+
 def resolve_size(sizes: dict, size: str, family: str) -> dict:
     """Look up a size preset, refusing typos; ``size="custom"`` opts into
     the config defaults + overrides explicitly."""

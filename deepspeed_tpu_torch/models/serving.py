@@ -2,8 +2,10 @@
 ``deepspeed_tpu/models/serving.py``): ``write_token`` / ``select_token`` /
 ``init_cache``, the int8-weights routing, the fused per-layer pass, and
 the generic hook-driven ``prefill`` (:416) and ``decode_step`` (:466)
-that Llama and Mixtral serve through (GPT-2 keeps its own in
-``models/gpt2.py``).
+that Llama, Mixtral, GPT-NeoX and BLOOM serve through (GPT-2 and GPT-Neo
+keep their own in ``models/gpt2.py``).  BLOOM's ALiBi rides two hooks:
+an ``attn_fn`` prefill attention and the decode kernel's
+``alibi_slopes`` form.
 
 The reference is functional: a write returns a new cache.  Here the
 cache is updated in place — ``index_put_`` on one layer's slice — which
@@ -85,19 +87,21 @@ def fused_decode_active(spec, fused_decode) -> bool:
     it (``serving.fused_decode``).  ``None`` and ``False`` are the unfused
     path (the reference turns ``None`` on by default on a TPU; the port
     leaves it off until the fused step is measured against CUDA graphs).
-    An explicit request on a family whose spec the port's kernel does not
-    cover raises ``NotImplementedError`` naming the spec feature: it never
-    quietly runs the unfused path."""
+    An explicit request on a family the fused kernel does not take raises
+    ``NotImplementedError`` naming why: GPT-J's interleaved rotary (the
+    spec refuses it) and GPT-Neo (it wires no spec: its windowed layers).
+    The reference's kernel never fuses either and quietly runs them
+    unfused; the port never does so quietly."""
     if not fused_decode:
         return False
     why = "the family wires no fused-layer spec" if spec is None \
         else spec.unsupported()
     if why is not None:
         raise NotImplementedError(
-            f"serving.fused_decode=true: the fused layer's {why} variant is "
-            "not ported to deepspeed_tpu_torch yet (ROADMAP.md Queue B: the "
-            "fused decode kernel's NeoX and BLOOM specs); serve with "
-            "fused_decode off")
+            f"serving.fused_decode=true: {why}: the fused layer kernel does "
+            "not take it, as the reference's kernel does not (it runs GPT-J's "
+            "interleaved rotary and GPT-Neo's windowed layers unfused); serve "
+            "with fused_decode off")
     return True
 
 
@@ -110,15 +114,15 @@ def _fused_keep_quantized(blocks) -> bool:
 
 
 def _fused_layer_pass(params, x, cache, lengths, *, spec, weights_fn,
-                      moe_tail_fn=None):
+                      moe_tail_fn=None, alibi_slopes=None):
     """The fused per-layer loop (W = 1 for decode): ONE ``ds_fused_layer``
     call per layer replaces the QKV / rotary / cache write / decode
     attention / finish composition, then the window's new K/V (and, for
     an int8 cache, their scales) land in the stacked cache with
     ``write_token``.  ``moe_tail_fn(x, layer) -> x`` runs a family's
     routed-expert FFN after the kernel (``mlp="none"`` specs: the experts
-    stay on the grouped-GEMM kernels), as the reference's.  Returns (x
-    [B, W, D], cache)."""
+    stay on the grouped-GEMM kernels), as the reference's; an ``alibi``
+    spec takes its ``alibi_slopes`` [H].  Returns (x [B, W, D], cache)."""
     from deepspeed_tpu_torch.ops.kernels.fused_decode import ds_fused_layer
     blocks = params["blocks"]
     quantized = "k_s" in cache
@@ -131,7 +135,7 @@ def _fused_layer_pass(params, x, cache, lengths, *, spec, weights_fn,
         x, nk, nv, nks, nvs = ds_fused_layer(
             x, weights_fn(layer), kc[l], vc[l], lengths, spec,
             ks_l=ksc[l] if quantized else None,
-            vs_l=vsc[l] if quantized else None)
+            vs_l=vsc[l] if quantized else None, alibi_slopes=alibi_slopes)
         for j in range(W):
             write_token(kc, l, nk[:, j], lengths + j)
             write_token(vc, l, nv[:, j], lengths + j)
@@ -144,13 +148,14 @@ def _fused_layer_pass(params, x, cache, lengths, *, spec, weights_fn,
 
 
 def prefill(params, batch, cache, *, embed_fn, qkv_fn, finish_fn, head_fn,
-            num_heads, attention_impl):
+            num_heads, attention_impl, attn_fn=None):
     """Causal forward over right-padded prompts [B, S] filling cache
     positions [0, S) in place (the reference's hook-driven ``prefill``;
     an int8 cache gets the quantized K/V).  ``qkv_fn(x, layer, positions)``
     -> q [B, S, H, hd], k/v [B, S, KV, hd] (KV heads not repeated: the
     cache stays compact); ``finish_fn(x, attn [B, S, H * hd], layer)`` ->
-    x.  Returns (logits [B, S, V], cache)."""
+    x; ``attn_fn(q, k, v)`` replaces the causal attention (BLOOM's ALiBi
+    form).  Returns (logits [B, S, V], cache)."""
     tokens = batch["input_ids"]
     B, S = tokens.shape
     x = embed_fn(params, tokens)
@@ -158,7 +163,8 @@ def prefill(params, batch, cache, *, embed_fn, qkv_fn, finish_fn, head_fn,
     for l in range(cache["k"].shape[0]):
         layer = maybe_stream(layer_params(params["blocks"], l))
         q, kk, v = qkv_fn(x, layer, None)
-        attn = causal_attention(q, kk, v, impl=attention_impl)
+        attn = (causal_attention(q, kk, v, impl=attention_impl)
+                if attn_fn is None else attn_fn(q, kk, v))
         if quantized:
             quantize_prefill_into_cache(
                 {name: c[l:l + 1] for name, c in cache.items()}, kk[None],
@@ -172,7 +178,7 @@ def prefill(params, batch, cache, *, embed_fn, qkv_fn, finish_fn, head_fn,
 
 def decode_step(params, tokens, cache, lengths, *, embed_fn, qkv_fn,
                 finish_fn, head_fn, num_heads, fused=False, fused_spec=None,
-                fused_weights_fn=None, moe_tail_fn=None):
+                fused_weights_fn=None, moe_tail_fn=None, alibi_slopes=None):
     """One decode step (the reference's hook-driven ``decode_step``):
     tokens [B], lengths [B] int32 = current cache fill per row.  Rotary
     positions are per row (``lengths``); the GQA cache stays compact and
@@ -183,14 +189,17 @@ def decode_step(params, tokens, cache, lengths, *, embed_fn, qkv_fn,
     returns (logits [B, V], cache).  ``fused=True`` (checked by
     :func:`fused_decode_active`): one ``ds_fused_layer`` per layer with
     ``fused_spec`` over ``fused_weights_fn(layer)``, then
-    ``moe_tail_fn`` where the family has one (Mixtral's experts)."""
+    ``moe_tail_fn`` where the family has one (Mixtral's experts).
+    ``alibi_slopes`` [H] fp32 selects the decode kernel's ALiBi form (and
+    goes to the fused layer of an ``alibi`` spec)."""
     B = tokens.shape[0]
     x = embed_fn(params, tokens[:, None])[:, 0]                 # [B, D]
     if fused_decode_active(fused_spec, fused):
         x, cache = _fused_layer_pass(params, x[:, None, :], cache, lengths,
                                      spec=fused_spec,
                                      weights_fn=fused_weights_fn,
-                                     moe_tail_fn=moe_tail_fn)
+                                     moe_tail_fn=moe_tail_fn,
+                                     alibi_slopes=alibi_slopes)
         return head_fn(params, x)[:, 0], cache
     quantized = "k_s" in cache
     keep_q = qgemm_active(params["blocks"])
@@ -210,11 +219,13 @@ def decode_step(params, tokens, cache, lengths, *, embed_fn, qkv_fn,
             write_token(cache["v_s"], l, vs1, lengths)
             attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill,
                                     k_scale=cache["k_s"][l],
-                                    v_scale=cache["v_s"][l])
+                                    v_scale=cache["v_s"][l],
+                                    alibi_slopes=alibi_slopes)
         else:
             write_token(kc, l, kk[:, 0], lengths)
             write_token(vc, l, v[:, 0], lengths)
-            attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill)
+            attn = decode_attention(q[:, 0].contiguous(), kc[l], vc[l], fill,
+                                    alibi_slopes=alibi_slopes)
         x = finish_fn(x[:, None, :],
                       attn.reshape(B, 1, num_heads * hd).to(x.dtype),
                       layer)[:, 0, :]

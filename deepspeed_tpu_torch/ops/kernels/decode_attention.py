@@ -1,9 +1,12 @@
 """Decode attention: one query token per row over a dense KV cache.
 
 Port of ``deepspeed_tpu/ops/pallas/decode_attention.py``: the float
-cache and the int8 cache (no ALiBi, no window floor), plus the int8
-cache helpers ``quantize_kv`` / ``dequantize_kv`` /
-``quantize_prefill_into_cache``.  :func:`decode_attention` launches the
+cache and the int8 cache, each with the ALiBi variant (``alibi_slopes``
+[H] fp32: the score of key position s for query head h gets
+``slopes[h] * s``, BLOOM) and the windowed variant (``min_pos`` [B]
+int32: positions below a per-row floor are masked, GPT-Neo's local
+layers), plus the int8 cache helpers ``quantize_kv`` / ``dequantize_kv``
+/ ``quantize_prefill_into_cache``.  :func:`decode_attention` launches the
 CUDA kernel in ``csrc/decode_attention.cu`` for CUDA tensors and takes
 the plain PyTorch version :func:`decode_attention_plain` for CPU tensors.
 
@@ -14,8 +17,11 @@ Layouts (the reference's public ones):
   k/v scale: [B, S_max, KV] fp32, int8 caches only (one symmetric scale
              per cached head vector)
   cache_len: [B] int32 — valid positions per row
+  alibi_slopes: [H] fp32 per query head, or None
+  min_pos:   [B] int32 first attended position per row, or None
   out:       [B, H, hd], the input dtype
-A row with ``cache_len <= 0`` returns zeros.
+A row with no attended position (``cache_len <= 0``, or a floor at or
+past it) returns zeros.
 
 int8 numerics follow the Pallas kernel: the cache dequantizes to fp32
 and the query, scores, softmax and weighted sum stay in fp32.  The
@@ -63,10 +69,12 @@ def quantize_prefill_into_cache(cache, ks, vs):
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len, sm_scale=None,
-                           k_scale=None, v_scale=None):
-    """Plain PyTorch version (fp32 einsum + masked softmax); rows with no
-    valid position return zeros as the kernel does.  int8 caches pass
-    their fp32 scales."""
+                           k_scale=None, v_scale=None, alibi_slopes=None,
+                           min_pos=None):
+    """Plain PyTorch version (fp32 einsum + masked softmax, the reference's
+    ``decode_attention_xla`` order: scores scaled, then the ALiBi bias
+    added); rows with no valid position return zeros as the kernel does.
+    int8 caches pass their fp32 scales."""
     B, H, hd = q.shape
     S_max, KV = k_cache.shape[1], k_cache.shape[2]
     if sm_scale is None:
@@ -83,7 +91,12 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, sm_scale=None,
         v = v.repeat_interleave(rep, dim=2)
     scores = torch.einsum("bhd,bshd->bhs", q.float(), k) * sm_scale
     pos = torch.arange(S_max, device=q.device)
+    if alibi_slopes is not None:
+        scores = scores + (alibi_slopes.float()[None, :, None]
+                           * pos.float()[None, None, :])
     valid = pos[None, None, :] < cache_len.to(q.device)[:, None, None]
+    if min_pos is not None:
+        valid &= pos[None, None, :] >= min_pos.to(q.device)[:, None, None]
     scores = scores.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(scores, dim=-1) * valid
     return torch.einsum("bhs,bshd->bhd", probs, v).to(q.dtype)
@@ -96,14 +109,15 @@ def _lib(quantized: bool):
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = ([p] * (7 if quantized else 5) + [i] * 6
+        fn.argtypes = ([p] * (9 if quantized else 7) + [i] * 6
                        + [ctypes.c_float, p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def decode_attention_cuda(q, k_cache, v_cache, cache_len, sm_scale=None,
-                          k_scale=None, v_scale=None):
+                          k_scale=None, v_scale=None, alibi_slopes=None,
+                          min_pos=None):
     """Launch the CUDA kernel; raises on anything it does not take."""
     B, H, hd = q.shape
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
@@ -139,6 +153,16 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, sm_scale=None,
             raise ValueError("decode_attention: int8 scales must be fp32 "
                              f"[B, S_max, KV] = {(B, S_max, KV)}")
         tensors += [("k_scale", k_scale), ("v_scale", v_scale)]
+    if alibi_slopes is not None:
+        if alibi_slopes.dtype != torch.float32 \
+                or alibi_slopes.shape != (H,):
+            raise ValueError(f"decode_attention: alibi_slopes must be fp32 "
+                             f"[H] = ({H},)")
+        tensors.append(("alibi_slopes", alibi_slopes))
+    if min_pos is not None:
+        if min_pos.dtype != torch.int32 or min_pos.shape != (B,):
+            raise ValueError("decode_attention: min_pos must be int32 [B]")
+        tensors.append(("min_pos", min_pos))
     for name, t in tensors:
         if t.device != q.device:
             raise ValueError(f"decode_attention: {name} on {t.device}, "
@@ -153,33 +177,48 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, sm_scale=None,
         ptrs = [q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()]
         if quantized:
             ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
-        rc = _lib(quantized)(*ptrs, cache_len.data_ptr(), out.data_ptr(),
-                             B, H, KV, S_max, hd,
+        ptrs += [cache_len.data_ptr(),
+                 0 if alibi_slopes is None else alibi_slopes.data_ptr(),
+                 0 if min_pos is None else min_pos.data_ptr()]
+        rc = _lib(quantized)(*ptrs, out.data_ptr(), B, H, KV, S_max, hd,
                              int(q.dtype == torch.bfloat16),
                              float(sm_scale), stream)
     build.check(rc, "decode_attention")
-    if quantized:
-        decode_attention.int8_launches += 1
-    else:
-        decode_attention.launches += 1
+    if alibi_slopes is not None:
+        decode_attention.alibi_launches += 1
+    if min_pos is not None:
+        decode_attention.windowed_launches += 1
+    if alibi_slopes is None and min_pos is None:
+        if quantized:
+            decode_attention.int8_launches += 1
+        else:
+            decode_attention.launches += 1
     return out
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, sm_scale=None,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, alibi_slopes=None,
+                     min_pos=None):
     """The serving path's decode attention: CUDA kernel for CUDA tensors,
     the plain version for CPU tensors.  int8 caches pass their fp32
-    ``k_scale`` / ``v_scale`` [B, S_max, KV]."""
+    ``k_scale`` / ``v_scale`` [B, S_max, KV]; ``alibi_slopes`` [H] fp32
+    selects the ALiBi form, ``min_pos`` [B] int32 the window floor."""
     if q.device.type == "cuda":
         return decode_attention_cuda(q, k_cache, v_cache, cache_len,
-                                     sm_scale, k_scale, v_scale)
+                                     sm_scale, k_scale, v_scale,
+                                     alibi_slopes, min_pos)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
-                                      sm_scale, k_scale, v_scale)
+                                      sm_scale, k_scale, v_scale,
+                                      alibi_slopes, min_pos)
     raise ValueError(f"decode_attention: unsupported device {q.device}")
 
 
 #: kernel launches since the count was last set to 0: ``launches`` for
-#: the float cache, ``int8_launches`` for the int8 cache
+#: the float cache and ``int8_launches`` for the int8 cache with neither
+#: extra; a call with ALiBi slopes counts in ``alibi_launches`` and one
+#: with a window floor in ``windowed_launches`` (either cache)
 decode_attention.launches = 0
 decode_attention.int8_launches = 0
+decode_attention.alibi_launches = 0
+decode_attention.windowed_launches = 0

@@ -14,19 +14,24 @@ per-layer composition (the same norms, projections, rotary,
 ``quantize_kv`` and decode attention, in plain PyTorch), so fused and
 unfused decode agree bitwise on the CPU.
 
-Specs covered: ``norm`` "ln" or "rms"; ``qkv`` "fused" ([D, 3D] thirds)
-or "split" (``wq`` / ``wk`` / ``wv``); the QKV, attention-out and GELU /
-ReLU MLP biases each optional; grouped-query attention (``num_kv_heads``
-dividing ``num_heads``); no rotary or full rotary (``rotary_dims ==
-head_dim``, the split-half pairing); ``mlp`` gelu_tanh / gelu_exact /
-relu, ``swiglu`` (``w_gate``, ``w_up``, ``w_down``) or ``none`` (the
-layer ends after the attention-out residual: a mixture-of-experts layer
-runs its experts outside); the serial residual; any window W >= 1;
-head_dim <= 128.  Head-major QKV, partial or interleaved rotary, the
-parallel residual and ALiBi raise NotImplementedError (ROADMAP.md Queue
-B: the fused decode kernel's NeoX and BLOOM specs).  The reference's
-VMEM-budget fallback is not ported: the kernel streams each weight once
-per call and needs no resident layer.
+Specs covered: ``norm`` "ln" or "rms"; ``qkv`` "fused" ([D, 3D] thirds),
+"headmajor" ([D, 3D] packed per head [q|k|v], GPT-NeoX and BLOOM; no
+GQA) or "split" (``wq`` / ``wk`` / ``wv``); the QKV, attention-out and
+GELU / ReLU MLP biases each optional; grouped-query attention
+(``num_kv_heads`` dividing ``num_heads``); no rotary, full rotary
+(``rotary_dims == head_dim``) or NeoX's partial rotary (``0 <
+rotary_dims < head_dim``: the first ``rotary_dims`` of each head
+rotate, split-half pairing over ``rotary_dims / 2``, the rest pass
+through); ALiBi (``alibi=True``, the per-head slopes passed as
+``alibi_slopes``); ``mlp`` gelu_tanh / gelu_exact / relu, ``swiglu``
+(``w_gate``, ``w_up``, ``w_down``) or ``none`` (the layer ends after the
+attention-out residual: a mixture-of-experts layer runs its experts
+outside); the serial or the parallel residual (norm2 reads the layer
+input; ``(x + attn_out) + mlp_out``); any window W >= 1; head_dim <=
+128.  GPT-J's interleaved rotary raises NotImplementedError, as the
+reference's kernel refuses it (``fused_decode.py:114``).  The
+reference's VMEM-budget fallback is not ported: the kernel streams each
+weight once per call and needs no resident layer.
 
 The cache is input-only: the new K/V (int8 codes plus fp32 scales for an
 int8 cache) come back as outputs and the caller writes them with
@@ -80,23 +85,24 @@ class FusedLayerSpec:
         return self.num_heads // self.num_kv_heads
 
     def unsupported(self) -> Optional[str]:
-        """Why the port cannot run this spec yet, or None."""
+        """Why the fused kernel cannot run this spec, or None."""
         checks = (
             (self.norm not in ("ln", "rms"), f"norm={self.norm!r}"),
-            (self.qkv not in ("fused", "split"), f"qkv={self.qkv!r}"),
+            (self.qkv not in ("fused", "headmajor", "split"),
+             f"qkv={self.qkv!r}"),
             (self.mlp not in _MLPS, f"mlp={self.mlp!r}"),
-            (self.residual != "serial", f"residual={self.residual!r}"),
+            (self.residual not in ("serial", "parallel"),
+             f"residual={self.residual!r}"),
             (self.num_kv_heads < 1 or self.num_heads % self.num_kv_heads,
              f"num_heads={self.num_heads} over num_kv_heads="
              f"{self.num_kv_heads}"),
-            (self.qkv == "fused" and self.num_kv_heads != self.num_heads,
-             "qkv='fused' with grouped-query attention"),
-            (self.rotary_dims not in (0, self.head_dim)
+            (self.qkv in ("fused", "headmajor")
+             and self.num_kv_heads != self.num_heads,
+             f"qkv={self.qkv!r} with grouped-query attention"),
+            (not 0 <= self.rotary_dims <= self.head_dim
              or self.rotary_dims % 2,
-             f"partial rotary (rotary_dims={self.rotary_dims} of head_dim "
-             f"{self.head_dim})"),
+             f"rotary_dims={self.rotary_dims} of head_dim {self.head_dim}"),
             (self.rotary_interleaved, "rotary_interleaved"),
-            (self.alibi, "alibi"),
         )
         for bad, what in checks:
             if bad:
@@ -136,9 +142,9 @@ def _check_spec(spec: FusedLayerSpec):
     why = spec.unsupported()
     if why is not None:
         raise NotImplementedError(
-            f"ds_fused_layer: {why}: not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP.md Queue B: the fused decode kernel's NeoX and BLOOM "
-            "specs)")
+            f"ds_fused_layer: {why}: the fused layer kernel does not take "
+            "this spec, as the reference's kernel does not; serve it with "
+            "fused decode off")
 
 
 # ------------------------------------------------------------ plain version
@@ -172,10 +178,21 @@ def _act(h, mlp):
     return F.gelu(h, approximate="tanh" if mlp == "gelu_tanh" else "none")
 
 
+def _ref_rope(x, spec: FusedLayerSpec, positions):
+    """Full or partial (NeoX) rotary with the split-half pairing (the
+    reference's ``_ref_rope``): the first ``rotary_dims`` of each head
+    rotate, the rest pass through."""
+    from deepspeed_tpu_torch.models.llama import rope
+    rot = spec.rotary_dims
+    if rot == x.shape[-1]:
+        return rope(x, spec.rope_theta, positions)
+    xr = rope(x[..., :rot], spec.rope_theta, positions)
+    return torch.cat([xr, x[..., rot:]], dim=-1)
+
+
 def _ref_qkv(x, cw, spec: FusedLayerSpec, positions):
     """norm1 + QKV (+ biases) + rotary (the reference's ``_ref_qkv``):
     q [B, W, H, hd], k / v [B, W, KV, hd]."""
-    from deepspeed_tpu_torch.models.llama import rope
     H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     h = _norm(x, spec, cw["n1_s"], cw.get("n1_b"))
     dt = h.dtype
@@ -188,46 +205,54 @@ def _ref_qkv(x, cw, spec: FusedLayerSpec, positions):
         qkv = _dot(h, cw["wqkv"])
         if spec.qkv_bias:
             qkv = qkv + cw["bqkv"].to(dt)
-        q, kk, v = qkv.split(H * hd, dim=-1)
-    q = q.unflatten(-1, (H, hd))
-    kk, v = kk.unflatten(-1, (KV, hd)), v.unflatten(-1, (KV, hd))
+        if spec.qkv == "headmajor":
+            q, kk, v = qkv.unflatten(-1, (H, 3 * hd)).split(hd, dim=-1)
+        else:
+            q, kk, v = qkv.split(H * hd, dim=-1)
+    if spec.qkv != "headmajor":
+        q = q.unflatten(-1, (H, hd))
+        kk, v = kk.unflatten(-1, (KV, hd)), v.unflatten(-1, (KV, hd))
     if spec.rotary_dims:
-        q = rope(q, spec.rope_theta, positions)
-        kk = rope(kk, spec.rope_theta, positions)
+        q = _ref_rope(q, spec, positions)
+        kk = _ref_rope(kk, spec, positions)
     return q, kk, v
 
 
 def _ref_finish(x, attn_flat, cw, spec: FusedLayerSpec):
-    """attn-out (+ bias) + residual, then norm2 + MLP + residual (the
-    reference's ``_ref_finish``, serial residual); ``mlp="none"`` stops
-    after the attention residual."""
+    """attn-out (+ bias) + residual and norm2 + MLP + residual (the
+    reference's ``_ref_finish``): serial, norm2 over ``x + attn_out``; or
+    parallel, norm2 over ``x`` and ``(x + attn_out) + mlp_out``.
+    ``mlp="none"`` stops after the attention residual."""
     dt = x.dtype
     attn_out = _dot(attn_flat, cw["wo"])
     if spec.out_bias:
         attn_out = attn_out + cw["bo"].to(dt)
-    x = x + attn_out
+    res = x + attn_out
     if spec.mlp == "none":
-        return x
-    h2 = _norm(x, spec, cw["n2_s"], cw.get("n2_b"))
+        return res
+    h2 = _norm(x if spec.residual == "parallel" else res, spec, cw["n2_s"],
+               cw.get("n2_b"))
     if spec.mlp == "swiglu":
         gated = F.silu(_dot(h2, cw["w_gate"])) * _dot(h2, cw["w_up"])
-        return x + _dot(gated, cw["w_down"])
+        return res + _dot(gated, cw["w_down"])
     m = _dot(h2, cw["w_in"])
     if spec.mlp_bias:
         m = m + cw["b_in"].to(dt)
     m = _dot(_act(m, spec.mlp), cw["w_out"])
     if spec.mlp_bias:
         m = m + cw["b_out"].to(dt)
-    return x + m
+    return res + m
 
 
 def fused_layer_plain(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
-                      ks_l=None, vs_l=None):
+                      ks_l=None, vs_l=None, alibi_slopes=None):
     """Plain PyTorch version (the reference's ``_ref_fused_layer``): the
     unfused per-layer body on copies of the cache, window position j
     rotated and written at ``lengths + j`` and attending ``lengths + j +
-    1`` positions.  Returns ``(x_out, new_k, new_v, new_ks, new_vs)``."""
+    1`` positions (with the ALiBi slopes for an ``alibi`` spec).  Returns
+    ``(x_out, new_k, new_v, new_ks, new_vs)``."""
     _check_spec(spec)
+    _check_slopes(spec, alibi_slopes)
     B, W, D = x.shape
     H, hd = spec.num_heads, spec.head_dim
     dt = x.dtype
@@ -258,13 +283,19 @@ def fused_layer_plain(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
             new_v.append(v[:, j].to(v_l.dtype))
         cols.append(decode_attention_plain(
             q[:, j].contiguous(), k_l, v_l, (lengths + j + 1).to(torch.int32),
-            spec.sm_scale, ks_l, vs_l))
+            spec.sm_scale, ks_l, vs_l, alibi_slopes))
     attn = torch.stack(cols, dim=1).reshape(B, W, H * hd).to(dt)
     x_out = _ref_finish(x, attn, cw, spec)
     out = (x_out, torch.stack(new_k, 1), torch.stack(new_v, 1))
     if quantized:
         return out + (torch.stack(new_ks, 1), torch.stack(new_vs, 1))
     return out + (None, None)
+
+
+def _check_slopes(spec: FusedLayerSpec, alibi_slopes):
+    if spec.alibi != (alibi_slopes is not None):
+        raise ValueError("ds_fused_layer: an alibi spec takes alibi_slopes "
+                         "[H] and no other spec does")
 
 
 # ------------------------------------------------------------------ kernel
@@ -281,10 +312,11 @@ class _FusedArgs(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_int) for n in ("B", "W", "D", "H", "KV", "HD",
                                      "S_max", "norm", "mlp", "nqkv",
-                                     "nmlp_in")]
+                                     "nmlp_in", "headmajor", "rot",
+                                     "parallel")]
         + [("eps", ctypes.c_float), ("sm_scale", ctypes.c_float)]
         + [(n, ctypes.c_void_p) for n in ("x", "lengths", "n1_s", "n1_b",
-                                          "n2_s", "n2_b", "rope")]
+                                          "n2_s", "n2_b", "rope", "alibi")]
         + [("qkv", _Mat * 3), ("o", _Mat), ("mlp_in", _Mat * 2),
            ("mlp_out", _Mat)]
         + [(n, ctypes.c_void_p) for n in ("k_cache", "v_cache", "ks_cache",
@@ -321,7 +353,7 @@ def _lib():
 #: per device: the grid barrier's [count, generation] (the count is 0
 #: between launches; launches on one device are stream-ordered)
 _barriers = {}
-#: per (rope theta, head_dim, device): the rotary frequencies
+#: per (rope theta, rotary dims, device): the rotary frequencies
 _rope_tables = {}
 
 
@@ -333,14 +365,15 @@ def _barrier(device):
     return bar
 
 
-def _rope_table(theta, head_dim, device):
-    """``rope_freqs(theta, head_dim)`` on ``device``, made once: the unfused
-    path's own frequencies, so the kernel's angles are its angles."""
+def _rope_table(theta, rot, device):
+    """``rope_freqs(theta, rot)`` on ``device``, made once: the unfused
+    path's own frequencies (over the rotary dims, as the reference's
+    ``rope(x[..., :rot])``), so the kernel's angles are its angles."""
     from deepspeed_tpu_torch.models.llama import rope_freqs
-    key = (float(theta), int(head_dim), device)
+    key = (float(theta), int(rot), device)
     table = _rope_tables.get(key)
     if table is None:
-        table = rope_freqs(theta, head_dim, device).contiguous()
+        table = rope_freqs(theta, rot, device).contiguous()
         _rope_tables[key] = table
     return table
 
@@ -377,11 +410,12 @@ def _phases(spec: FusedLayerSpec, D, M):
 
 
 def fused_layer_cuda(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
-                     ks_l=None, vs_l=None, stamps=None):
+                     ks_l=None, vs_l=None, alibi_slopes=None, stamps=None):
     """Launch the CUDA kernel; raises on anything it does not take.
     ``stamps``: an int64 CUDA tensor of ``len(PHASES) + 1`` elements that
     receives the device clock (ns) at each phase boundary (see PHASES)."""
     _check_spec(spec)
+    _check_slopes(spec, alibi_slopes)
     if x.dim() != 3 or x.dtype not in _DTYPES:
         raise ValueError(f"ds_fused_layer: x {tuple(x.shape)} {x.dtype}; "
                          f"need [B, W, D] in {_DTYPES}")
@@ -414,6 +448,9 @@ def fused_layer_cuda(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
     a = _FusedArgs(B=B, W=W, D=D, H=H, KV=KV, HD=hd, S_max=S,
                    norm=int(spec.norm == "rms"), mlp=_MLPS[spec.mlp],
                    nqkv=len(phases[0]), nmlp_in=len(phases[2]),
+                   headmajor=int(spec.qkv == "headmajor"),
+                   rot=spec.rotary_dims,
+                   parallel=int(spec.residual == "parallel"),
                    eps=float(spec.eps),
                    sm_scale=float(spec.sm_scale if spec.sm_scale is not None
                                   else hd ** -0.5))
@@ -448,7 +485,11 @@ def fused_layer_cuda(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
             _expect(b_key, cw[b_key], (D,), dt, dev)
             setattr(a, b_key, cw[b_key].data_ptr())
     if spec.rotary_dims:
-        a.rope = _rope_table(spec.rope_theta, hd, dev).data_ptr()
+        a.rope = _rope_table(spec.rope_theta, spec.rotary_dims,
+                             dev).data_ptr()
+    if spec.alibi:
+        _expect("alibi_slopes", alibi_slopes, (H,), torch.float32, dev)
+        a.alibi = alibi_slopes.data_ptr()
     R = B * W
     x_out = torch.empty_like(x)
     new_k = torch.empty((B, W, KV, hd), dtype=cdt, device=dev)
@@ -488,19 +529,22 @@ def fused_layer_cuda(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
 
 
 def ds_fused_layer(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
-                   ks_l=None, vs_l=None):
+                   ks_l=None, vs_l=None, alibi_slopes=None):
     """One decoder layer's fused window step: ``x`` [B, W, D]; ``cw`` the
     canonical weights (``_weight_order``; int8 projections as
     ``QuantizedTensor``); ``k_l``/``v_l`` [B, S, KV, hd] this layer's
     cache (positions < ``lengths`` valid; the window's own K/V are not in
     it yet); ``lengths`` int32 [B]; int8 caches pass ``ks_l``/``vs_l``
-    [B, S, KV].  Returns ``(x_out [B, W, D], new_k [B, W, KV, hd], new_v,
-    new_ks, new_vs)`` (scales None for a float cache).  The CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    [B, S, KV]; an ``alibi`` spec passes its ``alibi_slopes`` [H] fp32.
+    Returns ``(x_out [B, W, D], new_k [B, W, KV, hd], new_v, new_ks,
+    new_vs)`` (scales None for a float cache).  The CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if x.device.type == "cuda":
-        return fused_layer_cuda(x, cw, k_l, v_l, lengths, spec, ks_l, vs_l)
+        return fused_layer_cuda(x, cw, k_l, v_l, lengths, spec, ks_l, vs_l,
+                                alibi_slopes)
     if x.device.type == "cpu":
-        return fused_layer_plain(x, cw, k_l, v_l, lengths, spec, ks_l, vs_l)
+        return fused_layer_plain(x, cw, k_l, v_l, lengths, spec, ks_l, vs_l,
+                                 alibi_slopes)
     raise ValueError(f"ds_fused_layer: unsupported device {x.device}")
 
 

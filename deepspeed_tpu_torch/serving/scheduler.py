@@ -181,6 +181,9 @@ class ServingMetrics:
         for kernel, n in (
                 ("decode_attention", decode_attention.launches),
                 ("decode_attention_int8", decode_attention.int8_launches),
+                ("decode_attention_alibi", decode_attention.alibi_launches),
+                ("decode_attention_windowed",
+                 decode_attention.windowed_launches),
                 ("ds_flash_fwd", flash_attention_fwd.launches),
                 ("qgemm", qgemm.launches),
                 ("ds_fused_layer", ds_fused_layer.launches),

@@ -39,6 +39,16 @@ the fused per-layer decode kernel (also on for Mixtral, whose experts
 stay on the grouped kernels):
     python -m deepspeed_tpu_torch.serving.server --model llama:7b \\
         --fused-decode on --port 8000
+GPT-NeoX-20B (all 44 layers, 41.1 GB of bf16 weights drawn on the card),
+fused decode off or on, or with int8 weights and an int8 KV cache:
+    python -m deepspeed_tpu_torch.serving.server --model neox:20b \\
+        --fused-decode on --port 8000
+BLOOM-560m (ALiBi: the decode kernel's ALiBi variant, or the fused
+layer's BLOOM spec) and GPT-Neo 2.7B (its local layers' sliding window:
+the decode kernel's windowed variant; fused decode is refused, as the
+reference's kernel never fuses it):
+    python -m deepspeed_tpu_torch.serving.server --model bloom:560m
+    python -m deepspeed_tpu_torch.serving.server --model gptneo:2.7b
 """
 import argparse
 import enum
@@ -55,19 +65,23 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 
 def model_from_spec(spec: str, **overrides):
-    """``arch:size`` -> Model, e.g. ``gpt2:760m``, ``llama:7b`` or
-    ``mixtral:8x7b``.  The port has the GPT-2, Llama and Mixtral families;
-    other architectures raise."""
+    """``arch:size`` -> Model, e.g. ``gpt2:760m``, ``llama:7b``,
+    ``mixtral:8x7b``, ``neox:20b``, ``bloom:560m`` or ``gptneo:2.7b``.
+    Other architectures (BERT) raise."""
+    from deepspeed_tpu_torch.models.bloom import bloom_model
     from deepspeed_tpu_torch.models.gpt2 import gpt2_model
+    from deepspeed_tpu_torch.models.gptneo import gptneo_model
     from deepspeed_tpu_torch.models.llama import llama_model
     from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    from deepspeed_tpu_torch.models.neox import neox_model
     registry = {"gpt2": gpt2_model, "llama": llama_model,
-                "mixtral": mixtral_model}
+                "mixtral": mixtral_model, "neox": neox_model,
+                "bloom": bloom_model, "gptneo": gptneo_model}
     arch, _, size = spec.partition(":")
     if arch not in registry:
         raise ValueError(
             f"model arch {arch!r} is not ported to deepspeed_tpu_torch yet "
-            f"(ROADMAP.md Queue B: other families); choose from "
+            f"(ROADMAP.md Queue A: other families); choose from "
             f"{sorted(registry)}")
     return registry[arch](size or "custom", **overrides)
 
@@ -363,7 +377,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "attention kernels)")
     p.add_argument("--model", default="gpt2:125m",
                    help="arch:size spec (gpt2:760m, llama:7b, "
-                        "mixtral:8x7b, ...)")
+                        "mixtral:8x7b, neox:20b, neox:pythia-160m, "
+                        "bloom:560m, gptneo:2.7b, ...)")
     p.add_argument("--config", default=None,
                    help="DS-style JSON config; its 'serving' section "
                         "configures the scheduler")
@@ -388,7 +403,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused-decode", default=None, choices=["on", "off"],
                    help="fused per-layer decode kernel (overrides the "
                         "'serving.fused_decode' config key): one launch "
-                        "per layer per decode step; default off")
+                        "per layer per decode step; default off; refused "
+                        "for gptneo (windowed layers) and GPT-J's "
+                        "interleaved rotary")
     return p
 
 

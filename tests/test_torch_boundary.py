@@ -77,7 +77,10 @@ print(json.dumps({"modules": mods, "bad": bad}))
               "deepspeed_tpu_torch.moe.layer",
               "deepspeed_tpu_torch.moe.sharded_moe",
               "deepspeed_tpu_torch.models.mixtral",
-              "deepspeed_tpu_torch.models.llama"):
+              "deepspeed_tpu_torch.models.llama",
+              "deepspeed_tpu_torch.models.neox",
+              "deepspeed_tpu_torch.models.bloom",
+              "deepspeed_tpu_torch.models.gptneo"):
         assert m in res["modules"]
 
 
@@ -85,7 +88,8 @@ print(json.dumps({"modules": mods, "bad": bad}))
     "ops.kernels.fused_decode", "ops.kernels.qgemm",
     "ops.kernels.quantization", "ops.kernels.decode_attention",
     "models.model", "serving.server", "ops.kernels.grouped_gemm",
-    "moe.layer", "models.mixtral", "models.serving"])
+    "moe.layer", "models.mixtral", "models.serving", "models.neox",
+    "models.bloom", "models.gptneo"])
 def test_each_module_imports_on_its_own(module):
     """Imported first in a fresh interpreter (as chip_smoke.py and a user
     script may): no import cycle between the kernels and the models."""

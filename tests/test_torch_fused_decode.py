@@ -6,8 +6,11 @@ chip_smoke.py) is compared with the JAX Pallas ``_fused_kernel`` in
 interpret mode and with the JAX reference composition
 ``_ref_fused_layer``, on the same seeded numpy inputs: the GPT-2 spec,
 the Llama spec (RMSNorm, split Q/K/V, full rotary, GQA rep 2, SwiGLU;
-with and without the InternLM biases) and Mixtral's attention-half spec
-(``mlp="none"``), each in the four weight x cache combinations (float /
+with and without the InternLM biases), Mixtral's attention-half spec
+(``mlp="none"``), the GPT-NeoX specs (head-major QKV, partial rotary,
+exact GELU; the parallel residual at head_dim 96 with 24 rotary dims,
+the serial one at head_dim 64 with 16) and the BLOOM spec (head-major
+QKV, ALiBi), each in the four weight x cache combinations (float /
 int8 weights x float / int8 cache) at window W = 1 and W = 3; and one
 spec feature at a time on the GPT-2 spec.
 
@@ -23,6 +26,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from deepspeed_tpu.models.bloom import alibi_slopes as jax_alibi_slopes
 from deepspeed_tpu.models.model import QuantizedTensor as JaxQuantized
 from deepspeed_tpu.ops.pallas.decode_attention import \
     quantize_kv as jax_quantize_kv
@@ -46,6 +50,16 @@ LLAMA = dict(num_kv_heads=2, norm="rms", qkv="split", qkv_bias=False,
              out_bias=False, mlp="swiglu", mlp_bias=False, rotary_dims=HD)
 #: Mixtral's attention half (mixtral.py:220-226): the experts run outside
 MIXTRAL = dict(LLAMA, mlp="none")
+#: GPT-NeoX (neox.py:233-243): head-major QKV, partial rotary, exact GELU,
+#: the parallel residual; at NeoX-20B's head_dim 96 with its 24 rotary
+#: dims (12 pairs), and the serial form at Pythia's head_dim 64 / 16
+NEOX = dict(num_heads=2, num_kv_heads=2, head_dim=96, d_model=192,
+            qkv="headmajor", mlp="gelu_exact", residual="parallel",
+            rotary_dims=24)
+NEOX_SERIAL = dict(NEOX, head_dim=64, d_model=128, residual="serial",
+                   rotary_dims=16)
+#: BLOOM (bloom.py:217-222): head-major QKV, ALiBi, tanh GELU
+BLOOM = dict(qkv="headmajor", alibi=True)
 
 
 def _spec(mod, **kw):
@@ -56,6 +70,7 @@ def _spec(mod, **kw):
 
 
 def _shape(key, spec):
+    D, HD = spec.d_model, spec.head_dim
     Dq, Dk = spec.num_heads * HD, spec.num_kv_heads * HD
     return {"n1_s": (D,), "n1_b": (D,), "n2_s": (D,), "n2_b": (D,),
             "wqkv": (D, 3 * D), "bqkv": (3 * D,), "wq": (D, Dq),
@@ -67,13 +82,16 @@ def _shape(key, spec):
 
 def _weights(seed, spec=None):
     """Seeded canonical weights of ``spec`` (the GPT-2 spec when None):
-    norm scales near 1, everything else N(0, 0.2)."""
+    norm scales near 1, everything else N(0, 0.2) at d_model 32 and
+    N(0, 0.2 * sqrt(32 / d_model)) wider, so the layer's outputs keep the
+    magnitude the fp32 tolerances are stated for."""
     spec = spec or _spec(JaxSpec)
     rng = np.random.default_rng(seed)
+    std = 0.2 * (D / spec.d_model) ** 0.5
     cw = {}
     for key in _weight_order(spec):
         v = rng.standard_normal(_shape(key, spec), dtype=np.float32)
-        cw[key] = v * 0.1 + 1 if key.endswith("_s") else v * 0.2
+        cw[key] = v * 0.1 + 1 if key.endswith("_s") else v * std
     return cw
 
 
@@ -97,7 +115,7 @@ def _both(cw, int8_weights):
     return jw, pw
 
 
-def _inputs(W, int8_cache, seed, B=2, S=64, KV=H):
+def _inputs(W, int8_cache, seed, B=2, S=64, KV=H, D=D, HD=HD):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, W, D), dtype=np.float32) * 0.2
     k = rng.standard_normal((B, S, KV, HD), dtype=np.float32)
@@ -114,15 +132,18 @@ def _run(W, int8_weights, int8_cache, seed=3, **kw):
     spec_j, spec_p = _spec(JaxSpec, **kw), _spec(fd.FusedLayerSpec, **kw)
     jw, pw = _both(_weights(seed, spec_j), int8_weights)
     x, k, v, L, ks, vs = _inputs(W, int8_cache, seed + 1,
-                                 KV=spec_p.num_kv_heads)
+                                 KV=spec_p.num_kv_heads, D=spec_p.d_model,
+                                 HD=spec_p.head_dim)
+    sl = (np.asarray(jax_alibi_slopes(spec_p.num_heads), np.float32)
+          if spec_p.alibi else None)
     J = lambda a: None if a is None else jnp.asarray(a)      # noqa: E731
     T = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
     kern = jax_fused_layer(J(x), jw, J(k), J(v), J(L), spec_j, ks_l=J(ks),
-                           vs_l=J(vs), interpret=True)
+                           vs_l=J(vs), alibi_slopes=J(sl), interpret=True)
     ref = _ref_fused_layer(J(x), jw, J(k), J(v), J(L), spec_j, J(ks), J(vs),
-                           None)
+                           J(sl))
     got = fd.ds_fused_layer(T(x), pw, T(k), T(v), T(L), spec_p, ks_l=T(ks),
-                            vs_l=T(vs))
+                            vs_l=T(vs), alibi_slopes=T(sl))
     return got, kern, ref
 
 
@@ -159,11 +180,12 @@ def test_plain_matches_pallas_interpret_and_reference(int8_weights,
     _close(got, ref, ATOL_REF)
 
 
-#: the Llama and Mixtral specs (with and without the InternLM biases) in
-#: every weight x cache x window combination
+#: the Llama, Mixtral, GPT-NeoX and BLOOM specs (Llama with and without
+#: the InternLM biases) in every weight x cache x window combination
 FAMILY_SPECS = {"llama": LLAMA,
                 "llama_biased": dict(LLAMA, qkv_bias=True, out_bias=True),
-                "mixtral": MIXTRAL}
+                "mixtral": MIXTRAL, "neox": NEOX, "neox_serial": NEOX_SERIAL,
+                "bloom": BLOOM}
 
 
 @pytest.mark.parametrize("family", sorted(FAMILY_SPECS))
@@ -172,7 +194,8 @@ def test_family_specs_match_pallas_interpret_and_reference(
         family, int8_weights, int8_cache, W):
     kw = FAMILY_SPECS[family]
     got, kern, ref = _run(W, int8_weights, int8_cache, seed=5, **kw)
-    assert got[1].shape == (2, W, kw["num_kv_heads"], HD)
+    assert got[1].shape == (2, W, kw.get("num_kv_heads", H),
+                            kw.get("head_dim", HD))
     _close(got, kern, ATOL_KERNEL)
     _close(got, ref, ATOL_REF)
 
@@ -180,10 +203,12 @@ def test_family_specs_match_pallas_interpret_and_reference(
 @pytest.mark.parametrize("kw", [
     {"norm": "rms"}, {"qkv": "split"},
     {"qkv": "split", "num_kv_heads": 2}, {"rotary_dims": HD},
-    {"mlp": "swiglu"}, {"mlp": "none"}, {"qkv_bias": False}])
+    {"mlp": "swiglu"}, {"mlp": "none"}, {"qkv_bias": False},
+    {"alibi": True}, {"residual": "parallel"}, {"qkv": "headmajor"},
+    {"rotary_dims": HD // 2}])
 def test_one_spec_feature_matches_pallas_interpret_and_reference(kw):
-    """Each feature of the Llama and Mixtral specs alone on the GPT-2
-    spec, int8 cache, W 3."""
+    """Each feature of the Llama, Mixtral, GPT-NeoX and BLOOM specs alone
+    on the GPT-2 spec, int8 cache, W 3."""
     got, kern, ref = _run(3, False, True, seed=7, **kw)
     _close(got, kern, ATOL_KERNEL)
     _close(got, ref, ATOL_REF)
@@ -191,17 +216,18 @@ def test_one_spec_feature_matches_pallas_interpret_and_reference(kw):
 
 def test_weight_order_matches_the_reference():
     for kw in ({}, {"mlp": "relu"}, {"qkv_bias": False}, LLAMA, MIXTRAL,
-               dict(LLAMA, qkv_bias=True, out_bias=True)):
+               dict(LLAMA, qkv_bias=True, out_bias=True), NEOX, NEOX_SERIAL,
+               BLOOM):
         assert fd._weight_order(_spec(fd.FusedLayerSpec, **kw)) == \
             _weight_order(_spec(JaxSpec, **kw))
 
 
 @pytest.mark.parametrize("kw", [
-    {"alibi": True}, {"residual": "parallel"}, {"qkv": "headmajor"},
-    {"rotary_dims": HD // 2}, {"rotary_dims": HD, "rotary_interleaved": True}])
+    {"rotary_dims": HD, "rotary_interleaved": True}])
 def test_non_gpt2_specs_raise(kw):
-    """The NeoX and BLOOM specs' features are not ported yet: the plain
-    version and the CUDA wrapper both refuse them, naming the queue."""
+    """GPT-J's interleaved rotary stays refused, as the reference's kernel
+    refuses it (``fused_decode.py:114``): the plain version and the CUDA
+    wrapper both raise, saying so."""
     spec = _spec(fd.FusedLayerSpec, **kw)
     assert not spec.supported()
     _, pw = _both(_weights(0), False)
@@ -209,8 +235,21 @@ def test_non_gpt2_specs_raise(kw):
     args = (torch.from_numpy(x), pw, torch.from_numpy(k),
             torch.from_numpy(v), torch.from_numpy(L), spec)
     for fn in (fd.ds_fused_layer, fd.fused_layer_cuda):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue B"):
+        with pytest.raises(NotImplementedError,
+                           match="as the reference's kernel does not"):
             fn(*args)
+
+
+def test_alibi_slopes_go_with_an_alibi_spec():
+    """An ALiBi spec needs its slopes, and no other spec takes them."""
+    _, pw = _both(_weights(0), False)
+    x, k, v, L, _, _ = _inputs(1, False, 1)
+    T = torch.from_numpy
+    for kw, sl in (({"alibi": True}, None), ({}, torch.ones(H))):
+        for fn in (fd.ds_fused_layer, fd.fused_layer_cuda):
+            with pytest.raises(ValueError, match="alibi_slopes"):
+                fn(T(x), pw, T(k), T(v), T(L), _spec(fd.FusedLayerSpec, **kw),
+                   alibi_slopes=sl)
 
 
 def test_cuda_wrapper_validates_before_any_launch():

@@ -315,9 +315,11 @@ def test_explicit_fused_decode_raises_never_falls_back(served):
         assert not ContinuousBatchingScheduler(
             pm, peng.params, ServingConfig(fused_decode=off)).fused_decode
     from dataclasses import replace
-    alibi = replace(pm, fused_spec=replace(pm.fused_spec, alibi=True))
-    with pytest.raises(NotImplementedError, match="alibi.*ROADMAP"):
-        ContinuousBatchingScheduler(alibi, peng.params,
+    gptj = replace(pm, fused_spec=replace(pm.fused_spec,
+                                          rotary_interleaved=True))
+    with pytest.raises(NotImplementedError,
+                       match="rotary_interleaved.*as the reference's kernel"):
+        ContinuousBatchingScheduler(gptj, peng.params,
                                     ServingConfig(fused_decode=True))
 
 

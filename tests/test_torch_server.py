@@ -122,7 +122,7 @@ def test_parse_generate_body_defaults():
 
 def test_unported_arch_refused():
     with pytest.raises(ValueError, match="not ported"):
-        model_from_spec("neox:tiny")
+        model_from_spec("bert:tiny")
 
 
 def test_drain_stops_the_loop():
