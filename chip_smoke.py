@@ -7,11 +7,12 @@ Mixtral-8x7B at 16 of its 32 layers with int8 weights and an int8 KV
 cache, Llama-2 7B whole in bf16 and with int8 weights and cache,
 fused decode off and on, GPT-NeoX-20B whole (all 44 layers) in bf16
 fused off and on and with int8 weights and cache, BLOOM-560m and GPT-Neo
-2.7B (random weights drawn on the card), through the port's own entry
+2.7B (random weights drawn on the card), and trains mixtral:1b-moe at
+full width with the grouped MoE dispatch, through the port's own entry
 points.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --only 20,21   # the build, then phases 12, 15-23
+    python3 chip_smoke.py --only 20,21   # the build, then phases 12, 15-26
                                          # as listed (no kernels line)
 
 Phases (any failed check exits non-zero before the final line):
@@ -167,7 +168,30 @@ Phases (any failed check exits non-zero before the final line):
      decode window, peak memory;
   23. BLOOM-560m (bf16 fused off and on; int8 weights + int8 cache
      unfused) and GPT-Neo 2.7B (bf16; int8 weights + int8 cache) at all
-     their layers over HTTP, as phase 22.
+     their layers over HTTP, as phase 22;
+  24. the training path's grouped kernels at mixtral:1b-moe's shapes
+     (gate/in K 1024, N 3584; out K 3584, N 1024): the forward ds_ggemm,
+     the transposed-RHS ds_ggemm_t (dx) and ds_tgmm (dW) against their
+     plain versions at R 16,384 (skewed, random, two-empty routing) and a
+     ragged R 3,001 (fp32 <= 1e-4 abs, TF32 off; bf16 <= 2e-2 of each
+     output's max; padding rows and empty experts zero), each timed in
+     bf16 beside its plain version, its bound and torch._grouped_mm; the
+     flash forward and backward at B 8, S 1024, H 16, KV 8, hd 64, fp32
+     and bf16, timed beside SDPA;
+  25. fp32 MoE training parity: 1b-moe widths at 2 layers (cut for
+     time), micro 2, gas 2, S 512, 3 steps through initialize ->
+     train_batch, grouped dispatch, the kernels against the plain
+     versions: losses within 1e-4 relative, each param leaf within
+     PARAM_TOL of its movement, exact launches per step (per micro-step
+     6 L ds_ggemm, 3 L ds_ggemm_t, 3 L ds_tgmm, 2 L flash forward, L
+     dK/dV, L dQ), none in the plain run; an einsum arm ("auto" when
+     training) of 2 steps: finite losses, no grouped launch;
+  26. bf16 MoE training at full width (the slice's main path):
+     mixtral:1b-moe (8 layers, nothing cut), grouped dispatch, seq 1024,
+     micro-batch 8, full remat, bench.py's optimizer byte diet; 3 warm-up
+     and 10 timed steps: step time, tokens/s, MFU, peak memory, losses,
+     exact launch counts, one profiled step (busy share, top kernels, the
+     grouped kernels' share).
 Earlier lines are JSON objects; the line before the last two is the
 ``kernels`` object, then the nvidia-smi line, and the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
@@ -931,8 +955,11 @@ def bf16_train_phase(torch, dt, da, fa):
     return launches, report
 
 
+#: the hand grouped-GEMM kernels' category of the profiled train step
+GROUPED_CATEGORY = "grouped GEMM (hand kernels)"
 #: device-time categories of the profiled train step, by kernel name
 KERNEL_CATEGORIES = (
+    (GROUPED_CATEGORY, ("ggemm_kernel", "ggemm_t_kernel", "tgmm_kernel")),
     ("flash attention (hand kernels)", ("flash_fwd_bf16", "dkv_bf16",
                                         "dq_bf16")),
     ("GEMM (cuBLAS / CUTLASS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -3327,20 +3354,26 @@ def slice7_want(family, L, prefills, steps, w8, kv, fused):
 def norm_row_dependence(torch):
     """Whether a row's norm output changes with the rows beside it on the
     card (row 0 at B 2, 4 and 8 against B 1, fp32, the widths of BLOOM-
-    560m, GPT-2 760M, GPT-Neo 2.7B and NeoX-20B): LayerNorm by torch's
-    ``mean`` (the reference's arithmetic), the port's LayerNorm
-    (``F.layer_norm`` on the card), Llama's RMSNorm, and cuBLAS's fp32
-    ``x @ W`` at [D, D]."""
+    560m and mixtral:1b-moe, GPT-2 760M, GPT-Neo 2.7B, Llama-2 7B /
+    Mixtral-8x7B and NeoX-20B): LayerNorm and RMSNorm by torch's ``mean``
+    (the reference's arithmetic), the port's LayerNorm (``F.layer_norm``
+    on the card) and RMSNorm (``F.rms_norm`` on the card), cuBLAS's fp32
+    ``x @ W`` at [D, D], and the port's fp32 projection (``qdot``: one
+    product a row at decode sizes)."""
     from deepspeed_tpu_torch.models.gpt2 import _layer_norm
     from deepspeed_tpu_torch.models.llama import _rms_norm
+    from deepspeed_tpu_torch.models.model import qdot
 
     def mean_ln(t, s, b):
         mu = t.mean(-1, keepdim=True)
         var = ((t - mu) ** 2).mean(-1, keepdim=True)
         return (t - mu) * torch.rsqrt(var + 1e-5) * s + b
+
+    def mean_rms(t, s):
+        return t * torch.rsqrt((t * t).mean(-1, keepdim=True) + 1e-5) * s
     g = torch.Generator(device="cuda").manual_seed(3)
     out = {}
-    for D in (1024, 1536, 2560, 6144):
+    for D in (1024, 1536, 2560, 4096, 6144):
         x = torch.randn(8, 1, D, generator=g, device="cuda")
         s = torch.rand(D, generator=g, device="cuda") + 0.5
         b = torch.randn(D, generator=g, device="cuda") * 0.1
@@ -3348,8 +3381,10 @@ def norm_row_dependence(torch):
         for name, fn in (("mean_layer_norm", lambda t: mean_ln(t, s, b)),
                          ("port_layer_norm", lambda t: _layer_norm(
                              t, s, b, 1e-5)),
-                         ("rms_norm", lambda t: _rms_norm(t, s, 1e-5)),
-                         ("cublas_fp32_gemm", lambda t: t @ w)):
+                         ("mean_rms_norm", lambda t: mean_rms(t, s)),
+                         ("port_rms_norm", lambda t: _rms_norm(t, s, 1e-5)),
+                         ("cublas_fp32_gemm", lambda t: t @ w),
+                         ("port_fp32_qdot", lambda t: qdot(t, w))):
             ref = fn(x[:1])[0]
             out[f"{name}_d{D}"] = [bool(torch.equal(fn(x[:B])[0], ref))
                                    for B in (2, 4, 8)]
@@ -3381,9 +3416,10 @@ def slice7_parity_phase(torch, da, fa):
     emit({"phase": "row_dependence_slice7",
           "row_0_equal_at_B_2_4_8": report["row_0_equal_at_B_2_4_8"]})
     check(all(all(v) for k, v in report["row_0_equal_at_B_2_4_8"]
-              .items() if k.startswith("port_layer_norm")),
-          "the port's LayerNorm changes a row's bits with the rows beside "
-          f"it: {report['row_0_equal_at_B_2_4_8']}")
+              .items() if k.startswith("port_")),
+          "the port's LayerNorm, RMSNorm or fp32 decode projection changes "
+          f"a row's bits with the rows beside it: "
+          f"{report['row_0_equal_at_B_2_4_8']}")
     for family, (make, size, depth) in slice7_families(L).items():
         model = make(size, dtype="float32", **depth)
         plain = (make(size, dtype="float32", attention_impl="plain", **depth)
@@ -3626,6 +3662,452 @@ def bloom_gptneo_http_phase(torch, da, fa):
     return out
 
 
+# ------------------------------------------- MoE training (slice 8)
+#: mixtral:1b-moe (``MIXTRAL_SIZES["1b-moe"]``) and bench.py's MoE
+#: training cell (``bench.py:57-63``: seq 1024, micro-batch 8): T 8192
+#: tokens, R 16,384 routed rows a micro-step
+MT_D, MT_F, MT_E, MT_K = 1024, 3584, 8, 2
+MT_L, MT_H, MT_KV, MT_HD = 8, 16, 8, 64
+MT_B, MT_S = 8, 1024
+MT_R = MT_B * MT_S * MT_K
+#: the expert projections: name -> (K, N) of the forward GEMM
+MT_SHAPES = {"gate_in": (MT_D, MT_F), "out": (MT_F, MT_D)}
+#: phase 25 (fp32 parity), cut for time: 2 layers, micro 2, gas 2, S 512
+MT_PARITY = dict(layers=2, micro=2, gas=2, seq=512, steps=3)
+
+
+def moe_train_counts(gg, fa):
+    return {"ds_ggemm": gg.ds_ggemm.launches,
+            "ds_ggemm_t": gg.ds_ggemm.transpose_launches,
+            "ds_tgmm": gg.ds_tgmm.launches,
+            "ds_ggemm_slots": gg.ds_ggemm_slots.launches,
+            **launch_counts(fa)}
+
+
+def reset_moe_train_counts(gg, fa):
+    gg.ds_ggemm.launches = gg.ds_ggemm.transpose_launches = 0
+    gg.ds_tgmm.launches = gg.ds_ggemm_slots.launches = 0
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.dkv_launches = 0
+    fa.flash_attention_bwd.dq_launches = 0
+
+
+def moe_train_want(L, micro_steps):
+    """Launches of ``micro_steps`` grouped-dispatch micro-steps with full
+    remat: the forward GEMMs twice (forward and recompute), each backward
+    form once, 3 a layer each; flash forward twice, dK/dV and dQ once a
+    layer."""
+    return {"ds_ggemm": 6 * L * micro_steps, "ds_ggemm_t": 3 * L *
+            micro_steps, "ds_tgmm": 3 * L * micro_steps,
+            "ds_ggemm_slots": 0, "ds_flash_fwd": 2 * L * micro_steps,
+            "ds_flash_bwd_dkv": L * micro_steps,
+            "ds_flash_bwd_dq": L * micro_steps}
+
+
+def train_routed(torch, g, R, E, routing):
+    """Expert ids of R routed rows: skewed (expert e drawn with weight
+    2^-min(e, 3), as a router early in training favours a few experts),
+    random, two experts left empty."""
+    if routing == "skewed":
+        p = torch.tensor([2.0 ** -min(i, 3) for i in range(E)],
+                         device="cuda")
+        return torch.multinomial(p, R, replacement=True,
+                                 generator=g).int()
+    e = torch.randint(0, E, (R,), generator=g, device="cuda")
+    if routing == "two_empty":
+        e = e % (E - 2)
+    return e.int()
+
+
+def grouped_mm_time(torch, a, b, offs):
+    """(ms, note) of one ``torch._grouped_mm(a, b, offs=offs)`` call
+    (context only; the port never calls it), or (None, the reason)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch has no _grouped_mm"
+    try:
+        fn(a, b, offs=offs)
+        torch.cuda.synchronize()
+        return time_ms(lambda: fn(a, b, offs=offs), reps=5, inner=5), None
+    except Exception as err:           # the library call's own limits
+        return None, f"torch._grouped_mm refused: {str(err)[:160]}"
+
+
+def moe_train_kernel_phase(torch, gg, fa):
+    """Phase 24: the three grouped kernels of the training path against
+    their plain versions at mixtral:1b-moe's training shapes (R 16,384
+    skewed, random and two-empty routing, and a ragged R 3,001; fp32 <=
+    1e-4 abs with TF32 off, bf16 <= 2e-2 of each output's max; padding
+    rows of the forward and dx zero, empty experts' dW exact zeros); then
+    each timed in bf16 at R 16,384 (random routing, as the main path's
+    router gives) beside its plain version, its bound and
+    torch._grouped_mm.  Then the flash kernels at B 8, S 1024, H 16, KV
+    8, hd 64 (forward, dK/dV, dQ; fp32 and bf16) against their plain
+    versions, timed in bf16 beside SDPA.  dy is drawn N(0, 1) for dx and
+    1e-3 N(0, 1) for dW, so both outputs are O(0.1-1), where an fp32
+    abs tolerance means something."""
+    g = torch.Generator(device="cuda").manual_seed(81)
+    worst = {"ds_ggemm": 0.0, "ds_ggemm_t": 0.0, "ds_tgmm": 0.0}
+    cases = [(MT_R, "skewed"), (MT_R, "random"), (MT_R, "two_empty"),
+             (3001, "random")]
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        tol = INT8_TOL[dt_name]
+        for proj, (K, N) in MT_SHAPES.items():
+            w = (torch.randn(MT_E, K, N, generator=g, device="cuda")
+                 * 0.02).to(dt)
+            for R, routing in cases:
+                e = train_routed(torch, g, R, MT_E, routing)
+                plan = gg.make_group_plan(e, MT_E)
+                x = gg.scatter_to_groups(torch.randn(
+                    R, K, generator=g, device="cuda").to(dt), plan)
+                dy = gg.scatter_to_groups(torch.randn(
+                    R, N, generator=g, device="cuda").to(dt), plan)
+                dys = (dy.float() * 1e-3).to(dt)
+                pad = torch.ones(plan.padded_rows, dtype=torch.bool,
+                                 device="cuda")
+                pad[plan.row_to_padded.long()] = False
+                empty = (plan.counts == 0).nonzero().flatten().tolist()
+                outs = {
+                    "ds_ggemm": (gg.ggemm_cuda(x, w, plan),
+                                 gg.ggemm_plain(x, w, plan)),
+                    "ds_ggemm_t": (gg.ggemm_t_cuda(dy, w, plan),
+                                   gg.ggemm_t_plain(dy, w, plan)),
+                    "ds_tgmm": (gg.tgmm_cuda(x, dys, plan),
+                                gg.tgmm_plain(x, dys, plan))}
+                torch.cuda.synchronize()
+                for name, (got, ref) in outs.items():
+                    e_abs, held = err_of(torch, got, ref, dt_name)
+                    zeros = (not bool(got[pad].any())) if name != "ds_tgmm" \
+                        else all(not bool(got[i].any()) for i in empty)
+                    emit({"check": name, "dtype": dt_name, "proj": proj,
+                          "R": R, "routing": routing, "K": K, "N": N,
+                          "padded_rows": plan.padded_rows,
+                          "max_abs_err": e_abs, "held": held, "tol": tol,
+                          "out_max": float(ref.float().abs().max()),
+                          "zeros_where_due": zeros})
+                    check(held <= tol and zeros,
+                          f"{name} {dt_name} {proj} R {R} {routing}: err "
+                          f"{held} > {tol} or padding / empty experts not 0")
+                    worst[name] = max(worst[name], held)
+                del outs, x, dy, dys
+            del w
+            torch.cuda.empty_cache()
+    times = {}
+    dt = torch.bfloat16
+    for proj, (K, N) in MT_SHAPES.items():
+        w = (torch.randn(MT_E, K, N, generator=g, device="cuda")
+             * 0.02).to(dt)
+        e = train_routed(torch, g, MT_R, MT_E, "random")
+        plan = gg.make_group_plan(e, MT_E)
+        xr = torch.randn(MT_R, K, generator=g, device="cuda").to(dt)
+        dyr = (torch.randn(MT_R, N, generator=g, device="cuda")
+               * 1e-3).to(dt)
+        x, dy = gg.scatter_to_groups(xr, plan), gg.scatter_to_groups(dyr,
+                                                                     plan)
+        order = torch.argsort(e.long(), stable=True)
+        xs, dys = xr[order].contiguous(), dyr[order].contiguous()
+        offs = torch.cumsum(torch.bincount(e.long(), minlength=MT_E),
+                            0).to(torch.int32)
+        active = int((plan.counts > 0).sum())
+        runs = {
+            "ds_ggemm": (lambda: gg.ggemm_cuda(x, w, plan),
+                         lambda: gg.ggemm_plain(x, w, plan),
+                         ggemm_bound(torch, gg, plan, x, MT_R, K, N),
+                         (xs, w)),
+            "ds_ggemm_t": (lambda: gg.ggemm_t_cuda(dy, w, plan),
+                           lambda: gg.ggemm_t_plain(dy, w, plan),
+                           ggemm_bound(torch, gg, plan, dy, MT_R, N, K),
+                           (dys, w.transpose(-2, -1))),
+            "ds_tgmm": (lambda: gg.tgmm_cuda(x, dy, plan),
+                        lambda: gg.tgmm_plain(x, dy, plan),
+                        bound_of(MT_E * K * N * 2 + MT_R * (K + N) * 2,
+                                 2 * MT_R * K * N, BF16_FLOPS),
+                        (xs.t(), dys))}
+        for name, (kern, plain, bound, lib) in runs.items():
+            t = {"kernel_ms": time_ms(kern, reps=5, inner=5),
+                 "plain_ms": time_ms(plain, reps=3, inner=2)}
+            t["bound_ms"], t["bound_by"] = bound
+            t["library_ms"], why = grouped_mm_time(torch, *lib, offs)
+            if why:
+                t["library_note"] = why
+            t.update(work=f"{proj} K {K} N {N}, R {MT_R} "
+                     f"({plan.padded_rows} padded rows, {active} experts), "
+                     "bf16", R=MT_R)
+            emit({"phase": "moe_train_kernel_times", "kernel": name,
+                  "proj": proj, **t})
+            times.setdefault(name, {})[proj] = t
+        del w, x, dy, xr, dyr, xs, dys
+        torch.cuda.empty_cache()
+    flash = moe_train_flash_phase(torch, fa)
+    return times, worst, flash
+
+
+def moe_train_flash_phase(torch, fa):
+    """The flash kernels at the MoE training shape (B 8, S 1024, H 16,
+    KV 8, hd 64, separate q / k / v as the Mixtral layer gives them):
+    forward and backward against the plain versions, fp32 and bf16, then
+    the bf16 kernels timed beside the plain versions, SDPA (GQA) and the
+    bound."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cpu").manual_seed(82)
+    B, S, H, KV, hd = MT_B, MT_S, MT_H, MT_KV, MT_HD
+    errs = {"ds_flash_fwd": 0.0, "ds_flash_bwd_dkv": 0.0,
+            "ds_flash_bwd_dq": 0.0}
+    rel = {"ds_flash_bwd_dkv": 0.0, "ds_flash_bwd_dq": 0.0}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        q, k, v, do, lse, delta, _ = bwd_inputs(
+            torch, fa, g, B, S, H, KV, hd, dt, True, False, False)
+        o, lk = fa.flash_attention_fwd_cuda(q, k, v)
+        ro, rl = fa.flash_attention_fwd_plain(q, k, v)
+        torch.cuda.synchronize()
+        eo = float((o.float() - ro.float()).abs().max())
+        el = float((lk - rl).abs().max())
+        row = {"check": "flash_at_moe_train_shape", "dtype": dt_name,
+               "shape": [B, S, H, KV, hd], "max_abs_err_o": eo,
+               "max_abs_err_lse": el, "tol_o": TOL[dt_name]["o"],
+               "tol_lse": TOL[dt_name]["lse"], "tol_bwd": BWD_TOL[dt_name]}
+        check(eo <= TOL[dt_name]["o"] and el <= TOL[dt_name]["lse"],
+              f"ds_flash_fwd {dt_name} at the MoE training shape: o err "
+              f"{eo}, lse err {el}")
+        errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"], eo)
+        del o, ro, rl, lk
+        got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, delta)
+        ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            e = float((a.float() - b.float()).abs().max())
+            r = e / max(float(b.float().abs().max()), 1e-30)
+            row[f"max_abs_err_{name}"], row[f"rel_err_{name}"] = e, r
+            kern = "ds_flash_bwd_dq" if name == "dq" else "ds_flash_bwd_dkv"
+            errs[kern] = max(errs[kern], e)
+            rel[kern] = max(rel[kern], r)
+            check((e if dt_name == "float32" else r) <= BWD_TOL[dt_name],
+                  f"ds_flash_bwd {dt_name} at the MoE training shape: "
+                  f"{name} err {e} (rel {r})")
+        emit(row)
+        del got, ref
+        if dt_name == "float32":
+            del q, k, v, do, lse, delta
+            torch.cuda.empty_cache()
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    times = {}
+    fwd = {"kernel_ms": time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(
+               q, k, v), reps=3, inner=2),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True, enable_gqa=True))}
+    fwd["bound_ms"], fwd["bound_by"] = attn_bound(B, S, H, KV, hd, 2, True,
+                                                  2, 2, 1)
+    dkv = {"kernel_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+        q, k, v, do, lse, delta))}
+    dq = {"kernel_ms": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+        q, k, v, do, lse, delta))}
+    dkv["bound_ms"], dkv["bound_by"] = attn_bound(B, S, H, KV, hd, 4, True,
+                                                  2, 4, 2)
+    dq["bound_ms"], dq["bound_by"] = attn_bound(B, S, H, KV, hd, 3, True,
+                                                3, 2, 2)
+    plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, do, lse, delta), reps=3, inner=2)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (ql, kl, vl), dot)
+    lib = time_ms(sdpa_fwd_bwd) - time_ms(sdpa)
+    for r in (dkv, dq):
+        r["plain_ms"], r["library_ms"] = plain, lib
+        r["plain_and_library_are_for_the_pair"] = True
+    times.update(ds_flash_fwd=fwd, ds_flash_bwd_dkv=dkv, ds_flash_bwd_dq=dq)
+    emit({"phase": "moe_train_flash_times", "shape": [B, S, H, KV, hd],
+          "dtype": "bfloat16", **times})
+    return {"errs": errs, "rel": rel, "times": times}
+
+
+class plain_grouped_backward(plain_grouped_gemm):
+    """:class:`plain_grouped_gemm` for training: the forward, the
+    transposed-RHS form and dW take their plain versions on the card."""
+
+    def __enter__(self):
+        super().__enter__()
+        gg = self.gg
+        self.saved_bwd = gg.ds_ggemm, gg.ds_tgmm
+        fwd = gg.ds_ggemm
+
+        def mm(x, w, plan, transpose_rhs=False):
+            return gg.ggemm_t_plain(x, w, plan) if transpose_rhs \
+                else fwd(x, w, plan)
+        gg.ds_ggemm = mm
+        gg.ds_tgmm = gg.tgmm_plain
+
+    def __exit__(self, *exc):
+        self.gg.ds_ggemm, self.gg.ds_tgmm = self.saved_bwd
+        super().__exit__(*exc)
+
+
+def mt_model(dtype, **over):
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    return mixtral_model("1b-moe", dtype=dtype, remat=True,
+                         remat_policy="nothing", **over)
+
+
+def moe_train_parity_phase(torch, dt, gg, fa):
+    """Phase 25: fp32 mixtral:1b-moe widths at 2 layers (cut for time),
+    micro 2, gas 2, S 512, 3 steps through initialize -> train_batch
+    (WarmupLR, clipping), grouped dispatch: the kernels (grouped GEMMs
+    and flash) against the plain versions (plain_grouped_backward and
+    attention_impl "plain") from the same params and batches.  Held:
+    per-step losses within 1e-4 relative, each param leaf's difference
+    within PARAM_TOL of its own movement, exact launches per step
+    (:func:`moe_train_want`) and none in the plain run.  Then the einsum
+    arm ("auto" trains through the capacity formulation), 2 steps:
+    finite losses and no grouped launch."""
+    import numpy as np
+    P = MT_PARITY
+    L, micro, gas, S, steps = (P["layers"], P["micro"], P["gas"], P["seq"],
+                               P["steps"])
+    cfg = train_config(micro, gas, 1e-4, gradient_clipping=1.0,
+                       scheduler={"type": "WarmupLR",
+                                  "params": {"warmup_num_steps": 3}})
+    init = None
+    runs = {}
+    for arm in ("kernels", "plain", "einsum"):
+        model = mt_model("float32", num_layers=L, max_seq_len=S,
+                         moe_dispatch="auto" if arm == "einsum"
+                         else "grouped",
+                         attention_impl="plain" if arm == "plain"
+                         else "auto")
+        if init is None:
+            init = model.init(0, "cuda", torch.float32)
+        eng, *_ = dt.initialize(model=model, config=cfg,
+                                model_parameters=init)
+        rng = np.random.default_rng(25)
+        losses, per_step = [], []
+        for _ in range(2 if arm == "einsum" else steps):
+            b = {"input_ids": rng.integers(0, model.config.vocab_size,
+                                           (gas, micro, S), dtype=np.int32)}
+            reset_moe_train_counts(gg, fa)
+            if arm == "plain":
+                with plain_grouped_backward(gg):
+                    losses.append(float(eng.train_batch(batch=b)))
+            else:
+                losses.append(float(eng.train_batch(batch=b)))
+            torch.cuda.synchronize()
+            per_step.append(moe_train_counts(gg, fa))
+        runs[arm] = (eng, losses, per_step)
+    (ek, lk, ck), (ep, lp, cp), (_, le, ce) = (runs["kernels"],
+                                               runs["plain"], runs["einsum"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    want = moe_train_want(L, gas)
+    ratios = {}
+
+    def leaves(tree, prefix=""):
+        for key, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{key}/")
+            else:
+                yield f"{prefix}{key}", v
+    p0 = dict(leaves(init))
+    pp = dict(leaves(ep.params))
+    for name, pk in leaves(ek.params):
+        ratios[name] = _diff_ratio(torch, pk, pp[name], p0[name])
+    report = {"phase": "fp32_moe_train_parity", "layers": L, "micro": micro,
+              "gas": gas, "seq": S, "steps": steps, "losses_kernels": lk,
+              "losses_plain": lp, "loss_rel_err": rel,
+              "launches_per_step_kernels": ck,
+              "launches_per_step_plain": cp, "want_per_step": want,
+              "param_diff_over_movement": ratios, "param_tol": PARAM_TOL,
+              "einsum_losses": le, "einsum_launches_per_step": ce}
+    emit(report)
+    check(all(r <= 1e-4 for r in rel), f"fp32 MoE train: losses differ "
+          f"{rel}")
+    check(all(c == want for c in ck), f"fp32 MoE train: launches {ck} != "
+          f"{want} per step")
+    check(all(all(v == 0 for v in c.values()) for c in cp),
+          f"fp32 MoE train: the plain run launched kernels {cp}")
+    check(max(ratios.values()) <= PARAM_TOL,
+          f"fp32 MoE train: params differ {ratios}")
+    check(all(math.isfinite(x) for x in le)
+          and all(c["ds_ggemm"] == c["ds_ggemm_t"] == c["ds_tgmm"] ==
+                  c["ds_ggemm_slots"] == 0 for c in ce),
+          f"fp32 MoE train, einsum arm: losses {le}, launches {ce}")
+    return report
+
+
+def moe_train_bf16_phase(torch, dt, gg, fa):
+    """Phase 26, the slice's main path: mixtral:1b-moe at full width
+    (nothing cut: 8 layers, d 1024, 16 / 8 heads of hd 64, d_ff 3584, 8
+    experts, top-2, vocab 32000) with grouped dispatch, seq 1024,
+    micro-batch 8, full remat, bench.py's optimizer byte diet, through
+    initialize -> train_batch: 3 warm-up steps, then 10 timed steps with
+    every count set to 0 just before and read just after; step seconds,
+    tokens/s, MFU (bench.py's 6 N_active + 6 L S D flops per token
+    against 989 TFLOP/s), peak memory, losses, one profiled step."""
+    import numpy as np
+    model = mt_model("bfloat16", max_seq_len=MT_S, moe_dispatch="grouped")
+    c = model.config
+    cfg = train_config(MT_B, 1, 1e-4,
+                       bf16={"enabled": True,
+                             "master_weights_dtype": "bfloat16",
+                             "optimizer_states_dtype": "bfloat16"},
+                       data_types={"grad_accum_dtype": "bf16"})
+    t0 = time.perf_counter()
+    eng, *_ = dt.initialize(model=model, config=cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+
+    def batch():
+        return {"input_ids": rng.integers(0, c.vocab_size, (1, MT_B, MT_S),
+                                          dtype=np.int32)}
+    losses = [eng.train_batch(batch=batch()) for _ in range(3)]
+    timed = [batch() for _ in range(10)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_moe_train_counts(gg, fa)
+    t0 = time.perf_counter()
+    losses += [eng.train_batch(batch=b) for b in timed]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = moe_train_counts(gg, fa)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_s = wall / len(timed)
+    tokens_per_s = MT_B * MT_S / step_s
+    flops_per_token = model.flops_per_token \
+        + 6.0 * c.num_layers * MT_S * c.d_model
+    profile = profile_train_step(torch, eng, batch())
+    cats = profile["device_ms_by_category"]
+    busy = profile["device_busy_ms"]
+    report = {"phase": "bf16_moe_train", "model": "mixtral-1b-moe",
+              "moe_dispatch": "grouped", "n_params": model.meta["n_params"],
+              "active_params": model.meta["active_params"],
+              "micro_batch": MT_B, "seq": MT_S, "routed_rows": MT_R,
+              "init_s": init_s, "timed_steps": len(timed), "step_s": step_s,
+              "tokens_per_s": tokens_per_s,
+              "flops_per_token": flops_per_token,
+              "mfu": flops_per_token * tokens_per_s / BF16_FLOPS,
+              "peak_allocated_gb": peak / 1e9, "first_loss": losses[0],
+              "last_loss": losses[-1], "losses": losses,
+              "launches": launches, "train_profile": profile,
+              "grouped_gemm_share_of_busy":
+              cats.get(GROUPED_CATEGORY, 0.0) / busy if busy else None}
+    emit(report)
+    want = moe_train_want(c.num_layers, len(timed))
+    check(launches == want, f"bf16 MoE train: launches {launches} != {want}")
+    check(all(math.isfinite(x) for x in losses),
+          f"bf16 MoE train: non-finite loss {losses}")
+    # ln V plus the aux loss (0.01 x ~E x sum(me ce) ~ 0.02 a layer)
+    check(abs(losses[0] - math.log(c.vocab_size)) <= 0.5,
+          f"bf16 MoE train: first loss {losses[0]} not near ln(V) = "
+          f"{math.log(c.vocab_size)}")
+    return launches, report
+
+
 #: what each variant row of the kernels line replaces, beside the TPU
 #: kernel's file and line
 VARIANT_NOTES = {
@@ -3638,6 +4120,7 @@ VARIANT_NOTES = {
     "exact GELU)",
     "ds_fused_layer_bloom_spec":
     " (BLOOM spec: head-major QKV, ALiBi, tanh GELU, serial residual)",
+    "ds_ggemm_t": " (transpose_rhs=True)",
     "decode_attention_alibi": " (alibi=True)",
     "decode_attention_windowed": " (windowed=True)",
 }
@@ -3652,9 +4135,10 @@ def fused_paths(runs, prefix):
 
 
 def run_only(torch, only, da, fa):
-    """``--only``: the listed phases among 12 and 15-23 alone, after the
+    """``--only``: the listed phases among 12 and 15-26 alone, after the
     build, for work on one path (no kernels line)."""
     import torch.nn.functional as F
+    import deepspeed_tpu_torch as dt
     gg = moe_modules()
     qz, qg, fd = int8_modules()
     table = {
@@ -3668,7 +4152,10 @@ def run_only(torch, only, da, fa):
         20: lambda: slice7_kernel_phase(torch, F, da),
         21: lambda: slice7_parity_phase(torch, da, fa),
         22: lambda: neox_http_phase(torch, da, fa),
-        23: lambda: bloom_gptneo_http_phase(torch, da, fa)}
+        23: lambda: bloom_gptneo_http_phase(torch, da, fa),
+        24: lambda: moe_train_kernel_phase(torch, gg, fa),
+        25: lambda: moe_train_parity_phase(torch, dt, gg, fa),
+        26: lambda: moe_train_bf16_phase(torch, dt, gg, fa)}
     for n in only:
         check(n in table, f"--only: phase {n} is not one of {sorted(table)}")
         table[n]()
@@ -3800,6 +4287,13 @@ def main():
     neox_loads, neox = neox_http_phase(torch, da, fa)
     torch.cuda.empty_cache()
     bg = bloom_gptneo_http_phase(torch, da, fa)
+    torch.cuda.empty_cache()
+    mt_t, mt_errs, mt_flash = moe_train_kernel_phase(torch, gg, fa)
+    torch.cuda.empty_cache()
+    moe_train_parity_phase(torch, dt, gg, fa)
+    torch.cuda.empty_cache()
+    mt_n, _ = moe_train_bf16_phase(torch, dt, gg, fa)
+    torch.cuda.empty_cache()
     s7 = {f"neox_http_{arm}": run["launches"] for arm, run in neox.items()}
     s7_loads = {"neox_int8_load": neox_loads}
     for fam, label in (("bloom_560m", "bloom"), ("gptneo_2.7b", "gptneo")):
@@ -3828,6 +4322,13 @@ def main():
         errs["decode_attention"] = max(errs["decode_attention"],
                                        e["decode_attention"])
         errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"], e["ds_flash_fwd"])
+    # the flash kernels at the MoE training shape (phase 24)
+    errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"],
+                               mt_flash["errs"]["ds_flash_fwd"])
+    for kern in ("ds_flash_bwd_dkv", "ds_flash_bwd_dq"):
+        bwd_errs[kern] = max(bwd_errs[kern], mt_flash["errs"][kern])
+        bwd_rel[kern] = max(bwd_rel[kern], mt_flash["rel"][kern])
+    mtrain = "mixtral_train_bf16"
     llama_load_q = llama_loads["int8"]["launches"]["block_quantize_int8"]
     s7_load_q = {k: v["int8"]["launches"]["block_quantize_int8"]
                  for k, v in s7_loads.items()}
@@ -3844,15 +4345,19 @@ def main():
          *paths_of("ds_flash_fwd",
                   serve_http=serve_launches["ds_flash_fwd"],
                   train_bf16=train_launches["ds_flash_fwd"],
-                  mixtral_http=mix_n["ds_flash_fwd"]),
+                  mixtral_http=mix_n["ds_flash_fwd"],
+                  **{mtrain: mt_n["ds_flash_fwd"]}),
          errs["ds_flash_fwd"], tols["ds_flash_fwd"]),
         ("ds_flash_bwd_dkv", train_t["ds_flash_bwd_dkv"], "ds_flash_bwd.cu",
-         "ds_flash_attention.py:86", train_launches["ds_flash_bwd_dkv"],
-         {"train_bf16": train_launches["ds_flash_bwd_dkv"]},
+         "ds_flash_attention.py:86", *paths_of(
+             "ds_flash_bwd_dkv",
+             train_bf16=train_launches["ds_flash_bwd_dkv"],
+             **{mtrain: mt_n["ds_flash_bwd_dkv"]}),
          bwd_errs["ds_flash_bwd_dkv"], BWD_TOL),
         ("ds_flash_bwd_dq", train_t["ds_flash_bwd_dq"], "ds_flash_bwd.cu",
-         "ds_flash_attention.py:160", train_launches["ds_flash_bwd_dq"],
-         {"train_bf16": train_launches["ds_flash_bwd_dq"]},
+         "ds_flash_attention.py:160", *paths_of(
+             "ds_flash_bwd_dq", train_bf16=train_launches["ds_flash_bwd_dq"],
+             **{mtrain: mt_n["ds_flash_bwd_dq"]}),
          bwd_errs["ds_flash_bwd_dq"], BWD_TOL),
         ("block_quantize_int8", int8_t["block_quantize_int8"],
          "quantization.cu", "quantization.py:57",
@@ -3904,8 +4409,17 @@ def main():
          fam_errs["mixtral_8x7b"], INT8_TOL),
         ("ds_ggemm", moe_t["ds_ggemm"]["gate_in"], "grouped_gemm.cu",
          "grouped_gemm.py:163",
-         *paths_of("ds_ggemm", mixtral_http=mix_n["ds_ggemm"]),
-         moe_errs["ds_ggemm"], INT8_TOL),
+         *paths_of("ds_ggemm", mixtral_http=mix_n["ds_ggemm"],
+                   **{mtrain: mt_n["ds_ggemm"]}),
+         max(moe_errs["ds_ggemm"], mt_errs["ds_ggemm"]), INT8_TOL),
+        ("ds_ggemm_t", mt_t["ds_ggemm_t"]["gate_in"], "grouped_gemm.cu",
+         "grouped_gemm.py:163", *paths_of(
+             "ds_ggemm_t", **{mtrain: mt_n["ds_ggemm_t"]}),
+         mt_errs["ds_ggemm_t"], INT8_TOL),
+        ("ds_tgmm", mt_t["ds_tgmm"]["gate_in"], "grouped_gemm.cu",
+         "grouped_gemm.py:222", *paths_of(
+             "ds_tgmm", **{mtrain: mt_n["ds_tgmm"]}),
+         mt_errs["ds_tgmm"], INT8_TOL),
         ("ds_ggemm_slots", moe_t["ds_ggemm_slots"]["gate_in"],
          "grouped_gemm.cu", "grouped_gemm.py:433",
          *paths_of("ds_ggemm_slots", mixtral_http=mix_n["ds_ggemm_slots"]),
@@ -3938,6 +4452,14 @@ def main():
                                work=t["work"])
         if name in moe_t:
             kernels[-1]["times_by_proj"] = moe_t[name]
+        if name in mt_t:
+            # phase 24: at mixtral:1b-moe's training shapes (R 16,384)
+            kernels[-1].update(err_kind="fp32 abs / bf16 rel_to_max",
+                               work=t["work"])
+            kernels[-1]["times_at_moe_train_shape"] = mt_t[name]
+        if name in mt_flash["times"]:
+            kernels[-1]["times_at_moe_train_shape"] = \
+                mt_flash["times"][name]
         if name in moeq_t:
             # context only: torch._grouped_mm on the dequantized bf16 stack
             kernels[-1]["times_by_proj"] = moeq_t[name]

@@ -1,6 +1,7 @@
 // Grouped GEMM for routed experts: rows against the stacked expert
 // weights w [E, K, N] (bf16 or fp32, the rows' dtype), fp32 accumulation,
-// output in the rows' dtype.  Two kernels, each with an int8-expert form:
+// output in the rows' dtype.  Two forward kernels, each with an
+// int8-expert form, and the float backward pair:
 //
 // ds_ggemm — replaces deepspeed_tpu/ops/pallas/grouped_gemm.py
 // _ggemm_kernel (:163, the forward form).  x [Mp, K] holds the routed
@@ -8,8 +9,8 @@
 // wrapper's GroupPlan); M-tile i contracts against w[block_group_ids[i]],
 // which the CTA loads itself.  One CTA per (M-tile, 64-column N-tile),
 // the K loop inside the CTA (the Pallas grid's sequential K axis and its
-// VMEM accumulator become csrc/gemm_tile.cuh's tile_mma: a cp.async ring
-// of [64 x 64] chunks, wmma bf16 m16n16k16 or fmaf for fp32, no TF32).
+// VMEM accumulator become layout_tile below: a cp.async ring of [64 x
+// 64] chunks, wmma bf16 m16n16k16 or fmaf for fp32, no TF32).
 // tile_rows[i] real rows are a prefix of the tile: the CTA loads only
 // those, and a tile with none (an empty expert's tile, a trailing tile
 // past the last group) writes zeros without a fetch, as the Pallas
@@ -51,8 +52,9 @@
 // (csrc/gemm_tile.cuh: (float)q * scale rounded to x's dtype, the
 // reference's _dequant_tile) before its product; products accumulate in
 // fp32 and the output rounds once to x's dtype.  ds_ggemm_q is
-// ds_ggemm's CTA driving qgemm's int8 tile path (tile_mma<T, int8_t>,
-// the expert's scales at s + e K nb).  ds_ggemm_slots_q keeps the slot
+// ds_ggemm's CTA driving qgemm's int8 tile path (csrc/gemm_tile.cuh
+// tile_mma<T, int8_t>, the expert's scales at s + e K nb).
+// ds_ggemm_slots_q keeps the slot
 // kernel's CTA layout; its cp.async ring carries the int8 [128 x 128]
 // weight stage (16 KB, the bf16 stage's bytes at twice the K) and that
 // stage's scale rows (the at most kSlotSG groups the 128 columns meet).
@@ -67,18 +69,232 @@
 // streams 8 x 4096 x 14336 int8 codes + 7.3 MB of scales, 0.142 ms at
 // 3.35 TB/s.
 //
+// The backward (ds_ggemm_t, ds_tgmm) — replaces _ggemm_kernel's
+// transposed-RHS form (:163, transpose_rhs=True) and _tgmm_kernel
+// (:222), the pair _ggemm_diff's VJP (:580-605) runs.  Both are one
+// [64 x 64] wmma / fmaf tile over a 64-wide contraction walked in order
+// (layout_tile below), each operand staged in its own memory layout and
+// read by a fragment of that layout, so neither the expert stack nor the
+// rows are ever transposed in memory.  ds_ggemm_t: dx [Mp, K] = dy
+// [Mp, N] W[e]^T, one CTA per (M-tile, 64 columns of K), the loop over N
+// inside; W[e]'s rows k0 .. k0 + 63 are read in place as a column-major
+// B.  ds_tgmm: dW[e] [K, N] = the sum over expert e's rows of x_row^T
+// dy_row, one CTA per (64 x 64 output tile, expert), the loop over the
+// expert's contiguous run of rows inside (the Pallas kernel carries its
+// accumulator across that run in a sequential grid and flushes on group
+// change; here one CTA owns the whole run, so nothing crosses CTAs and
+// no float atomic is needed: the same bits every run).  An expert with
+// no rows writes zeros.
+// What bounds them: operations.  At mixtral:1b-moe's training shape (R
+// 16,384 routed rows, K 1024, N 3584) each does 2 R K N = 1.20e11 flop,
+// 0.122 ms at 989 TFLOP/s, against ~214 MB moved (0.064 ms at 3.35
+// TB/s).  The wmma tile with its smem round trip is the first, simple
+// design; wgmma and TMA are for a later pass.
+//
 // C interface (loaded with ctypes): each entry point returns the
 // cudaError_t of its launch as an int.
+#include <type_traits>
+
 #include "gemm_tile.cuh"
 
 namespace {
 
 using namespace dstile;
 
+// ------------------------------------------------------- layout_tile
+// The float forward and the backward's two forms share layout_tile: one
+// CTA's [64 x 64] fp32 tile C(i, j) = sum over c < nc of A(i, c) B(c,
+// j), each operand staged in its own memory layout (16-byte cp.async rows
+// along the contiguous dim, a 3-deep ring for bf16) and read by wmma
+// fragments of the matching layout, so no operand is transposed in
+// memory and no weight chunk takes a second shared-memory pass:
+//   A(i, c) = A_COL ? a[c lda + i] : a[i lda + c]
+//   B(c, j) = B_COL ? b[j ldb + c] : b[c ldb + j]
+// bf16: wmma m16n16k16 (fp32 accumulation); fp32: fmaf, no TF32.  The
+// contraction walks in 64-wide chunks in order, so an output element's
+// sum does not depend on the other rows of its tile.
+constexpr int kBT = 64;    // tile rows, columns and contraction chunk
+constexpr int kBPad = 8;   // row pad (elements) of a staged chunk
+static_assert(kBT == RPMAX && kBT == BN, "the plan's tile is 64 rows");
+
+template <typename T>
+struct LayoutSmem {
+  static constexpr int ST = sizeof(T) == 2 ? 3 : 2;   // chunks in flight
+  static constexpr int LD = kBT + kBPad;
+  static constexpr size_t chunk = (size_t)kBT * LD * sizeof(T);
+  static constexpr size_t ct = 2 * ST * chunk;        // A, B per stage
+  static constexpr size_t bytes =
+      ct + (size_t)kBT * (kBT + CPAD) * sizeof(float);
+};
+
+// rows [0, kBT) x columns [0, kBT) of a row-major matrix at src (row
+// stride ld) -> dst (row stride LayoutSmem::LD); rows past nrow and columns
+// past ncol arrive as zeros.  No commit: the caller commits the group.
+// Without 16-byte alignment the copies are element-wise loads (then
+// complete when this returns).
+template <typename T>
+__device__ __forceinline__ void layout_load(T* dst, const T* __restrict__ src,
+                                         size_t ld, int nrow, int ncol,
+                                         bool vec) {
+  constexpr int LD = LayoutSmem<T>::LD;
+  if (vec) {
+    constexpr int VEC = 16 / sizeof(T);
+    constexpr int VPR = kBT / VEC;
+    for (int v = threadIdx.x; v < kBT * VPR; v += NT) {
+      const int r = v / VPR, c = (v - r * VPR) * VEC;
+      const int valid = r < nrow ? min(VEC, ncol - c) : 0;
+      cp_async16(dst + r * LD + c,
+                 valid > 0 ? (const void*)(src + r * ld + c)
+                           : (const void*)src,
+                 valid > 0 ? valid * (int)sizeof(T) : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBT * kBT; i += NT) {
+      const int r = i / kBT, c = i - r * kBT;
+      dst[r * LD + c] =
+          (r < nrow && c < ncol) ? src[r * ld + c] : from_f<T>(0.f);
+    }
+  }
+}
+
+// C over i < ni, j < nj (<= kBT) and the contraction c < nc (above);
+// rows of A past ni and columns of B past nj are zeros.  Leaves the
+// result in the returned smem tile (row stride kBT + CPAD) after a
+// __syncthreads.
+template <typename T, bool A_COL, bool B_COL>
+__device__ float* layout_tile(const T* __restrict__ a, size_t lda, int ni,
+                           const T* __restrict__ b, size_t ldb, int nj,
+                           int nc, unsigned char* smem) {
+  using S = LayoutSmem<T>;
+  constexpr int LD = S::LD, ST = S::ST;
+  constexpr bool kTensorCore = sizeof(T) == 2;
+  float* ct = reinterpret_cast<float*>(smem + S::ct);
+  const int RP = ((min(ni, kBT) + 15) / 16) * 16;
+  const int nch = nc > 0 ? (nc + kBT - 1) / kBT : 0;
+  const int warp = threadIdx.x >> 5;
+  const bool avec = vec_ok<T>(a, (int)lda), bvec = vec_ok<T>(b, (int)ldb);
+  auto achunk = [&](int s) {
+    return reinterpret_cast<T*>(smem + (size_t)(2 * s) * S::chunk);
+  };
+  auto bchunk = [&](int s) {
+    return reinterpret_cast<T*>(smem + (size_t)(2 * s + 1) * S::chunk);
+  };
+  // chunk ch (contraction [64 ch, 64 ch + 64)) into stage s, one group
+  auto load = [&](int s, int ch) {
+    const int c0 = ch * kBT, cn = nc - c0;
+    if constexpr (A_COL)
+      layout_load<T>(achunk(s), a + (size_t)c0 * lda, lda, cn, ni, avec);
+    else
+      layout_load<T>(achunk(s), a + c0, lda, ni, cn, avec);
+    if constexpr (B_COL)
+      layout_load<T>(bchunk(s), b + c0, ldb, nj, cn, bvec);
+    else
+      layout_load<T>(bchunk(s), b + (size_t)c0 * ldb, ldb, cn, nj, bvec);
+    cp_async_commit();
+  };
+
+  // bf16: warp -> column fragment warp % 4, row fragments warp / 4 + 2 i
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
+      facc[2];
+  // fp32: thread -> column tid % 64, rows tid / 64 + 4 i
+  float acc[kBT / 4];
+  if constexpr (kTensorCore) {
+    nvcuda::wmma::fill_fragment(facc[0], 0.f);
+    nvcuda::wmma::fill_fragment(facc[1], 0.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kBT / 4; ++i) acc[i] = 0.f;
+  }
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < nch)
+      load(s, s);
+    else
+      cp_async_commit();
+  }
+  for (int ch = 0; ch < nch; ++ch) {
+    const int nx = ch + ST - 1;
+    if (nx < nch)
+      load(nx % ST, nx);
+    else
+      cp_async_commit();
+    cp_async_wait<ST - 1>();
+    __syncthreads();
+    const T* as = achunk(ch % ST);
+    const T* bs = bchunk(ch % ST);
+    if constexpr (kTensorCore) {
+      using namespace nvcuda;
+      using AL = std::conditional_t<A_COL, wmma::col_major, wmma::row_major>;
+      using BL = std::conditional_t<B_COL, wmma::col_major, wmma::row_major>;
+      const __nv_bfloat16* ab = reinterpret_cast<const __nv_bfloat16*>(as);
+      const __nv_bfloat16* bb = reinterpret_cast<const __nv_bfloat16*>(bs);
+      const int cf = warp & 3;
+#pragma unroll
+      for (int ks = 0; ks < kBT / 16; ++ks) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BL> fb;
+        wmma::load_matrix_sync(
+            fb, bb + (B_COL ? cf * 16 * LD + ks * 16 : ks * 16 * LD + cf * 16),
+            LD);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int rf = (warp >> 2) + 2 * i;
+          if (rf * 16 < RP) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, AL> fa;
+            wmma::load_matrix_sync(
+                fa,
+                ab + (A_COL ? ks * 16 * LD + rf * 16 : rf * 16 * LD + ks * 16),
+                LD);
+            wmma::mma_sync(facc[i], fa, fb, facc[i]);
+          }
+        }
+      }
+    } else {
+      const int col = threadIdx.x & (kBT - 1);
+      const int rg = threadIdx.x / kBT;
+      for (int kk = 0; kk < kBT; ++kk) {
+        const float bv = to_f(B_COL ? bs[col * LD + kk] : bs[kk * LD + col]);
+#pragma unroll
+        for (int i = 0; i < kBT / 4; ++i) {
+          const int r = rg + 4 * i;
+          if (r < RP)
+            acc[i] = fmaf(to_f(A_COL ? as[kk * LD + r] : as[r * LD + kk]), bv,
+                          acc[i]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  if constexpr (kTensorCore) {
+    using namespace nvcuda;
+    const int cf = warp & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rf = (warp >> 2) + 2 * i;
+      if (rf * 16 < RP)
+        wmma::store_matrix_sync(ct + rf * 16 * (kBT + CPAD) + cf * 16,
+                                facc[i], kBT + CPAD, wmma::mem_row_major);
+    }
+  } else {
+    const int col = threadIdx.x & (kBT - 1);
+    const int rg = threadIdx.x / kBT;
+#pragma unroll
+    for (int i = 0; i < kBT / 4; ++i) {
+      const int r = rg + 4 * i;
+      if (r < RP) ct[r * (kBT + CPAD) + col] = acc[i];
+    }
+  }
+  __syncthreads();
+  return ct;
+}
+
 // ------------------------------------------------------ ds_ggemm(_q)
 // grid (num M-tiles, N / BN); the plan's tile is RPMAX = 64 rows.  WT =
-// T: float experts (scales null); WT = int8_t: int8 experts with scales
-// s [E, K, nb], group width qblock.
+// T: float experts (scales null), through layout_tile (x and W[e] both
+// row-major); WT = int8_t: int8 experts with scales s [E, K, nb], group
+// width qblock, through tile_mma's dequantizing pass.  Both sum a row's
+// products in the same order (64-wide K chunks, 16-wide wmma steps or
+// fmaf, in order), so the float result is tile_mma's to the bit.
 template <typename T, typename WT>
 __global__ void __launch_bounds__(NT)
 ggemm_kernel(const T* __restrict__ x, const WT* __restrict__ w,
@@ -92,10 +308,16 @@ ggemm_kernel(const T* __restrict__ x, const WT* __restrict__ w,
   const int e = gids[mt];
   const int R = (e >= 0 && e < E) ? min(max(tile_rows[mt], 0), RPMAX) : 0;
   const float* ct = nullptr;
-  if (R > 0)   // uniform over the CTA
-    ct = tile_mma<T, WT>(x + m0 * K, K, R, w + (size_t)e * K * N,
-                         s ? s + (size_t)e * K * nb : nullptr, nb, qblock,
-                         N, n0, 0, K, smem);
+  if (R > 0) {   // uniform over the CTA
+    if constexpr (sizeof(WT) == sizeof(T))
+      ct = layout_tile<T, false, false>(x + m0 * K, K, R,
+                                        w + (size_t)e * K * N + n0, N,
+                                        min(BN, N - n0), K, smem);
+    else
+      ct = tile_mma<T, WT>(x + m0 * K, K, R, w + (size_t)e * K * N,
+                           s + (size_t)e * K * nb, nb, qblock, N, n0, 0, K,
+                           smem);
+  }
   for (int i = threadIdx.x; i < RPMAX * BN; i += NT) {
     const int r = i / BN, n = i - r * BN;
     if (n0 + n < N)
@@ -109,7 +331,8 @@ cudaError_t launch_ggemm(const void* x, const void* w, const float* s,
                          const int* gids, const int* tile_rows, void* out,
                          int nblocks, int K, int N, int E, int nb,
                          cudaStream_t stream) {
-  const size_t smem = TileSmem<T, WT>::bytes;
+  const size_t smem = sizeof(WT) == sizeof(T) ? LayoutSmem<T>::bytes
+                                              : TileSmem<T, WT>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       ggemm_kernel<T, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -556,6 +779,107 @@ cudaError_t launch_slots(const void* x, const void* w, const float* scales,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------- ds_ggemm_t, ds_tgmm
+// ds_ggemm_t: grid (num M-tiles, ceil(K / 64)).  dx's tile (M-tile mt,
+// columns k0 ..) = dy's real rows of the tile [R, N] against W[e]^T,
+// read in place: W[e] rows k0 .. k0 + 63 are the B operand in column-
+// major (B_COL), contiguous along N.  Rows past the tile's real rows are
+// written as zeros without a fetch (the layout's padding, where the
+// backward's cotangent is zero).
+template <typename T>
+__global__ void __launch_bounds__(NT)
+ggemm_t_kernel(const T* __restrict__ dy, const T* __restrict__ w,
+               const int* __restrict__ gids,
+               const int* __restrict__ tile_rows, T* __restrict__ dx, int K,
+               int N, int E) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int mt = blockIdx.x;
+  const int k0 = blockIdx.y * kBT;
+  const size_t m0 = (size_t)mt * RPMAX;
+  const int e = gids[mt];
+  const int R = (e >= 0 && e < E) ? min(max(tile_rows[mt], 0), RPMAX) : 0;
+  const int nk = min(kBT, K - k0);
+  const float* ct = nullptr;
+  if (R > 0)   // uniform over the CTA
+    ct = layout_tile<T, false, true>(dy + m0 * N, N, R,
+                                  w + (size_t)e * K * N + (size_t)k0 * N, N,
+                                  nk, N, smem);
+  for (int i = threadIdx.x; i < RPMAX * kBT; i += NT) {
+    const int r = i / kBT, c = i - r * kBT;
+    if (c < nk)
+      dx[(m0 + r) * K + k0 + c] =
+          r < R ? from_f<T>(ct[r * (kBT + CPAD) + c]) : from_f<T>(0.f);
+  }
+}
+
+// ds_tgmm: grid (ceil(N / 64), ceil(K / 64), E).  dW[e]'s tile (k0, n0)
+// = x^T dy over expert e's real rows, the prefix counts[e] of its group
+// (rows p0 .. p0 + counts[e], p0 the sum of the earlier groups' padded
+// sizes): the CTA walks that contiguous run itself, 64 rows a chunk (the
+// Pallas kernel's accumulate-then-flush over the run becomes the CTA's
+// loop).  x's chunk [rows x 64 k] is the A operand in column-major
+// (A_COL), dy's [rows x 64 n] the B operand in row-major.  An expert
+// with no routed rows writes exact zeros.  Output in OT (x's dtype or
+// fp32), rounded once from the fp32 sum.
+template <typename T, typename OT>
+__global__ void __launch_bounds__(NT)
+tgmm_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+            const int* __restrict__ gsizes, const int* __restrict__ counts,
+            OT* __restrict__ dw, int Mp, int K, int N) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n0 = blockIdx.x * kBT, k0 = blockIdx.y * kBT, e = blockIdx.z;
+  long long p0 = 0;
+  for (int g = 0; g < e; ++g) p0 += max(gsizes[g], 0);
+  const int rows =
+      (int)max(0LL, min((long long)min(max(counts[e], 0), max(gsizes[e], 0)),
+                        (long long)Mp - p0));
+  const int nk = min(kBT, K - k0), nn = min(kBT, N - n0);
+  const float* ct = nullptr;
+  if (rows > 0)   // uniform over the CTA
+    ct = layout_tile<T, true, false>(x + (size_t)p0 * K + k0, K, nk,
+                                  dy + (size_t)p0 * N + n0, N, nn, rows,
+                                  smem);
+  OT* out = dw + (size_t)e * K * N;
+  for (int i = threadIdx.x; i < kBT * kBT; i += NT) {
+    const int r = i / kBT, c = i - r * kBT;
+    if (r < nk && c < nn)
+      out[(size_t)(k0 + r) * N + n0 + c] =
+          rows > 0 ? from_f<OT>(ct[r * (kBT + CPAD) + c]) : from_f<OT>(0.f);
+  }
+}
+
+template <typename T>
+cudaError_t launch_ggemm_t(const void* dy, const void* w, const int* gids,
+                           const int* tile_rows, void* dx, int nblocks,
+                           int K, int N, int E, cudaStream_t stream) {
+  const size_t smem = LayoutSmem<T>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      ggemm_t_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nblocks, (K + kBT - 1) / kBT);
+  ggemm_t_kernel<T><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(w), gids, tile_rows,
+      static_cast<T*>(dx), K, N, E);
+  return cudaGetLastError();
+}
+
+template <typename T, typename OT>
+cudaError_t launch_tgmm(const void* x, const void* dy, const int* gsizes,
+                        const int* counts, void* dw, int Mp, int K, int N,
+                        int E, cudaStream_t stream) {
+  const size_t smem = LayoutSmem<T>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      tgmm_kernel<T, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBT - 1) / kBT, (K + kBT - 1) / kBT, E);
+  tgmm_kernel<T, OT><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), gsizes, counts,
+      static_cast<OT*>(dw), Mp, K, N);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ds_ggemm(const void* x, const void* w, const void* gids,
@@ -642,4 +966,38 @@ extern "C" int ds_ggemm_slots_q(const void* x, const void* q, const void* s,
                  : (int)launch_slots<float, int8_t>(x, q, sc, a, v, o, f,
                                                     out, wsp, counters, R, K,
                                                     N, E, S, nb, st);
+}
+
+// dx [Mp, K] = dy [Mp, N] against W [E, K, N] transposed, per M-tile
+extern "C" int ds_ggemm_t(const void* dy, const void* w, const void* gids,
+                          const void* tile_rows, void* dx, int nblocks,
+                          int K, int N, int E, int is_bf16, void* stream) {
+  if (nblocks < 1 || K < 1 || N < 1 || E < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* g = static_cast<const int*>(gids);
+  const int* tr = static_cast<const int*>(tile_rows);
+  return is_bf16 ? (int)launch_ggemm_t<__nv_bfloat16>(dy, w, g, tr, dx,
+                                                      nblocks, K, N, E, st)
+                 : (int)launch_ggemm_t<float>(dy, w, g, tr, dx, nblocks, K,
+                                              N, E, st);
+}
+
+// dW [E, K, N] = per-expert x [Mp, K]^T dy [Mp, N] over each group's real
+// rows; out_f32: dW in fp32 (else in x's dtype; fp32 rows need it)
+extern "C" int ds_tgmm(const void* x, const void* dy, const void* gsizes,
+                       const void* counts, void* dw, int Mp, int K, int N,
+                       int E, int is_bf16, int out_f32, void* stream) {
+  if (Mp < 1 || K < 1 || N < 1 || E < 1 || E > 65535 ||
+      (!is_bf16 && !out_f32))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* gs = static_cast<const int*>(gsizes);
+  const int* c = static_cast<const int*>(counts);
+  if (!is_bf16)
+    return (int)launch_tgmm<float, float>(x, dy, gs, c, dw, Mp, K, N, E, st);
+  return out_f32 ? (int)launch_tgmm<__nv_bfloat16, float>(x, dy, gs, c, dw,
+                                                          Mp, K, N, E, st)
+                 : (int)launch_tgmm<__nv_bfloat16, __nv_bfloat16>(
+                       x, dy, gs, c, dw, Mp, K, N, E, st);
 }

@@ -45,7 +45,16 @@ from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
 
 
 def _rms_norm(x, scale, eps):
-    """RMSNorm in fp32, cast back to the input dtype (the reference's)."""
+    """RMSNorm in fp32, cast back to the input dtype (the reference's).
+    On the card the statistics come from ``F.rms_norm``'s kernel, one
+    block per row, so a row's bits do not depend on the rows beside it:
+    torch's ``mean`` over the last dim changes its summation order with
+    the row count (``chip_smoke.py`` phase 21's
+    ``row_0_equal_at_B_2_4_8``).  On the CPU the reference's
+    arithmetic."""
+    if x.device.type == "cuda":
+        return F.rms_norm(x.float(), x.shape[-1:], scale.float(),
+                          eps).to(x.dtype)
     x32 = x.float()
     var = (x32 * x32).mean(-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

@@ -33,6 +33,17 @@ values are not the JAX package's (``jax.random`` and torch draw
 different numbers from a seed); tests carry the JAX init across with
 ``checkpoint/jax_params.py``.
 
+Training: :func:`forward_with_aux` with ``train=True`` routes through the
+MoE layer's training dispatch (``moe_dispatch``: "auto" is the einsum
+capacity formulation, "grouped" the grouped-GEMM kernels and their
+backward), and with ``remat`` each layer runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with the
+"nothing" policy: only the layer inputs are kept, the whole layer is
+recomputed in the backward pass, the expert plan included: its stable
+sort rebuilds the same plan).  The model's ``loss_fn`` is the
+reference's: the fp32 cross-entropy of ``logits[:, :-1]`` plus the
+layers' summed aux losses.
+
 Depth on one 80 GB card: Mixtral-8x7B's 32 layers are 93.4 GB in bf16,
 so bf16 serving runs a cut depth (``num_layers=16``); with int8 weights
 (``quant.enabled``: int8 experts, projections and router, 47.7 GB in
@@ -42,8 +53,11 @@ from dataclasses import dataclass
 from functools import partial
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.models import serving
+from deepspeed_tpu_torch.models.gpt2 import check_remat_policy
 from deepspeed_tpu_torch.models.llama import _rms_norm, rope
 from deepspeed_tpu_torch.models.model import (Model, layer_params,
                                               maybe_stream, qdot,
@@ -55,11 +69,8 @@ from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
 
 @dataclass(frozen=True)
 class MixtralConfig:
-    """The reference's ``MixtralConfig``, same fields and defaults, less
-    the training-only ``remat`` / ``remat_policy`` (MoE training is not
-    ported: ROADMAP.md Queue B, port slice 7) and the einsum dispatch's
-    ``capacity_factor`` / ``eval_capacity_factor`` (the grouped dispatch
-    is drop-free)."""
+    """The reference's ``MixtralConfig``, same fields and defaults.  Only
+    the "nothing" remat policy is ported (``check_remat_policy``)."""
     vocab_size: int = 32000
     max_seq_len: int = 4096
     num_layers: int = 32
@@ -69,12 +80,18 @@ class MixtralConfig:
     d_ff: int = 14336
     num_experts: int = 8
     top_k: int = 2
-    #: "auto" (grouped at serving), "grouped"; "einsum" is refused at use
+    capacity_factor: float = 1.25
+    #: None: drop-free at eval (capacity E / top_k of the tokens)
+    eval_capacity_factor: "float | None" = None
+    #: "auto" (einsum when training, grouped at eval), "einsum",
+    #: "grouped"; the scheduler serves the grouped dispatch only
     moe_dispatch: str = "auto"
     aux_loss_coef: float = 0.01
     rope_theta: float = 1e6
     rms_norm_eps: float = 1e-5
     dtype: str = "bfloat16"
+    remat: bool = False             # activation checkpointing per layer
+    remat_policy: str = "nothing"   # the only policy ported ("nothing")
     attention_impl: str = "auto"    # auto | flash (kernel) | plain
 
     def __post_init__(self):
@@ -82,6 +99,8 @@ class MixtralConfig:
             raise ValueError(f"MixtralConfig.attention_impl="
                              f"{self.attention_impl!r}: choose one of "
                              f"{ATTENTION_IMPLS}")
+        if self.remat:
+            check_remat_policy(self.remat_policy)
 
     @property
     def head_dim(self) -> int:
@@ -93,8 +112,13 @@ class MixtralConfig:
 
     @property
     def moe(self) -> MoEConfig:
+        eval_cf = (self.eval_capacity_factor
+                   if self.eval_capacity_factor is not None
+                   else self.num_experts / self.top_k)
         return MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
                          num_experts=self.num_experts, top_k=self.top_k,
+                         capacity_factor=self.capacity_factor,
+                         eval_capacity_factor=eval_cf,
                          aux_loss_coef=self.aux_loss_coef,
                          activation="silu_glu",
                          dispatch_mode=self.moe_dispatch)
@@ -200,24 +224,43 @@ def _moe_finish(x, attn_flat, layer, config: MixtralConfig,
     return x + moe_out, aux
 
 
+def _block(x, layer, config: MixtralConfig, train: bool, seg=None):
+    """One decoder layer; x [B, S, D] -> (x, aux loss)."""
+    B, S, _ = x.shape
+    q, kk, v = _qkv(x, layer, config)
+    attn = causal_attention(q, kk, v, impl=config.attention_impl,
+                            segment_ids=seg)
+    return _moe_finish(x, attn.reshape(B, S, -1), layer, config, train)
+
+
 def forward_with_aux(params, batch, config: MixtralConfig,
                      train: bool = False):
     """Token ids [B, S] -> (logits [B, S, V], summed aux loss): the full
-    causal forward (the tests' oracle; ``train=True`` is refused by the
-    MoE layer)."""
-    tokens = batch["input_ids"]
-    B, S = tokens.shape
-    x = embed(params, tokens, config)
+    causal forward, each layer under ``torch.utils.checkpoint`` with
+    ``remat``."""
+    x = embed(params, batch["input_ids"], config)
     seg = batch.get("segment_ids") if isinstance(batch, dict) else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(config.num_layers):
         layer = maybe_stream(layer_params(params["blocks"], l))
-        q, kk, v = _qkv(x, layer, config)
-        attn = causal_attention(q, kk, v, impl=config.attention_impl,
-                                segment_ids=seg)
-        x, a = _moe_finish(x, attn.reshape(B, S, -1), layer, config, train)
+        if config.remat:
+            x, a = checkpoint(_block, x, layer, config, train, seg,
+                              use_reentrant=False)
+        else:
+            x, a = _block(x, layer, config, train, seg)
         aux = aux + a
     return head(params, x, config), aux
+
+
+def loss_fn(params, batch, config: MixtralConfig):
+    """The reference's Mixtral loss: the mean fp32 cross-entropy of
+    ``logits[:, :-1]`` against ``input_ids[:, 1:]`` plus the summed aux
+    losses of a training forward."""
+    tokens = batch["input_ids"]
+    logits, aux = forward_with_aux(params, batch, config, train=True)
+    ce = F.cross_entropy(logits[:, :-1].float().flatten(0, 1),
+                         tokens[:, 1:].long().flatten())
+    return ce + aux
 
 
 def fused_spec(config: MixtralConfig):
@@ -313,6 +356,7 @@ def mixtral_model(size: str = "8x7b", **overrides) -> Model:
         quantized_init_fn=partial(init_quantized_params, config),
         params_from_numpy_fn=mixtral_params_from_numpy,
         apply_fn=lambda p, b: forward_with_aux(p, b, config)[0],
+        loss_fn=partial(loss_fn, config=config),
         flops_per_token=6.0 * active,
         meta={"name": f"mixtral-{size}", "n_params": n_params,
               "active_params": active, "num_experts": config.num_experts},

@@ -54,15 +54,32 @@ def quantized_parts(leaf):
     return None
 
 
+#: fp32 projections of at most this many rows (a decode step's batch)
+#: run one row at a time on the card (qgemm's decode path takes the same)
+ROW_INDEPENDENT_ROWS = 8
+
+
 def qdot(x, w):
     """Projection matmul that consumes int8 weights in place:
     ``QuantizedTensor`` leaves go to the fused-dequant qgemm kernel
     (``ops/kernels/qgemm.py``; its plain version for CPU tensors), plain
-    tensors take ``x @ w.to(x.dtype)``."""
+    tensors take ``x @ w.to(x.dtype)``.  On the card, fp32 rows of a
+    decode-sized product (2 to ``ROW_INDEPENDENT_ROWS``) take one product
+    each: cuBLAS's fp32 GEMM sums a row in an order that depends on the
+    row count, so a decode row would otherwise change with the rows
+    beside it and part from the one-row static generate (an int8 KV
+    cache turns a last bit into a code step)."""
     if isinstance(w, QuantizedTensor):
         from deepspeed_tpu_torch.ops.kernels.qgemm import qgemm
         return qgemm(x, w.q, w.s)
-    return x @ w.to(x.dtype)
+    w = w.to(x.dtype)
+    rows = x.numel() // x.shape[-1]
+    if x.is_cuda and x.dtype == torch.float32 \
+            and 1 < rows <= ROW_INDEPENDENT_ROWS:
+        flat = x.reshape(rows, x.shape[-1])
+        return torch.cat([r @ w for r in flat.split(1)]).reshape(
+            *x.shape[:-1], w.shape[-1])
+    return x @ w
 
 
 def maybe_stream(layer, keep_quantized: bool = False):

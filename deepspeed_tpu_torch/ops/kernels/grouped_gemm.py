@@ -28,9 +28,16 @@ the host: the kernels read ``block_group_ids`` / ``tile_rows`` and
 memory.  Each wrapper takes its plain version only for CPU tensors: for a
 CUDA tensor it launches its kernel or raises.
 
-The transposed-RHS and backward (``_tgmm_kernel``) forms are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP item; int8
-experts with ``transpose_rhs`` raise ``ValueError``, as in the reference.
+The backward (the reference's ``_ggemm_diff`` custom VJP, :580-605):
+:class:`GroupedGemm` is a ``torch.autograd.Function`` whose forward is
+:func:`ds_ggemm` and whose backward runs ``ds_ggemm(dy, w, plan,
+transpose_rhs=True)`` for dx (dy [Mp, N] against ``w[e]`` transposed:
+``_ggemm_kernel``'s transposed-RHS form, :163) and :func:`ds_tgmm` for
+dW (the per-expert sum of ``x_row^T dy_row``: ``_tgmm_kernel``, :222),
+the CUDA kernels ``ds_ggemm_t`` and ``ds_tgmm`` on CUDA tensors and
+their plain versions on CPU tensors; :func:`grouped_gemm` is the
+differentiable entry point.  int8 experts have no backward: with
+``transpose_rhs`` they raise ``ValueError``, as in the reference.
 
 Numerics: fp32 accumulation (tensor cores for bf16, fmaf for fp32 — no
 TF32), output rounded once to ``x``'s dtype, as the reference's kernels.
@@ -38,7 +45,8 @@ An int8 weight is dequantized in fp32 with the group width
 ``ceil(N / nb)`` of the unpadded N and rounded to ``x``'s dtype before
 its product (the reference's ``_dequant_tile``).  ``<wrapper>.launches``
 counts the float kernel's launches, ``<wrapper>.int8_launches`` the int8
-kernel's.
+kernel's, ``ds_ggemm.transpose_launches`` the transposed-RHS kernel's and
+``ds_tgmm.launches`` the dW kernel's.
 """
 import ctypes
 from typing import NamedTuple
@@ -61,8 +69,6 @@ SLOT_MAX_ROWS = 128
 SLOT_BN = 128
 SLOT_MAX_SPLIT = 16
 _DTYPES = (torch.float32, torch.bfloat16)
-
-_TRAIN_ITEM = "ROADMAP.md Queue B: MoE training (port slice 7)"
 
 
 def _round_up(n: int, m: int) -> int:
@@ -206,6 +212,36 @@ def ggemm_slots_plain(x, w, plan: SlotPlan):
     return out.to(x.dtype)
 
 
+def ggemm_t_plain(dy, w, plan: GroupPlan):
+    """dx = ``dy`` [Mp, N] against ``w[e]`` transposed over each expert's
+    padded rows (the reference's ``_ref_ggemm`` with ``transpose_rhs``):
+    fp32 products, rounded once to dy's dtype; trailing tiles past the
+    last group give zeros."""
+    out = torch.zeros((dy.shape[0], w.shape[1]), dtype=dy.dtype,
+                      device=dy.device)
+    r0 = 0
+    for e, n in enumerate(plan.group_sizes.tolist()):
+        out[r0:r0 + n] = (dy[r0:r0 + n].float()
+                          @ w[e].float().T).to(dy.dtype)
+        r0 += n
+    return out
+
+
+def tgmm_plain(x, dy, plan: GroupPlan, out_dtype=None):
+    """dW [E, K, N]: expert e's padded rows of ``x``, transposed, against
+    the same rows of ``dy`` (the reference's ``_tgmm_kernel``), in fp32,
+    rounded once to ``out_dtype`` (x's when None); an expert's padding
+    rows are zeros in x, so only its routed rows add."""
+    out = torch.zeros((plan.num_experts, x.shape[1], dy.shape[1]),
+                      dtype=out_dtype or x.dtype, device=x.device)
+    r0 = 0
+    for e, n in enumerate(plan.group_sizes.tolist()):
+        out[e] = (x[r0:r0 + n].float().T
+                  @ dy[r0:r0 + n].float()).to(out.dtype)
+        r0 += n
+    return out
+
+
 def dequant_experts(q, s, dtype):
     """int8 experts (q [E, K, N], s [E, K, nb]) as the kernels see them:
     dequantized in fp32 with the group width ceil(N / nb), rounded to
@@ -248,6 +284,16 @@ def _check_common(what, x, w, ints):
         raise ValueError(f"{what}: dtypes x {x.dtype}, w {w.dtype}; need "
                          f"both one of {_DTYPES}")
     _check_placed(what, x, (("w", w),), ints)
+
+
+def _check_t(what, dy, w, ints):
+    if dy.dim() != 2 or w.dim() != 3 or dy.shape[1] != w.shape[2]:
+        raise ValueError(f"{what}: dy {tuple(dy.shape)} against w "
+                         f"{tuple(w.shape)} (need dy [M, N], w [E, K, N])")
+    if dy.dtype not in _DTYPES or w.dtype != dy.dtype:
+        raise ValueError(f"{what}: dtypes dy {dy.dtype}, w {w.dtype}; need "
+                         f"both one of {_DTYPES}")
+    _check_placed(what, dy, (("w", w),), ints)
 
 
 def _check_q(what, x, q, s, ints):
@@ -340,6 +386,64 @@ def ggemm_cuda(x, w, plan: GroupPlan):
     return out
 
 
+def ggemm_t_cuda(dy, w, plan: GroupPlan):
+    """Launch ``ds_ggemm_t``: dx [Mp, K] = dy [Mp, N] against ``w`` [E, K,
+    N] transposed; raises on anything the kernel does not take.  dy's
+    rows outside the plan's real rows are read as zeros (the layout's
+    padding, where the backward's cotangent is zero)."""
+    _check_t("ds_ggemm_t", dy, w, _group_ints(plan))
+    Mp, N = dy.shape
+    E, K, _ = w.shape
+    _check_group_fit("ds_ggemm_t", dy, E, plan)
+    out = torch.empty((Mp, K), dtype=dy.dtype, device=dy.device)
+    with torch.cuda.device(dy.device):
+        rc = _fn("ds_ggemm_t", 5, 5)(
+            dy.data_ptr(), w.data_ptr(), plan.block_group_ids.data_ptr(),
+            plan.tile_rows.data_ptr(), out.data_ptr(), plan.num_blocks, K,
+            N, E, int(dy.dtype == torch.bfloat16), _stream(dy.device))
+    build.check(rc, "ds_ggemm_t")
+    ds_ggemm.transpose_launches += 1
+    return out
+
+
+def _check_tgmm(x, dy, plan: GroupPlan, out_dtype):
+    if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0] \
+            or x.shape[0] != plan.padded_rows:
+        raise ValueError(f"ds_tgmm: x {tuple(x.shape)} and dy "
+                         f"{tuple(dy.shape)} (need [Mp, K] and [Mp, N], Mp "
+                         f"the plan's {plan.padded_rows} padded rows)")
+    if x.dtype not in _DTYPES or dy.dtype != x.dtype \
+            or out_dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"ds_tgmm: dtypes x {x.dtype}, dy {dy.dtype}, out "
+                         f"{out_dtype}; need x and dy one of {_DTYPES}, out "
+                         "x's or fp32")
+
+
+def tgmm_cuda(x, dy, plan: GroupPlan, out_dtype=None):
+    """Launch ``ds_tgmm``: dW [E, K, N] in ``out_dtype`` (x's or fp32);
+    raises on anything the kernel does not take."""
+    out_dtype = out_dtype or x.dtype
+    _check_tgmm(x, dy, plan, out_dtype)
+    _check_placed("ds_tgmm", x, (("dy", dy),),
+                  (("group_sizes", plan.group_sizes),
+                   ("counts", plan.counts)))
+    if plan.block_m != DEFAULT_BLOCK_M:
+        raise ValueError(f"ds_tgmm: the plan's block_m {plan.block_m}; the "
+                         f"kernel's tile is {DEFAULT_BLOCK_M} rows")
+    Mp, K = x.shape
+    N, E = dy.shape[1], plan.num_experts
+    out = torch.empty((E, K, N), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _fn("ds_tgmm", 5, 6)(
+            x.data_ptr(), dy.data_ptr(), plan.group_sizes.data_ptr(),
+            plan.counts.data_ptr(), out.data_ptr(), Mp, K, N, E,
+            int(x.dtype == torch.bfloat16),
+            int(out_dtype == torch.float32), _stream(x.device))
+    build.check(rc, "ds_tgmm")
+    ds_tgmm.launches += 1
+    return out
+
+
 def ggemm_q_cuda(x, q, s, plan: GroupPlan):
     """Launch ``ds_ggemm_q`` (int8 experts q [E, K, N], scales s [E, K,
     nb]); raises on anything the kernel does not take."""
@@ -409,17 +513,22 @@ def ds_ggemm(x, w, plan: GroupPlan, *, transpose_rhs=False):
     ``w`` [E, K, N] (float, or int8 experts: a ``QuantizedTensor`` or a
     ``(q, s)`` pair): row r takes ``w[expert of r's tile]``; [Mp, N] in
     x's dtype, zeros on padding tiles.  CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  ``transpose_rhs`` (the backward's
-    form) raises: ``ValueError`` for int8 experts (the reference has no
-    such form), ``NotImplementedError`` for float ones (not ported)."""
+    plain version for CPU tensors.  ``transpose_rhs`` (the backward's dx
+    form): ``x`` is dy [Mp, N] and the result [Mp, K] = dy against
+    ``w[e]`` transposed; int8 experts raise ``ValueError`` there (the
+    reference has no such form).  Not differentiable itself: see
+    :func:`grouped_gemm`."""
     qs = quantized_parts(w)
     if transpose_rhs:
         if qs is not None:
             raise ValueError("int8 grouped GEMM has no transposed-RHS form "
                              "(backward is float-only)")
-        raise NotImplementedError(
-            "ds_ggemm(transpose_rhs=True): the backward form is not ported "
-            f"to deepspeed_tpu_torch yet ({_TRAIN_ITEM})")
+        if x.device.type == "cuda":
+            return ggemm_t_cuda(x, w, plan)
+        if x.device.type == "cpu":
+            _check_t("ds_ggemm", x, w, ())
+            return ggemm_t_plain(x, w, plan)
+        raise ValueError(f"ds_ggemm: unsupported device {x.device}")
     if x.device.type == "cuda":
         return ggemm_cuda(x, w, plan) if qs is None \
             else ggemm_q_cuda(x, *qs, plan)
@@ -450,7 +559,60 @@ def ds_ggemm_slots(x, w, plan: SlotPlan):
     raise ValueError(f"ds_ggemm_slots: unsupported device {x.device}")
 
 
+def ds_tgmm(x, dy, plan: GroupPlan, out_dtype=None):
+    """dW [E, K, N] = per expert, the sum over its rows of ``x`` [Mp, K]
+    transposed against ``dy`` [Mp, N] (group-padded rows of one plan), in
+    ``out_dtype`` (x's when None, or fp32).  CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cuda":
+        return tgmm_cuda(x, dy, plan, out_dtype)
+    if x.device.type == "cpu":
+        _check_tgmm(x, dy, plan, out_dtype)
+        return tgmm_plain(x, dy, plan, out_dtype)
+    raise ValueError(f"ds_tgmm: unsupported device {x.device}")
+
+
+class GroupedGemm(torch.autograd.Function):
+    """:func:`ds_ggemm` with its backward (the reference's ``_ggemm_diff``
+    custom VJP): dx = ``ds_ggemm(dy, w, plan, transpose_rhs=True)`` and
+    dW = :func:`ds_tgmm` in w's dtype, from the cotangent cast to x's
+    dtype; the plan's integer tensors are saved beside x and w and get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, plan: GroupPlan):
+        ctx.static = (plan.block_m, plan.padded_rows, plan.num_blocks,
+                      plan.num_experts)
+        ctx.save_for_backward(x, w, *plan[4:])
+        return ds_ggemm(x, w, plan)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, *ints = ctx.saved_tensors
+        plan = GroupPlan(*ctx.static, *ints)
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = ds_ggemm(dy, w, plan, transpose_rhs=True)
+        if ctx.needs_input_grad[1]:
+            dw = ds_tgmm(x, dy, plan, out_dtype=w.dtype)
+        return dx, dw, None
+
+
+def grouped_gemm(x, w, plan: GroupPlan):
+    """Differentiable :func:`ds_ggemm` (the MoE layer's group-padded
+    GEMM): float experts go through :class:`GroupedGemm`, int8 experts
+    (no backward, as in the reference) straight to :func:`ds_ggemm`."""
+    if quantized_parts(w) is not None:
+        return ds_ggemm(x, w, plan)
+    return GroupedGemm.apply(x, w, plan)
+
+
 #: kernel launches since the count was last set to 0: the float kernels
-#: (``launches``) and the int8 ones (``int8_launches``)
+#: (``launches``), the int8 ones (``int8_launches``), the transposed-RHS
+#: backward form (``transpose_launches``) and the dW kernel
 ds_ggemm.launches = ds_ggemm.int8_launches = 0
+ds_ggemm.transpose_launches = 0
 ds_ggemm_slots.launches = ds_ggemm_slots.int8_launches = 0
+ds_tgmm.launches = 0

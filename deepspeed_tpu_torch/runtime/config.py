@@ -447,7 +447,7 @@ class ServingConfig(DeepSpeedConfigModel):
     #: loop in that case too; the port has no scan form
     quant_scan_threshold_mb: int = 512
     #: MoE expert dispatch formulation override: "auto" and "grouped"
-    #: serve the grouped dispatch (the only one ported); "einsum" is
+    #: serve the grouped dispatch; "einsum" (ported for training) is
     #: refused by the scheduler of an MoE model; dense models ignore it
     moe_dispatch: Optional[str] = None
     #: fused decode megakernel toggle: True runs one fused-layer kernel

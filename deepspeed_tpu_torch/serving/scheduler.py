@@ -233,9 +233,13 @@ class ContinuousBatchingScheduler:
         self.fused_decode = fused_decode_active(
             getattr(model, "fused_spec", None), config.fused_decode)
         moe = getattr(model.config, "moe", None)
-        if moe is not None:     # the grouped dispatch, or a refusal
-            resolve_dispatch_mode(moe, train=False,
-                                  override=config.moe_dispatch)
+        if moe is not None and resolve_dispatch_mode(
+                moe, train=False, override=config.moe_dispatch) != "grouped":
+            raise NotImplementedError(
+                "moe dispatch 'einsum' at serving: not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP.md Queue A: MoE training "
+                "— einsum serving); the scheduler serves the grouped "
+                "dispatch ('auto' or 'grouped')")
         self.block_mgr = BlockManager(config.num_blocks, config.block_size)
         bs = config.block_size
         model_ctx = int(getattr(model.config, "max_seq_len", 1 << 30))

@@ -144,8 +144,15 @@ def test_unported_forms_and_bad_inputs_raise():
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
     with pytest.raises(ValueError, match="no transposed-RHS"):
         gg.ds_ggemm(gg.scatter_to_groups(xt, gp), q, gp, transpose_rhs=True)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        gg.ds_ggemm(gg.scatter_to_groups(xt, gp), wt, gp, transpose_rhs=True)
+    # the float transposed-RHS form (the backward's dx) is served: dy
+    # [Mp, N] against w[e] transposed, each routed row its own expert's
+    dy = np.random.default_rng(4).standard_normal((e.size, 96),
+                                                  dtype=np.float32)
+    dx = gg.gather_from_groups(gg.ds_ggemm(
+        gg.scatter_to_groups(torch.from_numpy(dy), gp), wt, gp,
+        transpose_rhs=True), gp)
+    want = np.stack([dy[r] @ w[e[r]].T for r in range(e.size)])
+    np.testing.assert_allclose(dx.numpy(), want, atol=ATOL, rtol=0)
     with pytest.raises(ValueError, match="dtypes"):
         gg.ds_ggemm_slots(xt, wt.double(), sp)
     with pytest.raises(ValueError, match="x \\["):

@@ -5,7 +5,7 @@ running its Pallas grouped-GEMM kernels in interpret mode
 (``DS_GGEMM_INTERPRET=1``: the slot branch at T * k <= 128, the
 group-padded branch above it, as the port), to 1e-5 — with float and with
 int8 experts and router (the same codes on both sides; the JAX side's
-``_slot_q_kernel`` / ``_ggemm_q_kernel``).  The unported formulations
+``_slot_q_kernel`` / ``_ggemm_q_kernel``).  The unported features
 raise."""
 import jax
 import jax.numpy as jnp
@@ -135,15 +135,17 @@ def test_refusals():
         "grouped"
     assert resolve_dispatch_mode(
         MoEConfig(D, F, dispatch_mode="auto"), train=False) == "grouped"
-    with pytest.raises(NotImplementedError, match="einsum"):
-        moe_layer(pp, x, cfg)             # the reference's default mode
-    with pytest.raises(NotImplementedError, match="einsum"):
-        resolve_dispatch_mode(cfg, False, override="einsum")
+    # served since MoE training: the einsum formulation (the reference's
+    # default mode; "auto" when training) and the grouped one at train
+    assert resolve_dispatch_mode(
+        MoEConfig(D, F, dispatch_mode="auto"), train=True) == "einsum"
+    assert resolve_dispatch_mode(cfg, False, override="einsum") == "einsum"
+    out, _ = moe_layer(pp, x, cfg)
+    assert out.shape == x.shape and not out.any()     # zero inputs
     grouped = MoEConfig(d_model=D, d_ff=F, num_experts=E, top_k=K,
                         dispatch_mode="grouped")
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        moe_layer(pp, x, grouped, train=True)
-    with pytest.raises(NotImplementedError, match="use_residual"):
+    assert moe_layer(pp, x, grouped, train=True)[0].shape == x.shape
+    with pytest.raises(NotImplementedError, match="residual MoE"):
         moe_layer(pp, x, MoEConfig(d_model=D, d_ff=F, num_experts=E,
                                    top_k=K, dispatch_mode="grouped",
                                    use_residual=True))
