@@ -7,12 +7,13 @@ Mixtral-8x7B at 16 of its 32 layers with int8 weights and an int8 KV
 cache, Llama-2 7B whole in bf16 and with int8 weights and cache,
 fused decode off and on, GPT-NeoX-20B whole (all 44 layers) in bf16
 fused off and on and with int8 weights and cache, BLOOM-560m and GPT-Neo
-2.7B (random weights drawn on the card), and trains mixtral:1b-moe at
-full width with the grouped MoE dispatch, through the port's own entry
-points.
+2.7B (random weights drawn on the card), trains mixtral:1b-moe at full
+width with the grouped MoE dispatch, and runs block-sparse attention
+forward and backward at GPT-2 760M's attention width and S 16384, through
+the port's own entry points.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --only 20,21   # the build, then phases 12, 15-26
+    python3 chip_smoke.py --only 20,21   # the build, then phases 12, 15-27
                                          # as listed (no kernels line)
 
 Phases (any failed check exits non-zero before the final line):
@@ -191,7 +192,24 @@ Phases (any failed check exits non-zero before the final line):
      micro-batch 8, full remat, bench.py's optimizer byte diet; 3 warm-up
      and 10 timed steps: step time, tokens/s, MFU, peak memory, losses,
      exact launch counts, one profiled step (busy share, top kernels, the
-     grouped kernels' share).
+     grouped kernels' share);
+  27. block-sparse attention (the slice's main path, nothing cut): the
+     forward, dQ and dK/dV kernels against their plain versions at B 2,
+     S 2048 (and two ragged S) over every layout class, a per-head layout and one with empty
+     rows and columns, blocks 16 / 32 / 64 / 128, head dims 64 / 96 /
+     128, causal and bidirectional, fp32 and bf16 (fp32 <= 1e-4 abs, TF32
+     off; bf16 o <= 2e-2 abs, lse <= 1e-3, gradients <= 2e-2 of each
+     output's max; empty rows and columns exact zeros; inf in every kv
+     block a head never reads leaves o and lse bit-identical); the
+     reference's own check, sparse_self_attention impl "pallas" against
+     "dense" at S 1024, block 128, bf16 (gradient deltas <= 0.02); then
+     SparseSelfAttention forward + backward at B 1, S 16384, H 16, hd 96,
+     bf16, causal, for DeepSpeed's documented "fixed" layout (block 16)
+     and BigBird (block 64): 10 timed iterations, exactly one launch of
+     each kernel an iteration, and one iteration against the plain
+     versions on the card (no launch); each kernel timed at that shape
+     beside its plain version, its bound and SDPA with the layout as a
+     boolean mask, and the dense causal flash kernels for context.
 Earlier lines are JSON objects; the line before the last two is the
 ``kernels`` object, then the nvidia-smi line, and the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
@@ -225,7 +243,8 @@ TOL = {"float32": {"o": 1e-4, "lse": 1e-4},
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: every kernel source of the port, built in parallel at start-up
 KERNEL_SOURCES = ("decode_attention", "ds_flash_fwd", "ds_flash_bwd",
-                  "quantization", "qgemm", "fused_decode", "grouped_gemm")
+                  "quantization", "qgemm", "fused_decode", "grouped_gemm",
+                  "block_sparse_attention")
 # the training shape of bench.py's 760M configuration
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD = 12, 1024, 16, 96
 
@@ -4108,6 +4127,469 @@ def moe_train_bf16_phase(torch, dt, gg, fa):
     return launches, report
 
 
+# ------------------------------------------------------ sparse attention
+# the slice's path: GPT-2 760M's attention width (16 heads of hd 96) at a
+# long sequence, one sequence, bf16, causal; nothing cut
+SP_B, SP_S, SP_H, SP_HD = 1, 16384, 16, 96
+SP_ITERS = 10
+SP_CHECK_B, SP_CHECK_S = 2, 2048
+SP_REF_GRAD_TOL = 0.02      # the JAX package's own check of this op
+# 27c at S 16384, beside the max-abs limits (which a late row's |o| ~ 0.015
+# and a local column's small dK / dV sit near): the whole tensor's
+# ||got - plain|| / ||plain||, and each row's (one position and head) max
+# error over that row's max |plain| (floored at a tenth of the median row
+# max, see path_errs). A row error of 2^-7 is one bf16 step of the row's
+# max; o, dk and dv read that at the Fixed layout, dq's worst row 0.022
+# (PERF.md section 2), so dq's rows are held to 5e-2
+SP_PATH_REL_TOL = 1e-2
+SP_PATH_ROW_TOL = {"o": 2e-2, "dq": 5e-2, "dk": 2e-2, "dv": 2e-2}
+SP_PATH_ROW_FLOOR = 0.1
+SPARSE_KERNELS = ("block_sparse_attention_fwd", "block_sparse_attention_dq",
+                  "block_sparse_attention_dkv")
+
+
+def sparse_modules():
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    return sa, bs
+
+
+def sparse_path_configs(sa):
+    """The path's two layouts at 16 heads: DeepSpeed's documented
+    ``sparse_attention`` mode "fixed" setting, and BigBird."""
+    return {
+        "fixed": sa.FixedSparsityConfig(
+            num_heads=SP_H, block=16, num_local_blocks=4,
+            num_global_blocks=1, attention="unidirectional"),
+        "bigbird": sa.BigBirdSparsityConfig(
+            num_heads=SP_H, block=64, num_random_blocks=1,
+            num_sliding_window_blocks=3, num_global_blocks=1,
+            attention="unidirectional")}
+
+
+def sparse_counts(bs):
+    return {name: getattr(bs, name).launches for name in SPARSE_KERNELS}
+
+
+def reset_sparse_counts(bs):
+    for name in SPARSE_KERNELS:
+        getattr(bs, name).launches = 0
+
+
+def path_errs(torch, got, plain):
+    """``got`` against ``plain`` at the path's size: max abs error, the
+    relative norm of the difference, and the largest row error (rows along
+    the last dim) over that row's max |plain|, floored at SP_PATH_ROW_FLOOR
+    of the median row max: a row far below the rest is cancellation noise
+    (dq's first row under causal attends one key, so P = 1 and dS = dP -
+    dsum is rounding either way) and is held against the floor. Beside
+    them the number of floored rows and the plain tensor's rms and median
+    row max (the magnitudes the limits are read against), and where the
+    worst row lies."""
+    import numpy as np
+    a, b = got.float(), plain.float()
+    d = (a - b).abs()
+    row_err, row_max = d.amax(-1), b.abs().amax(-1)
+    median = float(row_max.median())
+    floor = max(SP_PATH_ROW_FLOOR * median, 1e-30)
+    ratio = row_err / row_max.clamp_min(floor)
+    worst = int(ratio.argmax())
+    return {"max_abs_err": float(d.max()),
+            "rel_norm_err": float(d.norm() / b.norm().clamp_min(1e-30)),
+            "max_row_rel_err": float(ratio.max()),
+            "worst_row_bsh": [int(i) for i in np.unravel_index(
+                worst, ratio.shape)],
+            "worst_row_max": float(row_max.flatten()[worst]),
+            "floored_rows": int((row_max < floor).sum()),
+            "plain_rms": float(b.pow(2).mean().sqrt()),
+            "plain_median_row_max": median}
+
+
+def sparse_check_cases(sa, np):
+    """(label, config or layout, S, causal, H, hd): S 2048 but two ragged
+    cases (S 2000 and 2016, where the last CTA holds fewer blocks than it
+    has slots); every layout class, a per-head layout and one with empty
+    rows and columns; blocks 16, 32, 64 and 128, head dims 64, 96 and 128,
+    causal and bidirectional."""
+    S = SP_CHECK_S
+    n = S // 64
+    empty = np.zeros((2, n, n), np.int64)
+    empty[:, 0, 1] = 1          # causal: block row 0 sees nothing (empty)
+    empty[:, 1:, 0] = 1
+    for i in range(2, n, 2):    # odd columns but 1 attended by no row
+        empty[:, i, i] = 1
+    empty[1, 5, 3] = 1          # the heads differ
+    return [
+        ("fixed_b16_causal", sa.FixedSparsityConfig(
+            4, 16, num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional"), S, True, 4, 96),
+        ("bigbird_b64_bidir", sa.BigBirdSparsityConfig(4, 64), S, False, 4,
+         64),
+        ("bslongformer_b128_causal", sa.BSLongformerSparsityConfig(
+            2, 128, global_block_indices=[0, 7]), S, True, 2, 128),
+        ("variable_b32_causal", sa.VariableSparsityConfig(
+            4, 32, num_random_blocks=1, local_window_blocks=[2, 4],
+            global_block_indices=[0, 9], seed=3), S, True, 4, 64),
+        ("bigbird_per_head_b32_bidir", sa.BigBirdSparsityConfig(
+            4, 32, different_layout_per_head=True, num_random_blocks=2,
+            seed=5), S, False, 4, 128),
+        ("empty_rows_cols_b64_causal", empty, S, True, 2, 96),
+        ("fixed_b128_bidir", sa.FixedSparsityConfig(
+            2, 128, num_local_blocks=2, num_global_blocks=1), S, False, 2,
+         96),
+        ("dense_b64_causal", sa.DenseSparsityConfig(2, 64), S, True, 2, 128),
+        ("fixed_b16_ragged_bidir", sa.FixedSparsityConfig(
+            2, 16, num_local_blocks=4), 2000, False, 2, 64),
+        ("bigbird_b32_ragged_causal", sa.BigBirdSparsityConfig(
+            2, 32, attention="unidirectional"), 2016, True, 2, 96)]
+
+
+def sparse_kernel_phase(torch, sa, bs):
+    """Phase 27a: the three kernels against their plain versions at B 2
+    over :func:`sparse_check_cases`, fp32 and bf16: o and lse, then
+    dq, dk and dv given the plain forward's lse and dsum (fp32 <= 1e-4 abs
+    with TF32 off; bf16 o <= 2e-2 abs, lse <= 1e-3, gradients <= 2e-2 of
+    each output's max); lse +inf exactly where the plain one is; rows with
+    no live block and kv blocks no row attends exact zeros; and with inf
+    in every kv block a head does not attend, o and lse bit-identical."""
+    import numpy as np
+    g = torch.Generator(device="cpu").manual_seed(27)
+    errs = {n: 0.0 for n in SPARSE_KERNELS}
+    rel = {n: 0.0 for n in SPARSE_KERNELS}
+    poisoned = zero_rows = zero_cols = 0
+    B = SP_CHECK_B
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for label, cfg, S, causal, H, hd in sparse_check_cases(sa, np):
+            lay = cfg if isinstance(cfg, np.ndarray) else cfg.make_layout(S)
+            q, k = (torch.randn(B, S, H, hd, generator=g).to("cuda", dt)
+                    for _ in range(2))
+            v, do = ((torch.rand(B, S, H, hd, generator=g) * 2 - 1)
+                     .to("cuda", dt) for _ in range(2))
+            plan = bs.BlockSparsePlan(lay, causal, "cuda")
+            block = S // plan.n
+            o, lse = bs.block_sparse_attention_fwd_cuda(q, k, v, plan)
+            ro, rl = bs.block_sparse_attention_fwd_plain(q, k, v, plan)
+            dsum = (do.float() * ro.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            got = (bs.block_sparse_attention_dq_cuda(q, k, v, do, rl, dsum,
+                                                     plan),
+                   *bs.block_sparse_attention_dkv_cuda(q, k, v, do, rl, dsum,
+                                                       plan))
+            ref = (bs.block_sparse_attention_dq_plain(q, k, v, do, rl, dsum,
+                                                      plan),
+                   *bs.block_sparse_attention_dkv_plain(q, k, v, do, rl,
+                                                        dsum, plan))
+            torch.cuda.synchronize()
+            e_o = float((o.float() - ro.float()).abs().max())
+            fin = torch.isfinite(rl)
+            e_l = float((lse[fin] - rl[fin]).abs().max()) if fin.any() \
+                else 0.0
+            inf_same = bool(torch.equal(torch.isinf(lse), ~fin)
+                            and (lse[~fin] > 0).all())
+            row = {"check": "block_sparse_kernels", "case": label,
+                   "dtype": dt_name, "shape": [B, S, H, hd],
+                   "block": block, "causal": causal,
+                   "live_blocks": plan.live, "max_active": plan.max_active,
+                   "max_q": plan.max_q, "max_abs_err_o": e_o,
+                   "max_abs_err_lse": e_l, "lse_inf_where_plain": inf_same}
+            ok = e_o <= TOL[dt_name]["o"] and e_l <= TOL[dt_name]["lse"] \
+                and inf_same
+            errs["block_sparse_attention_fwd"] = max(
+                errs["block_sparse_attention_fwd"], e_o)
+            for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                e = float((a.float() - b.float()).abs().max())
+                r = e / max(float(b.float().abs().max()), 1e-30)
+                row[f"max_abs_err_{name}"], row[f"rel_err_{name}"] = e, r
+                kern = "block_sparse_attention_" + ("dq" if name == "dq"
+                                                    else "dkv")
+                errs[kern] = max(errs[kern], e)
+                rel[kern] = max(rel[kern], r)
+                ok = ok and (e if dt_name == "float32" else r) \
+                    <= BWD_TOL[dt_name]
+            # exact zeros: rows of empty block rows, columns no row attends
+            dead_r = torch.from_numpy(np.repeat(plan.kv_cnt_np.T == 0, block,
+                                                axis=0)).cuda()   # [S, H]
+            dead_c = torch.from_numpy(np.repeat(plan.q_cnt_np.T == 0, block,
+                                                axis=0)).cuda()
+            zeros = not (bool(o[:, dead_r].any()) or bool(got[0][:, dead_r]
+                                                          .any())
+                         or bool(got[1][:, dead_c].any())
+                         or bool(got[2][:, dead_c].any()))
+            zero_rows += int(dead_r.sum()) * B
+            zero_cols += int(dead_c.sum()) * B
+            # poison: inf in every kv block a head never reads
+            k2, v2 = k.clone(), v.clone()
+            k2[:, dead_c] = float("inf")
+            v2[:, dead_c] = float("inf")
+            o2, lse2 = bs.block_sparse_attention_fwd_cuda(q, k2, v2, plan)
+            same = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+            poisoned += int(dead_c.sum()) // block
+            row.update(zeros_where_due=zeros, poisoned_blocks=int(
+                dead_c.sum()) // block, poisoned_o_lse_bit_identical=same,
+                tol=TOL[dt_name], tol_bwd=BWD_TOL[dt_name])
+            emit(row)
+            check(ok and zeros and same,
+                  f"block-sparse kernels {label} {dt_name}: {row}")
+            del q, k, v, do, o, ro, lse, rl, got, ref, k2, v2, o2, lse2
+    check(poisoned > 0 and zero_rows > 0 and zero_cols > 0,
+          "block-sparse kernels: no case had empty rows, empty columns or "
+          "blocks to poison")
+    torch.cuda.empty_cache()
+    return errs, rel, {"poisoned_blocks": poisoned, "zero_rows": zero_rows,
+                       "zero_cols": zero_cols}
+
+
+def sparse_reference_phase(torch, sa):
+    """Phase 27b, the reference's own check of the op (the JAX package's
+    block-sparse check): ``sparse_self_attention(impl="pallas")`` forward
+    and backward against ``impl="dense"`` at S 1024, block 128, bf16 (B 2,
+    H 16, hd 96, a Fixed bidirectional and a BigBird unidirectional causal
+    layout; the upstream gradient drawn in [-1, 1)): outputs within 2e-2
+    and gradient deltas within 0.02."""
+    B, S, H, hd = 2, 1024, SP_H, SP_HD
+    g = torch.Generator(device="cpu").manual_seed(271)
+    report = {}
+    for label, cfg, causal in (
+            ("fixed_bidir", sa.FixedSparsityConfig(
+                H, 128, num_local_blocks=4, num_global_blocks=1), False),
+            ("bigbird_unidirectional_causal", sa.BigBirdSparsityConfig(
+                H, 128, attention="unidirectional"), True)):
+        q, k = (torch.randn(B, S, H, hd, generator=g).to("cuda",
+                                                         torch.bfloat16)
+                for _ in range(2))
+        v, go = ((torch.rand(B, S, H, hd, generator=g) * 2 - 1)
+                 .to("cuda", torch.bfloat16) for _ in range(2))
+        res = {}
+        for impl in ("pallas", "dense"):
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            o = sa.sparse_self_attention(*leaves, cfg, causal=causal,
+                                         impl=impl)
+            res[impl] = (o.detach(), torch.autograd.grad(o, leaves, go))
+        torch.cuda.synchronize()
+        (o1, g1), (o2, g2) = res["pallas"], res["dense"]
+        r = {"o_delta": float((o1.float() - o2.float()).abs().max()),
+             "grad_deltas": [float((a.float() - b.float()).abs().max())
+                             for a, b in zip(g1, g2)],
+             "grad_max": [float(b.float().abs().max()) for b in g2]}
+        report[label] = r
+        check(r["o_delta"] <= TOL["bfloat16"]["o"]
+              and max(r["grad_deltas"]) <= SP_REF_GRAD_TOL,
+              f"sparse_self_attention pallas vs dense {label}: {r}")
+    emit({"check": "sparse_self_attention_pallas_vs_dense",
+          "shape": [B, S, H, hd], "block": 128, "dtype": "bfloat16",
+          "tol_o": TOL["bfloat16"]["o"], "tol_grad": SP_REF_GRAD_TOL,
+          **report})
+    return report
+
+
+def sparse_bound(bs, plan, B, S, H, hd, kind):
+    """(bound_ms, bound_by) of one kernel call at this plan: the visible
+    pairs of the live blocks (a diagonal block half when causal) times 4
+    (forward), 6 (dQ) or 8 (dK/dV) x hd flops at the bf16 peak, against
+    its inputs read once and outputs written once (bf16 [B, S, H, hd]
+    tensors, fp32 [B, H, S] rows, the plan's int32 arrays)."""
+    block = S // plan.n
+    diag = block * (block + 1) // 2 if plan.causal else block * block
+    pairs = B * ((plan.live - plan.live_diag) * block * block
+                 + plan.live_diag * diag)
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    x, rows = B * S * H * hd * 2, B * H * S * 4
+    side = ((plan.kv_idx, plan.kv_cnt, plan.q_order) if kind != "dkv"
+            else (plan.q_idx, plan.q_cnt, plan.k_order))
+    plan_bytes = sum(t.numel() * 4 for t in side)
+    bytes_ = {"fwd": 4 * x + rows, "dq": 5 * x + 2 * rows,
+              "dkv": 6 * x + 2 * rows}[kind] + plan_bytes
+    return bound_of(bytes_, 2.0 * products * pairs * hd, BF16_FLOPS)
+
+
+def sparse_path_phase(torch, sa, bs):
+    """Phase 27c, the slice's main path: ``SparseSelfAttention(cfg,
+    impl="pallas")`` forward and ``.backward()`` at B 1, S 16384, H 16, hd
+    96 (GPT-2 760M's attention), bf16, causal, for the Fixed and the
+    BigBird layout (:func:`sparse_path_configs`): a warm-up call (which
+    builds the layout and the device plan), then SP_ITERS timed
+    iterations with every count set to 0 just before and read just after
+    (exactly one forward, one dQ and one dK/dV launch an iteration). Then
+    the plain versions on the same inputs and plan (forward, dsum, dQ and
+    dK/dV, as 27a; no launch) hold the kernels' output and gradients at
+    this size: o <= 2e-2 abs, gradients <= 2e-2 of each one's max, and for
+    each of o, dq, dk, dv (:func:`path_errs`) the relative norm of the
+    difference <= SP_PATH_REL_TOL and every row's error within
+    SP_PATH_ROW_TOL of that row's max."""
+    B, S, H, hd = SP_B, SP_S, SP_H, SP_HD
+    g = torch.Generator(device="cuda").manual_seed(272)
+    bf = torch.bfloat16
+    q, k = (torch.randn(B, S, H, hd, generator=g, device="cuda").to(bf)
+            for _ in range(2))
+    v, go = ((torch.rand(B, S, H, hd, generator=g, device="cuda") * 2 - 1)
+             .to(bf) for _ in range(2))
+    runs = {}
+    for label, cfg in sparse_path_configs(sa).items():
+        attn = sa.SparseSelfAttention(cfg, impl="pallas")
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        attn(*leaves, causal=True).backward(go)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_sparse_counts(bs)
+        t0 = time.perf_counter()
+        for _ in range(SP_ITERS):
+            for x in leaves:
+                x.grad = None
+            attn(*leaves, causal=True).backward(go)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = sparse_counts(bs)
+        peak = torch.cuda.max_memory_allocated()
+        o = attn(*leaves, causal=True).detach()
+        grads = [x.grad for x in leaves]
+        plan = sa.cached_plan(cfg, S, True, "cuda")
+        reset_sparse_counts(bs)
+        po, plse = bs.block_sparse_attention_fwd_plain(q, k, v, plan)
+        dsum = (go.float() * po.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        pg = (bs.block_sparse_attention_dq_plain(q, k, v, go, plse, dsum,
+                                                 plan),
+              *bs.block_sparse_attention_dkv_plain(q, k, v, go, plse, dsum,
+                                                   plan))
+        torch.cuda.synchronize()
+        plain_launches = sparse_counts(bs)
+        vs_plain = {name: path_errs(torch, a, b) for name, a, b in zip(
+            ("o", "dq", "dk", "dv"), (o, *grads), (po, *pg))}
+        e_o = vs_plain["o"]["max_abs_err"]
+        g_rel = [float((a.float() - b.float()).abs().max())
+                 / max(float(b.float().abs().max()), 1e-30)
+                 for a, b in zip(grads, pg)]
+        finite = all(bool(torch.isfinite(t).all()) for t in (o, *grads))
+        r = {"phase": "sparse_attention_path", "layout": label,
+             "config": {k2: v2 for k2, v2 in vars(cfg).items()},
+             "shape": [B, S, H, hd], "dtype": "bfloat16", "causal": True,
+             "block": cfg.block, "live_blocks": plan.live,
+             "density": plan.live / (H * plan.n * plan.n),
+             "max_active": plan.max_active, "max_q": plan.max_q,
+             "first_call_s": first_s, "iters": SP_ITERS,
+             "fwd_bwd_ms": wall / SP_ITERS * 1e3,
+             "peak_allocated_gb": peak / 1e9, "launches": launches,
+             "plain_run_launches": plain_launches,
+             "vs_plain_max_abs_err_o": e_o, "vs_plain_rel_err_grads": g_rel,
+             "vs_plain": vs_plain, "tol_rel_norm": SP_PATH_REL_TOL,
+             "tol_row": SP_PATH_ROW_TOL, "finite": finite}
+        emit(r)
+        check(launches == {n: SP_ITERS for n in SPARSE_KERNELS},
+              f"sparse path {label}: launches {launches} != {SP_ITERS} each")
+        check(all(v2 == 0 for v2 in plain_launches.values()),
+              f"sparse path {label}: the plain run launched {plain_launches}")
+        scaled = all(m["rel_norm_err"] <= SP_PATH_REL_TOL
+                     and m["max_row_rel_err"] <= SP_PATH_ROW_TOL[name]
+                     for name, m in vs_plain.items())
+        check(finite and e_o <= TOL["bfloat16"]["o"]
+              and max(g_rel) <= BWD_TOL["bfloat16"] and scaled,
+              f"sparse path {label} vs plain: o err {e_o}, grads {g_rel}, "
+              f"{vs_plain}")
+        runs[label] = r
+        del attn, leaves, o, grads, po, plse, dsum, pg
+        torch.cuda.empty_cache()
+    return (q, k, v, go), runs
+
+
+def sparse_times(torch, F, sa, bs, fa, inputs):
+    """Phase 27d: each kernel timed (CUDA events) at the path's shape for
+    both layouts, beside its plain version, its bound and SDPA with the
+    layout expanded to a boolean [S, S] mask (shared across heads; forward
+    alone, and forward + backward less forward for the pair); and, for
+    context, the port's dense causal flash kernels at the same shape."""
+    q, k, v, go = inputs
+    B, S, H, hd = q.shape
+    times = {}
+    for label, cfg in sparse_path_configs(sa).items():
+        plan = sa.cached_plan(cfg, S, True, "cuda")
+        o, lse = bs.block_sparse_attention_fwd_cuda(q, k, v, plan)
+        dsum = (go.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, go, lse, dsum, plan)
+        t = {
+            "block_sparse_attention_fwd": {
+                "kernel_ms": time_ms(lambda: bs.block_sparse_attention_fwd_cuda(
+                    q, k, v, plan), reps=5, inner=3),
+                "plain_ms": time_ms(lambda: bs.block_sparse_attention_fwd_plain(
+                    q, k, v, plan), reps=2, inner=1, warmup=1)},
+            "block_sparse_attention_dq": {
+                "kernel_ms": time_ms(lambda: bs.block_sparse_attention_dq_cuda(
+                    *args), reps=5, inner=3),
+                "plain_ms": time_ms(lambda: bs.block_sparse_attention_dq_plain(
+                    *args), reps=2, inner=1, warmup=1)},
+            "block_sparse_attention_dkv": {
+                "kernel_ms": time_ms(lambda: bs.block_sparse_attention_dkv_cuda(
+                    *args), reps=5, inner=3),
+                "plain_ms": time_ms(lambda: bs.block_sparse_attention_dkv_plain(
+                    *args), reps=2, inner=1, warmup=1)}}
+        for name, kind in zip(SPARSE_KERNELS, ("fwd", "dq", "dkv")):
+            t[name]["bound_ms"], t[name]["bound_by"] = sparse_bound(
+                bs, plan, B, S, H, hd, kind)
+        # the library yardstick: SDPA with the layout as a boolean mask
+        mask = sa.layout_to_mask(sa.cached_layout(cfg, S)[:1], S, "cuda")
+        mask = (mask & torch.tril(torch.ones(S, S, dtype=torch.bool,
+                                             device="cuda")))[None]
+        qt, kt, vt, got = (x.transpose(1, 2) for x in (q, k, v, go))
+        ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+        fwd_ms = time_ms(sdpa, reps=5, inner=2)
+        pair_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (ql, kl, vl),
+                                                      got),
+                          reps=5, inner=2) - fwd_ms
+        t["block_sparse_attention_fwd"]["library_ms"] = fwd_ms
+        for name in SPARSE_KERNELS[1:]:
+            t[name]["library_ms"] = pair_ms
+            t[name]["library_is_for_the_pair"] = True
+        for name in SPARSE_KERNELS:
+            t[name]["work"] = (f"{label} layout, block {cfg.block}, B {B}, "
+                               f"S {S}, H {H}, hd {hd}, bf16, causal, "
+                               f"{plan.live} live blocks")
+        times[label] = t
+        emit({"phase": "sparse_attention_times", "layout": label, **t})
+        del o, lse, dsum, args, mask, ql, kl, vl
+        torch.cuda.empty_cache()
+    # context: the port's dense causal flash kernels at the same shape
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    delta = (go.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dense = {
+        "ds_flash_fwd_ms": time_ms(lambda: fa.flash_attention_fwd_cuda(
+            q, k, v), reps=3, inner=1),
+        "ds_flash_bwd_dkv_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+            q, k, v, go, lse, delta), reps=3, inner=1),
+        "ds_flash_bwd_dq_ms": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+            q, k, v, go, lse, delta), reps=3, inner=1),
+        "fwd_bound_ms": attn_bound(B, S, H, H, hd, 2, True, 2, 2, 1)[0],
+        "bwd_bound_ms": attn_bound(B, S, H, H, hd, 7, True, 3, 4, 2)[0]}
+    emit({"phase": "sparse_attention_dense_flash_context",
+          "shape": [B, S, H, hd], "dtype": "bfloat16", "causal": True,
+          **dense})
+    return times, dense
+
+
+def sparse_attention_phase(torch, F, fa):
+    """Phase 27: the block-sparse slice (27a kernels, 27b the reference's
+    check, 27c the main path, 27d times)."""
+    sa, bs = sparse_modules()
+    errs, rel, zeros = sparse_kernel_phase(torch, sa, bs)
+    ref = sparse_reference_phase(torch, sa)
+    inputs, runs = sparse_path_phase(torch, sa, bs)
+    times, dense = sparse_times(torch, F, sa, bs, fa, inputs)
+    del inputs
+    torch.cuda.empty_cache()
+    for r in runs.values():
+        for name, kern in (("o", "fwd"), ("dq", "dq"), ("dk", "dkv"),
+                           ("dv", "dkv")):
+            kern = "block_sparse_attention_" + kern
+            errs[kern] = max(errs[kern], r["vs_plain"][name]["max_abs_err"])
+    return {"errs": errs, "rel": rel, "zeros": zeros, "reference": ref,
+            "runs": runs, "times": times, "dense_flash": dense}
+
+
 #: what each variant row of the kernels line replaces, beside the TPU
 #: kernel's file and line
 VARIANT_NOTES = {
@@ -4135,7 +4617,7 @@ def fused_paths(runs, prefix):
 
 
 def run_only(torch, only, da, fa):
-    """``--only``: the listed phases among 12 and 15-26 alone, after the
+    """``--only``: the listed phases among 12 and 15-27 alone, after the
     build, for work on one path (no kernels line)."""
     import torch.nn.functional as F
     import deepspeed_tpu_torch as dt
@@ -4155,7 +4637,8 @@ def run_only(torch, only, da, fa):
         23: lambda: bloom_gptneo_http_phase(torch, da, fa),
         24: lambda: moe_train_kernel_phase(torch, gg, fa),
         25: lambda: moe_train_parity_phase(torch, dt, gg, fa),
-        26: lambda: moe_train_bf16_phase(torch, dt, gg, fa)}
+        26: lambda: moe_train_bf16_phase(torch, dt, gg, fa),
+        27: lambda: sparse_attention_phase(torch, F, fa)}
     for n in only:
         check(n in table, f"--only: phase {n} is not one of {sorted(table)}")
         table[n]()
@@ -4294,6 +4777,8 @@ def main():
     torch.cuda.empty_cache()
     mt_n, _ = moe_train_bf16_phase(torch, dt, gg, fa)
     torch.cuda.empty_cache()
+    sparse = sparse_attention_phase(torch, F, fa)
+    torch.cuda.empty_cache()
     s7 = {f"neox_http_{arm}": run["launches"] for arm, run in neox.items()}
     s7_loads = {"neox_int8_load": neox_loads}
     for fam, label in (("bloom_560m", "bloom"), ("gptneo_2.7b", "gptneo")):
@@ -4430,7 +4915,14 @@ def main():
         ("ds_ggemm_slots_q", moeq_t["ds_ggemm_slots_q"]["gate_in"],
          "grouped_gemm.cu", "grouped_gemm.py:452",
          *paths_of("ds_ggemm_slots_q"), moeq_errs["ds_ggemm_slots_q"],
-         INT8_TOL))
+         INT8_TOL),
+        *((name, sparse["times"]["fixed"][name], "block_sparse_attention.cu",
+           f"block_sparse_attention.py:{line}",
+           sum(r["launches"][name] for r in sparse["runs"].values()),
+           {f"sparse_{label}_s{SP_S}": r["launches"][name]
+            for label, r in sparse["runs"].items()},
+           sparse["errs"][name], TOL if name.endswith("fwd") else BWD_TOL)
+          for name, line in zip(SPARSE_KERNELS, (75, 178, 209))))
     kernels = []
     for name, t, src, replaces, n, by_path, err, tol in rows:
         check(n > 0, f"{name} was not launched on a main path")
@@ -4489,6 +4981,15 @@ def main():
             for extra in ("times_by_cache", "times_by_config"):
                 if extra in s7_t[name]:
                     kernels[-1][extra] = s7_t[name][extra]
+        if name in SPARSE_KERNELS:
+            # phase 27: the Fixed layout's times; BigBird's beside them
+            kernels[-1].update(
+                work=t["work"], times_by_layout={
+                    label: sparse["times"][label][name]
+                    for label in sparse["times"]},
+                err_kind="fp32 abs / bf16 o abs, gradients rel_to_max")
+            if name in sparse["rel"] and not name.endswith("fwd"):
+                kernels[-1]["max_rel_err_bf16"] = sparse["rel"][name]
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

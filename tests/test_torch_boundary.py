@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -80,7 +81,9 @@ print(json.dumps({"modules": mods, "bad": bad}))
               "deepspeed_tpu_torch.models.llama",
               "deepspeed_tpu_torch.models.neox",
               "deepspeed_tpu_torch.models.bloom",
-              "deepspeed_tpu_torch.models.gptneo"):
+              "deepspeed_tpu_torch.models.gptneo",
+              "deepspeed_tpu_torch.ops.sparse_attention",
+              "deepspeed_tpu_torch.ops.kernels.block_sparse_attention"):
         assert m in res["modules"]
 
 
@@ -89,7 +92,8 @@ print(json.dumps({"modules": mods, "bad": bad}))
     "ops.kernels.quantization", "ops.kernels.decode_attention",
     "models.model", "serving.server", "ops.kernels.grouped_gemm",
     "moe.layer", "models.mixtral", "models.serving", "models.neox",
-    "models.bloom", "models.gptneo"])
+    "models.bloom", "models.gptneo", "ops.sparse_attention",
+    "ops.kernels.block_sparse_attention"])
 def test_each_module_imports_on_its_own(module):
     """Imported first in a fresh interpreter (as chip_smoke.py and a user
     script may): no import cycle between the kernels and the models."""
@@ -155,6 +159,19 @@ def test_cpu_tensors_never_launch_kernels():
                                           plan), plan),
         gg.ds_ggemm_slots(x, w, gg.make_slot_plan(eids, 3)))
     assert gg.ds_ggemm.launches == gg.ds_ggemm_slots.launches == 0
+    # the block-sparse attention wrappers, forward and backward
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    for name in ("fwd", "dq", "dkv"):
+        getattr(bs, f"block_sparse_attention_{name}").launches = 0
+    qs = torch.randn(1, 32, 2, 64, generator=g, requires_grad=True)
+    cfg = sa.BigBirdSparsityConfig(2, block=16)
+    sa.sparse_self_attention(qs, qs, qs, cfg, causal=True,
+                             impl="pallas").sum().backward()
+    assert torch.isfinite(qs.grad).all()
+    assert (bs.block_sparse_attention_fwd.launches
+            == bs.block_sparse_attention_dq.launches
+            == bs.block_sparse_attention_dkv.launches == 0)
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch, tmp_path):
@@ -176,11 +193,16 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     qs = torch.zeros(1, 8, 4, 24)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd_cuda(qs, qs, qs)
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    plan = bs.BlockSparsePlan(np.ones((4, 1, 1), np.int64), True)
+    with pytest.raises(NotImplementedError, match="head_dim 24"):
+        bs.block_sparse_attention_fwd_cuda(qs, qs, qs, plan)
 
 
 def test_cuda_sources_exist():
     for name in ("decode_attention", "ds_flash_fwd", "ds_flash_bwd",
-                 "quantization", "qgemm", "fused_decode", "grouped_gemm"):
+                 "quantization", "qgemm", "fused_decode", "grouped_gemm",
+                 "block_sparse_attention"):
         src = build.CSRC_DIR / f"{name}.cu"
         assert src.is_file(), src
         assert "extern \"C\"" in src.read_text()
