@@ -13,16 +13,24 @@ forward and backward at GPT-2 760M's attention width and S 16384, through
 the port's own entry points.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --only 20,21   # the build, then phases 12, 15-27
-                                         # as listed (no kernels line)
+    python3 chip_smoke.py --only 20,21   # the build, then phases 2, 3, 7,
+                                         # 12, 15-27 as listed (no kernels
+                                         # line)
 
 Phases (any failed check exits non-zero before the final line):
   1. device: card name and power limit, torch/CUDA versions, kernel build
-     seconds (one nvcc per source, all started together);
+     seconds (one nvcc per source, all started together), the compiler's
+     registers and spills, and the count of wgmma (HGMMA) and TMA load
+     (UTMALDG) instructions in the built flash forward (cuobjdump);
   2. kernels at the serving path's shapes: max |kernel - plain| within the
-     stated tolerance, then median times of the kernel, the plain version
-     and the PyTorch library call (scaled_dot_product_attention, timed
-     here only) beside the least time the card could take;
+     stated tolerance (the flash forward at every head dim, 64 / 80 / 96 /
+     128: S 16, 129, 1024, segment ids, fused-QKV views, GQA rep 4 at hd
+     128; two launches and batch row 0 at B 1 vs B 4 bit-identical), then
+     median times of the kernel, the plain version and the PyTorch library
+     call (scaled_dot_product_attention, timed here only) beside the least
+     time the card could take, and the flash forward at a Llama-2 7B
+     prefill (B 1, S 1024, H 32, hd 128); the flash forward's and SDPA's
+     device times (profiler) beside them here and in phases 3 and 24;
   3. the flash backward kernels (dK/dV, dQ) against the plain backward,
      fp32 and bf16, at the training shape, GQA, segment ids, non-causal,
      a ragged S and strided fused-QKV views; then, on the training main
@@ -289,6 +297,19 @@ def time_ms(fn, reps=15, inner=10, warmup=3):
     return statistics.median(times)
 
 
+def sass_counts(build, lib):
+    """wgmma (HGMMA) and TMA load (UTMALDG) instructions in a built
+    library's SASS, by cuobjdump from the toolkit that built it."""
+    import shutil
+    cob = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(cob):
+        return "cuobjdump not found"
+    out = subprocess.run([cob, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300).stdout.splitlines()
+    return {op: sum(op in ln for ln in out) for op in ("HGMMA", "UTMALDG")}
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -341,6 +362,22 @@ def kernel_phase(torch, da, fa):
         # the prefill's own layout: q/k/v strided views of one fused
         # [B, S, 3 * H * hd] projection, at the largest prompt bucket
         cases.append((1, 912, 16, 16, 96, True, False, True))
+        # every head dim the kernels take: S 16, 129 and 1024 causal,
+        # bidirectional with segment ids, strided fused-QKV views; GQA
+        # rep 4 at hd 128 (Mixtral's 32 / 8 heads)
+        for hd in fa.HEAD_DIMS:
+            for case in [(1, 16, 16, 16, hd, True, False, False),
+                         (1, 129, 16, 16, hd, True, False, False),
+                         (1, 1024, 16, 16, hd, True, False, False),
+                         (2, 129, 8, 8, hd, False, True, False),
+                         (1, 1024, 16, 16, hd, True, False, True)]:
+                if case not in cases:
+                    cases.append(case)
+        cases.append((2, 1024, 32, 8, 128, True, False, False))
+        # segment ids at a size that takes the (batch, head) tile order
+        # (k / v over 40 MB), bidirectional and causal
+        cases += [(8, 1024, 16, 16, 96, c, True, False)
+                  for c in (False, True)]
         for (B, S, H, KV, hd, causal, seg, fused) in cases:
             if fused:
                 qkv = randn(B, S, 3 * H * hd)
@@ -362,10 +399,15 @@ def kernel_phase(torch, da, fa):
             torch.cuda.synchronize()
             eo = float((o.float() - ro.float()).abs().max())
             el = float((lse - rl).abs().max())
+            order = (flash_tile_order(fa, B, S, H, KV, hd, causal)
+                     if dt == torch.bfloat16 else None)
+            if B == 8 and seg and order is not None:
+                check(order == "by (batch, head)", f"ds_flash_fwd "
+                      f"{(B, S, H, KV, hd)} took the tile order {order}")
             emit({"check": "ds_flash_fwd", "dtype": dt_name,
                   "shape": [B, S, H, KV, hd], "causal": causal,
                   "segments": seg, "fused_qkv_views": fused,
-                  "max_abs_err_o": eo,
+                  "tile_order": order, "max_abs_err_o": eo,
                   "max_abs_err_lse": el, "tol_o": tol["o"],
                   "tol_lse": tol["lse"]})
             check(eo <= tol["o"] and el <= tol["lse"],
@@ -374,7 +416,45 @@ def kernel_phase(torch, da, fa):
             errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"], eo)
             tol_used["ds_flash_fwd"] = max(tol_used["ds_flash_fwd"],
                                            tol["o"])
+    flash_identity_checks(torch, fa, randn, unif)
     return errs, tol_used
+
+
+def flash_tile_order(fa, B, S, H, KV, hd, causal):
+    """The tile order the bf16 forward takes at this shape on this card
+    (``ds_flash_fwd_tile_order``): "by level" or "by (batch, head)"."""
+    import ctypes
+    fn = fa.build.load("ds_flash_fwd").ds_flash_fwd_tile_order
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    r = fn(B, S, H, KV, hd, int(causal))
+    check(r in (0, 1), f"ds_flash_fwd_tile_order returned {r}")
+    return "by (batch, head)" if r else "by level"
+
+
+def flash_identity_checks(torch, fa, randn, unif):
+    """The flash forward bit for bit: two launches on the same inputs
+    (determinism), and batch row 0 launched at B 1 against the same row
+    at B 4 (a row's bits do not depend on the rows beside it), fp32 and
+    bf16, at every head dim, causal S 1024."""
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for hd in fa.HEAD_DIMS:
+            q = randn(4, 1024, 16, hd).to("cuda", dt)
+            k = randn(4, 1024, 16, hd).to("cuda", dt)
+            v = unif(4, 1024, 16, hd).to("cuda", dt)
+            o1, l1 = fa.flash_attention_fwd_cuda(q, k, v)
+            o2, l2 = fa.flash_attention_fwd_cuda(q, k, v)
+            ob, lb = fa.flash_attention_fwd_cuda(q[:1], k[:1], v[:1])
+            torch.cuda.synchronize()
+            same = torch.equal(o1, o2) and torch.equal(l1, l2)
+            row = torch.equal(o1[:1], ob) and torch.equal(l1[:1], lb)
+            emit({"check": "ds_flash_fwd_identity", "dtype": dt_name,
+                  "shape": [4, 1024, 16, 16, hd], "causal": True,
+                  "two_launches_bit_identical": same,
+                  "row_0_at_B_1_vs_B_4_bit_identical": row})
+            check(same and row, f"ds_flash_fwd {dt_name} hd {hd}: two "
+                  f"launches identical {same}, row 0 at B 1 vs B 4 {row}")
 
 
 def kernel_times(torch, F, da, fa):
@@ -421,11 +501,71 @@ def kernel_times(torch, F, da, fa):
     fl["plain_ms"] = time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v))
     fl["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
-    per_s = {}
+    per_s, per_s_dev = {}, {}
     for n in PROMPT_LENS:
         sp = -(-n // 16) * 16
-        per_s[str(sp)] = flash_at(sp)[0]["kernel_ms"]
-    return dec, fl, per_s
+        r, (qb, kb, vb, *_) = flash_at(sp)
+        per_s[str(sp)] = r["kernel_ms"]
+        per_s_dev[str(sp)] = device_ms(torch, [
+            lambda: fa.flash_attention_fwd_cuda(qb, kb, vb)], reps=20,
+            one_kernel=True)[0]
+    # hd 128: a Llama-2 7B prefill, B 1, S 1024, H 32, causal
+    H, hd = 32, 128
+    fl128, (q2, k2, v2, qt2, kt2, vt2) = flash_at(1024)
+    fl128["plain_ms"] = time_ms(lambda: fa.flash_attention_fwd_plain(
+        q2, k2, v2))
+    fl128["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qt2, kt2, vt2, is_causal=True))
+    fl.update(flash_fwd_device_ms(torch, F, fa, q, k, v))
+    fl128.update(flash_fwd_device_ms(torch, F, fa, q2, k2, v2))
+    for r, args in ((fl, (q, k, v)), (fl128, (q2, k2, v2))):
+        r["host_ms_per_call"] = host_ms_per_call(
+            torch, lambda: fa.flash_attention_fwd_cuda(*args))
+    return dec, fl, per_s, fl128, per_s_dev
+
+
+def host_ms_per_call(torch, fn, n=200, reps=5):
+    """The host's milliseconds per call of ``fn`` (the wrapper's checks,
+    allocations and launch): the host clock around ``n`` calls left
+    unsynchronised, median over ``reps``.  While the device takes less
+    per call than the host, its queue stays short and this is the host's
+    time alone."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out.append((time.perf_counter() - t0) / n * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def flash_fwd_device_ms(torch, F, fa, q, k, v, enable_gqa=False):
+    """The flash forward's and SDPA's device time per call (profiler): a
+    call's host time (``host_ms_per_call``) can exceed the kernel's, and
+    then the CUDA-event times above measure the host."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return {"device_ms": device_ms(torch, [
+                lambda: fa.flash_attention_fwd_cuda(q, k, v)], reps=20)[0],
+            "library_device_ms": device_ms(torch, [
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=enable_gqa)],
+                reps=20)[0]}
+
+
+def kernel_times_phase(torch, F, da, fa):
+    """Phase 2's times, emitted; returns the decode kernel's, the flash
+    forward's at S 1024 and the flash forward's by prompt bucket."""
+    dec_t, fl_t, flash_by_s, fl128, dev_by_s = kernel_times(torch, F, da,
+                                                            fa)
+    emit({"phase": "kernel_times", "decode_attention": dec_t,
+          "ds_flash_fwd_s1024": fl_t, "ds_flash_fwd_ms_by_bucket":
+          flash_by_s, "ds_flash_fwd_device_ms_by_bucket": dev_by_s,
+          "ds_flash_fwd_llama_prefill_hd128": fl128})
+    return dec_t, fl_t, flash_by_s
 
 
 # -------------------------------------------------------------- the slice
@@ -769,6 +909,7 @@ def train_kernel_times(torch, F, fa):
                qt, kt, vt, is_causal=True))}
     fwd["bound_ms"], fwd["bound_by"] = attn_bound(B, S, H, H, hd, 2, True,
                                                   2, 2, 1)
+    fwd.update(flash_fwd_device_ms(torch, F, fa, q, k, v))
     out["ds_flash_fwd"] = fwd
     dkv = {"kernel_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
         q, k, v, do, lse, delta))}
@@ -3919,6 +4060,7 @@ def moe_train_flash_phase(torch, fa):
                qt, kt, vt, is_causal=True, enable_gqa=True))}
     fwd["bound_ms"], fwd["bound_by"] = attn_bound(B, S, H, KV, hd, 2, True,
                                                   2, 2, 1)
+    fwd.update(flash_fwd_device_ms(torch, F, fa, q, k, v, enable_gqa=True))
     dkv = {"kernel_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
         q, k, v, do, lse, delta))}
     dq = {"kernel_ms": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
@@ -4617,13 +4759,19 @@ def fused_paths(runs, prefix):
 
 
 def run_only(torch, only, da, fa):
-    """``--only``: the listed phases among 12 and 15-27 alone, after the
-    build, for work on one path (no kernels line)."""
+    """``--only``: the listed phases among 2, 3, 7, 12 and 15-27 alone,
+    after the build, for work on one path (no kernels line)."""
     import torch.nn.functional as F
     import deepspeed_tpu_torch as dt
     gg = moe_modules()
     qz, qg, fd = int8_modules()
     table = {
+        2: lambda: (kernel_phase(torch, da, fa),
+                    kernel_times_phase(torch, F, da, fa)),
+        3: lambda: (bwd_kernel_phase(torch, fa), emit(
+            {"phase": "train_kernel_times", **train_kernel_times(
+                torch, F, fa)[0]})),
+        7: lambda: bf16_train_phase(torch, dt, da, fa),
         12: lambda: mixtral_parity_phase(torch, gg, da, fa),
         15: lambda: mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa),
         16: lambda: mixtral_int8_http_phase(torch, gg, qz, qg, da, fa),
@@ -4676,7 +4824,7 @@ def main():
 
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    build.build(KERNEL_SOURCES)
+    libs = build.build(KERNEL_SOURCES)
     build_s = time.perf_counter() - t0
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4687,7 +4835,8 @@ def main():
           "ptxas": [ln.strip() for r in build.build_log.values()
                     for ln in r["log"].splitlines()
                     if "registers" in ln or "spill" in ln
-                    or "Compiling entry" in ln]})
+                    or "Compiling entry" in ln],
+          "ds_flash_fwd_sass": sass_counts(build, libs["ds_flash_fwd"])})
 
     if only:
         run_only(torch, only, da, fa)
@@ -4699,10 +4848,7 @@ def main():
         return 0
 
     errs, tols = kernel_phase(torch, da, fa)
-    dec_t, fl_t, flash_by_s = kernel_times(torch, F, da, fa)
-    emit({"phase": "kernel_times", "decode_attention": dec_t,
-          "ds_flash_fwd_s1024": fl_t, "ds_flash_fwd_ms_by_bucket":
-          flash_by_s})
+    dec_t, fl_t, flash_by_s = kernel_times_phase(torch, F, da, fa)
     bwd_errs, bwd_rel = bwd_kernel_phase(torch, fa)
     train_t, train_errs, train_rel = train_kernel_times(torch, F, fa)
     errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"],

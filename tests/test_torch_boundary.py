@@ -23,7 +23,8 @@ PKG = ROOT / "deepspeed_tpu_torch"
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _forbidden(name: str) -> bool:

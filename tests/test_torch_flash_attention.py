@@ -77,6 +77,20 @@ def test_plain_matches_pallas_fwd_segments(causal, S):
     np.testing.assert_allclose(lse, lse_ref, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("hd,seg", [(64, False), (80, False), (96, False),
+                                    (128, False), (96, True)])
+def test_plain_matches_pallas_fwd_kernel_head_dims(hd, seg):
+    """The head dims the CUDA kernel takes (``HEAD_DIMS``), GQA 4 / 2,
+    causal, S 40 (one ragged tile), with and without segment ids."""
+    assert hd in fa.HEAD_DIMS
+    q, k, v = _inputs(1, 40, 4, 2, hd, seed=hd + seg)
+    sg = _segments(1, 40) if seg else None
+    o_ref, lse_ref = _jax_fwd(q, k, v, sg, True)
+    o, lse = _port_fwd(q, k, v, sg, True)
+    np.testing.assert_allclose(o, o_ref, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse, lse_ref, atol=ATOL, rtol=0)
+
+
 def test_plain_matches_chunk_fwd():
     q, k, v = _inputs(1, 48, 4, 4, 24, seed=11)
     o_ref, lse_ref = fa_jax.chunk_fwd(jnp.asarray(q), jnp.asarray(k),
