@@ -21,7 +21,8 @@ Phases (any failed check exits non-zero before the final line):
   1. device: card name and power limit, torch/CUDA versions, kernel build
      seconds (one nvcc per source, all started together), the compiler's
      registers and spills, and the count of wgmma (HGMMA) and TMA load
-     (UTMALDG) instructions in the built flash forward (cuobjdump);
+     (UTMALDG) instructions in the built flash forward and backward
+     (cuobjdump);
   2. kernels at the serving path's shapes: max |kernel - plain| within the
      stated tolerance (the flash forward at every head dim, 64 / 80 / 96 /
      128: S 16, 129, 1024, segment ids, fused-QKV views, GQA rep 4 at hd
@@ -32,12 +33,19 @@ Phases (any failed check exits non-zero before the final line):
      prefill (B 1, S 1024, H 32, hd 128); the flash forward's and SDPA's
      device times (profiler) beside them here and in phases 3 and 24;
   3. the flash backward kernels (dK/dV, dQ) against the plain backward,
-     fp32 and bf16, at the training shape, GQA, segment ids, non-causal,
-     a ragged S and strided fused-QKV views; then, on the training main
-     path's own inputs (B 12, S 1024, H 16, hd 96, bf16, q/k/v strided
-     views of the fused QKV projection), the forward and both backward
-     kernels held against the plain versions and timed beside them,
-     SDPA and the bound;
+     fp32 and bf16, at every head dim (64 / 80 / 96 / 128): the training
+     shape, GQA, segment ids, non-causal, a ragged S and strided
+     fused-QKV views, and segment ids at B 8, S 1024, causal and
+     bidirectional, where both bf16 kernels must take the (batch, head)
+     tile order (each bf16 case prints the order each kernel took); two
+     launches and batch row 0 at B 1 vs B 4 bit-identical (dq, dk, dv);
+     then, on the training main path's own
+     inputs (B 12, S 1024, H 16, hd 96, bf16, q/k/v strided views of the
+     fused QKV projection), the forward and both backward kernels held
+     against the plain versions and timed beside them, SDPA and the
+     bound (CUDA events, and the profiler's device time of each kernel
+     and of SDPA's backward, here and in phase 24; SDPA's from profiler
+     windows that saw every kernel of its calls);
   4. fp32 serving at full width: init_inference -> scheduler with a pool
      small enough to force a preemption; eight greedy requests must be
      token-identical to the static generate, two last-step decode logits
@@ -204,8 +212,8 @@ Phases (any failed check exits non-zero before the final line):
   27. block-sparse attention (the slice's main path, nothing cut): the
      forward, dQ and dK/dV kernels against their plain versions at B 2,
      S 2048 (and two ragged S) over every layout class, a per-head layout and one with empty
-     rows and columns, blocks 16 / 32 / 64 / 128, head dims 64 / 96 /
-     128, causal and bidirectional, fp32 and bf16 (fp32 <= 1e-4 abs, TF32
+     rows and columns, blocks 16 / 32 / 64 / 128, head dims 64 / 80 /
+     96 / 128, causal and bidirectional, fp32 and bf16 (fp32 <= 1e-4 abs, TF32
      off; bf16 o <= 2e-2 abs, lse <= 1e-3, gradients <= 2e-2 of each
      output's max; empty rows and columns exact zeros; inf in every kv
      block a head never reads leaves o and lse bit-identical); the
@@ -556,6 +564,42 @@ def flash_fwd_device_ms(torch, F, fa, q, k, v, enable_gqa=False):
                 reps=20)[0]}
 
 
+def flash_bwd_device_ms(torch, F, fa, args, enable_gqa=False):
+    """The backward kernels' device time per call (profiler) and SDPA's
+    backward's (``sdpa_bwd_device_ms``)."""
+    return {
+        "ds_flash_bwd_dkv": device_ms(torch, [
+            lambda: fa.flash_attention_bwd_dkv_cuda(*args)], reps=20,
+            one_kernel=True)[0],
+        "ds_flash_bwd_dq": device_ms(torch, [
+            lambda: fa.flash_attention_bwd_dq_cuda(*args)], reps=20,
+            one_kernel=True)[0],
+        **sdpa_bwd_device_ms(torch, F, *args[:4], enable_gqa=enable_gqa)}
+
+
+def sdpa_bwd_device_ms(torch, F, q, k, v, do, enable_gqa=False):
+    """SDPA's backward's device time per call: the device time of its
+    forward + backward less its forward's, each from profiler windows
+    that saw every kernel of the call (``whole_device_ms``; None where
+    none did).  CUDA events around SDPA's backward also time the host's
+    autograd work between its launches.  Returns {"library": ms,
+    "library_kernels_per_call": {"fwd": n, "fwd_bwd": n}}."""
+    ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                              enable_gqa=enable_gqa)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (ql, kl, vl), dot)
+    both, n_both = whole_device_ms(torch, sdpa_fwd_bwd)
+    fwd, n_fwd = whole_device_ms(torch, sdpa)
+    return {"library": None if both is None or fwd is None else both - fwd,
+            "library_kernels_per_call": {"fwd": n_fwd, "fwd_bwd": n_both}}
+
+
 def kernel_times_phase(torch, F, da, fa):
     """Phase 2's times, emitted; returns the decode kernel's, the flash
     forward's at S 1024 and the flash forward's by prompt bucket."""
@@ -807,9 +851,11 @@ def bwd_inputs(torch, fa, g, B, S, H, KV, hd, dt, causal, seg, fused):
 
 
 def bwd_kernel_phase(torch, fa):
-    """dK/dV and dQ kernels against the plain backward on the card."""
+    """dK/dV and dQ kernels against the plain backward on the card, at
+    every head dim the wrapper takes, fp32 and bf16; then the identity
+    checks (``bwd_identity_checks``)."""
     g = torch.Generator(device="cpu").manual_seed(4321)
-    H, hd = TRAIN_H, TRAIN_HD
+    H = TRAIN_H
     cases = [  # (B, S, H, KV, causal, segments, fused qkv views)
         (2, TRAIN_S, H, H, True, False, False),     # the training shape
         (2, TRAIN_S, 8, 2, True, False, False),     # GQA
@@ -817,13 +863,18 @@ def bwd_kernel_phase(torch, fa):
         (2, 272, H, H, False, False, False),        # non-causal
         (2, 272, H, H, True, False, False),         # ragged S
         (1, 912, H, H, True, False, True),          # strided fused views
+        # segment ids at a size that takes the (batch, head) tile order,
+        # causal and bidirectional
+        (8, TRAIN_S, H, H, True, True, False),
+        (8, TRAIN_S, H, H, False, True, False),
     ]
     errs = {"ds_flash_bwd_dkv": 0.0, "ds_flash_bwd_dq": 0.0}
     rel = {"ds_flash_bwd_dkv": 0.0, "ds_flash_bwd_dq": 0.0}
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         tol = BWD_TOL[dt_name]
-        for (B, S, Hq, KV, causal, seg, fused) in cases:
+        for hd, (B, S, Hq, KV, causal, seg, fused) in (
+                (hd, c) for hd in fa.HEAD_DIMS for c in cases):
             q, k, v, do, lse, delta, sg = bwd_inputs(
                 torch, fa, g, B, S, Hq, KV, hd, dt, causal, seg, fused)
             got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, delta, sg,
@@ -831,9 +882,17 @@ def bwd_kernel_phase(torch, fa):
             ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, sg,
                                                causal)
             torch.cuda.synchronize()
+            order = (bwd_tile_order(fa, B, S, Hq, KV, causal)
+                     if dt == torch.bfloat16 else None)
+            if B == 8 and seg and order is not None:
+                check(order == {"dkv": "by (batch, head)",
+                                "dq": "by (batch, head)"},
+                      f"ds_flash_bwd {(B, S, Hq, KV, hd)} causal={causal} "
+                      f"took the tile orders {order}")
             row = {"check": "ds_flash_bwd", "dtype": dt_name,
                    "shape": [B, S, Hq, KV, hd], "causal": causal,
                    "segments": seg, "fused_qkv_views": fused,
+                   "tile_order": order,
                    "tol": tol, "tol_kind": ("abs" if dt_name == "float32"
                                             else "rel_to_max")}
             for name, a, b in zip(("dq", "dk", "dv"), got, ref):
@@ -850,7 +909,49 @@ def bwd_kernel_phase(torch, fa):
                       f"causal={causal} seg={seg} fused={fused}: {name} "
                       f"err {e} (rel {r}) > {tol}")
             emit(row)
+    bwd_identity_checks(torch, fa, g)
     return errs, rel
+
+
+def bwd_tile_order(fa, B, S, H, KV, causal):
+    """The tile order each bf16 backward kernel takes at this shape on
+    this card (``ds_flash_bwd_tile_order``): {"dkv": ..., "dq": ...},
+    each "by level" or "by (batch, head)"."""
+    import ctypes
+    fn = fa.build.load("ds_flash_bwd").ds_flash_bwd_tile_order
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    out = {}
+    for name, dkv in (("dkv", 1), ("dq", 0)):
+        r = fn(B, S, H, KV, int(causal), dkv)
+        check(r in (0, 1), f"ds_flash_bwd_tile_order returned {r}")
+        out[name] = "by (batch, head)" if r else "by level"
+    return out
+
+
+def bwd_identity_checks(torch, fa, g):
+    """The flash backward bit for bit, as ``flash_identity_checks`` holds
+    the forward: two launches on the same inputs, and batch row 0's dq,
+    dk, dv launched at B 1 against the same row at B 4, fp32 and bf16, at
+    every head dim, causal S 1024."""
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for hd in fa.HEAD_DIMS:
+            q, k, v, do, lse, delta, _ = bwd_inputs(
+                torch, fa, g, 4, 1024, 16, 16, hd, dt, True, False, False)
+            one = fa.flash_attention_bwd_cuda(q, k, v, do, lse, delta)
+            two = fa.flash_attention_bwd_cuda(q, k, v, do, lse, delta)
+            b1 = fa.flash_attention_bwd_cuda(q[:1], k[:1], v[:1], do[:1],
+                                             lse[:1], delta[:1])
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(one, two))
+            row = all(torch.equal(a[:1], b) for a, b in zip(one, b1))
+            emit({"check": "ds_flash_bwd_identity", "dtype": dt_name,
+                  "shape": [4, 1024, 16, 16, hd], "causal": True,
+                  "two_launches_bit_identical": same,
+                  "row_0_at_B_1_vs_B_4_bit_identical": row})
+            check(same and row, f"ds_flash_bwd {dt_name} hd {hd}: two "
+                  f"launches identical {same}, row 0 at B 1 vs B 4 {row}")
 
 
 def train_kernel_times(torch, F, fa):
@@ -930,11 +1031,14 @@ def train_kernel_times(torch, F, fa):
         torch.autograd.grad(o, (ql, kl, vl), dot)
     lib = time_ms(sdpa_fwd_bwd) - time_ms(
         lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True))
-    for r in (dkv, dq):
+    dev = flash_bwd_device_ms(torch, F, fa, (q, k, v, do, lse, delta))
+    for name, r in (("ds_flash_bwd_dkv", dkv), ("ds_flash_bwd_dq", dq)):
         r["plain_ms"], r["library_ms"] = plain, lib
+        r["device_ms"], r["library_device_ms"] = dev[name], dev["library"]
+        r["library_kernels_per_call"] = dev["library_kernels_per_call"]
         r["plain_and_library_are_for_the_pair"] = True
     out["ds_flash_bwd_dkv"], out["ds_flash_bwd_dq"] = dkv, dq
-    # FlashAttention-2's five-product backward, for the later redesign
+    # FlashAttention-2's five-product backward (the pair does seven)
     out["fa2_five_product_bwd_bound_ms"] = attn_bound(
         B, S, H, H, hd, 5, True, 3, 4, 2)[0]
     return out, errs, rel
@@ -1120,8 +1224,8 @@ GROUPED_CATEGORY = "grouped GEMM (hand kernels)"
 #: device-time categories of the profiled train step, by kernel name
 KERNEL_CATEGORIES = (
     (GROUPED_CATEGORY, ("ggemm_kernel", "ggemm_t_kernel", "tgmm_kernel")),
-    ("flash attention (hand kernels)", ("flash_fwd_bf16", "dkv_bf16",
-                                        "dq_bf16")),
+    ("flash attention (hand kernels)", ("flash_fwd_bf16", "flash_bwd_bf16",
+                                        "dkv_bf16", "dq_bf16")),
     ("GEMM (cuBLAS / CUTLASS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("reductions (softmax, LayerNorm, norms)", ("reduce", "softmax",
                                                  "norm", "nll")),
@@ -1238,6 +1342,46 @@ def device_ms(torch, fns, reps=5, one_kernel=False):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls, None
+
+
+def whole_device_ms(torch, fn, reps=10, windows=3, tries=8):
+    """Device milliseconds per call of ``fn``, a call of several kernels,
+    as the median over ``windows`` profiler windows that each saw every
+    kernel of every call.  Each window runs ``reps`` calls as a warm-up
+    step (the profiler's own records on, their events dropped) before
+    the ``reps`` calls it keeps: without it, on an H100 with torch 2.11,
+    every window late in a whole smoke lost one kernel record (5.9 SDPA
+    kernels a call where a fresh process saw 6).  A window that still
+    loses records reads low (SDPA's backward once read 0.045 ms, under
+    the flash pair's bound); it shows as fewer kernels per call than the
+    most any window saw, or as a fraction, and is profiled again.  Returns (ms, kernels per call), or
+    (None, what the windows saw) with a note on stderr when ``tries``
+    windows give fewer than ``windows`` whole ones."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):      # the warm-up step, then the kept one
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        ts = [e.device_time for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen.append((sum(ts) / reps / 1e3, len(ts) / reps))
+        most = max(k for _, k in seen)
+        whole = [m for m, k in seen if k == most]
+        if len(whole) >= windows and most == int(most) and most > 0:
+            return statistics.median(whole), int(most)
+    print(f"chip_smoke: whole_device_ms: {windows} profiler windows with "
+          f"every kernel not reached in {tries}: (ms, kernels per call) "
+          f"{seen}; the device time is not measured", file=sys.stderr,
+          flush=True)
+    return None, seen
 
 
 def call_ms(fns):
@@ -4080,8 +4224,12 @@ def moe_train_flash_phase(torch, fa):
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(), (ql, kl, vl), dot)
     lib = time_ms(sdpa_fwd_bwd) - time_ms(sdpa)
-    for r in (dkv, dq):
+    dev = flash_bwd_device_ms(torch, F, fa, (q, k, v, do, lse, delta),
+                              enable_gqa=True)
+    for name, r in (("ds_flash_bwd_dkv", dkv), ("ds_flash_bwd_dq", dq)):
         r["plain_ms"], r["library_ms"] = plain, lib
+        r["device_ms"], r["library_device_ms"] = dev[name], dev["library"]
+        r["library_kernels_per_call"] = dev["library_kernels_per_call"]
         r["plain_and_library_are_for_the_pair"] = True
     times.update(ds_flash_fwd=fwd, ds_flash_bwd_dkv=dkv, ds_flash_bwd_dq=dq)
     emit({"phase": "moe_train_flash_times", "shape": [B, S, H, KV, hd],
@@ -4351,8 +4499,8 @@ def sparse_check_cases(sa, np):
     """(label, config or layout, S, causal, H, hd): S 2048 but two ragged
     cases (S 2000 and 2016, where the last CTA holds fewer blocks than it
     has slots); every layout class, a per-head layout and one with empty
-    rows and columns; blocks 16, 32, 64 and 128, head dims 64, 96 and 128,
-    causal and bidirectional."""
+    rows and columns; blocks 16, 32, 64 and 128, head dims 64, 80, 96 and
+    128 (80 at every block size), causal and bidirectional."""
     S = SP_CHECK_S
     n = S // 64
     empty = np.zeros((2, n, n), np.int64)
@@ -4383,7 +4531,17 @@ def sparse_check_cases(sa, np):
         ("fixed_b16_ragged_bidir", sa.FixedSparsityConfig(
             2, 16, num_local_blocks=4), 2000, False, 2, 64),
         ("bigbird_b32_ragged_causal", sa.BigBirdSparsityConfig(
-            2, 32, attention="unidirectional"), 2016, True, 2, 96)]
+            2, 32, attention="unidirectional"), 2016, True, 2, 96),
+        # head dim 80 at every block size (each kernel's KW 16 / 32 / 64)
+        ("fixed_b16_causal_hd80", sa.FixedSparsityConfig(
+            2, 16, num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional"), S, True, 2, 80),
+        ("variable_b32_ragged_causal_hd80", sa.VariableSparsityConfig(
+            2, 32, num_random_blocks=1, local_window_blocks=[2, 4],
+            global_block_indices=[0, 9], seed=4), 2016, True, 2, 80),
+        ("empty_rows_cols_b64_causal_hd80", empty, S, True, 2, 80),
+        ("bigbird_b128_bidir_hd80", sa.BigBirdSparsityConfig(2, 128), S,
+         False, 2, 80)]
 
 
 def sparse_kernel_phase(torch, sa, bs):
@@ -4836,7 +4994,8 @@ def main():
                     for ln in r["log"].splitlines()
                     if "registers" in ln or "spill" in ln
                     or "Compiling entry" in ln],
-          "ds_flash_fwd_sass": sass_counts(build, libs["ds_flash_fwd"])})
+          "ds_flash_fwd_sass": sass_counts(build, libs["ds_flash_fwd"]),
+          "ds_flash_bwd_sass": sass_counts(build, libs["ds_flash_bwd"])})
 
     if only:
         run_only(torch, only, da, fa)
@@ -5083,6 +5242,11 @@ def main():
             "library_ms": t["library_ms"]})
         if name.startswith("ds_flash_bwd"):
             kernels[-1]["max_rel_err_bf16"] = bwd_rel[name]
+        if "device_ms" in t:
+            # the profiler's device time of the kernel and of the library
+            # call (CUDA events around SDPA's backward also time the host)
+            kernels[-1].update(device_ms=t["device_ms"],
+                               library_device_ms=t.get("library_device_ms"))
         if name in int8_t or name in moe_t or name in moeq_t \
                 or name.endswith("_spec") or name in s7_t:
             # fp32 checks abs, bf16 checks relative to each output's max

@@ -922,6 +922,7 @@ int run(Kind kind, Args a, int B, int S, int H, int head_dim, int block,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64: return (int)launch<64>(kind, a, B, is_bf16, s);
+    case 80: return (int)launch<80>(kind, a, B, is_bf16, s);
     case 96: return (int)launch<96>(kind, a, B, is_bf16, s);
     case 128: return (int)launch<128>(kind, a, B, is_bf16, s);
     default: return (int)cudaErrorInvalidValue;

@@ -290,32 +290,16 @@ struct Tile {
   int b, h, kvh, q0, n_kt;
 };
 
-// The CTA's n-th output tile (p.n_tiles or more: none left), in one of two
-// orders the host picks:
-//   - by level (p.paired 0): in round n the CTAs take the next gridDim.x
-//     tiles, in odd rounds in mirrored order, so the key tiles each CTA
-//     walks even out.  For grids of about one round (a prefill), where
-//     every SM should start on a long row.
-//   - by (batch, head) (p.paired 1): units of work go round robin; a unit
-//     is one tile, or when causal the pair of levels L and n_qt - 1 - L,
-//     whose key tiles always add up to n_qt + 1.  Units of one head are
-//     adjacent, so the CTAs running at once share few heads' k and v, and
-//     those stay in L2 (by level they would stream every head's k and v
-//     from device memory once per query tile).
+// The CTA's n-th output tile (p.n_tiles or more: none left), in the order
+// the host picks (hopper::persistent_tile): by level for grids of about
+// one round (a prefill); by (batch, head), in causal pairs of levels L
+// and n_qt - 1 - L whose key tiles always add up to n_qt + 1, so the
+// CTAs running at once share few heads' k and v in L2 (by level they
+// would stream every head's k and v from device memory once per query
+// tile).
 __device__ __forceinline__ int cta_tile(const Params& p, int n) {
-  const int g = gridDim.x;
-  const int c = blockIdx.x;
-  if (!p.paired) return n * g + ((n & 1) ? g - 1 - c : c);
-  const int bh_count = p.n_tiles / p.n_qt;
-  const int per = p.causal ? 2 : 1;
-  const int units = p.causal ? p.n_qt / 2 : p.n_qt;   // per (batch, head)
-  const int k = n / per;
-  const int u = c + k * g;
-  const int bh = u / units;
-  if (bh >= bh_count) return p.n_tiles;
-  const int l = u - bh * units;
-  const int level = (n - k * per) == 0 ? l : p.n_qt - 1 - l;
-  return level * bh_count + bh;
+  return hopper::persistent_tile(n, p.paired, p.causal, p.n_qt,
+                                 p.n_tiles);
 }
 
 __device__ __forceinline__ Tile tile_of(const Params& p, int t) {
@@ -766,21 +750,6 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
   }
 }
 
-// SMs of the current device, looked up once per device
-inline cudaError_t sm_count(int* n_sm) {
-  static std::atomic<int> sms[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  *n_sm = sms[dev & 63].load();
-  if (*n_sm == 0) {
-    e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-    sms[dev & 63].store(*n_sm);
-  }
-  return cudaSuccess;
-}
-
 // The tile order of a launch on `grid` CTAs (see cta_tile): by (batch,
 // head) when k and v would not stay in the 50 MB L2 anyway and its units
 // fill the rounds evenly (they do for training batches), else by level.
@@ -815,21 +784,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !hopper::make_map_bf16_4d(&tk, k, kd, ks, L::CH, kBN, swz) ||
       !hopper::make_map_bf16_4d(&tv, v, kd, vs, L::CH, kBN, swz))
     return cudaErrorInvalidValue;
-  // the shared-memory opt-in, once per device (it costs host time)
   static std::atomic<unsigned long long> opted_in{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = hopper::opt_in_smem(
+      reinterpret_cast<const void*>(flash_fwd_bf16<HD>), L::ALLOC,
+      opted_in);
   if (e != cudaSuccess) return e;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (!(opted_in.load() & bit)) {
-    e = cudaFuncSetAttribute(flash_fwd_bf16<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             L::ALLOC);
-    if (e != cudaSuccess) return e;
-    opted_in.fetch_or(bit);
-  }
   int n_sm = 0;
-  e = sm_count(&n_sm);
+  e = hopper::sm_count(&n_sm);
   if (e != cudaSuccess) return e;
   const int grid = min(p.n_tiles, n_sm);
   Params pl = p;
@@ -920,7 +881,7 @@ extern "C" int ds_flash_fwd_tile_order(int B, int S, int H, int KV,
   a.causal = causal;
   const hfwd::Params p = bf16_params(a, B);
   int n_sm = 0;
-  const cudaError_t e = hfwd::sm_count(&n_sm);
+  const cudaError_t e = hopper::sm_count(&n_sm);
   if (e != cudaSuccess) return -(int)e;
   return hfwd::paired_order(p, B, head_dim, min(p.n_tiles, n_sm));
 }

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
 // memory addresses, mbarriers, TMA tensor loads and the host-side tensor
-// map encoder, wgmma matrix descriptors, the wgmma fence / commit / wait
-// trio, register hand-off between warpgroups (setmaxnreg) and the wgmma
-// instructions themselves (bf16 in, fp32 accumulate).  Raw PTX, written
-// from the PTX ISA's descriptions of these instructions; first used by
-// csrc/ds_flash_fwd.cu.
+// map encoder, a persistent grid's tile order and launch set-up, wgmma
+// matrix descriptors, the wgmma fence / commit / wait trio, register
+// hand-off between warpgroups (setmaxnreg) and the wgmma instructions
+// themselves (bf16 in, fp32 accumulate).  Raw PTX, written from the PTX
+// ISA's descriptions of these instructions; used by csrc/ds_flash_fwd.cu
+// and csrc/ds_flash_bwd.cu.
 //
 // Layout convention (what smem_desc's users assume): a bf16 operand tile
 // is staged by TMA in chunks of W columns (W * 2 bytes = the swizzle span:
@@ -23,6 +24,8 @@
 #include <cuda.h>   // CUtensorMap and its enums (types only; no libcuda link)
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -157,6 +160,71 @@ inline bool make_map_bf16_4d(CUtensorMap* map, const void* base,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// ------------------------------------------------- persistent launches
+// SMs of the current device, looked up once per device
+inline cudaError_t sm_count(int* n_sm) {
+  static std::atomic<int> sms[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  *n_sm = sms[dev & 63].load();
+  if (*n_sm == 0) {
+    e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    sms[dev & 63].store(*n_sm);
+  }
+  return cudaSuccess;
+}
+
+// Raise a kernel's dynamic shared-memory limit to `bytes` once per device
+// (the call costs host time); `opted_in` is the kernel's own bit set of
+// devices done.
+inline cudaError_t opt_in_smem(const void* kernel, int bytes,
+                               std::atomic<unsigned long long>& opted_in) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(opted_in.load() & bit)) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return e;
+    opted_in.fetch_or(bit);
+  }
+  return cudaSuccess;
+}
+
+// The n-th output tile of this CTA in a persistent grid over n_tiles =
+// n_levels x bh_count tiles, t = level * bh_count + (batch, head) with
+// level 0 the longest (n_tiles or more: none left), in one of two orders:
+//   - by level (paired 0): in round n the CTAs take the next gridDim.x
+//     tiles, in odd rounds in mirrored order, so the work each CTA walks
+//     evens out.  For grids of about one round, where every SM should
+//     start on a long tile;
+//   - by (batch, head) (paired 1): units of work go round robin; a unit
+//     is one tile, or when causal the pair of levels L and n_levels - 1 -
+//     L, whose work adds up the same for every L (causal needs n_levels
+//     even).  Units of one head are adjacent, so the CTAs running at
+//     once share few heads' streamed tensors, and those stay in L2.
+__device__ __forceinline__ int persistent_tile(int n, int paired,
+                                               int causal, int n_levels,
+                                               int n_tiles) {
+  const int g = gridDim.x;
+  const int c = blockIdx.x;
+  if (!paired) return n * g + ((n & 1) ? g - 1 - c : c);
+  const int bh_count = n_tiles / n_levels;
+  const int per = causal ? 2 : 1;
+  const int units = causal ? n_levels / 2 : n_levels;   // per (b, head)
+  const int k = n / per;
+  const int u = c + k * g;
+  const int bh = u / units;
+  if (bh >= bh_count) return n_tiles;
+  const int l = u - bh * units;
+  const int level = (n - k * per) == 0 ? l : n_levels - 1 - l;
+  return level * bh_count + bh;
+}
+
 // ---------------------------------------------------------------- wgmma
 // Shared-memory matrix descriptor of a tile staged with a `swizzle`-byte
 // swizzle (128, 64 or 32: layout types 1, 2, 3): start address, leading
@@ -282,6 +350,18 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" HOPPER_REG64
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_ACC64
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HOPPER_REG32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_ACC32
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

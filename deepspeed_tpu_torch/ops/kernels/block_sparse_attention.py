@@ -39,8 +39,11 @@ import torch
 from deepspeed_tpu_torch.ops.kernels import build
 
 #: what the CUDA kernels take; anything else on a CUDA tensor raises
+#: NotImplementedError naming the ROADMAP item that would bring it
 BLOCKS = (16, 32, 64, 128)
-HEAD_DIMS = (64, 96, 128)
+HEAD_DIMS = (64, 80, 96, 128)
+_REFUSED_ITEM = ("ROADMAP.md Queue C: Block-sparse shapes the reference "
+                 "runs and the port refuses")
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -286,7 +289,8 @@ def _check_cuda(q, k, v, plan, extra=()):
         raise NotImplementedError(
             f"block_sparse_attention: no CUDA kernel for block {block}, "
             f"head_dim {hd}, dtype {q.dtype} (blocks {BLOCKS}, head dims "
-            f"{HEAD_DIMS}, dtypes float32 / bfloat16)")
+            f"{HEAD_DIMS}, dtypes float32 / bfloat16); the plain version "
+            f"on CPU tensors takes any ({_REFUSED_ITEM})")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.dtype != q.dtype or t.device != q.device:

@@ -153,7 +153,12 @@ def _stream(device):
 
 
 def _fwd_lib():
-    lib = build.load("ds_flash_fwd")
+    return bind_fwd(build.load("ds_flash_fwd"))
+
+
+def bind_fwd(lib):
+    """``lib``'s ``ds_flash_fwd`` (a build of csrc/ds_flash_fwd.cu) with
+    its C signature set."""
     fn = lib.ds_flash_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -165,7 +170,12 @@ def _fwd_lib():
 
 
 def _bwd_lib():
-    lib = build.load("ds_flash_bwd")
+    return bind_bwd(build.load("ds_flash_bwd"))
+
+
+def bind_bwd(lib):
+    """``lib`` (a build of csrc/ds_flash_bwd.cu) with the C signatures of
+    ``ds_flash_bwd_dkv`` and ``ds_flash_bwd_dq`` set."""
     if lib.ds_flash_bwd_dq.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         head = [p] * 7          # q, k, v, dO, lse, delta, segment ids

@@ -32,7 +32,6 @@ summary line.  Needs a GPU and nvcc; imports nothing of JAX.
 import argparse
 import ctypes
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -68,43 +67,43 @@ def shapes():
     return out
 
 
-def build_variants(parent):
+def build_variants(source, variants, parent):
+    """Build csrc/<source>.cu once per entry of ``variants`` (name: extra
+    nvcc flags) and, with ``parent`` (an earlier commit's csrc
+    directory), DIR/<source>.cu against DIR's headers as "parent": one
+    nvcc each, all started together, into build/torch_kernels/ab/.
+    Prints each build's ptxas report lines; returns {name: ctypes.CDLL}."""
     from deepspeed_tpu_torch.ops.kernels import build
     csrc = ROOT / "deepspeed_tpu_torch" / "csrc"
     out_dir = ROOT / "build" / "torch_kernels" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {n: (csrc / "ds_flash_fwd.cu", csrc, flags)
-            for n, flags in VARIANTS.items()}
+    jobs = {n: (csrc / f"{source}.cu", csrc, flags)
+            for n, flags in variants.items()}
     if parent:
         p = Path(parent).resolve()
-        jobs["parent"] = (p / "ds_flash_fwd.cu", p, [])
+        jobs["parent"] = (p / f"{source}.cu", p, [])
     nvcc = build.find_nvcc()
     procs = {}
     t0 = time.perf_counter()
     for n, (src, inc, flags) in jobs.items():
-        so = out_dir / f"ds_flash_fwd_{n}.so"
+        so = out_dir / f"{source}_{n}.so"
         cmd = [nvcc, *build.NVCC_FLAGS, *flags, "-I", str(inc), "-o",
                str(so), str(src)]
         procs[n] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT,
                                          text=True))
-    fns = {}
+    libs = {}
     for n, (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"torch_flash_fwd_ab: {n} did not build:\n{log}")
+            raise SystemExit(f"{source} {n} did not build:\n{log}")
         print(json.dumps({"built": n, "ptxas": [
             ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]}), flush=True)
-        fn = ctypes.CDLL(str(so)).ds_flash_fwd
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                       ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                       i, ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        fns[n] = fn
+            if "registers" in ln or "spill" in ln or "C75" in ln]}),
+            flush=True)
+        libs[n] = ctypes.CDLL(str(so))
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
-    return fns
+    return libs
 
 
 def inputs(torch, g, B, S, H, KV, hd, fused):
@@ -258,7 +257,9 @@ def main():
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"nvidia_smi": smi, "torch": torch.__version__,
                       "cuda": torch.version.cuda}), flush=True)
-    fns = build_variants(args.parent)
+    from deepspeed_tpu_torch.ops.kernels import ds_flash_attention as fa
+    fns = {n: fa.bind_fwd(lib) for n, lib in build_variants(
+        "ds_flash_fwd", VARIANTS, args.parent).items()}
     summary = {"kernel_device_ms": kernel_ab(torch, fns, args.reps)}
     if "parent" in fns:
         summary["gpt2_prefill_ms"] = prefill_ab(torch, fns)

@@ -35,12 +35,12 @@ def interpret_pallas(monkeypatch):
         pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
 
 
-def _inputs(B, S, H, KV, seed):
+def _inputs(B, S, H, KV, seed, hd=HD):
     rng = np.random.default_rng(seed)
-    return (rng.standard_normal((B, S, H, HD), dtype=np.float32),
-            rng.standard_normal((B, S, KV, HD), dtype=np.float32),
-            rng.standard_normal((B, S, KV, HD), dtype=np.float32),
-            rng.standard_normal((B, S, H, HD), dtype=np.float32))
+    return (rng.standard_normal((B, S, H, hd), dtype=np.float32),
+            rng.standard_normal((B, S, KV, hd), dtype=np.float32),
+            rng.standard_normal((B, S, KV, hd), dtype=np.float32),
+            rng.standard_normal((B, S, H, hd), dtype=np.float32))
 
 
 def _segments(B, S):
@@ -62,13 +62,9 @@ def _close(got, want):
                                    rtol=0)
 
 
-@pytest.mark.parametrize("S", [48, 80])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])
-@pytest.mark.parametrize("packed", [False, True])
-def test_plain_bwd_matches_pallas_bwd_calls(S, causal, H, KV, packed):
-    q, k, v, do = _inputs(2, S, H, KV, seed=S + H + packed)
-    seg = _segments(2, S) if packed else None
+def _check_plain_bwd(q, k, v, do, seg, causal):
+    """The plain backward against the reference's ``_bwd_calls`` in
+    interpret mode, given the reference forward's lse and delta."""
     jseg = None if seg is None else jnp.asarray(seg)
     o, (_, _, _, _, lse) = fa_jax._fwd(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jseg, causal, None,
@@ -80,6 +76,27 @@ def test_plain_bwd_matches_pallas_bwd_calls(S, causal, H, KV, packed):
     got = fa.flash_attention_bwd_plain(
         *_t(q, k, v, do, np.array(lse), delta, seg), causal=causal)
     _close([t.numpy() for t in got], ref)
+
+
+@pytest.mark.parametrize("S", [48, 80])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_plain_bwd_matches_pallas_bwd_calls(S, causal, H, KV, packed):
+    q, k, v, do = _inputs(2, S, H, KV, seed=S + H + packed)
+    _check_plain_bwd(q, k, v, do, _segments(2, S) if packed else None,
+                     causal)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 96, 128])
+@pytest.mark.parametrize("packed", [False, True])
+def test_plain_bwd_matches_pallas_bwd_calls_head_dims(hd, packed):
+    """The head dims the CUDA kernels take (``HEAD_DIMS``), GQA 4 / 2,
+    causal, S 40 (one ragged tile), with and without segment ids."""
+    assert hd in fa.HEAD_DIMS
+    q, k, v, do = _inputs(2, 40, 4, 2, seed=hd + packed, hd=hd)
+    _check_plain_bwd(q, k, v, do, _segments(2, 40) if packed else None,
+                     True)
 
 
 @pytest.mark.parametrize("S", [48, 80])
@@ -151,3 +168,35 @@ def test_bwd_cuda_wrapper_rejects_what_the_kernels_do_not_take():
         fa.flash_attention_bwd_cuda(q, q, q,
                                     torch.zeros(1, 8, 4, 128)[..., ::2],
                                     lse, lse)
+
+
+def _misaligned(shape, dtype):
+    """A view whose base address is 2 bytes past a 16-byte boundary."""
+    return torch.zeros(*shape[:3], shape[3] + 8, dtype=dtype)[..., 1:][
+        ..., :shape[3]]
+
+
+def _narrow_rows(shape, dtype):
+    """A view whose sequence and batch strides are not a multiple of 16
+    bytes (rows of shape[3] + 2 elements, the head dim contiguous)."""
+    B, S, H, hd = shape
+    return torch.zeros(B, S, H * hd + 2, dtype=dtype)[..., :H * hd] \
+        .unflatten(-1, (H, hd))
+
+
+@pytest.mark.parametrize("fault", [_misaligned, _narrow_rows])
+@pytest.mark.parametrize("which", ["q", "k", "v", "dO"])
+def test_bwd_cuda_wrapper_rejects_what_the_tma_maps_do_not_take(which,
+                                                                fault):
+    """The bf16 kernels read q, k, v and dO through TMA tensor maps, which
+    need a 16-byte aligned base and strides that are multiples of 16
+    bytes; each tensor is checked before any launch."""
+    shape = (1, 8, 4, 64)
+    t = {n: torch.zeros(shape, dtype=torch.bfloat16)
+         for n in ("q", "k", "v", "dO")}
+    t[which] = fault(shape, torch.bfloat16)
+    assert t[which].shape == shape
+    lse = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError, match=f"{which} strides"):
+        fa.flash_attention_bwd_cuda(t["q"], t["k"], t["v"], t["dO"], lse,
+                                    lse)

@@ -145,9 +145,9 @@ def test_plans_equal(name, causal):
             assert (np.diff(cnt[h][o]) <= 0).all()
 
 
-def _inputs(B, S, H, seed, n=4):
+def _inputs(B, S, H, seed, n=4, hd=HD):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((B, S, H, HD), dtype=np.float32)
+    return [rng.standard_normal((B, S, H, hd), dtype=np.float32)
             for _ in range(n)]
 
 
@@ -221,6 +221,38 @@ def test_plain_backward_matches_pallas(causal, sm_scale):
                                       sm_scale)
     tk, tv = TB.block_sparse_attention_dkv(*_t(q, k, v, do), *rows, plan,
                                            sm_scale)
+    for got, want in ((tq, dq), (tk, dk), (tv, dv)):
+        np.testing.assert_allclose(got.numpy(), want.transpose(0, 2, 1, 3),
+                                   rtol=0, atol=BWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("name", ["fixed", "empty_rows"])
+def test_plain_matches_pallas_at_head_dim_80(name, causal):
+    """Head dim 80, which the CUDA kernels take (``HEAD_DIMS``) as the
+    flash and decode kernels do: the plain forward, lse, dq, dk and dv
+    against the Pallas kernels in interpret mode."""
+    assert 80 in TB.HEAD_DIMS
+    lay = _layouts()[name]
+    q, k, v, do = _inputs(1, 64, 2, seed=5, hd=80)
+    kv_idx, kv_cnt, _ = JB._plan(lay, causal)
+    q_idx, q_cnt, _ = JB._plan_transpose(lay, causal)
+    args = [jnp.asarray(a) for a in (kv_idx, kv_cnt, q_idx, q_cnt)]
+    qt, kt, vt, dot = _bhsd(q, k, v, do)
+    o, lse = JB._call(qt, kt, vt, args[0], args[1], causal=causal, block=16,
+                      sm_scale=None, interpret=True, with_lse=True)
+    dsum = (dot * o).sum(-1, keepdims=True)
+    dq, dk, dv, o, lse, dsum = _ready(*JB._bwd_call(
+        qt, kt, vt, dot, lse, dsum, *args, causal=causal, block=16,
+        sm_scale=None, interpret=True), o, lse, dsum)
+    plan = TB.BlockSparsePlan(lay, causal)
+    to, tl = TB.block_sparse_attention_fwd(*_t(q, k, v), plan)
+    np.testing.assert_allclose(to.numpy(), o.transpose(0, 2, 1, 3),
+                               rtol=0, atol=FWD_TOL)
+    _lse_close(tl, lse[..., 0])
+    rows = [torch.from_numpy(x[..., 0].copy()) for x in (lse, dsum)]
+    tq = TB.block_sparse_attention_dq(*_t(q, k, v, do), *rows, plan)
+    tk, tv = TB.block_sparse_attention_dkv(*_t(q, k, v, do), *rows, plan)
     for got, want in ((tq, dq), (tk, dk), (tv, dv)):
         np.testing.assert_allclose(got.numpy(), want.transpose(0, 2, 1, 3),
                                    rtol=0, atol=BWD_TOL)
@@ -466,6 +498,10 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
                       (64, 64, torch.float16)):      # fp16
         x = torch.zeros(1, S, 2, hd, dtype=dt)
         with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+            TB.block_sparse_attention_fwd_cuda(x, x, x, plan)
+        # the refusal names the ROADMAP item that would bring the shape
+        with pytest.raises(NotImplementedError, match="Block-sparse shapes "
+                           "the reference runs and the port refuses"):
             TB.block_sparse_attention_fwd_cuda(x, x, x, plan)
     x = torch.zeros(1, 64, 2, 66)[..., :64]          # 132-byte rows
     with pytest.raises(ValueError, match="strides"):
