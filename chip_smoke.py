@@ -22,7 +22,9 @@ Phases (any failed check exits non-zero before the final line):
      seconds (one nvcc per source, all started together), the compiler's
      registers and spills, and the count of wgmma (HGMMA) and TMA load
      (UTMALDG) instructions in the built flash forward and backward
-     (cuobjdump);
+     (cuobjdump); each Hopper grouped-GEMM kernel instance must hold
+     HGMMA, UTMALDG and UTMASTG, with 0 spill bytes and no ptxas C75xx
+     (serialised wgmma) warning;
   2. kernels at the serving path's shapes: max |kernel - plain| within the
      stated tolerance (the flash forward at every head dim, 64 / 80 / 96 /
      128: S 16, 129, 1024, segment ids, fused-QKV views, GQA rep 4 at hd
@@ -191,17 +193,23 @@ Phases (any failed check exits non-zero before the final line):
      the transposed-RHS ds_ggemm_t (dx) and ds_tgmm (dW) against their
      plain versions at R 16,384 (skewed, random, two-empty routing) and a
      ragged R 3,001 (fp32 <= 1e-4 abs, TF32 off; bf16 <= 2e-2 of each
-     output's max; padding rows and empty experts zero), each timed in
-     bf16 beside its plain version, its bound and torch._grouped_mm; the
-     flash forward and backward at B 8, S 1024, H 16, KV 8, hd 64, fp32
-     and bf16, timed beside SDPA;
+     output's max; padding rows and empty experts zero), bf16 on the
+     Hopper kernels and on layout_tile (forced), and a bf16 shape outside
+     the Hopper rule (K 1020, N 3580) on layout_tile by the rule; 64 rows
+     of one expert at R 64 and R 16,384 bit-identical (forward, dx), dW
+     twice bit for bit; each timed in bf16 beside its plain version, its
+     bound and torch._grouped_mm (events, device time), with the
+     wrapper's host ms a call on both routes; the flash forward and
+     backward at B 8, S 1024, H 16, KV 8, hd 64, fp32 and bf16, timed
+     beside SDPA;
   25. fp32 MoE training parity: 1b-moe widths at 2 layers (cut for
      time), micro 2, gas 2, S 512, 3 steps through initialize ->
      train_batch, grouped dispatch, the kernels against the plain
      versions: losses within 1e-4 relative, each param leaf within
      PARAM_TOL of its movement, exact launches per step (per micro-step
      6 L ds_ggemm, 3 L ds_ggemm_t, 3 L ds_tgmm, 2 L flash forward, L
-     dK/dV, L dQ), none in the plain run; an einsum arm ("auto" when
+     dK/dV, L dQ; none of the bf16 layout_tile route), none in the plain
+     run; an einsum arm ("auto" when
      training) of 2 steps: finite losses, no grouped launch;
   26. bf16 MoE training at full width (the slice's main path):
      mixtral:1b-moe (8 layers, nothing cut), grouped dispatch, seq 1024,
@@ -231,9 +239,11 @@ Earlier lines are JSON objects; the line before the last two is the
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
 without one.
 """
+import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -260,7 +270,7 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: every kernel source of the port, built in parallel at start-up
 KERNEL_SOURCES = ("decode_attention", "ds_flash_fwd", "ds_flash_bwd",
                   "quantization", "qgemm", "fused_decode", "grouped_gemm",
-                  "block_sparse_attention")
+                  "grouped_gemm_hopper", "block_sparse_attention")
 # the training shape of bench.py's 760M configuration
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD = 12, 1024, 16, 96
 
@@ -316,6 +326,51 @@ def sass_counts(build, lib):
     out = subprocess.run([cob, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300).stdout.splitlines()
     return {op: sum(op in ln for ln in out) for op in ("HGMMA", "UTMALDG")}
+
+
+def sass_by_function(build, lib, ops=("HGMMA", "UTMALDG", "UTMASTG")):
+    """The count of each of ``ops`` in each function of a built
+    library's SASS (cuobjdump), by the function's mangled name."""
+    import shutil
+    cob = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if not os.path.isfile(cob):
+        return {}
+    out = subprocess.run([cob, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300).stdout.splitlines()
+    funcs, cur = {}, None
+    for ln in out:
+        if "Function :" in ln:
+            cur = ln.split("Function :", 1)[1].strip()
+            funcs[cur] = dict.fromkeys(ops, 0)
+        elif cur is not None:
+            for op in ops:
+                funcs[cur][op] += op in ln
+    return funcs
+
+
+def grouped_hopper_build_checks(build, libs):
+    """The Hopper grouped kernels as built: every instance with wgmma
+    (HGMMA) and TMA loads and stores in its SASS, and, where this process
+    built the source, 0 spill bytes and no ptxas C75xx warning (wgmma
+    serialised) in its report."""
+    funcs = sass_by_function(build, libs["grouped_gemm_hopper"])
+    hop = {n: c for n, c in funcs.items() if "ggemm_hopper" in n}
+    log = build.build_log.get("grouped_gemm_hopper", {}).get("log")
+    spills = c75 = None
+    if log is not None:
+        spills = [ln.strip() for ln in log.splitlines()
+                  if any(int(n) for n in re.findall(
+                      r"(\d+) bytes spill (?:stores|loads)", ln))]
+        c75 = [ln.strip() for ln in log.splitlines() if "C75" in ln]
+    emit({"check": "grouped_gemm_hopper_build", "sass_by_kernel": hop,
+          "spill_lines": spills, "c75_warnings": c75,
+          "ptxas_read": log is not None})
+    check(len(hop) == 4 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                and c["UTMASTG"] > 0 for c in hop.values()),
+          f"grouped_gemm_hopper: wgmma / TMA missing from SASS {hop}")
+    check(log is None or (not spills and not c75),
+          f"grouped_gemm_hopper: spills {spills} or serialised wgmma {c75}")
 
 
 def nvidia_smi_line():
@@ -1223,7 +1278,8 @@ def bf16_train_phase(torch, dt, da, fa):
 GROUPED_CATEGORY = "grouped GEMM (hand kernels)"
 #: device-time categories of the profiled train step, by kernel name
 KERNEL_CATEGORIES = (
-    (GROUPED_CATEGORY, ("ggemm_kernel", "ggemm_t_kernel", "tgmm_kernel")),
+    (GROUPED_CATEGORY, ("ggemm_kernel", "ggemm_t_kernel", "tgmm_kernel",
+                        "ggemm_hopper")),
     ("flash attention (hand kernels)", ("flash_fwd_bf16", "flash_bwd_bf16",
                                         "dkv_bf16", "dq_bf16")),
     ("GEMM (cuBLAS / CUTLASS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -2153,6 +2209,10 @@ def moe_kernel_phase(torch, gg, da, fa):
                                      inner=2)}
             t["bound_ms"], t["bound_by"] = ggemm_bound(torch, gg, plan, xin,
                                                        R, K, N)
+            if name == "ds_ggemm":   # the prefill's forward: device time
+                t["device_ms"] = device_ms(
+                    torch, [lambda: kern(xin, w, plan)], reps=10,
+                    one_kernel=True)[0]
             t["library_ms"], why = grouped_mm_library(torch, gg, x, w, e)
             if why:
                 t["library_note"] = why
@@ -3985,12 +4045,23 @@ def moe_train_counts(gg, fa):
             "ds_ggemm_t": gg.ds_ggemm.transpose_launches,
             "ds_tgmm": gg.ds_tgmm.launches,
             "ds_ggemm_slots": gg.ds_ggemm_slots.launches,
-            **launch_counts(fa)}
+            **unaligned_counts(gg), **launch_counts(fa)}
+
+
+def unaligned_counts(gg):
+    """bf16 grouped launches that the wrapper's shape rule sent to the
+    layout_tile kernels (none on a main path)."""
+    return {"ds_ggemm_unaligned": gg.ds_ggemm.unaligned_launches,
+            "ds_ggemm_t_unaligned": gg.ds_ggemm.unaligned_transpose_launches,
+            "ds_tgmm_unaligned": gg.ds_tgmm.unaligned_launches}
 
 
 def reset_moe_train_counts(gg, fa):
     gg.ds_ggemm.launches = gg.ds_ggemm.transpose_launches = 0
     gg.ds_tgmm.launches = gg.ds_ggemm_slots.launches = 0
+    gg.ds_ggemm.unaligned_launches = 0
+    gg.ds_ggemm.unaligned_transpose_launches = 0
+    gg.ds_tgmm.unaligned_launches = 0
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.dkv_launches = 0
     fa.flash_attention_bwd.dq_launches = 0
@@ -4000,10 +4071,13 @@ def moe_train_want(L, micro_steps):
     """Launches of ``micro_steps`` grouped-dispatch micro-steps with full
     remat: the forward GEMMs twice (forward and recompute), each backward
     form once, 3 a layer each; flash forward twice, dK/dV and dQ once a
-    layer."""
+    layer; none of the bf16 layout_tile route (its shapes are not the
+    model's)."""
     return {"ds_ggemm": 6 * L * micro_steps, "ds_ggemm_t": 3 * L *
             micro_steps, "ds_tgmm": 3 * L * micro_steps,
-            "ds_ggemm_slots": 0, "ds_flash_fwd": 2 * L * micro_steps,
+            "ds_ggemm_slots": 0, "ds_ggemm_unaligned": 0,
+            "ds_ggemm_t_unaligned": 0, "ds_tgmm_unaligned": 0,
+            "ds_flash_fwd": 2 * L * micro_steps,
             "ds_flash_bwd_dkv": L * micro_steps,
             "ds_flash_bwd_dq": L * micro_steps}
 
@@ -4037,30 +4111,115 @@ def grouped_mm_time(torch, a, b, offs):
         return None, f"torch._grouped_mm refused: {str(err)[:160]}"
 
 
+class tile_route:
+    """Within the block the grouped wrappers send bf16 to the layout_tile
+    kernels whatever the shape (the route of a shape the Hopper kernels'
+    rule refuses, and the kernels those replaced), so both routes are
+    held and timed at the same shapes; the rule is restored after."""
+
+    def __init__(self, gg):
+        self.gg = gg
+
+    def __enter__(self):
+        self.saved = self.gg.hopper_route
+        self.gg.hopper_route = lambda dtype, ptrs, dims: False
+
+    def __exit__(self, *exc):
+        self.gg.hopper_route = self.saved
+
+
+#: the grouped kernels whose bf16 form runs on the Hopper kernels
+HOPPER_GROUPED = ("ds_ggemm", "ds_ggemm_t", "ds_tgmm")
+#: phase 24's bf16 shape outside the Hopper kernels' rule (K and N not
+#: multiples of 8): the layout_tile route, held against the plain versions
+MT_UNALIGNED = (1020, 3580)
+
+
+def grouped_outs(gg, x, w, dy, dys, plan):
+    """The three grouped kernels' outputs beside their plain versions'."""
+    return {"ds_ggemm": (gg.ggemm_cuda(x, w, plan),
+                         gg.ggemm_plain(x, w, plan)),
+            "ds_ggemm_t": (gg.ggemm_t_cuda(dy, w, plan),
+                           gg.ggemm_t_plain(dy, w, plan)),
+            "ds_tgmm": (gg.tgmm_cuda(x, dys, plan),
+                        gg.tgmm_plain(x, dys, plan))}
+
+
+def grouped_identity_checks(torch, gg, g):
+    """ds_ggemm_identity / ds_ggemm_t_identity: 64 rows of one expert
+    (and its weights), alone at R 64 and as that expert's first 64 routed
+    rows among R 16,384, give bit-identical forward and dx rows (a row's
+    bits do not depend on the rows around it); ds_tgmm_repeat: dW twice
+    at R 16,384, bit for bit.  bf16, gate/in shape."""
+    K, N = MT_SHAPES["gate_in"]
+    dt = torch.bfloat16
+    w = (torch.randn(MT_E, K, N, generator=g, device="cuda") * 0.02).to(dt)
+    xe = torch.randn(64, K, generator=g, device="cuda").to(dt)
+    dye = torch.randn(64, N, generator=g, device="cuda").to(dt)
+    ex = 3
+    rows = {}
+    for R in (64, MT_R):
+        e = train_routed(torch, g, R, MT_E, "random")
+        e[:64] = ex   # the expert's first 64 rows: a tile's rows 0-63
+        xr = torch.randn(R, K, generator=g, device="cuda").to(dt)
+        dyr = torch.randn(R, N, generator=g, device="cuda").to(dt)
+        xr[:64], dyr[:64] = xe, dye
+        plan = gg.make_group_plan(e, MT_E)
+        x, dy = gg.scatter_to_groups(xr, plan), gg.scatter_to_groups(dyr,
+                                                                     plan)
+        at = plan.row_to_padded[:64].long()
+        rows[R] = (gg.ggemm_cuda(x, w, plan)[at],
+                   gg.ggemm_t_cuda(dy, w, plan)[at])
+        if R == MT_R:
+            dw1 = gg.tgmm_cuda(x, (dy.float() * 1e-3).to(dt), plan)
+            dw2 = gg.tgmm_cuda(x, (dy.float() * 1e-3).to(dt), plan)
+        del x, dy, xr, dyr
+    torch.cuda.synchronize()
+    out = {"ds_ggemm_identity": bool(torch.equal(rows[64][0],
+                                                 rows[MT_R][0])),
+           "ds_ggemm_t_identity": bool(torch.equal(rows[64][1],
+                                                   rows[MT_R][1])),
+           "ds_tgmm_repeat_identical": bool(torch.equal(dw1, dw2))}
+    emit({"check": "grouped_identity", "expert": ex, "rows": 64,
+          "R": [64, MT_R], **out})
+    check(all(out.values()), f"grouped kernels: rows depend on the batch "
+          f"or dW on the run: {out}")
+    return out
+
+
 def moe_train_kernel_phase(torch, gg, fa):
     """Phase 24: the three grouped kernels of the training path against
     their plain versions at mixtral:1b-moe's training shapes (R 16,384
     skewed, random and two-empty routing, and a ragged R 3,001; fp32 <=
     1e-4 abs with TF32 off, bf16 <= 2e-2 of each output's max; padding
-    rows of the forward and dx zero, empty experts' dW exact zeros); then
-    each timed in bf16 at R 16,384 (random routing, as the main path's
-    router gives) beside its plain version, its bound and
-    torch._grouped_mm.  Then the flash kernels at B 8, S 1024, H 16, KV
-    8, hd 64 (forward, dK/dV, dQ; fp32 and bf16) against their plain
-    versions, timed in bf16 beside SDPA.  dy is drawn N(0, 1) for dx and
+    rows of the forward and dx zero, empty experts' dW exact zeros), bf16
+    on both routes (the Hopper kernels, which these shapes take, and
+    layout_tile, forced), and a bf16 shape outside the Hopper rule (K
+    1020, N 3580) on layout_tile by the rule itself; the identity checks
+    (grouped_identity_checks); then each timed in bf16 at R 16,384
+    (random routing, as the main path's router gives) beside its plain
+    version, its bound and torch._grouped_mm (CUDA events; device time by
+    the profiler), with the wrapper's host time a call on both routes.
+    Then the flash kernels at B 8, S 1024, H 16, KV 8, hd 64 (forward,
+    dK/dV, dQ; fp32 and bf16) against their plain versions, timed in bf16
+    beside SDPA.  dy is drawn N(0, 1) for dx and
     1e-3 N(0, 1) for dW, so both outputs are O(0.1-1), where an fp32
     abs tolerance means something."""
     g = torch.Generator(device="cuda").manual_seed(81)
     worst = {"ds_ggemm": 0.0, "ds_ggemm_t": 0.0, "ds_tgmm": 0.0}
     cases = [(MT_R, "skewed"), (MT_R, "random"), (MT_R, "two_empty"),
              (3001, "random")]
+    shapes = [(proj, K, N, cases) for proj, (K, N) in MT_SHAPES.items()]
+    shapes.append(("unaligned", *MT_UNALIGNED, [(3001, "random")]))
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         tol = INT8_TOL[dt_name]
-        for proj, (K, N) in MT_SHAPES.items():
+        for proj, K, N, proj_cases in shapes:
+            if proj == "unaligned" and dt_name == "float32":
+                continue
             w = (torch.randn(MT_E, K, N, generator=g, device="cuda")
                  * 0.02).to(dt)
-            for R, routing in cases:
+            for R, routing in proj_cases:
                 e = train_routed(torch, g, R, MT_E, routing)
                 plan = gg.make_group_plan(e, MT_E)
                 x = gg.scatter_to_groups(torch.randn(
@@ -4072,31 +4231,47 @@ def moe_train_kernel_phase(torch, gg, fa):
                                  device="cuda")
                 pad[plan.row_to_padded.long()] = False
                 empty = (plan.counts == 0).nonzero().flatten().tolist()
-                outs = {
-                    "ds_ggemm": (gg.ggemm_cuda(x, w, plan),
-                                 gg.ggemm_plain(x, w, plan)),
-                    "ds_ggemm_t": (gg.ggemm_t_cuda(dy, w, plan),
-                                   gg.ggemm_t_plain(dy, w, plan)),
-                    "ds_tgmm": (gg.tgmm_cuda(x, dys, plan),
-                                gg.tgmm_plain(x, dys, plan))}
-                torch.cuda.synchronize()
-                for name, (got, ref) in outs.items():
-                    e_abs, held = err_of(torch, got, ref, dt_name)
-                    zeros = (not bool(got[pad].any())) if name != "ds_tgmm" \
-                        else all(not bool(got[i].any()) for i in empty)
-                    emit({"check": name, "dtype": dt_name, "proj": proj,
-                          "R": R, "routing": routing, "K": K, "N": N,
-                          "padded_rows": plan.padded_rows,
-                          "max_abs_err": e_abs, "held": held, "tol": tol,
-                          "out_max": float(ref.float().abs().max()),
-                          "zeros_where_due": zeros})
-                    check(held <= tol and zeros,
-                          f"{name} {dt_name} {proj} R {R} {routing}: err "
-                          f"{held} > {tol} or padding / empty experts not 0")
-                    worst[name] = max(worst[name], held)
-                del outs, x, dy, dys
+                routes = {"rule": contextlib.nullcontext()}
+                if dt_name == "bfloat16" and proj != "unaligned":
+                    routes["layout_tile"] = tile_route(gg)
+                for route, ctx in routes.items():
+                    before = unaligned_counts(gg)
+                    with ctx:
+                        outs = grouped_outs(gg, x, w, dy, dys, plan)
+                    torch.cuda.synchronize()
+                    moved = {k: v - before[k]
+                             for k, v in unaligned_counts(gg).items()}
+                    # the rule's route: layout_tile exactly where it is due
+                    tiled = dt_name == "bfloat16" and (
+                        proj == "unaligned" or route == "layout_tile")
+                    check(all(v == (1 if tiled else 0)
+                              for v in moved.values()),
+                          f"grouped {dt_name} {proj} ({route}): the "
+                          f"unaligned counts moved {moved}")
+                    for name, (got, ref) in outs.items():
+                        e_abs, held = err_of(torch, got, ref, dt_name)
+                        zeros = (not bool(got[pad].any())) \
+                            if name != "ds_tgmm" \
+                            else all(not bool(got[i].any()) for i in empty)
+                        emit({"check": name, "dtype": dt_name, "proj": proj,
+                              "route": route if dt_name == "bfloat16"
+                              and proj != "unaligned" else "layout_tile",
+                              "R": R, "routing": routing, "K": K, "N": N,
+                              "padded_rows": plan.padded_rows,
+                              "max_abs_err": e_abs, "held": held,
+                              "tol": tol,
+                              "out_max": float(ref.float().abs().max()),
+                              "zeros_where_due": zeros})
+                        check(held <= tol and zeros,
+                              f"{name} {dt_name} {proj} ({route}) R {R} "
+                              f"{routing}: err {held} > {tol} or padding / "
+                              "empty experts not 0")
+                        worst[name] = max(worst[name], held)
+                    del outs
+                del x, dy, dys
             del w
             torch.cuda.empty_cache()
+    identity = grouped_identity_checks(torch, gg, g)
     times = {}
     dt = torch.bfloat16
     for proj, (K, N) in MT_SHAPES.items():
@@ -4135,6 +4310,17 @@ def moe_train_kernel_phase(torch, gg, fa):
             t["library_ms"], why = grouped_mm_time(torch, *lib, offs)
             if why:
                 t["library_note"] = why
+            t["device_ms"] = device_ms(torch, [kern], reps=10,
+                                       one_kernel=True)[0]
+            if t["library_ms"] is not None:
+                t["library_device_ms"], t["library_kernels_per_call"] = \
+                    device_ms(torch, [lambda: torch._grouped_mm(
+                        *lib, offs=offs)], reps=10)
+            t["host_ms"] = host_ms_per_call(torch, kern, n=50)
+            with tile_route(gg):
+                # the wrapper's host time on the route this replaces
+                t["layout_tile_host_ms"] = host_ms_per_call(torch, kern,
+                                                            n=50)
             t.update(work=f"{proj} K {K} N {N}, R {MT_R} "
                      f"({plan.padded_rows} padded rows, {active} experts), "
                      "bf16", R=MT_R)
@@ -4143,8 +4329,9 @@ def moe_train_kernel_phase(torch, gg, fa):
             times.setdefault(name, {})[proj] = t
         del w, x, dy, xr, dyr, xs, dys
         torch.cuda.empty_cache()
+    reset_moe_train_counts(gg, fa)
     flash = moe_train_flash_phase(torch, fa)
-    return times, worst, flash
+    return times, worst, flash, identity
 
 
 def moe_train_flash_phase(torch, fa):
@@ -4993,9 +5180,12 @@ def main():
           "ptxas": [ln.strip() for r in build.build_log.values()
                     for ln in r["log"].splitlines()
                     if "registers" in ln or "spill" in ln
-                    or "Compiling entry" in ln],
+                    or "Compiling entry" in ln or "C75" in ln],
           "ds_flash_fwd_sass": sass_counts(build, libs["ds_flash_fwd"]),
-          "ds_flash_bwd_sass": sass_counts(build, libs["ds_flash_bwd"])})
+          "ds_flash_bwd_sass": sass_counts(build, libs["ds_flash_bwd"]),
+          "grouped_gemm_hopper_sass": sass_counts(
+              build, libs["grouped_gemm_hopper"])})
+    grouped_hopper_build_checks(build, libs)
 
     if only:
         run_only(torch, only, da, fa)
@@ -5076,7 +5266,8 @@ def main():
     torch.cuda.empty_cache()
     bg = bloom_gptneo_http_phase(torch, da, fa)
     torch.cuda.empty_cache()
-    mt_t, mt_errs, mt_flash = moe_train_kernel_phase(torch, gg, fa)
+    mt_t, mt_errs, mt_flash, mt_ident = moe_train_kernel_phase(torch, gg,
+                                                               fa)
     torch.cuda.empty_cache()
     moe_train_parity_phase(torch, dt, gg, fa)
     torch.cuda.empty_cache()
@@ -5197,16 +5388,16 @@ def main():
          "fused_decode.cu", "fused_decode.py:480", mq8f["ds_fused_layer"],
          {"mixtral_int8_http_8_fused": mq8f["ds_fused_layer"]},
          fam_errs["mixtral_8x7b"], INT8_TOL),
-        ("ds_ggemm", moe_t["ds_ggemm"]["gate_in"], "grouped_gemm.cu",
+        ("ds_ggemm", moe_t["ds_ggemm"]["gate_in"], "grouped_gemm_hopper.cu",
          "grouped_gemm.py:163",
          *paths_of("ds_ggemm", mixtral_http=mix_n["ds_ggemm"],
                    **{mtrain: mt_n["ds_ggemm"]}),
          max(moe_errs["ds_ggemm"], mt_errs["ds_ggemm"]), INT8_TOL),
-        ("ds_ggemm_t", mt_t["ds_ggemm_t"]["gate_in"], "grouped_gemm.cu",
-         "grouped_gemm.py:163", *paths_of(
+        ("ds_ggemm_t", mt_t["ds_ggemm_t"]["gate_in"],
+         "grouped_gemm_hopper.cu", "grouped_gemm.py:163", *paths_of(
              "ds_ggemm_t", **{mtrain: mt_n["ds_ggemm_t"]}),
          mt_errs["ds_ggemm_t"], INT8_TOL),
-        ("ds_tgmm", mt_t["ds_tgmm"]["gate_in"], "grouped_gemm.cu",
+        ("ds_tgmm", mt_t["ds_tgmm"]["gate_in"], "grouped_gemm_hopper.cu",
          "grouped_gemm.py:222", *paths_of(
              "ds_tgmm", **{mtrain: mt_n["ds_tgmm"]}),
          mt_errs["ds_tgmm"], INT8_TOL),
@@ -5259,6 +5450,15 @@ def main():
             kernels[-1].update(err_kind="fp32 abs / bf16 rel_to_max",
                                work=t["work"])
             kernels[-1]["times_at_moe_train_shape"] = mt_t[name]
+        if name in HOPPER_GROUPED:
+            # bf16 on the Hopper kernels; fp32 and bf16 shapes outside
+            # their rule on layout_tile
+            kernels[-1]["source_fp32_and_unaligned_bf16"] = \
+                "deepspeed_tpu_torch/csrc/grouped_gemm.cu"
+            kernels[-1]["identity"] = {
+                k: v for k, v in mt_ident.items()
+                if k.startswith(name + "_") and k[len(name) + 1:] in
+                ("identity", "repeat_identical")}
         if name in mt_flash["times"]:
             kernels[-1]["times_at_moe_train_shape"] = \
                 mt_flash["times"][name]

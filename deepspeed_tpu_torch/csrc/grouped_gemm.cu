@@ -88,8 +88,14 @@
 // What bounds them: operations.  At mixtral:1b-moe's training shape (R
 // 16,384 routed rows, K 1024, N 3584) each does 2 R K N = 1.20e11 flop,
 // 0.122 ms at 989 TFLOP/s, against ~214 MB moved (0.064 ms at 3.35
-// TB/s).  The wmma tile with its smem round trip is the first, simple
-// design; wgmma and TMA are for a later pass.
+// TB/s).
+//
+// Which launches reach this file's float kernels: the bf16 forward, dx
+// and dW of shapes whose K and N are multiples of 8 (on 16-byte aligned
+// bases) run on the persistent wgmma / TMA kernels of
+// csrc/grouped_gemm_hopper.cu instead, chosen by shape in the wrapper
+// (ops/kernels/grouped_gemm.py hopper_route).  layout_tile serves the fp32
+// forms (fmaf, no TF32 rounding) and the bf16 shapes TMA cannot address.
 //
 // C interface (loaded with ctypes): each entry point returns the
 // cudaError_t of its launch as an int.

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
-// memory addresses, mbarriers, TMA tensor loads and the host-side tensor
-// map encoder, a persistent grid's tile order and launch set-up, wgmma
-// matrix descriptors, the wgmma fence / commit / wait trio, register
-// hand-off between warpgroups (setmaxnreg) and the wgmma instructions
-// themselves (bf16 in, fp32 accumulate).  Raw PTX, written from the PTX
-// ISA's descriptions of these instructions; used by csrc/ds_flash_fwd.cu
-// and csrc/ds_flash_bwd.cu.
+// memory addresses, mbarriers, TMA tensor loads and stores and the
+// host-side tensor map encoder, a persistent grid's tile order and launch
+// set-up, wgmma matrix descriptors, the wgmma fence / commit / wait trio,
+// register hand-off between warpgroups (setmaxnreg) and the wgmma
+// instructions themselves (bf16 in, fp32 accumulate).  Raw PTX, written
+// from the PTX ISA's descriptions of these instructions; used by
+// csrc/ds_flash_fwd.cu, csrc/ds_flash_bwd.cu and
+// csrc/grouped_gemm_hopper.cu.
 //
 // Layout convention (what smem_desc's users assume): a bf16 operand tile
 // is staged by TMA in chunks of W columns (W * 2 bytes = the swizzle span:
@@ -135,29 +136,68 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map over a strided 4-D view: dims[0] contiguous, strides
-// of dims 1-3 in elements (each a multiple of 8, the base 16-byte
-// aligned), read in boxes of box0 x box1 x 1 x 1.  Returns false when the
-// driver refuses it.
-inline bool make_map_bf16_4d(CUtensorMap* map, const void* base,
-                             const uint64_t dims[4],
-                             const long long strides[3], uint32_t box0,
-                             uint32_t box1, CUtensorMapSwizzle swizzle) {
+// A tensor map over a strided 4-D view of `type` elements of `elem_bytes`
+// bytes: dims[0] contiguous, strides of dims 1-3 in elements (each a
+// multiple of 16 bytes, the base 16-byte aligned), boxes of box0 x box1 x
+// 1 x 1.  Returns false when the driver refuses it.
+inline bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type,
+                        int elem_bytes, const void* base,
+                        const uint64_t dims[4], const long long strides[3],
+                        uint32_t box0, uint32_t box1,
+                        CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return false;
   cuuint64_t gdim[4] = {dims[0], dims[1], dims[2], dims[3]};
   cuuint64_t gstride[3];
   for (int i = 0; i < 3; ++i) {
     if (strides[i] < 0) return false;
-    gstride[i] = static_cast<cuuint64_t>(strides[i]) * 2;
+    gstride[i] = static_cast<cuuint64_t>(strides[i]) * elem_bytes;
   }
   cuuint32_t box[4] = {box0, box1, 1, 1};
   cuuint32_t estride[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(base), gdim, gstride, box, estride,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  return enc(map, type, 4, const_cast<void*>(base), gdim, gstride, box,
+             estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the same over bf16 elements
+inline bool make_map_bf16_4d(CUtensorMap* map, const void* base,
+                             const uint64_t dims[4],
+                             const long long strides[3], uint32_t box0,
+                             uint32_t box1, CUtensorMapSwizzle swizzle) {
+  return make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,
+                     strides, box0, box1, swizzle);
+}
+
+// One box from shared memory to a 4-D tensor map, as a bulk async-group
+// of this thread (elements past an extent are not written); the writes
+// into `src` must be fenced to the async proxy first (fence_proxy_async).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// at most N of this thread's bulk groups still reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// at most N of this thread's bulk groups not yet complete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------- persistent launches
@@ -318,6 +358,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 #define HOPPER_ACC40 HOPPER_ACC32, HOPPER_ACC8(32)
 #define HOPPER_ACC48 HOPPER_ACC40, HOPPER_ACC8(40)
 #define HOPPER_ACC64 HOPPER_ACC48, HOPPER_ACC8(48), HOPPER_ACC8(56)
+#define HOPPER_ACC128                                                  \
+  HOPPER_ACC64, HOPPER_ACC8(64), HOPPER_ACC8(72), HOPPER_ACC8(80),     \
+      HOPPER_ACC8(88), HOPPER_ACC8(96), HOPPER_ACC8(104), HOPPER_ACC8(112), \
+      HOPPER_ACC8(120)
 #define HOPPER_REG32                                       \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
   "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
@@ -327,6 +371,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 #define HOPPER_REG64                                            \
   HOPPER_REG48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
                "%57, %58, %59, %60, %61, %62, %63"
+#define HOPPER_REG128 HOPPER_REG64 \
+  ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75" \
+  ", %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87" \
+  ", %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99" \
+  ", %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111" \
+  ", %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123" \
+  ", %124, %125, %126, %127"
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N]: NACC = N / 2 accumulators, then
 // a[0..3] as operands A .. A + 3, db as A + 4 and scale_d as A + 5 (A =
@@ -363,6 +414,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_ACC32
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], both in shared memory; TA /
+// TB 1: that operand MN-major, read through the descriptor's transpose
+// bit (0: K-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
+                                                  uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" HOPPER_REG128
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : HOPPER_ACC128
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N] for N = 64, 80, 96, 128 (the head

@@ -39,6 +39,14 @@ their plain versions on CPU tensors; :func:`grouped_gemm` is the
 differentiable entry point.  int8 experts have no backward: with
 ``transpose_rhs`` they raise ``ValueError``, as in the reference.
 
+Routing by shape (:func:`hopper_route`): bf16 operands whose K and N are
+multiples of 8 on 16-byte aligned bases (TMA's address rule) launch the
+Hopper wgmma / TMA kernels of ``csrc/grouped_gemm_hopper.cu``
+(``ds_ggemm_h``, ``ds_ggemm_t_h``, ``ds_tgmm_h``); fp32 operands and bf16
+shapes outside that rule launch the ``layout_tile`` kernels of
+``csrc/grouped_gemm.cu``.  The choice is the shape's, never a fallback
+after a failure: a failed launch raises either way.
+
 Numerics: fp32 accumulation (tensor cores for bf16, fmaf for fp32 — no
 TF32), output rounded once to ``x``'s dtype, as the reference's kernels.
 An int8 weight is dequantized in fp32 with the group width
@@ -46,7 +54,11 @@ An int8 weight is dequantized in fp32 with the group width
 its product (the reference's ``_dequant_tile``).  ``<wrapper>.launches``
 counts the float kernel's launches, ``<wrapper>.int8_launches`` the int8
 kernel's, ``ds_ggemm.transpose_launches`` the transposed-RHS kernel's and
-``ds_tgmm.launches`` the dW kernel's.
+``ds_tgmm.launches`` the dW kernel's (the Hopper kernels for bf16, the
+``layout_tile`` ones for fp32); bf16 launches that the shape rule sent to
+``layout_tile`` count on ``ds_ggemm.unaligned_launches``,
+``ds_ggemm.unaligned_transpose_launches`` and
+``ds_tgmm.unaligned_launches`` instead.
 """
 import ctypes
 from typing import NamedTuple
@@ -264,16 +276,51 @@ def ggemm_slots_q_plain(x, q, s, plan: SlotPlan):
 
 
 # ------------------------------------------------------------------ kernels
-def _fn(name, nargs_ptr, nargs_int, stream=True):
-    """C entry point ``name`` of the built library: ``nargs_ptr``
-    pointers, then ``nargs_int`` ints, then the stream."""
-    fn = getattr(build.load("grouped_gemm"), name)
-    if fn.argtypes is None:
+_entries = {}
+
+
+def _fn(lib, name, nargs_ptr, nargs_int, stream=True):
+    """C entry point ``name`` of the built library ``lib``: ``nargs_ptr``
+    pointers, then ``nargs_int`` ints, then the stream (bound once: a
+    launch pays no library lookup)."""
+    fn = _entries.get((lib, name))
+    if fn is None:
+        fn = getattr(build.load(lib), name)
         fn.argtypes = ([ctypes.c_void_p] * nargs_ptr
                        + [ctypes.c_int] * nargs_int
                        + [ctypes.c_void_p] * stream)
         fn.restype = ctypes.c_int
+        _entries[(lib, name)] = fn
     return fn
+
+
+def _call(lib, name, nargs_ptr, nargs_int, device, *args):
+    """Launch ``name`` of ``lib`` on ``device``'s current stream with
+    ``args`` (pointers, then ints); returns its ``cudaError_t``."""
+    with torch.cuda.device(device):
+        return _fn(lib, name, nargs_ptr, nargs_int)(*args, _stream(device))
+
+
+def _unit_counters(device):
+    """The Hopper kernels' work-unit counters (2 ints, returned to 0 by
+    each launch): the split-K kernels' shared per-device counters."""
+    return build.scratch(device, 0, 2)[1].data_ptr()
+
+
+def hopper_route(dtype, ptrs, dims) -> bool:
+    """Whether a launch on operands of ``dtype`` at addresses ``ptrs`` with
+    contraction / output widths ``dims`` takes the Hopper kernels: bf16,
+    every width a multiple of 8 and every base 16-byte aligned (the
+    tensor maps' stride and address rule).  A shape rule: the main path's
+    shapes (K, N in 1024 / 3584, 4096 / 14336) always meet it."""
+    if dtype != torch.bfloat16:
+        return False
+    bases = widths = 0
+    for p in ptrs:
+        bases |= p
+    for d in dims:
+        widths |= d
+    return bases % 16 == 0 and widths % 8 == 0
 
 
 def _check_common(what, x, w, ints):
@@ -361,7 +408,8 @@ def _slot_ints(plan: SlotPlan):
 def _slot_scratch(what, x, K, N, int8):
     """The slot kernels' split-K workspace and tile counters for [R, N]
     outputs at depth K (the split the kernel will take)."""
-    nsplit = _fn("ds_ggemm_slots_splits", 0, 4, stream=False)(
+    nsplit = _fn("grouped_gemm", "ds_ggemm_slots_splits", 0, 4,
+                 stream=False)(
         K, N, int(int8), int(x.dtype == torch.bfloat16))
     if not 1 <= nsplit <= SLOT_MAX_SPLIT:
         raise RuntimeError(f"{what}: no K split for K {K}, N {N} on "
@@ -376,13 +424,23 @@ def ggemm_cuda(x, w, plan: GroupPlan):
     E, _, N = w.shape
     _check_group_fit("ds_ggemm", x, E, plan)
     out = torch.empty((Mp, N), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _fn("ds_ggemm", 5, 5)(
-            x.data_ptr(), w.data_ptr(), plan.block_group_ids.data_ptr(),
-            plan.tile_rows.data_ptr(), out.data_ptr(), plan.num_blocks, K,
-            N, E, int(x.dtype == torch.bfloat16), _stream(x.device))
+    ptrs = (x.data_ptr(), w.data_ptr(), plan.block_group_ids.data_ptr(),
+            plan.tile_rows.data_ptr(), out.data_ptr())
+    if hopper_route(x.dtype, (ptrs[0], ptrs[1], ptrs[4]), (K, N)):
+        rc = _call("grouped_gemm_hopper", "ds_ggemm_h", 6, 4, x.device,
+                   *ptrs, _unit_counters(x.device), plan.num_blocks, K, N,
+                   E)
+        build.check(rc, "ds_ggemm")
+        ds_ggemm.launches += 1
+        return out
+    bf16 = x.dtype == torch.bfloat16
+    rc = _call("grouped_gemm", "ds_ggemm", 5, 5, x.device, *ptrs,
+               plan.num_blocks, K, N, E, int(bf16))
     build.check(rc, "ds_ggemm")
-    ds_ggemm.launches += 1
+    if bf16:
+        ds_ggemm.unaligned_launches += 1
+    else:
+        ds_ggemm.launches += 1
     return out
 
 
@@ -396,13 +454,23 @@ def ggemm_t_cuda(dy, w, plan: GroupPlan):
     E, K, _ = w.shape
     _check_group_fit("ds_ggemm_t", dy, E, plan)
     out = torch.empty((Mp, K), dtype=dy.dtype, device=dy.device)
-    with torch.cuda.device(dy.device):
-        rc = _fn("ds_ggemm_t", 5, 5)(
-            dy.data_ptr(), w.data_ptr(), plan.block_group_ids.data_ptr(),
-            plan.tile_rows.data_ptr(), out.data_ptr(), plan.num_blocks, K,
-            N, E, int(dy.dtype == torch.bfloat16), _stream(dy.device))
+    ptrs = (dy.data_ptr(), w.data_ptr(), plan.block_group_ids.data_ptr(),
+            plan.tile_rows.data_ptr(), out.data_ptr())
+    if hopper_route(dy.dtype, (ptrs[0], ptrs[1], ptrs[4]), (K, N)):
+        rc = _call("grouped_gemm_hopper", "ds_ggemm_t_h", 6, 4, dy.device,
+                   *ptrs, _unit_counters(dy.device), plan.num_blocks, K, N,
+                   E)
+        build.check(rc, "ds_ggemm_t")
+        ds_ggemm.transpose_launches += 1
+        return out
+    bf16 = dy.dtype == torch.bfloat16
+    rc = _call("grouped_gemm", "ds_ggemm_t", 5, 5, dy.device, *ptrs,
+               plan.num_blocks, K, N, E, int(bf16))
     build.check(rc, "ds_ggemm_t")
-    ds_ggemm.transpose_launches += 1
+    if bf16:
+        ds_ggemm.unaligned_transpose_launches += 1
+    else:
+        ds_ggemm.transpose_launches += 1
     return out
 
 
@@ -433,14 +501,23 @@ def tgmm_cuda(x, dy, plan: GroupPlan, out_dtype=None):
     Mp, K = x.shape
     N, E = dy.shape[1], plan.num_experts
     out = torch.empty((E, K, N), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _fn("ds_tgmm", 5, 6)(
-            x.data_ptr(), dy.data_ptr(), plan.group_sizes.data_ptr(),
-            plan.counts.data_ptr(), out.data_ptr(), Mp, K, N, E,
-            int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.float32), _stream(x.device))
+    ptrs = (x.data_ptr(), dy.data_ptr(), plan.group_sizes.data_ptr(),
+            plan.counts.data_ptr(), out.data_ptr())
+    f32 = int(out_dtype == torch.float32)
+    if hopper_route(x.dtype, (ptrs[0], ptrs[1], ptrs[4]), (K, N)):
+        rc = _call("grouped_gemm_hopper", "ds_tgmm_h", 6, 5, x.device,
+                   *ptrs, _unit_counters(x.device), Mp, K, N, E, f32)
+        build.check(rc, "ds_tgmm")
+        ds_tgmm.launches += 1
+        return out
+    bf16 = x.dtype == torch.bfloat16
+    rc = _call("grouped_gemm", "ds_tgmm", 5, 6, x.device, *ptrs, Mp, K, N,
+               E, int(bf16), f32)
     build.check(rc, "ds_tgmm")
-    ds_tgmm.launches += 1
+    if bf16:
+        ds_tgmm.unaligned_launches += 1
+    else:
+        ds_tgmm.launches += 1
     return out
 
 
@@ -452,12 +529,11 @@ def ggemm_q_cuda(x, q, s, plan: GroupPlan):
     E, _, N = q.shape
     _check_group_fit("ds_ggemm_q", x, E, plan)
     out = torch.empty((Mp, N), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _fn("ds_ggemm_q", 6, 6)(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(),
-            plan.block_group_ids.data_ptr(), plan.tile_rows.data_ptr(),
-            out.data_ptr(), plan.num_blocks, K, N, E, s.shape[2],
-            int(x.dtype == torch.bfloat16), _stream(x.device))
+    rc = _call("grouped_gemm", "ds_ggemm_q", 6, 6, x.device,
+               x.data_ptr(), q.data_ptr(), s.data_ptr(),
+               plan.block_group_ids.data_ptr(), plan.tile_rows.data_ptr(),
+               out.data_ptr(), plan.num_blocks, K, N, E, s.shape[2],
+               int(x.dtype == torch.bfloat16))
     build.check(rc, "ds_ggemm_q")
     ds_ggemm.int8_launches += 1
     return out
@@ -473,7 +549,7 @@ def ggemm_slots_cuda(x, w, plan: SlotPlan):
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         ws, counters = _slot_scratch("ds_ggemm_slots", x, K, N, False)
-        rc = _fn("ds_ggemm_slots", 9, 6)(
+        rc = _fn("grouped_gemm", "ds_ggemm_slots", 9, 6)(
             x.data_ptr(), w.data_ptr(), plan.active.data_ptr(),
             plan.valid.data_ptr(), plan.row_order.data_ptr(),
             plan.slot_offsets.data_ptr(), out.data_ptr(), ws.data_ptr(),
@@ -497,7 +573,7 @@ def ggemm_slots_q_cuda(x, q, s, plan: SlotPlan):
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         ws, counters = _slot_scratch("ds_ggemm_slots_q", x, K, N, True)
-        rc = _fn("ds_ggemm_slots_q", 10, 7)(
+        rc = _fn("grouped_gemm", "ds_ggemm_slots_q", 10, 7)(
             x.data_ptr(), q.data_ptr(), s.data_ptr(), plan.active.data_ptr(),
             plan.valid.data_ptr(), plan.row_order.data_ptr(),
             plan.slot_offsets.data_ptr(), out.data_ptr(), ws.data_ptr(),
@@ -610,9 +686,14 @@ def grouped_gemm(x, w, plan: GroupPlan):
 
 
 #: kernel launches since the count was last set to 0: the float kernels
-#: (``launches``), the int8 ones (``int8_launches``), the transposed-RHS
-#: backward form (``transpose_launches``) and the dW kernel
+#: (``launches``; bf16 on the Hopper kernels), the int8 ones
+#: (``int8_launches``), the transposed-RHS backward form
+#: (``transpose_launches``) and the dW kernel
 ds_ggemm.launches = ds_ggemm.int8_launches = 0
 ds_ggemm.transpose_launches = 0
 ds_ggemm_slots.launches = ds_ggemm_slots.int8_launches = 0
 ds_tgmm.launches = 0
+#: bf16 launches that the shape rule (:func:`hopper_route`) sent to the
+#: ``layout_tile`` kernels: none on the main paths
+ds_ggemm.unaligned_launches = ds_ggemm.unaligned_transpose_launches = 0
+ds_tgmm.unaligned_launches = 0
