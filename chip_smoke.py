@@ -14,8 +14,8 @@ the port's own entry points.
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --only 20,21   # the build, then phases 2, 3, 7,
-                                         # 12, 15-27 as listed (no kernels
-                                         # line)
+                                         # 8, 12, 15-27 as listed (no
+                                         # kernels line)
 
 Phases (any failed check exits non-zero before the final line):
   1. device: card name and power limit, torch/CUDA versions, kernel build
@@ -24,16 +24,24 @@ Phases (any failed check exits non-zero before the final line):
      (UTMALDG) instructions in the built flash forward and backward
      (cuobjdump); each Hopper grouped-GEMM kernel instance must hold
      HGMMA, UTMALDG and UTMASTG, with 0 spill bytes and no ptxas C75xx
-     (serialised wgmma) warning;
+     (serialised wgmma) warning; every decode kernel instance's registers,
+     with 0 spill bytes;
   2. kernels at the serving path's shapes: max |kernel - plain| within the
      stated tolerance (the flash forward at every head dim, 64 / 80 / 96 /
      128: S 16, 129, 1024, segment ids, fused-QKV views, GQA rep 4 at hd
-     128; two launches and batch row 0 at B 1 vs B 4 bit-identical), then
+     128; two launches and batch row 0 at B 1 vs B 4 bit-identical; the
+     decode kernel also at its chunk edges, cache_len 0, 1, C - 1, C,
+     C + 1, S_max, and decode_identity: for every variant, cache type and
+     dtype, row 0 bit-identical at B 1 vs B 8, at S_max 1024 vs 2048 and
+     over two launches), then
      median times of the kernel, the plain version and the PyTorch library
      call (scaled_dot_product_attention, timed here only) beside the least
      time the card could take, and the flash forward at a Llama-2 7B
      prefill (B 1, S 1024, H 32, hd 128); the flash forward's and SDPA's
-     device times (profiler) beside them here and in phases 3 and 24;
+     device times (profiler) beside them here and in phases 3 and 24; the
+     decode kernel's device time (profiler, exactly one kernel a call) over
+     24 layers' own caches and at Mixtral-8x7B's GQA shape over 32, beside
+     SDPA with the same mask and the wrapper's host ms a call;
   3. the flash backward kernels (dK/dV, dQ) against the plain backward,
      fp32 and bf16, at every head dim (64 / 80 / 96 / 128): the training
      shape, GQA, segment ids, non-causal, a ragged S and strided
@@ -69,7 +77,8 @@ Phases (any failed check exits non-zero before the final line):
   8. the int8-serving kernels at the 760M serving shapes against their
      plain versions: the block quantizer on the four stacked block
      leaves (exact), qgemm at M 8 / 64 / 900 for the four projections,
-     the int8-cache decode attention at DECODE_LENS, the fused layer at
+     the int8-cache decode attention at DECODE_LENS and at its chunk edges
+     (also timed at Mixtral-8x7B's GQA shape), the fused layer at
      B 8, W 1 and 4, float / int8 weights x float / int8 cache (fp32
      <= 1e-4 abs, TF32 off; bf16 <= 2e-2 of each output's max; new int8
      K/V codes within one code); then each timed over 24 layers' own
@@ -162,7 +171,9 @@ Phases (any failed check exits non-zero before the final line):
   20. the decode kernel's ALiBi variant (BLOOM-560m's shape, B 8, H 16,
      hd 64, and GQA H 32 / KV 8, hd 128) and windowed variant (GPT-Neo
      2.7B's shape, H 20, hd 128, window 256, sm_scale 1, floors from
-     DECODE_LENS, the positions below them poisoned; and the GQA shape),
+     DECODE_LENS, the positions below them poisoned; and the GQA shape;
+     both also at the chunk edges, floors C - 1, C, C + 1 and at the
+     length),
      each over a float and an int8 cache, fp32 and bf16; the fused layer
      at the GPT-NeoX-20B, Pythia-160m and BLOOM-560m specs at B 8, W 1
      and 4, float / int8 weights x float / int8 cache; all against their
@@ -373,6 +384,32 @@ def grouped_hopper_build_checks(build, libs):
           f"grouped_gemm_hopper: spills {spills} or serialised wgmma {c75}")
 
 
+def decode_build_checks(build):
+    """The decode kernel as built: each instance's registers and spill
+    bytes from ptxas (0 spills held), where this process built it."""
+    log = build.build_log.get("decode_attention", {}).get("log")
+    regs, spills, name = {}, [], None
+    for ln in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+        elif name and "spill" in ln:
+            if any(int(n) for n in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", ln)):
+                spills.append(f"{name}: {ln.strip()}")
+        elif name and "Used" in ln:
+            mr = re.search(r"Used (\d+) registers", ln)
+            if mr:
+                regs[name] = int(mr.group(1))
+                name = None
+    emit({"check": "decode_attention_build", "ptxas_read": log is not None,
+          "instances": len(regs),
+          "registers": {"min": min(regs.values(), default=None),
+                        "max": max(regs.values(), default=None)},
+          "registers_by_instance": regs, "spill_lines": spills})
+    check(not spills, f"decode_attention: spills {spills}")
+
+
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -419,6 +456,13 @@ def kernel_phase(torch, da, fa):
             errs["decode_attention"] = max(errs["decode_attention"], e)
             tol_used["decode_attention"] = max(tol_used["decode_attention"],
                                                tol["o"])
+        if dt_name == "float32":   # both dtypes, the float cache
+            gd = torch.Generator(device="cuda").manual_seed(1235)
+            e_edge = decode_edge_checks(torch, da, gd, "plain", False,
+                                        [DECODE_SHAPES["plain"], DECODE_GQA])
+            errs["decode_attention"] = max(errs["decode_attention"], e_edge)
+            decode_identity_checks(torch, da)
+            decode_launch_checks(torch, da)
         cases = [(1, S, 16, 16, 96, True, False, False)
                  for S in (16, 272, 1024)]
         cases.append((2, 272, 16, 4, 96, False, True, False))
@@ -522,29 +566,18 @@ def flash_identity_checks(torch, fa, randn, unif):
 
 def kernel_times(torch, F, da, fa):
     """Times at the 760M serving shapes (bf16): decode B=8, H=KV=16,
-    hd=96, S_max=1024 over DECODE_LENS; flash B=1, H=16, hd=96, S=1024
-    causal."""
+    hd=96, S_max=1024 over DECODE_LENS, device time over 24 layers' own
+    caches beside SDPA (and Mixtral-8x7B's GQA shape over 32); flash B=1,
+    H=16, hd=96, S=1024 causal."""
     dev = "cuda"
     dt = torch.bfloat16
     g = torch.Generator(device="cpu").manual_seed(99)
-    B, H, hd, S = 8, 16, 96, 1024
-    q = torch.randn(B, H, hd, generator=g).to(dev, dt)
-    k = torch.randn(B, S, H, hd, generator=g).to(dev, dt)
-    v = torch.randn(B, S, H, hd, generator=g).to(dev, dt)
-    L = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
-    mask = (torch.arange(S, device=dev)[None, :] < L[:, None])[:, None, None]
-    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    dec = {
-        "kernel_ms": time_ms(lambda: da.decode_attention_cuda(q, k, v, L)),
-        "plain_ms": time_ms(lambda: da.decode_attention_plain(q, k, v, L)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask)),
-    }
-    bytes_ = sum(DECODE_LENS) * 2 * H * hd * 2 + 2 * B * H * hd * 2 + 4 * B
-    flops = 4 * sum(DECODE_LENS) * H * hd
-    dec["bound_ms"] = max(bytes_ / HBM_BPS, flops / BF16_FLOPS) * 1e3
-    dec["bound_by"] = "bytes" if bytes_ / HBM_BPS >= flops / BF16_FLOPS \
-        else "operations"
+    H, hd = 16, 96
+    dec = decode_layer_times(torch, F, da, H, H, hd, LAYERS)
+    dec.update(work="one layer, B 8, H 16, hd 96, S_max 1024, DECODE_LENS, "
+                    "bf16 (24 layers' own caches)",
+               times_by_shape={"mixtral_8x7b_gqa": decode_layer_times(
+                   torch, F, da, *DECODE_GQA[:3], 32)})
 
     def flash_at(S, B=1):
         q = torch.randn(B, S, H, hd, generator=g).to(dev, dt)
@@ -1596,10 +1629,11 @@ def qgemm_kernel_phase(torch, qz, qg, leaves):
     return worst, layer
 
 
-def decode_int8_kernel_phase(torch, da):
+def decode_int8_kernel_phase(torch, F, da):
     """The int8-cache decode kernel against its plain version (fp32 and
-    bf16 queries, MHA at the 760M shape and GQA), then timed at the 760M
-    serving shape over 24 layers' own caches."""
+    bf16 queries, MHA at the 760M shape and GQA, at DECODE_LENS and at
+    the chunk edges), then timed at the 760M serving shape over 24
+    layers' own caches and at Mixtral-8x7B's GQA shape over 32."""
     g = torch.Generator(device="cuda").manual_seed(33)
     L = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
     worst = 0.0
@@ -1624,25 +1658,14 @@ def decode_int8_kernel_phase(torch, da):
             check(held <= INT8_TOL[dt_name], f"decode_attention_int8 "
                   f"{dt_name} {(B, H, KV, hd, S)}: err {e} (held {held})")
             worst = max(worst, held)
-    B, H, hd, S = 8, H760, HD760, 1024
-    q = torch.randn(B, H, hd, generator=g, device="cuda").to(torch.bfloat16)
-    caches = []
-    for _ in range(LAYERS):
-        kq, ks = da.quantize_kv(torch.randn(B, S, H, hd, generator=g,
-                                            device="cuda"))
-        vq, vs = da.quantize_kv(torch.randn(B, S, H, hd, generator=g,
-                                            device="cuda"))
-        caches.append((kq, vq, ks, vs))
-    n = sum(DECODE_LENS)
-    t = timed(torch, [lambda c=c: da.decode_attention_cuda(
-        q, c[0], c[1], L, k_scale=c[2], v_scale=c[3]) for c in caches],
-        [lambda c=c: da.decode_attention_plain(
-            q, c[0], c[1], L, k_scale=c[2], v_scale=c[3]) for c in caches])
+    worst = max(worst, decode_edge_checks(
+        torch, da, g, "plain", True, [DECODE_SHAPES["plain"], DECODE_GQA]))
+    t = decode_layer_times(torch, F, da, H760, H760, HD760, LAYERS,
+                           int8_cache=True)
     t.update(work="one layer, B 8, H 16, hd 96, S_max 1024, DECODE_LENS, "
-                  "bf16 query (24 layers' own caches)", library_ms=None)
-    t["bound_ms"], t["bound_by"] = bound_of(
-        n * 2 * H * hd + n * 2 * H * 4 + 2 * B * H * hd * 2 + 4 * B,
-        4 * n * H * hd, BF16_FLOPS)
+                  "bf16 query (24 layers' own caches)",
+             times_by_shape={"mixtral_8x7b_gqa": decode_layer_times(
+                 torch, F, da, *DECODE_GQA[:3], 32, int8_cache=True)})
     emit({"phase": "decode_int8_kernel_times", **t})
     return worst, t
 
@@ -1808,7 +1831,7 @@ def fused_kernel_phase(torch, qz, da, fd):
     return worst, main_t, times
 
 
-def int8_kernel_phase(torch, da):
+def int8_kernel_phase(torch, F, da):
     """Phase 8: the four int8-serving kernels at the 760M serving shapes.
     Returns (times by kernel, max held error by kernel)."""
     qz, qg, fd = int8_modules()
@@ -1816,7 +1839,7 @@ def int8_kernel_phase(torch, da):
     e_g, t_g = qgemm_kernel_phase(torch, qz, qg, leaves)
     del leaves
     torch.cuda.empty_cache()
-    e_d, t_d = decode_int8_kernel_phase(torch, da)
+    e_d, t_d = decode_int8_kernel_phase(torch, F, da)
     torch.cuda.empty_cache()
     e_f, t_f, _ = fused_kernel_phase(torch, qz, da, fd)
     return ({"block_quantize_int8": t_q, "qgemm": t_g,
@@ -3474,12 +3497,224 @@ def decode_variant_inputs(torch, da, g, B, H, KV, hd, floors, dt,
     return q, k.to(dt), v.to(dt), None, None
 
 
+#: the decode kernel's variants at the shapes of the models that run them:
+#: (H, KV, hd, sm_scale) of GPT-2 760M (float and int8 caches), BLOOM-560m
+#: (ALiBi) and GPT-Neo 2.7B's local layers (window 256, sm_scale 1)
+DECODE_SHAPES = {"plain": (16, 16, 96, None), "alibi": (16, 16, 64, None),
+                 "windowed": (20, 20, 128, 1.0)}
+#: GQA: Mixtral-8x7B's 32 query heads over 8 kv heads
+DECODE_GQA = (32, 8, 128, None)
+
+
+def decode_extras(torch, variant, H, floors):
+    """A variant's extra arguments: BLOOM's ALiBi slopes or the floors."""
+    if variant == "alibi":
+        from deepspeed_tpu_torch.models.bloom import slopes_on
+        return {"alibi_slopes": slopes_on(H, "cuda")}
+    if variant == "windowed":
+        return {"min_pos": floors}
+    return {}
+
+
+def decode_edge_checks(torch, da, g, variant, int8_cache, shapes):
+    """The decode kernel at its chunk edges against the plain version, fp32
+    and bf16 queries: with C the instance's positions per chunk
+    (``chunk_positions``), rows of cache_len 0, 1, C - 1, C, C + 1, S_max
+    (2 C + 64), 2 C + 1 and C + 2; the windowed variant with floors 0, 0,
+    C - 1, C - 1, C, C + 1, C + 1, C + 2 (rows 2 and 7 at their length),
+    the positions below a floor poisoned.  Within the tolerance (fp32 abs,
+    bf16 of the output's max), finite, and a row with nothing to attend
+    exact zeros.  Returns the worst held error."""
+    worst = 0.0
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for H, KV, hd, sm in shapes:
+            C = da.chunk_positions(hd, torch.int8 if int8_cache else dt)
+            S = 2 * C + 64
+            lens = [0, 1, C - 1, C, C + 1, S, 2 * C + 1, C + 2]
+            L = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            floors = None
+            if variant == "windowed":
+                floors = torch.tensor(
+                    [0, 0, C - 1, C - 1, C, C + 1, C + 1, C + 2],
+                    dtype=torch.int32, device="cuda")
+            q, k, v, ks, vs = decode_variant_inputs(
+                torch, da, g, len(lens), H, KV, hd, floors, dt, int8_cache,
+                S=S)
+            kw = dict(sm_scale=sm, k_scale=ks, v_scale=vs,
+                      **decode_extras(torch, variant, H, floors))
+            o = da.decode_attention_cuda(q, k, v, L, **kw)
+            r = da.decode_attention_plain(q, k, v, L, **kw)
+            torch.cuda.synchronize()
+            e, held = err_of(torch, o, r, dt_name)
+            first = floors if floors is not None else torch.zeros_like(L)
+            empty = (first >= L).nonzero().flatten().tolist()
+            zeros = all(bool((o[b] == 0).all()) for b in empty)
+            finite = bool(torch.isfinite(o).all())
+            emit({"check": "decode_attention_chunk_edges",
+                  "variant": variant, "int8_cache": int8_cache,
+                  "dtype": dt_name, "shape": [len(lens), H, KV, hd, S],
+                  "chunk": C, "cache_len": lens,
+                  "floors": None if floors is None else floors.tolist(),
+                  "max_abs_err": e, "held": held,
+                  "tol": INT8_TOL[dt_name], "empty_rows_zero": zeros,
+                  "finite": finite})
+            check(held <= INT8_TOL[dt_name] and zeros and finite,
+                  f"decode_attention chunk edges {variant} int8_cache="
+                  f"{int8_cache} {dt_name} {(H, KV, hd)}: err {e} (held "
+                  f"{held}), empty rows zero {zeros}, finite {finite}")
+            worst = max(worst, held)
+    return worst
+
+
+def decode_identity_checks(torch, da):
+    """decode_identity: a row's bits follow only its own inputs.  Row 0
+    (700 positions; floor 444 for the window) bit-identical at B 1 and at
+    B 8 (the other rows at other lengths), at S_max 1024 and 2048, and
+    two launches at S_max 2048 bit-identical; every variant at its
+    model's shape, float and int8 caches, fp32 and bf16."""
+    g = torch.Generator(device="cuda").manual_seed(97)
+    L = torch.tensor([700, 1, 1024, 300, 5, 999, 64, 129],
+                     dtype=torch.int32, device="cuda")
+    for variant, (H, KV, hd, sm) in DECODE_SHAPES.items():
+        floors = None
+        if variant == "windowed":
+            floors = torch.clamp(L - GPTNEO_WINDOW, min=0).to(torch.int32)
+        for c8 in (False, True):
+            for dt_name in ("float32", "bfloat16"):
+                q, k, v, ks, vs = decode_variant_inputs(
+                    torch, da, g, 8, H, KV, hd, floors,
+                    getattr(torch, dt_name), c8, S=2048)
+
+                def run(nb, ns):
+                    def cut(x):
+                        return None if x is None \
+                            else x[:nb, :ns].contiguous()
+                    fl = None if floors is None else floors[:nb].contiguous()
+                    return da.decode_attention_cuda(
+                        q[:nb].contiguous(), cut(k), cut(v),
+                        L[:nb].contiguous(), sm_scale=sm, k_scale=cut(ks),
+                        v_scale=cut(vs), **decode_extras(torch, variant, H,
+                                                         fl))
+                o8, o1, o2, o2b = run(8, 1024), run(1, 1024), run(8, 2048), \
+                    run(8, 2048)
+                torch.cuda.synchronize()
+                by_b = torch.equal(o8[:1], o1)
+                by_s = torch.equal(o8[0], o2[0])
+                again = torch.equal(o2, o2b)
+                emit({"check": "decode_identity", "variant": variant,
+                      "int8_cache": c8, "dtype": dt_name,
+                      "shape": [8, H, KV, hd], "row_0_len": 700,
+                      "row_0_at_B_1_vs_B_8_bit_identical": by_b,
+                      "row_0_at_S_max_1024_vs_2048_bit_identical": by_s,
+                      "two_launches_bit_identical": again})
+                check(by_b and by_s and again,
+                      f"decode_identity {variant} int8_cache={c8} "
+                      f"{dt_name}: B 1 vs 8 {by_b}, S_max 1024 vs 2048 "
+                      f"{by_s}, two launches {again}")
+
+
+def decode_launch_checks(torch, da):
+    """One kernel a call for every variant and cache type at its model's
+    shape and at the GQA shape (B 8, S_max 1024, DECODE_LENS, bf16): the
+    kernel records a profiler window sees over 20 calls, read at the
+    start of the smoke, where the profiler sees every record (a window
+    that reads otherwise is read again, up to three times)."""
+    g = torch.Generator(device="cuda").manual_seed(77)
+    L = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    floors = torch.clamp(L - GPTNEO_WINDOW, min=0).to(torch.int32)
+    for variant, shape in (*DECODE_SHAPES.items(), ("gqa", DECODE_GQA)):
+        H, KV, hd, sm = shape
+        fl = floors if variant == "windowed" else None
+        for c8 in (False, True):
+            q, k, v, ks, vs = decode_variant_inputs(
+                torch, da, g, 8, H, KV, hd, fl, torch.bfloat16, c8)
+            kw = dict(sm_scale=sm, k_scale=ks, v_scale=vs,
+                      **decode_extras(torch, variant, H, fl))
+            for _ in range(3):
+                _, n = device_ms(torch, [
+                    lambda: da.decode_attention_cuda(q, k, v, L, **kw)],
+                    reps=20, one_kernel=True)
+                if n == 1:
+                    break
+            emit({"check": "decode_kernels_per_call", "variant": variant,
+                  "int8_cache": c8, "shape": [8, H, KV, hd, 1024],
+                  "kernels_per_call": n})
+            check(n == 1, f"decode_attention {variant} int8_cache={c8}: "
+                  f"{n} kernels a call, not 1")
+
+
+def decode_layer_times(torch, F, da, H, KV, hd, layers, variant="plain",
+                       sm=None, int8_cache=False):
+    """One layer's decode kernel timed as a decode step meets it: device
+    time (profiler) over ``layers`` layers' own caches (cold in L2), B 8,
+    S_max 1024, DECODE_LENS (windowed: floors 256 below), bf16 queries;
+    beside the plain version, SDPA with the same mask (float cache; context
+    only, the port never calls it), the bound (bytes read once) and the
+    wrapper's host ms a call, and the kernels a call each profiler window
+    saw (late in a whole smoke a window can lose records: phase 2's
+    ``decode_launch_checks`` holds one kernel a call while the profiler
+    sees every record)."""
+    g = torch.Generator(device="cuda").manual_seed(71 + hd + layers)
+    B, dt = 8, torch.bfloat16
+    L = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    floors = None
+    if variant == "windowed":
+        floors = torch.clamp(L - GPTNEO_WINDOW, min=0).to(torch.int32)
+    caches = [decode_variant_inputs(torch, da, g, B, H, KV, hd, floors, dt,
+                                    int8_cache) for _ in range(layers)]
+    q = caches[0][0]
+    ex = decode_extras(torch, variant, H, floors)
+    kw = [dict(sm_scale=sm, k_scale=c[3], v_scale=c[4], **ex)
+          for c in caches]
+    kern = [lambda c=c, w=w: da.decode_attention_cuda(q, c[1], c[2], L, **w)
+            for c, w in zip(caches, kw)]
+    plain = [lambda c=c, w=w: da.decode_attention_plain(q, c[1], c[2], L,
+                                                        **w)
+             for c, w in zip(caches, kw)]
+    t = timed(torch, kern, plain)
+    first = floors if floors is not None else torch.zeros_like(L)
+    n = int((L - first).sum())       # the positions the rows attend
+    per_pos = 2 * KV * hd * (1 if int8_cache else 2) \
+        + (2 * KV * 4 if int8_cache else 0)
+    t["bound_ms"], t["bound_by"] = bound_of(
+        n * per_pos + 2 * B * H * hd * 2 + 4 * B
+        + (4 * H if variant == "alibi" else 0)
+        + (4 * B if variant == "windowed" else 0),
+        4 * n * H * hd, BF16_FLOPS)
+    t.update(attended_positions=n, shape=[B, H, KV, hd, 1024],
+             layers=layers, chunk=da.chunk_positions(
+                 hd, torch.int8 if int8_cache else dt), library_ms=None,
+             host_ms_per_call=host_ms_per_call(torch, kern[0], n=100))
+    if not int8_cache:
+        pos = torch.arange(1024, device="cuda")
+        valid = (pos[None, :] < L[:, None]) & (pos[None, :]
+                                               >= first[:, None])
+        if variant == "alibi":
+            mask = torch.where(valid[:, None, None, :],
+                               ex["alibi_slopes"][None, :, None, None]
+                               * pos.float(), float("-inf")).to(dt)
+        else:
+            mask = valid[:, None, None, :]
+        kt = [(c[1].transpose(1, 2), c[2].transpose(1, 2)) for c in caches]
+        qt = q[:, :, None]
+        t["library_ms"], t["library_kernels_per_call"] = device_ms(torch, [
+            lambda a=a: F.scaled_dot_product_attention(
+                qt, a[0], a[1], attn_mask=mask, scale=sm,
+                enable_gqa=H != KV) for a in kt])
+        del kt
+    del caches, kern, plain
+    torch.cuda.empty_cache()
+    return t
+
+
 def decode_variant_phase(torch, F, da):
     """Phase 20, decode: the ALiBi and windowed variants, each over a
     float and an int8 cache, fp32 and bf16 queries, against the plain
-    version; then each timed in bf16 over the model's own layers' caches
-    (ALiBi: 24 BLOOM-560m layers; window: 32 GPT-Neo 2.7B local layers)
-    beside the plain version, SDPA with the same mask and the bound.
+    version, at DECODE_LENS and at the chunk edges; then each timed in
+    bf16 over the model's own layers' caches (ALiBi: 24 BLOOM-560m
+    layers; window: 32 GPT-Neo 2.7B local layers) beside the plain
+    version, SDPA with the same mask and the bound.
     Returns ({variant: worst held error}, {variant: {cache: times}})."""
     g = torch.Generator(device="cuda").manual_seed(71)
     L = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
@@ -3509,52 +3744,16 @@ def decode_variant_phase(torch, F, da):
                           f"decode_attention {variant} {dt_name} int8_cache="
                           f"{c8} {(B, H, KV, hd)}: err {e} (held {held})")
                     worst[variant] = max(worst[variant], held)
-        # times: bf16, the model's own shape, one cache per layer
-        B, H, KV, hd, floors, slopes, sm = decode_variant_cases(
-            torch, g, variant)[0]
-        layers = 24 if variant == "alibi" else 32
-        first = (torch.zeros_like(L) if floors is None else floors)
-        n = int((L - first).sum())       # the positions the rows attend
-        pos = torch.arange(1024, device="cuda")
-        valid = (pos[None, :] < L[:, None]) & (pos[None, :] >= first[:, None])
-        by_cache = {}
         for c8 in (False, True):
-            caches = [decode_variant_inputs(torch, da, g, B, H, KV, hd,
-                                            floors, torch.bfloat16, c8)
-                      for _ in range(layers)]
-            q = caches[0][0]
-            kw = [dict(sm_scale=sm, k_scale=c[3], v_scale=c[4],
-                       alibi_slopes=slopes, min_pos=floors) for c in caches]
-            t = timed(torch, [lambda c=c, w=w: da.decode_attention_cuda(
-                q, c[1], c[2], L, **w) for c, w in zip(caches, kw)],
-                [lambda c=c, w=w: da.decode_attention_plain(
-                    q, c[1], c[2], L, **w) for c, w in zip(caches, kw)])
-            per_pos = 2 * H * hd * (1 if c8 else 2) + (2 * H * 4 if c8 else 0)
-            t["bound_ms"], t["bound_by"] = bound_of(
-                n * per_pos + 2 * B * H * hd * 2 + 4 * B
-                + (4 * H if slopes is not None else 4 * B),
-                4 * n * H * hd, BF16_FLOPS)
-            t["attended_positions"] = n
-            t["library_ms"] = None
-            if not c8:      # SDPA on the float cache with the same mask
-                if slopes is not None:
-                    mask = torch.where(valid[:, None, None, :],
-                                       slopes[None, :, None, None]
-                                       * pos.float(), float("-inf"))
-                    mask = mask.to(torch.bfloat16)
-                else:
-                    mask = valid[:, None, None, :]
-                kt = [(c[1].transpose(1, 2), c[2].transpose(1, 2))
-                      for c in caches]
-                qt = q[:, :, None]
-                t["library_ms"] = device_ms(torch, [
-                    lambda a=a: F.scaled_dot_product_attention(
-                        qt, a[0], a[1], attn_mask=mask, scale=sm)
-                    for a in kt])[0]
-                del kt
-            by_cache["int8" if c8 else "bf16"] = t
-            del caches
-            torch.cuda.empty_cache()
+            worst[variant] = max(worst[variant], decode_edge_checks(
+                torch, da, g, variant, c8,
+                [DECODE_SHAPES[variant], DECODE_GQA]))
+        # times: bf16, the model's own shape, one cache per layer
+        H, KV, hd, sm = DECODE_SHAPES[variant]
+        layers = 24 if variant == "alibi" else 32
+        by_cache = {"int8" if c8 else "bf16": decode_layer_times(
+            torch, F, da, H, KV, hd, layers, variant, sm, c8)
+            for c8 in (False, True)}
         times[variant] = by_cache
     emit({"phase": "decode_variant_kernel_times", "lens": DECODE_LENS,
           "alibi_work": "one BLOOM-560m layer: B 8, H 16, hd 64, S_max "
@@ -5104,7 +5303,7 @@ def fused_paths(runs, prefix):
 
 
 def run_only(torch, only, da, fa):
-    """``--only``: the listed phases among 2, 3, 7, 12 and 15-27 alone,
+    """``--only``: the listed phases among 2, 3, 7, 8, 12 and 15-27 alone,
     after the build, for work on one path (no kernels line)."""
     import torch.nn.functional as F
     import deepspeed_tpu_torch as dt
@@ -5117,6 +5316,7 @@ def run_only(torch, only, da, fa):
             {"phase": "train_kernel_times", **train_kernel_times(
                 torch, F, fa)[0]})),
         7: lambda: bf16_train_phase(torch, dt, da, fa),
+        8: lambda: int8_kernel_phase(torch, F, da),
         12: lambda: mixtral_parity_phase(torch, gg, da, fa),
         15: lambda: mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa),
         16: lambda: mixtral_int8_http_phase(torch, gg, qz, qg, da, fa),
@@ -5186,6 +5386,7 @@ def main():
           "grouped_gemm_hopper_sass": sass_counts(
               build, libs["grouped_gemm_hopper"])})
     grouped_hopper_build_checks(build, libs)
+    decode_build_checks(build)
 
     if only:
         run_only(torch, only, da, fa)
@@ -5220,7 +5421,7 @@ def main():
     train_launches, train_report = bf16_train_phase(torch, dt, da, fa)
     torch.cuda.empty_cache()
 
-    int8_t, int8_errs = int8_kernel_phase(torch, da)
+    int8_t, int8_errs = int8_kernel_phase(torch, F, da)
     torch.cuda.empty_cache()
     int8_parity_phase(torch, da, fa)
     torch.cuda.empty_cache()
@@ -5433,6 +5634,13 @@ def main():
             "library_ms": t["library_ms"]})
         if name.startswith("ds_flash_bwd"):
             kernels[-1]["max_rel_err_bf16"] = bwd_rel[name]
+        if name.startswith("decode_attention"):
+            # device time over the model's layers' own caches; one launch
+            # a call (held), Mixtral's GQA shape beside the model's
+            kernels[-1].update(
+                kernels_per_call=t["kernels_per_call"], chunk=t["chunk"],
+                host_ms_per_call=t["host_ms_per_call"],
+                times_by_shape=t.get("times_by_shape"))
         if "device_ms" in t:
             # the profiler's device time of the kernel and of the library
             # call (CUDA events around SDPA's backward also time the host)

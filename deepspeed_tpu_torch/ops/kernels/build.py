@@ -9,8 +9,8 @@ so an edited kernel rebuilds and an unchanged one loads from disk.  The sources 
 (pointers and the stream as ``void*``, each returning the launch's
 ``cudaError_t``), which keeps a build to seconds: no PyTorch headers.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
-:func:`scratch` holds the split-K workspace and counters the GEMM wrappers
-share.
+:func:`scratch` holds the split workspace and counters the GEMM and decode
+attention wrappers share.
 """
 import ctypes
 import hashlib
@@ -117,10 +117,11 @@ _workspace = {}
 def scratch(device, n_floats: int, n_counters: int):
     """Per-device split-K workspace (fp32 partial tiles) and per-tile
     arrival counters, shared by the split-K kernels (``qgemm``,
-    ``ds_ggemm_slots``) and the Hopper grouped kernels (their work-unit
-    counters): each kernel returns every counter to 0, so both are
-    allocated once, grown when a launch needs more, and reused in stream
-    order."""
+    ``ds_ggemm_slots``), the split-sequence decode attention (its chunk
+    partials and per-(row, kv head) counters) and the Hopper grouped
+    kernels (their work-unit counters): each kernel returns every counter
+    to 0, so both are allocated once, grown when a launch needs more, and
+    reused in stream order."""
     ws = _workspace.get(device)
     if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_counters:
         nf = max(n_floats, ws[0].numel() if ws else 0)

@@ -7,8 +7,12 @@ cache and the int8 cache, each with the ALiBi variant (``alibi_slopes``
 int32: positions below a per-row floor are masked, GPT-Neo's local
 layers), plus the int8 cache helpers ``quantize_kv`` / ``dequantize_kv``
 / ``quantize_prefill_into_cache``.  :func:`decode_attention` launches the
-CUDA kernel in ``csrc/decode_attention.cu`` for CUDA tensors and takes
-the plain PyTorch version :func:`decode_attention_plain` for CPU tensors.
+CUDA kernel in ``csrc/decode_attention.cu`` for CUDA tensors (one launch
+a call: each row's positions split into fixed chunks across CTAs, the
+partials merged in chunk order through a workspace and arrival counters
+from ``build.scratch``, so a row's bits follow only its own inputs) and
+takes the plain PyTorch version :func:`decode_attention_plain` for CPU
+tensors.
 
 Layouts (the reference's public ones):
   q:         [B, H, hd]
@@ -102,23 +106,63 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, sm_scale=None,
     return torch.einsum("bhs,bshd->bhd", probs, v).to(q.dtype)
 
 
-def _lib(quantized: bool):
+#: positions of the smallest chunk of any kernel instance (the kernel's
+#: ``kMinChunk``): the workspace holds ceil(S_max / MIN_CHUNK) partials per
+#: (row, kv head)
+MIN_CHUNK = 64
+_entries = {}
+
+
+def _entry(quantized: bool):
+    """The kernel's C entry point for the cache type, bound once."""
     lib = build.load("decode_attention")
     fn = lib.ds_decode_attention_int8 if quantized \
         else lib.ds_decode_attention
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = ([p] * (9 if quantized else 7) + [i] * 6
-                       + [ctypes.c_float, p])
-        fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * (11 if quantized else 9)
+                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _entries[quantized] = fn
     return fn
 
 
-def decode_attention_cuda(q, k_cache, v_cache, cache_len, sm_scale=None,
-                          k_scale=None, v_scale=None, alibi_slopes=None,
-                          min_pos=None):
-    """Launch the CUDA kernel; raises on anything it does not take."""
+def _call(quantized, device, *args):
+    """Launch the kernel on ``device``'s current stream with ``args``
+    (pointers, then B, H, KV, S_max, head_dim, is_bf16, sm_scale);
+    returns its ``cudaError_t``.  The device is made current only when it
+    is not already (a decode step launches this once a layer)."""
+    fn = _entries.get(quantized) or _entry(quantized)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
+
+
+def chunk_positions(head_dim: int, cache_dtype) -> int:
+    """Positions per chunk (one CTA's share of a row) of the kernel
+    instance for ``head_dim`` and a cache of ``cache_dtype`` (fp32, bf16
+    or int8), as built: a compile-time constant of the instance."""
+    fn = build.load("decode_attention").ds_decode_attention_chunk
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    c = fn(head_dim, torch.empty((), dtype=cache_dtype).element_size())
+    if c < MIN_CHUNK:
+        raise ValueError(f"decode_attention: no kernel instance for "
+                         f"head_dim {head_dim}, cache {cache_dtype}")
+    return c
+
+
+def workspace_sizes(B, H, KV, S_max, hd):
+    """(fp32 workspace floats, int counters) a launch asks of
+    ``build.scratch``: one (m, l, acc) partial per (row, kv head, chunk)
+    at the smallest chunk, and one arrival counter per (row, kv head)."""
+    return B * KV * -(-S_max // MIN_CHUNK) * (H // KV) * (hd + 2), B * KV
+
+
+def check_args(q, k_cache, v_cache, cache_len, k_scale=None, v_scale=None,
+               alibi_slopes=None, min_pos=None):
+    """Raise ValueError on anything the kernel does not take; returns
+    (B, H, KV, S_max, hd, quantized)."""
     B, H, hd = q.shape
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: k/v cache shapes "
@@ -163,26 +207,42 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, sm_scale=None,
         if min_pos.dtype != torch.int32 or min_pos.shape != (B,):
             raise ValueError("decode_attention: min_pos must be int32 [B]")
         tensors.append(("min_pos", min_pos))
+    dev = q.device
     for name, t in tensors:
-        if t.device != q.device:
+        if t.device != dev:
             raise ValueError(f"decode_attention: {name} on {t.device}, "
-                             f"q on {q.device}")
+                             f"q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous")
+    return B, H, KV, S_max, hd, quantized
+
+
+def decode_attention_cuda(q, k_cache, v_cache, cache_len, sm_scale=None,
+                          k_scale=None, v_scale=None, alibi_slopes=None,
+                          min_pos=None):
+    """Launch the CUDA kernel (one launch); raises on anything it does
+    not take."""
+    B, H, KV, S_max, hd, quantized = check_args(
+        q, k_cache, v_cache, cache_len, k_scale, v_scale, alibi_slopes,
+        min_pos)
+    ptrs = [q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()]
+    if (ptrs[0] | ptrs[1] | ptrs[2]) % 16:
+        # the kernel copies whole 16-byte units of q and of each head vector
+        raise ValueError("decode_attention: q and k/v cache bases must be "
+                         "16-byte aligned")
     if sm_scale is None:
         sm_scale = hd ** -0.5
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        ptrs = [q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()]
-        if quantized:
-            ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
-        ptrs += [cache_len.data_ptr(),
-                 0 if alibi_slopes is None else alibi_slopes.data_ptr(),
-                 0 if min_pos is None else min_pos.data_ptr()]
-        rc = _lib(quantized)(*ptrs, out.data_ptr(), B, H, KV, S_max, hd,
-                             int(q.dtype == torch.bfloat16),
-                             float(sm_scale), stream)
+    ws, counters = build.scratch(q.device,
+                                 *workspace_sizes(B, H, KV, S_max, hd))
+    if quantized:
+        ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
+    ptrs += [cache_len.data_ptr(),
+             0 if alibi_slopes is None else alibi_slopes.data_ptr(),
+             0 if min_pos is None else min_pos.data_ptr(),
+             out.data_ptr(), ws.data_ptr(), counters.data_ptr()]
+    rc = _call(quantized, q.device, *ptrs, B, H, KV, S_max, hd,
+               int(q.dtype == torch.bfloat16), float(sm_scale))
     build.check(rc, "decode_attention")
     if alibi_slopes is not None:
         decode_attention.alibi_launches += 1
