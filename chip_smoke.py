@@ -235,7 +235,12 @@ Phases (any failed check exits non-zero before the final line):
      96 / 128, causal and bidirectional, fp32 and bf16 (fp32 <= 1e-4 abs, TF32
      off; bf16 o <= 2e-2 abs, lse <= 1e-3, gradients <= 2e-2 of each
      output's max; empty rows and columns exact zeros; inf in every kv
-     block a head never reads leaves o and lse bit-identical); the
+     block a head never reads, and in q and dO of its rows with no live
+     block, leaves o, lse, dq, dk and dv bit-identical); at S 8192 lists
+     of 3 or more segments on both sides of the bf16 backward's tile plan
+     and, at S 1040, part-filled gathered tiles; block_sparse_bwd_identity
+     (the bf16 dq, dk, dv bit-identical over two launches and batch row 0
+     at B 1 vs B 2, Fixed and BigBird); the
      reference's own check, sparse_self_attention impl "pallas" against
      "dense" at S 1024, block 128, bf16 (gradient deltas <= 0.02); then
      SparseSelfAttention forward + backward at B 1, S 16384, H 16, hd 96,
@@ -244,7 +249,8 @@ Phases (any failed check exits non-zero before the final line):
      each kernel an iteration, and one iteration against the plain
      versions on the card (no launch); each kernel timed at that shape
      beside its plain version, its bound and SDPA with the layout as a
-     boolean mask, and the dense causal flash kernels for context.
+     boolean mask, the backward's tile plans (fill per side), and the
+     dense causal flash kernels for context.
 Earlier lines are JSON objects; the line before the last two is the
 ``kernels`` object, then the nvidia-smi line, and the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
@@ -382,6 +388,42 @@ def grouped_hopper_build_checks(build, libs):
           f"grouped_gemm_hopper: wgmma / TMA missing from SASS {hop}")
     check(log is None or (not spills and not c75),
           f"grouped_gemm_hopper: spills {spills} or serialised wgmma {c75}")
+
+
+def sparse_build_checks(build, libs):
+    """The block-sparse bf16 backward kernels (``bsa_bwd_bf16``, head dims
+    64 / 80 / 96 / 128 x dQ, dK/dV) as built: wgmma (HGMMA) and TMA loads
+    (UTMALDG) in each instance's SASS, and, where this process built the
+    source, 0 spill bytes and no ptxas C7520 warning (every wgmma
+    serialised; the C7519 note of an injected warpgroup.arrive, which the
+    flash kernels carry too, is counted).  Returns the SASS counts by
+    instance."""
+    funcs = sass_by_function(build, libs["block_sparse_attention"],
+                             ops=("HGMMA", "UTMALDG"))
+    hop = {n: c for n, c in funcs.items() if "bsa_bwd_bf16" in n}
+    log = build.build_log.get("block_sparse_attention", {}).get("log")
+    spills, c75, c7519, name = [], [], 0, None
+    for ln in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1) if "bsa_bwd_bf16" in m.group(1) else None
+        elif name and any(int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", ln)):
+            spills.append(f"{name}: {ln.strip()}")
+        if "bsa_bwd_bf16" in ln:
+            if "C7520" in ln:
+                c75.append(ln.strip())
+            c7519 += "C7519" in ln
+    emit({"check": "block_sparse_attention_build", "sass_by_kernel": hop,
+          "spill_lines": spills, "c7520_warnings": c75,
+          "c7519_notes": c7519, "ptxas_read": log is not None})
+    check(len(hop) == 8 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                for c in hop.values()),
+          f"block_sparse_attention: wgmma / TMA missing from SASS {hop}")
+    check(not spills and not c75,
+          f"block_sparse_attention: spills {spills} or serialised wgmma "
+          f"{c75}")
+    return hop
 
 
 def decode_build_checks(build):
@@ -4882,12 +4924,16 @@ def path_errs(torch, got, plain):
 
 
 def sparse_check_cases(sa, np):
-    """(label, config or layout, S, causal, H, hd): S 2048 but two ragged
-    cases (S 2000 and 2016, where the last CTA holds fewer blocks than it
-    has slots); every layout class, a per-head layout and one with empty
-    rows and columns; blocks 16, 32, 64 and 128, head dims 64, 80, 96 and
-    128 (80 at every block size), causal and bidirectional."""
-    S = SP_CHECK_S
+    """(label, config or layout, S, causal, H, hd, B): S 2048 at B 2 but
+    two ragged cases (S 2000 and 2016, where the last CTA holds fewer
+    blocks than it has slots); every layout class, a per-head layout and
+    one with empty rows and columns; blocks 16, 32, 64 and 128, head dims
+    64, 80, 96 and 128 (80 at every block size), causal and bidirectional.
+    Then, for the bf16 backward's tile plans: three cases at S 8192, B 1
+    whose longest lists span 3 or more segments (Fixed and BigBird: the
+    dK/dV side; dense: both sides), and one at S 1040 (65 blocks of 16)
+    whose gathered streamed and own tiles end part-filled."""
+    S, B = SP_CHECK_S, SP_CHECK_B
     n = S // 64
     empty = np.zeros((2, n, n), np.int64)
     empty[:, 0, 1] = 1          # causal: block row 0 sees nothing (empty)
@@ -4895,7 +4941,7 @@ def sparse_check_cases(sa, np):
     for i in range(2, n, 2):    # odd columns but 1 attended by no row
         empty[:, i, i] = 1
     empty[1, 5, 3] = 1          # the heads differ
-    return [
+    cases = [
         ("fixed_b16_causal", sa.FixedSparsityConfig(
             4, 16, num_local_blocks=4, num_global_blocks=1,
             attention="unidirectional"), S, True, 4, 96),
@@ -4928,25 +4974,72 @@ def sparse_check_cases(sa, np):
         ("empty_rows_cols_b64_causal_hd80", empty, S, True, 2, 80),
         ("bigbird_b128_bidir_hd80", sa.BigBirdSparsityConfig(2, 128), S,
          False, 2, 80)]
+    long = [
+        ("fixed_b16_causal_s8192_segments", sa.FixedSparsityConfig(
+            2, 16, num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional"), 8192, True, 2, 96, 1),
+        ("bigbird_b64_causal_s8192_segments", sa.BigBirdSparsityConfig(
+            2, 64, num_random_blocks=1, num_sliding_window_blocks=3,
+            num_global_blocks=1, attention="unidirectional"), 8192, True, 2,
+         96, 1),
+        ("dense_b64_causal_s8192_segments", sa.DenseSparsityConfig(2, 64),
+         8192, True, 2, 64, 1),
+        ("bigbird_b16_part_filled_causal", sa.BigBirdSparsityConfig(
+            2, 16, num_random_blocks=2, num_sliding_window_blocks=3,
+            num_global_blocks=1, attention="unidirectional", seed=9), 1040,
+         True, 2, 96, 2)]
+    return [(*c, B) for c in cases] + long
+
+
+def tile_plan_report(tps, hd):
+    """The bf16 backward's tile plans (one per side) as reported: fill,
+    items, streamed tiles, the segment length, split units, partial tiles
+    and the workspace they take per batch row at head dim ``hd`` (fp32
+    64 x hd tiles, two a partial for dK/dV), the longest item, the most
+    segments of a unit, and the streamed and own tiles with an empty slot
+    (part-filled)."""
+    import numpy as np
+    out = {}
+    for side, tp in tps.items():
+        g = tp.g
+        out[side] = {
+            "fill": tp.fill, "items": int(len(tp.items)),
+            "streamed_tiles": int(len(tp.tiles)), "segment": tp.segment,
+            "split_units": tp.n_split, "partials": tp.n_partials,
+            "workspace_bytes_per_batch_row": tp.n_partials * (
+                2 if side == "dkv" else 1) * 64 * hd * 4,
+            "longest_item": int(
+                tp.items[:, 3].max(initial=0)),
+            "max_segments": int(tp.items[:, 6].max(initial=1)),
+            "part_filled_streamed": int((tp.tiles[:, :g] < 0).any(1).sum()),
+            "part_filled_own": int(np.sum((tp.own[:, :g] < 0).any(1)
+                                          & (tp.own[:, 0] >= 0)))}
+    return out
 
 
 def sparse_kernel_phase(torch, sa, bs):
-    """Phase 27a: the three kernels against their plain versions at B 2
-    over :func:`sparse_check_cases`, fp32 and bf16: o and lse, then
-    dq, dk and dv given the plain forward's lse and dsum (fp32 <= 1e-4 abs
-    with TF32 off; bf16 o <= 2e-2 abs, lse <= 1e-3, gradients <= 2e-2 of
-    each output's max); lse +inf exactly where the plain one is; rows with
-    no live block and kv blocks no row attends exact zeros; and with inf
-    in every kv block a head does not attend, o and lse bit-identical."""
+    """Phase 27a: the three kernels against their plain versions over
+    :func:`sparse_check_cases`, fp32 and bf16: o and lse, then dq, dk and
+    dv given the plain forward's lse and dsum (fp32 <= 1e-4 abs with TF32
+    off; bf16 o <= 2e-2 abs, lse <= 1e-3, gradients <= 2e-2 of each
+    output's max); lse +inf exactly where the plain one is; rows with no
+    live block and kv blocks no row attends exact zeros; and with inf in
+    every block no kernel reads (k and v of the kv blocks a head does not
+    attend, q and dO of its rows with no live block, NaN in those rows'
+    lse and dsum), o, lse, dq, dk and dv bit-identical.  The bf16 cases
+    report the backward's tile plans (:func:`tile_plan_report`); some
+    case must have a list of 3 or more segments on each side, and
+    part-filled streamed and own tiles."""
     import numpy as np
     g = torch.Generator(device="cpu").manual_seed(27)
     errs = {n: 0.0 for n in SPARSE_KERNELS}
     rel = {n: 0.0 for n in SPARSE_KERNELS}
     poisoned = zero_rows = zero_cols = 0
-    B = SP_CHECK_B
+    reach = {"dq_segments": 0, "dkv_segments": 0, "part_streamed": 0,
+             "part_own": 0}
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
-        for label, cfg, S, causal, H, hd in sparse_check_cases(sa, np):
+        for label, cfg, S, causal, H, hd, B in sparse_check_cases(sa, np):
             lay = cfg if isinstance(cfg, np.ndarray) else cfg.make_layout(S)
             q, k = (torch.randn(B, S, H, hd, generator=g).to("cuda", dt)
                     for _ in range(2))
@@ -5004,26 +5097,100 @@ def sparse_kernel_phase(torch, sa, bs):
                          or bool(got[2][:, dead_c].any()))
             zero_rows += int(dead_r.sum()) * B
             zero_cols += int(dead_c.sum()) * B
-            # poison: inf in every kv block a head never reads
+            # poison: inf in every kv block a head never reads, in q and dO
+            # of its rows with no live block, NaN in those rows' lse, dsum
             k2, v2 = k.clone(), v.clone()
             k2[:, dead_c] = float("inf")
             v2[:, dead_c] = float("inf")
+            q2, do2 = q.clone(), do.clone()
+            q2[:, dead_r] = float("inf")
+            do2[:, dead_r] = float("inf")
+            rl2, dsum2 = rl.clone(), dsum.clone()
+            rl2.transpose(1, 2)[:, dead_r] = float("nan")
+            dsum2.transpose(1, 2)[:, dead_r] = float("nan")
             o2, lse2 = bs.block_sparse_attention_fwd_cuda(q, k2, v2, plan)
             same = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+            got2 = (bs.block_sparse_attention_dq_cuda(q2, k2, v2, do2, rl2,
+                                                      dsum2, plan),
+                    *bs.block_sparse_attention_dkv_cuda(q2, k2, v2, do2, rl2,
+                                                        dsum2, plan))
+            same_bwd = all(bool(torch.equal(a, b)) for a, b in zip(got,
+                                                                   got2))
             poisoned += int(dead_c.sum()) // block
             row.update(zeros_where_due=zeros, poisoned_blocks=int(
-                dead_c.sum()) // block, poisoned_o_lse_bit_identical=same,
+                dead_c.sum()) // block, poisoned_rows=int(dead_r.sum()),
+                poisoned_o_lse_bit_identical=same,
+                poisoned_grads_bit_identical=same_bwd,
                 tol=TOL[dt_name], tol_bwd=BWD_TOL[dt_name])
+            if dt_name == "bfloat16":
+                rep_ = tile_plan_report(plan.tile_plans(block), hd)
+                row["tile_plan"] = rep_
+                reach["dq_segments"] = max(reach["dq_segments"],
+                                           rep_["dq"]["max_segments"])
+                reach["dkv_segments"] = max(reach["dkv_segments"],
+                                            rep_["dkv"]["max_segments"])
+                for side in rep_.values():
+                    reach["part_streamed"] += side["part_filled_streamed"]
+                    reach["part_own"] += side["part_filled_own"]
             emit(row)
-            check(ok and zeros and same,
+            check(ok and zeros and same and same_bwd,
                   f"block-sparse kernels {label} {dt_name}: {row}")
             del q, k, v, do, o, ro, lse, rl, got, ref, k2, v2, o2, lse2
+            del q2, do2, rl2, dsum2, got2
     check(poisoned > 0 and zero_rows > 0 and zero_cols > 0,
           "block-sparse kernels: no case had empty rows, empty columns or "
           "blocks to poison")
+    check(min(reach["dq_segments"], reach["dkv_segments"]) >= 3
+          and reach["part_streamed"] > 0 and reach["part_own"] > 0,
+          f"block-sparse kernels: the cases did not reach a list of 3 "
+          f"segments on each side and part-filled tiles: {reach}")
     torch.cuda.empty_cache()
     return errs, rel, {"poisoned_blocks": poisoned, "zero_rows": zero_rows,
                        "zero_cols": zero_cols}
+
+
+def sparse_bwd_identity(torch, sa, bs):
+    """``block_sparse_bwd_identity``: the bf16 dQ and dK/dV kernels at S
+    8192, H 2, hd 96, causal, for the Fixed and BigBird path layouts (both
+    with split lists on the dK/dV side): dq, dk and dv bit-identical over
+    two launches, and batch row 0 bit-identical at B 1 and B 2 (row 1
+    other inputs)."""
+    g = torch.Generator(device="cpu").manual_seed(273)
+    S, H, hd = 8192, 2, SP_HD
+    report = {}
+    for label, cfg in (
+            ("fixed", sa.FixedSparsityConfig(
+                H, 16, num_local_blocks=4, num_global_blocks=1,
+                attention="unidirectional")),
+            ("bigbird", sa.BigBirdSparsityConfig(
+                H, 64, num_random_blocks=1, num_sliding_window_blocks=3,
+                num_global_blocks=1, attention="unidirectional"))):
+        plan = bs.BlockSparsePlan(cfg.make_layout(S), True, "cuda")
+        q, k, v, do = ((torch.rand(2, S, H, hd, generator=g) * 2 - 1)
+                       .to("cuda", torch.bfloat16) for _ in range(4))
+        o, lse = bs.block_sparse_attention_fwd_cuda(q, k, v, plan)
+        dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+        def grads(b):
+            args = [x[:b] for x in (q, k, v, do, lse, dsum)]
+            return (bs.block_sparse_attention_dq_cuda(*args, plan),
+                    *bs.block_sparse_attention_dkv_cuda(*args, plan))
+        one, again, two = grads(1), grads(1), grads(2)
+        torch.cuda.synchronize()
+        r = {"repeat_identical": all(bool(torch.equal(a, b))
+                                     for a, b in zip(one, again)),
+             "row0_b1_vs_b2_identical": all(bool(torch.equal(a[0], b[0]))
+                                            for a, b in zip(one, two)),
+             "split_units": {side: tp.n_split for side, tp in
+                             plan.tile_plans(cfg.block).items()}}
+        report[label] = r
+        del q, k, v, do, o, lse, dsum, one, again, two
+    emit({"check": "block_sparse_bwd_identity", "shape": [S, H, hd],
+          "dtype": "bfloat16", "causal": True, **report})
+    check(all(r["repeat_identical"] and r["row0_b1_vs_b2_identical"]
+              for r in report.values()),
+          f"block_sparse_bwd_identity: {report}")
+    return report
 
 
 def sparse_reference_phase(torch, sa):
@@ -5074,15 +5241,16 @@ def sparse_bound(bs, plan, B, S, H, hd, kind):
     pairs of the live blocks (a diagonal block half when causal) times 4
     (forward), 6 (dQ) or 8 (dK/dV) x hd flops at the bf16 peak, against
     its inputs read once and outputs written once (bf16 [B, S, H, hd]
-    tensors, fp32 [B, H, S] rows, the plan's int32 arrays)."""
+    tensors, fp32 [B, H, S] rows, the plan's int32 arrays: the forward's
+    idx, cnt and order; the bf16 backward's side of the tile plan)."""
     block = S // plan.n
     diag = block * (block + 1) // 2 if plan.causal else block * block
     pairs = B * ((plan.live - plan.live_diag) * block * block
                  + plan.live_diag * diag)
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
     x, rows = B * S * H * hd * 2, B * H * S * 4
-    side = ((plan.kv_idx, plan.kv_cnt, plan.q_order) if kind != "dkv"
-            else (plan.q_idx, plan.q_cnt, plan.k_order))
+    side = ((plan.kv_idx, plan.kv_cnt, plan.q_order) if kind == "fwd"
+            else plan.tile_plans(block)[kind].dev)
     plan_bytes = sum(t.numel() * 4 for t in side)
     bytes_ = {"fwd": 4 * x + rows, "dq": 5 * x + 2 * rows,
               "dkv": 6 * x + 2 * rows}[kind] + plan_bytes
@@ -5235,6 +5403,9 @@ def sparse_times(torch, F, sa, bs, fa, inputs):
             t[name]["work"] = (f"{label} layout, block {cfg.block}, B {B}, "
                                f"S {S}, H {H}, hd {hd}, bf16, causal, "
                                f"{plan.live} live blocks")
+        # the bf16 backward's tile plans: fill (live pairs over computed
+        # pairs) per side, items, splits, workspace
+        t["tile_plan"] = tile_plan_report(plan.tile_plans(cfg.block), hd)
         times[label] = t
         emit({"phase": "sparse_attention_times", "layout": label, **t})
         del o, lse, dsum, args, mask, ql, kl, vl
@@ -5258,10 +5429,11 @@ def sparse_times(torch, F, sa, bs, fa, inputs):
 
 
 def sparse_attention_phase(torch, F, fa):
-    """Phase 27: the block-sparse slice (27a kernels, 27b the reference's
-    check, 27c the main path, 27d times)."""
+    """Phase 27: the block-sparse slice (27a kernels and the backward's
+    identity, 27b the reference's check, 27c the main path, 27d times)."""
     sa, bs = sparse_modules()
     errs, rel, zeros = sparse_kernel_phase(torch, sa, bs)
+    identity = sparse_bwd_identity(torch, sa, bs)
     ref = sparse_reference_phase(torch, sa)
     inputs, runs = sparse_path_phase(torch, sa, bs)
     times, dense = sparse_times(torch, F, sa, bs, fa, inputs)
@@ -5273,7 +5445,8 @@ def sparse_attention_phase(torch, F, fa):
             kern = "block_sparse_attention_" + kern
             errs[kern] = max(errs[kern], r["vs_plain"][name]["max_abs_err"])
     return {"errs": errs, "rel": rel, "zeros": zeros, "reference": ref,
-            "runs": runs, "times": times, "dense_flash": dense}
+            "runs": runs, "times": times, "dense_flash": dense,
+            "identity": identity}
 
 
 #: what each variant row of the kernels line replaces, beside the TPU
@@ -5384,8 +5557,11 @@ def main():
           "ds_flash_fwd_sass": sass_counts(build, libs["ds_flash_fwd"]),
           "ds_flash_bwd_sass": sass_counts(build, libs["ds_flash_bwd"]),
           "grouped_gemm_hopper_sass": sass_counts(
-              build, libs["grouped_gemm_hopper"])})
+              build, libs["grouped_gemm_hopper"]),
+          "block_sparse_attention_sass": sass_counts(
+              build, libs["block_sparse_attention"])})
     grouped_hopper_build_checks(build, libs)
+    sparse_build_checks(build, libs)
     decode_build_checks(build)
 
     if only:
@@ -5708,6 +5884,7 @@ def main():
                 err_kind="fp32 abs / bf16 o abs, gradients rel_to_max")
             if name in sparse["rel"] and not name.endswith("fwd"):
                 kernels[-1]["max_rel_err_bf16"] = sparse["rel"][name]
+                kernels[-1]["identity"] = sparse["identity"]
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

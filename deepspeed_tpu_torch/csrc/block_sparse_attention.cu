@@ -20,45 +20,80 @@
 // block^2 x head_dim flops each over q, k, v, dO and o read once, well above
 // the ~295 flops per byte where the tensor cores become the limit for the
 // Fixed layout (block 16); BigBird at block 64 has ~4 live blocks a row and
-// is bound by bytes.  The design keeps every product on the tensor cores
-// and every score tile on chip, and is the simple, right version (wgmma,
-// TMA pipelines and a split of long lists across CTAs are later work):
-//   - one CTA of four warps owns 64 rows: the forward and dQ of 64 query
-//     rows, dK/dV of 64 key rows, as G = 64 / KW slots of KW = min(block,
-//     64) rows.  Block <= 64: slot g holds one whole block with its own
-//     list (block 16: four blocks, one a warp; 32: two, two warps each; 64:
-//     one).  Block 128: the CTA holds one half of a block and sweeps each
-//     listed block as two 64-row sub-tiles, so the score tile stays 64 x 64
-//     and shared memory stays under 120 KB.  The CTA walks its lists in
-//     rounds (round it: entry it / nsub of every slot), which takes the
-//     place of the TPU's sequential grid axis; each CTA owns its output
-//     rows, so there are no float atomics and the result is deterministic;
-//   - each side's blocks are taken in the plan's `order` (list length
-//     descending): a CTA's slots have lists of like length, so fewer warps
-//     idle, and the longest CTAs start first (the Fixed layout's global
-//     columns are attended by up to 1021 q blocks, most columns by ~4);
-//   - causal: a sub-tile whose every pair is masked is skipped; inside the
-//     diagonal block the masked scores are -inf with the row max guarded,
-//     which contributes exactly what the reference's -1e30 does (the plan is
-//     tril'd, so a row with a live block sees at least its own key);
-//   - bf16: the products through nvcuda::wmma (bf16 in, fp32 accumulate),
-//     the softmax and its gradient two lanes a row in fp32, P and dS back
-//     to shared memory in bf16 as the A operand; fp32: plain FMA, two
-//     threads a row each owning half the head dim, so fp32 results carry no
-//     TF32 rounding;
-//   - head_dim is a template parameter instantiated for 64, 96 and 128, the
-//     bf16 slot width for 16, 32 and 64; shared memory above 48 KB is opted
-//     into per launch.
+// is bound by bytes.  Only wgmma reaches the tensor cores' rate, and a
+// 16-row block is too small for one: a product must span several blocks.
+//
+// The bf16 dQ and dK/dV (namespace hbsa, bsa_bwd_bf16<HD, DKV>; entry
+// points bsa_dq_h / bsa_dkv_h) are persistent wgmma / TMA kernels on
+// csrc/hopper.cuh, built on what csrc/ds_flash_bwd.cu proved, over a tile
+// plan the host builds once per layout (ops/kernels/block_sparse_attention
+// .py TilePlan):
+//   - the plan works in sub-blocks of kw = min(block, 64) rows (a block of
+//     128 is 2 x 2 of them).  An own tile is up to 64 own rows, g = 64 / kw
+//     sub-blocks: contiguous q blocks for dQ, whose lists are nearly the
+//     same (the Fixed layout's global columns plus their window); key
+//     blocks of like list length for dK/dV (a window's global column would
+//     drag its local columns through ~1000 query blocks).  Its streamed
+//     tiles gather the sorted union of its members' lists g sub-blocks at a
+//     time, each (streamed tile, own tile) pair with a live word of its
+//     sub-block pairs and of the diagonal ones.  At the Fixed and BigBird
+//     path layouts 93-100 % of the computed pairs are live;
+//   - a CTA of three warpgroups per SM: warps 0 and 1 load by TMA, each for
+//     one consumer warpgroup, which walks its own work items (an own tile,
+//     or a segment of one) with its own ring: the own pair once per item,
+//     the streamed pair one box per gathered sub-block (an empty slot a box
+//     wholly past S: zeros, never a stale or unlisted row), with each
+//     tile's lse (log2 units) and dsum for dK/dV;
+//   - per streamed tile, as the flash backward: s (or s^T) and dP (dP^T) by
+//     SS wgmma, P and dS / sm_scale (or their transposes) from one FFMA and
+//     an exp2, then the mask by selects (a pair the plan does not list, and
+//     inside a diagonal pair the causal triangle, give exactly 0, whatever
+//     the scores held), packed in registers as the A operand of dQ += dS k,
+//     or dV += P^T dO and dK += dS^T q; the loop software-pipelined (not
+//     dK/dV at head dim 128, whose registers do not allow it); no wgmma sits
+//     in a data-dependent branch;
+//   - work items come longest first, handed out round robin (every other
+//     round mirrored) over the 2 x SMs consumers and each batch row; a list
+//     longer than the side's segment length (the plan's: at least 32
+//     streamed tiles, and 1 / 512 of the side's tiles, so the Fixed path
+//     layout's lists are not cut and BigBird's column 0 is) is cut at
+//     fixed positions into segments, each an item: each writes fp32
+//     partials to a workspace, and the last to arrive at the unit (an int
+//     counter, one acquire-release add, left 0) sums them in segment
+//     order and stores the rows.  No float atomics: dq, dk and dv are
+//     bit-identical from launch to launch, and a row's bits follow the
+//     layout and its own inputs only, not B, the SM count or which
+//     consumer merges;
+//   - head dims 64 and 128 stage in 64-column chunks with 128-byte swizzle,
+//     80 and 96 in 32-column chunks with 64-byte swizzle.
+//
+// The forward and the fp32 kernels keep the first design: one CTA of four
+// warps owns 64 rows as G = 64 / KW slots of KW = min(block, 64) rows (a
+// block of 128 as two halves, each listed block swept as two 64-row
+// sub-tiles), walking the slots' lists (the plan's idx / cnt, blocks taken
+// in the plan's `order`, longest list first) in rounds between two CTA
+// barriers; each CTA owns its output rows.  Causal: a sub-tile whose every
+// pair is masked is skipped; inside the diagonal block the masked scores
+// are -inf with the row max guarded, which contributes exactly what the
+// reference's -1e30 does.  bf16 forward: nvcuda::wmma products, the
+// softmax two lanes a row in fp32, P back to shared memory in bf16; fp32:
+// plain FMA, two threads a row each owning half the head dim, so fp32
+// results carry no TF32 rounding.  Head dims 64, 80, 96 and 128.
 //
 // q, k, v and dO may be strided [B, S, H, HD] views: the caller passes
 // batch, sequence and head strides in elements; the last dimension is
 // contiguous and every stride and base address is 16-byte aligned (checked
 // by the Python wrapper).  lse and dsum are contiguous [B, H, S] fp32.
 // Outputs are contiguous [B, S, H, HD] in the input dtype, lse [B, H, S].
+#include <atomic>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -215,29 +250,6 @@ __device__ __forceinline__ void load_row_vals(float* lseS, float* dsS,
   }
 }
 
-__device__ __forceinline__ void store_val(bf16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-__device__ __forceinline__ void store_val(float* p, float x) { *p = x; }
-
-// Own rows of an fp32 [TM][ld] stage, times mul, -> head h of a contiguous
-// [B, S, H, HD] output (slots past the last block dropped).
-template <typename T, int HD>
-__device__ __forceinline__ void write_slots(void* dst, const float* stage,
-                                            int ld, float mul, const Args& a,
-                                            int b, int h, const int* rows) {
-  T* out = static_cast<T*>(dst);
-  for (int i = threadIdx.x; i < TM * HD; i += kThreads) {
-    const int r = i / HD;
-    const int c = i - r * HD;
-    const int g = r / a.kw;
-    const int r0 = rows[g];
-    if (r0 < 0) continue;
-    store_val(out + (((size_t)b * a.S + r0 + r - g * a.kw) * a.H + h) * HD + c,
-              stage[r * ld + c] * mul);
-  }
-}
-
 // out[16][KW] (ld SLD) = A[16][HD] . B[KW][HD]^T, both dense (ld HD).
 template <int HD, int KW>
 __device__ __forceinline__ void mma_abt(float* out, const bf16* A,
@@ -367,214 +379,6 @@ __global__ void __launch_bounds__(kThreads) fwd_bf16(Args a) {
       a.lse_out[((size_t)b * a.H + h) * a.S + s_q] =
           l_i > 0.f ? m_i + logf(l_i) : INFINITY;
   }
-}
-
-template <int HD, int KW>
-__global__ void __launch_bounds__(kThreads) dq_bf16(Args a) {
-  const int b = blockIdx.y / a.H;
-  const int h = blockIdx.y - b * a.H;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);         // [TM][HD]
-  bf16* Os = Qs + TM * HD;                              // dO [TM][HD]
-  bf16* Ks = Os + TM * HD;                              // [TM][HD]
-  bf16* Vs = Ks + TM * HD;                              // [TM][HD]
-  float* Ss = reinterpret_cast<float*>(Vs + TM * HD);   // scores [TM][SLD]
-  float* Ds = Ss + TM * SLD;                            // dP [TM][SLD]
-  bf16* Gs = reinterpret_cast<bf16*>(Ds + TM * SLD);    // dS [TM][PLD]
-  __shared__ Slots sl;
-
-  setup_slots(sl, a, h);
-  __syncthreads();
-  const int rounds = rounds_of(sl, a);
-  load_slots<bf16, HD>(
-      Qs, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss,
-      sl.row, KW);
-  load_slots<bf16, HD>(
-      Os, static_cast<const bf16*>(a.dout) + b * a.o_sb + h * a.o_sh, a.o_ss,
-      sl.row, KW);
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh;
-
-  // this lane's query row (two lanes per row), half of the columns, slot
-  const int r = warp * 16 + (lane >> 1);
-  const int c0 = (lane & 1) * (KW / 2);
-  const int g = (warp * 16) / KW;
-  const int s_q = sl.row[g] + r - g * KW;
-  float lse_q = 0.f, dsum_q = 0.f;
-  if (sl.blk[g] >= 0) {
-    const size_t row = ((size_t)b * a.H + h) * a.S + s_q;
-    lse_q = a.lse[row];
-    dsum_q = a.dsum[row];
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq_acc[HD / 16];
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n) wmma::fill_fragment(dq_acc[n], 0.f);
-
-  for (int it = 0; it < rounds; ++it) {
-    set_cols(sl, a, h, it, false);
-    __syncthreads();
-    load_slots<bf16, HD>(Ks, kb, a.k_ss, sl.col[it & 1], KW);
-    load_slots<bf16, HD>(Vs, vb, a.v_ss, sl.col[it & 1], KW);
-    __syncthreads();
-    const int col0 = sl.col[it & 1][g];
-    if (col0 < 0) continue;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 query rows
-    mma_abt<HD, KW>(Ss + warp * 16 * SLD, Qs + warp * 16 * HD,
-                    Ks + g * KW * HD);
-    mma_abt<HD, KW>(Ds + warp * 16 * SLD, Os + warp * 16 * HD,
-                    Vs + g * KW * HD);
-    __syncwarp();
-    {
-      const float* srow = Ss + r * SLD;
-      const float* drow = Ds + r * SLD;
-      for (int c = c0; c < c0 + KW / 2; ++c) {
-        const float p = (!a.causal || col0 + c <= s_q)
-                            ? expf(srow[c] * a.sm_scale - lse_q) : 0.f;
-        Gs[r * PLD + c] = __float2bfloat16(p * (drow[c] - dsum_q));
-      }
-    }
-    __syncwarp();
-
-    // dQ += dS K for this warp's 16 query rows
-#pragma unroll
-    for (int kk = 0; kk < KW; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fg;
-      wmma::load_matrix_sync(fg, Gs + warp * 16 * PLD + kk, PLD);
-#pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, Ks + (g * KW + kk) * HD + n * 16, HD);
-        wmma::mma_sync(dq_acc[n], fg, fb, dq_acc[n]);
-      }
-    }
-  }
-
-  // epilogue: fragments -> fp32 stage (over the tiles) -> rows, x sm_scale
-  float* stage = reinterpret_cast<float*>(smem_raw);  // [TM][HD + 4]
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n)
-    wmma::store_matrix_sync(stage + warp * 16 * (HD + 4) + n * 16, dq_acc[n],
-                            HD + 4, wmma::mem_row_major);
-  __syncthreads();
-  write_slots<bf16, HD>(a.out0, stage, HD + 4, a.sm_scale, a, b, h, sl.row);
-}
-
-template <int HD, int KW>
-__global__ void __launch_bounds__(kThreads) dkv_bf16(Args a) {
-  const int b = blockIdx.y / a.H;
-  const int h = blockIdx.y - b * a.H;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);         // [TM][HD] own
-  bf16* Vs = Ks + TM * HD;                              // [TM][HD] own
-  bf16* Qs = Vs + TM * HD;                              // [TM][HD] round
-  bf16* Os = Qs + TM * HD;                              // dO [TM][HD] round
-  float* St = reinterpret_cast<float*>(Os + TM * HD);   // scores^T [TM][SLD]
-  float* Dt = St + TM * SLD;                            // dP^T [TM][SLD]
-  bf16* Pt = reinterpret_cast<bf16*>(Dt + TM * SLD);    // P^T [TM][PLD]
-  bf16* Gt = Pt + TM * PLD;                             // dS^T [TM][PLD]
-  float* lseS = reinterpret_cast<float*>(Gt + TM * PLD);  // [TM]
-  float* dsS = lseS + TM;                                 // [TM]
-  __shared__ Slots sl;
-
-  setup_slots(sl, a, h);
-  __syncthreads();
-  const int rounds = rounds_of(sl, a);
-  load_slots<bf16, HD>(
-      Ks, static_cast<const bf16*>(a.k) + b * a.k_sb + h * a.k_sh, a.k_ss,
-      sl.row, KW);
-  load_slots<bf16, HD>(
-      Vs, static_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh, a.v_ss,
-      sl.row, KW);
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* ob =
-      static_cast<const bf16*>(a.dout) + b * a.o_sb + h * a.o_sh;
-
-  // this lane's key row (two lanes per row), half of the columns, slot
-  const int r = warp * 16 + (lane >> 1);
-  const int c0 = (lane & 1) * (KW / 2);
-  const int g = (warp * 16) / KW;
-  const int s_k = sl.row[g] + r - g * KW;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[HD / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dv_acc[HD / 16];
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  for (int it = 0; it < rounds; ++it) {
-    set_cols(sl, a, h, it, true);
-    __syncthreads();  // rows visible, the previous round's Q / dO consumed
-    load_slots<bf16, HD>(Qs, qb, a.q_ss, sl.col[it & 1], KW);
-    load_slots<bf16, HD>(Os, ob, a.o_ss, sl.col[it & 1], KW);
-    load_row_vals(lseS, dsS, a, b, h, sl.col[it & 1]);
-    __syncthreads();
-    const int col0 = sl.col[it & 1][g];
-    if (col0 < 0) continue;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 key rows
-    mma_abt<HD, KW>(St + warp * 16 * SLD, Ks + warp * 16 * HD,
-                    Qs + g * KW * HD);
-    mma_abt<HD, KW>(Dt + warp * 16 * SLD, Vs + warp * 16 * HD,
-                    Os + g * KW * HD);
-    __syncwarp();
-    {
-      const float* srow = St + r * SLD;
-      const float* drow = Dt + r * SLD;
-      for (int c = c0; c < c0 + KW / 2; ++c) {
-        const int qc = g * KW + c;
-        const float p = (!a.causal || col0 + c >= s_k)
-                            ? expf(srow[c] * a.sm_scale - lseS[qc]) : 0.f;
-        Pt[r * PLD + c] = __float2bfloat16(p);
-        Gt[r * PLD + c] = __float2bfloat16(p * (drow[c] - dsS[qc]));
-      }
-    }
-    __syncwarp();
-
-    // dV += P^T dO and dK += dS^T Q for this warp's 16 key rows
-#pragma unroll
-    for (int kk = 0; kk < KW; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fg;
-      wmma::load_matrix_sync(fp, Pt + warp * 16 * PLD + kk, PLD);
-      wmma::load_matrix_sync(fg, Gt + warp * 16 * PLD + kk, PLD);
-#pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, Os + (g * KW + kk) * HD + n * 16, HD);
-        wmma::mma_sync(dv_acc[n], fp, fb, dv_acc[n]);
-        wmma::load_matrix_sync(fb, Qs + (g * KW + kk) * HD + n * 16, HD);
-        wmma::mma_sync(dk_acc[n], fg, fb, dk_acc[n]);
-      }
-    }
-  }
-
-  // epilogue: fragments -> fp32 stage (over the tiles) -> rows
-  float* stage = reinterpret_cast<float*>(smem_raw);  // [TM][HD + 4]
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n)
-    wmma::store_matrix_sync(stage + warp * 16 * (HD + 4) + n * 16, dv_acc[n],
-                            HD + 4, wmma::mem_row_major);
-  __syncthreads();
-  write_slots<bf16, HD>(a.out1, stage, HD + 4, 1.f, a, b, h, sl.row);
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n)
-    wmma::store_matrix_sync(stage + warp * 16 * (HD + 4) + n * 16, dk_acc[n],
-                            HD + 4, wmma::mem_row_major);
-  __syncthreads();
-  write_slots<bf16, HD>(a.out0, stage, HD + 4, a.sm_scale, a, b, h, sl.row);
 }
 
 // ------------------------------------------------------------------ fp32
@@ -833,6 +637,729 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(Args a) {
   }
 }
 
+// ------------------------------------------------- bf16 dQ and dK/dV (Hopper)
+// The persistent wgmma / TMA backward over a host-built tile plan
+// (ops/kernels/block_sparse_attention.py TilePlan).  A CTA of three
+// warpgroups per SM: warpgroup 0 gives up its registers and its warps 0
+// and 1 load by TMA, each for one consumer warpgroup; warpgroups 1 and 2
+// each walk their own work items with their own shared-memory region and
+// ring.  A work item is one segment of one own tile: up to 64 own rows
+// (g own sub-blocks of kw = min(block, 64) rows, resident for the item)
+// against the item's streamed tiles (each g gathered sub-blocks of the
+// own tile's list, 64 rows, one TMA box a sub-block; an empty slot loads a
+// box wholly past S, which lands as zeros).
+namespace hbsa {
+
+constexpr int kTile = 64;          // rows of an own tile and of a streamed one
+constexpr int kCtaThreads = 384;   // producer warpgroup + two consumer ones
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One consumer warpgroup's shared memory, in bytes from a 1024-aligned
+// base: the resident pair [chunk][kTile][CH] each, the streamed pair
+// [stage][chunk][kTile][CH] each (swizzled rows of CH columns), per stage
+// the streamed rows' lse in log2 units and dsum (dK/dV) and the tile's
+// live word, the merge's last-arrival flag, then the barriers.  Head dims
+// that are a multiple of 64 stage in 64-column chunks (128-byte swizzle),
+// 80 and 96 in 32-column chunks (64-byte swizzle), as csrc/ds_flash_bwd.cu.
+template <int HD>
+struct Smem {
+  static constexpr int CH = HD % 64 == 0 ? 64 : 32;
+  static constexpr int ROW = CH * 2;         // bytes: the swizzle span
+  static constexpr int SBO = 8 * ROW;        // 8-row group stride
+  static constexpr int NCH = (HD + CH - 1) / CH;
+  static constexpr int STAGES = HD == 128 ? 2 : 3;   // two regions fit
+  static constexpr int CHUNK = kTile * ROW;
+  static constexpr int TILE = NCH * CHUNK;   // one 64-row tile of a tensor
+  static constexpr int RES0 = 0;             // k, or q
+  static constexpr int RES1 = TILE;          // v, or dO
+  static constexpr int STR0 = 2 * TILE;      // q, or k [stage]
+  static constexpr int STR1 = STR0 + STAGES * TILE;    // dO, or v
+  static constexpr int LSE = STR1 + STAGES * TILE;     // f32 [stage][kTile]
+  static constexpr int DSUM = LSE + STAGES * kTile * 4;
+  static constexpr int WORD = DSUM + STAGES * kTile * 4;   // u32 [stage]
+  static constexpr int FLAG = WORD + STAGES * 4;           // int
+  static constexpr int BAR = (FLAG + 4 + 7) / 8 * 8;       // uint64
+  static constexpr int N_BARS = 2 + 3 * STAGES;
+  static constexpr int REGION = (BAR + N_BARS * 8 + 1023) / 1024 * 1024;
+  static constexpr int ALLOC = 2 * REGION + 1024;   // + base alignment
+};
+
+struct Params {
+  const float* lse;
+  const float* dsum;
+  const int* items;    // [n_items][8]: see Item
+  const int* own;      // [U][4]: own sub-blocks, -1 empty
+  const int* tiles;    // [T][8]: streamed sub-blocks (-1 empty), live word
+  float* ws;           // fp32 partials [B][n_partials]: see merge_split
+  int* counters;       // [B][n_split] arrivals, 0 between launches
+  bf16* out0;          // dQ, or dK
+  bf16* out1;          // dV (dK/dV only)
+  int S, H, B, kw, g;
+  int n_items, n_live;   // items, those with streamed tiles (the first)
+  int n_split, n_partials;
+  float scale_log2;    // sm_scale * log2(e)
+  float sm_scale;
+};
+
+// A work item: own tile, head, first streamed tile and count, split unit
+// (-1: none), segment, segments, first partial tile of the split unit.
+struct Item {
+  int own, head, first, count, split, seg, nseg, ws_base;
+};
+
+// Work item n of consumer c of C among `count` items (longest first),
+// each repeated for every batch row: round robin, every other round
+// mirrored; -> the item's index among them and its batch row, or -1 when
+// none is left.
+__device__ __forceinline__ int work_of(const Params& p, int n, int c, int C,
+                                       int count, int& b) {
+  const int wi = n * C + ((n & 1) ? C - 1 - c : c);
+  if (wi >= count * p.B) return -1;
+  const int i = wi / p.B;
+  b = wi - i * p.B;
+  return i;
+}
+
+__device__ __forceinline__ Item item_at(const Params& p, int i) {
+  const int4 x = *reinterpret_cast<const int4*>(p.items + 8 * i);
+  const int4 y = *reinterpret_cast<const int4*>(p.items + 8 * i + 4);
+  return {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+}
+
+__device__ __forceinline__ int slot_of(const int4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+struct Bars {
+  uint64_t* res_full;    // one arrival + bytes
+  uint64_t* res_empty;   // one arrival per consumer warp
+  uint64_t* s0_full;     // [STAGES]; 32 arrivals (the producer warp) + bytes
+  uint64_t* s1_full;     // [STAGES]; one arrival + bytes
+  uint64_t* empty;       // [STAGES]; one arrival per consumer warp
+};
+
+template <int HD>
+__device__ __forceinline__ Bars bars_of(unsigned char* rg) {
+  using L = Smem<HD>;
+  uint64_t* b = reinterpret_cast<uint64_t*>(rg + L::BAR);
+  return Bars{b, b + 1, b + 2, b + 2 + L::STAGES, b + 2 + 2 * L::STAGES};
+}
+
+// One gathered 64-row tile of one tensor: slot j's sub-block (row
+// blk * kw) of head `head`, batch b, by one box per chunk, slot j at row
+// j * kw of each chunk; an empty slot's box starts at row S, wholly past
+// the extent, and lands as zeros (its bytes count all the same).
+template <int HD>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, const int4& blk,
+                                          const Params& p, int head, int b) {
+  using L = Smem<HD>;
+  for (int j = 0; j < p.g; ++j) {
+    const int sb = slot_of(blk, j);
+    const int r = sb >= 0 ? sb * p.kw : p.S;
+#pragma unroll
+    for (int c = 0; c < L::NCH; ++c)
+      hopper::tma_load_4d(dst + c * L::CHUNK + j * p.kw * L::ROW, map, bar,
+                          c * L::CH, r, head, b);
+  }
+}
+
+// The producer warp of consumer c: per item with streamed tiles, the own
+// pair once (after the consumer has read the previous item's), then the
+// streamed tiles through the ring, whose position runs on across items.
+// For dK/dV the lanes stage each streamed tile's lse (log2 units; +inf in
+// an empty slot) and dsum; lane 0 its live word.  Each lane's arrival on
+// the stage's s0_full barrier releases these stores to the consumer.
+template <int HD, bool DKV>
+__device__ __forceinline__ void produce(const CUtensorMap* tr0,
+                                        const CUtensorMap* tr1,
+                                        const CUtensorMap* ts0,
+                                        const CUtensorMap* ts1,
+                                        const Params& p, unsigned char* rg,
+                                        const Bars& bar, int c, int C) {
+  using L = Smem<HD>;
+  const int lane = threadIdx.x & 31;
+  int it = 0;   // ring position
+  for (int n = 0;; ++n) {
+    int b = 0;
+    const int i = work_of(p, n, c, C, p.n_live, b);
+    if (i < 0) break;
+    const Item w = item_at(p, i);
+    const int4 own = *reinterpret_cast<const int4*>(p.own + 4 * w.own);
+    hopper::mbar_wait(bar.res_empty, (n & 1) ^ 1);
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(bar.res_full, 2 * L::TILE);
+      load_tile<HD>(rg + L::RES0, tr0, bar.res_full, own, p, w.head, b);
+      load_tile<HD>(rg + L::RES1, tr1, bar.res_full, own, p, w.head, b);
+    }
+    // the streamed tiles 32 at a time: lane i holds tile i's sub-blocks
+    // and live word, read once for the 32 (no load latency per tile); for
+    // dK/dV each lane's two rows' lse and dsum are read one tile ahead
+    for (int t0 = 0; t0 < w.count; t0 += 32) {
+      const int nt = min(32, w.count - t0);
+      int4 mine = make_int4(-1, -1, -1, -1);
+      int word_mine = 0;
+      if (lane < nt) {
+        const int* tile = p.tiles + 8 * (w.first + t0 + lane);
+        mine = *reinterpret_cast<const int4*>(tile);
+        word_mine = tile[4];
+      }
+      float lv[2], dv[2];
+      auto tile_of = [&](int t) {
+        return make_int4(__shfl_sync(0xffffffffu, mine.x, t),
+                         __shfl_sync(0xffffffffu, mine.y, t),
+                         __shfl_sync(0xffffffffu, mine.z, t),
+                         __shfl_sync(0xffffffffu, mine.w, t));
+      };
+      auto fetch = [&](const int4& blk) {   // rows lane and lane + 32
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = lane + 32 * e;
+          const int j = r >> (__ffs(p.kw) - 1);
+          const int sb = slot_of(blk, j);
+          lv[e] = INFINITY;
+          dv[e] = 0.f;
+          if (sb >= 0) {
+            const size_t row = ((size_t)b * p.H + w.head) * p.S +
+                               sb * p.kw + (r - j * p.kw);
+            lv[e] = p.lse[row] * kLog2e;
+            dv[e] = p.dsum[row];
+          }
+        }
+      };
+      int4 blk = tile_of(0);
+      if (DKV) fetch(blk);
+      for (int t = 0; t < nt; ++t, ++it) {
+        const int s = it % L::STAGES;
+        const uint32_t parity = ((it / L::STAGES) & 1) ^ 1;
+        const int word = __shfl_sync(0xffffffffu, word_mine, t);
+        hopper::mbar_wait(bar.empty + s, parity);
+        if (DKV) {
+          float* l2 = reinterpret_cast<float*>(rg + L::LSE) + s * kTile;
+          float* ds = reinterpret_cast<float*>(rg + L::DSUM) + s * kTile;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            l2[lane + 32 * e] = lv[e];
+            ds[lane + 32 * e] = dv[e];
+          }
+        }
+        if (lane == 0) {
+          reinterpret_cast<int*>(rg + L::WORD)[s] = word;
+          hopper::mbar_arrive_expect_tx(bar.s0_full + s, L::TILE);
+          load_tile<HD>(rg + L::STR0 + s * L::TILE, ts0, bar.s0_full + s,
+                        blk, p, w.head, b);
+          hopper::mbar_arrive_expect_tx(bar.s1_full + s, L::TILE);
+          load_tile<HD>(rg + L::STR1 + s * L::TILE, ts1, bar.s1_full + s,
+                        blk, p, w.head, b);
+        } else {
+          hopper::mbar_arrive(bar.s0_full + s);
+        }
+        if (t + 1 < nt) {
+          blk = tile_of(t + 1);
+          if (DKV) fetch(blk);
+        }
+      }
+    }
+  }
+}
+
+// the shared products (csrc/hopper.cuh) on this file's staging: own and
+// streamed tiles alike hold kTile rows a chunk
+template <int HD>
+__device__ __forceinline__ void issue_ss(float (&d)[kTile / 2], uint64_t da,
+                                         const unsigned char* b_tile) {
+  using L = Smem<HD>;
+  hopper::issue_ss<HD, L::CH, L::CHUNK, L::CHUNK>(d, da, b_tile);
+}
+
+template <int HD>
+__device__ __forceinline__ void issue_rs(float (&acc)[HD / 2],
+                                         const uint32_t (&a)[kTile / 16][4],
+                                         const unsigned char* b_tile) {
+  using L = Smem<HD>;
+  hopper::issue_rs<HD, L::CH, L::CHUNK>(acc, a, b_tile);
+}
+
+// P (sc) and dS / sm_scale (dp) of every pair the plan does not list set
+// to 0, and inside a diagonal pair the causally masked ones (dQ: keys
+// after the query, KEY_ROWS dK/dV: queries before the key), by selects, so
+// nothing from a masked pair (a zero-filled slot, a neighbour's block)
+// reaches a product.  The thread's fragment rows (row in its sub-block
+// rin and rin + 8) lie in own slot os; column group j (8 columns) in
+// streamed slot 8 j / kw.  `word`: the streamed tile's live word.
+template <bool KEY_ROWS>
+__device__ __forceinline__ void apply_mask(float (&sc)[kTile / 2],
+                                           float (&dp)[kTile / 2],
+                                           uint32_t word, int kw, int g,
+                                           int os, int rin, int cq) {
+  const uint32_t all = (1u << g) - 1;
+  const uint32_t live = (word >> (os * g)) & all;
+  const uint32_t diag = (word >> (16 + os * g)) & all;
+  if (live == all && diag == 0) return;   // the warp's rows: all live
+  const int sh = __ffs(kw) - 1;
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    const int slot = (8 * j) >> sh;
+    const bool lv = (live >> slot) & 1;
+    const bool dg = (diag >> slot) & 1;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cin = (8 * j + cq + e) & (kw - 1);
+      const bool m0 = KEY_ROWS ? cin < rin : cin > rin;
+      const bool m1 = KEY_ROWS ? cin < rin + 8 : cin > rin + 8;
+      if (!lv || (dg && m0)) sc[4 * j + e] = dp[4 * j + e] = 0.f;
+      if (!lv || (dg && m1)) sc[4 * j + 2 + e] = dp[4 * j + 2 + e] = 0.f;
+    }
+  }
+}
+
+// dK/dV's elementwise step on one streamed query tile, transposed: sc
+// holds s^T (rows: the own keys; columns: the tile's queries) and becomes
+// P^T = 2^(s c - lse2[query]); dp holds dP^T and becomes dS^T / sm_scale
+// = P^T (dP^T - dsum[query]); then the mask.
+template <int HD>
+__device__ __forceinline__ void grad_dkv(float (&sc)[kTile / 2],
+                                         float (&dp)[kTile / 2],
+                                         const Params& p,
+                                         const unsigned char* rg, int s,
+                                         int os, int rin, int cq) {
+  using L = Smem<HD>;
+  const float c = p.scale_log2;
+  const float* l2 =
+      reinterpret_cast<const float*>(rg + L::LSE) + s * kTile + cq;
+  const float* dl =
+      reinterpret_cast<const float*>(rg + L::DSUM) + s * kTile + cq;
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(l2 + 8 * j);
+    const float2 d = *reinterpret_cast<const float2*>(dl + 8 * j);
+    sc[4 * j] = hopper::ex2(fmaf(sc[4 * j], c, -l.x));
+    sc[4 * j + 1] = hopper::ex2(fmaf(sc[4 * j + 1], c, -l.y));
+    sc[4 * j + 2] = hopper::ex2(fmaf(sc[4 * j + 2], c, -l.x));
+    sc[4 * j + 3] = hopper::ex2(fmaf(sc[4 * j + 3], c, -l.y));
+    dp[4 * j] = sc[4 * j] * (dp[4 * j] - d.x);
+    dp[4 * j + 1] = sc[4 * j + 1] * (dp[4 * j + 1] - d.y);
+    dp[4 * j + 2] = sc[4 * j + 2] * (dp[4 * j + 2] - d.x);
+    dp[4 * j + 3] = sc[4 * j + 3] * (dp[4 * j + 3] - d.y);
+  }
+  apply_mask<true>(sc, dp, reinterpret_cast<const uint32_t*>(rg + L::WORD)[s],
+                   p.kw, p.g, os, rin, cq);
+}
+
+// dQ's elementwise step on one streamed key tile: sc holds s (rows: the own
+// queries, lse2 / dsum in registers; columns: the tile's keys) and becomes
+// P; dp becomes dS / sm_scale; then the mask.
+template <int HD>
+__device__ __forceinline__ void grad_dq(float (&sc)[kTile / 2],
+                                        float (&dp)[kTile / 2],
+                                        const Params& p,
+                                        const unsigned char* rg, int s,
+                                        const float (&l2)[2],
+                                        const float (&dl)[2], int os,
+                                        int rin, int cq) {
+  using L = Smem<HD>;
+  const float c = p.scale_log2;
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[4 * j + e] = hopper::ex2(fmaf(sc[4 * j + e], c, -l2[0]));
+      sc[4 * j + 2 + e] = hopper::ex2(fmaf(sc[4 * j + 2 + e], c, -l2[1]));
+      dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dl[0]);
+      dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * (dp[4 * j + 2 + e] - dl[1]);
+    }
+  }
+  apply_mask<false>(sc, dp,
+                    reinterpret_cast<const uint32_t*>(rg + L::WORD)[s], p.kw,
+                    p.g, os, rin, cq);
+}
+
+// A segment of a split unit writes its fp32 partials (NA accumulators) to
+// the workspace, four floats a thread at a time ([k / 4][thread][4], so a
+// warp's stores and loads are contiguous); the last of the unit's segments
+// to arrive (one acquire-release add on the unit's counter after the
+// warpgroup's barrier, as csrc/decode_attention.cu) reads them back into
+// acc summed in segment order and returns the counter to 0.  It reads its
+// own back too: summed from its registers in order, its running sum would
+// need registers beside acc, and they spill.  -> whether this warpgroup
+// stores the unit's rows.
+template <int HD, int NA>
+__device__ __forceinline__ bool merge_split(float (&acc)[NA][HD / 2],
+                                            const Params& p,
+                                            unsigned char* rg, const Item& w,
+                                            int b, int wg) {
+  using L = Smem<HD>;
+  constexpr int NP = NA * (HD / 2) * 128;   // floats of one partial
+  const int tid = threadIdx.x & 127;
+  float* base = p.ws + ((size_t)b * p.n_partials + w.ws_base) * NP + 4 * tid;
+  float* mine = base + (size_t)w.seg * NP;
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < HD / 2; i += 4)
+      *reinterpret_cast<float4*>(mine + (a * (HD / 2) + i) * 128) =
+          make_float4(acc[a][i], acc[a][i + 1], acc[a][i + 2], acc[a][i + 3]);
+  int* flag = reinterpret_cast<int*>(rg + L::FLAG);
+  int* counter = p.counters + (size_t)b * p.n_split + w.split;
+  hopper::named_bar_sync(1 + wg, 128);
+  if (tid == 0) *flag = hopper::atom_add_acq_rel(counter, 1) == w.nseg - 1;
+  hopper::named_bar_sync(1 + wg, 128);
+  if (!*flag) return false;
+  // the elements in NC chunks, so a chunk's loads in flight and acc fit
+  // the registers (dK/dV at head dim 128: 128 accumulators a thread)
+  constexpr int NE = NA * (HD / 2);
+  constexpr int NC = NE > 96 ? 4 : 1;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    for (int s = 0; s < w.nseg; ++s) {
+      const float* part = base + (size_t)s * NP;
+#pragma unroll
+      for (int k = c * (NE / NC); k < (c + 1) * (NE / NC); k += 4) {
+        const int a = k / (HD / 2), i = k % (HD / 2);
+        const float4 x =
+            __ldcg(reinterpret_cast<const float4*>(part + k * 128));
+        acc[a][i] = s == 0 ? x.x : acc[a][i] + x.x;
+        acc[a][i + 1] = s == 0 ? x.y : acc[a][i + 1] + x.y;
+        acc[a][i + 2] = s == 0 ? x.z : acc[a][i + 2] + x.z;
+        acc[a][i + 3] = s == 0 ? x.w : acc[a][i + 3] + x.w;
+      }
+    }
+  }
+  if (tid == 0) *counter = 0;
+  return true;
+}
+
+// The consumer's place in its 64 own rows: warp w's 16 rows lie in own
+// slot os = 16 w / kw; its fragment rows are rin and rin + 8 of that
+// sub-block.
+struct Place {
+  int os, rin, cq, lane;
+};
+
+__device__ __forceinline__ Place place_of(const Params& p) {
+  const int tid = threadIdx.x & 127;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);   // warp-uniform
+  const int lane = tid & 31;
+  return {(16 * warp) / p.kw, (16 * warp) % p.kw + (lane >> 2),
+          (lane & 3) * 2, lane};
+}
+
+// The software-pipelined walk of one item's streamed tiles, ring positions
+// it .. it + count - 1: tile i's score products (SS) are issued before
+// tile i - 1's accumulating ones (RS), so tile i's elementwise step runs
+// on the CUDA cores while those hold the tensor cores.  NA accumulators
+// (dQ: dq; dK/dV: dk, dv), fed by the packed A operands of ga (dS) and pa
+// (P, dK/dV only).  The resident pair is released after the last tile's
+// score products, each stage after its accumulating products.
+template <int HD, bool DKV>
+__device__ __forceinline__ void walk(float (&acc)[DKV ? 2 : 1][HD / 2],
+                                     const Params& p, unsigned char* rg,
+                                     const Bars& bar, int count, int it,
+                                     uint64_t da0, uint64_t da1,
+                                     const Place& pl, const float (&l2)[2],
+                                     const float (&dl)[2]) {
+  using L = Smem<HD>;
+  float sc[kTile / 2], dp[kTile / 2];
+  uint32_t pa[kTile / 16][4], ga[kTile / 16][4];
+  auto grad = [&](int s) {
+    if constexpr (DKV)
+      grad_dkv<HD>(sc, dp, p, rg, s, pl.os, pl.rin, pl.cq);
+    else
+      grad_dq<HD>(sc, dp, p, rg, s, l2, dl, pl.os, pl.rin, pl.cq);
+  };
+  auto scores = [&](int s, uint32_t ph) {
+    hopper::mbar_wait(bar.s0_full + s, ph);
+    hopper::wgmma_fence();
+    issue_ss<HD>(sc, da0, rg + L::STR0 + s * L::TILE);
+    hopper::mbar_wait(bar.s1_full + s, ph);
+    issue_ss<HD>(dp, da1, rg + L::STR1 + s * L::TILE);
+    hopper::wgmma_commit();
+  };
+  // dV += P^T dO (streamed stage STR1) and dK += dS^T q (STR0); dQ += dS k
+  auto accumulate = [&](int s) {
+    if constexpr (DKV) {
+      issue_rs<HD>(acc[1], pa, rg + L::STR1 + s * L::TILE);
+      issue_rs<HD>(acc[0], ga, rg + L::STR0 + s * L::TILE);
+    } else {
+      issue_rs<HD>(acc[0], ga, rg + L::STR0 + s * L::TILE);
+    }
+    hopper::wgmma_commit();
+  };
+  auto pack = [&]() {
+    if constexpr (DKV) hopper::pack_a(pa, sc);
+    hopper::pack_a(ga, dp);
+  };
+  constexpr bool kPipelined = !DKV || HD <= 96;
+  if constexpr (kPipelined) {
+    {   // tile 0's scores
+      const int s = it % L::STAGES;
+      scores(s, (it / L::STAGES) & 1);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      if (count == 1 && pl.lane == 0) hopper::mbar_arrive(bar.res_empty);
+      grad(s);
+      pack();
+    }
+    for (int i = 1; i < count; ++i) {
+      const int s = (it + i) % L::STAGES;
+      const int sp = (it + i - 1) % L::STAGES;
+      hopper::fence_regs(acc);
+      scores(s, ((it + i) / L::STAGES) & 1);
+      accumulate(sp);
+      hopper::wgmma_wait<1>();   // tile i's scores have landed
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      if (i == count - 1 && pl.lane == 0) hopper::mbar_arrive(bar.res_empty);
+      grad(s);
+      hopper::wgmma_wait<0>();   // tile i - 1's products have landed
+      hopper::fence_regs(acc);
+      if constexpr (DKV) hopper::fence_regs(pa);   // its A registers are
+      hopper::fence_regs(ga);                      // free only now
+      if (pl.lane == 0) hopper::mbar_arrive(bar.empty + sp);
+      pack();
+    }
+    {   // the last tile's products
+      const int sp = (it + count - 1) % L::STAGES;
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      accumulate(sp);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (pl.lane == 0) hopper::mbar_arrive(bar.empty + sp);
+    }
+  } else {
+    // dK/dV at head dim 128: dK and dV alone take 128 floats a thread, so
+    // each tile's products are waited for before the next tile's
+    for (int i = 0; i < count; ++i) {
+      const int s = (it + i) % L::STAGES;
+      scores(s, ((it + i) / L::STAGES) & 1);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      if (i == count - 1 && pl.lane == 0) hopper::mbar_arrive(bar.res_empty);
+      grad(s);
+      pack();
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      accumulate(s);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(ga);
+      if (pl.lane == 0) hopper::mbar_arrive(bar.empty + s);
+    }
+  }
+}
+
+// One consumer warpgroup's items: per item with streamed tiles, its own
+// rows against them (every such item walks at least one, so no wgmma sits
+// under a data-dependent branch), then the rows stored (sm_scale folded in
+// here: dQ and dK times sm_scale, dV as it is), or a split unit's segment
+// merged; then the own tiles with no list, as zeros.
+template <int HD, bool DKV>
+__device__ __forceinline__ void consume(const Params& p, unsigned char* rg,
+                                        const Bars& bar, int c, int C,
+                                        int wg) {
+  using L = Smem<HD>;
+  constexpr int NA = DKV ? 2 : 1;
+  const Place pl = place_of(p);
+  const uint32_t base = hopper::smem_u32(rg);
+  const uint64_t da0 = hopper::smem_desc(base + L::RES0, 16, L::SBO, L::ROW);
+  const uint64_t da1 = hopper::smem_desc(base + L::RES1, 16, L::SBO, L::ROW);
+  int it = 0;   // ring position
+  for (int n = 0;; ++n) {
+    int b = 0;
+    const int i = work_of(p, n, c, C, p.n_live, b);
+    if (i < 0) break;
+    int count, head, blk;
+    {
+      const Item w = item_at(p, i);
+      count = w.count;
+      head = w.head;
+      blk = slot_of(*reinterpret_cast<const int4*>(p.own + 4 * w.own),
+                    pl.os);
+    }
+    // dQ: the own query rows' lse (log2 units) and dsum
+    float l2[2] = {INFINITY, INFINITY}, dl[2] = {0.f, 0.f};
+    if (!DKV && blk >= 0) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const size_t row = ((size_t)b * p.H + head) * p.S + blk * p.kw +
+                           pl.rin + 8 * e;
+        l2[e] = p.lse[row] * kLog2e;
+        dl[e] = p.dsum[row];
+      }
+    }
+    float acc[NA][HD / 2];
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int k = 0; k < HD / 2; ++k) acc[a][k] = 0.f;
+    hopper::mbar_wait(bar.res_full, n & 1);
+    walk<HD, DKV>(acc, p, rg, bar, count, it, da0, da1, pl, l2, dl);
+    it += count;
+    const Item w = item_at(p, i);
+    if (w.split >= 0 && !merge_split<HD, NA>(acc, p, rg, w, b, wg)) continue;
+    if (blk >= 0) {
+      const int row0 = blk * p.kw + pl.rin;
+      hopper::store_rows<HD>(p.out0, acc[0], p.sm_scale, b, p.S, p.H, head,
+                             row0, pl.cq);
+      if (DKV)
+        hopper::store_rows<HD>(p.out1, acc[NA - 1], 1.f, b, p.S, p.H, head,
+                               row0, pl.cq);
+    }
+  }
+  float zero[HD / 2];
+#pragma unroll
+  for (int k = 0; k < HD / 2; ++k) zero[k] = 0.f;
+  for (int n = 0;; ++n) {
+    int b = 0;
+    const int i = work_of(p, n, c, C, p.n_items - p.n_live, b);
+    if (i < 0) break;
+    const Item w = item_at(p, p.n_live + i);
+    const int blk =
+        slot_of(*reinterpret_cast<const int4*>(p.own + 4 * w.own), pl.os);
+    if (blk >= 0) {
+      const int row0 = blk * p.kw + pl.rin;
+      hopper::store_rows<HD>(p.out0, zero, 1.f, b, p.S, p.H, w.head, row0,
+                             pl.cq);
+      if (DKV)
+        hopper::store_rows<HD>(p.out1, zero, 1.f, b, p.S, p.H, w.head,
+                               row0, pl.cq);
+    }
+  }
+}
+
+// A persistent grid, one CTA per SM: warpgroup 0 keeps 40 registers (its
+// warps 0 and 1 load), the two consumer warpgroups 232 each.  DKV: the dK
+// / dV kernel (own k / v, streamed q / dO), else dQ (own q / dO, streamed
+// k / v).  Maps: r0 / r1 the own pair, s0 / s1 the streamed pair.
+template <int HD, bool DKV>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+    bsa_bwd_bf16(const __grid_constant__ CUtensorMap tm_r0,
+                 const __grid_constant__ CUtensorMap tm_r1,
+                 const __grid_constant__ CUtensorMap tm_s0,
+                 const __grid_constant__ CUtensorMap tm_s1, const Params p) {
+  using L = Smem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w) {
+      const Bars bar = bars_of<HD>(sm + w * L::REGION);
+      hopper::mbar_init(bar.res_full, 1);
+      hopper::mbar_init(bar.res_empty, 4);
+      for (int s = 0; s < L::STAGES; ++s) {
+        hopper::mbar_init(bar.s0_full + s, 32);
+        hopper::mbar_init(bar.s1_full + s, 1);
+        hopper::mbar_init(bar.empty + s, 4);
+      }
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int C = 2 * gridDim.x;
+  if (threadIdx.x < 128) {   // producer warpgroup; warps 0 and 1 load
+    hopper::reg_dealloc<40>();
+    const int w = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+    if (w < 2) {
+      unsigned char* rg = sm + w * L::REGION;
+      produce<HD, DKV>(&tm_r0, &tm_r1, &tm_s0, &tm_s1, p, rg, bars_of<HD>(rg),
+                       2 * blockIdx.x + w, C);
+    }
+  } else {
+    hopper::reg_alloc<232>();
+    // the warpgroup's index, warp-uniform to the compiler: control flow
+    // that depends on a thread-divergent value around wgmma serialises it
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;
+    unsigned char* rg = sm + wg * L::REGION;
+    consume<HD, DKV>(p, rg, bars_of<HD>(rg), 2 * blockIdx.x + wg, C, wg);
+  }
+}
+
+// q, k, v, dO: strided [B, S, H, HD] views (strides: batch, seq, head in
+// elements, 4 tensors in that order); maps over them as they are, dims
+// {hd, S, H, B}, boxes of {CH, kw} (one sub-block of one chunk).
+template <int HD, bool DKV>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, const long long* st, Params p,
+                   cudaStream_t stream) {
+  using L = Smem<HD>;
+  CUtensorMap tq, tk, tv, tdo;
+  const uint64_t dims[4] = {HD, (uint64_t)p.S, (uint64_t)p.H, (uint64_t)p.B};
+  const long long qs[3] = {st[1], st[2], st[0]};
+  const long long ks[3] = {st[4], st[5], st[3]};
+  const long long vs[3] = {st[7], st[8], st[6]};
+  const long long os[3] = {st[10], st[11], st[9]};
+  const auto swz = L::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_64B;
+  const uint32_t box = (uint32_t)p.kw;
+  if (!hopper::make_map_bf16_4d(&tq, q, dims, qs, L::CH, box, swz) ||
+      !hopper::make_map_bf16_4d(&tk, k, dims, ks, L::CH, box, swz) ||
+      !hopper::make_map_bf16_4d(&tv, v, dims, vs, L::CH, box, swz) ||
+      !hopper::make_map_bf16_4d(&tdo, dout, dims, os, L::CH, box, swz))
+    return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> opted_in{0};
+  cudaError_t e = hopper::opt_in_smem(
+      reinterpret_cast<const void*>(bsa_bwd_bf16<HD, DKV>), L::ALLOC,
+      opted_in);
+  if (e != cudaSuccess) return e;
+  int n_sm = 0;
+  e = hopper::sm_count(&n_sm);
+  if (e != cudaSuccess) return e;
+  const int grid = min(n_sm, (p.n_items * p.B + 1) / 2);
+  bsa_bwd_bf16<HD, DKV><<<grid, kCtaThreads, L::ALLOC, stream>>>(
+      DKV ? tk : tq, DKV ? tv : tdo, DKV ? tq : tk, DKV ? tdo : tv, p);
+  return cudaGetLastError();
+}
+
+template <bool DKV>
+int run(const void* q, const void* k, const void* v, const void* dout,
+        const long long* st, const Params& p, int head_dim, void* stream) {
+  if (p.B < 1 || p.H < 1 || p.n_items < 1 || p.n_live > p.n_items ||
+      (p.kw != 16 && p.kw != 32 && p.kw != 64) || p.S % p.kw != 0 ||
+      (p.n_split > 0 && (p.ws == nullptr || p.counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64: return (int)launch<64, DKV>(q, k, v, dout, st, p, s);
+    case 80: return (int)launch<80, DKV>(q, k, v, dout, st, p, s);
+    case 96: return (int)launch<96, DKV>(q, k, v, dout, st, p, s);
+    case 128: return (int)launch<128, DKV>(q, k, v, dout, st, p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+Params params(const void* lse, const void* dsum, const void* items,
+              const void* own, const void* tiles, void* ws, void* counters,
+              int B, int S, int H, int kw, int n_items, int n_live,
+              int n_split, int n_partials, float sm_scale) {
+  Params p{};
+  p.lse = static_cast<const float*>(lse);
+  p.dsum = static_cast<const float*>(dsum);
+  p.items = static_cast<const int*>(items);
+  p.own = static_cast<const int*>(own);
+  p.tiles = static_cast<const int*>(tiles);
+  p.ws = static_cast<float*>(ws);
+  p.counters = static_cast<int*>(counters);
+  p.S = S;
+  p.H = H;
+  p.B = B;
+  p.kw = kw;
+  p.g = kw > 0 ? kTile / kw : 0;
+  p.n_items = n_items;
+  p.n_live = n_live;
+  p.n_split = n_split;
+  p.n_partials = n_partials;
+  p.scale_log2 = sm_scale * kLog2e;
+  p.sm_scale = sm_scale;
+  return p;
+}
+
+}  // namespace hbsa
+
 // ---------------------------------------------------------------- launch
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
@@ -847,26 +1374,14 @@ cudaError_t launch_with(K kernel, dim3 grid, size_t smem,
 }
 
 template <int HD, int KW>
-cudaError_t launch_bf16(Kind kind, const Args& a, dim3 grid,
-                        cudaStream_t st) {
+cudaError_t launch_fwd_bf16(const Args& a, dim3 grid, cudaStream_t st) {
   const size_t tile = (size_t)TM * HD * sizeof(bf16);
   const size_t scores = (size_t)TM * SLD * sizeof(float);
   const size_t probs = (size_t)TM * PLD * sizeof(bf16);
-  switch (kind) {
-    case kFwd:
-      return launch_with(fwd_bf16<HD, KW>, grid,
-                         3 * tile + probs + scores +
-                             (size_t)TM * (HD + 4) * sizeof(float),
-                         st, a);
-    case kDq:
-      return launch_with(dq_bf16<HD, KW>, grid, 4 * tile + 2 * scores + probs,
-                         st, a);
-    default:
-      return launch_with(dkv_bf16<HD, KW>, grid,
-                         4 * tile + 2 * scores + 2 * probs +
-                             2 * TM * sizeof(float),
-                         st, a);
-  }
+  return launch_with(fwd_bf16<HD, KW>, grid,
+                     3 * tile + probs + scores +
+                         (size_t)TM * (HD + 4) * sizeof(float),
+                     st, a);
 }
 
 template <int HD>
@@ -891,15 +1406,16 @@ cudaError_t launch(Kind kind, const Args& a, int B, int is_bf16,
                            4 * pad + 2 * TM * sizeof(float), st, a);
     }
   }
+  // the bf16 forward (bf16 dQ and dK/dV are bsa_dq_h and bsa_dkv_h)
   switch (a.kw) {
-    case 16: return launch_bf16<HD, 16>(kind, a, grid, st);
-    case 32: return launch_bf16<HD, 32>(kind, a, grid, st);
-    default: return launch_bf16<HD, 64>(kind, a, grid, st);
+    case 16: return launch_fwd_bf16<HD, 16>(a, grid, st);
+    case 32: return launch_fwd_bf16<HD, 32>(a, grid, st);
+    default: return launch_fwd_bf16<HD, 64>(a, grid, st);
   }
 }
 
 // strides: (batch, seq, head) element strides of q, k, v and (dQ, dK/dV)
-// dO in turn.
+// dO in turn; is_bf16 for the forward only (dQ and dK/dV here are fp32).
 int run(Kind kind, Args a, int B, int S, int H, int head_dim, int block,
         int max_list, const long long* st, int causal, float sm_scale,
         int is_bf16, void* stream) {
@@ -955,7 +1471,7 @@ extern "C" int bsa_dq(const void* q, const void* k, const void* v,
                       const void* idx, const void* cnt, const void* order,
                       void* dq, int B, int S, int H, int head_dim, int block,
                       int max_list, const long long* strides, int causal,
-                      float sm_scale, int is_bf16, void* stream) {
+                      float sm_scale, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -968,7 +1484,7 @@ extern "C" int bsa_dq(const void* q, const void* k, const void* v,
   a.order = static_cast<const int*>(order);
   a.out0 = dq;
   return run(kDq, a, B, S, H, head_dim, block, max_list, strides, causal,
-             sm_scale, is_bf16, stream);
+             sm_scale, 0, stream);
 }
 
 extern "C" int bsa_dkv(const void* q, const void* k, const void* v,
@@ -977,7 +1493,7 @@ extern "C" int bsa_dkv(const void* q, const void* k, const void* v,
                        const void* k_order, void* dk, void* dv, int B, int S,
                        int H, int head_dim, int block, int max_list,
                        const long long* strides, int causal, float sm_scale,
-                       int is_bf16, void* stream) {
+                       void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -991,5 +1507,42 @@ extern "C" int bsa_dkv(const void* q, const void* k, const void* v,
   a.out0 = dk;
   a.out1 = dv;
   return run(kDkv, a, B, S, H, head_dim, block, max_list, strides, causal,
-             sm_scale, is_bf16, stream);
+             sm_scale, 0, stream);
+}
+
+// bf16 dQ and dK/dV on the Hopper kernels, over one side's tile plan
+// (items [n_items][8], the first n_live with streamed tiles, own [U][4],
+// tiles [T][8] int32), with the fp32
+// workspace (B * n_partials partial tiles) and B * n_split counters (0,
+// left 0) that a split unit's segments merge through; kw = min(block, 64).
+// strides: (batch, seq, head) element strides of q, k, v and dO in turn.
+extern "C" int bsa_dq_h(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* dsum,
+                        const void* items, const void* own,
+                        const void* tiles, void* dq, void* ws,
+                        void* counters, int B, int S, int H, int head_dim,
+                        int kw, int n_items, int n_live, int n_split,
+                        int n_partials, const long long* strides,
+                        float sm_scale, void* stream) {
+  hbsa::Params p = hbsa::params(lse, dsum, items, own, tiles, ws, counters,
+                                B, S, H, kw, n_items, n_live, n_split,
+                                n_partials, sm_scale);
+  p.out0 = static_cast<__nv_bfloat16*>(dq);
+  return hbsa::run<false>(q, k, v, dout, strides, p, head_dim, stream);
+}
+
+extern "C" int bsa_dkv_h(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* dsum,
+                         const void* items, const void* own,
+                         const void* tiles, void* dk, void* dv, void* ws,
+                         void* counters, int B, int S, int H, int head_dim,
+                         int kw, int n_items, int n_live, int n_split,
+                         int n_partials, const long long* strides,
+                         float sm_scale, void* stream) {
+  hbsa::Params p = hbsa::params(lse, dsum, items, own, tiles, ws, counters,
+                                B, S, H, kw, n_items, n_live, n_split,
+                                n_partials, sm_scale);
+  p.out0 = static_cast<__nv_bfloat16*>(dk);
+  p.out1 = static_cast<__nv_bfloat16*>(dv);
+  return hbsa::run<true>(q, k, v, dout, strides, p, head_dim, stream);
 }

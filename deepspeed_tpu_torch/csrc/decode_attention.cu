@@ -62,6 +62,7 @@
 #include <type_traits>
 
 #include "gemm_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -128,15 +129,6 @@ __host__ __device__ inline Layout layout_of(int rep) {
   o.red = o.vs + G::C * 4;
   o.bytes = o.red + G::NW * rep * HD * 4;
   return o;
-}
-
-__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
-  int old;
-  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
-               : "=r"(old)
-               : "l"(p), "r"(v)
-               : "memory");
-  return old;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -463,7 +455,8 @@ decode_split_kernel(const T* __restrict__ q, const CT* __restrict__ k,
   __shared__ int s_last;
   __syncthreads();
   int* counter = counters + (size_t)b * KV + kvh;
-  if (t == 0) s_last = atom_add_acq_rel(counter, 1) == j_last - j_first;
+  if (t == 0)
+    s_last = hopper::atom_add_acq_rel(counter, 1) == j_last - j_first;
   __syncthreads();
   if (!s_last) return;
   // online over the chunks, their loads issued kMergeBatch at a time

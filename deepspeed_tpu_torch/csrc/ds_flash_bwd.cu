@@ -162,7 +162,6 @@ struct Smem {
   static constexpr int CH = HD % 64 == 0 ? 64 : 32;
   static constexpr int ROW = CH * 2;         // bytes: the swizzle span
   static constexpr int SBO = 8 * ROW;        // 8-row group stride
-  static constexpr int SLICES = CH / 16;     // k16 slices per chunk
   static constexpr int NCH = (HD + CH - 1) / CH;
   static constexpr int RES_CHUNK = kRows * ROW;
   static constexpr int STR_CHUNK = kTile * ROW;
@@ -363,77 +362,21 @@ __device__ __forceinline__ void produce(const CUtensorMap* tr0,
   }
 }
 
-// d[64 x kTile] = A[64 rows of a resident tile] B[streamed tile]^T, both
-// K-major, HD / 16 k-slices (no wgmma sits in a branch: a data-dependent
-// one makes the compiler serialise every wgmma of the kernel)
+// the shared products (csrc/hopper.cuh) on this file's staging: the
+// resident tile's chunks hold kRows rows, the streamed tile's kTile
 template <int HD>
 __device__ __forceinline__ void issue_ss(float (&d)[kTile / 2], uint64_t da,
                                          const unsigned char* b_tile) {
   using L = Smem<HD>;
-  const uint64_t db =
-      hopper::smem_desc(hopper::smem_u32(b_tile), 16, L::SBO, L::ROW);
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t off_a =
-        (kk / L::SLICES) * L::RES_CHUNK + (kk % L::SLICES) * 32;
-    const uint32_t off_b =
-        (kk / L::SLICES) * L::STR_CHUNK + (kk % L::SLICES) * 32;
-    hopper::wgmma_m64n64k16_ss(d, da + (off_a >> 4), db + (off_b >> 4),
-                               kk > 0);
-  }
+  hopper::issue_ss<HD, L::CH, L::RES_CHUNK, L::STR_CHUNK>(d, da, b_tile);
 }
 
-// acc[64 x HD] += A (registers, [64 x kTile]) B[streamed tile: kTile rows
-// x HD], B read MN-major, 16 rows a slice
 template <int HD>
 __device__ __forceinline__ void issue_rs(float (&acc)[HD / 2],
                                          const uint32_t (&a)[kTile / 16][4],
                                          const unsigned char* b_tile) {
   using L = Smem<HD>;
-  const uint64_t db = hopper::smem_desc(hopper::smem_u32(b_tile),
-                                        L::STR_CHUNK, L::SBO, L::ROW);
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk)
-    hopper::wgmma_m64k16_rs<HD>(acc, a[kk], db + ((kk * 16 * L::ROW) >> 4),
-                                1);
-}
-
-// a tile's fp32 fragment in bf16, laid out as wgmma's register A operand
-// (k16 slice kk)
-__device__ __forceinline__ void pack_a(uint32_t (&pa)[kTile / 16][4],
-                                       const float (&x)[kTile / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      pa[kk][r] = hopper::pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
-  }
-}
-
-// One thread's two fragment rows (row0 = 16 w + l / 4 of the warpgroup's
-// 64, and row0 + 8) of a [64 x HD] fp32 accumulator, times mul, into
-// head `head` of a contiguous [B, S, heads, HD] bf16 output; rows past S
-// dropped.
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* out,
-                                           const float (&acc)[HD / 2],
-                                           float mul, int b, int S,
-                                           int heads, int head, int row0,
-                                           int cq) {
-  if (row0 < S) {
-    bf16* o = out + (((size_t)b * S + row0) * heads + head) * HD + cq;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(o + 8 * j) =
-          hopper::pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
-  }
-  if (row0 + 8 < S) {
-    bf16* o = out + (((size_t)b * S + row0 + 8) * heads + head) * HD + cq;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(o + 8 * j) =
-          hopper::pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
-  }
+  hopper::issue_rs<HD, L::CH, L::STR_CHUNK>(acc, a, b_tile);
 }
 
 // dK/dV's elementwise step on one query tile, transposed: sc holds s^T
@@ -631,8 +574,8 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
       if (w.n_items == 1 && lane == 0) hopper::mbar_arrive(bar.res_empty);
       grad_dkv<HD>(sc, dp, p, sm, s, w.first * kTile, r_lo, key0, segk0,
                    segk1, cq);
-      pack_a(pa, sc);
-      pack_a(ga, dp);
+      hopper::pack_a(pa, sc);
+      hopper::pack_a(ga, dp);
     }
     for (int i = 1; i < w.n_items; ++i) {
       const int s = (it + i) % kStages;
@@ -663,8 +606,8 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
       hopper::fence_regs(pa);    // its A registers are free only now
       hopper::fence_regs(ga);
       if (lane == 0) hopper::mbar_arrive(bar.empty + sp);
-      pack_a(pa, sc);
-      pack_a(ga, dp);
+      hopper::pack_a(pa, sc);
+      hopper::pack_a(ga, dp);
     }
     {   // the last query tile's dV and dK
       const int sp = (it + w.n_items - 1) % kStages;
@@ -700,8 +643,8 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
       if (i == w.n_items - 1 && lane == 0)
         hopper::mbar_arrive(bar.res_empty);
       grad_dkv<HD>(sc, dp, p, sm, s, q0, r_lo, key0, segk0, segk1, cq);
-      pack_a(pa, sc);
-      pack_a(ga, dp);
+      hopper::pack_a(pa, sc);
+      hopper::pack_a(ga, dp);
       hopper::fence_regs(dv);
       hopper::fence_regs(dk);
       hopper::wgmma_fence();
@@ -717,8 +660,9 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
       if (lane == 0) hopper::mbar_arrive(bar.empty + s);
     }
   }
-  store_rows<HD>(p.out0, dk, p.sm_scale, w.b, p.S, p.KV, w.oh, key0, cq);
-  store_rows<HD>(p.out1, dv, 1.f, w.b, p.S, p.KV, w.oh, key0, cq);
+  hopper::store_rows<HD>(p.out0, dk, p.sm_scale, w.b, p.S, p.KV, w.oh, key0,
+                         cq);
+  hopper::store_rows<HD>(p.out1, dv, 1.f, w.b, p.S, p.KV, w.oh, key0, cq);
 }
 
 // One dQ output tile for one consumer warpgroup: its 64 queries against
@@ -773,7 +717,7 @@ __device__ __forceinline__ void consume_dq(const Params& p, unsigned char* sm,
     hopper::fence_regs(dp);
     if (w.n_items == 1 && lane == 0) hopper::mbar_arrive(bar.res_empty);
     grad_dq<HD>(sc, dp, p, sm, s, 0, r_lo, row0, l2, dl, segq, cq);
-    pack_a(ga, dp);
+    hopper::pack_a(ga, dp);
   }
   for (int i = 1; i < w.n_items; ++i) {
     const int s = (it + i) % kStages;
@@ -798,7 +742,7 @@ __device__ __forceinline__ void consume_dq(const Params& p, unsigned char* sm,
     hopper::fence_regs(dq);
     hopper::fence_regs(ga);    // its A registers are free only now
     if (lane == 0) hopper::mbar_arrive(bar.empty + sp);
-    pack_a(ga, dp);
+    hopper::pack_a(ga, dp);
   }
   {   // the last key tile's dQ product
     const int sp = (it + w.n_items - 1) % kStages;
@@ -810,7 +754,8 @@ __device__ __forceinline__ void consume_dq(const Params& p, unsigned char* sm,
     hopper::fence_regs(dq);
     if (lane == 0) hopper::mbar_arrive(bar.empty + sp);
   }
-  store_rows<HD>(p.out0, dq, p.sm_scale, w.b, p.S, p.H, w.oh, row0, cq);
+  hopper::store_rows<HD>(p.out0, dq, p.sm_scale, w.b, p.S, p.H, w.oh, row0,
+                         cq);
 }
 
 template <int HD, bool DKV>

@@ -5,8 +5,9 @@
 // register hand-off between warpgroups (setmaxnreg) and the wgmma
 // instructions themselves (bf16 in, fp32 accumulate).  Raw PTX, written
 // from the PTX ISA's descriptions of these instructions; used by
-// csrc/ds_flash_fwd.cu, csrc/ds_flash_bwd.cu and
-// csrc/grouped_gemm_hopper.cu.
+// csrc/ds_flash_fwd.cu, csrc/ds_flash_bwd.cu,
+// csrc/grouped_gemm_hopper.cu and csrc/block_sparse_attention.cu, and (its
+// acquire-release add only) by csrc/decode_attention.cu.
 //
 // Layout convention (what smem_desc's users assume): a bf16 operand tile
 // is staged by TMA in chunks of W columns (W * 2 bytes = the swizzle span:
@@ -23,6 +24,7 @@
 //     output dim one chunk apart (LBO), and a k16 slice is 16 rows.
 #pragma once
 #include <cuda.h>   // CUtensorMap and its enums (types only; no libcuda link)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -448,6 +450,94 @@ __device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2],
   } else {
     HOPPER_WGMMA_RS(128, 64, 64, 65, 66, 67, 68, 69);
   }
+}
+
+// ---------------------------------------- attention backward products
+// A consumer warpgroup's products against one 64-row streamed tile, head
+// dim HD staged in CH-column chunks (CH * 2-byte swizzled rows, as above);
+// shared by csrc/ds_flash_bwd.cu and csrc/block_sparse_attention.cu.
+
+// d[64 x 64] = A[64 resident rows] B[64 streamed rows]^T, both K-major,
+// HD / 16 k-slices, A's chunks A_CHUNK bytes apart and B's B_CHUNK (no
+// wgmma may sit in a data-dependent branch: ptxas then serialises every
+// wgmma of the kernel, C7520)
+template <int HD, int CH, int A_CHUNK, int B_CHUNK>
+__device__ __forceinline__ void issue_ss(float (&d)[32], uint64_t da,
+                                         const unsigned char* b_tile) {
+  constexpr int ROW = CH * 2, SLICES = CH / 16;
+  const uint64_t db = smem_desc(smem_u32(b_tile), 16, 8 * ROW, ROW);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off_a = (kk / SLICES) * A_CHUNK + (kk % SLICES) * 32;
+    const uint32_t off_b = (kk / SLICES) * B_CHUNK + (kk % SLICES) * 32;
+    wgmma_m64n64k16_ss(d, da + (off_a >> 4), db + (off_b >> 4), kk > 0);
+  }
+}
+
+// acc[64 x HD] += A (registers, [64 x 64]) B[streamed tile: 64 rows x HD],
+// B read MN-major, 16 rows a slice, its chunks B_CHUNK bytes apart
+template <int HD, int CH, int B_CHUNK>
+__device__ __forceinline__ void issue_rs(float (&acc)[HD / 2],
+                                         const uint32_t (&a)[4][4],
+                                         const unsigned char* b_tile) {
+  constexpr int ROW = CH * 2;
+  const uint64_t db = smem_desc(smem_u32(b_tile), B_CHUNK, 8 * ROW, ROW);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64k16_rs<HD>(acc, a[kk], db + ((kk * 16 * ROW) >> 4), 1);
+}
+
+// a [64 x 64] tile's fp32 fragment in bf16, laid out as wgmma's register
+// A operand (k16 slice kk)
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[4][4],
+                                       const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+  }
+}
+
+// One thread's two fragment rows (row0 = 16 w + l / 4 of the warpgroup's
+// 64, and row0 + 8) of a [64 x HD] fp32 accumulator, times mul, into
+// head `head` of a contiguous [B, S, heads, HD] bf16 output; rows past S
+// dropped.
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&acc)[HD / 2],
+                                           float mul, int b, int S,
+                                           int heads, int head, int row0,
+                                           int cq) {
+  if (row0 < S) {
+    __nv_bfloat16* o =
+        out + (((size_t)b * S + row0) * heads + head) * HD + cq;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(o + 8 * j) =
+          pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+  }
+  if (row0 + 8 < S) {
+    __nv_bfloat16* o =
+        out + (((size_t)b * S + row0 + 8) * heads + head) * HD + cq;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(o + 8 * j) =
+          pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  }
+}
+
+// ------------------------------------------------------ split merges
+// *p += v at gpu scope with acquire-release order -> the old value: a
+// split's pieces each write their partial, then add one to the counter;
+// the one that reads (count - 1) saw every other piece's writes
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
 }
 
 }  // namespace hopper

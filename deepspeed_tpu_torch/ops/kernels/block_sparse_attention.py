@@ -21,8 +21,12 @@ The plan is config, not data: :class:`BlockSparsePlan` builds it once on
 the host (vectorised numpy, the reference's arrays exactly) and keeps its
 int32 tensors on the device, so a call copies nothing to the card and
 waits on nothing.  Beside the reference's arrays it holds each side's
-blocks ordered by list length (longest first), which the kernels use to
-group blocks of like work into one CTA and to start the longest first.
+blocks ordered by list length (longest first), which the forward and the
+fp32 kernels use to group blocks of like work into one CTA and to start
+the longest first, and per block size the bf16 dQ and dK/dV kernels'
+tile plans (:class:`TilePlan`: own tiles of 64 rows, streamed tiles of
+gathered listed blocks with their live pairs, work items longest first,
+long lists cut into segments merged in a fixed order).
 
 The plain versions walk the same plan: each head's live (q-block,
 kv-block) pairs are gathered, the diagonal block masked causally, the
@@ -88,12 +92,171 @@ def _live_pairs(idx: np.ndarray, cnt: np.ndarray, h: int):
     return np.nonzero(live)[0], idx[h][live]
 
 
+# ---------------------------------------------------------------- tile plans
+#: rows of an own tile and of a streamed tile of the bf16 backward kernels
+TILE_ROWS = 64
+#: the shortest segment a list is cut into, in streamed tiles: a unit with
+#: a longer list than a side's segment length (:func:`segment_tiles`) is
+#: cut into segments at fixed list positions, each writes fp32 partials,
+#: and the last to arrive sums them in segment order (so the cut, and the
+#: bits, follow the layout alone)
+SEGMENT_TILES = 32
+#: a list is cut only where it is longer than 1 / SPLIT_SHARE of its
+#: side's streamed tiles: half the share of one of the 264 consumer
+#: warpgroups of a 132-SM H100 at B 1, under which the longest-first order
+#: evens the consumers out and a split only adds its partials' traffic
+#: (a constant, not the card's count, so that the cut follows the layout)
+SPLIT_SHARE = 512
+
+
+def segment_tiles(n_tiles: int) -> int:
+    """A side's segment length for ``n_tiles`` streamed tiles in all."""
+    return max(SEGMENT_TILES, -(-n_tiles // SPLIT_SHARE))
+
+
+def sub_layout(lay: np.ndarray, block: int, causal: bool) -> np.ndarray:
+    """A tril'd (when causal) bool [H, n, n] block layout at ``block`` as
+    the layout of its sub-blocks of ``min(block, 64)`` rows: each block of
+    128 as 2 x 2 sub-blocks, tril'd again when causal (the diagonal
+    block's upper sub-block is fully masked); smaller blocks as they
+    are."""
+    if block <= TILE_ROWS:
+        return lay
+    f = block // TILE_ROWS
+    out = np.kron(lay, np.ones((1, f, f), bool))
+    return np.tril(out) if causal else out
+
+
+class TilePlan:
+    """One side of the bf16 backward kernels' tile plan: what each work
+    item's consumer warpgroup computes, as int32 arrays.
+
+    A side's rows are its own blocks (q blocks for dQ, kv blocks for dK /
+    dV) and its lists the blocks each attends or is attended by, all in
+    sub-blocks of ``kw = min(block, 64)`` rows (:func:`sub_layout`), ``g =
+    64 // kw`` to a 64-row tile.
+
+    - ``own`` [U, 4]: own tiles, each up to g own sub-blocks (-1: an empty
+      slot, staged as zeros).  Per head, the sub-blocks with a list are
+      taken g at a time in row order (dQ: contiguous q blocks, whose lists
+      are nearly the same) or by list length, longest first (dK/dV: like
+      lists together); those with none after them, in tiles of their own.
+    - ``tiles`` [T, 8]: streamed tiles, the sorted union of an own tile's
+      lists cut g sub-blocks at a time (-1 past its end), then the live
+      word: bit ``o * g + s`` when own slot o and streamed slot s are a
+      live pair, bit ``16 + o * g + s`` when that pair is on the diagonal
+      and causal (masked inside).  An own tile's streamed tiles are
+      consecutive.
+    - ``items`` [I, 8]: (own tile, head, its first streamed tile, how
+      many, split unit or -1, segment, segments, first partial tile of
+      the split unit), longest first (stable); the first ``n_live`` walk
+      streamed tiles.  An own tile with more than ``segment`` streamed
+      tiles (:func:`segment_tiles` of the side's) is cut into segments at
+      fixed positions; an own tile with no list is one item of no
+      streamed tile (it writes zeros).
+    - ``n_split`` split units and ``n_partials`` partial tiles for one
+      batch row: the workspace and counters a launch takes.
+    - ``live_pairs`` (== the layout's live sub-block pairs, each covered
+      once), ``computed_pairs`` (streamed tiles x g x g) and ``fill``.
+    - ``dev``: (items, own, tiles) as int32 tensors on ``device``.
+
+    Built from the layout alone: not from B, S beyond the layout, or the
+    card."""
+
+    def __init__(self, lay: np.ndarray, causal: bool, kw: int,
+                 by_length: bool, device="cpu"):
+        g = TILE_ROWS // kw
+        self.kw, self.g = kw, g
+        cnt = lay.sum(-1)                                   # [H, n]
+        own, own_head = _own_tiles(cnt, g, by_length)
+        # the union of each own tile's lists: [U, n]
+        valid = own[:, :g] >= 0
+        rows = lay[own_head[:, None], np.maximum(own[:, :g], 0)]  # [U,g,n]
+        rows &= valid[..., None]
+        union = rows.any(1)
+        tile_of, col = np.nonzero(union)                    # sorted by tile
+        length = union.sum(1)
+        n_str = (length + g - 1) // g                       # per own tile
+        first = np.cumsum(n_str) - n_str
+        pos = np.arange(len(col)) - (np.cumsum(length) - length)[tile_of]
+        sid = first[tile_of] + pos // g
+        slot = pos % g
+        T = int(n_str.sum())
+        tiles = np.zeros((T, 8), np.int64)
+        tiles[:, :4] = -1
+        tiles[sid, slot] = col
+        # live and diagonal bits of each entry against each own slot
+        live = rows[tile_of, :, col]                        # [E, g]
+        bit = np.arange(g)[None, :] * g + slot[:, None]
+        word = (live.astype(np.int64) << bit).sum(1)
+        if causal:
+            diag = live & (own[tile_of, :g] == col[:, None])
+            word += (diag.astype(np.int64) << (bit + 16)).sum(1)
+        np.add.at(tiles[:, 4], sid, word)
+        self.live_pairs = int(lay.sum())
+        self.computed_pairs = T * g * g
+        self.fill = self.live_pairs / max(self.computed_pairs, 1)
+        self.segment = segment_tiles(T)
+        self.items, self.n_split, self.n_partials = _items(
+            own_head, first, n_str, self.segment)
+        self.n_live = int((self.items[:, 3] > 0).sum())
+        self.own = own.astype(np.int32)
+        self.tiles = tiles.astype(np.int32)
+        self.dev = tuple(torch.from_numpy(a).to(device)
+                         for a in (self.items, self.own, self.tiles))
+
+
+def _own_tiles(cnt: np.ndarray, g: int, by_length: bool):
+    """Own tiles of g row blocks each: per head the rows with a list, in
+    row order or by length (longest first, stable), then the rows with
+    none -> (own [U, 4] with -1 in empty slots, own_head [U])."""
+    H, n = cnt.shape
+    h = np.repeat(np.arange(H), n)
+    r = np.tile(np.arange(n), H)
+    c = cnt.reshape(-1)
+    dead = (c == 0).astype(np.int64)
+    keys = (r, -c if by_length else np.zeros_like(c), dead, h)
+    idx = np.lexsort(keys)
+    grp = (h * 2 + dead)[idx]                  # (head, no list): sorted
+    size = np.bincount(grp, minlength=2 * H)
+    pos = np.arange(len(idx)) - (np.cumsum(size) - size)[grp]
+    per = (size + g - 1) // g
+    tile = (np.cumsum(per) - per)[grp] + pos // g
+    own = np.full((int(per.sum()), 4), -1, np.int64)
+    own[tile, pos % g] = r[idx]
+    return own, np.repeat(np.arange(2 * H) // 2, per)
+
+
+def _items(own_head, first, n_str, segment):
+    """Work items of the own tiles, a list of more than ``segment``
+    streamed tiles cut into the fewest near-equal segments of at most that
+    many, longest first -> (items [I, 8], n_split, n_partials)."""
+    nseg = np.maximum((n_str + segment - 1) // segment, 1)
+    step = (n_str + nseg - 1) // nseg          # near-equal segments
+    u = np.repeat(np.arange(len(n_str)), nseg)
+    seg = np.arange(len(u)) - (np.cumsum(nseg) - nseg)[u]
+    start = seg * step[u]
+    count = np.minimum(n_str[u] - start, step[u])
+    is_split = nseg > 1
+    split_id = np.where(is_split, np.cumsum(is_split) - 1, -1)
+    ws_base = np.cumsum(np.where(is_split, nseg, 0)) - np.where(
+        is_split, nseg, 0)
+    items = np.stack([u, own_head[u], first[u] + start, count,
+                      split_id[u], seg, nseg[u],
+                      np.where(is_split, ws_base, 0)[u]], axis=1)
+    items = items[np.argsort(-count, kind="stable")]
+    return (items.astype(np.int32), int(is_split.sum()),
+            int(nseg[is_split].sum()))
+
+
 class BlockSparsePlan:
     """A layout's forward plan (``_plan``) and transposed plan
     (``_plan_transpose``) as int32 tensors on ``device``, with each side's
     block order (list length descending, stable) for the kernels.
     Counts for the bounds: ``live`` live blocks over all heads and
-    ``live_diag`` of them on the diagonal (half-masked when causal)."""
+    ``live_diag`` of them on the diagonal (half-masked when causal).  The
+    bf16 backward kernels' tile plans (:meth:`tile_plans`) are built at
+    their first use."""
 
     def __init__(self, layout, causal: bool, device="cpu"):
         layout = np.asarray(layout)
@@ -125,6 +288,20 @@ class BlockSparsePlan:
         self.q_order = dev(order(self.kv_cnt_np))
         self.k_order = dev(order(self.q_cnt_np))
         self._pairs = {}
+        self._lay = lay
+        self._tiles = {}
+
+    def tile_plans(self, block: int):
+        """The bf16 backward kernels' tile plans at ``block`` on the plan's
+        device: {"dq": TilePlan, "dkv": TilePlan}, built once per block."""
+        if block not in self._tiles:
+            lay = sub_layout(self._lay, block, self.causal)
+            kw = min(block, TILE_ROWS)
+            self._tiles[block] = {
+                "dq": TilePlan(lay, self.causal, kw, False, self.device),
+                "dkv": TilePlan(lay.transpose(0, 2, 1), self.causal, kw,
+                                True, self.device)}
+        return self._tiles[block]
 
     def pairs(self, device, transposed: bool):
         """Per head, the live pairs as int64 tensors on ``device``: (q
@@ -316,18 +493,31 @@ def _check_rows(lse, dsum, B, H, S, q):
     return rows
 
 
-def _lib():
-    lib = build.load("block_sparse_attention")
-    if lib.bsa_fwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        st = ctypes.POINTER(ctypes.c_longlong)
-        tail = [i, i, i, i, i, i, st, i, ctypes.c_float, i, p]
-        lib.bsa_fwd.argtypes = [p] * 8 + tail
-        lib.bsa_dq.argtypes = [p] * 10 + tail
-        lib.bsa_dkv.argtypes = [p] * 11 + tail
-        for fn in (lib.bsa_fwd, lib.bsa_dq, lib.bsa_dkv):
-            fn.restype = ctypes.c_int
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_OLD_TAIL = [_I] * 6 + [_STRIDES, _I, ctypes.c_float]
+_NEW_TAIL = [_I] * 9 + [_STRIDES, ctypes.c_float]
+#: each C entry point's argument types, the stream after them
+_ARGTYPES = {"bsa_fwd": [_P] * 8 + _OLD_TAIL + [_I],
+             "bsa_dq": [_P] * 10 + _OLD_TAIL,
+             "bsa_dkv": [_P] * 11 + _OLD_TAIL,
+             "bsa_dq_h": [_P] * 12 + _NEW_TAIL,
+             "bsa_dkv_h": [_P] * 13 + _NEW_TAIL}
+_entries = {}
+
+
+def _launch(name, device, *args):
+    """Launch entry point ``name`` of ``csrc/block_sparse_attention.cu`` on
+    ``device``'s current stream with ``args`` (its C arguments but the
+    stream); returns its ``cudaError_t``."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(build.load("block_sparse_attention"), name)
+        fn.argtypes = _ARGTYPES[name] + [_P]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def _strides(*ts):
@@ -335,11 +525,30 @@ def _strides(*ts):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _tail(B, S, H, hd, block, max_list, strides, plan, sm_scale, q):
-    scale = hd ** -0.5 if sm_scale is None else sm_scale
+def _scale(hd, sm_scale):
+    return float(hd ** -0.5 if sm_scale is None else sm_scale)
+
+
+def _tail(B, S, H, hd, block, max_list, strides, plan, sm_scale):
     return (B, S, H, hd, block, max_list, strides, int(plan.causal),
-            float(scale), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _scale(hd, sm_scale))
+
+
+def _hopper_args(tp, B, S, H, hd, q, side):
+    """The bf16 kernels' plan, workspace and integer arguments for one
+    side's tile plan: (items, own, tiles, ws, counters) pointers, then B, S,
+    H, hd, kw, n_items, n_live, n_split, n_partials.  The workspace holds B x
+    n_partials fp32 partial tiles (64 x hd each, twice for dK/dV), the
+    counters B x n_split ints (``build.scratch``: 0, and each launch leaves
+    them 0)."""
+    per = (2 if side == "dkv" else 1) * TILE_ROWS * hd
+    ws, counters = build.scratch(q.device, B * tp.n_partials * per,
+                                 B * tp.n_split)
+    items, own, tiles = tp.dev
+    return ((items.data_ptr(), own.data_ptr(), tiles.data_ptr(),
+             ws.data_ptr(), counters.data_ptr()),
+            (B, S, H, hd, tp.kw, len(tp.items), tp.n_live, tp.n_split,
+             tp.n_partials))
 
 
 def block_sparse_attention_fwd_cuda(q, k, v, plan, sm_scale=None,
@@ -351,13 +560,13 @@ def block_sparse_attention_fwd_cuda(q, k, v, plan, sm_scale=None,
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    with torch.cuda.device(q.device):
-        rc = _lib().bsa_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if lse is None else lse.data_ptr(), plan.kv_idx.data_ptr(),
-            plan.kv_cnt.data_ptr(), plan.q_order.data_ptr(),
-            *_tail(B, S, H, hd, block, plan.max_active, _strides(q, k, v),
-                   plan, sm_scale, q))
+    rc = _launch(
+        "bsa_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), None if lse is None else lse.data_ptr(),
+        plan.kv_idx.data_ptr(), plan.kv_cnt.data_ptr(),
+        plan.q_order.data_ptr(),
+        *_tail(B, S, H, hd, block, plan.max_active, _strides(q, k, v), plan,
+               sm_scale), int(q.dtype == torch.bfloat16))
     build.check(rc, "bsa_fwd")
     block_sparse_attention_fwd.launches += 1
     return o, lse
@@ -365,18 +574,29 @@ def block_sparse_attention_fwd_cuda(q, k, v, plan, sm_scale=None,
 
 def block_sparse_attention_dq_cuda(q, k, v, do, lse, dsum, plan,
                                    sm_scale=None):
-    """Launch the dQ kernel -> dq [B, S, H, hd] in the input dtype."""
+    """Launch the dQ kernel -> dq [B, S, H, hd] in the input dtype: bf16
+    on the Hopper kernel over the plan's dQ tile plan (``bsa_dq_h``), fp32
+    on the FMA kernel over the forward plan (``bsa_dq``)."""
     B, S, H, hd, block = _check_cuda(q, k, v, plan, (("dO", do),))
     lse, dsum = _check_rows(lse, dsum, B, H, S, q)
     dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _lib().bsa_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), plan.kv_idx.data_ptr(),
-            plan.kv_cnt.data_ptr(), plan.q_order.data_ptr(), dq.data_ptr(),
-            *_tail(B, S, H, hd, block, plan.max_active,
-                   _strides(q, k, v, do), plan, sm_scale, q))
-    build.check(rc, "bsa_dq")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr())
+    strides = _strides(q, k, v, do)
+    if q.dtype == torch.bfloat16:
+        (items, own, tiles, ws, counters), ints = _hopper_args(
+            plan.tile_plans(block)["dq"], B, S, H, hd, q, "dq")
+        rc = _launch("bsa_dq_h", q.device, *ptrs, items, own, tiles,
+                     dq.data_ptr(), ws, counters, *ints, strides,
+                     _scale(hd, sm_scale))
+        build.check(rc, "bsa_dq_h")
+    else:
+        rc = _launch("bsa_dq", q.device, *ptrs, plan.kv_idx.data_ptr(),
+                     plan.kv_cnt.data_ptr(), plan.q_order.data_ptr(),
+                     dq.data_ptr(),
+                     *_tail(B, S, H, hd, block, plan.max_active, strides,
+                            plan, sm_scale))
+        build.check(rc, "bsa_dq")
     block_sparse_attention_dq.launches += 1
     return dq
 
@@ -384,20 +604,30 @@ def block_sparse_attention_dq_cuda(q, k, v, do, lse, dsum, plan,
 def block_sparse_attention_dkv_cuda(q, k, v, do, lse, dsum, plan,
                                     sm_scale=None):
     """Launch the dK/dV kernel -> (dk, dv) [B, S, H, hd] in the input
-    dtype."""
+    dtype: bf16 on the Hopper kernel over the plan's dK/dV tile plan
+    (``bsa_dkv_h``), fp32 on the FMA kernel over the transposed plan
+    (``bsa_dkv``)."""
     B, S, H, hd, block = _check_cuda(q, k, v, plan, (("dO", do),))
     lse, dsum = _check_rows(lse, dsum, B, H, S, q)
     dk = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    with torch.cuda.device(q.device):
-        rc = _lib().bsa_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), plan.q_idx.data_ptr(),
-            plan.q_cnt.data_ptr(), plan.k_order.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(),
-            *_tail(B, S, H, hd, block, plan.max_q, _strides(q, k, v, do),
-                   plan, sm_scale, q))
-    build.check(rc, "bsa_dkv")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr())
+    strides = _strides(q, k, v, do)
+    if q.dtype == torch.bfloat16:
+        (items, own, tiles, ws, counters), ints = _hopper_args(
+            plan.tile_plans(block)["dkv"], B, S, H, hd, q, "dkv")
+        rc = _launch("bsa_dkv_h", q.device, *ptrs, items, own, tiles,
+                     dk.data_ptr(), dv.data_ptr(), ws, counters, *ints,
+                     strides, _scale(hd, sm_scale))
+        build.check(rc, "bsa_dkv_h")
+    else:
+        rc = _launch("bsa_dkv", q.device, *ptrs, plan.q_idx.data_ptr(),
+                     plan.q_cnt.data_ptr(), plan.k_order.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(),
+                     *_tail(B, S, H, hd, block, plan.max_q, strides, plan,
+                            sm_scale))
+        build.check(rc, "bsa_dkv")
     block_sparse_attention_dkv.launches += 1
     return dk, dv
 

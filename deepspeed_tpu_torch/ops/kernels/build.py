@@ -79,10 +79,19 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), time.monotonic())
-    errors = []
-    for n, (tmp, p, t0) in procs.items():
+
+    def finish(n, p, t0):   # each source's own end, its pipe read as due
         log, _ = p.communicate()
         build_log[n] = {"seconds": time.monotonic() - t0, "log": log}
+    waits = [threading.Thread(target=finish, args=(n, p, t0))
+             for n, (_, p, t0) in procs.items()]
+    for t in waits:
+        t.start()
+    for t in waits:
+        t.join()
+    errors = []
+    for n, (tmp, p, _) in procs.items():
+        log = build_log[n]["log"]
         if p.returncode != 0:
             errors.append(f"--- {n}.cu (exit {p.returncode})\n{log}")
             tmp.unlink(missing_ok=True)
