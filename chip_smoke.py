@@ -25,7 +25,9 @@ Phases (any failed check exits non-zero before the final line):
      (cuobjdump); each Hopper grouped-GEMM kernel instance must hold
      HGMMA, UTMALDG and UTMASTG, with 0 spill bytes and no ptxas C75xx
      (serialised wgmma) warning; every decode kernel instance's registers,
-     with 0 spill bytes;
+     with 0 spill bytes; each block-sparse Hopper instance (forward and
+     backward) HGMMA and UTMALDG, 0 spill bytes, no C7520, its ptxas
+     lines printed;
   2. kernels at the serving path's shapes: max |kernel - plain| within the
      stated tolerance (the flash forward at every head dim, 64 / 80 / 96 /
      128: S 16, 129, 1024, segment ids, fused-QKV views, GQA rep 4 at hd
@@ -236,11 +238,13 @@ Phases (any failed check exits non-zero before the final line):
      off; bf16 o <= 2e-2 abs, lse <= 1e-3, gradients <= 2e-2 of each
      output's max; empty rows and columns exact zeros; inf in every kv
      block a head never reads, and in q and dO of its rows with no live
-     block, leaves o, lse, dq, dk and dv bit-identical); at S 8192 lists
-     of 3 or more segments on both sides of the bf16 backward's tile plan
-     and, at S 1040, part-filled gathered tiles; block_sparse_bwd_identity
-     (the bf16 dq, dk, dv bit-identical over two launches and batch row 0
-     at B 1 vs B 2, Fixed and BigBird); the
+     block, leaves o, lse, dq, dk and dv bit-identical; the forward
+     without lse, o bit-identical); at S 8192 lists of 3 or more
+     segments on both sides of the bf16 kernels' tile plan and, at S
+     1040, part-filled gathered tiles; block_sparse_fwd_identity (the
+     bf16 o and lse) and block_sparse_bwd_identity (dq, dk, dv), each
+     bit-identical over two launches and batch row 0 at B 1 vs B 2,
+     Fixed and BigBird, split lists included; the
      reference's own check, sparse_self_attention impl "pallas" against
      "dense" at S 1024, block 128, bf16 (gradient deltas <= 0.02); then
      SparseSelfAttention forward + backward at B 1, S 16384, H 16, hd 96,
@@ -249,8 +253,8 @@ Phases (any failed check exits non-zero before the final line):
      each kernel an iteration, and one iteration against the plain
      versions on the card (no launch); each kernel timed at that shape
      beside its plain version, its bound and SDPA with the layout as a
-     boolean mask, the backward's tile plans (fill per side), and the
-     dense causal flash kernels for context.
+     boolean mask, the tile plans (fill per side), and the dense causal
+     flash kernels for context.
 Earlier lines are JSON objects; the line before the last two is the
 ``kernels`` object, then the nvidia-smi line, and the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
@@ -390,35 +394,47 @@ def grouped_hopper_build_checks(build, libs):
           f"grouped_gemm_hopper: spills {spills} or serialised wgmma {c75}")
 
 
+#: the block-sparse Hopper kernels' names (4 forward and 8 backward
+#: instances: head dims 64 / 80 / 96 / 128, x dQ and dK/dV)
+SPARSE_HOPPER = ("bsa_fwd_bf16", "bsa_bwd_bf16")
+
+
 def sparse_build_checks(build, libs):
-    """The block-sparse bf16 backward kernels (``bsa_bwd_bf16``, head dims
-    64 / 80 / 96 / 128 x dQ, dK/dV) as built: wgmma (HGMMA) and TMA loads
-    (UTMALDG) in each instance's SASS, and, where this process built the
-    source, 0 spill bytes and no ptxas C7520 warning (every wgmma
-    serialised; the C7519 note of an injected warpgroup.arrive, which the
-    flash kernels carry too, is counted).  Returns the SASS counts by
-    instance."""
+    """The block-sparse bf16 kernels (``bsa_fwd_bf16`` and
+    ``bsa_bwd_bf16``, head dims 64 / 80 / 96 / 128, the backward x dQ,
+    dK/dV) as built: wgmma (HGMMA) and TMA loads (UTMALDG) in each
+    instance's SASS, and, where this process built the source, 0 spill
+    bytes and no ptxas C7520 warning (every wgmma serialised; the C7519
+    note of an injected warpgroup.arrive, which the flash kernels carry
+    too, is counted), with each instance's ptxas lines (registers, spills)
+    printed.  Returns the SASS counts by instance."""
     funcs = sass_by_function(build, libs["block_sparse_attention"],
                              ops=("HGMMA", "UTMALDG"))
-    hop = {n: c for n, c in funcs.items() if "bsa_bwd_bf16" in n}
+    hop = {n: c for n, c in funcs.items()
+           if any(k in n for k in SPARSE_HOPPER)}
     log = build.build_log.get("block_sparse_attention", {}).get("log")
-    spills, c75, c7519, name = [], [], 0, None
+    spills, c75, c7519, name, ptxas = [], [], 0, None, {}
     for ln in (log or "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = m.group(1) if "bsa_bwd_bf16" in m.group(1) else None
-        elif name and any(int(n) for n in re.findall(
-                r"(\d+) bytes spill (?:stores|loads)", ln)):
-            spills.append(f"{name}: {ln.strip()}")
-        if "bsa_bwd_bf16" in ln:
+            name = m.group(1) if any(k in m.group(1)
+                                     for k in SPARSE_HOPPER) else None
+        elif name and ("spill" in ln or "Used" in ln):
+            ptxas.setdefault(name, []).append(ln.strip())
+            if any(int(n) for n in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", ln)):
+                spills.append(f"{name}: {ln.strip()}")
+        if any(k in ln for k in SPARSE_HOPPER):
             if "C7520" in ln:
                 c75.append(ln.strip())
             c7519 += "C7519" in ln
     emit({"check": "block_sparse_attention_build", "sass_by_kernel": hop,
-          "spill_lines": spills, "c7520_warnings": c75,
-          "c7519_notes": c7519, "ptxas_read": log is not None})
-    check(len(hop) == 8 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
-                                for c in hop.values()),
+          "ptxas_by_kernel": ptxas, "spill_lines": spills,
+          "c7520_warnings": c75, "c7519_notes": c7519,
+          "ptxas_read": log is not None})
+    check(len(hop) == 12 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                 for c in hop.values())
+          and sum("bsa_fwd_bf16" in n for n in hop) == 4,
           f"block_sparse_attention: wgmma / TMA missing from SASS {hop}")
     check(not spills and not c75,
           f"block_sparse_attention: spills {spills} or serialised wgmma "
@@ -4929,7 +4945,7 @@ def sparse_check_cases(sa, np):
     blocks than it has slots); every layout class, a per-head layout and
     one with empty rows and columns; blocks 16, 32, 64 and 128, head dims
     64, 80, 96 and 128 (80 at every block size), causal and bidirectional.
-    Then, for the bf16 backward's tile plans: three cases at S 8192, B 1
+    Then, for the bf16 kernels' tile plans: three cases at S 8192, B 1
     whose longest lists span 3 or more segments (Fixed and BigBird: the
     dK/dV side; dense: both sides), and one at S 1040 (65 blocks of 16)
     whose gathered streamed and own tiles end part-filled."""
@@ -4992,22 +5008,27 @@ def sparse_check_cases(sa, np):
 
 
 def tile_plan_report(tps, hd):
-    """The bf16 backward's tile plans (one per side) as reported: fill,
-    items, streamed tiles, the segment length, split units, partial tiles
-    and the workspace they take per batch row at head dim ``hd`` (fp32
-    64 x hd tiles, two a partial for dK/dV), the longest item, the most
-    segments of a unit, and the streamed and own tiles with an empty slot
-    (part-filled)."""
+    """The bf16 kernels' tile plans (one per side; the forward and dQ walk
+    the "dq" side) as reported: fill, items, streamed tiles, the segment
+    length, split units, partial tiles and the workspace they take per
+    batch row at head dim ``hd`` (each kernel's fp32 partials, ``
+    partial_floats``: dQ's 64 x hd, the forward's o and row values, two
+    64 x hd for dK/dV), the longest item, the most segments of a unit,
+    and the streamed and own tiles with an empty slot (part-filled)."""
     import numpy as np
+    from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import \
+        partial_floats
     out = {}
     for side, tp in tps.items():
         g = tp.g
+        kernels = ("fwd", "dq") if side == "dq" else ("dkv",)
         out[side] = {
             "fill": tp.fill, "items": int(len(tp.items)),
             "streamed_tiles": int(len(tp.tiles)), "segment": tp.segment,
             "split_units": tp.n_split, "partials": tp.n_partials,
-            "workspace_bytes_per_batch_row": tp.n_partials * (
-                2 if side == "dkv" else 1) * 64 * hd * 4,
+            "workspace_bytes_per_batch_row": {
+                k: tp.n_partials * partial_floats(k, hd) * 4
+                for k in kernels},
             "longest_item": int(
                 tp.items[:, 3].max(initial=0)),
             "max_segments": int(tp.items[:, 6].max(initial=1)),
@@ -5027,7 +5048,7 @@ def sparse_kernel_phase(torch, sa, bs):
     every block no kernel reads (k and v of the kv blocks a head does not
     attend, q and dO of its rows with no live block, NaN in those rows'
     lse and dsum), o, lse, dq, dk and dv bit-identical.  The bf16 cases
-    report the backward's tile plans (:func:`tile_plan_report`); some
+    report the tile plans (:func:`tile_plan_report`); some
     case must have a list of 3 or more segments on each side, and
     part-filled streamed and own tiles."""
     import numpy as np
@@ -5048,6 +5069,8 @@ def sparse_kernel_phase(torch, sa, bs):
             plan = bs.BlockSparsePlan(lay, causal, "cuda")
             block = S // plan.n
             o, lse = bs.block_sparse_attention_fwd_cuda(q, k, v, plan)
+            o_nl, lse_nl = bs.block_sparse_attention_fwd_cuda(
+                q, k, v, plan, with_lse=False)
             ro, rl = bs.block_sparse_attention_fwd_plain(q, k, v, plan)
             dsum = (do.float() * ro.float()).sum(-1).transpose(1, 2) \
                 .contiguous()
@@ -5066,14 +5089,17 @@ def sparse_kernel_phase(torch, sa, bs):
                 else 0.0
             inf_same = bool(torch.equal(torch.isinf(lse), ~fin)
                             and (lse[~fin] > 0).all())
+            # the inference path: no lse written, o bit-identical
+            no_lse_same = lse_nl is None and bool(torch.equal(o, o_nl))
             row = {"check": "block_sparse_kernels", "case": label,
                    "dtype": dt_name, "shape": [B, S, H, hd],
                    "block": block, "causal": causal,
                    "live_blocks": plan.live, "max_active": plan.max_active,
                    "max_q": plan.max_q, "max_abs_err_o": e_o,
-                   "max_abs_err_lse": e_l, "lse_inf_where_plain": inf_same}
+                   "max_abs_err_lse": e_l, "lse_inf_where_plain": inf_same,
+                   "o_without_lse_bit_identical": no_lse_same}
             ok = e_o <= TOL[dt_name]["o"] and e_l <= TOL[dt_name]["lse"] \
-                and inf_same
+                and inf_same and no_lse_same
             errs["block_sparse_attention_fwd"] = max(
                 errs["block_sparse_attention_fwd"], e_o)
             for name, a, b in zip(("dq", "dk", "dv"), got, ref):
@@ -5135,7 +5161,7 @@ def sparse_kernel_phase(torch, sa, bs):
             emit(row)
             check(ok and zeros and same and same_bwd,
                   f"block-sparse kernels {label} {dt_name}: {row}")
-            del q, k, v, do, o, ro, lse, rl, got, ref, k2, v2, o2, lse2
+            del q, k, v, do, o, ro, lse, rl, got, ref, k2, v2, o2, lse2, o_nl
             del q2, do2, rl2, dsum2, got2
     check(poisoned > 0 and zero_rows > 0 and zero_cols > 0,
           "block-sparse kernels: no case had empty rows, empty columns or "
@@ -5149,6 +5175,55 @@ def sparse_kernel_phase(torch, sa, bs):
                        "zero_cols": zero_cols}
 
 
+def sparse_identity_configs(sa, H):
+    """The path's two layouts at H heads (S 8192 cuts 6 of the Fixed dQ
+    side's lists and 2 of BigBird's dK/dV side's)."""
+    return (("fixed", sa.FixedSparsityConfig(
+                H, 16, num_local_blocks=4, num_global_blocks=1,
+                attention="unidirectional")),
+            ("bigbird", sa.BigBirdSparsityConfig(
+                H, 64, num_random_blocks=1, num_sliding_window_blocks=3,
+                num_global_blocks=1, attention="unidirectional")))
+
+
+def sparse_fwd_identity(torch, sa, bs):
+    """``block_sparse_fwd_identity``: the bf16 forward at S 8192, H 2, hd
+    96, causal, for the Fixed and BigBird path layouts (the Fixed one
+    with split dQ-side lists): o and lse bit-identical over two launches,
+    and batch row 0 bit-identical at B 1 and B 2 (row 1 other inputs)."""
+    g = torch.Generator(device="cpu").manual_seed(274)
+    S, H, hd = 8192, 2, SP_HD
+    report = {}
+    for label, cfg in sparse_identity_configs(sa, H):
+        plan = bs.BlockSparsePlan(cfg.make_layout(S), True, "cuda")
+        q, k = (torch.randn(2, S, H, hd, generator=g).to("cuda",
+                                                         torch.bfloat16)
+                for _ in range(2))
+        v = (torch.rand(2, S, H, hd, generator=g) * 2 - 1).to(
+            "cuda", torch.bfloat16)
+
+        def fwd(b):
+            return bs.block_sparse_attention_fwd_cuda(q[:b], k[:b], v[:b],
+                                                      plan)
+        one, again, two = fwd(1), fwd(1), fwd(2)
+        torch.cuda.synchronize()
+        report[label] = {
+            "repeat_identical": all(bool(torch.equal(a, b))
+                                    for a, b in zip(one, again)),
+            "row0_b1_vs_b2_identical": all(bool(torch.equal(a[0], b[0]))
+                                           for a, b in zip(one, two)),
+            "dq_side_split_units":
+            plan.tile_plan(cfg.block, "dq").n_split}
+        del q, k, v, one, again, two
+    emit({"check": "block_sparse_fwd_identity", "shape": [S, H, hd],
+          "dtype": "bfloat16", "causal": True, **report})
+    check(all(r["repeat_identical"] and r["row0_b1_vs_b2_identical"]
+              for r in report.values())
+          and any(r["dq_side_split_units"] for r in report.values()),
+          f"block_sparse_fwd_identity: {report}")
+    return report
+
+
 def sparse_bwd_identity(torch, sa, bs):
     """``block_sparse_bwd_identity``: the bf16 dQ and dK/dV kernels at S
     8192, H 2, hd 96, causal, for the Fixed and BigBird path layouts (both
@@ -5158,13 +5233,7 @@ def sparse_bwd_identity(torch, sa, bs):
     g = torch.Generator(device="cpu").manual_seed(273)
     S, H, hd = 8192, 2, SP_HD
     report = {}
-    for label, cfg in (
-            ("fixed", sa.FixedSparsityConfig(
-                H, 16, num_local_blocks=4, num_global_blocks=1,
-                attention="unidirectional")),
-            ("bigbird", sa.BigBirdSparsityConfig(
-                H, 64, num_random_blocks=1, num_sliding_window_blocks=3,
-                num_global_blocks=1, attention="unidirectional"))):
+    for label, cfg in sparse_identity_configs(sa, H):
         plan = bs.BlockSparsePlan(cfg.make_layout(S), True, "cuda")
         q, k, v, do = ((torch.rand(2, S, H, hd, generator=g) * 2 - 1)
                        .to("cuda", torch.bfloat16) for _ in range(4))
@@ -5241,16 +5310,15 @@ def sparse_bound(bs, plan, B, S, H, hd, kind):
     pairs of the live blocks (a diagonal block half when causal) times 4
     (forward), 6 (dQ) or 8 (dK/dV) x hd flops at the bf16 peak, against
     its inputs read once and outputs written once (bf16 [B, S, H, hd]
-    tensors, fp32 [B, H, S] rows, the plan's int32 arrays: the forward's
-    idx, cnt and order; the bf16 backward's side of the tile plan)."""
+    tensors, fp32 [B, H, S] rows, the int32 arrays of the tile plan side
+    the bf16 kernel reads: the dQ side for the forward and dQ)."""
     block = S // plan.n
     diag = block * (block + 1) // 2 if plan.causal else block * block
     pairs = B * ((plan.live - plan.live_diag) * block * block
                  + plan.live_diag * diag)
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
     x, rows = B * S * H * hd * 2, B * H * S * 4
-    side = ((plan.kv_idx, plan.kv_cnt, plan.q_order) if kind == "fwd"
-            else plan.tile_plans(block)[kind].dev)
+    side = plan.tile_plan(block, "dkv" if kind == "dkv" else "dq").dev
     plan_bytes = sum(t.numel() * 4 for t in side)
     bytes_ = {"fwd": 4 * x + rows, "dq": 5 * x + 2 * rows,
               "dkv": 6 * x + 2 * rows}[kind] + plan_bytes
@@ -5403,7 +5471,7 @@ def sparse_times(torch, F, sa, bs, fa, inputs):
             t[name]["work"] = (f"{label} layout, block {cfg.block}, B {B}, "
                                f"S {S}, H {H}, hd {hd}, bf16, causal, "
                                f"{plan.live} live blocks")
-        # the bf16 backward's tile plans: fill (live pairs over computed
+        # the bf16 kernels' tile plans: fill (live pairs over computed
         # pairs) per side, items, splits, workspace
         t["tile_plan"] = tile_plan_report(plan.tile_plans(cfg.block), hd)
         times[label] = t
@@ -5429,10 +5497,12 @@ def sparse_times(torch, F, sa, bs, fa, inputs):
 
 
 def sparse_attention_phase(torch, F, fa):
-    """Phase 27: the block-sparse slice (27a kernels and the backward's
-    identity, 27b the reference's check, 27c the main path, 27d times)."""
+    """Phase 27: the block-sparse slice (27a kernels and the forward's and
+    backward's identities, 27b the reference's check, 27c the main path,
+    27d times)."""
     sa, bs = sparse_modules()
     errs, rel, zeros = sparse_kernel_phase(torch, sa, bs)
+    fwd_identity = sparse_fwd_identity(torch, sa, bs)
     identity = sparse_bwd_identity(torch, sa, bs)
     ref = sparse_reference_phase(torch, sa)
     inputs, runs = sparse_path_phase(torch, sa, bs)
@@ -5446,7 +5516,7 @@ def sparse_attention_phase(torch, F, fa):
             errs[kern] = max(errs[kern], r["vs_plain"][name]["max_abs_err"])
     return {"errs": errs, "rel": rel, "zeros": zeros, "reference": ref,
             "runs": runs, "times": times, "dense_flash": dense,
-            "identity": identity}
+            "identity": identity, "fwd_identity": fwd_identity}
 
 
 #: what each variant row of the kernels line replaces, beside the TPU
@@ -5885,6 +5955,8 @@ def main():
             if name in sparse["rel"] and not name.endswith("fwd"):
                 kernels[-1]["max_rel_err_bf16"] = sparse["rel"][name]
                 kernels[-1]["identity"] = sparse["identity"]
+            if name.endswith("fwd"):
+                kernels[-1]["identity"] = sparse["fwd_identity"]
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)

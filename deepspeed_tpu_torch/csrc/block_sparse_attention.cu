@@ -22,63 +22,78 @@
 // Fixed layout (block 16); BigBird at block 64 has ~4 live blocks a row and
 // is bound by bytes.  Only wgmma reaches the tensor cores' rate, and a
 // 16-row block is too small for one: a product must span several blocks.
+// As built, each consumer warpgroup streams its own gathered tiles, and at
+// the Fixed layout the forward and dQ both read them at ~5 TB/s, near what
+// L2 gives (PERF.md section 5).
 //
-// The bf16 dQ and dK/dV (namespace hbsa, bsa_bwd_bf16<HD, DKV>; entry
-// points bsa_dq_h / bsa_dkv_h) are persistent wgmma / TMA kernels on
-// csrc/hopper.cuh, built on what csrc/ds_flash_bwd.cu proved, over a tile
-// plan the host builds once per layout (ops/kernels/block_sparse_attention
-// .py TilePlan):
+// The bf16 forward, dQ and dK/dV (namespace hbsa, bsa_fwd_bf16<HD> and
+// bsa_bwd_bf16<HD, DKV>; entry points bsa_fwd_h, bsa_dq_h and bsa_dkv_h)
+// are persistent wgmma / TMA kernels on csrc/hopper.cuh, built on what
+// csrc/ds_flash_fwd.cu and csrc/ds_flash_bwd.cu proved, over a tile plan
+// the host builds once per layout (ops/kernels/block_sparse_attention.py
+// TilePlan; the forward walks the dQ side's):
 //   - the plan works in sub-blocks of kw = min(block, 64) rows (a block of
 //     128 is 2 x 2 of them).  An own tile is up to 64 own rows, g = 64 / kw
-//     sub-blocks: contiguous q blocks for dQ, whose lists are nearly the
-//     same (the Fixed layout's global columns plus their window); key
-//     blocks of like list length for dK/dV (a window's global column would
-//     drag its local columns through ~1000 query blocks).  Its streamed
-//     tiles gather the sorted union of its members' lists g sub-blocks at a
-//     time, each (streamed tile, own tile) pair with a live word of its
-//     sub-block pairs and of the diagonal ones.  At the Fixed and BigBird
-//     path layouts 93-100 % of the computed pairs are live;
+//     sub-blocks: contiguous q blocks for the forward and dQ, whose lists
+//     are nearly the same (the Fixed layout's global columns plus their
+//     window); key blocks of like list length for dK/dV (a window's global
+//     column would drag its local columns through ~1000 query blocks).
+//     Its streamed tiles gather the sorted union of its members' lists g
+//     sub-blocks at a time, each (streamed tile, own tile) pair with a live
+//     word of its sub-block pairs and of the diagonal ones.  At the Fixed
+//     and BigBird path layouts 93-100 % of the computed pairs are live;
 //   - a CTA of three warpgroups per SM: warps 0 and 1 load by TMA, each for
 //     one consumer warpgroup, which walks its own work items (an own tile,
-//     or a segment of one) with its own ring: the own pair once per item,
-//     the streamed pair one box per gathered sub-block (an empty slot a box
-//     wholly past S: zeros, never a stale or unlisted row), with each
-//     tile's lse (log2 units) and dsum for dK/dV;
-//   - per streamed tile, as the flash backward: s (or s^T) and dP (dP^T) by
-//     SS wgmma, P and dS / sm_scale (or their transposes) from one FFMA and
-//     an exp2, then the mask by selects (a pair the plan does not list, and
-//     inside a diagonal pair the causal triangle, give exactly 0, whatever
-//     the scores held), packed in registers as the A operand of dQ += dS k,
-//     or dV += P^T dO and dK += dS^T q; the loop software-pipelined (not
-//     dK/dV at head dim 128, whose registers do not allow it); no wgmma sits
-//     in a data-dependent branch;
+//     or a segment of one) with its own ring: the own tile (q; q and dO,
+//     or k and v, for the backward) once per item, the streamed pair (k
+//     and v; q and dO for dK/dV) one box per gathered sub-block (an empty
+//     slot a box wholly past S: zeros, never a stale or unlisted row), with
+//     each tile's lse (log2 units) and dsum for dK/dV.  The forward keeps
+//     one own tile, and the space of the second buys its ring a stage;
+//   - the forward per streamed tile, as the flash forward: s = q k^T by SS
+//     wgmma, the scores of every pair the plan does not list, and inside a
+//     diagonal pair the keys after the query, -inf by selects before the
+//     row max (a zero-filled slot scores 0, not -inf), the online softmax
+//     in registers in log2 units (sm_scale * log2(e) folded into the
+//     exponent's FFMA), o rescaled in registers and o += p v with p packed
+//     in registers as the A operand (v read MN-major);
+//   - the backward per streamed tile, as the flash backward: s (or s^T)
+//     and dP (dP^T) by SS wgmma, P and dS / sm_scale (or their transposes)
+//     from one FFMA and an exp2, then the mask by selects (a pair the plan
+//     does not list, and inside a diagonal pair the causal triangle, give
+//     exactly 0, whatever the scores held), packed in registers as the A
+//     operand of dQ += dS k, or dV += P^T dO and dK += dS^T q;
+//   - each loop software-pipelined (the next tile's score products issued
+//     before this tile's accumulating ones; not dK/dV at head dim 128,
+//     whose registers do not allow it); no wgmma sits in a data-dependent
+//     branch;
 //   - work items come longest first, handed out round robin (every other
 //     round mirrored) over the 2 x SMs consumers and each batch row; a list
 //     longer than the side's segment length (the plan's: at least 32
 //     streamed tiles, and 1 / 512 of the side's tiles, so the Fixed path
-//     layout's lists are not cut and BigBird's column 0 is) is cut at
+//     layout's lists are not cut and BigBird's dK/dV column 0 is) is cut at
 //     fixed positions into segments, each an item: each writes fp32
-//     partials to a workspace, and the last to arrive at the unit (an int
-//     counter, one acquire-release add, left 0) sums them in segment
-//     order and stores the rows.  No float atomics: dq, dk and dv are
+//     partials to a workspace (the forward: unnormalised o and each row's
+//     max and sum), and the last to arrive at the unit (an int counter,
+//     one acquire-release add, left 0) combines them in segment order and
+//     stores the rows.  No float atomics: o, lse, dq, dk and dv are
 //     bit-identical from launch to launch, and a row's bits follow the
 //     layout and its own inputs only, not B, the SM count or which
 //     consumer merges;
 //   - head dims 64 and 128 stage in 64-column chunks with 128-byte swizzle,
 //     80 and 96 in 32-column chunks with 64-byte swizzle.
 //
-// The forward and the fp32 kernels keep the first design: one CTA of four
-// warps owns 64 rows as G = 64 / KW slots of KW = min(block, 64) rows (a
-// block of 128 as two halves, each listed block swept as two 64-row
-// sub-tiles), walking the slots' lists (the plan's idx / cnt, blocks taken
-// in the plan's `order`, longest list first) in rounds between two CTA
-// barriers; each CTA owns its output rows.  Causal: a sub-tile whose every
-// pair is masked is skipped; inside the diagonal block the masked scores
-// are -inf with the row max guarded, which contributes exactly what the
-// reference's -1e30 does.  bf16 forward: nvcuda::wmma products, the
-// softmax two lanes a row in fp32, P back to shared memory in bf16; fp32:
-// plain FMA, two threads a row each owning half the head dim, so fp32
-// results carry no TF32 rounding.  Head dims 64, 80, 96 and 128.
+// The fp32 kernels keep the first design, so fp32 results carry no TF32
+// rounding: one CTA of four warps owns 64 rows as G = 64 / KW slots of KW
+// = min(block, 64) rows (a block of 128 as two halves, each listed block
+// swept as two 64-row sub-tiles), walking the slots' lists (the plan's idx
+// / cnt, blocks taken in the plan's `order`, longest list first) in rounds
+// between two CTA barriers; each CTA owns its output rows.  Causal: a
+// sub-tile whose every pair is masked is skipped; inside the diagonal
+// block the masked scores are -inf with the row max guarded, which
+// contributes exactly what the reference's -1e30 does.  Plain FMA, two
+// threads a row each owning half the head dim.  Head dims 64, 80, 96 and
+// 128.
 //
 // q, k, v and dO may be strided [B, S, H, HD] views: the caller passes
 // batch, sequence and head strides in elements; the last dimension is
@@ -90,7 +105,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -98,14 +112,9 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr int TM = 64;  // rows a CTA owns
 constexpr int kThreads = 128;
-// padded shared row strides (bank spread; wmma needs ldm % 8 == 0 for bf16
-// and % 4 == 0 for fp32, and 32-byte aligned tile pointers, both kept)
-constexpr int SLD = TM + 4;  // fp32 score-shaped tiles
-constexpr int PLD = TM + 8;  // bf16 P / dS tiles
 
 struct Args {
   const void* q;
@@ -247,137 +256,6 @@ __device__ __forceinline__ void load_row_vals(float* lseS, float* dsS,
     const size_t row = ((size_t)b * a.H + h) * a.S + c0 + i - g * a.kw;
     lseS[i] = a.lse[row];
     dsS[i] = a.dsum[row];
-  }
-}
-
-// out[16][KW] (ld SLD) = A[16][HD] . B[KW][HD]^T, both dense (ld HD).
-template <int HD, int KW>
-__device__ __forceinline__ void mma_abt(float* out, const bf16* A,
-                                        const bf16* B) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[KW / 16];
-#pragma unroll
-  for (int n = 0; n < KW / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < HD; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, A + kk, HD);
-#pragma unroll
-    for (int n = 0; n < KW / 16; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, B + n * 16 * HD + kk, HD);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < KW / 16; ++n)
-    wmma::store_matrix_sync(out + n * 16, acc[n], SLD, wmma::mem_row_major);
-}
-
-// ------------------------------------------------------------------ bf16
-template <int HD, int KW>
-__global__ void __launch_bounds__(kThreads) fwd_bf16(Args a) {
-  constexpr int OLD = HD + 4;  // fp32 output accumulator row stride
-  const int b = blockIdx.y / a.H;
-  const int h = blockIdx.y - b * a.H;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);         // [TM][HD]
-  bf16* Ks = Qs + TM * HD;                              // [TM][HD]
-  bf16* Vs = Ks + TM * HD;                              // [TM][HD]
-  bf16* Ps = Vs + TM * HD;                              // [TM][PLD]
-  float* Ss = reinterpret_cast<float*>(Ps + TM * PLD);  // [TM][SLD]
-  float* Os = Ss + TM * SLD;                            // [TM][OLD]
-  __shared__ Slots sl;
-
-  setup_slots(sl, a, h);
-  for (int i = threadIdx.x; i < TM * OLD; i += kThreads) Os[i] = 0.f;
-  __syncthreads();
-  const int rounds = rounds_of(sl, a);
-  load_slots<bf16, HD>(
-      Qs, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss,
-      sl.row, KW);
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh;
-
-  // this lane's row (two lanes per row), its half of the columns, its slot
-  const int r = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int g = (warp * 16) / KW;
-  const int s_q = sl.row[g] + r - g * KW;
-  float m_i = -INFINITY;
-  float l_i = 0.f;
-
-  for (int it = 0; it < rounds; ++it) {
-    set_cols(sl, a, h, it, false);
-    __syncthreads();  // columns visible, the previous round's K/V consumed
-    load_slots<bf16, HD>(Ks, kb, a.k_ss, sl.col[it & 1], KW);
-    load_slots<bf16, HD>(Vs, vb, a.v_ss, sl.col[it & 1], KW);
-    __syncthreads();
-    const int col0 = sl.col[it & 1][g];
-    if (col0 < 0) continue;  // the whole warp: its slot has nothing here
-
-    mma_abt<HD, KW>(Ss + warp * 16 * SLD, Qs + warp * 16 * HD,
-                    Ks + g * KW * HD);
-    __syncwarp();
-    {
-      float* srow = Ss + r * SLD;
-      const int c0 = half * (KW / 2);
-      float mx = -INFINITY;
-      for (int c = c0; c < c0 + KW / 2; ++c) {
-        const float x = (!a.causal || col0 + c <= s_q)
-                            ? srow[c] * a.sm_scale : -INFINITY;
-        srow[c] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_new = fmaxf(m_i, mx);
-      const bool any = m_new != -INFINITY;
-      const float alpha = any ? expf(m_i - m_new) : 1.f;
-      float psum = 0.f;
-      for (int c = c0; c < c0 + KW / 2; ++c) {
-        const float p = any ? expf(srow[c] - m_new) : 0.f;
-        Ps[r * PLD + c] = __float2bfloat16(p);
-        psum += p;
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      l_i = l_i * alpha + psum;
-      m_i = m_new;
-      float* orow = Os + r * OLD + half * (HD / 2);
-      for (int c = 0; c < HD / 2; ++c) orow[c] *= alpha;
-    }
-    __syncwarp();
-
-    // O[16, HD] += P[16, KW] x V[KW, HD]
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-      wmma::load_matrix_sync(oacc, Os + warp * 16 * OLD + n * 16, OLD,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < KW; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, Ps + warp * 16 * PLD + kk, PLD);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, Vs + (g * KW + kk) * HD + n * 16, HD);
-        wmma::mma_sync(oacc, fa, fb, oacc);
-      }
-      wmma::store_matrix_sync(Os + warp * 16 * OLD + n * 16, oacc, OLD,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  if (sl.blk[g] >= 0) {
-    const float* src = Os + r * OLD + half * (HD / 2);
-    bf16* orow = static_cast<bf16*>(a.out0) +
-                 (((size_t)b * a.S + s_q) * a.H + h) * HD + half * (HD / 2);
-    for (int c = 0; c < HD / 2; ++c)
-      orow[c] = __float2bfloat16(l_i > 0.f ? src[c] / l_i : 0.f);
-    if (half == 0 && a.lse_out != nullptr)
-      a.lse_out[((size_t)b * a.H + h) * a.S + s_q] =
-          l_i > 0.f ? m_i + logf(l_i) : INFINITY;
   }
 }
 
@@ -654,51 +532,61 @@ constexpr int kTile = 64;          // rows of an own tile and of a streamed one
 constexpr int kCtaThreads = 384;   // producer warpgroup + two consumer ones
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Which kernel a piece of the Hopper code serves.
+enum Side { kFwdSide = 0, kDqSide = 1, kDkvSide = 2 };
+
 // One consumer warpgroup's shared memory, in bytes from a 1024-aligned
-// base: the resident pair [chunk][kTile][CH] each, the streamed pair
-// [stage][chunk][kTile][CH] each (swizzled rows of CH columns), per stage
-// the streamed rows' lse in log2 units and dsum (dK/dV) and the tile's
-// live word, the merge's last-arrival flag, then the barriers.  Head dims
-// that are a multiple of 64 stage in 64-column chunks (128-byte swizzle),
-// 80 and 96 in 32-column chunks (64-byte swizzle), as csrc/ds_flash_bwd.cu.
-template <int HD>
+// base: the resident tiles [chunk][kTile][CH] (the backward's pair; the
+// forward's q alone), the streamed pair [stage][chunk][kTile][CH] each
+// (swizzled rows of CH columns), per stage the streamed rows' lse in log2
+// units and dsum (the backward's; read by dK/dV) and the tile's live word,
+// the merge's last-arrival flag, then the barriers.  Head dims that are a
+// multiple of 64 stage in 64-column chunks (128-byte swizzle), 80 and 96
+// in 32-column chunks (64-byte swizzle), as csrc/ds_flash_bwd.cu.  The
+// forward's second resident tile buys its ring a stage.
+template <int HD, int SIDE = kDqSide>
 struct Smem {
+  static constexpr bool FWD = SIDE == kFwdSide;
   static constexpr int CH = HD % 64 == 0 ? 64 : 32;
   static constexpr int ROW = CH * 2;         // bytes: the swizzle span
   static constexpr int SBO = 8 * ROW;        // 8-row group stride
   static constexpr int NCH = (HD + CH - 1) / CH;
-  static constexpr int STAGES = HD == 128 ? 2 : 3;   // two regions fit
+  static constexpr int STAGES = (HD == 128 ? 2 : 3) + (FWD ? 1 : 0);
   static constexpr int CHUNK = kTile * ROW;
   static constexpr int TILE = NCH * CHUNK;   // one 64-row tile of a tensor
   static constexpr int RES0 = 0;             // k, or q
-  static constexpr int RES1 = TILE;          // v, or dO
-  static constexpr int STR0 = 2 * TILE;      // q, or k [stage]
+  static constexpr int RES1 = TILE;          // v, or dO (not the forward)
+  static constexpr int STR0 = (FWD ? 1 : 2) * TILE;    // q, or k [stage]
   static constexpr int STR1 = STR0 + STAGES * TILE;    // dO, or v
+  static constexpr int ROWS = FWD ? 0 : STAGES * kTile * 4;
   static constexpr int LSE = STR1 + STAGES * TILE;     // f32 [stage][kTile]
-  static constexpr int DSUM = LSE + STAGES * kTile * 4;
-  static constexpr int WORD = DSUM + STAGES * kTile * 4;   // u32 [stage]
+  static constexpr int DSUM = LSE + ROWS;
+  static constexpr int WORD = DSUM + ROWS;                 // u32 [stage]
   static constexpr int FLAG = WORD + STAGES * 4;           // int
   static constexpr int BAR = (FLAG + 4 + 7) / 8 * 8;       // uint64
   static constexpr int N_BARS = 2 + 3 * STAGES;
   static constexpr int REGION = (BAR + N_BARS * 8 + 1023) / 1024 * 1024;
   static constexpr int ALLOC = 2 * REGION + 1024;   // + base alignment
+  static_assert(ALLOC <= 232448, "hbsa::Smem: over an H100 CTA's 227 KB");
 };
 
 struct Params {
-  const float* lse;
-  const float* dsum;
+  const float* lse;    // dQ, dK/dV: the forward's
+  const float* dsum;   // dQ, dK/dV
   const int* items;    // [n_items][8]: see Item
   const int* own;      // [U][4]: own sub-blocks, -1 empty
   const int* tiles;    // [T][8]: streamed sub-blocks (-1 empty), live word
   float* ws;           // fp32 partials [B][n_partials]: see merge_split
   int* counters;       // [B][n_split] arrivals, 0 between launches
-  bf16* out0;          // dQ, or dK
+  bf16* out0;          // o, dQ or dK
   bf16* out1;          // dV (dK/dV only)
   int S, H, B, kw, g;
   int n_items, n_live;   // items, those with streamed tiles (the first)
   int n_split, n_partials;
   float scale_log2;    // sm_scale * log2(e)
   float sm_scale;
+  float* lse_out;      // the forward's lse, or null (last: the backward's
+                       // fields keep their places)
 };
 
 // A work item: own tile, head, first streamed tile and count, split unit
@@ -738,9 +626,9 @@ struct Bars {
   uint64_t* empty;       // [STAGES]; one arrival per consumer warp
 };
 
-template <int HD>
+template <int HD, int SIDE = kDqSide>
 __device__ __forceinline__ Bars bars_of(unsigned char* rg) {
-  using L = Smem<HD>;
+  using L = Smem<HD, SIDE>;
   uint64_t* b = reinterpret_cast<uint64_t*>(rg + L::BAR);
   return Bars{b, b + 1, b + 2, b + 2 + L::STAGES, b + 2 + 2 * L::STAGES};
 }
@@ -766,19 +654,21 @@ __device__ __forceinline__ void load_tile(unsigned char* dst,
 }
 
 // The producer warp of consumer c: per item with streamed tiles, the own
-// pair once (after the consumer has read the previous item's), then the
-// streamed tiles through the ring, whose position runs on across items.
-// For dK/dV the lanes stage each streamed tile's lse (log2 units; +inf in
-// an empty slot) and dsum; lane 0 its live word.  Each lane's arrival on
-// the stage's s0_full barrier releases these stores to the consumer.
-template <int HD, bool DKV>
+// tiles once (after the consumer has read the previous item's: the pair,
+// or the forward's q alone), then the streamed tiles through the ring,
+// whose position runs on across items.  For dK/dV the lanes stage each
+// streamed tile's lse (log2 units; +inf in an empty slot) and dsum; lane
+// 0 its live word.  Each lane's arrival on the stage's s0_full barrier
+// releases these stores to the consumer.
+template <int HD, int SIDE>
 __device__ __forceinline__ void produce(const CUtensorMap* tr0,
                                         const CUtensorMap* tr1,
                                         const CUtensorMap* ts0,
                                         const CUtensorMap* ts1,
                                         const Params& p, unsigned char* rg,
                                         const Bars& bar, int c, int C) {
-  using L = Smem<HD>;
+  constexpr bool DKV = SIDE == kDkvSide, FWD = SIDE == kFwdSide;
+  using L = Smem<HD, SIDE>;
   const int lane = threadIdx.x & 31;
   int it = 0;   // ring position
   for (int n = 0;; ++n) {
@@ -789,9 +679,10 @@ __device__ __forceinline__ void produce(const CUtensorMap* tr0,
     const int4 own = *reinterpret_cast<const int4*>(p.own + 4 * w.own);
     hopper::mbar_wait(bar.res_empty, (n & 1) ^ 1);
     if (lane == 0) {
-      hopper::mbar_arrive_expect_tx(bar.res_full, 2 * L::TILE);
+      hopper::mbar_arrive_expect_tx(bar.res_full, (FWD ? 1 : 2) * L::TILE);
       load_tile<HD>(rg + L::RES0, tr0, bar.res_full, own, p, w.head, b);
-      load_tile<HD>(rg + L::RES1, tr1, bar.res_full, own, p, w.head, b);
+      if (!FWD)
+        load_tile<HD>(rg + L::RES1, tr1, bar.res_full, own, p, w.head, b);
     }
     // the streamed tiles 32 at a time: lane i holds tile i's sub-blocks
     // and live word, read once for the 32 (no load latency per tile); for
@@ -975,15 +866,27 @@ __device__ __forceinline__ void grad_dq(float (&sc)[kTile / 2],
                     p.g, os, rin, cq);
 }
 
+// Once this warpgroup's segment of a split unit has written its partial:
+// one acquire-release add on the unit's counter after the warpgroup's
+// barrier (as csrc/decode_attention.cu), the result shared through `flag`
+// in shared memory -> whether it is the unit's last segment to arrive
+// (which then combines the partials and returns the counter to 0).
+__device__ __forceinline__ bool last_to_arrive(int* counter, int* flag,
+                                               int nseg, int wg) {
+  hopper::named_bar_sync(1 + wg, 128);
+  if ((threadIdx.x & 127) == 0)
+    *flag = hopper::atom_add_acq_rel(counter, 1) == nseg - 1;
+  hopper::named_bar_sync(1 + wg, 128);
+  return *flag;
+}
+
 // A segment of a split unit writes its fp32 partials (NA accumulators) to
 // the workspace, four floats a thread at a time ([k / 4][thread][4], so a
 // warp's stores and loads are contiguous); the last of the unit's segments
-// to arrive (one acquire-release add on the unit's counter after the
-// warpgroup's barrier, as csrc/decode_attention.cu) reads them back into
-// acc summed in segment order and returns the counter to 0.  It reads its
-// own back too: summed from its registers in order, its running sum would
-// need registers beside acc, and they spill.  -> whether this warpgroup
-// stores the unit's rows.
+// to arrive reads them back into acc summed in segment order and returns
+// the counter to 0.  It reads its own back too: summed from its registers
+// in order, its running sum would need registers beside acc, and they
+// spill.  -> whether this warpgroup stores the unit's rows.
 template <int HD, int NA>
 __device__ __forceinline__ bool merge_split(float (&acc)[NA][HD / 2],
                                             const Params& p,
@@ -1000,12 +903,10 @@ __device__ __forceinline__ bool merge_split(float (&acc)[NA][HD / 2],
     for (int i = 0; i < HD / 2; i += 4)
       *reinterpret_cast<float4*>(mine + (a * (HD / 2) + i) * 128) =
           make_float4(acc[a][i], acc[a][i + 1], acc[a][i + 2], acc[a][i + 3]);
-  int* flag = reinterpret_cast<int*>(rg + L::FLAG);
   int* counter = p.counters + (size_t)b * p.n_split + w.split;
-  hopper::named_bar_sync(1 + wg, 128);
-  if (tid == 0) *flag = hopper::atom_add_acq_rel(counter, 1) == w.nseg - 1;
-  hopper::named_bar_sync(1 + wg, 128);
-  if (!*flag) return false;
+  if (!last_to_arrive(counter, reinterpret_cast<int*>(rg + L::FLAG), w.nseg,
+                      wg))
+    return false;
   // the elements in NC chunks, so a chunk's loads in flight and acc fit
   // the registers (dK/dV at head dim 128: 128 accumulators a thread)
   constexpr int NE = NA * (HD / 2);
@@ -1232,23 +1133,334 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* rg,
   }
 }
 
+// ------------------------------------------------------- the bf16 forward
+// One consumer thread's two rows (rin and rin + 8 of its sub-block): the
+// running max in log2 units and the row sum (each lane of the row's quad
+// sums its own 16 columns until the item ends).
+struct Rows {
+  float m0, m1, l0, l1;
+};
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The forward's mask on one streamed tile's raw scores: every pair the
+// plan does not list, and inside a diagonal pair the keys after the
+// query, -inf by selects, so that the row max never sees them (a
+// zero-filled slot scores 0, not -inf).  The thread's place as in
+// apply_mask.
+__device__ __forceinline__ void mask_scores(float (&sc)[kTile / 2],
+                                            uint32_t word, int kw, int g,
+                                            const Place& pl) {
+  const uint32_t all = (1u << g) - 1;
+  const uint32_t live = (word >> (pl.os * g)) & all;
+  const uint32_t diag = (word >> (16 + pl.os * g)) & all;
+  if (live == all && diag == 0) return;   // the warp's rows: all live
+  const int sh = __ffs(kw) - 1;
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    const int slot = (8 * j) >> sh;
+    const bool lv = (live >> slot) & 1;
+    const bool dg = (diag >> slot) & 1;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cin = (8 * j + pl.cq + e) & (kw - 1);
+      if (!lv || (dg && cin > pl.rin)) sc[4 * j + e] = -INFINITY;
+      if (!lv || (dg && cin > pl.rin + 8)) sc[4 * j + 2 + e] = -INFINITY;
+    }
+  }
+}
+
+// One streamed tile's online softmax in place: the mask, the row max
+// (quad shuffles) against the running one, sc becomes p = 2^(s c - m)
+// with c = sm_scale * log2(e) folded into the exponent's FFMA (when c > 0;
+// else the scores are scaled first), and the rows' sums grow; -> the
+// factors by which each row's o must shrink.  A row that has seen no
+// live key keeps base 0: its p and alpha are 0.
+__device__ __forceinline__ void softmax_tile(float (&sc)[kTile / 2], Rows& r,
+                                             float c, uint32_t word,
+                                             const Params& p, const Place& pl,
+                                             float& alpha0, float& alpha1) {
+  if (c <= 0.f) {
+#pragma unroll
+    for (int j = 0; j < kTile / 2; ++j) sc[j] *= c;
+    c = 1.f;
+  }
+  mask_scores(sc, word, p.kw, p.g, pl);
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  mx0 = fmaxf(r.m0, mx0 * c);   // log2 units
+  mx1 = fmaxf(r.m1, mx1 * c);
+  const float base0 = mx0 == -INFINITY ? 0.f : mx0;
+  const float base1 = mx1 == -INFINITY ? 0.f : mx1;
+  alpha0 = hopper::ex2(r.m0 - base0);
+  alpha1 = hopper::ex2(r.m1 - base1);
+  r.m0 = mx0;
+  r.m1 = mx1;
+  float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[4 * j + e] = hopper::ex2(fmaf(sc[4 * j + e], c, -base0));
+      sc[4 * j + 2 + e] = hopper::ex2(fmaf(sc[4 * j + 2 + e], c, -base1));
+      ls0 += sc[4 * j + e];
+      ls1 += sc[4 * j + 2 + e];
+    }
+  }
+  r.l0 = r.l0 * alpha0 + ls0;
+  r.l1 = r.l1 * alpha1 + ls1;
+}
+
+template <int HD>
+__device__ __forceinline__ void rescale(float (&o)[HD / 2], float alpha0,
+                                        float alpha1) {
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    o[4 * j] *= alpha0;
+    o[4 * j + 1] *= alpha0;
+    o[4 * j + 2] *= alpha1;
+    o[4 * j + 3] *= alpha1;
+  }
+}
+
+// The software-pipelined walk of one item's streamed tiles, ring positions
+// it .. it + count - 1, as the flash forward's: tile i's q k^T (SS) is
+// issued before tile i - 1's p v (RS), so tile i's softmax runs on the
+// CUDA cores while p v holds the tensor cores; o is rescaled once p v has
+// landed.  q is released after the last tile's scores, each stage after
+// its p v.
+template <int HD>
+__device__ __forceinline__ void walk_fwd(float (&o)[HD / 2], Rows& r,
+                                         const Params& p, unsigned char* rg,
+                                         const Bars& bar, int count, int it,
+                                         uint64_t da, const Place& pl) {
+  using L = Smem<HD, kFwdSide>;
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(rg + L::WORD);
+  float sc[kTile / 2];
+  uint32_t pa[kTile / 16][4];
+  float alpha0, alpha1;
+  auto scores = [&](int s, uint32_t ph) {
+    hopper::mbar_wait(bar.s0_full + s, ph);
+    hopper::wgmma_fence();
+    issue_ss<HD>(sc, da, rg + L::STR0 + s * L::TILE);
+    hopper::wgmma_commit();
+  };
+  auto values = [&](int s, uint32_t ph) {   // o += p v
+    hopper::mbar_wait(bar.s1_full + s, ph);
+    issue_rs<HD>(o, pa, rg + L::STR1 + s * L::TILE);
+    hopper::wgmma_commit();
+  };
+  {   // tile 0's scores
+    const int s = it % L::STAGES;
+    scores(s, (it / L::STAGES) & 1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    if (count == 1 && pl.lane == 0) hopper::mbar_arrive(bar.res_empty);
+    softmax_tile(sc, r, p.scale_log2, words[s], p, pl, alpha0, alpha1);
+    hopper::pack_a(pa, sc);
+  }
+  for (int i = 1; i < count; ++i) {
+    const int s = (it + i) % L::STAGES;
+    const int sp = (it + i - 1) % L::STAGES;
+    hopper::fence_regs(o);
+    scores(s, ((it + i) / L::STAGES) & 1);
+    values(sp, ((it + i - 1) / L::STAGES) & 1);
+    hopper::wgmma_wait<1>();   // tile i's scores have landed
+    hopper::fence_regs(sc);
+    if (i == count - 1 && pl.lane == 0) hopper::mbar_arrive(bar.res_empty);
+    softmax_tile(sc, r, p.scale_log2, words[s], p, pl, alpha0, alpha1);
+    hopper::wgmma_wait<0>();   // tile i - 1's p v has landed
+    hopper::fence_regs(o);
+    hopper::fence_regs(pa);    // its p registers are free only now
+    if (pl.lane == 0) hopper::mbar_arrive(bar.empty + sp);
+    rescale<HD>(o, alpha0, alpha1);
+    hopper::pack_a(pa, sc);
+  }
+  {   // the last tile's p v
+    const int sp = (it + count - 1) % L::STAGES;
+    hopper::fence_regs(o);
+    hopper::wgmma_fence();
+    values(sp, ((it + count - 1) / L::STAGES) & 1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    if (pl.lane == 0) hopper::mbar_arrive(bar.empty + sp);
+  }
+}
+
+// A segment of a split unit writes its partial (unnormalised o, then the
+// rows' max and sum as one float4 a thread: m0, m1, l0, l1) to the
+// workspace, four floats a thread at a time ([k / 4][thread][4]); the last
+// of the unit's segments to arrive combines them in segment order: M =
+// the max of the segments' m, L = sum l 2^(m - M), o = sum o 2^(m - M),
+// reading its own back too (no partial stays in registers beside o: they
+// would spill), and returns the counter to 0.  -> whether this warpgroup
+// stores the unit's rows (then o and r hold the combined ones).
+template <int HD>
+__device__ __forceinline__ bool merge_fwd(float (&o)[HD / 2], Rows& r,
+                                          const Params& p, unsigned char* rg,
+                                          const Item& w, int b, int wg) {
+  using L = Smem<HD, kFwdSide>;
+  constexpr int NO = HD / 2;                // o's floats a thread
+  constexpr int NP = (NO + 4) * 128;        // floats of one partial
+  const int tid = threadIdx.x & 127;
+  float* base = p.ws + ((size_t)b * p.n_partials + w.ws_base) * NP + 4 * tid;
+  float* mine = base + (size_t)w.seg * NP;
+#pragma unroll
+  for (int i = 0; i < NO; i += 4)
+    *reinterpret_cast<float4*>(mine + i * 128) =
+        make_float4(o[i], o[i + 1], o[i + 2], o[i + 3]);
+  *reinterpret_cast<float4*>(mine + NO * 128) =
+      make_float4(r.m0, r.m1, r.l0, r.l1);
+  int* counter = p.counters + (size_t)b * p.n_split + w.split;
+  if (!last_to_arrive(counter, reinterpret_cast<int*>(rg + L::FLAG), w.nseg,
+                      wg))
+    return false;
+  auto rows_of = [&](int s) {
+    return __ldcg(reinterpret_cast<const float4*>(base + (size_t)s * NP +
+                                                  NO * 128));
+  };
+  float m0 = -INFINITY, m1 = -INFINITY;
+  for (int s = 0; s < w.nseg; ++s) {
+    const float4 x = rows_of(s);
+    m0 = fmaxf(m0, x.x);
+    m1 = fmaxf(m1, x.y);
+  }
+  const float base0 = m0 == -INFINITY ? 0.f : m0;
+  const float base1 = m1 == -INFINITY ? 0.f : m1;
+  float l0 = 0.f, l1 = 0.f;
+  for (int s = 0; s < w.nseg; ++s) {
+    const float4 x = rows_of(s);
+    const float w0 = hopper::ex2(x.x - base0);
+    const float w1 = hopper::ex2(x.y - base1);
+    l0 += x.z * w0;
+    l1 += x.w * w1;
+#pragma unroll
+    for (int i = 0; i < NO; i += 4) {
+      const float4 y =
+          __ldcg(reinterpret_cast<const float4*>(base + (size_t)s * NP +
+                                                 i * 128));
+      o[i] = s == 0 ? y.x * w0 : fmaf(y.x, w0, o[i]);
+      o[i + 1] = s == 0 ? y.y * w0 : fmaf(y.y, w0, o[i + 1]);
+      o[i + 2] = s == 0 ? y.z * w1 : fmaf(y.z, w1, o[i + 2]);
+      o[i + 3] = s == 0 ? y.w * w1 : fmaf(y.w, w1, o[i + 3]);
+    }
+  }
+  r = Rows{m0, m1, l0, l1};
+  if (tid == 0) *counter = 0;
+  return true;
+}
+
+// One thread's two rows of o (row0 and row0 + 8, times 1 / l: 0 where l
+// is 0) into the contiguous [B, S, H, HD] bf16 output and, when asked,
+// their lse (natural log, +inf where l is 0) into [B, H, S] fp32 by the
+// quad's first lane.
+template <int HD>
+__device__ __forceinline__ void store_fwd(const Params& p,
+                                          const float (&o)[HD / 2],
+                                          const Rows& r, int b, int head,
+                                          int row0, const Place& pl) {
+  const float inv0 = r.l0 > 0.f ? 1.f / r.l0 : 0.f;
+  const float inv1 = r.l1 > 0.f ? 1.f / r.l1 : 0.f;
+  bf16* o0 = p.out0 + (((size_t)b * p.S + row0) * p.H + head) * HD + pl.cq;
+  bf16* o1 = o0 + (size_t)8 * p.H * HD;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(o0 + 8 * j) =
+        hopper::pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(o1 + 8 * j) =
+        hopper::pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  if (p.lse_out != nullptr && (pl.lane & 3) == 0) {
+    float* l = p.lse_out + ((size_t)b * p.H + head) * p.S + row0;
+    l[0] = r.l0 > 0.f ? (r.m0 + log2f(r.l0)) * kLn2 : INFINITY;
+    l[8] = r.l1 > 0.f ? (r.m1 + log2f(r.l1)) * kLn2 : INFINITY;
+  }
+}
+
+// One consumer warpgroup's forward items: per item with streamed tiles,
+// its own q rows against them (every such item walks at least one, so no
+// wgmma sits under a data-dependent branch), the rows' sums across the
+// quad, then the rows stored, or a split unit's segment merged; then the
+// own tiles with no list: o = 0, lse = +inf.
+template <int HD>
+__device__ __forceinline__ void consume_fwd(const Params& p, unsigned char* rg,
+                                            const Bars& bar, int c, int C,
+                                            int wg) {
+  using L = Smem<HD, kFwdSide>;
+  const Place pl = place_of(p);
+  const uint64_t da = hopper::smem_desc(hopper::smem_u32(rg) + L::RES0, 16,
+                                        L::SBO, L::ROW);
+  int it = 0;   // ring position
+  for (int n = 0;; ++n) {
+    int b = 0;
+    const int i = work_of(p, n, c, C, p.n_live, b);
+    if (i < 0) break;
+    int count, head, blk;
+    {
+      const Item w = item_at(p, i);
+      count = w.count;
+      head = w.head;
+      blk = slot_of(*reinterpret_cast<const int4*>(p.own + 4 * w.own),
+                    pl.os);
+    }
+    float o[HD / 2];
+#pragma unroll
+    for (int k = 0; k < HD / 2; ++k) o[k] = 0.f;
+    Rows r{-INFINITY, -INFINITY, 0.f, 0.f};
+    hopper::mbar_wait(bar.res_full, n & 1);
+    walk_fwd<HD>(o, r, p, rg, bar, count, it, da, pl);
+    it += count;
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      r.l0 += __shfl_xor_sync(0xffffffffu, r.l0, off);
+      r.l1 += __shfl_xor_sync(0xffffffffu, r.l1, off);
+    }
+    const Item w = item_at(p, i);
+    if (w.split >= 0 && !merge_fwd<HD>(o, r, p, rg, w, b, wg)) continue;
+    if (blk >= 0) store_fwd<HD>(p, o, r, b, head, blk * p.kw + pl.rin, pl);
+  }
+  float zero[HD / 2];
+#pragma unroll
+  for (int k = 0; k < HD / 2; ++k) zero[k] = 0.f;
+  const Rows none{-INFINITY, -INFINITY, 0.f, 0.f};
+  for (int n = 0;; ++n) {
+    int b = 0;
+    const int i = work_of(p, n, c, C, p.n_items - p.n_live, b);
+    if (i < 0) break;
+    const Item w = item_at(p, p.n_live + i);
+    const int blk =
+        slot_of(*reinterpret_cast<const int4*>(p.own + 4 * w.own), pl.os);
+    if (blk >= 0)
+      store_fwd<HD>(p, zero, none, b, w.head, blk * p.kw + pl.rin, pl);
+  }
+}
+
+// ------------------------------------------------------------- the kernels
 // A persistent grid, one CTA per SM: warpgroup 0 keeps 40 registers (its
-// warps 0 and 1 load), the two consumer warpgroups 232 each.  DKV: the dK
-// / dV kernel (own k / v, streamed q / dO), else dQ (own q / dO, streamed
-// k / v).  Maps: r0 / r1 the own pair, s0 / s1 the streamed pair.
-template <int HD, bool DKV>
-__global__ void __launch_bounds__(kCtaThreads, 1)
-    bsa_bwd_bf16(const __grid_constant__ CUtensorMap tm_r0,
-                 const __grid_constant__ CUtensorMap tm_r1,
-                 const __grid_constant__ CUtensorMap tm_s0,
-                 const __grid_constant__ CUtensorMap tm_s1, const Params p) {
-  using L = Smem<HD>;
+// warps 0 and 1 load), the two consumer warpgroups 232 each.  Maps: r0 /
+// r1 the own tiles (the forward: q, r1 unused), s0 / s1 the streamed pair.
+template <int HD, int SIDE>
+__device__ __forceinline__ void cta(const CUtensorMap* tm_r0,
+                                    const CUtensorMap* tm_r1,
+                                    const CUtensorMap* tm_s0,
+                                    const CUtensorMap* tm_s1,
+                                    const Params& p) {
+  using L = Smem<HD, SIDE>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm =
       smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   if (threadIdx.x == 0) {
     for (int w = 0; w < 2; ++w) {
-      const Bars bar = bars_of<HD>(sm + w * L::REGION);
+      const Bars bar = bars_of<HD, SIDE>(sm + w * L::REGION);
       hopper::mbar_init(bar.res_full, 1);
       hopper::mbar_init(bar.res_empty, 4);
       for (int s = 0; s < L::STAGES; ++s) {
@@ -1266,8 +1478,8 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     const int w = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
     if (w < 2) {
       unsigned char* rg = sm + w * L::REGION;
-      produce<HD, DKV>(&tm_r0, &tm_r1, &tm_s0, &tm_s1, p, rg, bars_of<HD>(rg),
-                       2 * blockIdx.x + w, C);
+      produce<HD, SIDE>(tm_r0, tm_r1, tm_s0, tm_s1, p, rg,
+                        bars_of<HD, SIDE>(rg), 2 * blockIdx.x + w, C);
     }
   } else {
     hopper::reg_alloc<232>();
@@ -1275,47 +1487,83 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     // that depends on a thread-divergent value around wgmma serialises it
     const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0) - 1;
     unsigned char* rg = sm + wg * L::REGION;
-    consume<HD, DKV>(p, rg, bars_of<HD>(rg), 2 * blockIdx.x + wg, C, wg);
+    if constexpr (SIDE == kFwdSide)
+      consume_fwd<HD>(p, rg, bars_of<HD, SIDE>(rg), 2 * blockIdx.x + wg, C,
+                      wg);
+    else
+      consume<HD, SIDE == kDkvSide>(p, rg, bars_of<HD, SIDE>(rg),
+                                    2 * blockIdx.x + wg, C, wg);
   }
 }
 
-// q, k, v, dO: strided [B, S, H, HD] views (strides: batch, seq, head in
-// elements, 4 tensors in that order); maps over them as they are, dims
-// {hd, S, H, B}, boxes of {CH, kw} (one sub-block of one chunk).
+// The forward: own q, streamed k / v.
+template <int HD>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+    bsa_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  cta<HD, kFwdSide>(&tm_q, &tm_q, &tm_k, &tm_v, p);
+}
+
+// DKV: the dK / dV kernel (own k / v, streamed q / dO), else dQ (own q /
+// dO, streamed k / v).
 template <int HD, bool DKV>
+__global__ void __launch_bounds__(kCtaThreads, 1)
+    bsa_bwd_bf16(const __grid_constant__ CUtensorMap tm_r0,
+                 const __grid_constant__ CUtensorMap tm_r1,
+                 const __grid_constant__ CUtensorMap tm_s0,
+                 const __grid_constant__ CUtensorMap tm_s1, const Params p) {
+  cta<HD, DKV ? kDkvSide : kDqSide>(&tm_r0, &tm_r1, &tm_s0, &tm_s1, p);
+}
+
+// q, k, v (and dO, not the forward): strided [B, S, H, HD] views
+// (strides: batch, seq, head in elements, the tensors in that order);
+// maps over them as they are, dims {hd, S, H, B}, boxes of {CH, kw} (one
+// sub-block of one chunk).
+template <int HD, int SIDE>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const long long* st, Params p,
                    cudaStream_t stream) {
-  using L = Smem<HD>;
+  using L = Smem<HD, SIDE>;
+  constexpr bool DKV = SIDE == kDkvSide;
   CUtensorMap tq, tk, tv, tdo;
   const uint64_t dims[4] = {HD, (uint64_t)p.S, (uint64_t)p.H, (uint64_t)p.B};
   const long long qs[3] = {st[1], st[2], st[0]};
   const long long ks[3] = {st[4], st[5], st[3]};
   const long long vs[3] = {st[7], st[8], st[6]};
-  const long long os[3] = {st[10], st[11], st[9]};
   const auto swz = L::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : CU_TENSOR_MAP_SWIZZLE_64B;
   const uint32_t box = (uint32_t)p.kw;
   if (!hopper::make_map_bf16_4d(&tq, q, dims, qs, L::CH, box, swz) ||
       !hopper::make_map_bf16_4d(&tk, k, dims, ks, L::CH, box, swz) ||
-      !hopper::make_map_bf16_4d(&tv, v, dims, vs, L::CH, box, swz) ||
-      !hopper::make_map_bf16_4d(&tdo, dout, dims, os, L::CH, box, swz))
+      !hopper::make_map_bf16_4d(&tv, v, dims, vs, L::CH, box, swz))
     return cudaErrorInvalidValue;
+  if (SIDE != kFwdSide) {
+    const long long os[3] = {st[10], st[11], st[9]};
+    if (!hopper::make_map_bf16_4d(&tdo, dout, dims, os, L::CH, box, swz))
+      return cudaErrorInvalidValue;
+  }
+  const void* kernel;
+  if constexpr (SIDE == kFwdSide)
+    kernel = reinterpret_cast<const void*>(bsa_fwd_bf16<HD>);
+  else
+    kernel = reinterpret_cast<const void*>(bsa_bwd_bf16<HD, DKV>);
   static std::atomic<unsigned long long> opted_in{0};
-  cudaError_t e = hopper::opt_in_smem(
-      reinterpret_cast<const void*>(bsa_bwd_bf16<HD, DKV>), L::ALLOC,
-      opted_in);
+  cudaError_t e = hopper::opt_in_smem(kernel, L::ALLOC, opted_in);
   if (e != cudaSuccess) return e;
   int n_sm = 0;
   e = hopper::sm_count(&n_sm);
   if (e != cudaSuccess) return e;
   const int grid = min(n_sm, (p.n_items * p.B + 1) / 2);
-  bsa_bwd_bf16<HD, DKV><<<grid, kCtaThreads, L::ALLOC, stream>>>(
-      DKV ? tk : tq, DKV ? tv : tdo, DKV ? tq : tk, DKV ? tdo : tv, p);
+  if constexpr (SIDE == kFwdSide)
+    bsa_fwd_bf16<HD><<<grid, kCtaThreads, L::ALLOC, stream>>>(tq, tk, tv, p);
+  else
+    bsa_bwd_bf16<HD, DKV><<<grid, kCtaThreads, L::ALLOC, stream>>>(
+        DKV ? tk : tq, DKV ? tv : tdo, DKV ? tq : tk, DKV ? tdo : tv, p);
   return cudaGetLastError();
 }
 
-template <bool DKV>
+template <int SIDE>
 int run(const void* q, const void* k, const void* v, const void* dout,
         const long long* st, const Params& p, int head_dim, void* stream) {
   if (p.B < 1 || p.H < 1 || p.n_items < 1 || p.n_live > p.n_items ||
@@ -1324,10 +1572,10 @@ int run(const void* q, const void* k, const void* v, const void* dout,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return (int)launch<64, DKV>(q, k, v, dout, st, p, s);
-    case 80: return (int)launch<80, DKV>(q, k, v, dout, st, p, s);
-    case 96: return (int)launch<96, DKV>(q, k, v, dout, st, p, s);
-    case 128: return (int)launch<128, DKV>(q, k, v, dout, st, p, s);
+    case 64: return (int)launch<64, SIDE>(q, k, v, dout, st, p, s);
+    case 80: return (int)launch<80, SIDE>(q, k, v, dout, st, p, s);
+    case 96: return (int)launch<96, SIDE>(q, k, v, dout, st, p, s);
+    case 128: return (int)launch<128, SIDE>(q, k, v, dout, st, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1373,52 +1621,33 @@ cudaError_t launch_with(K kernel, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-template <int HD, int KW>
-cudaError_t launch_fwd_bf16(const Args& a, dim3 grid, cudaStream_t st) {
-  const size_t tile = (size_t)TM * HD * sizeof(bf16);
-  const size_t scores = (size_t)TM * SLD * sizeof(float);
-  const size_t probs = (size_t)TM * PLD * sizeof(bf16);
-  return launch_with(fwd_bf16<HD, KW>, grid,
-                     3 * tile + probs + scores +
-                         (size_t)TM * (HD + 4) * sizeof(float),
-                     st, a);
-}
-
+// the fp32 kernels (the bf16 ones are bsa_fwd_h, bsa_dq_h and bsa_dkv_h)
 template <int HD>
-cudaError_t launch(Kind kind, const Args& a, int B, int is_bf16,
-                   cudaStream_t st) {
+cudaError_t launch(Kind kind, const Args& a, int B, cudaStream_t st) {
   const int G = TM / a.kw;
   const int nsub = a.block / a.kw;
   const int tiles = nsub > 1 ? a.nblk * nsub : (a.nblk + G - 1) / G;
   const dim3 grid(tiles, B * a.H);
-  if (!is_bf16) {
-    const size_t pad = (size_t)TM * (HD + 1) * sizeof(float);
-    switch (kind) {
-      case kFwd:
-        return launch_with(fwd_f32<HD>, grid,
-                           (size_t)2 * TM * HD * sizeof(float) +
-                               (size_t)TM * (TM + 1) * sizeof(float),
-                           st, a);
-      case kDq:
-        return launch_with(dq_f32<HD>, grid, 4 * pad, st, a);
-      default:
-        return launch_with(dkv_f32<HD>, grid,
-                           4 * pad + 2 * TM * sizeof(float), st, a);
-    }
-  }
-  // the bf16 forward (bf16 dQ and dK/dV are bsa_dq_h and bsa_dkv_h)
-  switch (a.kw) {
-    case 16: return launch_fwd_bf16<HD, 16>(a, grid, st);
-    case 32: return launch_fwd_bf16<HD, 32>(a, grid, st);
-    default: return launch_fwd_bf16<HD, 64>(a, grid, st);
+  const size_t pad = (size_t)TM * (HD + 1) * sizeof(float);
+  switch (kind) {
+    case kFwd:
+      return launch_with(fwd_f32<HD>, grid,
+                         (size_t)2 * TM * HD * sizeof(float) +
+                             (size_t)TM * (TM + 1) * sizeof(float),
+                         st, a);
+    case kDq:
+      return launch_with(dq_f32<HD>, grid, 4 * pad, st, a);
+    default:
+      return launch_with(dkv_f32<HD>, grid, 4 * pad + 2 * TM * sizeof(float),
+                         st, a);
   }
 }
 
 // strides: (batch, seq, head) element strides of q, k, v and (dQ, dK/dV)
-// dO in turn; is_bf16 for the forward only (dQ and dK/dV here are fp32).
+// dO in turn.
 int run(Kind kind, Args a, int B, int S, int H, int head_dim, int block,
         int max_list, const long long* st, int causal, float sm_scale,
-        int is_bf16, void* stream) {
+        void* stream) {
   if (B < 1 || H < 1 || max_list < 1 || S < block ||
       (block != 16 && block != 32 && block != 64 && block != 128) ||
       S % block != 0)
@@ -1437,22 +1666,23 @@ int run(Kind kind, Args a, int B, int S, int H, int head_dim, int block,
   a.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return (int)launch<64>(kind, a, B, is_bf16, s);
-    case 80: return (int)launch<80>(kind, a, B, is_bf16, s);
-    case 96: return (int)launch<96>(kind, a, B, is_bf16, s);
-    case 128: return (int)launch<128>(kind, a, B, is_bf16, s);
+    case 64: return (int)launch<64>(kind, a, B, s);
+    case 80: return (int)launch<80>(kind, a, B, s);
+    case 96: return (int)launch<96>(kind, a, B, s);
+    case 128: return (int)launch<128>(kind, a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// fp32 forward, dQ and dK/dV on the FMA kernels, over the plan's idx / cnt
+// / order arrays (the forward plan, or the transposed one for dK/dV).
 extern "C" int bsa_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, const void* idx, const void* cnt,
                        const void* order, int B, int S, int H, int head_dim,
                        int block, int max_list, const long long* strides,
-                       int causal, float sm_scale, int is_bf16,
-                       void* stream) {
+                       int causal, float sm_scale, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -1463,7 +1693,7 @@ extern "C" int bsa_fwd(const void* q, const void* k, const void* v, void* o,
   a.order = static_cast<const int*>(order);
   a.out0 = o;
   return run(kFwd, a, B, S, H, head_dim, block, max_list, strides, causal,
-             sm_scale, is_bf16, stream);
+             sm_scale, stream);
 }
 
 extern "C" int bsa_dq(const void* q, const void* k, const void* v,
@@ -1484,7 +1714,7 @@ extern "C" int bsa_dq(const void* q, const void* k, const void* v,
   a.order = static_cast<const int*>(order);
   a.out0 = dq;
   return run(kDq, a, B, S, H, head_dim, block, max_list, strides, causal,
-             sm_scale, 0, stream);
+             sm_scale, stream);
 }
 
 extern "C" int bsa_dkv(const void* q, const void* k, const void* v,
@@ -1507,7 +1737,27 @@ extern "C" int bsa_dkv(const void* q, const void* k, const void* v,
   a.out0 = dk;
   a.out1 = dv;
   return run(kDkv, a, B, S, H, head_dim, block, max_list, strides, causal,
-             sm_scale, 0, stream);
+             sm_scale, stream);
+}
+
+// bf16 forward on the Hopper kernel, over the dQ side of the tile plan
+// (arguments as bsa_dq_h's; lse null: none written); strides: (batch,
+// seq, head) element strides of q, k and v in turn.  The workspace holds
+// B * n_partials partials of 64 x (head_dim + 8) floats.
+extern "C" int bsa_fwd_h(const void* q, const void* k, const void* v,
+                         void* o, void* lse, const void* items,
+                         const void* own, const void* tiles, void* ws,
+                         void* counters, int B, int S, int H, int head_dim,
+                         int kw, int n_items, int n_live, int n_split,
+                         int n_partials, const long long* strides,
+                         float sm_scale, void* stream) {
+  hbsa::Params p = hbsa::params(nullptr, nullptr, items, own, tiles, ws,
+                                counters, B, S, H, kw, n_items, n_live,
+                                n_split, n_partials, sm_scale);
+  p.out0 = static_cast<__nv_bfloat16*>(o);
+  p.lse_out = static_cast<float*>(lse);
+  return hbsa::run<hbsa::kFwdSide>(q, k, v, nullptr, strides, p, head_dim,
+                                   stream);
 }
 
 // bf16 dQ and dK/dV on the Hopper kernels, over one side's tile plan
@@ -1528,7 +1778,8 @@ extern "C" int bsa_dq_h(const void* q, const void* k, const void* v,
                                 B, S, H, kw, n_items, n_live, n_split,
                                 n_partials, sm_scale);
   p.out0 = static_cast<__nv_bfloat16*>(dq);
-  return hbsa::run<false>(q, k, v, dout, strides, p, head_dim, stream);
+  return hbsa::run<hbsa::kDqSide>(q, k, v, dout, strides, p, head_dim,
+                                   stream);
 }
 
 extern "C" int bsa_dkv_h(const void* q, const void* k, const void* v,
@@ -1544,5 +1795,6 @@ extern "C" int bsa_dkv_h(const void* q, const void* k, const void* v,
                                 n_partials, sm_scale);
   p.out0 = static_cast<__nv_bfloat16*>(dk);
   p.out1 = static_cast<__nv_bfloat16*>(dv);
-  return hbsa::run<true>(q, k, v, dout, strides, p, head_dim, stream);
+  return hbsa::run<hbsa::kDkvSide>(q, k, v, dout, strides, p, head_dim,
+                                    stream);
 }

@@ -7,8 +7,9 @@ forward ``_kernel`` (launcher ``_call``), the backward ``_dq_kernel`` and
 ``_plan_transpose``, ``block_sparse_attention_trainable`` (the custom VJP,
 here :class:`BlockSparseAttention`) and ``block_sparse_attention`` (the
 forward alone, no lse).  For CUDA tensors the three wrappers launch the
-kernels of ``csrc/block_sparse_attention.cu``; for CPU tensors they take
-their plain versions.
+kernels of ``csrc/block_sparse_attention.cu`` (bf16 on the Hopper kernels
+over a tile plan, fp32 on the FMA kernels over the plan's lists); for CPU
+tensors they take their plain versions.
 
 Layouts (the reference's public ones): q/k/v [B, S, H, hd], a 0/1 layout
 [H, S // block, S // block] -> o [B, S, H, hd] in the input dtype and lse
@@ -21,12 +22,13 @@ The plan is config, not data: :class:`BlockSparsePlan` builds it once on
 the host (vectorised numpy, the reference's arrays exactly) and keeps its
 int32 tensors on the device, so a call copies nothing to the card and
 waits on nothing.  Beside the reference's arrays it holds each side's
-blocks ordered by list length (longest first), which the forward and the
-fp32 kernels use to group blocks of like work into one CTA and to start
-the longest first, and per block size the bf16 dQ and dK/dV kernels'
-tile plans (:class:`TilePlan`: own tiles of 64 rows, streamed tiles of
-gathered listed blocks with their live pairs, work items longest first,
-long lists cut into segments merged in a fixed order).
+blocks ordered by list length (longest first), which the fp32 kernels use
+to group blocks of like work into one CTA and to start the longest first,
+and per block size the bf16 kernels' tile plans (:class:`TilePlan`: own
+tiles of 64 rows, streamed tiles of gathered listed blocks with their live
+pairs, work items longest first, long lists cut into segments merged in a
+fixed order), each side built at its first use: the forward and dQ walk
+the "dq" side, dK/dV the "dkv" side.
 
 The plain versions walk the same plan: each head's live (q-block,
 kv-block) pairs are gathered, the diagonal block masked causally, the
@@ -93,7 +95,7 @@ def _live_pairs(idx: np.ndarray, cnt: np.ndarray, h: int):
 
 
 # ---------------------------------------------------------------- tile plans
-#: rows of an own tile and of a streamed tile of the bf16 backward kernels
+#: rows of an own tile and of a streamed tile of the bf16 kernels
 TILE_ROWS = 64
 #: the shortest segment a list is cut into, in streamed tiles: a unit with
 #: a longer list than a side's segment length (:func:`segment_tiles`) is
@@ -128,18 +130,21 @@ def sub_layout(lay: np.ndarray, block: int, causal: bool) -> np.ndarray:
 
 
 class TilePlan:
-    """One side of the bf16 backward kernels' tile plan: what each work
-    item's consumer warpgroup computes, as int32 arrays.
+    """One side of the bf16 kernels' tile plan: what each work item's
+    consumer warpgroup computes, as int32 arrays.  The forward and dQ walk
+    the "dq" side, dK/dV the "dkv" side.
 
-    A side's rows are its own blocks (q blocks for dQ, kv blocks for dK /
-    dV) and its lists the blocks each attends or is attended by, all in
+    A side's rows are its own blocks (q blocks for the forward and dQ, kv
+    blocks for dK/dV) and its lists the blocks each attends or is attended
+    by, all in
     sub-blocks of ``kw = min(block, 64)`` rows (:func:`sub_layout`), ``g =
     64 // kw`` to a 64-row tile.
 
     - ``own`` [U, 4]: own tiles, each up to g own sub-blocks (-1: an empty
       slot, staged as zeros).  Per head, the sub-blocks with a list are
       taken g at a time in row order (dQ: contiguous q blocks, whose lists
-      are nearly the same) or by list length, longest first (dK/dV: like
+      are nearly the same; the forward's too) or by list length, longest
+      first (dK/dV: like
       lists together); those with none after them, in tiles of their own.
     - ``tiles`` [T, 8]: streamed tiles, the sorted union of an own tile's
       lists cut g sub-blocks at a time (-1 past its end), then the live
@@ -255,8 +260,8 @@ class BlockSparsePlan:
     block order (list length descending, stable) for the kernels.
     Counts for the bounds: ``live`` live blocks over all heads and
     ``live_diag`` of them on the diagonal (half-masked when causal).  The
-    bf16 backward kernels' tile plans (:meth:`tile_plans`) are built at
-    their first use."""
+    bf16 kernels' tile plans (:meth:`tile_plan`) are built a side at a
+    time, at the side's first use."""
 
     def __init__(self, layout, causal: bool, device="cpu"):
         layout = np.asarray(layout)
@@ -291,17 +296,29 @@ class BlockSparsePlan:
         self._lay = lay
         self._tiles = {}
 
-    def tile_plans(self, block: int):
-        """The bf16 backward kernels' tile plans at ``block`` on the plan's
-        device: {"dq": TilePlan, "dkv": TilePlan}, built once per block."""
-        if block not in self._tiles:
+    def tile_plan(self, block: int, side: str) -> TilePlan:
+        """One side ("dq": the forward's and dQ's; "dkv") of the bf16
+        kernels' tile plan at ``block`` on the plan's device, built once per
+        (block, side) at its first use."""
+        key = (block, side)
+        if key not in self._tiles:
             lay = sub_layout(self._lay, block, self.causal)
             kw = min(block, TILE_ROWS)
-            self._tiles[block] = {
-                "dq": TilePlan(lay, self.causal, kw, False, self.device),
-                "dkv": TilePlan(lay.transpose(0, 2, 1), self.causal, kw,
-                                True, self.device)}
-        return self._tiles[block]
+            if side == "dq":
+                tp = TilePlan(lay, self.causal, kw, False, self.device)
+            elif side == "dkv":
+                tp = TilePlan(lay.transpose(0, 2, 1), self.causal, kw, True,
+                              self.device)
+            else:
+                raise ValueError(f"block_sparse_attention: no tile plan "
+                                 f"side {side!r} (dq, dkv)")
+            self._tiles[key] = tp
+        return self._tiles[key]
+
+    def tile_plans(self, block: int):
+        """Both sides of the tile plan at ``block``: {"dq": TilePlan,
+        "dkv": TilePlan} (each built at its first use)."""
+        return {side: self.tile_plan(block, side) for side in ("dq", "dkv")}
 
     def pairs(self, device, transposed: bool):
         """Per head, the live pairs as int64 tensors on ``device``: (q
@@ -498,9 +515,10 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _OLD_TAIL = [_I] * 6 + [_STRIDES, _I, ctypes.c_float]
 _NEW_TAIL = [_I] * 9 + [_STRIDES, ctypes.c_float]
 #: each C entry point's argument types, the stream after them
-_ARGTYPES = {"bsa_fwd": [_P] * 8 + _OLD_TAIL + [_I],
+_ARGTYPES = {"bsa_fwd": [_P] * 8 + _OLD_TAIL,
              "bsa_dq": [_P] * 10 + _OLD_TAIL,
              "bsa_dkv": [_P] * 11 + _OLD_TAIL,
+             "bsa_fwd_h": [_P] * 10 + _NEW_TAIL,
              "bsa_dq_h": [_P] * 12 + _NEW_TAIL,
              "bsa_dkv_h": [_P] * 13 + _NEW_TAIL}
 _entries = {}
@@ -534,14 +552,23 @@ def _tail(B, S, H, hd, block, max_list, strides, plan, sm_scale):
             _scale(hd, sm_scale))
 
 
-def _hopper_args(tp, B, S, H, hd, q, side):
+def partial_floats(kernel: str, hd: int) -> int:
+    """The fp32 floats of one split segment's partial tile for ``kernel``
+    ("fwd", "dq" or "dkv") at head dim ``hd``: dQ's 64 x hd accumulators,
+    dK/dV's two, the forward's o and each of its 128 threads' four row
+    values (two rows' max and sum)."""
+    return {"fwd": TILE_ROWS * hd + 4 * 128, "dq": TILE_ROWS * hd,
+            "dkv": 2 * TILE_ROWS * hd}[kernel]
+
+
+def _hopper_args(tp, B, S, H, hd, q, kernel):
     """The bf16 kernels' plan, workspace and integer arguments for one
     side's tile plan: (items, own, tiles, ws, counters) pointers, then B, S,
     H, hd, kw, n_items, n_live, n_split, n_partials.  The workspace holds B x
-    n_partials fp32 partial tiles (64 x hd each, twice for dK/dV), the
-    counters B x n_split ints (``build.scratch``: 0, and each launch leaves
-    them 0)."""
-    per = (2 if side == "dkv" else 1) * TILE_ROWS * hd
+    n_partials fp32 partial tiles (:func:`partial_floats` of ``kernel``),
+    the counters B x n_split ints (``build.scratch``: 0, and each launch
+    leaves them 0)."""
+    per = partial_floats(kernel, hd)
     ws, counters = build.scratch(q.device, B * tp.n_partials * per,
                                  B * tp.n_split)
     items, own, tiles = tp.dev
@@ -555,19 +582,29 @@ def block_sparse_attention_fwd_cuda(q, k, v, plan, sm_scale=None,
                                     with_lse=True):
     """Launch the forward kernel; raises on anything it does not take.
     q/k/v may be strided views with a contiguous head dim and 16-byte
-    aligned rows.  -> (o [B, S, H, hd], lse [B, H, S] fp32 or None)."""
+    aligned rows.  bf16 runs the Hopper kernel over the plan's dQ tile
+    plan (``bsa_fwd_h``), fp32 the FMA kernel over the forward plan
+    (``bsa_fwd``); ``with_lse=False`` passes no lse and none is written.
+    -> (o [B, S, H, hd], lse [B, H, S] fp32 or None)."""
     B, S, H, hd, block = _check_cuda(q, k, v, plan)
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    rc = _launch(
-        "bsa_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), None if lse is None else lse.data_ptr(),
-        plan.kv_idx.data_ptr(), plan.kv_cnt.data_ptr(),
-        plan.q_order.data_ptr(),
-        *_tail(B, S, H, hd, block, plan.max_active, _strides(q, k, v), plan,
-               sm_scale), int(q.dtype == torch.bfloat16))
-    build.check(rc, "bsa_fwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr())
+    strides = _strides(q, k, v)
+    if q.dtype == torch.bfloat16:
+        (items, own, tiles, ws, counters), ints = _hopper_args(
+            plan.tile_plan(block, "dq"), B, S, H, hd, q, "fwd")
+        rc = _launch("bsa_fwd_h", q.device, *ptrs, items, own, tiles, ws,
+                     counters, *ints, strides, _scale(hd, sm_scale))
+        build.check(rc, "bsa_fwd_h")
+    else:
+        rc = _launch("bsa_fwd", q.device, *ptrs, plan.kv_idx.data_ptr(),
+                     plan.kv_cnt.data_ptr(), plan.q_order.data_ptr(),
+                     *_tail(B, S, H, hd, block, plan.max_active, strides,
+                            plan, sm_scale))
+        build.check(rc, "bsa_fwd")
     block_sparse_attention_fwd.launches += 1
     return o, lse
 
@@ -585,7 +622,7 @@ def block_sparse_attention_dq_cuda(q, k, v, do, lse, dsum, plan,
     strides = _strides(q, k, v, do)
     if q.dtype == torch.bfloat16:
         (items, own, tiles, ws, counters), ints = _hopper_args(
-            plan.tile_plans(block)["dq"], B, S, H, hd, q, "dq")
+            plan.tile_plan(block, "dq"), B, S, H, hd, q, "dq")
         rc = _launch("bsa_dq_h", q.device, *ptrs, items, own, tiles,
                      dq.data_ptr(), ws, counters, *ints, strides,
                      _scale(hd, sm_scale))
@@ -616,7 +653,7 @@ def block_sparse_attention_dkv_cuda(q, k, v, do, lse, dsum, plan,
     strides = _strides(q, k, v, do)
     if q.dtype == torch.bfloat16:
         (items, own, tiles, ws, counters), ints = _hopper_args(
-            plan.tile_plans(block)["dkv"], B, S, H, hd, q, "dkv")
+            plan.tile_plan(block, "dkv"), B, S, H, hd, q, "dkv")
         rc = _launch("bsa_dkv_h", q.device, *ptrs, items, own, tiles,
                      dk.data_ptr(), dv.data_ptr(), ws, counters, *ints,
                      strides, _scale(hd, sm_scale))

@@ -5,7 +5,10 @@ Each ``<name>.cu`` compiles on its own with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into
 ``build/torch_kernels/<name>-<hash>.so`` under the repository root; the
 hash covers the source, the shared ``csrc/*.cuh`` headers and the flags,
-so an edited kernel rebuilds and an unchanged one loads from disk.  The sources expose a plain C interface
+so an edited kernel rebuilds and an unchanged one loads from disk.  A
+library listed in :data:`PARTS` is compiled in pieces instead (its own
+source and each part, ``-c``, all started with the other sources) and
+linked into one.  The sources expose a plain C interface
 (pointers and the stream as ``void*``, each returning the launch's
 ``cudaError_t``), which keeps a build to seconds: no PyTorch headers.
 There is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -28,6 +31,19 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: the flags of one piece of a library in PARTS (an object, linked after)
+OBJECT_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
+#: libraries compiled in pieces, started together with the other sources
+#: and linked into one: name -> its parts (the log's name for the part, its
+#: source in csrc/, its -D flags), beside the library's own source (its C
+#: entry points).  The fused decode layer's eight (compute, weight, cache)
+#: dtype instances, compiled together, were the whole build's wall.
+PARTS = {"fused_decode": tuple(
+    (f"fused_decode_layer[{t},{w},{c}]", "fused_decode_layer",
+     (f"-DDS_FUSED_BF16={int(t == 'bf16')}",
+      f"-DDS_FUSED_W8={int(w == 'int8')}",
+      f"-DDS_FUSED_C8={int(c == 'int8')}"))
+    for t in ("f32", "bf16") for w in (t, "int8") for c in (t, "int8"))}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -52,19 +68,50 @@ def find_nvcc() -> str:
         "source at first use and need the CUDA toolkit")
 
 
+def units(name: str):
+    """The compilations of library ``name``: (log name, source, -D flags)
+    of its own source, then of each of its :data:`PARTS`."""
+    return ((name, name, ()), *PARTS.get(name, ()))
+
+
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for _, src, flags in units(name):
+        h.update((CSRC_DIR / f"{src}.cu").read_bytes())
+        h.update(" ".join(flags).encode())
     for header in sorted(CSRC_DIR.glob("*.cuh")):   # shared device code
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(jobs):
+    """Start every job's command together, read each one's output as it
+    ends (``build_log``: seconds from the start to its own end, and its
+    output) -> {tag: message} of the jobs that failed."""
+    t0 = time.monotonic()
+    procs = [(tag, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for tag, cmd in jobs]
+
+    def finish(tag, p):   # each job's own end, its pipe read as due
+        log, _ = p.communicate()
+        build_log[tag] = {"seconds": time.monotonic() - t0, "log": log}
+    waits = [threading.Thread(target=finish, args=job) for job in procs]
+    for t in waits:
+        t.start()
+    for t in waits:
+        t.join()
+    return {tag: f"--- {tag} (exit {p.returncode})\n{build_log[tag]['log']}"
+            for tag, p in procs if p.returncode != 0}
+
+
 def build(names: Iterable[str]) -> Dict[str, Path]:
-    """Compile every named kernel source not yet built, one ``nvcc``
-    process per source, all started together; returns name -> library
-    path.  Raises RuntimeError with the compiler output on failure."""
+    """Compile every named kernel library not yet built, one ``nvcc``
+    process per source (per piece for a library in :data:`PARTS`, linked
+    once its pieces are done), all started together; returns name ->
+    library path.  Raises RuntimeError with the compiler output on
+    failure."""
     names = list(names)
     out = {n: _target(n) for n in names}
     todo = [n for n in names if not out[n].exists()]
@@ -72,34 +119,44 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    t0 = time.monotonic()
+    tmp = {n: out[n].with_suffix(f".{os.getpid()}.tmp") for n in todo}
+    jobs, objects, lib_of = [], {}, {}
     for n in todo:
-        tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), time.monotonic())
-
-    def finish(n, p, t0):   # each source's own end, its pipe read as due
-        log, _ = p.communicate()
-        build_log[n] = {"seconds": time.monotonic() - t0, "log": log}
-    waits = [threading.Thread(target=finish, args=(n, p, t0))
-             for n, (_, p, t0) in procs.items()]
-    for t in waits:
-        t.start()
-    for t in waits:
-        t.join()
-    errors = []
-    for n, (tmp, p, _) in procs.items():
-        log = build_log[n]["log"]
-        if p.returncode != 0:
-            errors.append(f"--- {n}.cu (exit {p.returncode})\n{log}")
-            tmp.unlink(missing_ok=True)
+        if n not in PARTS:
+            jobs.append((n, [nvcc, *NVCC_FLAGS, "-o", str(tmp[n]),
+                             str(CSRC_DIR / f"{n}.cu")]))
+            lib_of[n] = n
+            continue
+        objects[n] = []
+        for i, (tag, src, flags) in enumerate(units(n)):
+            obj = tmp[n].with_suffix(f".{i}.o")
+            objects[n].append(obj)
+            jobs.append((tag, [nvcc, *OBJECT_FLAGS, *flags, "-o", str(obj),
+                               str(CSRC_DIR / f"{src}.cu")]))
+            lib_of[tag] = n
+    failed = _run_all(jobs)
+    link = [(f"{n} (link)", [nvcc, "-shared", "-o", str(tmp[n]),
+                             *map(str, objs)])
+            for n, objs in objects.items()
+            if not any(lib_of[t] == n for t in failed)]
+    if link:
+        failed.update(_run_all(link))
+        for tag, _ in link:     # seconds from the build's start
+            build_log[tag]["seconds"] = time.monotonic() - t0
+            lib_of[tag] = tag[:-len(" (link)")]
+    for objs in objects.values():
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    bad = {lib_of[t] for t in failed}
+    for n in todo:
+        if n in bad:
+            tmp[n].unlink(missing_ok=True)
         else:
-            os.replace(tmp, out[n])
-    if errors:
+            os.replace(tmp[n], out[n])
+    if failed:
         raise RuntimeError("deepspeed_tpu_torch: kernel build failed\n"
-                           + "\n".join(errors))
+                           + "\n".join(failed.values()))
     return out
 
 

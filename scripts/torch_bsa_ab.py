@@ -1,30 +1,32 @@
 #!/usr/bin/env python3
-"""Same-call A/B of the port's bf16 block-sparse backward pair (the dQ and
-dK/dV kernels of deepspeed_tpu_torch/csrc/block_sparse_attention.cu)
-against an earlier commit's on one GPU.
+"""Same-call A/B of the port's bf16 block-sparse kernels (the forward, dQ
+and dK/dV of deepspeed_tpu_torch/csrc/block_sparse_attention.cu) against
+an earlier commit's on one GPU.
 
     python3 scripts/torch_bsa_ab.py --parent DIR [--reps N]
 
 DIR is an earlier commit's csrc directory (e.g. unpacked by ``git archive
 <commit> deepspeed_tpu_torch/csrc``); its block_sparse_attention.cu is
 built with its own headers into build/torch_kernels/ab/ and launched
-through a copy of that commit's wrapper (the same checks and output
-allocation; its C entry points ``bsa_dq`` / ``bsa_dkv`` over the plan's
-idx / cnt / order arrays, no tile plan, no workspace); "change" is the
-checkout's wrapper on the checkout's build.
+through a copy of that commit's wrappers (the same checks and output
+allocation): its bf16 forward ``bsa_fwd`` over the plan's idx / cnt /
+order arrays (the trailing is_bf16 argument set), its dQ and dK/dV
+``bsa_dq_h`` / ``bsa_dkv_h`` over the same tile plan and workspace as the
+checkout's; "change" is the checkout's wrappers on the checkout's build.
 
 At chip_smoke.py phase 27d's shape (B 1, S 16384, H 16, hd 96, bf16,
 causal), for the Fixed (block 16) and BigBird (block 64) path layouts:
 each kernel's time by CUDA events (chip_smoke.py ``time_ms``) and by
 device time (torch.profiler, one kernel a call, ``device_ms``), median
-over ``--reps`` rounds of parent, change, change, parent; SDPA's backward
-with the layout expanded to a boolean [S, S] mask (its forward + backward
-less its forward, by events and by profiler windows that saw every
-kernel; context only, the port never calls it); the port's dense causal
-flash backward pair at the same shape (``ds_flash_bwd.cu``, events and
-device time); the bounds (chip_smoke.py ``sparse_bound``, ``attn_bound``);
-the change's tile plans (fill per side); and both builds' outputs against
-the plain versions and against each other.
+over ``--reps`` rounds of parent, change, change, parent; SDPA with the
+layout expanded to a boolean [S, S] mask, its forward and its backward
+(forward + backward less forward), by events and by profiler windows that
+saw every kernel (context only, the port never calls it); the port's
+dense causal flash forward and backward pair at the same shape
+(``ds_flash_fwd.cu``, ``ds_flash_bwd.cu``; events and device time); the
+bounds (chip_smoke.py ``sparse_bound``, ``attn_bound``); the change's
+tile plans (fill per side); and both builds' outputs against the plain
+versions and against each other.
 
 Prints one JSON line per layout, then the nvidia-smi line and a summary
 line.  Needs a GPU and nvcc; imports nothing of JAX.
@@ -35,7 +37,6 @@ import json
 import statistics
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -48,55 +49,68 @@ from chip_smoke import (SP_B, SP_H, SP_HD, SP_S, attn_bound,  # noqa: E402
                         whole_device_ms)
 
 ORDER = ("parent", "change", "change", "parent")
+KERNELS = ("fwd", "dq", "dkv")
 
 
 def parent_calls(torch, bs, lib):
-    """A copy of the earlier commit's dQ and dK/dV wrappers on ``lib``:
-    the checks, the output allocation and its C entry points (10 or 11
-    pointers, 6 ints, the strides, causal, the scale, is_bf16 and the
-    stream), with their own launch counts."""
+    """A copy of the earlier commit's bf16 wrappers on ``lib``: the
+    forward's C entry point (8 pointers, 6 ints, the strides, causal, the
+    scale, is_bf16 and the stream) over the plan's lists, and the dQ and
+    dK/dV entry points over the tile plan (the checkout's argument
+    types)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    tail = [i] * 6 + [ctypes.POINTER(ctypes.c_longlong), i, ctypes.c_float,
-                      i, p]
-    lib.bsa_dq.argtypes = [p] * 10 + tail
-    lib.bsa_dkv.argtypes = [p] * 11 + tail
-    lib.bsa_dq.restype = lib.bsa_dkv.restype = ctypes.c_int
-    counts = types.SimpleNamespace(dq=0, dkv=0)
+    lib.bsa_fwd.argtypes = [p] * 8 + [i] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong), i, ctypes.c_float, i, p]
+    for name in ("bsa_dq_h", "bsa_dkv_h"):
+        getattr(lib, name).argtypes = bs._ARGTYPES[name] + [p]
+    for name in ("bsa_fwd", "bsa_dq_h", "bsa_dkv_h"):
+        getattr(lib, name).restype = ctypes.c_int
 
-    def launch(fn, q, k, v, do, lse, dsum, plan, sm_scale, dkv):
+    def stream(q):
+        return torch.cuda.current_stream(q.device).cuda_stream
+
+    def check(rc, name):
+        if rc != 0:
+            raise RuntimeError(f"parent {name}: cudaError_t {rc}")
+
+    def fwd(q, k, v, plan, sm_scale=None):
+        B, S, H, hd, block = bs._check_cuda(q, k, v, plan)
+        o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        with torch.cuda.device(q.device):
+            check(lib.bsa_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), plan.kv_idx.data_ptr(),
+                plan.kv_cnt.data_ptr(), plan.q_order.data_ptr(),
+                *bs._tail(B, S, H, hd, block, plan.max_active,
+                          bs._strides(q, k, v), plan, sm_scale), 1,
+                stream(q)), "bsa_fwd")
+        return o, lse
+
+    def bwd(side, q, k, v, do, lse, dsum, plan, sm_scale=None):
         B, S, H, hd, block = bs._check_cuda(q, k, v, plan, (("dO", do),))
         lse, dsum = bs._check_rows(lse, dsum, B, H, S, q)
         outs = [torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-                for _ in range(2 if dkv else 1)]
-        idx, cnt, order, max_list = (
-            (plan.q_idx, plan.q_cnt, plan.k_order, plan.max_q) if dkv
-            else (plan.kv_idx, plan.kv_cnt, plan.q_order, plan.max_active))
+                for _ in range(2 if side == "dkv" else 1)]
+        (items, own, tiles, ws, counters), ints = bs._hopper_args(
+            plan.tile_plan(block, side), B, S, H, hd, q, side)
         with torch.cuda.device(q.device):
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), dsum.data_ptr(), idx.data_ptr(),
-                    cnt.data_ptr(), order.data_ptr(),
-                    *[o.data_ptr() for o in outs],
-                    B, S, H, hd, block, max_list, bs._strides(q, k, v, do),
-                    int(plan.causal), bs._scale(hd, sm_scale), 1,
-                    torch.cuda.current_stream(q.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"parent block-sparse backward: cudaError_t "
-                               f"{rc}")
-        return outs
-
-    def dq(*args, sm_scale=None):
-        counts.dq += 1
-        return launch(lib.bsa_dq, *args, sm_scale, False)[0]
-
-    def dkv(*args, sm_scale=None):
-        counts.dkv += 1
-        return tuple(launch(lib.bsa_dkv, *args, sm_scale, True))
-    return {"dq": dq, "dkv": dkv, "counts": counts}
+            check(getattr(lib, f"bsa_{side}_h")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), dsum.data_ptr(), items, own, tiles,
+                *[o.data_ptr() for o in outs], ws, counters, *ints,
+                bs._strides(q, k, v, do), bs._scale(hd, sm_scale),
+                stream(q)), f"bsa_{side}_h")
+        return outs[0] if side == "dq" else tuple(outs)
+    return {"fwd": fwd,
+            "dq": lambda *a: bwd("dq", *a),
+            "dkv": lambda *a: bwd("dkv", *a)}
 
 
 def inputs(torch, sa, bs, cfg):
     """The path's seeded inputs (chip_smoke.py phase 27c's draw), the
-    plan, and the change's forward lse and dsum."""
+    plan, and the change's forward lse and dsum (both builds' backward
+    read these)."""
     g = torch.Generator(device="cuda").manual_seed(272)
     bf = torch.bfloat16
     q, k = (torch.randn(SP_B, SP_S, SP_H, SP_HD, generator=g,
@@ -109,10 +123,10 @@ def inputs(torch, sa, bs, cfg):
     return (q, k, v, do, lse, dsum, plan)
 
 
-def sdpa_bwd(torch, F, sa, cfg, q, k, v, do):
-    """SDPA's backward with the layout as a boolean mask: events ms
-    (forward + backward less forward) and device ms (whole profiler
-    windows, None where none saw every kernel)."""
+def sdpa(torch, F, sa, cfg, q, k, v, do):
+    """SDPA with the layout as a boolean mask: its forward and its
+    backward (forward + backward less forward), events ms and device ms
+    (whole profiler windows, None where none saw every kernel)."""
     mask = sa.layout_to_mask(sa.cached_layout(cfg, SP_S)[:1], SP_S, "cuda")
     mask = (mask & torch.tril(torch.ones(SP_S, SP_S, dtype=torch.bool,
                                          device="cuda")))[None]
@@ -129,50 +143,69 @@ def sdpa_bwd(torch, F, sa, cfg, q, k, v, do):
     events = time_ms(fwd_bwd, reps=5, inner=2) - f_ms
     both, _ = whole_device_ms(torch, fwd_bwd, reps=3)
     only, _ = whole_device_ms(torch, fwd, reps=3)
-    return {"events_ms": events,
-            "device_ms": None if both is None or only is None
-            else both - only}
+    return {"fwd": {"events_ms": f_ms, "device_ms": only},
+            "bwd": {"events_ms": events,
+                    "device_ms": None if both is None or only is None
+                    else both - only}}
 
 
 def dense_flash(torch, fa, q, k, v, do):
-    """The port's dense causal flash backward pair at the same shape:
-    events and device ms of each kernel, and the pair's bound."""
+    """The port's dense causal flash kernels at the same shape: events and
+    device ms of the forward and of each backward kernel, and the
+    bounds."""
     o, lse = fa.flash_attention_fwd_cuda(q, k, v)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     out = {}
-    for name, fn in (("dkv", fa.flash_attention_bwd_dkv_cuda),
-                     ("dq", fa.flash_attention_bwd_dq_cuda)):
-        def call(fn=fn):
-            return fn(q, k, v, do, lse, delta)
+    for name, fn, args in (
+            ("fwd", fa.flash_attention_fwd_cuda, (q, k, v)),
+            ("dkv", fa.flash_attention_bwd_dkv_cuda,
+             (q, k, v, do, lse, delta)),
+            ("dq", fa.flash_attention_bwd_dq_cuda,
+             (q, k, v, do, lse, delta))):
+        def call(fn=fn, args=args):
+            return fn(*args)
         out[name] = {"events_ms": time_ms(call, reps=3, inner=1),
                      "device_ms": device_ms(torch, [call], reps=5,
                                             one_kernel=True)[0]}
     out["pair_events_ms"] = out["dkv"]["events_ms"] + out["dq"]["events_ms"]
     out["pair_device_ms"] = out["dkv"]["device_ms"] + out["dq"]["device_ms"]
+    out["fwd_bound_ms"] = attn_bound(SP_B, SP_S, SP_H, SP_H, SP_HD, 2, True,
+                                     2, 2, 1)[0]
     out["pair_bound_ms"] = attn_bound(SP_B, SP_S, SP_H, SP_H, SP_HD, 7, True,
                                       3, 4, 2)[0]
     return out
 
 
 def errors(torch, bs, args, outs):
-    """Each build's dq, dk, dv against the plain versions (max abs error
-    over the plain tensor's max, and the relative norm of the
-    difference), and the change against the parent."""
-    plain = (bs.block_sparse_attention_dq_plain(*args),
+    """Each build's o, lse, dq, dk, dv against the plain versions (max abs
+    error, over the plain tensor's max, and the relative norm of the
+    difference; lse on its finite rows), and the change against the
+    parent (o and lse bit for bit, gradients over the parent's max)."""
+    q, k, v, do, lse, dsum, plan = args
+    po, plse = bs.block_sparse_attention_fwd_plain(q, k, v, plan)
+    plain = (po, plse, bs.block_sparse_attention_dq_plain(*args),
              *bs.block_sparse_attention_dkv_plain(*args))
+    names = ("o", "lse", "dq", "dk", "dv")
+    fin = torch.isfinite(plse)
     res = {}
     for n, got in outs.items():
-        res[n] = {name: {k: path_errs(torch, a, b)[k]
-                         for k in ("max_abs_err", "rel_norm_err")}
-                  for name, a, b in zip(("dq", "dk", "dv"), got, plain)}
-        for name, b in zip(("dq", "dk", "dv"), plain):
-            res[n][name]["max_abs_over_max"] = res[n][name]["max_abs_err"] \
-                / max(float(b.float().abs().max()), 1e-30)
-    res["change_vs_parent_rel"] = {
-        name: float((a.float() - b.float()).abs().max())
-        / max(float(b.float().abs().max()), 1e-30)
-        for name, a, b in zip(("dq", "dk", "dv"), outs["change"],
-                              outs["parent"])}
+        res[n] = {}
+        for name, a, b in zip(names, got, plain):
+            if name == "lse":
+                res[n][name] = {"max_abs_err": float(
+                    (a[fin] - b[fin]).abs().max()), "inf_where_plain": bool(
+                    torch.equal(torch.isinf(a), ~fin))}
+                continue
+            e = path_errs(torch, a, b)
+            res[n][name] = {k_: e[k_] for k_ in ("max_abs_err",
+                                                  "rel_norm_err")}
+            res[n][name]["max_abs_over_max"] = e["max_abs_err"] / max(
+                float(b.float().abs().max()), 1e-30)
+    res["change_vs_parent"] = {
+        name: (bool(torch.equal(a, b)) if name in ("o", "lse") else
+               float((a.float() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1e-30))
+        for name, a, b in zip(names, outs["change"], outs["parent"])}
     return res
 
 
@@ -181,18 +214,22 @@ def ab(torch, F, sa, bs, fa, calls, reps, prepared):
     for label, cfg in sparse_path_configs(sa).items():
         args = prepared[label]
         q, k, v, do, _, _, plan = args
-        outs = {n: (c["dq"](*args), *c["dkv"](*args))
-                for n, c in calls.items()}
+        outs = {n: (*c["fwd"](q, k, v, plan), c["dq"](*args),
+                    *c["dkv"](*args)) for n, c in calls.items()}
         torch.cuda.synchronize()
         errs = errors(torch, bs, args, outs)
         del outs
-        times = {n: {"dq_events": [], "dkv_events": [], "dq_device": [],
-                     "dkv_device": []} for n in calls}
+        times = {n: {f"{kern}_{how}": [] for kern in KERNELS
+                     for how in ("events", "device")} for n in calls}
         for _ in range(reps):
             for n in ORDER:
-                for kern in ("dq", "dkv"):
-                    def call(f=calls[n][kern]):
-                        return f(*args)
+                for kern in KERNELS:
+                    if kern == "fwd":
+                        def call(f=calls[n]["fwd"]):
+                            return f(q, k, v, plan)
+                    else:
+                        def call(f=calls[n][kern]):
+                            return f(*args)
                     times[n][f"{kern}_events"].append(
                         time_ms(call, reps=5, inner=3))
                     times[n][f"{kern}_device"].append(
@@ -200,38 +237,47 @@ def ab(torch, F, sa, bs, fa, calls, reps, prepared):
         med = {n: {m: statistics.median(x) for m, x in t.items()}
                for n, t in times.items()}
         for n in med:
-            med[n]["pair_events"] = med[n]["dq_events"] \
-                + med[n]["dkv_events"]
-            med[n]["pair_device"] = med[n]["dq_device"] \
-                + med[n]["dkv_device"]
+            for how in ("events", "device"):
+                med[n][f"pair_{how}"] = med[n][f"dq_{how}"] \
+                    + med[n][f"dkv_{how}"]
+                med[n][f"fwd_bwd_{how}"] = med[n][f"fwd_{how}"] \
+                    + med[n][f"pair_{how}"]
         bounds = {kind: sparse_bound(bs, plan, SP_B, SP_S, SP_H, SP_HD,
-                                     kind) for kind in ("dq", "dkv")}
-        sdpa = sdpa_bwd(torch, F, sa, cfg, q, k, v, do)
+                                     kind) for kind in KERNELS}
+        lib = sdpa(torch, F, sa, cfg, q, k, v, do)
         dense = dense_flash(torch, fa, q, k, v, do)
+        ch = med["change"]
         row = {"layout": label, "block": cfg.block,
                "shape": [SP_B, SP_S, SP_H, SP_HD], "dtype": "bfloat16",
                "causal": True, "live_blocks": plan.live, "ms": med,
                "ms_all": times, "bound_ms": bounds,
-               "sdpa_bwd_with_layout_mask": sdpa,
-               "dense_causal_flash_pair": dense,
+               "sdpa_with_layout_mask": lib,
+               "dense_causal_flash": dense,
                "tile_plan": tile_plan_report(plan.tile_plans(cfg.block),
                                              SP_HD),
                "parent_over_change": {
-                   m: med["parent"][m] / med["change"][m]
-                   for m in ("dq_device", "dkv_device", "pair_device",
-                             "pair_events")},
+                   m: med["parent"][m] / ch[m]
+                   for m in ("fwd_events", "fwd_device", "dq_device",
+                             "dkv_device", "pair_device", "fwd_bwd_events")},
+               "change_fwd_over_dense_flash_fwd":
+               ch["fwd_events"] / dense["fwd"]["events_ms"],
+               "change_fwd_over_sdpa_fwd":
+               ch["fwd_events"] / lib["fwd"]["events_ms"],
+               "change_fwd_over_dq": ch["fwd_events"] / ch["dq_events"],
+               "change_fwd_over_bound": ch["fwd_device"] / bounds["fwd"][0],
                "change_pair_over_dense_flash_pair":
-               med["change"]["pair_events"] / dense["pair_events_ms"],
-               "sdpa_over_change_pair":
-               sdpa["events_ms"] / med["change"]["pair_events"],
-               "dkv_over_dq": med["change"]["dkv_events"]
-               / med["change"]["dq_events"],
+               ch["pair_events"] / dense["pair_events_ms"],
                "errors": errs}
         print(json.dumps(row), flush=True)
-        summary[label] = {"change": med["change"], "parent": med["parent"],
-                          "bound": bounds, "sdpa": sdpa,
+        summary[label] = {"change": ch, "parent": med["parent"],
+                          "bound": bounds, "sdpa": lib,
+                          "dense_flash_fwd_events_ms":
+                          dense["fwd"]["events_ms"],
+                          "dense_flash_fwd_device_ms":
+                          dense["fwd"]["device_ms"],
                           "dense_flash_pair_events_ms":
-                          dense["pair_events_ms"]}
+                          dense["pair_events_ms"],
+                          "change_vs_parent": errs["change_vs_parent"]}
     return summary
 
 
@@ -265,7 +311,8 @@ def main():
     parent = build_variants("block_sparse_attention", {},
                             args.parent)["parent"]
     calls = {"parent": parent_calls(torch, bs, parent),
-             "change": {"dq": bs.block_sparse_attention_dq_cuda,
+             "change": {"fwd": bs.block_sparse_attention_fwd_cuda,
+                        "dq": bs.block_sparse_attention_dq_cuda,
                         "dkv": bs.block_sparse_attention_dkv_cuda}}
     summary = ab(torch, F, sa, bs, fa, calls, args.reps, prepared)
     print(smi, flush=True)

@@ -1,6 +1,7 @@
-"""deepspeed_tpu_torch block-sparse attention: the bf16 backward kernels'
-tile plan (``TilePlan``, built per layout by ``BlockSparsePlan``) and the
-wrapper that launches them.
+"""deepspeed_tpu_torch block-sparse attention: the bf16 kernels' tile plan
+(``TilePlan``, built per layout by ``BlockSparsePlan``; the forward and dQ
+walk its "dq" side, dK/dV its "dkv" side) and the wrappers that launch
+them.
 
 - The plan of every layout class chip_smoke.py's phase 27a checks (Fixed,
   BigBird, BSLongformer, Variable, per-head, empty rows and columns,
@@ -17,9 +18,18 @@ wrapper that launches them.
   in fp32 (1e-5 abs: the same sums in another order) and against the JAX
   Pallas ``_bwd_call`` in interpret mode on the same seeded numpy inputs
   (1e-5, as ``test_plain_backward_matches_pallas``).
-- The wrapper with the launch stubbed, so that no kernel runs: bf16 takes
-  ``bsa_dq_h`` / ``bsa_dkv_h`` with the plan's arguments, fp32 the FMA
-  kernels' ``bsa_dq`` / ``bsa_dkv``; the workspace and counters asked of
+- The same for the forward (``tile_walk_fwd``): the dQ side's items, the
+  scores masked to -inf by the live words, an online softmax per own tile
+  in log2 units, each split unit's (o, max, sum) partials combined in
+  segment order, against the plain forward (o and lse, 1e-5 abs, lse
+  +inf exactly where the plain one is) and against the JAX ``_call(...,
+  interpret=True, with_lse=True)`` (2e-5, as
+  ``test_plain_forward_matches_pallas``).
+- The wrappers with the launch stubbed, so that no kernel runs: bf16
+  takes ``bsa_fwd_h`` / ``bsa_dq_h`` / ``bsa_dkv_h`` with the plan's
+  arguments, fp32 the FMA kernels' ``bsa_fwd`` / ``bsa_dq`` / ``bsa_dkv``;
+  ``with_lse=False`` passes no lse; a forward alone builds only the dQ
+  side of the tile plan; the workspace and counters asked of
   ``build.scratch`` are sized from the plan; refusals come before any
   launch; a failed launch raises and counts nothing.
 """
@@ -34,6 +44,8 @@ from deepspeed_tpu_torch.ops import sparse_attention as T
 from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as TB
 
 TOL = 1e-5
+FWD_TOL = 2e-5          # against the Pallas forward, as its plain version
+LOG2E, LN2 = float(np.log2(np.e)), float(np.log(2.0))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -358,6 +370,77 @@ def tile_walk(q, k, v, do, lse, dsum, plan, sm_scale=None):
     return outs["dq"][0], outs["dkv"][0], outs["dkv"][1]
 
 
+def tile_walk_fwd(q, k, v, plan, sm_scale=None):
+    """The bf16 forward's arithmetic over the dQ side of the tile plan, in
+    fp32 torch: per work item its own q rows against its gathered k / v
+    tiles, the scores of pairs the live word does not mark (and of keys
+    after the query inside a diagonal pair) -inf before the row max, an
+    online softmax in log2 units (c = sm_scale * log2(e); running max m,
+    sum l, o rescaled by 2^(m_old - m_new); a row that has seen no live key
+    keeps base 0), each split unit's (o, m, l) partials combined in segment
+    order (M = max m, o = sum o 2^(m - M), l alike), then o / l and lse =
+    (M + log2 l) ln 2; rows of no item o = 0, lse = +inf -> (o, lse)."""
+    B, S, H, hd = q.shape
+    block = S // plan.n
+    c = (hd ** -0.5 if sm_scale is None else sm_scale) * LOG2E
+    tp = plan.tile_plan(block, "dq")
+    kw, g = tp.kw, tp.g
+    inf = float("inf")
+    o = torch.zeros(B, S, H, hd)
+    lse = torch.full((B, H, S), inf)
+    parts = {}
+
+    def sub(x, h):
+        return x[:, :, h].float().reshape(B, S // kw, kw, hd)
+
+    def base_of(m):
+        return torch.where(m == -inf, torch.zeros_like(m), m)
+    for it in tp.items[:tp.n_live]:
+        own_i, h, first, count, split, seg, nseg = (int(x) for x in it[:7])
+        own = tp.own[own_i, :g].tolist()
+        qo = _gather(sub(q, h), own, kw)
+        acc = torch.zeros(B, g * kw, hd)
+        m = torch.full((B, g * kw), -inf)
+        l = torch.zeros(B, g * kw)
+        for t in range(first, first + count):
+            strm = tp.tiles[t, :g].tolist()
+            mask = _mask(int(tp.tiles[t, 4]) & 0xFFFFFFFF, g, kw, False)
+            ks, vs = (_gather(sub(x, h), strm, kw) for x in (k, v))
+            s = torch.where(mask, qo @ ks.transpose(1, 2),
+                            torch.full((), -inf))
+            m_new = torch.maximum(m, s.amax(-1) * c)
+            base = base_of(m_new)
+            alpha = torch.exp2(m - base)
+            p = torch.exp2(s * c - base[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + p @ vs
+            m = m_new
+        if split >= 0:
+            parts.setdefault((own_i, h), {})[seg] = (acc, m, l)
+            if len(parts[(own_i, h)]) < nseg:
+                continue
+            segs = [parts[(own_i, h)][s_] for s_ in range(nseg)]
+            m = torch.stack([x[1] for x in segs]).amax(0)
+            base = base_of(m)
+            acc, l = torch.zeros_like(acc), torch.zeros_like(l)
+            for a_, m_, l_ in segs:          # segment order
+                w_ = torch.exp2(m_ - base)
+                acc = acc + a_ * w_[..., None]
+                l = l + l_ * w_
+        live = l > 0
+        l1 = torch.where(live, l, torch.ones_like(l))
+        out = torch.where(live[..., None], acc / l1[..., None],
+                          torch.zeros_like(acc))
+        rows_lse = torch.where(live, (m + torch.log2(l1)) * LN2,
+                               torch.full_like(l, inf))
+        for j, r in enumerate(own):
+            if r >= 0:
+                o[:, r * kw:(r + 1) * kw, h] = out[:, j * kw:(j + 1) * kw]
+                lse[:, h, r * kw:(r + 1) * kw] = \
+                    rows_lse[:, j * kw:(j + 1) * kw]
+    return o, lse
+
+
 def _inputs(B, S, H, hd, seed, n=4):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((B, S, H, hd), dtype=np.float32)
@@ -431,18 +514,82 @@ def test_tile_walk_matches_pallas(monkeypatch, causal, sm_scale):
                                    rtol=0, atol=TOL)
 
 
+def _lse_close(got, want, atol):
+    """lse: +inf exactly where ``want`` has it, within ``atol`` elsewhere."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    assert (got[np.isinf(got)] > 0).all()
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("seg", [32, 1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("name", ["fixed_b16", "bigbird_per_head_b32",
+                                  "empty_rows_cols_b64", "fixed_b128",
+                                  "fixed_b16_ragged"])
+def test_tile_walk_fwd_matches_plain(monkeypatch, name, causal, seg):
+    """The forward's walk over the dQ side against the plain forward
+    (fp32, 1e-5): o, and lse with +inf exactly on the rows of no live
+    block; seg 1 cuts every list of more than one streamed tile, so each
+    such unit combines its (o, m, l) partials."""
+    monkeypatch.setattr(TB, "SEGMENT_TILES", seg)
+    lay, S = _layouts()[name]
+    H, hd = lay.shape[0], 16
+    plan = TB.BlockSparsePlan(lay, causal)
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, S, H, hd, 23, n=3))
+    o, lse = tile_walk_fwd(q, k, v, plan)
+    po, plse = TB.block_sparse_attention_fwd_plain(q, k, v, plan)
+    np.testing.assert_allclose(o.numpy(), po.numpy(), rtol=0, atol=TOL)
+    _lse_close(lse, plse, TOL)
+    if seg == 1:
+        assert plan.tile_plan(S // plan.n, "dq").n_split > 0
+    if name == "empty_rows_cols_b64" and causal:
+        assert bool(torch.isinf(plse).any())
+
+
+@pytest.mark.parametrize("causal,sm_scale", [(False, None), (True, None),
+                                             (True, 0.3)])
+def test_tile_walk_fwd_matches_pallas(monkeypatch, causal, sm_scale):
+    """The forward's walk (with split units) against the JAX ``_call`` in
+    interpret mode: o and lse."""
+    monkeypatch.setattr(TB, "SEGMENT_TILES", 1)
+    lay = T.BigBirdSparsityConfig(2, 16, different_layout_per_head=True,
+                                  num_random_blocks=2,
+                                  num_sliding_window_blocks=3,
+                                  num_global_blocks=1, seed=7).make_layout(
+                                      128)
+    q, k, v = _inputs(2, 128, 2, 16, seed=4, n=3)
+    kv_idx, kv_cnt, _ = JB._plan(lay, causal)
+    qt, kt, vt = (jnp.asarray(x).transpose(0, 2, 1, 3) for x in (q, k, v))
+    o, lse = (np.asarray(jax.block_until_ready(x)) for x in JB._call(
+        qt, kt, vt, jnp.asarray(kv_idx), jnp.asarray(kv_cnt), causal=causal,
+        block=16, sm_scale=sm_scale, interpret=True, with_lse=True))
+    plan = TB.BlockSparsePlan(lay, causal)
+    assert plan.tile_plan(16, "dq").n_split > 0
+    got_o, got_lse = tile_walk_fwd(*(torch.from_numpy(x) for x in (q, k, v)),
+                                   plan, sm_scale)
+    np.testing.assert_allclose(got_o.numpy(), o.transpose(0, 2, 1, 3),
+                               rtol=0, atol=FWD_TOL)
+    _lse_close(got_lse, lse[..., 0], FWD_TOL)
+
+
 # --------------------------------------------------------- the wrapper
-def _stub(monkeypatch, rc=0):
+def _stub(monkeypatch, rc=0, raw=None):
     """Stand in for the launch and the scratch: record (entry point,
-    integer arguments) of each launch and (floats, counters) of each
-    workspace asked for; zero the launch counts."""
+    integer arguments) of each launch (and, into ``raw``, all its
+    arguments) and (floats, counters) of each workspace asked for; zero
+    the launch counts."""
     calls, asked = [], []
-    ints = {"bsa_dq_h": slice(12, 21), "bsa_dkv_h": slice(13, 22),
+    ints = {"bsa_fwd_h": slice(10, 19), "bsa_dq_h": slice(12, 21),
+            "bsa_dkv_h": slice(13, 22), "bsa_fwd": slice(8, 14),
             "bsa_dq": slice(10, 16), "bsa_dkv": slice(11, 17)}
 
     def launch(name, device, *args):
         assert len(args) == len(TB._ARGTYPES[name])
         calls.append((name, tuple(args[ints[name]])))
+        if raw is not None:
+            raw.append(args)
         return rc
 
     def scratch(device, n_floats, n_counters):
@@ -496,6 +643,89 @@ def test_bf16_takes_the_hopper_kernels(monkeypatch, block, hd):
     assert tps["dkv"].n_split > 0
 
 
+@pytest.mark.parametrize("with_lse", [True, False])
+@pytest.mark.parametrize("block,hd", [(16, 96), (32, 80), (64, 64),
+                                      (128, 128)])
+def test_bf16_forward_takes_the_hopper_kernel(monkeypatch, block, hd,
+                                              with_lse):
+    """bf16 forwards launch ``bsa_fwd_h`` over the dQ side of the tile
+    plan, with a workspace of the forward's partials (o and the rows' max
+    and sum); ``with_lse=False`` passes a null lse and returns None; a
+    forward alone builds no dK/dV side."""
+    raw = []
+    calls, asked = _stub(monkeypatch, raw=raw)
+    monkeypatch.setattr(TB, "SEGMENT_TILES", 1)     # splits: a workspace
+    S, B, H = 512, 2, 2
+    lay = T.FixedSparsityConfig(H, block, num_local_blocks=2,
+                                num_global_blocks=1,
+                                attention="unidirectional").make_layout(S)
+    plan = TB.BlockSparsePlan(lay, True)
+    x, _ = _zeros(B, S, H, hd, torch.bfloat16)
+    o, lse = TB.block_sparse_attention_fwd_cuda(x, x, x, plan,
+                                                with_lse=with_lse)
+    assert o.shape == x.shape and o.dtype == torch.bfloat16
+    assert (lse is None) == (not with_lse)
+    if with_lse:
+        assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+        assert raw[0][4] == lse.data_ptr()
+    else:
+        assert raw[0][4] is None
+    assert raw[0][3] == o.data_ptr()
+    assert _counts() == [1, 0, 0]
+    assert set(plan._tiles) == {(block, "dq")}
+    tp = plan.tile_plan(block, "dq")
+    assert tp.n_split > 0
+    assert calls == [("bsa_fwd_h", (B, S, H, hd, min(block, 64),
+                                    len(tp.items), tp.n_live, tp.n_split,
+                                    tp.n_partials))]
+    assert asked == [(B * tp.n_partials * (64 * hd + 4 * 128),
+                      B * tp.n_split)]
+    assert TB.partial_floats("fwd", hd) == 64 * (hd + 8)
+    # the plan pointers are the dQ side's, as the dQ kernel reads them
+    items, own, tiles = tp.dev
+    assert raw[0][5:8] == (items.data_ptr(), own.data_ptr(),
+                           tiles.data_ptr())
+
+
+@pytest.mark.parametrize("with_lse", [True, False])
+def test_fp32_forward_takes_the_fma_kernel(monkeypatch, with_lse):
+    """fp32 forwards launch ``bsa_fwd`` over the forward plan's lists and
+    build no tile plan."""
+    raw = []
+    calls, asked = _stub(monkeypatch, raw=raw)
+    S, B, H, hd, block = 512, 1, 2, 64, 32
+    plan = TB.BlockSparsePlan(T.BigBirdSparsityConfig(H, block)
+                              .make_layout(S), False)
+    x, _ = _zeros(B, S, H, hd, torch.float32)
+    o, lse = TB.block_sparse_attention_fwd_cuda(x, x, x, plan,
+                                                with_lse=with_lse)
+    assert o.dtype == torch.float32 and (lse is None) == (not with_lse)
+    assert calls == [("bsa_fwd", (B, S, H, hd, block, plan.max_active))]
+    assert raw[0][5:8] == (plan.kv_idx.data_ptr(), plan.kv_cnt.data_ptr(),
+                           plan.q_order.data_ptr())
+    assert (raw[0][4] is None) == (not with_lse)
+    assert asked == [] and plan._tiles == {} and _counts() == [1, 0, 0]
+
+
+def test_forward_and_backward_share_the_dq_side(monkeypatch):
+    """A bf16 forward, then the backward: the dQ kernel reads the very
+    tile plan the forward built (one "dq" side), dK/dV adds its own."""
+    raw = []
+    calls, _ = _stub(monkeypatch, raw=raw)
+    plan = TB.BlockSparsePlan(np.tril(np.ones((2, 8, 8), np.int64)), True)
+    x, rows = _zeros(1, 128, 2, 64, torch.bfloat16)
+    TB.block_sparse_attention_fwd_cuda(x, x, x, plan)
+    dq_side = plan._tiles[(16, "dq")]
+    TB.block_sparse_attention_dq_cuda(x, x, x, x, rows, rows, plan)
+    TB.block_sparse_attention_dkv_cuda(x, x, x, x, rows, rows, plan)
+    assert plan.tile_plan(16, "dq") is dq_side
+    assert sorted(plan._tiles) == [(16, "dkv"), (16, "dq")]
+    assert raw[0][5:8] == raw[1][6:9]      # items, own, tiles
+    assert [c[0] for c in calls] == ["bsa_fwd_h", "bsa_dq_h", "bsa_dkv_h"]
+    with pytest.raises(ValueError, match="side"):
+        plan.tile_plan(16, "fwd")
+
+
 @pytest.mark.parametrize("block", [16, 128])
 def test_fp32_takes_the_fma_kernels(monkeypatch, block):
     calls, asked = _stub(monkeypatch)
@@ -522,16 +752,21 @@ def test_refusals_come_before_any_launch(monkeypatch):
                    TB.block_sparse_attention_dkv_cuda):
             with pytest.raises(NotImplementedError, match="no CUDA kernel"):
                 fn(x, x, x, x, rows, rows, plan)
+        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+            TB.block_sparse_attention_fwd_cuda(x, x, x, plan)
     x, rows = _zeros(1, 64, 2, 64, torch.bfloat16)
     bad = torch.zeros(1, 64, 2, 66, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="strides"):
         TB.block_sparse_attention_dkv_cuda(x, x, x, bad, rows, rows, plan)
+    with pytest.raises(ValueError, match="strides"):
+        TB.block_sparse_attention_fwd_cuda(x, bad, x, plan, with_lse=False)
     with pytest.raises(ValueError, match="dsum"):
         TB.block_sparse_attention_dq_cuda(x, x, x, x, rows, rows[0], plan)
     with pytest.raises(ValueError, match="lse"):
         TB.block_sparse_attention_dkv_cuda(x, x, x, x, rows.double(), rows,
                                            plan)
     assert calls == [] and asked == [] and _counts() == [0, 0, 0]
+    assert plan._tiles == {}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -544,4 +779,6 @@ def test_a_failed_launch_raises(monkeypatch, dtype):
         TB.block_sparse_attention_dq_cuda(x, x, x, x, rows, rows, plan)
     with pytest.raises(RuntimeError, match=f"bsa_dkv{sfx} launch failed"):
         TB.block_sparse_attention_dkv_cuda(x, x, x, x, rows, rows, plan)
-    assert len(calls) == 2 and _counts() == [0, 0, 0]
+    with pytest.raises(RuntimeError, match=f"bsa_fwd{sfx} launch failed"):
+        TB.block_sparse_attention_fwd_cuda(x, x, x, plan)
+    assert len(calls) == 3 and _counts() == [0, 0, 0]
