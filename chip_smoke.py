@@ -14,7 +14,7 @@ the port's own entry points.
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --only 20,21   # the build, then phases 2, 3, 7,
-                                         # 8, 12, 15-27 as listed (no
+                                         # 8, 11-27 as listed (no
                                          # kernels line)
 
 Phases (any failed check exits non-zero before the final line):
@@ -27,7 +27,10 @@ Phases (any failed check exits non-zero before the final line):
      (serialised wgmma) warning; every decode kernel instance's registers,
      with 0 spill bytes; each block-sparse Hopper instance (forward and
      backward) HGMMA and UTMALDG, 0 spill bytes, no C7520, its ptxas
-     lines printed;
+     lines printed; the streaming expert kernels (the bf16 slot kernel's
+     mma.sync HMMA and UTMALDG, its UBLKCP counted; the int8 group
+     kernel's HGMMA and UTMALDG), 0 spill bytes, no C75xx warning, their
+     ptxas lines printed;
   2. kernels at the serving path's shapes: max |kernel - plain| within the
      stated tolerance (the flash forward at every head dim, 64 / 80 / 96 /
      128: S 16, 129, 1024, segment ids, fused-QKV views, GQA rep 4 at hd
@@ -101,9 +104,13 @@ Phases (any failed check exits non-zero before the final line):
      ds_ggemm_slots at R 1 / 16 / 128, ds_ggemm at R 129 / 1800, random,
      all-on-one-expert and two-empty-expert routing (fp32 <= 1e-4 abs,
      bf16 <= 2e-2 of the output's max; ds_ggemm's padding tiles zero),
-     each timed at the main path's shapes beside its plain version, its
-     bound and torch._grouped_mm; the flash forward and the float decode
-     kernel held at H 32 / KV 8 / hd 128;
+     each case with the source its launch took by the shape rules (the
+     bf16 slot form: the streaming kernel of grouped_gemm_stream.cu);
+     slot_identity: row 0 of the bf16 slot kernel bit-identical over two
+     launches and at R 1 and 128 against R 16, the same expert and x; each
+     timed at the main path's shapes (events and device time) beside its
+     plain version, its bound and torch._grouped_mm; the flash forward and
+     the float decode kernel held at H 32 / KV 8 / hd 128;
   12. fp32 Mixtral-8x7B widths at 2 layers, float and int8 KV cache: the
      scheduler (a pool that forces a preemption) token-identical to the
      static generate, and its fused arm (the fused layer over each
@@ -116,15 +123,22 @@ Phases (any failed check exits non-zero before the final line):
      4's main path, its depth cut for the smoke's time limit): the
      device init, phase 5's eight requests,
      tokens/s, TTFT, TPOT, decode ms per step, a profiled decode window,
-     the params' device bytes and peak memory;
+     the params' device bytes and peak memory; one decode step's slot
+     launches held against the plain version on the path's own rows, and
+     no bf16 launch off the streaming kernel's shape rule;
   14. the int8 grouped-GEMM kernels at Mixtral-8x7B's expert shapes
      against their plain versions: ds_ggemm_slots_q at R 1 / 16 / 128,
      ds_ggemm_q at R 129 / 192 / 1800, random, one-expert and two-empty
      routing (fp32 <= 1e-4 abs, bf16 <= 2e-2 of the output's max; padding
-     tiles zero), each timed at the main path's shapes (R 16 at 8
-     sequences, R 192 at 96) beside its plain version, its bound (codes
-     and scales) and torch._grouped_mm on the dequantized bf16 stack
-     (context only); qgemm held and timed at M 8 / 96 for N 4096 and
+     tiles zero), each case with the source its launch took (bf16 rows of
+     ds_ggemm_q: the streaming kernel); ggemm_q_identity: row 0
+     bit-identical over two launches and at R 129 and 1800 against R 192,
+     and at the out projection the nb edge (20 scale groups of 205
+     columns) held and bit-identical over two launches; each timed at the
+     main path's shapes (R 16 at 8 sequences, R 192 at 96; events and
+     device time) beside its plain version, its bound (codes and scales)
+     and torch._grouped_mm on the dequantized bf16 stack (context only);
+     qgemm held and timed at M 8 / 96 for N 4096 and
      1024 (bf16) and the router's N 8 (fp32 rows);
   15. fp32 int8 Mixtral-8x7B widths at 2 layers, at max_num_seqs 8 and
      96, each with a float and an int8 KV cache (a pool that forces a
@@ -145,7 +159,10 @@ Phases (any failed check exits non-zero before the final line):
      launches, params' device bytes), then phase 5's eight requests at
      max_num_seqs 8, unfused and fused, and 96 requests of 16-256 prompt
      tokens and 32 new tokens at max_num_seqs 96: tokens/s, TTFT, TPOT,
-     decode ms per step, a profiled decode window, peak memory;
+     decode ms per step, a profiled decode window, peak memory; at 96
+     one decode step's ds_ggemm_q launches held against the plain version
+     on the path's own rows, and no bf16 launch off the streaming kernels'
+     shape rules;
   17. the fused layer kernel at the Llama-2 7B spec (RMSNorm, split QKV,
      rotary, SwiGLU), Mixtral-8x7B's attention half (GQA rep 4, mlp
      "none") and a small GQA + SwiGLU + biases spec with head_dim 96,
@@ -291,7 +308,8 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: every kernel source of the port, built in parallel at start-up
 KERNEL_SOURCES = ("decode_attention", "ds_flash_fwd", "ds_flash_bwd",
                   "quantization", "qgemm", "fused_decode", "grouped_gemm",
-                  "grouped_gemm_hopper", "block_sparse_attention")
+                  "grouped_gemm_hopper", "grouped_gemm_stream",
+                  "block_sparse_attention")
 # the training shape of bench.py's 760M configuration
 TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD = 12, 1024, 16, 96
 
@@ -440,6 +458,52 @@ def sparse_build_checks(build, libs):
           f"block_sparse_attention: spills {spills} or serialised wgmma "
           f"{c75}")
     return hop
+
+
+#: the streaming expert kernels (csrc/grouped_gemm_stream.cu): the bf16
+#: slot kernel (mma.sync) and the int8-expert kernel (wgmma)
+STREAM_KERNELS = ("slot_stream", "ggemm_q_stream")
+
+
+def stream_build_checks(build, libs):
+    """The streaming expert kernels as built: the slot kernel's mma.sync
+    (HMMA) and TMA loads (UTMALDG; its rows of x by cp.async.bulk,
+    UBLKCP, counted), the int8 kernel's wgmma (HGMMA) and TMA loads, and,
+    where this process built the source, 0 spill bytes and no ptxas C75xx
+    warning (the C7519 note of an injected warpgroup.arrive counted), with
+    each kernel's ptxas lines printed."""
+    funcs = sass_by_function(build, libs["grouped_gemm_stream"],
+                             ops=("HMMA", "HGMMA", "UTMALDG", "UBLKCP"))
+    kern = {n: c for n, c in funcs.items()
+            if any(k in n for k in STREAM_KERNELS)}
+    log = build.build_log.get("grouped_gemm_stream", {}).get("log")
+    spills, c75, c7519, name, ptxas = [], [], 0, None, {}
+    for ln in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1) if any(k in m.group(1)
+                                     for k in STREAM_KERNELS) else None
+        elif name and ("spill" in ln or "Used" in ln):
+            ptxas.setdefault(name, []).append(ln.strip())
+            if any(int(n) for n in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", ln)):
+                spills.append(f"{name}: {ln.strip()}")
+        if "C75" in ln:
+            if "C7519" in ln:
+                c7519 += 1
+            else:
+                c75.append(ln.strip())
+    emit({"check": "grouped_gemm_stream_build", "sass_by_kernel": kern,
+          "ptxas_by_kernel": ptxas, "spill_lines": spills,
+          "c75_warnings": c75, "c7519_notes": c7519,
+          "ptxas_read": log is not None})
+    slot = [c for n, c in kern.items() if "slot_stream" in n]
+    q8 = [c for n, c in kern.items() if "ggemm_q_stream" in n]
+    check(len(slot) == 1 and slot[0]["HMMA"] > 0 and slot[0]["UTMALDG"] > 0
+          and len(q8) == 1 and q8[0]["HGMMA"] > 0 and q8[0]["UTMALDG"] > 0,
+          f"grouped_gemm_stream: mma / wgmma / TMA missing from SASS {kern}")
+    check(log is None or (not spills and not c75),
+          f"grouped_gemm_stream: spills {spills} or serialised wgmma {c75}")
 
 
 def decode_build_checks(build):
@@ -2219,6 +2283,52 @@ def grouped_mm_library(torch, gg, x, w, e):
         return None, f"torch._grouped_mm refused: {str(err)[:160]}"
 
 
+def grouped_route(gg, name, x, w, s=None):
+    """The source whose kernel a launch of ``name`` on these operands
+    takes, by the wrapper's shape rules (``hopper_route``,
+    ``stream_route_q``)."""
+    K, N = x.shape[1], w.shape[2]
+    if name == "ds_ggemm_q":
+        hop = gg.stream_route_q(x.dtype, (x.data_ptr(), w.data_ptr(),
+                                          s.data_ptr()), K, N, s.shape[2])
+    else:
+        hop = name != "ds_ggemm_slots_q" and gg.hopper_route(
+            x.dtype, (x.data_ptr(), w.data_ptr()), (K, N))
+    if not hop:
+        return "grouped_gemm.cu"
+    return "grouped_gemm_hopper.cu" if name == "ds_ggemm" \
+        else "grouped_gemm_stream.cu"
+
+
+def off_rule_counts(gg):
+    """bf16 launches of the slot and int8 group kernels that the shape
+    rules sent to csrc/grouped_gemm.cu (none on the main paths)."""
+    return {"ds_ggemm_slots_unaligned": gg.ds_ggemm_slots.unaligned_launches,
+            "ds_ggemm_q_unaligned": gg.ds_ggemm.unaligned_int8_launches}
+
+
+def slot_identity_checks(torch, gg, g, w, proj):
+    """slot_identity: the bf16 slot kernel (the streaming kernel) at one
+    projection's weights: row 0 (expert 3, the same x) bit-identical over
+    two launches and at R 1 and 128 against R 16, over random routing."""
+    K = w.shape[1]
+    x = torch.randn(128, K, generator=g, device="cuda").to(torch.bfloat16)
+    e = routed(torch, g, 128, "random")
+    e[0] = 3
+
+    def row0(R):
+        return gg.ggemm_slots_cuda(x[:R], w, gg.make_slot_plan(e[:R],
+                                                               MIX_E))[0]
+    ref = row0(16)
+    same = {"two_launches": torch.equal(row0(16), ref),
+            "R_1_vs_16": torch.equal(row0(1), ref),
+            "R_128_vs_16": torch.equal(row0(128), ref)}
+    emit({"check": "slot_identity", "proj": proj, "K": K, "N": w.shape[2],
+          "route": grouped_route(gg, "ds_ggemm_slots", x, w), **same})
+    check(all(same.values()), f"slot_identity {proj}: {same}")
+    return same
+
+
 def moe_kernel_phase(torch, gg, da, fa):
     """Phase 11: ds_ggemm and ds_ggemm_slots against their plain versions
     at Mixtral's expert shapes (R 1, 16, 128 slot; 129, 1800 group;
@@ -2228,7 +2338,9 @@ def moe_kernel_phase(torch, gg, da, fa):
     and the float decode kernel at H 32 / KV 8 / hd 128."""
     g = torch.Generator(device="cuda").manual_seed(41)
     worst = {"ds_ggemm": 0.0, "ds_ggemm_slots": 0.0}
-    times = {}
+    times, ident = {}, {}
+    gg.ds_ggemm_slots.unaligned_launches = 0
+    gg.ds_ggemm.unaligned_int8_launches = 0
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         for proj, (K, N) in MOE_SHAPES.items():
@@ -2258,6 +2370,7 @@ def moe_kernel_phase(torch, gg, da, fa):
                         zeros = not bool(got[pad].any())
                     emit({"check": name, "dtype": dt_name, "proj": proj,
                           "R": R, "K": K, "N": N, "routing": skew,
+                          "route": grouped_route(gg, name, xin, w),
                           "max_abs_err": e_abs, "held": held,
                           "tol": INT8_TOL[dt_name],
                           "padding_zeros": zeros})
@@ -2265,8 +2378,13 @@ def moe_kernel_phase(torch, gg, da, fa):
                           f"{name} {dt_name} {proj} R {R} {skew}: err "
                           f"{held} > {INT8_TOL[dt_name]} or padding not 0")
                     worst[name] = max(worst[name], held)
+            if dt_name == "bfloat16":
+                ident[proj] = slot_identity_checks(torch, gg, g, w, proj)
             del w
             torch.cuda.empty_cache()
+    check(not any(off_rule_counts(gg).values()),
+          f"grouped kernels: main-path shapes off the shape rules "
+          f"{off_rule_counts(gg)}")
     # times at the main path's shapes, bf16: a decode step's slot launch
     # (batch 8: R 16 over all 8 experts) and a 900-token prompt's
     # group-padded launch (R 1800, random routing)
@@ -2290,10 +2408,10 @@ def moe_kernel_phase(torch, gg, da, fa):
                                      inner=2)}
             t["bound_ms"], t["bound_by"] = ggemm_bound(torch, gg, plan, xin,
                                                        R, K, N)
-            if name == "ds_ggemm":   # the prefill's forward: device time
-                t["device_ms"] = device_ms(
-                    torch, [lambda: kern(xin, w, plan)], reps=10,
-                    one_kernel=True)[0]
+            t["device_ms"] = device_ms(
+                torch, [lambda: kern(xin, w, plan)], reps=10,
+                one_kernel=True)[0]
+            t["route"] = grouped_route(gg, name, xin, w)
             t["library_ms"], why = grouped_mm_library(torch, gg, x, w, e)
             if why:
                 t["library_note"] = why
@@ -2334,6 +2452,7 @@ def moe_kernel_phase(torch, gg, da, fa):
               and errs["decode_attention"] <= tol["o"],
               f"attention at H 32 / KV 8 / hd 128, {dt_name}: {errs}")
         attn[dt_name] = errs
+    times["slot_identity"] = ident
     return times, worst, attn
 
 
@@ -2351,6 +2470,8 @@ def reset_moe_counts(gg, da, fa):
     from deepspeed_tpu_torch.ops.kernels.fused_decode import ds_fused_layer
     ds_fused_layer.launches = 0
     gg.ds_ggemm.launches = gg.ds_ggemm_slots.launches = 0
+    gg.ds_ggemm_slots.unaligned_launches = 0
+    gg.ds_ggemm.unaligned_int8_launches = 0
     fa.flash_attention_fwd.launches = 0
     da.decode_attention.launches = da.decode_attention.int8_launches = 0
 
@@ -2497,6 +2618,75 @@ def mixtral_parity_phase(torch, gg, da, fa):
           f"plain full forward by {worst}")
 
 
+class capture_grouped:
+    """Within the block, the grouped wrappers' launches through ``names``
+    (``ggemm_slots_cuda``, ``ggemm_q_cuda``: what the MoE layer reaches
+    through ds_ggemm_slots and ds_ggemm) also keep their arguments and
+    outputs in ``calls``; the wrappers are restored after."""
+
+    def __init__(self, gg, names):
+        self.gg, self.names, self.calls = gg, names, []
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.gg, n) for n in self.names}
+        for n, f in self.saved.items():
+            def kept(*args, _f=f, _n=n):
+                out = _f(*args)
+                self.calls.append((_n, args, out))
+                return out
+            setattr(self.gg, n, kept)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.gg, n, f)
+
+
+def path_expert_check(torch, gg, sched, prompts, names, label):
+    """One decode step of the path with every prompt active (the decode
+    batch is max_num_seqs rows whatever is active): each expert GEMM that
+    step launched through ``names`` held against its plain version on the
+    path's own rows (bf16 <= 2e-2 of the output's max), with the route it
+    took.  Runs after the path's counts were read."""
+    from deepspeed_tpu_torch.serving import RequestState, SamplingParams
+    reqs = [sched.submit(p, SamplingParams(max_new_tokens=PROFILE_NEW))
+            for p in prompts]
+    while not all(r.state == RequestState.DECODE for r in reqs):
+        check(not any(r.state == RequestState.FINISHED for r in reqs),
+              f"{label}: a request finished before every prompt decoded")
+        sched.step()
+    torch.cuda.synchronize()
+    with capture_grouped(gg, names) as cap:
+        sched.step()
+        torch.cuda.synchronize()
+    worst, rows, routes = 0.0, set(), set()
+    for name, args, out in cap.calls:
+        if name == "ggemm_slots_cuda":
+            x, w, plan = args
+            ref = gg.ggemm_slots_plain(x, w, plan)
+            rows.add(x.shape[0])
+            routes.add(grouped_route(gg, "ds_ggemm_slots", x, w))
+        else:
+            x, q, s, plan = args
+            ref = gg.ggemm_q_plain(x, q, s, plan)
+            rows.add(int(plan.counts.sum()))
+            routes.add(grouped_route(gg, "ds_ggemm_q", x, q, s))
+        worst = max(worst, err_of(torch, out, ref, "bfloat16")[1])
+        del ref
+    n = len(cap.calls)
+    del cap
+    sched.run_until_idle()
+    torch.cuda.empty_cache()
+    report = {"calls": n, "routed_rows": sorted(rows),
+              "routes": sorted(routes), "max_rel_err": worst,
+              "tol": INT8_TOL["bfloat16"]}
+    emit({"check": f"{label}_path_expert_gemms", **report})
+    check(n > 0 and worst <= INT8_TOL["bfloat16"],
+          f"{label}: one decode step's expert GEMMs against their plain "
+          f"versions: {report}")
+    return report
+
+
 def mixtral_http_phase(torch, gg, da, fa):
     """Phase 13, the slice's main path: init_inference(mixtral_model(
     "8x7b", num_layers=16), bf16) -> scheduler -> HTTP with phase 5's
@@ -2521,10 +2711,11 @@ def mixtral_http_phase(torch, gg, da, fa):
     prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=1)
     outs, wall_s, mbody, n, window = serve_http(
         torch, sched, prompts, on_start=lambda: reset_moe_counts(gg, da, fa),
-        on_done=lambda: moe_counts(gg, da, fa))
+        on_done=lambda: {**moe_counts(gg, da, fa), **off_rule_counts(gg)})
     check(all(n[k] > 0 for k in ("ds_ggemm", "ds_ggemm_slots",
                                  "ds_flash_fwd", "decode_attention"))
-          and n["decode_attention_int8"] == 0,
+          and n["decode_attention_int8"] == 0
+          and not any(off_rule_counts(gg).values()),
           f"mixtral http: launches {n}")
     check('kernel_launches{kernel="ds_ggemm_slots"}' in mbody,
           "mixtral http: /metrics lacks the grouped-GEMM launch counts")
@@ -2535,6 +2726,8 @@ def mixtral_http_phase(torch, gg, da, fa):
               **serve_report(outs, wall_s, window), "launches": n,
               "outputs": [o["output_ids"][:8] for o in outs]}
     report["decode_profile"] = profile_decode(torch, sched, prompts)
+    report["path_expert_gemms"] = path_expert_check(
+        torch, gg, sched, prompts, ("ggemm_slots_cuda",), "bf16_mixtral")
     report["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(report)
     del sched, eng      # the next phase needs the card's memory back
@@ -2575,6 +2768,62 @@ def ggemm_q_bound(torch, gg, plan, xin, R, K, N, nb):
                     + xin.shape[0] * N * 2, 2 * R * K * N, BF16_FLOPS)
 
 
+#: the nb edge: Mixtral's out projection (K 14336, N 4096) with 20 scale
+#: groups a row, group width 205, so the kernel's 256-column units meet
+#: group edges inside them
+Q_EDGE_NB = 20
+
+
+def ggemm_q_identity_checks(torch, gg, g, q, s, proj):
+    """ggemm_q_identity: the int8 group kernel (bf16 rows, the streaming
+    kernel) at one projection's codes: row 0 (expert 5, the same x)
+    bit-identical over two launches and at R 129 and 1800 against R 192,
+    over random routing; at the out projection also the nb edge (scale
+    groups of 205 columns: group edges inside a unit) against the plain
+    version, two launches bit-identical."""
+    K = q.shape[1]
+    x = torch.randn(1800, K, generator=g, device="cuda").to(torch.bfloat16)
+    e = routed(torch, g, 1800, "random")
+    e[0] = 5
+
+    def run(R, q_, s_):
+        plan = gg.make_group_plan(e[:R], MIX_E)
+        xin = gg.scatter_to_groups(x[:R], plan)
+        return gg.ggemm_q_cuda(xin, q_, s_, plan), plan, xin
+
+    def row0(R):
+        out, plan, _ = run(R, q, s)
+        return out[int(plan.row_to_padded[0])]
+    ref = row0(192)
+    out = {"two_launches": torch.equal(row0(192), ref),
+           "R_129_vs_192": torch.equal(row0(129), ref),
+           "R_1800_vs_192": torch.equal(row0(1800), ref)}
+    rep = {"check": "ggemm_q_identity", "proj": proj, "K": K,
+           "N": q.shape[2], "nb": s.shape[2]}
+    if proj == "out":
+        # codes and scales drawn directly: the quantizer's groups are 256
+        qe = torch.randint(-127, 128, q.shape, generator=g, device="cuda",
+                           dtype=torch.int64).to(torch.int8)
+        se = torch.rand(q.shape[0], K, Q_EDGE_NB, generator=g,
+                        device="cuda") * 4e-4 + 1e-4
+        got, plan, xin = run(192, qe, se)
+        again = run(192, qe, se)[0]
+        _, held = err_of(torch, got, gg.ggemm_q_plain(xin, qe, se, plan),
+                         "bfloat16")
+        out["nb_edge_two_launches"] = torch.equal(got, again)
+        out["nb_edge_within_tol"] = held <= INT8_TOL["bfloat16"]
+        rep.update(nb_edge={"nb": Q_EDGE_NB, "qblock": -(-q.shape[2]
+                                                         // Q_EDGE_NB),
+                            "held": held, "tol": INT8_TOL["bfloat16"],
+                            "route": grouped_route(gg, "ds_ggemm_q", xin,
+                                                   qe, se)})
+        del qe, se, got, again
+    rep.update(route=grouped_route(gg, "ds_ggemm_q", x, q, s), **out)
+    emit(rep)
+    check(all(out.values()), f"ggemm_q_identity {proj}: {rep}")
+    return rep
+
+
 def moe_int8_kernel_phase(torch, gg, qz, qg):
     """Phase 14: ds_ggemm_slots_q (R 1, 16, 128) and ds_ggemm_q (R 129,
     192, 1800) against their plain versions at Mixtral's expert shapes,
@@ -2599,7 +2848,9 @@ def moe_int8_kernel_phase(torch, gg, qz, qg):
         refused = True
     check(refused, "ds_ggemm_slots_q computed a scale layout of more "
           "groups a tile than it stages")
-    times = {}
+    times, ident = {}, {}
+    gg.ds_ggemm_slots.unaligned_launches = 0
+    gg.ds_ggemm.unaligned_int8_launches = 0
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         for proj, (K, N) in MOE_SHAPES.items():
@@ -2630,6 +2881,7 @@ def moe_int8_kernel_phase(torch, gg, qz, qg):
                         zeros = not bool(got[pad].any())
                     emit({"check": name, "dtype": dt_name, "proj": proj,
                           "R": R, "K": K, "N": N, "routing": skew,
+                          "route": grouped_route(gg, name, xin, q, s),
                           "max_abs_err": e_abs, "held": held,
                           "tol": INT8_TOL[dt_name],
                           "padding_zeros": zeros})
@@ -2637,8 +2889,14 @@ def moe_int8_kernel_phase(torch, gg, qz, qg):
                           f"{name} {dt_name} {proj} R {R} {skew}: err "
                           f"{held} > {INT8_TOL[dt_name]} or padding not 0")
                     worst[name] = max(worst[name], held)
+            if dt_name == "bfloat16":
+                ident[proj] = ggemm_q_identity_checks(torch, gg, g, q, s,
+                                                      proj)
             del q, s
             torch.cuda.empty_cache()
+    check(not any(off_rule_counts(gg).values()),
+          f"int8 grouped kernels: main-path shapes off the shape rules "
+          f"{off_rule_counts(gg)}")
     dt = torch.bfloat16
     for proj, (K, N) in MOE_SHAPES.items():
         q, s = qz.block_quantize_int8(
@@ -2664,6 +2922,10 @@ def moe_int8_kernel_phase(torch, gg, qz, qg):
                  "library_ms": None}
             t["bound_ms"], t["bound_by"] = ggemm_q_bound(
                 torch, gg, plan, xin, R, K, N, s.shape[-1])
+            t["device_ms"] = device_ms(
+                torch, [lambda: kern(xin, q, s, plan)], reps=10,
+                one_kernel=True)[0]
+            t["route"] = grouped_route(gg, name, xin, q, s)
             t["grouped_mm_bf16_ms"], why = grouped_mm_library(torch, gg, x,
                                                               wdq, e)
             if why:
@@ -2700,6 +2962,7 @@ def moe_int8_kernel_phase(torch, gg, qz, qg):
         check(held <= INT8_TOL[dt_name], f"qgemm {key}: err {held}")
         worst["qgemm"] = max(worst["qgemm"], held)
         qtimes[key] = t
+    times["ggemm_q_identity"] = ident
     return times, worst, qtimes
 
 
@@ -3058,12 +3321,14 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
         outs, wall_s, mbody, n, window = serve_http(
             torch, sched, prompts,
             on_start=lambda: reset_moe_int8_counts(gg, qz, qg, da, fa),
-            on_done=lambda: moe_int8_counts(gg, qz, qg, da, fa),
+            on_done=lambda: {**moe_int8_counts(gg, qz, qg, da, fa),
+                             **off_rule_counts(gg)},
             max_new=max_new)
         attn = "ds_fused_layer" if cfg.fused_decode \
             else "decode_attention_int8"
         check(all(n[k] > 0 for k in (kern, "qgemm", attn, "ds_flash_fwd"))
               and n[idle] == 0 and n["decode_attention"] == 0
+              and not any(off_rule_counts(gg).values())
               and n["ds_fused_layer" if attn != "ds_fused_layer"
                     else "decode_attention_int8"] == 0
               and n["ds_ggemm"] + n["ds_ggemm_slots"] > 0,
@@ -3076,6 +3341,10 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
         # the decode batch is max_num_seqs rows whatever is active, so
         # eight of the prompts give the arm's per-step device work
         run["decode_profile"] = profile_decode(torch, sched, prompts[:8])
+        if kern == "ds_ggemm_q":    # R 2 x 96: the group-padded kernel
+            run["path_expert_gemms"] = path_expert_check(
+                torch, gg, sched, prompts[:8], ("ggemm_q_cuda",),
+                f"int8_mixtral_{key}")
         run["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
         runs[key] = run
         del sched
@@ -5546,7 +5815,7 @@ def fused_paths(runs, prefix):
 
 
 def run_only(torch, only, da, fa):
-    """``--only``: the listed phases among 2, 3, 7, 8, 12 and 15-27 alone,
+    """``--only``: the listed phases among 2, 3, 7, 8 and 11-27 alone,
     after the build, for work on one path (no kernels line)."""
     import torch.nn.functional as F
     import deepspeed_tpu_torch as dt
@@ -5560,7 +5829,10 @@ def run_only(torch, only, da, fa):
                 torch, F, fa)[0]})),
         7: lambda: bf16_train_phase(torch, dt, da, fa),
         8: lambda: int8_kernel_phase(torch, F, da),
+        11: lambda: moe_kernel_phase(torch, gg, da, fa),
         12: lambda: mixtral_parity_phase(torch, gg, da, fa),
+        13: lambda: mixtral_http_phase(torch, gg, da, fa),
+        14: lambda: moe_int8_kernel_phase(torch, gg, qz, qg),
         15: lambda: mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa),
         16: lambda: mixtral_int8_http_phase(torch, gg, qz, qg, da, fa),
         17: lambda: (fused_family_phase(torch, qz, da, fd),
@@ -5628,9 +5900,12 @@ def main():
           "ds_flash_bwd_sass": sass_counts(build, libs["ds_flash_bwd"]),
           "grouped_gemm_hopper_sass": sass_counts(
               build, libs["grouped_gemm_hopper"]),
+          "grouped_gemm_stream_sass": sass_counts(
+              build, libs["grouped_gemm_stream"]),
           "block_sparse_attention_sass": sass_counts(
               build, libs["block_sparse_attention"])})
     grouped_hopper_build_checks(build, libs)
+    stream_build_checks(build, libs)
     sparse_build_checks(build, libs)
     decode_build_checks(build)
 
@@ -5682,7 +5957,7 @@ def main():
     mixtral_parity_phase(torch, gg, da, fa)
     torch.cuda.empty_cache()
     mix = mixtral_http_phase(torch, gg, da, fa)
-    mix_n = mix["launches"]
+    mix_n, mix_path = mix["launches"], mix["path_expert_gemms"]
     del mix
     qz, qg, fd = int8_modules()
     moeq_t, moeq_errs, qgemm_mix_t = moe_int8_kernel_phase(torch, gg, qz, qg)
@@ -5849,11 +6124,11 @@ def main():
              "ds_tgmm", **{mtrain: mt_n["ds_tgmm"]}),
          mt_errs["ds_tgmm"], INT8_TOL),
         ("ds_ggemm_slots", moe_t["ds_ggemm_slots"]["gate_in"],
-         "grouped_gemm.cu", "grouped_gemm.py:433",
+         "grouped_gemm_stream.cu", "grouped_gemm.py:433",
          *paths_of("ds_ggemm_slots", mixtral_http=mix_n["ds_ggemm_slots"]),
          moe_errs["ds_ggemm_slots"], INT8_TOL),
-        ("ds_ggemm_q", moeq_t["ds_ggemm_q"]["gate_in"], "grouped_gemm.cu",
-         "grouped_gemm.py:200", *paths_of("ds_ggemm_q"),
+        ("ds_ggemm_q", moeq_t["ds_ggemm_q"]["gate_in"],
+         "grouped_gemm_stream.cu", "grouped_gemm.py:200", *paths_of("ds_ggemm_q"),
          moeq_errs["ds_ggemm_q"], INT8_TOL),
         ("ds_ggemm_slots_q", moeq_t["ds_ggemm_slots_q"]["gate_in"],
          "grouped_gemm.cu", "grouped_gemm.py:452",
@@ -5899,6 +6174,16 @@ def main():
                                work=t["work"])
         if name in moe_t:
             kernels[-1]["times_by_proj"] = moe_t[name]
+        if name in ("ds_ggemm_slots", "ds_ggemm_q"):
+            # bf16 (int8 experts: bf16 rows) on the streaming kernels; fp32
+            # and bf16 shapes outside their rule in grouped_gemm.cu
+            kernels[-1]["source_fp32_and_unaligned_bf16"] = \
+                "deepspeed_tpu_torch/csrc/grouped_gemm.cu"
+            slot = name == "ds_ggemm_slots"
+            kernels[-1]["identity"] = moe_t["slot_identity"] if slot \
+                else moeq_t["ggemm_q_identity"]
+            kernels[-1]["path_expert_gemms"] = mix_path if slot else \
+                mixq[f"max_num_seqs_{WIDE_SEQS}"]["path_expert_gemms"]
         if name in mt_t:
             # phase 24: at mixtral:1b-moe's training shapes (R 16,384)
             kernels[-1].update(err_kind="fp32 abs / bf16 rel_to_max",

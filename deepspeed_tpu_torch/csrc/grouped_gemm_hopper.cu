@@ -77,7 +77,6 @@
 // C interface (loaded with ctypes): each entry point returns the
 // cudaError_t of its launch as an int.
 #include <atomic>
-#include <mutex>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -454,75 +453,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ------------------------------------------------------------ host side
-// Tensor maps by (base, shape, strides, box): encoding one costs host
-// time on every launch, and the expert stacks (one per projection and
-// layer) and, through the caching allocator, the activations come back at
-// the same addresses.  A map encodes only these fields, so a hit is the
-// map encoding would give.  Direct-mapped: a slot holds the last key that
-// hashed to it.
-struct MapKey {
-  const void* base;
-  int type;
-  uint64_t dims[4];
-  long long strides[3];
-  uint32_t box0, box1;
-};
-
-bool same_key(const MapKey& a, const MapKey& b) {
-  if (a.base != b.base || a.type != b.type || a.box0 != b.box0 ||
-      a.box1 != b.box1)
-    return false;
-  for (int i = 0; i < 4; ++i)
-    if (a.dims[i] != b.dims[i]) return false;
-  for (int i = 0; i < 3; ++i)
-    if (a.strides[i] != b.strides[i]) return false;
-  return true;
-}
-
-uint64_t key_hash(const MapKey& k) {
-  uint64_t h = reinterpret_cast<uint64_t>(k.base) ^ (uint64_t)k.type;
-  for (int i = 0; i < 4; ++i) h = (h ^ k.dims[i]) * 0x9E3779B97F4A7C15ull;
-  h = (h ^ ((uint64_t)k.box0 << 32 | k.box1)) * 0xFF51AFD7ED558CCDull;
-  return h ^ (h >> 29);
-}
-
-constexpr int kMapCache = 1024;   // slots, a power of two
-
-bool cached_map(CUtensorMap* map, bool f32, const void* base,
-                const uint64_t dims[4], const long long strides[3],
-                uint32_t box0, uint32_t box1) {
-  static std::mutex mu;
-  static MapKey keys[kMapCache];
-  static bool full[kMapCache];
-  static CUtensorMap maps[kMapCache];
-  MapKey k{base, f32 ? 1 : 0, {dims[0], dims[1], dims[2], dims[3]},
-           {strides[0], strides[1], strides[2]}, box0, box1};
-  const int slot = (int)(key_hash(k) & (kMapCache - 1));
-  std::lock_guard<std::mutex> lock(mu);
-  if (full[slot] && same_key(keys[slot], k)) {
-    *map = maps[slot];
-    return true;
-  }
-  if (!hopper::make_map_4d(map,
-                           f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                           f32 ? 4 : 2, base, dims, strides, box0, box1,
-                           CU_TENSOR_MAP_SWIZZLE_128B))
-    return false;
-  keys[slot] = k;
-  maps[slot] = *map;
-  full[slot] = true;
-  return true;
-}
-
-// a row-major [rows, cols] matrix, or [e, rows, cols], of bf16 (or fp32)
+// a row-major [rows, cols] matrix, or [e, rows, cols], of bf16 (or fp32),
+// 128-byte swizzled boxes; maps cached by every field they encode
+// (hopper::cached_map_4d)
 bool map_of(CUtensorMap* map, const void* base, long long e, long long rows,
             long long cols, uint32_t box0, uint32_t box1, bool f32 = false) {
   const uint64_t dims[4] = {(uint64_t)cols, (uint64_t)rows, (uint64_t)e, 1};
   const long long strides[3] = {cols, rows * cols, e * rows * cols};
-  return cached_map(map, f32, base, dims, strides, box0, box1);
+  return hopper::cached_map_4d(
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      f32 ? 4 : 2, base, dims, strides, box0, box1,
+      CU_TENSOR_MAP_SWIZZLE_128B);
 }
-
 // the output's map: subtiles of 128 bytes x 64 rows (see the epilogue)
 template <typename OT>
 bool out_map(CUtensorMap* map, void* out, long long e, long long rows,

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
 // memory addresses, mbarriers, TMA tensor loads and stores and the
-// host-side tensor map encoder, a persistent grid's tile order and launch
-// set-up, wgmma matrix descriptors, the wgmma fence / commit / wait trio,
-// register hand-off between warpgroups (setmaxnreg) and the wgmma
-// instructions themselves (bf16 in, fp32 accumulate).  Raw PTX, written
-// from the PTX ISA's descriptions of these instructions; used by
-// csrc/ds_flash_fwd.cu, csrc/ds_flash_bwd.cu,
-// csrc/grouped_gemm_hopper.cu and csrc/block_sparse_attention.cu, and (its
-// acquire-release add only) by csrc/decode_attention.cu.
+// host-side tensor map encoder and its cache, a persistent grid's tile
+// order and launch set-up, wgmma matrix descriptors, the wgmma fence /
+// commit / wait trio, register hand-off between warpgroups (setmaxnreg)
+// and the wgmma instructions themselves (bf16 in, fp32 accumulate).  Raw
+// PTX, written from the PTX ISA's descriptions of these instructions;
+// used by csrc/ds_flash_fwd.cu, csrc/ds_flash_bwd.cu,
+// csrc/grouped_gemm_hopper.cu, csrc/grouped_gemm_stream.cu and
+// csrc/block_sparse_attention.cu, and (its acquire-release add only) by
+// csrc/decode_attention.cu.
 //
 // Layout convention (what smem_desc's users assume): a bf16 operand tile
 // is staged by TMA in chunks of W columns (W * 2 bytes = the swizzle span:
@@ -29,6 +30,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <mutex>
 
 namespace hopper {
 
@@ -161,6 +163,50 @@ inline bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type,
              estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// make_map_4d through a cache keyed by every field the map encodes: the
+// expert stacks (one per projection and layer) and, through the caching
+// allocator, the activations come back at the same addresses, and
+// encoding a map costs host time on every launch.  Direct-mapped: a slot
+// holds the last key that hashed to it.  One cache per library.
+inline bool cached_map_4d(CUtensorMap* map, CUtensorMapDataType type,
+                          int elem_bytes, const void* base,
+                          const uint64_t dims[4], const long long strides[3],
+                          uint32_t box0, uint32_t box1,
+                          CUtensorMapSwizzle swizzle) {
+  struct Key {
+    const void* base;
+    long long fields[12];   // type, swizzle, dims, strides, boxes
+  };
+  constexpr int kSlots = 1024;   // a power of two
+  static std::mutex mu;
+  static Key keys[kSlots];
+  static bool full[kSlots];
+  static CUtensorMap maps[kSlots];
+  Key k{base,
+        {(long long)type, (long long)swizzle, (long long)dims[0],
+         (long long)dims[1], (long long)dims[2], (long long)dims[3],
+         strides[0], strides[1], strides[2], (long long)box0,
+         (long long)box1, elem_bytes}};
+  uint64_t h = reinterpret_cast<uint64_t>(base);
+  for (long long f : k.fields)
+    h = (h ^ static_cast<uint64_t>(f)) * 0x9E3779B97F4A7C15ull;
+  const int slot = (int)((h ^ (h >> 29)) & (kSlots - 1));
+  std::lock_guard<std::mutex> lock(mu);
+  bool hit = full[slot] && keys[slot].base == base;
+  for (int i = 0; hit && i < 12; ++i) hit = keys[slot].fields[i] == k.fields[i];
+  if (hit) {
+    *map = maps[slot];
+    return true;
+  }
+  if (!make_map_4d(map, type, elem_bytes, base, dims, strides, box0, box1,
+                   swizzle))
+    return false;
+  keys[slot] = k;
+  maps[slot] = *map;
+  full[slot] = true;
+  return true;
 }
 
 // the same over bf16 elements

@@ -39,13 +39,21 @@ their plain versions on CPU tensors; :func:`grouped_gemm` is the
 differentiable entry point.  int8 experts have no backward: with
 ``transpose_rhs`` they raise ``ValueError``, as in the reference.
 
-Routing by shape (:func:`hopper_route`): bf16 operands whose K and N are
-multiples of 8 on 16-byte aligned bases (TMA's address rule) launch the
-Hopper wgmma / TMA kernels of ``csrc/grouped_gemm_hopper.cu``
-(``ds_ggemm_h``, ``ds_ggemm_t_h``, ``ds_tgmm_h``); fp32 operands and bf16
-shapes outside that rule launch the ``layout_tile`` kernels of
-``csrc/grouped_gemm.cu``.  The choice is the shape's, never a fallback
-after a failure: a failed launch raises either way.
+Routing by shape (:func:`hopper_route`, :func:`stream_route_q`): bf16
+operands whose K and N are multiples of 8 on 16-byte aligned bases (TMA's
+address rule) launch the Hopper wgmma / TMA kernels of
+``csrc/grouped_gemm_hopper.cu`` (``ds_ggemm_h``, ``ds_ggemm_t_h``,
+``ds_tgmm_h``) and, for the slot form, the streaming kernel of
+``csrc/grouped_gemm_stream.cu`` (``ds_ggemm_slots_s``); int8 experts under
+bf16 rows with K a multiple of 8, N of 16 and nb of 4 on aligned bases
+launch ``ds_ggemm_q_s`` there.  fp32 operands and bf16 shapes outside
+those rules launch the kernels of ``csrc/grouped_gemm.cu``.  The choice is
+the shape's, never a fallback after a failure: a failed launch raises
+either way.  The streaming kernels' decomposition (units, K ranges, row
+passes) is written out here too (:func:`slot_stream_splits`,
+:func:`slot_blocks`, :func:`slot_stream_walk`,
+:func:`ggemm_q_stream_splits`, :func:`ggemm_q_stream_walk`): the CPU
+tests walk it in plain torch.
 
 Numerics: fp32 accumulation (tensor cores for bf16, fmaf for fp32 — no
 TF32), output rounded once to ``x``'s dtype, as the reference's kernels.
@@ -55,10 +63,11 @@ its product (the reference's ``_dequant_tile``).  ``<wrapper>.launches``
 counts the float kernel's launches, ``<wrapper>.int8_launches`` the int8
 kernel's, ``ds_ggemm.transpose_launches`` the transposed-RHS kernel's and
 ``ds_tgmm.launches`` the dW kernel's (the Hopper kernels for bf16, the
-``layout_tile`` ones for fp32); bf16 launches that the shape rule sent to
-``layout_tile`` count on ``ds_ggemm.unaligned_launches``,
-``ds_ggemm.unaligned_transpose_launches`` and
-``ds_tgmm.unaligned_launches`` instead.
+``layout_tile`` ones for fp32); bf16 launches that the shape rules sent to
+``csrc/grouped_gemm.cu`` count on ``ds_ggemm.unaligned_launches``,
+``ds_ggemm.unaligned_transpose_launches``, ``ds_tgmm.unaligned_launches``,
+``ds_ggemm.unaligned_int8_launches`` and
+``ds_ggemm_slots.unaligned_launches`` instead.
 """
 import ctypes
 from typing import NamedTuple
@@ -80,6 +89,13 @@ SLOT_MAX_ROWS = 128
 #: (``csrc/grouped_gemm.cu`` kSlotBN, kSlotMaxSplit)
 SLOT_BN = 128
 SLOT_MAX_SPLIT = 16
+#: the bf16 streaming slot kernel (``csrc/grouped_gemm_stream.cu``
+#: slots::kBN, kBK, kRows): output columns a unit, K rows a stage, rows a
+#: block (two 8-row passes); its K splits at most SLOT_MAX_SPLIT
+STREAM_SLOT_BN, STREAM_SLOT_BK, STREAM_SLOT_ROWS = 256, 64, 16
+#: the streaming int8 kernel (q8::kBN, kBK): output columns a unit, K rows
+#: a stage (four k16 slices); its K splits at most STREAM_Q_MAX_SPLIT
+STREAM_Q_BN, STREAM_Q_BK, STREAM_Q_MAX_SPLIT = 256, 64, 8
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -275,8 +291,154 @@ def ggemm_slots_q_plain(x, q, s, plan: SlotPlan):
     return ggemm_slots_plain(x, dequant_experts(q, s, x.dtype), plan)
 
 
+# ------------------------------------------ the streaming kernels' walks
+def slot_stream_splits(K: int, N: int, sms: int):
+    """(nsplit, kper) of the bf16 streaming slot kernel: K cut into nsplit
+    ranges of kper rows (a multiple of STREAM_SLOT_BK), enough units for
+    one a multiprocessor at one block (a decode step's 8 blocks then give
+    each CTA ~8 long units: more, shorter ones lost to their merges on an
+    H100), at most SLOT_MAX_SPLIT and no range without a stage.  Depends
+    on K, N and the SM count only, so a row's sums do not depend on R or
+    the routing."""
+    tiles = -(-N // STREAM_SLOT_BN)
+    chunks = -(-K // STREAM_SLOT_BK)
+    nsplit = max(1, min(-(-sms // tiles), SLOT_MAX_SPLIT, chunks))
+    per = -(-chunks // nsplit)
+    return -(-chunks // per), per * STREAM_SLOT_BK
+
+
+def slot_block_bound(R: int, S: int) -> int:
+    """The most blocks a slot plan of R rows in S slots can have (the
+    kernel's merge counters are sized by it)."""
+    return min(R, (R + (STREAM_SLOT_ROWS - 1) * S) // STREAM_SLOT_ROWS)
+
+
+def slot_blocks(plan: SlotPlan, E: int):
+    """The streaming slot kernel's blocks, in its order: each slot's rows
+    ``row_order[slot_offsets[s]:]`` cut into blocks of at most
+    STREAM_SLOT_ROWS, slots in order, as (expert or -1 outside [0, E),
+    first row in row_order, rows, slot).  Host values (reads the plan)."""
+    act, val = plan.active.tolist(), plan.valid.tolist()
+    offs = plan.slot_offsets.tolist()
+    out = []
+    for s in range(plan.num_slots):
+        c = max(offs[s + 1] - offs[s], 0) if val[s] else 0
+        e = act[s] if 0 <= act[s] < E else -1
+        for r in range(0, c, STREAM_SLOT_ROWS):
+            out.append((e, offs[s] + r, min(STREAM_SLOT_ROWS, c - r), s))
+    return out
+
+
+def slot_stream_units(plan: SlotPlan, E: int, K: int, N: int, sms: int):
+    """The kernel's work units in draw order (the STREAM_SLOT_BN-column
+    N-tile fastest, then the block, then the K split), each (block, split,
+    N-tile, K range)."""
+    nsplit, kper = slot_stream_splits(K, N, sms)
+    blocks = slot_blocks(plan, E)
+    return [(b, sp, nt, (sp * kper, min(K, (sp + 1) * kper)))
+            for sp in range(nsplit) for b in range(len(blocks))
+            for nt in range(-(-N // STREAM_SLOT_BN))]
+
+
+def _k_order_sum(acc, a, b, k0, k1):
+    """acc (fp32) plus the products a[:, k] b[k] added one k at a time in K
+    order, each element its own sum (no BLAS, whose sums may follow the
+    row count)."""
+    for k in range(k0, k1):
+        acc = acc + a[:, k, None] * b[k][None, :]
+    return acc
+
+
+def slot_stream_walk(x, w, plan: SlotPlan, sms: int):
+    """The streaming slot kernel's decomposition in plain torch: per unit,
+    the block's rows in 8-row passes against W[e]'s 256 columns over the
+    unit's K range in K order (fp32); each split's partial kept apart and
+    the splits summed in order; one rounding to x's dtype.  Rows of an
+    expert outside [0, E) get zeros."""
+    R, K = x.shape
+    E, _, N = w.shape
+    nsplit = slot_stream_splits(K, N, sms)[0]
+    blocks = slot_blocks(plan, E)
+    order = plan.row_order.long()
+    parts = torch.zeros(nsplit, R, N, dtype=torch.float32)
+    for b, sp, nt, (k0, k1) in slot_stream_units(plan, E, K, N, sms):
+        e, r0, nrow, _ = blocks[b]
+        c0, c1 = nt * STREAM_SLOT_BN, min(N, (nt + 1) * STREAM_SLOT_BN)
+        for p0 in range(0, nrow, 8):
+            rows = order[r0 + p0:r0 + min(nrow, p0 + 8)]
+            acc = torch.zeros(len(rows), c1 - c0, dtype=torch.float32)
+            if e >= 0:
+                acc = _k_order_sum(acc, x[rows].float(),
+                                   w[e, :, c0:c1].float(), k0, k1)
+            parts[sp, rows, c0:c1] = acc
+    out = parts[0]
+    for sp in range(1, nsplit):
+        out = out + parts[sp]
+    return out.to(x.dtype)
+
+
+def ggemm_q_stream_splits(K: int, N: int, E: int, sms: int):
+    """(nsplit, kper) of the streaming int8 kernel: K cut into nsplit
+    ranges of kper rows (a multiple of STREAM_Q_BK), enough units for two
+    a multiprocessor if each expert had one plan tile (Mixtral's out
+    projection, 16 N-tiles x 8 experts, has 128 whole-K units for 132 SMs),
+    at most STREAM_Q_MAX_SPLIT and no range without a stage.  Depends on
+    K, N, E and the SM count only, so a row's sums do not depend on R or
+    the routing."""
+    units = -(-N // STREAM_Q_BN) * E
+    chunks = -(-K // STREAM_Q_BK)
+    nsplit = max(1, min(-(-2 * sms // units), STREAM_Q_MAX_SPLIT, chunks))
+    per = -(-chunks // nsplit)
+    return -(-chunks // per), per * STREAM_Q_BK
+
+
+def ggemm_q_stream_walk(x, q, s, plan: GroupPlan, sms: int):
+    """The streaming int8 kernel's decomposition in plain torch: per unit
+    (STREAM_Q_BN columns, plan tile, K split; N-tiles fastest), W[e]'s
+    columns dequantized in fp32 with the group width ceil(N / nb) and
+    rounded to x's dtype, the products added to the fp32 tile in K order
+    over the split's range; the splits' partials summed in split order;
+    one rounding to x's dtype; rows past the tile's real rows and tiles
+    with none are zeros."""
+    Mp, K = x.shape
+    E, _, N = q.shape
+    qblock = -(-N // s.shape[2])
+    nsplit, kper = ggemm_q_stream_splits(K, N, E, sms)
+    parts = torch.zeros(nsplit, Mp, N, dtype=torch.float32)
+    gids, trows = plan.block_group_ids.tolist(), plan.tile_rows.tolist()
+    bm = DEFAULT_BLOCK_M
+    n_tiles = -(-N // STREAM_Q_BN)
+    for u in range(plan.num_blocks * nsplit * n_tiles):
+        nt, rest = u % n_tiles, u // n_tiles
+        t, sp = rest % plan.num_blocks, rest // plan.num_blocks
+        e = gids[t]
+        rows = min(max(trows[t], 0), bm) if 0 <= e < E else 0
+        if not rows:
+            continue
+        cols = torch.arange(nt * STREAM_Q_BN, min(N, (nt + 1) * STREAM_Q_BN))
+        wdq = (q[e][:, cols].float() * s[e][:, cols // qblock]).to(x.dtype)
+        parts[sp, t * bm:t * bm + rows, cols] = _k_order_sum(
+            torch.zeros(rows, len(cols)), x[t * bm:t * bm + rows].float(),
+            wdq.float(), sp * kper, min(K, (sp + 1) * kper))
+    out = parts[0]
+    for sp in range(1, nsplit):
+        out = out + parts[sp]
+    return out.to(x.dtype)
+
+
 # ------------------------------------------------------------------ kernels
 _entries = {}
+_sms = {}
+
+
+def _sm_count(device) -> int:
+    """Multiprocessors of a CUDA device (the streaming slot kernel's split
+    rule reads it)."""
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def _fn(lib, name, nargs_ptr, nargs_int, stream=True):
@@ -321,6 +483,18 @@ def hopper_route(dtype, ptrs, dims) -> bool:
     for d in dims:
         widths |= d
     return bases % 16 == 0 and widths % 8 == 0
+
+
+def stream_route_q(dtype, ptrs, K, N, nb) -> bool:
+    """Whether an int8-expert launch takes the streaming kernel
+    (``ds_ggemm_q_s``): bf16 rows, K a multiple of 8, N of 16 and nb of 4
+    (the x, code and scale rows' 16-byte strides), groups of at least two
+    columns (a unit's scale box then holds at most 256 groups), every base
+    16-byte aligned.  Mixtral's K, N 4096 / 14336 with nb 56 / 16 meet
+    it."""
+    return (dtype == torch.bfloat16 and K % 8 == 0 and N % 16 == 0
+            and nb % 4 == 0 and 2 * nb <= N
+            and all(p % 16 == 0 for p in ptrs))
 
 
 def _check_common(what, x, w, ints):
@@ -407,10 +581,11 @@ def _slot_ints(plan: SlotPlan):
 
 def _slot_scratch(what, x, K, N, int8):
     """The slot kernels' split-K workspace and tile counters for [R, N]
-    outputs at depth K (the split the kernel will take)."""
-    nsplit = _fn("grouped_gemm", "ds_ggemm_slots_splits", 0, 4,
-                 stream=False)(
-        K, N, int(int8), int(x.dtype == torch.bfloat16))
+    outputs at depth K (the split the kernel will take on x's device)."""
+    with torch.cuda.device(x.device):
+        nsplit = _fn("grouped_gemm", "ds_ggemm_slots_splits", 0, 4,
+                     stream=False)(
+            K, N, int(int8), int(x.dtype == torch.bfloat16))
     if not 1 <= nsplit <= SLOT_MAX_SPLIT:
         raise RuntimeError(f"{what}: no K split for K {K}, N {N} on "
                            f"{x.device}")
@@ -528,14 +703,30 @@ def ggemm_q_cuda(x, q, s, plan: GroupPlan):
     Mp, K = x.shape
     E, _, N = q.shape
     _check_group_fit("ds_ggemm_q", x, E, plan)
+    nb = s.shape[2]
     out = torch.empty((Mp, N), dtype=x.dtype, device=x.device)
-    rc = _call("grouped_gemm", "ds_ggemm_q", 6, 6, x.device,
-               x.data_ptr(), q.data_ptr(), s.data_ptr(),
-               plan.block_group_ids.data_ptr(), plan.tile_rows.data_ptr(),
-               out.data_ptr(), plan.num_blocks, K, N, E, s.shape[2],
-               int(x.dtype == torch.bfloat16))
+    ptrs = (x.data_ptr(), q.data_ptr(), s.data_ptr(),
+            plan.block_group_ids.data_ptr(), plan.tile_rows.data_ptr(),
+            out.data_ptr())
+    if stream_route_q(x.dtype, ptrs[:3], K, N, nb):
+        nsplit, kper = ggemm_q_stream_splits(K, N, E, _sm_count(x.device))
+        ws, counters = build.scratch(
+            x.device, nsplit * Mp * N if nsplit > 1 else 0,
+            2 + plan.num_blocks * -(-N // STREAM_Q_BN))
+        rc = _call("grouped_gemm_stream", "ds_ggemm_q_s", 8, 7, x.device,
+                   *ptrs, ws.data_ptr(), counters.data_ptr(),
+                   plan.num_blocks, K, N, E, nb, nsplit, kper)
+        build.check(rc, "ds_ggemm_q")
+        ds_ggemm.int8_launches += 1
+        return out
+    bf16 = x.dtype == torch.bfloat16
+    rc = _call("grouped_gemm", "ds_ggemm_q", 6, 6, x.device, *ptrs,
+               plan.num_blocks, K, N, E, nb, int(bf16))
     build.check(rc, "ds_ggemm_q")
-    ds_ggemm.int8_launches += 1
+    if bf16:
+        ds_ggemm.unaligned_int8_launches += 1
+    else:
+        ds_ggemm.int8_launches += 1
     return out
 
 
@@ -547,16 +738,30 @@ def ggemm_slots_cuda(x, w, plan: SlotPlan):
     E, _, N = w.shape
     _check_slot_fit("ds_ggemm_slots", x, E, plan)
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        ws, counters = _slot_scratch("ds_ggemm_slots", x, K, N, False)
-        rc = _fn("grouped_gemm", "ds_ggemm_slots", 9, 6)(
-            x.data_ptr(), w.data_ptr(), plan.active.data_ptr(),
+    S = plan.num_slots
+    ptrs = (x.data_ptr(), w.data_ptr(), plan.active.data_ptr(),
             plan.valid.data_ptr(), plan.row_order.data_ptr(),
-            plan.slot_offsets.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            counters.data_ptr(), R, K, N, E, plan.num_slots,
-            int(x.dtype == torch.bfloat16), _stream(x.device))
+            plan.slot_offsets.data_ptr(), out.data_ptr())
+    if hopper_route(x.dtype, ptrs[:2], (K, N)):
+        nsplit, kper = slot_stream_splits(K, N, _sm_count(x.device))
+        ws, counters = build.scratch(
+            x.device, nsplit * R * N if nsplit > 1 else 0,
+            2 + slot_block_bound(R, S) * -(-N // STREAM_SLOT_BN))
+        rc = _call("grouped_gemm_stream", "ds_ggemm_slots_s", 9, 7,
+                   x.device, *ptrs, ws.data_ptr(), counters.data_ptr(), R,
+                   K, N, E, S, nsplit, kper)
+        build.check(rc, "ds_ggemm_slots")
+        ds_ggemm_slots.launches += 1
+        return out
+    bf16 = x.dtype == torch.bfloat16
+    ws, counters = _slot_scratch("ds_ggemm_slots", x, K, N, False)
+    rc = _call("grouped_gemm", "ds_ggemm_slots", 9, 6, x.device, *ptrs,
+               ws.data_ptr(), counters.data_ptr(), R, K, N, E, S, int(bf16))
     build.check(rc, "ds_ggemm_slots")
-    ds_ggemm_slots.launches += 1
+    if bf16:
+        ds_ggemm_slots.unaligned_launches += 1
+    else:
+        ds_ggemm_slots.launches += 1
     return out
 
 
@@ -693,7 +898,9 @@ ds_ggemm.launches = ds_ggemm.int8_launches = 0
 ds_ggemm.transpose_launches = 0
 ds_ggemm_slots.launches = ds_ggemm_slots.int8_launches = 0
 ds_tgmm.launches = 0
-#: bf16 launches that the shape rule (:func:`hopper_route`) sent to the
-#: ``layout_tile`` kernels: none on the main paths
+#: bf16 launches that the shape rules (:func:`hopper_route`,
+#: :func:`stream_route_q`) sent to the kernels of ``csrc/grouped_gemm.cu``:
+#: none on the main paths
 ds_ggemm.unaligned_launches = ds_ggemm.unaligned_transpose_launches = 0
+ds_ggemm.unaligned_int8_launches = ds_ggemm_slots.unaligned_launches = 0
 ds_tgmm.unaligned_launches = 0

@@ -121,3 +121,28 @@ def test_fused_instances_are_the_dispatched_ones():
     layer = (build.CSRC_DIR / "fused_decode_layer.cu").read_text()
     for name in ("DS_FUSED_BF16", "DS_FUSED_W8", "DS_FUSED_C8"):
         assert name in layer
+
+
+@pytest.mark.parametrize("name", ["grouped_gemm_stream", "grouped_gemm_hopper",
+                                  "block_sparse_attention"])
+def test_single_sources_compile_straight_to_their_library(nvcc, tmp_path,
+                                                          name):
+    """A library of one source (the streaming expert GEMMs among them) is
+    one nvcc command writing the library, with the port's flags."""
+    out = build.build([name])
+    (cmd,) = nvcc.cmds
+    assert cmd[-1].endswith(f"csrc/{name}.cu") and "-shared" in cmd
+    assert tuple(cmd[1:1 + len(build.NVCC_FLAGS)]) == build.NVCC_FLAGS
+    assert out[name].parent == tmp_path and out[name].exists()
+    assert set(build.build_log) == {name}
+
+
+def test_the_smoke_builds_every_source():
+    """chip_smoke.py's KERNEL_SOURCES are every csrc/*.cu but the pieces of
+    a library in PARTS (the new streaming source included), so its build
+    compiles every kernel the port launches."""
+    import chip_smoke
+    pieces = {src for parts in build.PARTS.values() for _, src, _ in parts}
+    sources = {p.stem for p in build.CSRC_DIR.glob("*.cu")} - pieces
+    assert set(chip_smoke.KERNEL_SOURCES) == sources
+    assert "grouped_gemm_stream" in sources

@@ -11,9 +11,10 @@ work-unit walk meets at its edges, and the wrapper's routing by shape.
   sums in another order).
 - The wrapper's routing (``csrc/grouped_gemm_hopper.cu`` for bf16 with K
   and N multiples of 8 on 16-byte aligned bases; ``csrc/grouped_gemm.cu``
-  for fp32, int8 experts and the rest) and its refusals, with the launch
-  stubbed so that no kernel runs: the entry point, its integer arguments
-  and the counter each launch adds to.
+  for fp32 and the rest; int8 experts by ``stream_route_q``, whose whole
+  matrix is ``tests/test_torch_grouped_gemm_stream.py``'s) and its
+  refusals, with the launch stubbed so that no kernel runs: the entry
+  point, its integer arguments and the counter each launch adds to.
 """
 import numpy as np
 import pytest
@@ -137,9 +138,11 @@ class _Launches:
 def launches(monkeypatch):
     stub = _Launches()
     monkeypatch.setattr(gg, "_call", stub)
+    monkeypatch.setattr(gg, "_sm_count", lambda device: 132)
     for f, attrs in ((gg.ds_ggemm, ("launches", "transpose_launches",
                                     "int8_launches", "unaligned_launches",
-                                    "unaligned_transpose_launches")),
+                                    "unaligned_transpose_launches",
+                                    "unaligned_int8_launches")),
                      (gg.ds_tgmm, ("launches", "unaligned_launches"))):
         for a in attrs:
             monkeypatch.setattr(f, a, 0)
@@ -153,6 +156,7 @@ def _counts():
             "unaligned_launches": gg.ds_ggemm.unaligned_launches,
             "unaligned_transpose_launches":
             gg.ds_ggemm.unaligned_transpose_launches,
+            "unaligned_int8_launches": gg.ds_ggemm.unaligned_int8_launches,
             "tgmm_launches": gg.ds_tgmm.launches,
             "tgmm_unaligned_launches": gg.ds_tgmm.unaligned_launches}
 
@@ -241,15 +245,23 @@ def test_other_shapes_take_the_layout_tile_kernels(launches, dtype, K, N,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_experts_take_the_int8_kernel(launches, dtype):
-    plan, x, _, w = _operands(dtype, 136, 264)
+    """fp32 rows take ``ds_ggemm_q`` of ``csrc/grouped_gemm.cu``; bf16 rows
+    whose shape meets ``stream_route_q`` (here N 272, nb 4) the streaming
+    kernel ``ds_ggemm_q_s``, on the int8 counter either way."""
+    plan, x, _, w = _operands(dtype, 136, 272)
     q = w.to(torch.int8)
-    s = torch.ones(w.shape[0], w.shape[1], 2)
+    s = torch.ones(w.shape[0], w.shape[1], 4)
     c0 = _counts()
     gg.ggemm_q_cuda(x, q, s, plan)
     assert _moved(c0) == {"int8_launches": 1}
-    assert launches.calls == [("grouped_gemm", "ds_ggemm_q",
-                               (plan.num_blocks, 136, 264, w.shape[0], 2,
-                                int(dtype == torch.bfloat16)))]
+    E, nb = w.shape[0], plan.num_blocks
+    if dtype == torch.bfloat16:
+        split = gg.ggemm_q_stream_splits(136, 272, E, 132)
+        assert launches.calls == [("grouped_gemm_stream", "ds_ggemm_q_s",
+                                   (nb, 136, 272, E, 4, *split))]
+    else:
+        assert launches.calls == [("grouped_gemm", "ds_ggemm_q",
+                                   (nb, 136, 272, E, 4, 0))]
 
 
 @pytest.mark.parametrize("route", ["hopper", "layout_tile"])
