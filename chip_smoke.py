@@ -30,7 +30,10 @@ Phases (any failed check exits non-zero before the final line):
      lines printed; the streaming expert kernels (the bf16 slot kernel's
      mma.sync HMMA and UTMALDG, its UBLKCP counted; the int8 group
      kernel's HGMMA and UTMALDG), 0 spill bytes, no C75xx warning, their
-     ptxas lines printed;
+     ptxas lines printed; the decode weight stream (qgemm's stream form
+     and the fused layer's four bf16-compute instances: mma.sync HMMA and
+     UTMALDG; qgemm_stream and all eight fused instances 0 spill bytes),
+     no C75xx warning in qgemm.cu or the fused instances;
   2. kernels at the serving path's shapes: max |kernel - plain| within the
      stated tolerance (the flash forward at every head dim, 64 / 80 / 96 /
      128: S 16, 129, 1024, segment ids, fused-QKV views, GQA rep 4 at hd
@@ -86,9 +89,15 @@ Phases (any failed check exits non-zero before the final line):
      (also timed at Mixtral-8x7B's GQA shape), the fused layer at
      B 8, W 1 and 4, float / int8 weights x float / int8 cache (fp32
      <= 1e-4 abs, TF32 off; bf16 <= 2e-2 of each output's max; new int8
-     K/V codes within one code); then each timed over 24 layers' own
-     weights and caches beside its plain version and its bound (qgemm
-     also beside torch.matmul on the dequantized bf16 weights);
+     K/V codes within one code), each qgemm case with the form it took;
+     qgemm_identity (row 0 at M 8 and 96 bit-identical to M 1, and over
+     two launches; bf16 and fp32 rows) and fused_identity (row 0's
+     outputs at B 8 and 96 bit-identical to B 1, and over two launches;
+     bf16 int8 / float weights and caches, fp32 int8); then each timed
+     over 24 layers' own weights and caches beside its plain version and
+     its bound (qgemm also beside torch.matmul on the dequantized bf16
+     weights; the fused layer's phase stamps with its GEMM phases' weight
+     TB/s, here and in phases 17 and 20);
   9. fp32 int8 weights + int8 KV cache at full width: the scheduler (a
      pool that forces a preemption) token-identical to the static
      generate with fused decode off and on; launch counts per decode
@@ -148,7 +157,8 @@ Phases (any failed check exits non-zero before the final line):
      grouped or qgemm launch in prefill); the scheduler token-identical
      to the static generate (int8 cache at 8 sequences: every request
      not preempted; at 96: reported, with a report of which kernels'
-     row bits change with M), the fused arm to the unfused one; on the
+     row bits change with M, qgemm's held equal at M 1, 8 and 96), the
+     fused arm to the unfused one; on the
      float cache teacher-forced
      decode logits within 1e-3 of a full forward with the plain kernels;
      on the int8 cache every request not preempted token-identical to
@@ -272,6 +282,8 @@ Phases (any failed check exits non-zero before the final line):
      beside its plain version, its bound and SDPA with the layout as a
      boolean mask, the tile plans (fill per side), and the dense causal
      flash kernels for context.
+Every serving phase (9, 10, 15, 16, 18, 19, 21-23) also holds qgemm's tile
+form (M > 128) at no launch.
 Earlier lines are JSON objects; the line before the last two is the
 ``kernels`` object, then the nvidia-smi line, and the last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 2
@@ -504,6 +516,54 @@ def stream_build_checks(build, libs):
           f"grouped_gemm_stream: mma / wgmma / TMA missing from SASS {kern}")
     check(log is None or (not spills and not c75),
           f"grouped_gemm_stream: spills {spills} or serialised wgmma {c75}")
+
+
+#: the decode weight stream's kernels (csrc/decode_stream.cuh): qgemm's
+#: stream form and the fused layer's bf16-compute instances
+DECODE_STREAM = ("qgemm_stream", "fused_layer_kernel")
+
+
+def decode_stream_build_checks(build, libs):
+    """The decode weight stream's kernels as built: qgemm's stream form and
+    the four bf16-compute instances of the fused layer, each with mma.sync
+    (HMMA) and TMA loads (UTMALDG) in its SASS; qgemm_stream and all eight
+    fused layer instances 0 spill bytes and no ptxas C75xx warning where
+    this process built them; every ptxas line of qgemm.cu and the fused
+    instances printed."""
+    kern = {}
+    for lib in ("qgemm", "fused_decode"):
+        funcs = sass_by_function(build, libs[lib], ops=("HMMA", "UTMALDG"))
+        kern.update({n: c for n, c in funcs.items()
+                     if any(k in n for k in DECODE_STREAM)})
+    logs = {tag: r["log"] for tag, r in build.build_log.items()
+            if tag == "qgemm" or tag.startswith("fused_decode_layer[")}
+    spills, c75, ptxas = [], [], {}
+    for tag, log in logs.items():
+        name = None
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                name = f"{tag}:{m.group(1)}"
+            elif name and ("spill" in ln or "Used" in ln):
+                ptxas.setdefault(name, []).append(ln.strip())
+                if any(k in name for k in DECODE_STREAM) and any(
+                        int(n) for n in re.findall(
+                            r"(\d+) bytes spill (?:stores|loads)", ln)):
+                    spills.append(f"{name}: {ln.strip()}")
+            if "C75" in ln:
+                c75.append(f"{tag}: {ln.strip()}")
+    emit({"check": "decode_stream_build", "sass_by_kernel": kern,
+          "ptxas_by_kernel": ptxas, "spill_lines": spills,
+          "c75_warnings": c75, "ptxas_read": sorted(logs)})
+    stream = [c for n, c in kern.items() if "qgemm_stream" in n]
+    fused = [c for n, c in kern.items()
+             if "fused_layer_kernel" in n and c["HMMA"] > 0]
+    check(len(stream) == 1 and stream[0]["HMMA"] > 0
+          and stream[0]["UTMALDG"] > 0 and len(fused) == 4
+          and all(c["UTMALDG"] > 0 for c in fused),
+          f"decode stream: mma.sync / TMA missing from SASS {kern}")
+    check(not spills and not c75,
+          f"decode stream: spills {spills} or ptxas warnings {c75}")
 
 
 def decode_build_checks(build):
@@ -1681,7 +1741,8 @@ def qgemm_kernel_phase(torch, qz, qg, leaves):
                 torch.cuda.synchronize()
                 e, held = err_of(torch, o, r, dt_name)
                 emit({"check": "qgemm", "proj": name, "M": M, "K": K,
-                      "N": N, "dtype": dt_name, "max_abs_err": e,
+                      "N": N, "dtype": dt_name, "route": qg.qgemm_route(
+                          M, K, N, s.shape[-1], dt), "max_abs_err": e,
                       "held": held, "tol": INT8_TOL[dt_name],
                       "tol_kind": "abs" if dt_name == "float32"
                       else "rel_to_max"})
@@ -1703,10 +1764,12 @@ def qgemm_kernel_phase(torch, qz, qg, leaves):
             e, held = err_of(torch, o, r, dt_name)
             emit({"check": "qgemm", "proj": "ragged", "M": M, "K": K,
                   "N": N, "groups": s.shape[-1], "dtype": dt_name,
+                  "route": qg.qgemm_route(M, K, N, s.shape[-1], dt),
                   "max_abs_err": e, "held": held, "tol": INT8_TOL[dt_name]})
             check(held <= INT8_TOL[dt_name], f"qgemm ragged {(M, K, N)} "
                   f"{dt_name}: err {e} (held {held})")
             worst = max(worst, held)
+    ident = qgemm_identity_checks(torch, qg, qs, g)
     # a decode step: 24 layers x 4 projections at M = 8, bf16
     x = {n: torch.randn(8, K, generator=g, device="cuda").to(torch.bfloat16)
          for n, (K, N) in PROJ_SHAPES.items()}
@@ -1745,10 +1808,77 @@ def qgemm_kernel_phase(torch, qz, qg, leaves):
              for k, v in step.items() if k != "launches"}
     layer.update(work="one layer's four decode projections (4 launches, "
                       "M 8, bf16, each layer's own weights)",
-                 bound_by="bytes", library_ms=None)
+                 bound_by="bytes", library_ms=None, identity=ident)
     emit({"phase": "qgemm_kernel_times", "per_projection": per_proj,
           "decode_step": step, "per_layer": layer})
     return worst, layer
+
+
+def qgemm_identity_checks(torch, qg, qs, g):
+    """qgemm_identity: row 0 of qgemm at M 8 and 96 bit-identical to the
+    same row at M 1, and at M 1 over two launches, for bf16 rows (the
+    decode weight stream) and fp32 rows (8-row blocks), at GPT-2 760M's
+    QKV and MLP-out projections; each with the forms the M took."""
+    out = {}
+    for name in ("qkv_w", "mlp_out_w"):
+        q, s = (t[0] for t in qs[name])
+        K, N = q.shape
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            x = torch.randn(96, K, generator=g, device="cuda").to(dt)
+            ref = qg.qgemm_cuda(x[:1], q, s)[0]
+            row = {f"{M}_equals_1": bool(torch.equal(
+                qg.qgemm_cuda(x[:M], q, s)[0], ref)) for M in (8, 96)}
+            row["two_launches"] = bool(torch.equal(
+                qg.qgemm_cuda(x[:1], q, s)[0], ref))
+            out[f"{name}_{dt_name}"] = dict(row, routes={
+                M: qg.qgemm_route(M, K, N, s.shape[-1], dt)
+                for M in (1, 8, 96)})
+            check(all(row.values()), f"qgemm_identity {name} {dt_name}: "
+                  f"{out[f'{name}_{dt_name}']}")
+    emit({"check": "qgemm_identity", **out})
+    return out
+
+
+def fused_identity_checks(torch, qz, da, fd, spec, g):
+    """fused_identity: the fused layer's row 0 (x_out, new K/V and their
+    scales) at B 8 and 96 bit-identical to the same row at B 1, and at
+    B 1 over two launches: GPT-2 760M's spec at W 1 with row 0 at 1000
+    cached positions (16 attention chunks merged), bf16 with int8 weights
+    and cache and with bf16 weights and cache, and fp32 with int8 weights
+    and cache."""
+    out = {}
+    for dt_name, w8, c8 in (("bfloat16", True, True),
+                            ("bfloat16", False, False),
+                            ("float32", True, True)):
+        dt = getattr(torch, dt_name)
+        cw = fused_weights(torch, g, dt, w8, qz)
+        k, v, ks, vs = spec_cache(torch, g, dt, c8, da, H760, HD760, B=96)
+        x = torch.randn(96, 1, D760, generator=g, device="cuda").to(dt)
+        lens = torch.randint(0, 1023, (96,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        lens[0] = 1000
+
+        def row0(B):
+            got = fd.fused_layer_cuda(
+                x[:B], cw, k[:B], v[:B], lens[:B], spec,
+                None if ks is None else ks[:B],
+                None if vs is None else vs[:B])
+            return [t[0] for t in got if t is not None]
+
+        ref = row0(1)
+        same = lambda a: all(bool(torch.equal(p, r))    # noqa: E731
+                             for p, r in zip(a, ref))
+        row = {f"{B}_equals_1": same(row0(B)) for B in (8, 96)}
+        row["two_launches"] = same(row0(1))
+        key = f"{dt_name}_{'int8' if w8 else 'float'}_weights_" \
+              f"{'int8' if c8 else 'float'}_cache"
+        out[key] = row
+        check(all(row.values()), f"fused_identity {key}: {row}")
+        del cw, k, v, ks, vs
+        torch.cuda.empty_cache()
+    emit({"check": "fused_identity", **out})
+    return out
 
 
 def decode_int8_kernel_phase(torch, F, da):
@@ -1812,10 +1942,19 @@ def fused_weights(torch, g, dt, int8_weights, qz):
     return cw
 
 
+#: the fused layer's GEMM phases (fd.PHASES) and their weights' keys
+GEMM_PHASE_KEYS = {"qkv_gemm": ("wqkv", "wq", "wk", "wv"),
+                   "out_proj_gemm": ("wo",),
+                   "mlp_in_gemm": ("w_in", "w_gate", "w_up"),
+                   "mlp_out_gemm": ("w_out", "w_down")}
+
+
 def fused_phase_us(torch, fd, x, layers, caches, lens, spec,
                    alibi_slopes=None):
     """Microseconds of each phase of the fused kernel (its device-clock
-    stamps, fd.PHASES), median over one call per layer."""
+    stamps, fd.PHASES), median over one call per layer; under
+    ``gemm_tb_s`` each GEMM phase's weight bytes (codes and scales) over
+    its time, in TB/s."""
     st = torch.zeros(len(fd.PHASES) + 1, dtype=torch.int64, device="cuda")
     rows = []
     for cw, c in zip(layers, caches):
@@ -1823,8 +1962,14 @@ def fused_phase_us(torch, fd, x, layers, caches, lens, spec,
                             alibi_slopes, stamps=st)
         t = st.tolist()
         rows.append([(b - a) / 1e3 for a, b in zip(t, t[1:])])
-    return {name: statistics.median(r[i] for r in rows)
-            for i, name in enumerate(fd.PHASES)}
+    us = {name: statistics.median(r[i] for r in rows)
+          for i, name in enumerate(fd.PHASES)}
+    cw = layers[0]
+    us["gemm_tb_s"] = {
+        name: sum(nbytes(cw[k]) for k in keys if k in cw)
+        / (us[name] * 1e-6) / 1e12 if us[name] > 0 else None
+        for name, keys in GEMM_PHASE_KEYS.items()}
+    return us
 
 
 def fused_check(torch, got, ref, dt_name, row):
@@ -1907,6 +2052,7 @@ def fused_kernel_phase(torch, qz, da, fd):
                     check(ok, f"ds_fused_layer {dt_name} w8={w8} c8={c8} "
                           f"W={W}: {row}")
             del cw
+    ident = fused_identity_checks(torch, qz, da, fd, spec, g)
     # times: bf16, B 8, W 1, 24 layers' own weights and caches
     dt = torch.bfloat16
     lens = torch.tensor([min(n, 1023) for n in DECODE_LENS],
@@ -1949,7 +2095,8 @@ def fused_kernel_phase(torch, qz, da, fd):
           "lens": lens.tolist(), "by_config": times})
     main_t = dict(times["int8_weights_int8_cache"],
                   work="one layer, B 8, W 1, DECODE_LENS (<= 1023), bf16, "
-                       "int8 weights and cache (24 layers' own)")
+                       "int8 weights and cache (24 layers' own)",
+                  identity=ident)
     return worst, main_t, times
 
 
@@ -3030,11 +3177,11 @@ def row_dependence(torch, gg, qg, params, D):
     """Phase 15's evidence for its 96-sequence arm: whether the bits of
     one row's output change with the rows computed beside it, on fp32
     rows and layer 0's int8 weights.  qgemm (wq, the router) at M 1 (the
-    static generate), 8 (the decode path) and 96 (the tile path); the
-    gate experts through ds_ggemm_slots_q at R 2 (one token's two routed
-    rows, as the generate runs them) and R 16, and ds_ggemm_q at R 192
-    (96 tokens), the first token's rows compared; the lm_head GEMM
-    (cuBLAS) at M 1, 8 and 96."""
+    static generate), 8 and 96 (the decode paths: 8-row blocks whatever
+    M), held equal; the gate experts through ds_ggemm_slots_q at R 2 (one
+    token's two routed rows, as the generate runs them) and R 16, and
+    ds_ggemm_q at R 192 (96 tokens), the first token's rows compared; the
+    lm_head GEMM (cuBLAS) at M 1, 8 and 96 (reported)."""
     from deepspeed_tpu_torch.models.model import layer_params
     g = torch.Generator(device="cuda").manual_seed(71)
     x = torch.randn(96, D, generator=g, device="cuda")
@@ -3049,6 +3196,8 @@ def row_dependence(torch, gg, qg, params, D):
                     ("qgemm_router", layer["moe"]["router"])):
         out[name] = same(lambda M, w=w: qg.qgemm(x[:M], w.q, w.s)[0],
                          (1, 8, 96))
+        check(all(out[name].values()), f"row_dependence {name}: row 0's "
+              f"bits change with M {out[name]}")
     out["cublas_lm_head"] = same(lambda M: (x[:M] @ params["lm_head"])[0],
                                  (1, 8, 96))
     wg = layer["moe"]["w_gate"]
@@ -3088,9 +3237,9 @@ def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
     preempted request re-prefills its generated tail (its K/V then come
     from the prefill's GEMMs, not the decode's, and an int8 cache turns
     a last-bit difference into a whole code step), so its identity is
-    reported, as is the 96-row arm's (its decode runs qgemm's tile path
-    and ds_ggemm_q, the one-row generate qgemm's decode path and the slot
-    kernel: the ``row_dependence`` report).  Also held there: the fused
+    reported, as is the 96-row arm's (its decode runs ds_ggemm_q, the
+    one-row generate the slot kernel: the ``row_dependence`` report, which
+    holds qgemm's row 0 equal at M 1, 8 and 96).  Also held there: the fused
     arm token-identical to the unfused one, and every request that was
     not preempted token-identical to the same request in a second run of
     the arm with the prompts submitted in reverse order and a pool that
@@ -3197,10 +3346,9 @@ def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
                 # request that was not preempted (a resumed one
                 # re-prefills its generated tail, whose K/V then come from
                 # the prefill's GEMMs, not the decode's).  Int8 cache at
-                # 96 rows: reported, not held (its decode runs qgemm's
-                # tile path and ds_ggemm_q where the one-row generate runs
-                # qgemm's decode path and the slot kernel: other sums,
-                # see row_dependence)
+                # 96 rows: reported, not held (its decode runs ds_ggemm_q
+                # where the one-row generate runs the slot kernel: other
+                # sums, see row_dependence)
                 check(not (kept_diff if kv else first_diff)
                       or (kv and not slot),
                       f"fp32 int8 mixtral {key}: scheduler != static "
@@ -5814,6 +5962,19 @@ def fused_paths(runs, prefix):
     return sum(paths.values()), paths
 
 
+def no_qgemm_tile(label, fn):
+    """Run serving phase ``label`` and hold qgemm's tile form (M > 128, its
+    own counter) at no launch there: every decode path runs at most 128
+    rows, and prefill dequantizes instead."""
+    qg = int8_modules()[1]
+    n0 = qg.qgemm.tile_launches
+    out = fn()
+    n = qg.qgemm.tile_launches - n0
+    emit({"check": "qgemm_tile_launches", "phase": label, "launches": n})
+    check(n == 0, f"{label}: {n} qgemm launches took the tile form")
+    return out
+
+
 def run_only(torch, only, da, fa):
     """``--only``: the listed phases among 2, 3, 7, 8 and 11-27 alone,
     after the build, for work on one path (no kernels line)."""
@@ -5833,16 +5994,23 @@ def run_only(torch, only, da, fa):
         12: lambda: mixtral_parity_phase(torch, gg, da, fa),
         13: lambda: mixtral_http_phase(torch, gg, da, fa),
         14: lambda: moe_int8_kernel_phase(torch, gg, qz, qg),
-        15: lambda: mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa),
-        16: lambda: mixtral_int8_http_phase(torch, gg, qz, qg, da, fa),
+        15: lambda: no_qgemm_tile(
+            15, lambda: mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa)),
+        16: lambda: no_qgemm_tile(
+            16, lambda: mixtral_int8_http_phase(torch, gg, qz, qg, da, fa)),
         17: lambda: (fused_family_phase(torch, qz, da, fd),
                      fused_family_times(torch, qz, da, fd)),
-        18: lambda: llama_parity_phase(torch, da, fa),
-        19: lambda: llama_http_phase(torch, da, fa),
+        18: lambda: no_qgemm_tile(
+            18, lambda: llama_parity_phase(torch, da, fa)),
+        19: lambda: no_qgemm_tile(
+            19, lambda: llama_http_phase(torch, da, fa)),
         20: lambda: slice7_kernel_phase(torch, F, da),
-        21: lambda: slice7_parity_phase(torch, da, fa),
-        22: lambda: neox_http_phase(torch, da, fa),
-        23: lambda: bloom_gptneo_http_phase(torch, da, fa),
+        21: lambda: no_qgemm_tile(
+            21, lambda: slice7_parity_phase(torch, da, fa)),
+        22: lambda: no_qgemm_tile(
+            22, lambda: neox_http_phase(torch, da, fa)),
+        23: lambda: no_qgemm_tile(
+            23, lambda: bloom_gptneo_http_phase(torch, da, fa)),
         24: lambda: moe_train_kernel_phase(torch, gg, fa),
         25: lambda: moe_train_parity_phase(torch, dt, gg, fa),
         26: lambda: moe_train_bf16_phase(torch, dt, gg, fa),
@@ -5906,6 +6074,7 @@ def main():
               build, libs["block_sparse_attention"])})
     grouped_hopper_build_checks(build, libs)
     stream_build_checks(build, libs)
+    decode_stream_build_checks(build, libs)
     sparse_build_checks(build, libs)
     decode_build_checks(build)
 
@@ -5944,9 +6113,10 @@ def main():
 
     int8_t, int8_errs = int8_kernel_phase(torch, F, da)
     torch.cuda.empty_cache()
-    int8_parity_phase(torch, da, fa)
+    no_qgemm_tile(9, lambda: int8_parity_phase(torch, da, fa))
     torch.cuda.empty_cache()
-    int8_load, int8_runs = int8_http_phase(torch, da, fa)
+    int8_load, int8_runs = no_qgemm_tile(
+        10, lambda: int8_http_phase(torch, da, fa))
     torch.cuda.empty_cache()
 
     gg = moe_modules()
@@ -5962,9 +6132,11 @@ def main():
     qz, qg, fd = int8_modules()
     moeq_t, moeq_errs, qgemm_mix_t = moe_int8_kernel_phase(torch, gg, qz, qg)
     torch.cuda.empty_cache()
-    mixq_par = mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa)
+    mixq_par = no_qgemm_tile(15, lambda: mixtral_int8_parity_phase(
+        torch, gg, qz, qg, da, fa))
     torch.cuda.empty_cache()
-    mixq_load, mixq = mixtral_int8_http_phase(torch, gg, qz, qg, da, fa)
+    mixq_load, mixq = no_qgemm_tile(16, lambda: mixtral_int8_http_phase(
+        torch, gg, qz, qg, da, fa))
     mq8 = mixq["max_num_seqs_8"]["launches"]
     mq8f = mixq["max_num_seqs_8_fused"]["launches"]
     mq96 = mixq[f"max_num_seqs_{WIDE_SEQS}"]["launches"]
@@ -5974,19 +6146,21 @@ def main():
     torch.cuda.empty_cache()
     fam_t = fused_family_times(torch, qz, da, fd)
     torch.cuda.empty_cache()
-    llama_parity_phase(torch, da, fa)
+    no_qgemm_tile(18, lambda: llama_parity_phase(torch, da, fa))
     torch.cuda.empty_cache()
-    llama_loads, llama = llama_http_phase(torch, da, fa)
+    llama_loads, llama = no_qgemm_tile(
+        19, lambda: llama_http_phase(torch, da, fa))
     lq = {arm: run["launches"] for arm, run in llama.items()}
     torch.cuda.empty_cache()
 
     s7_errs, s7_t = slice7_kernel_phase(torch, F, da)
     torch.cuda.empty_cache()
-    slice7_parity_phase(torch, da, fa)
+    no_qgemm_tile(21, lambda: slice7_parity_phase(torch, da, fa))
     torch.cuda.empty_cache()
-    neox_loads, neox = neox_http_phase(torch, da, fa)
+    neox_loads, neox = no_qgemm_tile(
+        22, lambda: neox_http_phase(torch, da, fa))
     torch.cuda.empty_cache()
-    bg = bloom_gptneo_http_phase(torch, da, fa)
+    bg = no_qgemm_tile(23, lambda: bloom_gptneo_http_phase(torch, da, fa))
     torch.cuda.empty_cache()
     mt_t, mt_errs, mt_flash, mt_ident = moe_train_kernel_phase(torch, gg,
                                                                fa)
@@ -6220,6 +6394,16 @@ def main():
             # context only: torch.matmul on the dequantized bf16 weights
             kernels[-1]["matmul_bf16_ms"] = t["matmul_bf16_ms"]
             kernels[-1]["times_at_mixtral_shapes"] = qgemm_mix_t
+            kernels[-1]["identity"] = t["identity"]
+        if name == "qgemm" or name.startswith("ds_fused_layer"):
+            # bf16 rows (bf16 compute) on the decode weight stream
+            kernels[-1]["sources"] = [
+                kernels[-1]["source"],
+                "deepspeed_tpu_torch/csrc/decode_stream.cuh"] + (
+                ["deepspeed_tpu_torch/csrc/fused_decode.cuh"]
+                if name.startswith("ds_fused_layer") else [])
+        if name == "ds_fused_layer":
+            kernels[-1]["identity"] = t["identity"]
         if name == "decode_attention_int8":
             kernels[-1]["replaces"] += " (quantized=True)"
             kernels[-1]["tpu_kernel"] = kernels[-1]["replaces"]

@@ -36,6 +36,13 @@ weight once per call and needs no resident layer.
 The cache is input-only: the new K/V (int8 codes plus fp32 scales for an
 int8 cache) come back as outputs and the caller writes them with
 ``write_token``, as in the reference.
+
+Under bf16 compute the kernel's GEMM phases run on the decode weight
+stream of ``csrc/decode_stream.cuh`` (the projections' shapes must meet
+``qgemm.stream_ok``), with the K splits of ``qgemm.stream_splits``; its
+attention phase is split over the cache in chunks of ``ATTN_CHUNK``
+positions (:func:`attention_split_walk` walks that decomposition in
+plain torch).
 """
 import ctypes
 from dataclasses import dataclass
@@ -48,12 +55,16 @@ from deepspeed_tpu_torch.models.model import QuantizedTensor
 from deepspeed_tpu_torch.ops.kernels import build
 from deepspeed_tpu_torch.ops.kernels.decode_attention import (
     decode_attention_plain, quantize_kv)
-from deepspeed_tpu_torch.ops.kernels.qgemm import qgemm_plain
+from deepspeed_tpu_torch.ops.kernels.qgemm import qgemm_plain, stream_ok
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
 #: K splits per GEMM phase the kernel may use (csrc kMaxSplit)
 MAX_SPLIT = 16
+#: the attention phase's chunk of cache positions (csrc kC: four warps of
+#: 16 positions) and the query vectors of one work item (kQItem)
+ATTN_CHUNK = 64
+ATTN_QMAX = 4
 #: the kernel's MLP kinds (csrc FusedArgs.mlp)
 _MLPS = {"gelu_tanh": 0, "gelu_exact": 1, "relu": 2, "swiglu": 3, "none": 4}
 
@@ -190,19 +201,20 @@ def _ref_rope(x, spec: FusedLayerSpec, positions):
     return torch.cat([xr, x[..., rot:]], dim=-1)
 
 
-def _ref_qkv(x, cw, spec: FusedLayerSpec, positions):
+def _ref_qkv(x, cw, spec: FusedLayerSpec, positions, dot=_dot):
     """norm1 + QKV (+ biases) + rotary (the reference's ``_ref_qkv``):
-    q [B, W, H, hd], k / v [B, W, KV, hd]."""
+    q [B, W, H, hd], k / v [B, W, KV, hd].  ``dot`` computes a
+    projection."""
     H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     h = _norm(x, spec, cw["n1_s"], cw.get("n1_b"))
     dt = h.dtype
     if spec.qkv == "split":
-        q, kk, v = (_dot(h, cw[k]) for k in ("wq", "wk", "wv"))
+        q, kk, v = (dot(h, cw[k]) for k in ("wq", "wk", "wv"))
         if spec.qkv_bias:
             q, kk, v = (t + cw[k].to(dt)
                         for t, k in zip((q, kk, v), ("bq", "bk", "bv")))
     else:
-        qkv = _dot(h, cw["wqkv"])
+        qkv = dot(h, cw["wqkv"])
         if spec.qkv_bias:
             qkv = qkv + cw["bqkv"].to(dt)
         if spec.qkv == "headmajor":
@@ -218,13 +230,14 @@ def _ref_qkv(x, cw, spec: FusedLayerSpec, positions):
     return q, kk, v
 
 
-def _ref_finish(x, attn_flat, cw, spec: FusedLayerSpec):
+def _ref_finish(x, attn_flat, cw, spec: FusedLayerSpec, dot=_dot):
     """attn-out (+ bias) + residual and norm2 + MLP + residual (the
     reference's ``_ref_finish``): serial, norm2 over ``x + attn_out``; or
     parallel, norm2 over ``x`` and ``(x + attn_out) + mlp_out``.
-    ``mlp="none"`` stops after the attention residual."""
+    ``mlp="none"`` stops after the attention residual; ``dot`` computes a
+    projection."""
     dt = x.dtype
-    attn_out = _dot(attn_flat, cw["wo"])
+    attn_out = dot(attn_flat, cw["wo"])
     if spec.out_bias:
         attn_out = attn_out + cw["bo"].to(dt)
     res = x + attn_out
@@ -233,12 +246,12 @@ def _ref_finish(x, attn_flat, cw, spec: FusedLayerSpec):
     h2 = _norm(x if spec.residual == "parallel" else res, spec, cw["n2_s"],
                cw.get("n2_b"))
     if spec.mlp == "swiglu":
-        gated = F.silu(_dot(h2, cw["w_gate"])) * _dot(h2, cw["w_up"])
-        return res + _dot(gated, cw["w_down"])
-    m = _dot(h2, cw["w_in"])
+        gated = F.silu(dot(h2, cw["w_gate"])) * dot(h2, cw["w_up"])
+        return res + dot(gated, cw["w_down"])
+    m = dot(h2, cw["w_in"])
     if spec.mlp_bias:
         m = m + cw["b_in"].to(dt)
-    m = _dot(_act(m, spec.mlp), cw["w_out"])
+    m = dot(_act(m, spec.mlp), cw["w_out"])
     if spec.mlp_bias:
         m = m + cw["b_out"].to(dt)
     return res + m
@@ -292,6 +305,115 @@ def fused_layer_plain(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
     return out + (None, None)
 
 
+def attn_workspace(B, W, H, KV, hd, S_max):
+    """(floats, counters) of the attention phase's chunk partials: per
+    (row, kv head, query chunk) one slot per chunk of the cache and the
+    window, each the max, sum and P V of up to ATTN_QMAX queries (csrc
+    attn_ws_floats)."""
+    nq = W * (H // KV)
+    nqc = -(-nq // ATTN_QMAX)
+    zmax = -(-(S_max + W) // ATTN_CHUNK)
+    slot = min(nq, ATTN_QMAX) * (hd + 2)
+    return B * KV * nqc * zmax * slot, B * KV * nqc
+
+
+def attention_split_walk(q, k_l, v_l, lengths, kw, vw, sm_scale,
+                         ks_l=None, vs_l=None, alibi_slopes=None,
+                         chunk=None):
+    """The fused kernel's attention phase in plain torch, fp32: q [B, W, H,
+    hd] (the rotated queries), the cache k_l / v_l [B, S, KV, hd] (int8
+    codes with ks_l / vs_l [B, S, KV], dequantized code * scale), the
+    window's own K/V kw / vw [B, W, KV, hd] as the cache would hold them.
+    Window position j of a row attends its cache's first lengths[b]
+    positions and the window's first j + 1.  The walk: per (row, kv head,
+    chunk of ATTN_QMAX query vectors) the positions in chunks of
+    ``chunk`` (ATTN_CHUNK) at fixed absolute boundaries; per chunk the
+    scores (q *
+    sm_scale) . k, ALiBi as one rounded product and one rounded sum, the
+    chunk's max m, p = exp(s - m), l = sum p, acc = p @ v; the chunks
+    merged in order, online.  Returns [B, W, H, hd] fp32."""
+    B, W, H, hd = q.shape
+    KV = k_l.shape[2]
+    rep = H // KV
+    chunk = chunk or ATTN_CHUNK
+    k = k_l.float() if ks_l is None else k_l.float() * ks_l[..., None]
+    v = v_l.float() if vs_l is None else v_l.float() * vs_l[..., None]
+    out = torch.zeros(B, W, H, hd, dtype=torch.float32)
+    nq = W * rep
+    for b in range(B):
+        n_len = int(lengths[b])
+        for kvh in range(KV):
+            keys = torch.cat([k[b, :n_len, kvh], kw[b, :, kvh].float()])
+            vals = torch.cat([v[b, :n_len, kvh], vw[b, :, kvh].float()])
+            for q0 in range(0, nq, ATTN_QMAX):
+                qq = list(range(q0, min(nq, q0 + ATTN_QMAX)))
+                js = [i // rep for i in qq]
+                hs = [kvh * rep + i % rep for i in qq]
+                qv = q[b, js, hs].float() * sm_scale         # [qn, hd]
+                total = n_len + js[-1] + 1
+                lim = torch.tensor([n_len + j + 1 for j in js])
+                M = torch.full((len(qq),), -1e30)
+                Ls = torch.zeros(len(qq))
+                O = torch.zeros(len(qq), hd)
+                for s0 in range(0, total, chunk):
+                    s1 = min(total, s0 + chunk)
+                    pos = torch.arange(s0, s1)
+                    sc = qv @ keys[s0:s1].T                   # [qn, n]
+                    if alibi_slopes is not None:
+                        sl = alibi_slopes[hs].float()[:, None]
+                        sc = sc + sl * pos.float()[None]
+                    valid = pos[None] < lim[:, None]
+                    sc = torch.where(valid, sc, torch.tensor(-1e30))
+                    m = sc.max(dim=1).values
+                    p = torch.where(valid, torch.exp(sc - m[:, None]),
+                                    torch.zeros(()))
+                    l_c, a_c = p.sum(dim=1), p @ vals[s0:s1]
+                    Mn = torch.maximum(M, m)
+                    f0, f1 = torch.exp(M - Mn), torch.exp(m - Mn)
+                    Ls = Ls * f0 + l_c * f1
+                    O = O * f0[:, None] + a_c * f1[:, None]
+                    M = Mn
+                out[b, js, hs] = O / Ls.clamp_min(1e-30)[:, None]
+    return out
+
+
+def fused_layer_walk(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec, sms,
+                     ks_l=None, vs_l=None, alibi_slopes=None):
+    """The kernel's decomposition of one fused layer step in plain torch:
+    the plain version's norms, biases, rotary and residuals, every
+    projection by ``qgemm.decode_walk`` (its K splits on ``sms``
+    multiprocessors, 8-row passes, split-order sums) and the attention by
+    :func:`attention_split_walk` over the window's K/V as the cache holds
+    them.  Returns ``x_out`` [B, W, D]."""
+    from deepspeed_tpu_torch.ops.kernels.qgemm import decode_walk
+    _check_spec(spec)
+    B, W, D = x.shape
+    H, hd = spec.num_heads, spec.head_dim
+
+    def dot(a, w):
+        lead = a.shape[:-1]
+        if isinstance(w, QuantizedTensor):
+            from deepspeed_tpu_torch.ops.kernels.quantization import \
+                block_dequantize_int8
+            wt = block_dequantize_int8(w.q, w.s).to(a.dtype)
+        else:
+            wt = w.to(a.dtype)
+        return decode_walk(a.reshape(-1, a.shape[-1]), wt, sms).reshape(
+            *lead, wt.shape[-1])
+    positions = lengths[:, None] + torch.arange(W, dtype=lengths.dtype)
+    q, kk, v = _ref_qkv(x, cw, spec, positions, dot)
+    if ks_l is not None:
+        (kq, ksw), (vq, vsw) = quantize_kv(kk), quantize_kv(v)
+        kw, vw = kq.float() * ksw[..., None], vq.float() * vsw[..., None]
+    else:
+        kw, vw = kk.to(k_l.dtype).float(), v.to(v_l.dtype).float()
+    sm = spec.sm_scale if spec.sm_scale is not None else hd ** -0.5
+    attn = attention_split_walk(q, k_l, v_l, lengths, kw, vw, sm, ks_l,
+                                vs_l, alibi_slopes)
+    return _ref_finish(x, attn.reshape(B, W, H * hd).to(x.dtype), cw, spec,
+                       dot)
+
+
 def _check_slopes(spec: FusedLayerSpec, alibi_slopes):
     if spec.alibi != (alibi_slopes is not None):
         raise ValueError("ds_fused_layer: an alibi spec takes alibi_slopes "
@@ -325,7 +447,8 @@ class _FusedArgs(ctypes.Structure):
                                           "abuf", "xres", "part")]
         + [("part_floats", ctypes.c_longlong)]
         + [(n, ctypes.c_void_p) for n in ("qf", "kw", "vw", "bar",
-                                          "stamps")])
+                                          "stamps", "attn_ws")]
+        + [("attn_floats", ctypes.c_longlong), ("attn_cnt", ctypes.c_void_p)])
 
 #: the intervals between the kernel's phase stamps (``stamps`` option of
 #: :func:`fused_layer_cuda`); the last is CTA 0's share of the final
@@ -445,6 +568,16 @@ def fused_layer_cuda(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
         M = (w_in.q if isinstance(w_in, QuantizedTensor) else w_in).shape[-1]
     phases = _phases(spec, D, M)
     w_int8 = isinstance(cw[phases[0][0][0]], QuantizedTensor)
+    if dt == torch.bfloat16:
+        for mats in phases:
+            for key, _, K, N in mats:
+                w = cw[key]
+                nb = w.s.shape[-1] if w_int8 else 0
+                if not stream_ok(K, N, nb, w_int8):
+                    raise ValueError(
+                        f"ds_fused_layer: {key} [{K}, {N}] (scale groups "
+                        f"{nb}) is off the decode weight stream's shapes "
+                        "(qgemm.stream_ok); serve it with fused decode off")
     a = _FusedArgs(B=B, W=W, D=D, H=H, KV=KV, HD=hd, S_max=S,
                    norm=int(spec.norm == "rms"), mlp=_MLPS[spec.mlp],
                    nqkv=len(phases[0]), nmlp_in=len(phases[2]),
@@ -519,6 +652,10 @@ def fused_layer_cuda(x, cw, k_l, v_l, lengths, spec: FusedLayerSpec,
     if stamps is not None:
         _expect("stamps", stamps, (len(PHASES) + 1,), torch.int64, dev)
         a.stamps = stamps.data_ptr()
+    n_ws, n_cnt = attn_workspace(B, W, H, KV, hd, S)
+    ws, cnt = build.scratch(dev, n_ws, n_cnt)
+    a.attn_ws, a.attn_floats, a.attn_cnt = (ws.data_ptr(), ws.numel(),
+                                            cnt.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib()(ctypes.byref(a), int(dt == torch.bfloat16), int(w_int8),
