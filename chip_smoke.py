@@ -140,10 +140,13 @@ Phases (any failed check exits non-zero before the final line):
      ds_ggemm_q at R 129 / 192 / 1800, random, one-expert and two-empty
      routing (fp32 <= 1e-4 abs, bf16 <= 2e-2 of the output's max; padding
      tiles zero), each case with the source its launch took (bf16 rows of
-     ds_ggemm_q: the streaming kernel); ggemm_q_identity: row 0
+     both: the streaming kernels); ggemm_q_identity: row 0
      bit-identical over two launches and at R 129 and 1800 against R 192,
      and at the out projection the nb edge (20 scale groups of 205
-     columns) held and bit-identical over two launches; each timed at the
+     columns) held and bit-identical over two launches; slot_q_identity:
+     the rows of ds_ggemm_slots_q at R 1, 2, 16 and 128 bit-identical to
+     the same rows of ds_ggemm_q at R 129, 192 and 1800 and over two
+     launches, at both projections and at the nb edge; each timed at the
      main path's shapes (R 16 at 8 sequences, R 192 at 96; events and
      device time) beside its plain version, its bound (codes and scales)
      and torch._grouped_mm on the dequantized bf16 stack (context only);
@@ -155,9 +158,10 @@ Phases (any failed check exits non-zero before the final line):
      step 3 L slot-q or 3 L ggemm-q, 5 L qgemm, L decode of the cache's
      kind; fused L fused, L qgemm (the router) and no decode; no int8
      grouped or qgemm launch in prefill); the scheduler token-identical
-     to the static generate (int8 cache at 8 sequences: every request
-     not preempted; at 96: reported, with a report of which kernels'
-     row bits change with M, qgemm's held equal at M 1, 8 and 96), the
+     to the static generate (int8 cache: every request not preempted,
+     at 8 and 96; the rows of qgemm at M 1, 8 and 96 and of the expert
+     GEMMs at R 2, 16 and 192 held equal, the rows that still change with
+     M reported), the
      fused arm to the unfused one; on the
      float cache teacher-forced
      decode logits within 1e-3 of a full forward with the plain kernels;
@@ -473,14 +477,16 @@ def sparse_build_checks(build, libs):
 
 
 #: the streaming expert kernels (csrc/grouped_gemm_stream.cu): the bf16
-#: slot kernel (mma.sync) and the int8-expert kernel (wgmma)
-STREAM_KERNELS = ("slot_stream", "ggemm_q_stream")
+#: slot kernel (mma.sync) and the int8-expert group and slot kernels
+#: (wgmma)
+STREAM_KERNELS = ("slot_stream", "ggemm_q_stream", "slot_q_stream")
 
 
 def stream_build_checks(build, libs):
     """The streaming expert kernels as built: the slot kernel's mma.sync
     (HMMA) and TMA loads (UTMALDG; its rows of x by cp.async.bulk,
-    UBLKCP, counted), the int8 kernel's wgmma (HGMMA) and TMA loads, and,
+    UBLKCP, counted), the int8 group and slot kernels' wgmma (HGMMA) and
+    TMA loads, and,
     where this process built the source, 0 spill bytes and no ptxas C75xx
     warning (the C7519 note of an injected warpgroup.arrive counted), with
     each kernel's ptxas lines printed."""
@@ -511,8 +517,12 @@ def stream_build_checks(build, libs):
           "ptxas_read": log is not None})
     slot = [c for n, c in kern.items() if "slot_stream" in n]
     q8 = [c for n, c in kern.items() if "ggemm_q_stream" in n]
+    # the int8 slot kernel's two instances (one scale group a warpgroup's
+    # columns, or any groups)
+    sq8 = [c for n, c in kern.items() if "slot_q_stream" in n]
     check(len(slot) == 1 and slot[0]["HMMA"] > 0 and slot[0]["UTMALDG"] > 0
-          and len(q8) == 1 and q8[0]["HGMMA"] > 0 and q8[0]["UTMALDG"] > 0,
+          and len(q8) == 1 and len(sq8) == 2
+          and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in q8 + sq8),
           f"grouped_gemm_stream: mma / wgmma / TMA missing from SASS {kern}")
     check(log is None or (not spills and not c75),
           f"grouped_gemm_stream: spills {spills} or serialised wgmma {c75}")
@@ -2435,12 +2445,11 @@ def grouped_route(gg, name, x, w, s=None):
     takes, by the wrapper's shape rules (``hopper_route``,
     ``stream_route_q``)."""
     K, N = x.shape[1], w.shape[2]
-    if name == "ds_ggemm_q":
+    if name in ("ds_ggemm_q", "ds_ggemm_slots_q"):
         hop = gg.stream_route_q(x.dtype, (x.data_ptr(), w.data_ptr(),
                                           s.data_ptr()), K, N, s.shape[2])
     else:
-        hop = name != "ds_ggemm_slots_q" and gg.hopper_route(
-            x.dtype, (x.data_ptr(), w.data_ptr()), (K, N))
+        hop = gg.hopper_route(x.dtype, (x.data_ptr(), w.data_ptr()), (K, N))
     if not hop:
         return "grouped_gemm.cu"
     return "grouped_gemm_hopper.cu" if name == "ds_ggemm" \
@@ -2448,10 +2457,12 @@ def grouped_route(gg, name, x, w, s=None):
 
 
 def off_rule_counts(gg):
-    """bf16 launches of the slot and int8 group kernels that the shape
-    rules sent to csrc/grouped_gemm.cu (none on the main paths)."""
+    """bf16 launches of the slot and int8 group and slot kernels that the
+    shape rules sent to csrc/grouped_gemm.cu (none on the main paths)."""
     return {"ds_ggemm_slots_unaligned": gg.ds_ggemm_slots.unaligned_launches,
-            "ds_ggemm_q_unaligned": gg.ds_ggemm.unaligned_int8_launches}
+            "ds_ggemm_q_unaligned": gg.ds_ggemm.unaligned_int8_launches,
+            "ds_ggemm_slots_q_unaligned":
+            gg.ds_ggemm_slots.unaligned_int8_launches}
 
 
 def slot_identity_checks(torch, gg, g, w, proj):
@@ -2488,6 +2499,7 @@ def moe_kernel_phase(torch, gg, da, fa):
     times, ident = {}, {}
     gg.ds_ggemm_slots.unaligned_launches = 0
     gg.ds_ggemm.unaligned_int8_launches = 0
+    gg.ds_ggemm_slots.unaligned_int8_launches = 0
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         for proj, (K, N) in MOE_SHAPES.items():
@@ -2619,6 +2631,7 @@ def reset_moe_counts(gg, da, fa):
     gg.ds_ggemm.launches = gg.ds_ggemm_slots.launches = 0
     gg.ds_ggemm_slots.unaligned_launches = 0
     gg.ds_ggemm.unaligned_int8_launches = 0
+    gg.ds_ggemm_slots.unaligned_int8_launches = 0
     fa.flash_attention_fwd.launches = 0
     da.decode_attention.launches = da.decode_attention.int8_launches = 0
 
@@ -2813,6 +2826,11 @@ def path_expert_check(torch, gg, sched, prompts, names, label):
             ref = gg.ggemm_slots_plain(x, w, plan)
             rows.add(x.shape[0])
             routes.add(grouped_route(gg, "ds_ggemm_slots", x, w))
+        elif name == "ggemm_slots_q_cuda":
+            x, q, s, plan = args
+            ref = gg.ggemm_slots_q_plain(x, q, s, plan)
+            rows.add(x.shape[0])
+            routes.add(grouped_route(gg, "ds_ggemm_slots_q", x, q, s))
         else:
             x, q, s, plan = args
             ref = gg.ggemm_q_plain(x, q, s, plan)
@@ -2971,11 +2989,65 @@ def ggemm_q_identity_checks(torch, gg, g, q, s, proj):
     return rep
 
 
+def slot_q_identity_checks(torch, gg, g, q, s, proj):
+    """slot_q_identity: the int8 slot kernel against the int8 group kernel
+    (bf16 rows, both streaming kernels) at one projection's codes: over
+    random routing of 1800 rows, the rows of ds_ggemm_slots_q at R 1, 2,
+    16 and 128 bit-identical to the same rows (the same x, the same
+    experts) of ds_ggemm_q at R 129, 192 and 1800, and the slot form's R 16
+    bit-identical over two launches; at the out projection also at the nb
+    edge (scale groups of 205 columns: group edges inside a unit), slot R
+    16 and 128 against group R 192."""
+    K = q.shape[1]
+    x = torch.randn(1800, K, generator=g, device="cuda").to(torch.bfloat16)
+    e = routed(torch, g, 1800, "random")
+
+    def slot(R, q_, s_):
+        return gg.ggemm_slots_q_cuda(x[:R], q_, s_,
+                                     gg.make_slot_plan(e[:R], MIX_E))
+
+    def group(R, q_, s_):
+        plan = gg.make_group_plan(e[:R], MIX_E)
+        return gg.gather_from_groups(gg.ggemm_q_cuda(
+            gg.scatter_to_groups(x[:R], plan), q_, s_, plan), plan)
+    slots = {R: slot(R, q, s) for R in (1, 2, 16, 128)}
+    out = {"slot_16_two_launches": torch.equal(slot(16, q, s), slots[16])}
+    for Rg in (129, 192, 1800):
+        got = group(Rg, q, s)
+        for R, rows in slots.items():
+            out[f"slot_{R}_vs_group_{Rg}"] = torch.equal(rows, got[:R])
+        del got
+    rep = {"check": "slot_q_identity", "proj": proj, "K": K,
+           "N": q.shape[2], "nb": s.shape[2],
+           "route": grouped_route(gg, "ds_ggemm_slots_q", x, q, s),
+           "group_route": grouped_route(gg, "ds_ggemm_q", x, q, s)}
+    if proj == "out":
+        qe = torch.randint(-127, 128, q.shape, generator=g, device="cuda",
+                           dtype=torch.int64).to(torch.int8)
+        se = torch.rand(q.shape[0], K, Q_EDGE_NB, generator=g,
+                        device="cuda") * 4e-4 + 1e-4
+        got = group(192, qe, se)
+        for R in (16, 128):
+            out[f"nb_edge_slot_{R}_vs_group_192"] = torch.equal(
+                slot(R, qe, se), got[:R])
+        out["nb_edge_slot_16_two_launches"] = torch.equal(
+            slot(16, qe, se), slot(16, qe, se))
+        rep["nb_edge"] = {"nb": Q_EDGE_NB,
+                          "route": grouped_route(gg, "ds_ggemm_slots_q", x,
+                                                 qe, se)}
+        del qe, se, got
+    rep.update(out)
+    emit(rep)
+    check(all(out.values()), f"slot_q_identity {proj}: {rep}")
+    return rep
+
+
 def moe_int8_kernel_phase(torch, gg, qz, qg):
     """Phase 14: ds_ggemm_slots_q (R 1, 16, 128) and ds_ggemm_q (R 129,
     192, 1800) against their plain versions at Mixtral's expert shapes,
     random, all-on-one-expert and two-empty routing (fp32 <= 1e-4 abs,
-    bf16 <= 2e-2 of the output's max; padding tiles zero); each timed at
+    bf16 <= 2e-2 of the output's max; padding tiles zero); bf16 rows of
+    both bit-identical to each other (slot_q_identity); each timed at
     the main path's shapes (a decode step's R 16 over 8 experts at 8
     sequences, R 192 at 96) beside its plain version, its bound and
     torch._grouped_mm on the dequantized bf16 stack (context only); qgemm
@@ -2995,9 +3067,10 @@ def moe_int8_kernel_phase(torch, gg, qz, qg):
         refused = True
     check(refused, "ds_ggemm_slots_q computed a scale layout of more "
           "groups a tile than it stages")
-    times, ident = {}, {}
+    times, ident, slot_ident = {}, {}, {}
     gg.ds_ggemm_slots.unaligned_launches = 0
     gg.ds_ggemm.unaligned_int8_launches = 0
+    gg.ds_ggemm_slots.unaligned_int8_launches = 0
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         for proj, (K, N) in MOE_SHAPES.items():
@@ -3039,6 +3112,8 @@ def moe_int8_kernel_phase(torch, gg, qz, qg):
             if dt_name == "bfloat16":
                 ident[proj] = ggemm_q_identity_checks(torch, gg, g, q, s,
                                                       proj)
+                slot_ident[proj] = slot_q_identity_checks(torch, gg, g, q,
+                                                          s, proj)
             del q, s
             torch.cuda.empty_cache()
     check(not any(off_rule_counts(gg).values()),
@@ -3110,6 +3185,7 @@ def moe_int8_kernel_phase(torch, gg, qz, qg):
         worst["qgemm"] = max(worst["qgemm"], held)
         qtimes[key] = t
     times["ggemm_q_identity"] = ident
+    times["slot_q_identity"] = slot_ident
     return times, worst, qtimes
 
 
@@ -3180,8 +3256,9 @@ def row_dependence(torch, gg, qg, params, D):
     static generate), 8 and 96 (the decode paths: 8-row blocks whatever
     M), held equal; the gate experts through ds_ggemm_slots_q at R 2 (one
     token's two routed rows, as the generate runs them) and R 16, and
-    ds_ggemm_q at R 192 (96 tokens), the first token's rows compared; the
-    lm_head GEMM (cuBLAS) at M 1, 8 and 96 (reported)."""
+    ds_ggemm_q at R 192 (96 tokens), the first token's rows compared, held
+    equal (both sum a row in one fmaf chain over K in order); the lm_head
+    GEMM (cuBLAS) at M 1, 8 and 96 (reported)."""
     from deepspeed_tpu_torch.models.model import layer_params
     g = torch.Generator(device="cuda").manual_seed(71)
     x = torch.randn(96, D, generator=g, device="cuda")
@@ -3217,6 +3294,8 @@ def row_dependence(torch, gg, qg, params, D):
     out["experts"] = {
         "slot_q_16_equals_slot_q_2": bool(torch.equal(slots(16), ref)),
         "ggemm_q_192_equals_slot_q_2": bool(torch.equal(group(192), ref))}
+    check(all(out["experts"].values()), f"row_dependence experts: the "
+          f"first token's rows change with R {out['experts']}")
     return out
 
 
@@ -3232,14 +3311,15 @@ def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
     token-identical to the static generate, the fused arm to the unfused
     one, and teacher-forced decode logits within 1e-3 of a full forward
     with the plain kernels.  Int8 cache: the generate prefills at the
-    scheduler's 16-token bucket, so at max_num_seqs 8 every request that
-    was not preempted is held token-identical to the static generate; a
+    scheduler's 16-token bucket, so at max_num_seqs 8 and 96 every request
+    that was not preempted is held token-identical to the static generate
+    (at 96 the decode runs ds_ggemm_q where the one-row generate runs the
+    slot kernel: ``row_dependence`` holds their rows, and qgemm's at M 1,
+    8 and 96, equal, and names the rows that still change with M); a
     preempted request re-prefills its generated tail (its K/V then come
     from the prefill's GEMMs, not the decode's, and an int8 cache turns
     a last-bit difference into a whole code step), so its identity is
-    reported, as is the 96-row arm's (its decode runs ds_ggemm_q, the
-    one-row generate the slot kernel: the ``row_dependence`` report, which
-    holds qgemm's row 0 equal at M 1, 8 and 96).  Also held there: the fused
+    reported.  Also held there: the fused
     arm token-identical to the unfused one, and every request that was
     not preempted token-identical to the same request in a second run of
     the arm with the prompts submitted in reverse order and a pool that
@@ -3342,15 +3422,13 @@ def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
                     del sched
                     continue
                 unfused = outs
-                # float cache: every request; int8 cache, slot arm: every
-                # request that was not preempted (a resumed one
-                # re-prefills its generated tail, whose K/V then come from
-                # the prefill's GEMMs, not the decode's).  Int8 cache at
-                # 96 rows: reported, not held (its decode runs ds_ggemm_q
-                # where the one-row generate runs the slot kernel: other
-                # sums, see row_dependence)
-                check(not (kept_diff if kv else first_diff)
-                      or (kv and not slot),
+                # float cache: every request; int8 cache: every request
+                # that was not preempted (a resumed one re-prefills its
+                # generated tail, whose K/V then come from the prefill's
+                # GEMMs, not the decode's); at 96 rows the decode's
+                # ds_ggemm_q sums a row as the generate's slot kernel does
+                # (row_dependence)
+                check(not (kept_diff if kv else first_diff),
                       f"fp32 int8 mixtral {key}: scheduler != static "
                       f"generate (prompt length: first differing token) "
                       f"{first_diff}")
@@ -3362,6 +3440,11 @@ def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
                 del sched
     report["row_dependence"] = row_dependence(torch, gg, qg, params,
                                               model.config.d_model)
+    # what still changes with the rows beside it (cuBLAS's fp32 lm_head,
+    # queue C 2: the logits, not the cache), beside the wide int8 arm
+    report["rows_depending_on_M"] = sorted(
+        name for name, same in report["row_dependence"].items()
+        if not all(same.values()))
     del engines[None]
     # teacher-forced decode through the int8 kernels (float cache) against
     # a full forward on the dequantized layers with the plain kernels
@@ -3400,7 +3483,10 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
     over each layer's attention half), and 96 requests of 16-256 prompt
     tokens, 32 new tokens each, at max_num_seqs 96 (the group-padded
     kernel).  Each arm: tokens/s, TTFT, TPOT, decode ms per step of the
-    timed run, launch counts, a profiled decode window, peak memory."""
+    timed run, launch counts, a profiled decode window, peak memory; the
+    unfused 8-sequence arm and the 96-sequence arm also hold one decode
+    step's int8 expert GEMMs against their plain versions on the path's
+    own rows."""
     import gc
     import numpy as np
     from deepspeed_tpu_torch.models.mixtral import mixtral_model
@@ -3492,6 +3578,10 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
         if kern == "ds_ggemm_q":    # R 2 x 96: the group-padded kernel
             run["path_expert_gemms"] = path_expert_check(
                 torch, gg, sched, prompts[:8], ("ggemm_q_cuda",),
+                f"int8_mixtral_{key}")
+        elif not cfg.fused_decode:  # R 2 x 8 = 16: the int8 slot kernel
+            run["path_expert_gemms"] = path_expert_check(
+                torch, gg, sched, prompts[:8], ("ggemm_slots_q_cuda",),
                 f"int8_mixtral_{key}")
         run["peak_memory_allocated"] = torch.cuda.max_memory_allocated()
         runs[key] = run
@@ -6305,7 +6395,7 @@ def main():
          "grouped_gemm_stream.cu", "grouped_gemm.py:200", *paths_of("ds_ggemm_q"),
          moeq_errs["ds_ggemm_q"], INT8_TOL),
         ("ds_ggemm_slots_q", moeq_t["ds_ggemm_slots_q"]["gate_in"],
-         "grouped_gemm.cu", "grouped_gemm.py:452",
+         "grouped_gemm_stream.cu", "grouped_gemm.py:452",
          *paths_of("ds_ggemm_slots_q"), moeq_errs["ds_ggemm_slots_q"],
          INT8_TOL),
         *((name, sparse["times"]["fixed"][name], "block_sparse_attention.cu",
@@ -6348,16 +6438,25 @@ def main():
                                work=t["work"])
         if name in moe_t:
             kernels[-1]["times_by_proj"] = moe_t[name]
-        if name in ("ds_ggemm_slots", "ds_ggemm_q"):
+        if name in ("ds_ggemm_slots", "ds_ggemm_q", "ds_ggemm_slots_q"):
             # bf16 (int8 experts: bf16 rows) on the streaming kernels; fp32
             # and bf16 shapes outside their rule in grouped_gemm.cu
             kernels[-1]["source_fp32_and_unaligned_bf16"] = \
                 "deepspeed_tpu_torch/csrc/grouped_gemm.cu"
-            slot = name == "ds_ggemm_slots"
-            kernels[-1]["identity"] = moe_t["slot_identity"] if slot \
-                else moeq_t["ggemm_q_identity"]
-            kernels[-1]["path_expert_gemms"] = mix_path if slot else \
-                mixq[f"max_num_seqs_{WIDE_SEQS}"]["path_expert_gemms"]
+            kernels[-1]["entry_point"] = {
+                "ds_ggemm_slots": "ds_ggemm_slots_s",
+                "ds_ggemm_q": "ds_ggemm_q_s",
+                "ds_ggemm_slots_q": "ds_ggemm_slots_q_s"}[name]
+            kernels[-1]["identity"] = {
+                "ds_ggemm_slots": moe_t["slot_identity"],
+                "ds_ggemm_q": moeq_t["ggemm_q_identity"],
+                "ds_ggemm_slots_q": moeq_t["slot_q_identity"]}[name]
+            kernels[-1]["path_expert_gemms"] = {
+                "ds_ggemm_slots": mix_path,
+                "ds_ggemm_q": mixq[f"max_num_seqs_{WIDE_SEQS}"]
+                ["path_expert_gemms"],
+                "ds_ggemm_slots_q": mixq["max_num_seqs_8"]
+                ["path_expert_gemms"]}[name]
         if name in mt_t:
             # phase 24: at mixtral:1b-moe's training shapes (R 16,384)
             kernels[-1].update(err_kind="fp32 abs / bf16 rel_to_max",
@@ -6379,17 +6478,15 @@ def main():
             # context only: torch._grouped_mm on the dequantized bf16 stack
             kernels[-1]["times_by_proj"] = moeq_t[name]
             kernels[-1]["grouped_mm_bf16_ms"] = t["grouped_mm_bf16_ms"]
-            # phase 15, int8 cache: identity with the static generate held
-            # for the requests not preempted at 8 rows (the slot arm),
-            # reported at 96; identity across batch orders held in both
+            # phase 15, int8 cache: identity with the static generate and
+            # across batch orders held for the requests not preempted at 8
+            # rows (the slot arm) and at 96 (the group arm)
             slot = name == "ds_ggemm_slots_q"
             run = mixq_par[f"max_num_seqs_{8 if slot else WIDE_SEQS}_int8_kv"]
             held = f"held for the {run['not_preempted']} requests not " \
                 "preempted"
-            kernels[-1].update(
-                int8_kv_static_generate_identity=held if slot
-                else "reported, not held",
-                int8_kv_reordered_identity=held)
+            kernels[-1].update(int8_kv_static_generate_identity=held,
+                               int8_kv_reordered_identity=held)
         if name == "qgemm":
             # context only: torch.matmul on the dequantized bf16 weights
             kernels[-1]["matmul_bf16_ms"] = t["matmul_bf16_ms"]

@@ -45,7 +45,10 @@
 // byte.
 //
 // int8 experts (ds_ggemm_q, ds_ggemm_slots_q) — replace _ggemm_q_kernel
-// (:200) and _slot_q_kernel (:452).  The same two kernels, instantiated
+// (:200) and _slot_q_kernel (:452) under fp32 rows and for the bf16
+// shapes the streaming kernels of csrc/grouped_gemm_stream.cu do not take
+// (ops/kernels/grouped_gemm.py stream_route_q; none on the main paths).
+// The same two kernels, instantiated
 // with int8 weights q [E, K, N] and fp32 scales s [E, K, nb] in the
 // block_quantize_int8 layout (group width qblock = ceil(N / nb) of the
 // unpadded N).  Each weight element becomes dequant_w<T>(q, scale)
@@ -62,8 +65,11 @@
 // mma.sync m16n8k16 B fragments (the layout ldmatrix.trans gives the float
 // kernel), so every weight of the stage is dequantized once per CTA, by
 // one thread, with no extra shared-memory pass or barrier; for fp32 rows
-// the CTA dequantizes the stage once into an fp32 tile that feeds fmaf.
-// No per-row dequantization in either.
+// the CTA dequantizes the stage once into an fp32 tile that feeds fmaf,
+// over the whole K in one range (no K split): each row is one fmaf chain
+// in ascending K, as tile_mma's fp32 path sums it, so a row of the fp32
+// slot form equals that row of ds_ggemm_q's fp32 form bit for bit (the
+// parity path, not tuned).  No per-row dequantization in either.
 // What bounds them: bytes, as the float forms, at half the weight bytes:
 // a decode step's gate/in slot launch (batch 8, R 16 over 8 experts)
 // streams 8 x 4096 x 14336 int8 codes + 7.3 MB of scales, 0.142 ms at
@@ -546,9 +552,10 @@ __device__ __forceinline__ void slot_store(
     wsp[((size_t)split * R + row) * N + n] = v;
 }
 
-// grid (N / kSlotBN, nsplit), K split in `kper` rows (a BK multiple).
-// WT = T: float experts (scales null); WT = int8_t: int8 experts with
-// scales s [E, K, nb], group width qblock.
+// grid (N / kSlotBN, nsplit), K split in `kper` rows (a BK multiple);
+// int8 experts under fp32 rows: grid (N / kSlotBN, S), the whole K, one
+// slot a CTA (a row is one slot's).  WT = T: float experts (scales null);
+// WT = int8_t: int8 experts with scales s [E, K, nb], group width qblock.
 template <typename T, typename WT>
 __global__ void __launch_bounds__(NT)
 slot_kernel(const T* __restrict__ x, const WT* __restrict__ w,
@@ -562,6 +569,7 @@ slot_kernel(const T* __restrict__ x, const WT* __restrict__ w,
   constexpr int ST = SM::ST, BK = SM::BK;
   constexpr bool kTensorCore = sizeof(T) == 2;
   constexpr bool kQuant = SM::kQuant;
+  constexpr bool kWholeK = SM::kTile;
   extern __shared__ __align__(128) unsigned char smem[];
   int* idx = reinterpret_cast<int*>(smem + SM::idx);
   auto wstage = [&](int s) {
@@ -574,7 +582,7 @@ slot_kernel(const T* __restrict__ x, const WT* __restrict__ w,
     return reinterpret_cast<float*>(smem + SM::s + (size_t)s * SM::sstage);
   };
   const int n0 = blockIdx.x * kSlotBN;
-  const int split = blockIdx.y;
+  const int split = kWholeK ? 0 : blockIdx.y;
   const int k_begin = split * kper;
   const int k_end = min(K, k_begin + kper);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -598,7 +606,8 @@ slot_kernel(const T* __restrict__ x, const WT* __restrict__ w,
     }
   }
 
-  for (int s = 0; s < S; ++s) {
+  const int s_end = kWholeK ? (int)blockIdx.y + 1 : S;
+  for (int s = kWholeK ? (int)blockIdx.y : 0; s < s_end; ++s) {
     if (!valid[s]) continue;                 // repeated slot: no fetch
     const int e = active[s];
     const bool live = e >= 0 && e < E;       // else its rows get zeros
@@ -766,9 +775,15 @@ cudaError_t launch_slots(const void* x, const void* w, const float* scales,
                          const int* order, const int* offs, void* out,
                          void* wsp, void* counters, int R, int K, int N,
                          int E, int S, int nb, cudaStream_t stream) {
+  // int8 experts under fp32 rows: the whole K in one range (one fmaf
+  // chain a row, tile_mma's order: the bits of ds_ggemm_q's fp32 form)
+  constexpr bool kWholeK = SlotSmem<T, WT>::kTile;
   int kper = 0;
-  const int nsplit = slot_splits(K, N, SlotSmem<T, WT>::BK, &kper);
+  const int nsplit =
+      kWholeK ? 1 : slot_splits(K, N, SlotSmem<T, WT>::BK, &kper);
   if (nsplit <= 0) return cudaErrorInvalidDevice;
+  if (kWholeK) kper = (K + SlotSmem<T, WT>::BK - 1) / SlotSmem<T, WT>::BK *
+                      SlotSmem<T, WT>::BK;
   const int qblock = nb > 0 ? (N + nb - 1) / nb : 1;
   if (nb > 0 && slot_groups(N, qblock) > kSlotSG)
     return cudaErrorInvalidValue;
@@ -777,7 +792,7 @@ cudaError_t launch_slots(const void* x, const void* w, const float* scales,
       slot_kernel<T, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kSlotBN - 1) / kSlotBN, nsplit);
+  const dim3 grid((N + kSlotBN - 1) / kSlotBN, kWholeK ? S : nsplit);
   slot_kernel<T, WT><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const WT*>(w), scales, active,
       valid, order, offs, static_cast<T*>(out), static_cast<float*>(wsp),
@@ -921,12 +936,13 @@ extern "C" int ds_ggemm_q(const void* x, const void* q, const void* s,
 
 // the slot kernel's K splits at (K, N) on the current device for int8
 // or float weights and bf16 or fp32 rows (the wrapper sizes its
-// workspace by it); 0 when the device is unknown
+// workspace by it; 1 for int8 weights under fp32 rows); 0 when the
+// device is unknown
 extern "C" int ds_ggemm_slots_splits(int K, int N, int is_int8,
                                      int is_bf16) {
   if (K < 1 || N < 1) return 0;
-  const int bk = is_int8 ? (is_bf16 ? SlotSmem<__nv_bfloat16, int8_t>::BK
-                                    : SlotSmem<float, int8_t>::BK)
+  if (is_int8 && !is_bf16) return 1;   // the whole K (launch_slots)
+  const int bk = is_int8 ? SlotSmem<__nv_bfloat16, int8_t>::BK
                          : SlotSmem<float, float>::BK;
   return slot_splits(K, N, bk, nullptr);
 }

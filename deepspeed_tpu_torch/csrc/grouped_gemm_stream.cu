@@ -1,11 +1,12 @@
-// The decode-side expert GEMMs on Hopper: bf16 ds_ggemm_slots and the
-// int8-expert / bf16-row ds_ggemm_q as persistent kernels that stream the
-// expert stack through a TMA ring.  The fp32 forms, ds_ggemm_slots_q and
-// the bf16 shapes TMA cannot address stay in csrc/grouped_gemm.cu.
+// The decode-side expert GEMMs on Hopper: bf16 ds_ggemm_slots and, for
+// int8 experts under bf16 rows, ds_ggemm_q and ds_ggemm_slots_q, as
+// persistent kernels that stream the expert stack through a TMA ring.  The
+// fp32 forms and the shapes TMA cannot address stay in csrc/grouped_gemm.cu.
 //
-// Replaces: deepspeed_tpu/ops/pallas/grouped_gemm.py _slot_kernel (:433)
-// and _ggemm_q_kernel (:200).  Same semantics as the plain versions
-// (ggemm_slots_plain, ggemm_q_plain in ops/kernels/grouped_gemm.py):
+// Replaces: deepspeed_tpu/ops/pallas/grouped_gemm.py _slot_kernel (:433),
+// _ggemm_q_kernel (:200) and _slot_q_kernel (:452).  Same semantics as the
+// plain versions (ggemm_slots_plain, ggemm_q_plain, ggemm_slots_q_plain in
+// ops/kernels/grouped_gemm.py):
 //   ds_ggemm_slots  out[r] = x[r] W[e_r], x [R <= 128, K] the raw routed
 //                   rows, the plan's slots naming each distinct expert; a
 //                   slot with no rows fetches nothing, a row of an expert
@@ -15,30 +16,35 @@
 //                   (float)q * s[e, k, n / qblock] rounded to bf16 before
 //                   its product; rows past tile_rows and tiles with none
 //                   are exact zeros, written without a fetch
+//   ds_ggemm_slots_q  ds_ggemm_slots's rows and plan against ds_ggemm_q's
+//                   dequantized experts
 // with fp32 accumulation and one rounding to bf16.
 //
 // What bounds them on an H100: bytes.  A decode step's gate/in slot launch
 // (R 16 over 8 experts, K 4096, N 14336) reads 0.94 GB of bf16 weights
-// (0.281 ms at 3.35 TB/s) for ~2 flops a weight byte; the int8 launch of
-// the 96-sequence arm (R 192 in 11 tiles) reads 470 MB of codes and 7.3 MB
-// of scales (0.149 ms).  What the designs do about it:
-//   - one persistent CTA per SM; one producer warp (int8: one thread of a
-//     producer warpgroup that hands its registers to the two consumer
-//     warpgroups by setmaxnreg) draws work units from a counter in device
-//     memory and keeps TMA boxes of the expert stack in flight through a
-//     ring (slots: 6 stages of 32 KB; int8: up to 8 of 24 KB and the
-//     stage's scales, 7 at Mixtral's), full / empty mbarriers, running
-//     ahead across unit boundaries, so no unit pays a fill and a drain;
-//   - N-tiles vary fastest in both unit orders, so the CTAs at work read
+// (0.281 ms at 3.35 TB/s) for ~2 flops a weight byte; its int8 form reads
+// 470 MB of codes and 7.3 MB of scales (0.143 ms), as does the int8 launch
+// of the 96-sequence arm (R 192 in 11 tiles, 0.149 ms with its rows).
+// What the designs do about it:
+//   - one persistent CTA per SM; one producer warp (int8: in a producer
+//     warpgroup that hands its registers to the two consumer warpgroups by
+//     setmaxnreg) draws work units from a counter in device memory and
+//     keeps TMA boxes of the expert stack in flight through a ring (slots:
+//     6 stages of 32 KB; int8 group form: up to 8 of 24 KB and the stage's
+//     scales, 7 at Mixtral's; int8 slot form: up to 10 of 16 KB of codes,
+//     their scales and the block's rows), full / empty mbarriers, running
+//     ahead across unit
+//     boundaries, so no unit pays a fill and a drain;
+//   - N-tiles vary fastest in every unit order, so the CTAs at work read
 //     whole rows of an expert's stack at once (a unit's stage holds 512
 //     contiguous bytes a weight row, 256 a code row), and the units of
 //     one expert's several blocks or plan tiles are in flight together:
 //     its weights come from device memory once and from L2 after;
 //   - K splits by a count that depends on N, K (int8: and E) and the SM
 //     count only (ops/kernels/grouped_gemm.py slot_stream_splits,
-//     ggemm_q_stream_splits); each split writes an fp32 partial and the
-//     last of a tile's splits to arrive sums them in split order (no
-//     float atomics);
+//     ggemm_q_stream_splits; both int8 forms take the second); each split
+//     writes an fp32 partial and the last of a tile's splits to arrive
+//     sums them in split order (no float atomics);
 //   - slots, swap-AB: out^T = W^T x^T with W's columns on the tensor
 //     cores' M side (mma.sync m16n8k16, A = W^T by ldmatrix.trans from the
 //     128-byte swizzled boxes) and the slot's rows on the N side, 8 a pass;
@@ -46,24 +52,47 @@
 //     one slot; each stage carries its K range of the block's rows, one
 //     cp.async.bulk a row;
 //   - int8, swap-AB on wgmma: W^T dequantized by each consumer thread
-//     straight into the register A fragments (m64n64k16, A from registers,
-//     B = the tile's 64 rows of x, K-major by TMA), no shared-memory pass
-//     and no barrier between dequantization and product; the columns of a
+//     straight into the register A fragments (m64nNk16, A from registers,
+//     B = the unit's rows of x, K-major), no shared-memory pass and no
+//     barrier between dequantization and product; the columns of a
 //     thread's two A rows are adjacent (one 16-bit load of codes, a
 //     stage's loaded together), a code becomes fp32 by a byte permute and
-//     one exact add (I2F runs at a quarter of the FMA rate); a unit is
-//     (256 columns, plan tile, K range), two consumer warpgroups on 128
-//     columns each, so x and the scales cross L2 once per 256 columns (at
-//     128 the stream was L2-bound); the epilogue stages the bf16 tile in
-//     shared memory for 16-byte row stores.  What holds it on an H100
-//     (R 192, Mixtral gate/in): data movement alone takes 0.18 ms and
-//     dequantization or the products alone add 0.01-0.05, but together
-//     they run at 0.30: a warpgroup's dequantization and its register-
-//     operand wgmma serialize;
+//     one exact add (I2F runs at a quarter of the FMA rate); two consumer
+//     warpgroups on 128 columns each, so x and the scales cross L2 once
+//     per 256 columns (at 128 the stream was L2-bound).  The group form's
+//     unit is (256 columns, 64-row plan tile, K range), B the tile's rows
+//     by one TMA box (N 64), its epilogue staged in shared memory for
+//     16-byte row stores.  What holds it on an H100 (R 192, Mixtral
+//     gate/in): data movement alone takes 0.18 ms and dequantization or
+//     the products alone add 0.01-0.05, but together they run at 0.30: a
+//     warpgroup's dequantization and its register-operand wgmma serialize.
+//     The slot form's unit is the slot kernel's (256 columns, block of at
+//     most 16 rows, K range), B the block's rows, one TMA box [64 k x 1
+//     row] each at 128-byte rows of a swizzled [16 x 64 k] stage (N 16, a
+//     quarter of the group form's products; rows past the block are not
+//     loaded and their product columns never stored), the epilogue's
+//     column pairs stored straight to the rows.  Its consumers load a
+//     stage's codes by ldmatrix.trans (4 instructions, not 32 16-bit
+//     loads) and, where the scale groups are a multiple of 128 columns
+//     (Mixtral's 256: a kernel instance chosen on the host), one scale a
+//     k row for all of a warpgroup's columns (16 loads a stage, not 64):
+//     shared-memory instructions, not the products, held a stage's
+//     dequantization;
 //   - deterministic and row-independent: every unit's products run in K
 //     order over a K range, tile and unit shape that depend on no data
 //     value and not on R, and a product's column (a row of x) never meets
-//     another's, so a row's bits do not depend on the rows around it.
+//     another's, so a row's bits do not depend on the rows around it.  The
+//     two int8 forms share the split rule, the 64-row stages, the k16
+//     slices in order, the dequantization's arithmetic (q8::code_f, times
+//     the scale, rounded to bf16) and the split merge, so a
+//     row of ds_ggemm_slots_q equals that row of ds_ggemm_q bit for bit
+//     (chip_smoke.py phase 14 slot_q_identity holds it), and a decode step
+//     of many sequences gives a request the bits its one-row generate
+//     gave.  Folding the scales into the rows (x times each group's scale,
+//     then exact int8 -> bf16 codes on the tensor cores) would skip the
+//     per-weight multiply but round differently: it would part from
+//     ds_ggemm_q and from the reference's dequantize-then-round, so it is
+//     not done.
 //
 // C interface (loaded with ctypes): each entry point returns the
 // cudaError_t of its launch as an int.
@@ -200,6 +229,35 @@ __device__ __forceinline__ void reset_draw(int* counters) {
   }
 }
 
+// blocks of a slot plan (the same table in every CTA; P has the plan's
+// active, valid, offs, S and E): slot s's rows order[offs[s] ..) cut into
+// blocks of at most `rows` rows, slots in order; {expert (-1 outside
+// [0, E)), first row in order, rows, slot}
+template <typename P>
+__device__ __forceinline__ void build_blocks(const P& p, int4* blk, int* scan,
+                                             int* nblk, int rows) {
+  const int t = threadIdx.x;
+  int c = 0, e = -1, r0 = 0;
+  if (t < p.S) {
+    r0 = p.offs[t];
+    c = p.valid[t] ? max(p.offs[t + 1] - r0, 0) : 0;
+    e = p.active[t];
+    if (e < 0 || e >= p.E) e = -1;
+    scan[t] = (c + rows - 1) / rows;
+  }
+  __syncthreads();
+  if (t < p.S) {
+    int start = 0;
+    for (int j = 0; j < t; ++j) start += scan[j];
+    const int nb = scan[t];
+    for (int b = 0; b < nb; ++b)
+      blk[start + b] =
+          make_int4(e, r0 + b * rows, min(rows, c - b * rows), t);
+    if (t == p.S - 1) *nblk = start + nb;
+  }
+  __syncthreads();
+}
+
 // ------------------------------------------------------ ds_ggemm_slots
 namespace slots {
 
@@ -234,41 +292,15 @@ struct Params {
   int R, K, N, E, S, nsplit, kper, n_tiles;
 };
 
-// blocks of the plan (the same table in every CTA): slot s's rows
-// order[offs[s] ..) cut into blocks of at most kRows rows, slots in order;
-// {expert (-1 outside [0, E)), first row in order, rows, slot}
-__device__ __forceinline__ void build_blocks(const Params& p, int4* blk,
-                                             int* scan, int* nblk) {
-  const int t = threadIdx.x;
-  int c = 0, e = -1, r0 = 0;
-  if (t < p.S) {
-    r0 = p.offs[t];
-    c = p.valid[t] ? max(p.offs[t + 1] - r0, 0) : 0;
-    e = p.active[t];
-    if (e < 0 || e >= p.E) e = -1;
-    scan[t] = (c + kRows - 1) / kRows;
-  }
-  __syncthreads();
-  if (t < p.S) {
-    int start = 0;
-    for (int j = 0; j < t; ++j) start += scan[j];
-    const int nb = scan[t];
-    for (int b = 0; b < nb; ++b)
-      blk[start + b] =
-          make_int4(e, r0 + b * kRows, min(kRows, c - b * kRows), t);
-    if (t == p.S - 1) *nblk = start + nb;
-  }
-  __syncthreads();
-}
-
 struct Unit {
   int e, r0, nrow, blk, split, ntile, kbeg, kend, nch;
 };
 
 // unit u: N-tile fastest (the CTAs at work sweep whole weight rows), then
-// the block, then the K split
-__device__ __forceinline__ Unit unit_of(const Params& p, const int4* blk,
-                                        int nblk, int u) {
+// the block, then the K split (P: this kernel's Params or sq8's)
+template <typename P>
+__device__ __forceinline__ Unit unit_of(const P& p, const int4* blk, int nblk,
+                                        int u) {
   Unit w;
   w.ntile = u % p.n_tiles;
   const int rest = u / p.n_tiles;
@@ -435,7 +467,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   int4* blk = reinterpret_cast<int4*>(sm + kBlk);
   int* misc = reinterpret_cast<int*>(sm + kMisc);
   init_sync(sy, kStages, 4);
-  build_blocks(p, blk, reinterpret_cast<int*>(sm + kScan), misc);
+  build_blocks(p, blk, reinterpret_cast<int*>(sm + kScan), misc, kRows);
   const int nblk = misc[0];
   if (threadIdx.x >= 128)
     produce(&tm_w, p, sm, sy, blk, nblk);
@@ -490,8 +522,10 @@ __device__ __forceinline__ int tile_of(const Params& p, int t, int* e) {
 }
 
 // the first scale group of N-tile `ntile`'s box: the tile's first group,
-// rounded down to 4 (a TMA box starts on a 16-byte boundary)
-__device__ __forceinline__ int group0(const Params& p, int ntile) {
+// rounded down to 4 (a TMA box starts on a 16-byte boundary); P: this
+// kernel's Params or sq8's
+template <typename P>
+__device__ __forceinline__ int group0(const P& p, int ntile) {
   return (ntile * kBN / p.qblock) & ~3;
 }
 
@@ -790,6 +824,326 @@ int groups_met(int N, int qblock) {
 
 }  // namespace q8
 
+// ------------------------------------------------------ ds_ggemm_slots_q
+// int8 experts under bf16 rows, by slot: the slot kernel's blocks and
+// unit order on ds_ggemm_q's stream and products (its split rule, its
+// 64-row stages and k16 slices in order, its dequantization, its split
+// merge), so a row sums as ds_ggemm_q sums it, to the bit
+namespace sq8 {
+
+constexpr int kBN = q8::kBN;             // output columns a unit
+constexpr int kBK = q8::kBK;             // K rows a stage
+constexpr int kBoxN = q8::kBoxN;         // codes box columns (128 bytes)
+constexpr int kN = 16;                   // wgmma N: a block's rows
+constexpr int kThreads = q8::kThreads;   // producer + 2 consumer warpgroups
+constexpr int kXBytes = kN * kBK * 2;    // a stage's rows of x: 2 KB
+constexpr int kQBox = q8::kQBox;
+constexpr int kQBytes = q8::kQBytes;
+constexpr int kMaxStages = 10;
+constexpr int kMaxBlocks = slots::kMaxBlocks;
+constexpr int kSmem = q8::kSmem;
+static_assert(kN == slots::kRows && kBK == slots::kBK && kBN == slots::kBN,
+              "the slot kernel's blocks and units");
+static_assert(kXBytes % 1024 == 0, "a stage's rows fill whole swizzle atoms");
+
+struct Params {
+  const int* active;
+  const int* valid;
+  const int* order;
+  const int* offs;
+  bf16* out;
+  float* wsp;      // [nsplit][R][N] partials (nsplit > 1)
+  int* counters;   // [2] unit draw, then [blocks][n_tiles] merges
+  int R, K, N, E, S, qblock, G, n_tiles, stages, nsplit, kper;
+  int off_q, off_s, off_blk, off_bar, s_bytes;
+};
+
+using slots::Unit;
+using slots::unit_of;
+using q8::group0;
+
+// The producer warp: for every unit and stage, lane 0 announces the
+// stage's bytes and loads W[e]'s codes [64 k x 256 n] as two boxes and
+// their scales [64 k x G groups, from group0]; lane i < rows loads row i
+// of the block's K range as a [64 k x 1 row] box into 128-byte row i of
+// the stage's swizzled rows (what lies past K lands as zeros).
+__device__ __forceinline__ void produce(const CUtensorMap* tx,
+                                        const CUtensorMap* tq,
+                                        const CUtensorMap* ts, const Params& p,
+                                        unsigned char* sm, const Sync& sy,
+                                        const int4* blk, int nblk) {
+  const int lane = threadIdx.x & 31;
+  const int n_units = p.n_tiles * p.nsplit * nblk;
+  int it = 0;
+  for (int n = 0;; ++n) {
+    const int u = draw_unit(sy, p.counters, n, true);
+    if (u >= n_units) break;
+    const Unit w = unit_of(p, blk, nblk, u);
+    const int rid = lane < w.nrow ? p.order[w.r0 + lane] : 0;
+    const int g0 = group0(p, w.ntile);
+    for (int c = 0; c < w.nch; ++c, ++it) {
+      const int s = it % p.stages;
+      const int k = w.kbeg + c * kBK;
+      hopper::mbar_wait(sy.empty + s, ((it / p.stages) & 1) ^ 1);
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(
+            sy.full + s, kQBytes + p.s_bytes + w.nrow * (kBK * 2));
+#pragma unroll
+        for (int b = 0; b < kBN / kBoxN; ++b)
+          hopper::tma_load_4d(sm + p.off_q + s * kQBytes + b * kQBox, tq,
+                              sy.full + s, w.ntile * kBN + b * kBoxN, k,
+                              w.e, 0);
+        hopper::tma_load_4d(sm + p.off_s + s * p.s_bytes, ts, sy.full + s,
+                            g0, k, w.e, 0);
+      }
+      __syncwarp();
+      if (lane < w.nrow)
+        hopper::tma_load_4d(sm + s * kXBytes + lane * (kBK * 2), tx,
+                            sy.full + s, k, rid, 0, 0);
+    }
+  }
+  if (lane == 0) reset_draw(p.counters);
+}
+
+// D[64 x 16] += A[64 x 16] (registers) B[16 x 16], B K-major in shared
+// memory (no transpose)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  const int scale_d = 1;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// A thread's codes of one stage, the codes q8::load_stage loads in 32
+// 16-bit loads, in 4 ldmatrix.trans (a b16 element: a pair of adjacent
+// code columns): w[h][kp][m] holds, of the thread's columns c, c + 1 in
+// half h, k row 16 (2 kp + m / 2) + 8 (m % 2) + 2t in its low 16 bits and
+// the row after in its high 16.  Lane l gives matrix l / 8's row l % 8.
+struct StageCodes {
+  uint32_t w[2][2][4];
+};
+
+__device__ __forceinline__ void load_codes(StageCodes& r, uint32_t qst,
+                                           const int (&off)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp)
+      ldsm_x4_trans(r.w[h][kp], qst + off[h] + kp * 32 * 128);
+}
+
+// half h, slice kk's A fragment: q8::dequant's arithmetic on the same
+// codes and scales (the same bits), the scales given as values: lo[j] /
+// hi[j] of k row 16 kk + 8 (j >> 1) + 2t + (j & 1) at the low / high
+// column
+__device__ __forceinline__ void dequant(uint32_t (&a)[4], const StageCodes& r,
+                                        int h, int kk, const float (&slo)[4],
+                                        const float (&shi)[4]) {
+  float lo[4], hi[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t v =
+        r.w[h][kk >> 1][2 * (kk & 1) + (j >> 1)] ^ 0x80808080u;
+    lo[j] = q8::code_f(v, 0x7440u + 2 * (j & 1)) * slo[j];
+    hi[j] = q8::code_f(v, 0x7441u + 2 * (j & 1)) * shi[j];
+  }
+  a[0] = hopper::pack_bf16(lo[0], lo[1]);
+  a[1] = hopper::pack_bf16(hi[0], hi[1]);
+  a[2] = hopper::pack_bf16(lo[2], lo[3]);
+  a[3] = hopper::pack_bf16(hi[2], hi[3]);
+}
+
+// One consumer warpgroup (cw 0 / 1): the unit's columns 128 cw .. + 127
+// as two 64-column halves, against the block's (up to 16) rows.  The
+// stage loop is ds_ggemm_q's (q8::consume): the codes of a stage loaded
+// together, slice kk dequantized while the products of the slices before
+// run, a stage released once its last slice's products are done.
+// kOne: the scale groups are a multiple of 128 columns wide (Mixtral's
+// 256), so a warpgroup's 128 columns of a unit lie in one group and a
+// slice's four scales serve all its codes (16 shared-memory loads a stage,
+// not 64).
+template <bool kOne>
+__device__ __forceinline__ void consume(const Params& p, unsigned char* sm,
+                                        const Sync& sy, const int4* blk,
+                                        int nblk, int* s_last, int cw) {
+  const int G = p.G;
+  const int tid = threadIdx.x;
+  const int wl = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
+            t = lane & 3;
+  const int n_units = p.n_tiles * p.nsplit * nblk;
+  // this lane's ldmatrix row: k row 16 (m / 2) + 8 (m % 2) + rm of the
+  // stage (m = lane / 8, rm = lane % 8), chunk 4 h + wl of the 128-byte
+  // swizzled codes row
+  int offset[2];
+  {
+    const int m = lane >> 3, rm = lane & 7;
+    const int k = 16 * (m >> 1) + 8 * (m & 1) + rm;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      offset[h] = k * 128 + (((4 * h + wl) ^ rm) << 4);
+  }
+  float acc[2][kN / 2];
+  uint32_t a[2][4][4];
+  int it = 0;
+  for (int n = 0;; ++n) {
+    const int u = take_unit(sy, n);
+    if (u >= n_units) break;
+    const Unit w = unit_of(p, blk, nblk, u);
+    const int g0 = group0(p, w.ntile);
+    // this thread's columns c, c + 1 of each half: their scales' offsets
+    // in a stage's scale box (row 2t, each column's group)
+    int sl[2], sh[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = w.ntile * kBN + 128 * cw + 64 * h + 16 * wl + 2 * g;
+      sl[h] = 2 * t * G +
+              min(max(min(c, p.N - 1) / p.qblock - g0, 0), G - 1);
+      sh[h] = 2 * t * G +
+              min(max(min(c + 1, p.N - 1) / p.qblock - g0, 0), G - 1);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) acc[h][i] = 0.f;
+    hopper::fence_regs(acc);
+    int prev = -1;
+    for (int c = 0; c < w.nch; ++c, ++it) {
+      const int s = it % p.stages;
+      hopper::mbar_wait(sy.full + s, (it / p.stages) & 1);
+      const unsigned char* qst = sm + p.off_q + s * kQBytes + cw * kQBox;
+      const float* sst =
+          reinterpret_cast<const float*>(sm + p.off_s + s * p.s_bytes);
+      const uint64_t db =
+          hopper::smem_desc(hopper::smem_u32(sm + s * kXBytes), 16, 1024, 128);
+      StageCodes r;
+      load_codes(r, hopper::smem_u32(qst), offset);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // the scales of k rows 16 kk + 8 (j >> 1) + 2t + (j & 1)
+        float slo[2][4], shi[2][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = (16 * kk + 8 * (j >> 1) + (j & 1)) * G;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            slo[h][j] = sst[(kOne ? sl[0] : sl[h]) + row];
+            shi[h][j] = kOne ? slo[h][j] : sst[sh[h] + row];
+          }
+        }
+        hopper::wgmma_wait<3>();   // slice kk of the stage before is done
+        if (kk == 3 && prev >= 0 && lane == 0)
+          hopper::mbar_arrive(sy.empty + prev);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          dequant(a[h][kk], r, h, kk, slo[h], shi[h]);
+          hopper::fence_regs(a[h][kk]);
+        }
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wgmma_rs_n16(acc[h], a[h][kk], db + ((kk * 32) >> 4));
+        hopper::wgmma_commit();
+      }
+      prev = s;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (prev >= 0 && lane == 0) hopper::mbar_arrive(sy.empty + prev);
+    // ---- epilogue: acc[h][4 j + q] is the block's row 8 j + 2 t + q at
+    // the half's column c, acc[h][4 j + 2 + q] the same row at c + 1;
+    // straight to the row's output (an expert outside [0, E): zeros), or
+    // the split's fp32 partial, summed in split order by the last of the
+    // (block, N-tile)'s splits to arrive (ds_ggemm_q's merge)
+    const bool split = p.nsplit > 1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = w.ntile * kBN + 128 * cw + 64 * h + 16 * wl + 2 * g;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int r = 8 * j + 2 * t + q;
+          if (r < w.nrow && col < p.N) {
+            const size_t row = (size_t)p.order[w.r0 + r];
+            const float lo = acc[h][4 * j + q], hi = acc[h][4 * j + 2 + q];
+            if (split)
+              *reinterpret_cast<float2*>(
+                  p.wsp + ((size_t)w.split * p.R + row) * p.N + col) =
+                  make_float2(lo, hi);
+            else
+              *reinterpret_cast<uint32_t*>(p.out + row * p.N + col) =
+                  hopper::pack_bf16(lo, hi);
+          }
+        }
+    }
+    if (!split) continue;
+    int* cnt = p.counters + 2 + w.blk * p.n_tiles + w.ntile;
+    __threadfence();
+    hopper::named_bar_sync(1, 256);
+    if (tid == 0)
+      *s_last = hopper::atom_add_acq_rel(cnt, 1) == p.nsplit - 1;
+    hopper::named_bar_sync(1, 256);
+    if (!*s_last) continue;
+    __threadfence();
+    const size_t stride = (size_t)p.R * p.N;
+    for (int i = tid; i < w.nrow * (kBN / 4); i += 256) {
+      const int col = w.ntile * kBN + 4 * (i % (kBN / 4));
+      if (col >= p.N) continue;
+      const size_t row = (size_t)p.order[w.r0 + i / (kBN / 4)];
+      const float* src = p.wsp + row * p.N + col;
+      float4 v = __ldcg(reinterpret_cast<const float4*>(src));
+      for (int sp = 1; sp < p.nsplit; ++sp) {
+        const float4 o =
+            __ldcg(reinterpret_cast<const float4*>(src + sp * stride));
+        v.x += o.x;
+        v.y += o.y;
+        v.z += o.z;
+        v.w += o.w;
+      }
+      uint2 b;
+      b.x = hopper::pack_bf16(v.x, v.y);
+      b.y = hopper::pack_bf16(v.z, v.w);
+      *reinterpret_cast<uint2*>(p.out + row * p.N + col) = b;
+    }
+    if (tid == 0) *cnt = 0;
+  }
+}
+
+template <bool kOne>
+__global__ void __launch_bounds__(kThreads, 1)
+    slot_q_stream(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_s, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  const Sync sy = sync_at(sm + p.off_bar, p.stages);
+  int4* blk = reinterpret_cast<int4*>(sm + p.off_blk);
+  int* scan = reinterpret_cast<int*>(sm + p.off_blk + kMaxBlocks * 16);
+  int* misc = scan + 128;   // nblk, the merge's last flag
+  init_sync(sy, p.stages, 8);
+  build_blocks(p, blk, scan, misc, kN);
+  const int nblk = misc[0];
+  if (threadIdx.x >= 256) {   // the producer warpgroup; one warp loads
+    hopper::reg_dealloc<q8::kProducerRegs>();
+    if (threadIdx.x < 288) produce(&tm_x, &tm_q, &tm_s, p, sm, sy, blk, nblk);
+  } else {
+    hopper::reg_alloc<q8::kConsumerRegs>();
+    // the warpgroup index, warp-uniform by shuffle (see ggemm_q_stream)
+    consume<kOne>(p, sm, sy, blk, nblk, misc + 1,
+                  __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0));
+  }
+}
+
+}  // namespace sq8
+
 // [e, rows, cols] row-major of `type` elements, boxes box0 x box1
 bool map3(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
           const void* base, long long e, long long rows, long long cols,
@@ -926,5 +1280,86 @@ extern "C" int ds_ggemm_q_s(const void* x, const void* q, const void* s,
   const int grid = min(n_sm, nblocks * nsplit * p.n_tiles);
   ggemm_q_stream<<<grid, kThreads, alloc,
                    static_cast<cudaStream_t>(stream)>>>(tx, tq, ts, p);
+  return (int)cudaGetLastError();
+}
+
+// bf16 rows x [R, K] against int8 experts q [E, K, N] with fp32 scales s
+// [E, K, nb] (group width ceil(N / nb)) through a slot plan (active,
+// valid [S], row_order [R], slot_offsets [S + 1]); the shape rule of
+// ds_ggemm_q_s.  K split into nsplit ranges of kper rows (a multiple of
+// 64): ds_ggemm_q_s's split at the same K, N, E.  wsp: nsplit R N floats
+// (nsplit > 1); counters: 2 + blocks ceil(N / 256) ints, 0 (each launch
+// leaves them 0), blocks = min(R, (R + 15 S) / 16).
+extern "C" int ds_ggemm_slots_q_s(const void* x, const void* q, const void* s,
+                                  const void* active, const void* valid,
+                                  const void* order, const void* offs,
+                                  void* out, void* wsp, void* counters, int R,
+                                  int K, int N, int E, int S, int nb,
+                                  int nsplit, int kper, void* stream) {
+  using namespace sq8;
+  if (R < 1 || R > kMaxBlocks || S < 1 || S > R || E < 1 || K < 8 ||
+      N < 16 || K % 8 || N % 16 || nb < 4 || nb > N || nb % 4 ||
+      nsplit < 1 || kper < kBK || kper % kBK ||
+      (long long)nsplit * kper < K || (long long)(nsplit - 1) * kper >= K ||
+      counters == nullptr || (nsplit > 1 && wsp == nullptr) ||
+      !aligned16(x) || !aligned16(q) || !aligned16(s) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  const int qblock = (N + nb - 1) / nb;
+  const int G = min(nb, (q8::groups_met(N, qblock) + 3 + 3) / 4 * 4);
+  if (G > 256) return (int)cudaErrorInvalidValue;   // a TMA box's most
+  CUtensorMap tx, tq, ts;
+  if (!map3(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, 1, R, K, kBK, 1,
+            CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map3(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, E, K, N, kBoxN, kBK,
+            CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map3(&ts, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, s, E, K, nb, G, kBK,
+            CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.active = static_cast<const int*>(active);
+  p.valid = static_cast<const int*>(valid);
+  p.order = static_cast<const int*>(order);
+  p.offs = static_cast<const int*>(offs);
+  p.out = static_cast<bf16*>(out);
+  p.wsp = static_cast<float*>(wsp);
+  p.counters = static_cast<int*>(counters);
+  p.R = R;
+  p.K = K;
+  p.N = N;
+  p.E = E;
+  p.S = S;
+  p.qblock = qblock;
+  p.G = G;
+  p.n_tiles = (N + kBN - 1) / kBN;
+  p.nsplit = nsplit;
+  p.kper = kper;
+  p.s_bytes = kBK * G * 4;
+  // as many stages as fit beside the block table and the barriers
+  const int table = kMaxBlocks * 16 + 128 * 4 + 16;
+  const int fixed = 1024 + table + (2 * kMaxStages + 4) * 8 + 16;
+  p.stages = min(kMaxStages, (kSmem - fixed) / (kXBytes + kQBytes + p.s_bytes));
+  if (p.stages < 2) return (int)cudaErrorInvalidValue;
+  p.off_q = p.stages * kXBytes;
+  p.off_s = p.off_q + p.stages * kQBytes;
+  p.off_blk = p.off_s + p.stages * p.s_bytes;
+  p.off_bar = p.off_blk + table;
+  const int alloc = p.off_bar + (2 * p.stages + 4) * 8 + 16 + 1024;
+  // groups a multiple of 128 columns: one scale a k row for a warpgroup
+  const bool one = qblock % 128 == 0;
+  const void* kernel = one ? reinterpret_cast<const void*>(slot_q_stream<true>)
+                           : reinterpret_cast<const void*>(slot_q_stream<false>);
+  static std::atomic<unsigned long long> opted_in[2] = {0, 0};
+  cudaError_t err = hopper::opt_in_smem(kernel, kSmem, opted_in[one]);
+  if (err != cudaSuccess) return (int)err;
+  int n_sm = 0;
+  err = hopper::sm_count(&n_sm);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = min(R, (R + (kN - 1) * S) / kN);
+  const int grid = min(n_sm, blocks * nsplit * p.n_tiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (one)
+    slot_q_stream<true><<<grid, kThreads, alloc, st>>>(tx, tq, ts, p);
+  else
+    slot_q_stream<false><<<grid, kThreads, alloc, st>>>(tx, tq, ts, p);
   return (int)cudaGetLastError();
 }

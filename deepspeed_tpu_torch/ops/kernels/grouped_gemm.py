@@ -46,14 +46,17 @@ address rule) launch the Hopper wgmma / TMA kernels of
 ``ds_tgmm_h``) and, for the slot form, the streaming kernel of
 ``csrc/grouped_gemm_stream.cu`` (``ds_ggemm_slots_s``); int8 experts under
 bf16 rows with K a multiple of 8, N of 16 and nb of 4 on aligned bases
-launch ``ds_ggemm_q_s`` there.  fp32 operands and bf16 shapes outside
-those rules launch the kernels of ``csrc/grouped_gemm.cu``.  The choice is
-the shape's, never a fallback after a failure: a failed launch raises
-either way.  The streaming kernels' decomposition (units, K ranges, row
-passes) is written out here too (:func:`slot_stream_splits`,
-:func:`slot_blocks`, :func:`slot_stream_walk`,
-:func:`ggemm_q_stream_splits`, :func:`ggemm_q_stream_walk`): the CPU
-tests walk it in plain torch.
+launch ``ds_ggemm_q_s`` and, by slot, ``ds_ggemm_slots_q_s`` there (one
+rule, :func:`stream_route_q`, for both; the slot form takes the group
+form's K split and sum order, so a row's bits are the same in both).  fp32
+operands and bf16 shapes outside those rules launch the kernels of
+``csrc/grouped_gemm.cu``.  The choice is the shape's, never a fallback
+after a failure: a failed launch raises either way.  The streaming
+kernels' decomposition (units, K ranges, row passes) is written out here
+too (:func:`slot_stream_splits`, :func:`slot_blocks`,
+:func:`slot_stream_walk`, :func:`ggemm_q_stream_splits`,
+:func:`ggemm_q_stream_walk`, :func:`slot_q_stream_walk`): the CPU tests
+walk it in plain torch.
 
 Numerics: fp32 accumulation (tensor cores for bf16, fmaf for fp32 — no
 TF32), output rounded once to ``x``'s dtype, as the reference's kernels.
@@ -66,8 +69,8 @@ kernel's, ``ds_ggemm.transpose_launches`` the transposed-RHS kernel's and
 ``layout_tile`` ones for fp32); bf16 launches that the shape rules sent to
 ``csrc/grouped_gemm.cu`` count on ``ds_ggemm.unaligned_launches``,
 ``ds_ggemm.unaligned_transpose_launches``, ``ds_tgmm.unaligned_launches``,
-``ds_ggemm.unaligned_int8_launches`` and
-``ds_ggemm_slots.unaligned_launches`` instead.
+``ds_ggemm.unaligned_int8_launches``, ``ds_ggemm_slots.unaligned_launches``
+and ``ds_ggemm_slots.unaligned_int8_launches`` instead.
 """
 import ctypes
 from typing import NamedTuple
@@ -93,8 +96,10 @@ SLOT_MAX_SPLIT = 16
 #: slots::kBN, kBK, kRows): output columns a unit, K rows a stage, rows a
 #: block (two 8-row passes); its K splits at most SLOT_MAX_SPLIT
 STREAM_SLOT_BN, STREAM_SLOT_BK, STREAM_SLOT_ROWS = 256, 64, 16
-#: the streaming int8 kernel (q8::kBN, kBK): output columns a unit, K rows
-#: a stage (four k16 slices); its K splits at most STREAM_Q_MAX_SPLIT
+#: the streaming int8 kernels (q8::kBN, kBK; sq8 the same): output
+#: columns a unit, K rows a stage (four k16 slices); their K splits at
+#: most STREAM_Q_MAX_SPLIT.  The slot form's blocks are the bf16 slot
+#: kernel's (STREAM_SLOT_ROWS rows, one wgmma's N)
 STREAM_Q_BN, STREAM_Q_BK, STREAM_Q_MAX_SPLIT = 256, 64, 8
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -392,6 +397,15 @@ def ggemm_q_stream_splits(K: int, N: int, E: int, sms: int):
     return -(-chunks // per), per * STREAM_Q_BK
 
 
+def _q_unit_sum(x, q, s, e, cols, qblock, k0, k1):
+    """One int8 unit's fp32 partial: the rows ``x`` against W[e]'s columns
+    ``cols`` dequantized in fp32 (group width ``qblock``) and rounded to
+    x's dtype, the products added in K order over [k0, k1)."""
+    wdq = (q[e][:, cols].float() * s[e][:, cols // qblock]).to(x.dtype)
+    return _k_order_sum(torch.zeros(x.shape[0], len(cols)), x.float(),
+                        wdq.float(), k0, k1)
+
+
 def ggemm_q_stream_walk(x, q, s, plan: GroupPlan, sms: int):
     """The streaming int8 kernel's decomposition in plain torch: per unit
     (STREAM_Q_BN columns, plan tile, K split; N-tiles fastest), W[e]'s
@@ -416,10 +430,44 @@ def ggemm_q_stream_walk(x, q, s, plan: GroupPlan, sms: int):
         if not rows:
             continue
         cols = torch.arange(nt * STREAM_Q_BN, min(N, (nt + 1) * STREAM_Q_BN))
-        wdq = (q[e][:, cols].float() * s[e][:, cols // qblock]).to(x.dtype)
-        parts[sp, t * bm:t * bm + rows, cols] = _k_order_sum(
-            torch.zeros(rows, len(cols)), x[t * bm:t * bm + rows].float(),
-            wdq.float(), sp * kper, min(K, (sp + 1) * kper))
+        parts[sp, t * bm:t * bm + rows, cols] = _q_unit_sum(
+            x[t * bm:t * bm + rows], q, s, e, cols, qblock, sp * kper,
+            min(K, (sp + 1) * kper))
+    out = parts[0]
+    for sp in range(1, nsplit):
+        out = out + parts[sp]
+    return out.to(x.dtype)
+
+
+def slot_q_stream_walk(x, q, s, plan: SlotPlan, sms: int):
+    """The streaming int8 slot kernel's decomposition in plain torch: per
+    unit (STREAM_Q_BN columns, block of :func:`slot_blocks`, K split of
+    :func:`ggemm_q_stream_splits`; N-tiles fastest), the block's rows
+    against W[e]'s columns dequantized in fp32 with the group width
+    ceil(N / nb) and rounded to x's dtype, the products added to the fp32
+    partial in K order over the split's range (:func:`_q_unit_sum`, as
+    :func:`ggemm_q_stream_walk`); the splits' partials summed in split
+    order; one rounding to x's dtype.  Rows of an expert outside [0, E) get
+    zeros."""
+    R, K = x.shape
+    E, _, N = q.shape
+    qblock = -(-N // s.shape[2])
+    nsplit, kper = ggemm_q_stream_splits(K, N, E, sms)
+    blocks = slot_blocks(plan, E)
+    order = plan.row_order.long()
+    n_tiles = -(-N // STREAM_Q_BN)
+    parts = torch.zeros(nsplit, R, N, dtype=torch.float32)
+    for u in range(len(blocks) * nsplit * n_tiles):
+        nt, rest = u % n_tiles, u // n_tiles
+        b, sp = rest % len(blocks), rest // len(blocks)
+        e, r0, nrow, _ = blocks[b]
+        if e < 0:
+            continue
+        rows = order[r0:r0 + nrow]
+        cols = torch.arange(nt * STREAM_Q_BN, min(N, (nt + 1) * STREAM_Q_BN))
+        parts[sp, rows[:, None], cols[None, :]] = _q_unit_sum(
+            x[rows], q, s, e, cols, qblock, sp * kper,
+            min(K, (sp + 1) * kper))
     out = parts[0]
     for sp in range(1, nsplit):
         out = out + parts[sp]
@@ -486,8 +534,8 @@ def hopper_route(dtype, ptrs, dims) -> bool:
 
 
 def stream_route_q(dtype, ptrs, K, N, nb) -> bool:
-    """Whether an int8-expert launch takes the streaming kernel
-    (``ds_ggemm_q_s``): bf16 rows, K a multiple of 8, N of 16 and nb of 4
+    """Whether an int8-expert launch takes the streaming kernels
+    (``ds_ggemm_q_s``, by slot ``ds_ggemm_slots_q_s``): bf16 rows, K a multiple of 8, N of 16 and nb of 4
     (the x, code and scale rows' 16-byte strides), groups of at least two
     columns (a unit's scale box then holds at most 256 groups), every base
     16-byte aligned.  Mixtral's K, N 4096 / 14336 with nb 56 / 16 meet
@@ -767,25 +815,44 @@ def ggemm_slots_cuda(x, w, plan: SlotPlan):
 
 def ggemm_slots_q_cuda(x, q, s, plan: SlotPlan):
     """Launch ``ds_ggemm_slots_q`` (int8 experts); raises on anything the
-    kernel does not take.  The kernel itself refuses (cudaErrorInvalidValue)
-    a scale layout whose 128-column tiles meet more groups than it stages
-    (``kSlotSG``); Mixtral's 256-lane groups meet one."""
+    kernel does not take.  Shapes of :func:`stream_route_q` take the
+    streaming kernel (``ds_ggemm_slots_q_s``: ``ds_ggemm_q_s``'s K split,
+    :func:`ggemm_q_stream_splits`, and sum order); fp32 rows and the other
+    shapes ``csrc/grouped_gemm.cu``'s slot kernel, which refuses
+    (cudaErrorInvalidValue) a scale layout whose 128-column tiles meet more
+    groups than it stages (``kSlotSG``; Mixtral's 256-lane groups meet
+    one)."""
     _check_q("ds_ggemm_slots_q", x, q, s, _slot_ints(plan))
     R, K = x.shape
     E, _, N = q.shape
     nb = s.shape[2]
     _check_slot_fit("ds_ggemm_slots_q", x, E, plan)
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        ws, counters = _slot_scratch("ds_ggemm_slots_q", x, K, N, True)
-        rc = _fn("grouped_gemm", "ds_ggemm_slots_q", 10, 7)(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(), plan.active.data_ptr(),
+    S = plan.num_slots
+    ptrs = (x.data_ptr(), q.data_ptr(), s.data_ptr(), plan.active.data_ptr(),
             plan.valid.data_ptr(), plan.row_order.data_ptr(),
-            plan.slot_offsets.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            counters.data_ptr(), R, K, N, E, plan.num_slots, nb,
-            int(x.dtype == torch.bfloat16), _stream(x.device))
+            plan.slot_offsets.data_ptr(), out.data_ptr())
+    if stream_route_q(x.dtype, ptrs[:3], K, N, nb):
+        nsplit, kper = ggemm_q_stream_splits(K, N, E, _sm_count(x.device))
+        ws, counters = build.scratch(
+            x.device, nsplit * R * N if nsplit > 1 else 0,
+            2 + slot_block_bound(R, S) * -(-N // STREAM_Q_BN))
+        rc = _call("grouped_gemm_stream", "ds_ggemm_slots_q_s", 10, 8,
+                   x.device, *ptrs, ws.data_ptr(), counters.data_ptr(), R, K,
+                   N, E, S, nb, nsplit, kper)
+        build.check(rc, "ds_ggemm_slots_q")
+        ds_ggemm_slots.int8_launches += 1
+        return out
+    bf16 = x.dtype == torch.bfloat16
+    ws, counters = _slot_scratch("ds_ggemm_slots_q", x, K, N, True)
+    rc = _call("grouped_gemm", "ds_ggemm_slots_q", 10, 7, x.device, *ptrs,
+               ws.data_ptr(), counters.data_ptr(), R, K, N, E, S, nb,
+               int(bf16))
     build.check(rc, "ds_ggemm_slots_q")
-    ds_ggemm_slots.int8_launches += 1
+    if bf16:
+        ds_ggemm_slots.unaligned_int8_launches += 1
+    else:
+        ds_ggemm_slots.int8_launches += 1
     return out
 
 
@@ -903,4 +970,4 @@ ds_tgmm.launches = 0
 #: none on the main paths
 ds_ggemm.unaligned_launches = ds_ggemm.unaligned_transpose_launches = 0
 ds_ggemm.unaligned_int8_launches = ds_ggemm_slots.unaligned_launches = 0
-ds_tgmm.unaligned_launches = 0
+ds_ggemm_slots.unaligned_int8_launches = ds_tgmm.unaligned_launches = 0

@@ -203,11 +203,15 @@ def sass(name: str, parent: Path):
         units = [(name, ())]
     jobs = [(build.CSRC_DIR / f"{src}.cu", build.CSRC_DIR, flags,
              f"{name}-change-{i}") for i, (src, flags) in enumerate(units)]
-    jobs.append((parent / f"{name}.cu", parent, (), f"{name}-parent"))
+    # the parent's pieces of the same units (a library built in pieces
+    # keeps its kernels in its parts), where DIR has them
+    jobs += [(parent / f"{src}.cu", parent, flags, f"{name}-parent-{i}")
+             for i, (src, flags) in enumerate(units)
+             if (parent / f"{src}.cu").exists()]
     with ThreadPoolExecutor(len(jobs)) as ex:
         dumps = list(ex.map(lambda j: cubin_sass(*j), jobs))
-    change = {f: b for d in dumps[:-1] for f, b in d.items()}
-    par = dumps[-1]
+    change = {f: b for d in dumps[:len(units)] for f, b in d.items()}
+    par = {f: b for d in dumps[len(units):] for f, b in d.items()}
     differ = {f: sum(x != y for x, y in zip(b, par[f]))
               + abs(len(b) - len(par[f]))
               for f, b in change.items() if f in par and b != par[f]}
@@ -218,6 +222,7 @@ def sass(name: str, parent: Path):
             "lines_parent": sum(len(b) for b in par.values()),
             "functions_without_namesake": sorted(set(change) ^ set(par)),
             "functions_differing": len(differ),
+            "functions_differing_names": sorted(differ),
             "differing_lines": sum(differ.values()),
             "first_differing_line": first}
 

@@ -1,6 +1,7 @@
 """deepspeed_tpu_torch grouped GEMM: the streaming kernels of
 ``csrc/grouped_gemm_stream.cu`` (bf16 ``ds_ggemm_slots``, int8-expert
-``ds_ggemm_q``) as their decomposition, walked in plain torch.
+``ds_ggemm_q`` and ``ds_ggemm_slots_q``) as their decomposition, walked in
+plain torch.
 
 - The walks (``slot_stream_walk``, ``ggemm_q_stream_walk``: units, K
   ranges and split order, 8-row passes, dequantize-then-round, fp32 sums
@@ -14,6 +15,11 @@
   129 / 192 / 1800), with the same expert and x for row 0.
 - The split rule, the blocks and the units: what the kernel's merges and
   counters are sized by.
+- The int8 slot walk (``slot_q_stream_walk``) against the Pallas
+  ``_slot_q_kernel`` in interpret mode and the plain version (fp32, 1e-5;
+  R 1 / 2 / 16 / 128, four routings, K splits, a scale-group edge inside a
+  unit), and its rows bit-identical to ``ggemm_q_stream_walk``'s for the
+  same x rows and experts (R 2 / 16 / 128 against R 192).
 - The route rule (dtype, widths, alignment -> which kernel, which counter),
   with the launch stubbed as in ``tests/test_torch_grouped_gemm_hopper.py``.
 """
@@ -233,6 +239,69 @@ def test_ggemm_q_walk_row_bits_do_not_follow_R(dtype):
     assert all(torch.equal(r, got[0]) for r in got[1:])
 
 
+# ------------------------------------------------------------ int8 slots
+#: (R, E, K, N, routing) of the int8 slot walk: N 300 with nb 2 puts a
+#: scale-group edge (150) inside the first 256-column unit; K 328 with 3-4
+#: experts splits K at SMS 4 (two ranges, the last stage part-filled)
+SQ_CASES = [(1, 8, 64, 96, "random"), (2, 8, 64, 300, "random"),
+            (16, 8, 64, 300, "two_empty"), (16, 8, 64, 96, "one_expert"),
+            (16, 8, 64, 96, "repeated_slots"), (128, 8, 64, 300, "random"),
+            (128, 8, 64, 96, "two_empty"), (2, 3, 328, 300, "random"),
+            (16, 4, 320, 96, "one_expert")]
+
+
+@pytest.mark.parametrize("case", SQ_CASES,
+                         ids=lambda c: f"R{c[0]}-K{c[2]}-N{c[3]}-{c[4]}")
+def test_slot_q_walk_matches_pallas_interpret_and_plain(case):
+    e, x, q, s = _q_inputs(case, seed=case[0] + case[2] + case[3])
+    E = case[1]
+    ref = np.asarray(jg.ds_ggemm_slots(
+        jnp.asarray(x), (jnp.asarray(q.numpy()), jnp.asarray(s.numpy())),
+        jg.make_slot_plan(jnp.asarray(e), E), interpret=True))
+    xt = torch.from_numpy(x)
+    plan = gg.make_slot_plan(torch.from_numpy(e), E)
+    got = gg.slot_q_stream_walk(xt, q, s, plan, SMS)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(
+        got.numpy(), gg.ggemm_slots_q_plain(xt, q, s, plan).numpy(),
+        atol=ATOL, rtol=0)
+
+
+def test_slot_q_walk_cases_split_k_and_cross_a_group_edge():
+    """The split order and a unit's group edge are what the int8 slot
+    walk's cases hold there."""
+    split = [c for c in SQ_CASES
+             if gg.ggemm_q_stream_splits(c[2], c[3], c[1], SMS)[0] > 1]
+    assert len(split) >= 2
+    assert any(c[3] == 300 for c in split)
+
+
+def test_slot_q_walk_gives_rows_of_unknown_experts_zeros():
+    e, x, q, s = _q_inputs((16, 8, 64, 96, "random"), seed=9)
+    plan = gg.make_slot_plan(torch.from_numpy(e), 8)
+    got = gg.slot_q_stream_walk(torch.from_numpy(x), q[:6], s[:6], plan, SMS)
+    gone = torch.from_numpy(e >= 6)
+    assert gone.any() and not got[gone].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slot_q_walk_rows_equal_ggemm_q_walk_rows(dtype):
+    """The same x rows and experts through the int8 slot walk at R 2, 16
+    and 128 and through the int8 group walk at R 192: every row
+    bit-identical (K split in two ranges, a group edge inside a unit)."""
+    e, x, q, s = _q_inputs((192, 3, 328, 300, "random"), seed=31)
+    assert gg.ggemm_q_stream_splits(328, 300, 3, SMS)[0] > 1
+    xt = torch.from_numpy(x).to(dtype)
+    gp = gg.make_group_plan(torch.from_numpy(e), 3)
+    group = gg.gather_from_groups(gg.ggemm_q_stream_walk(
+        gg.scatter_to_groups(xt, gp), q, s, gp, SMS), gp)
+    for R in (2, 16, 128):
+        slot = gg.slot_q_stream_walk(xt[:R], q, s, gg.make_slot_plan(
+            torch.from_numpy(e[:R]), 3), SMS)
+        assert slot.dtype == dtype
+        assert torch.equal(slot, group[:R]), R
+
+
 # ---------------------------------------------------------------- routes
 #: the multiprocessors the route tests' wrapper reads
 SMS_ROUTE = 132
@@ -253,7 +322,7 @@ class _Launches:
 
 COUNTERS = ((gg.ds_ggemm, ("int8_launches", "unaligned_int8_launches")),
             (gg.ds_ggemm_slots, ("launches", "unaligned_launches",
-                                 "int8_launches")))
+                                 "int8_launches", "unaligned_int8_launches")))
 
 
 @pytest.fixture
@@ -356,6 +425,69 @@ def test_ggemm_q_route_rule(launches, dtype, N, nb, off, route, counter):
         assert launches.calls == [("grouped_gemm", "ds_ggemm_q",
                                    (nbk, K, N, E, nb,
                                     int(dtype == torch.bfloat16)))]
+
+
+#: (dtype, N, nb, what is off the rule) -> the int8 slot entry point and
+#: counter
+SLOT_Q_ROUTES = [
+    (torch.bfloat16, 272, 4, None, "stream", "int8_launches"),
+    (torch.bfloat16, 272, 136, None, "stream", "int8_launches"),
+    (torch.float32, 272, 4, None, "tile", "int8_launches"),
+    (torch.bfloat16, 264, 4, "N", "tile", "unaligned_int8_launches"),
+    (torch.bfloat16, 272, 2, "nb", "tile", "unaligned_int8_launches"),
+    (torch.bfloat16, 272, 272, "nb", "tile", "unaligned_int8_launches"),
+    (torch.bfloat16, 272, 4, "base", "tile", "unaligned_int8_launches"),
+]
+
+
+@pytest.mark.parametrize("dtype,N,nb,off,route,counter", SLOT_Q_ROUTES)
+def test_slot_q_route_rule(launches, dtype, N, nb, off, route, counter):
+    """bf16 rows on the rule launch ``ds_ggemm_slots_q_s`` with
+    ``ds_ggemm_q_s``'s split; fp32 rows and shapes off the rule launch
+    ``grouped_gemm.cu``'s slot kernel, bf16 ones on their own counter."""
+    R, K, E = 16, 136, 3
+    e = torch.arange(R, dtype=torch.int32) % E
+    plan = gg.make_slot_plan(e, E)
+    x = torch.zeros(R, K, dtype=dtype)
+    q = torch.zeros(E, K, N, dtype=torch.int8)
+    s = torch.ones(E, K, nb)
+    if off == "base":
+        x = _unaligned(x)
+    c0 = _counts()
+    out = gg.ggemm_slots_q_cuda(x, q, s, plan)
+    assert out.shape == (R, N) and out.dtype == dtype
+    moved = {k: v - c0[k] for k, v in _counts().items() if v != c0[k]}
+    assert moved == {f"ds_ggemm_slots.{counter}": 1}
+    S = plan.num_slots
+    if route == "stream":
+        nsplit, kper = gg.ggemm_q_stream_splits(K, N, E, SMS_ROUTE)
+        assert launches.calls == [("grouped_gemm_stream", "ds_ggemm_slots_q_s",
+                                   (R, K, N, E, S, nb, nsplit, kper))]
+    else:
+        assert launches.calls == [("grouped_gemm", "ds_ggemm_slots_q",
+                                   (R, K, N, E, S, nb,
+                                    int(dtype == torch.bfloat16)))]
+
+
+def test_slot_q_takes_the_group_forms_split(launches):
+    """The int8 slot form splits K by ``ggemm_q_stream_splits`` (the int8
+    group form's rule, so a row sums in the same ranges whatever kernel
+    runs it), not by the bf16 slot rule, at a shape where the two differ;
+    the int8 group launch of the same K, N and E takes the same split."""
+    R, K, N, E = 16, 1024, 512, 8
+    want = gg.ggemm_q_stream_splits(K, N, E, SMS_ROUTE)
+    assert want != gg.slot_stream_splits(K, N, SMS_ROUTE)
+    e = torch.arange(R, dtype=torch.int32) % E
+    q = torch.zeros(E, K, N, dtype=torch.int8)
+    s = torch.ones(E, K, 4)
+    gg.ggemm_slots_q_cuda(torch.zeros(R, K, dtype=torch.bfloat16), q, s,
+                          gg.make_slot_plan(e, E))
+    gp = gg.make_group_plan(e, E)
+    gg.ggemm_q_cuda(torch.zeros(gp.padded_rows, K, dtype=torch.bfloat16), q,
+                    s, gp)
+    (_, slot_name, slot_ints), (_, group_name, group_ints) = launches.calls
+    assert (slot_name, group_name) == ("ds_ggemm_slots_q_s", "ds_ggemm_q_s")
+    assert slot_ints[-2:] == group_ints[-2:] == want
 
 
 def test_stream_route_q_is_a_shape_rule():
