@@ -8,13 +8,15 @@ cache, Llama-2 7B whole in bf16 and with int8 weights and cache,
 fused decode off and on, GPT-NeoX-20B whole (all 44 layers) in bf16
 fused off and on and with int8 weights and cache, BLOOM-560m and GPT-Neo
 2.7B (random weights drawn on the card), trains mixtral:1b-moe at full
-width with the grouped MoE dispatch, and runs block-sparse attention
-forward and backward at GPT-2 760M's attention width and S 16384, through
-the port's own entry points.
+width with the grouped MoE dispatch, runs block-sparse attention
+forward and backward at GPT-2 760M's attention width and S 16384, trains
+BERT-Large (MLM pretraining at bench.py's BERT arm) and Llama-2 7B,
+GPT-NeoX-20B, BLOOM-560m and GPT-Neo 2.7B at full width (depth cut),
+through the port's own entry points.
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --only 20,21   # the build, then phases 2, 3, 7,
-                                         # 8, 11-27 as listed (no
+                                         # 8, 11-31 as listed (no
                                          # kernels line)
 
 Phases (any failed check exits non-zero before the final line):
@@ -286,6 +288,41 @@ Phases (any failed check exits non-zero before the final line):
      beside its plain version, its bound and SDPA with the layout as a
      boolean mask, the tile plans (fill per side), and the dense causal
      flash kernels for context.
+  28. the flash forward and backward pair at BERT-Large's pretraining
+     shape (B 32, S 512, H 16, hd 64, bf16, non-causal, q / k / v views
+     of the fused QKV projection), without segment ids and with a
+     padding mask (trailing pads of 1 to 256 positions) as segment ids:
+     each against its plain version (o <= 2e-2 abs, lse <= 1e-3,
+     gradients <= 2e-2 of each output's max; with segments the forward's
+     real rows also against the plain bidirectional attention), then
+     timed (CUDA events, device time) beside the plain version, SDPA (a
+     boolean same-segment mask with segments) and the bound (the pairs
+     the segments leave);
+  29. fp32 BERT parity: BERT-Large's widths at 4 of its 24 layers (cut
+     for time), padded MLM batches with token types, micro 2, gas 2, S
+     512, 3 steps through initialize -> train_batch, the flash kernels
+     (segment ids) against the plain attention: losses within 1e-4
+     relative, each param leaf within PARAM_TOL of its movement (the key
+     bias within Adam's bound), exactly 2 L forward / L dK/dV / L dQ
+     launches per micro-step, none in the plain run; one micro-step's
+     first flash launches against the plain versions on the path's own
+     q / k / v (and the forward's real rows against the plain route);
+  30. BERT-Large MLM pretraining in bf16 (the slice's main path:
+     bench.py's BERT arm, 24 layers, nothing cut): S 512 x micro-batch
+     32 and S 128 x 128, full remat, the byte diet, 3 warm-up and 10
+     timed steps: step time, tokens/s, MFU (bench.py's 6N + 6LSD, which
+     counts attention as causal), peak memory, losses, exact launch
+     counts, a profiled step; at S 512 the path's first flash launches
+     held against the plain versions;
+  31. the families' training: fp32 parity at 2 layers of Llama-2 7B and
+     GPT-NeoX-20B widths (flash against plain, as phase 29; exactly 2 L /
+     L / L flash launches per micro-step) and of BLOOM-560m and GPT-Neo
+     2.7B (plain attention, as in the reference: remat against no remat,
+     no flash launch); then bf16 at full width, depth cut for the time
+     limit (Llama-2 7B 4 of 32 layers, NeoX-20B 4 of 44, BLOOM-560m all
+     24, GPT-Neo 2.7B 8 of 32), S 1024, micro-batch 4, the byte diet, 2
+     warm-up and 5 timed steps: step time, tokens/s, MFU, peak memory,
+     exact launch counts.
 Every serving phase (9, 10, 15, 16, 18, 19, 21-23) also holds qgemm's tile
 form (M > 128) at no launch.
 Earlier lines are JSON objects; the line before the last two is the
@@ -857,20 +894,23 @@ def flash_bwd_device_ms(torch, F, fa, args, enable_gqa=False):
         **sdpa_bwd_device_ms(torch, F, *args[:4], enable_gqa=enable_gqa)}
 
 
-def sdpa_bwd_device_ms(torch, F, q, k, v, do, enable_gqa=False):
+def sdpa_bwd_device_ms(torch, F, q, k, v, do, enable_gqa=False,
+                       sdpa_kw=None):
     """SDPA's backward's device time per call: the device time of its
     forward + backward less its forward's, each from profiler windows
     that saw every kernel of the call (``whole_device_ms``; None where
     none did).  CUDA events around SDPA's backward also time the host's
-    autograd work between its launches.  Returns {"library": ms,
+    autograd work between its launches.  ``sdpa_kw``: SDPA's masking
+    arguments (default causal).  Returns {"library": ms,
     "library_kernels_per_call": {"fwd": n, "fwd_bwd": n}}."""
     ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
+    kw = {"is_causal": True} if sdpa_kw is None else sdpa_kw
 
     def sdpa():
-        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                              enable_gqa=enable_gqa)
+        return F.scaled_dot_product_attention(ql, kl, vl,
+                                              enable_gqa=enable_gqa, **kw)
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(), (ql, kl, vl), dot)
@@ -1341,8 +1381,7 @@ def launch_counts(fa):
             "ds_flash_bwd_dq": fa.flash_attention_bwd.dq_launches}
 
 
-def reset_counts(da, fa):
-    da.decode_attention.launches = 0
+def reset_flash(fa):
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.dkv_launches = 0
     fa.flash_attention_bwd.dq_launches = 0
@@ -1351,76 +1390,20 @@ def reset_counts(da, fa):
 def fp32_train_phase(torch, dt, da, fa):
     """4 layers at the 760M widths, fp32: the flash kernels (impl
     "flash") against the plain einsum attention (impl "plain") through
-    initialize -> train_batch, from the same params and batches."""
+    initialize -> train_batch, from the same params and batches (micro 2,
+    gas 2, seq 1024, 3 steps; ``train_parity``)."""
     import numpy as np
     from deepspeed_tpu_torch.models.gpt2 import gpt2_model
-    L, micro, gas, steps, lr = 4, 2, 2, 3, 1e-4
-    cfg = train_config(micro, gas, lr, gradient_clipping=1.0,
-                       scheduler={"type": "WarmupLR",
-                                  "params": {"warmup_num_steps": 3}})
-    runs = {}
-    init = None
-    for impl in ("flash", "plain"):
-        model = gpt2_model("custom", num_layers=L, num_heads=16,
-                           d_model=1536, max_seq_len=TRAIN_S,
-                           dtype="float32", remat=True, attention_impl=impl)
-        if init is None:
-            init = model.numpy_init_fn(0)
-        eng, *_ = dt.initialize(model=model, config=cfg,
-                                model_parameters=init)
-        rng = np.random.default_rng(5)
-        losses, per_step = [], []
-        for _ in range(steps):
-            b = {"input_ids": rng.integers(0, model.config.vocab_size,
-                                           (gas, micro, TRAIN_S),
-                                           dtype=np.int32)}
-            reset_counts(da, fa)
-            losses.append(float(eng.train_batch(batch=b)))
-            per_step.append(launch_counts(fa))
-        runs[impl] = (eng, losses, per_step)
-    (ef, lf, cf), (ep, lp, cp) = runs["flash"], runs["plain"]
-    rel = [abs(a - b) / abs(b) for a, b in zip(lf, lp)]
-    want = {"ds_flash_fwd": 2 * L * gas, "ds_flash_bwd_dkv": L * gas,
-            "ds_flash_bwd_dq": L * gas}
-    # params: each leaf's difference against its own movement from the
-    # shared init (Adam moves every element ~lr per step, and gradient
-    # differences of summation order only move it by far less); the key
-    # bias has an analytically zero gradient whose rounding noise Adam
-    # turns into +-lr steps, so it is held to Adam's bound instead
-    sched = ef.lr_schedule
-    adam_bound = 2 * sum(sched(t) for t in range(steps))
-    ratios, kbias = {}, None
-    D = ef.model.config.d_model
-    for key in ("wte", "wpe", "lnf_scale", "lnf_bias"):
-        ratios[key] = _diff_ratio(torch, ef.params[key], ep.params[key],
-                                  init[key])
-    for key, pf in ef.params["blocks"].items():
-        pf, pp = pf.detach(), ep.params["blocks"][key].detach()
-        p0 = init["blocks"][key]
-        if key == "qkv_b":
-            kb = slice(D, 2 * D)
-            kbias = float((pf[:, kb] - pp[:, kb]).abs().max())
-            keep = list(range(D)) + list(range(2 * D, 3 * D))
-            pf, pp, p0 = pf[:, keep], pp[:, keep], p0[:, keep]
-        ratios[f"blocks/{key}"] = _diff_ratio(torch, pf, pp, p0)
-    report = {"phase": "fp32_train_parity", "layers": L, "micro": micro,
-              "gas": gas, "steps": steps, "losses_flash": lf,
-              "losses_plain": lp, "loss_rel_err": rel,
-              "launches_per_step_flash": cf, "launches_per_step_plain": cp,
-              "param_diff_over_movement": ratios,
-              "key_bias_max_abs_diff": kbias, "key_bias_adam_bound":
-              adam_bound, "param_tol": PARAM_TOL}
-    emit(report)
-    check(all(r <= 1e-4 for r in rel), f"fp32 train: losses differ {rel}")
-    check(all(c == want for c in cf), f"fp32 train: flash launches {cf} "
-          f"!= {want} per step")
-    check(all(all(v == 0 for v in c.values()) for c in cp),
-          f"fp32 train: the plain run launched kernels {cp}")
-    check(max(ratios.values()) <= PARAM_TOL,
-          f"fp32 train: params differ {ratios}")
-    check(kbias <= adam_bound, f"fp32 train: key bias {kbias} beyond "
-          f"Adam's bound {adam_bound}")
-    return report
+    L = 4
+    rng = np.random.default_rng(5)
+    batches = [lm_batch(np, rng, (2, 2), TRAIN_S, 50257) for _ in range(3)]
+    return train_parity(
+        torch, dt, fa, "gpt2", "gpt2_760m_fp32_parity",
+        lambda arm: gpt2_model("custom", num_layers=L, num_heads=16,
+                               d_model=1536, max_seq_len=TRAIN_S,
+                               dtype="float32", remat=True,
+                               attention_impl=arm),
+        ("flash", "plain"), batches, 1e-4, L)
 
 
 #: fp32 parity: |flash - plain| / |movement from init| per param leaf
@@ -1435,68 +1418,20 @@ def _diff_ratio(torch, a, b, init):
 
 def bf16_train_phase(torch, dt, da, fa):
     """The training main path: bench.py's GPT-2 760M configuration at
-    full width through initialize -> train_batch."""
-    import numpy as np
+    full width through initialize -> train_batch (micro-batch 12, seq
+    1024, full remat, the byte diet; 3 warm-up and 10 timed steps and a
+    profiled one, ``bf16_train_arm``)."""
     from deepspeed_tpu_torch.models.gpt2 import gpt2_model
     model = gpt2_model("760m", max_seq_len=TRAIN_S, dtype="bfloat16",
                        remat=True, remat_policy="nothing")
-    c = model.config
-    cfg = train_config(TRAIN_B, 1, 1e-4,
-                       bf16={"enabled": True,
-                             "master_weights_dtype": "bfloat16",
-                             "optimizer_states_dtype": "bfloat16"},
-                       data_types={"grad_accum_dtype": "bf16"})
-    t0 = time.perf_counter()
-    eng, *_ = dt.initialize(model=model, config=cfg)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-
-    def batch():
-        return {"input_ids": rng.integers(0, c.vocab_size,
-                                          (1, TRAIN_B, TRAIN_S),
-                                          dtype=np.int32)}
-    losses = [eng.train_batch(batch=batch()) for _ in range(3)]
-    timed = [batch() for _ in range(10)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    # the main path: counts set to 0 just before, read just after
-    reset_counts(da, fa)
-    t0 = time.perf_counter()
-    losses += [eng.train_batch(batch=b) for b in timed]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts(fa)
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(x) for x in losses]
-    step_s = wall / len(timed)
-    tokens_per_s = TRAIN_B * TRAIN_S / step_s
-    # bench.py's MFU accounting: 6 N + 6 L S D flops per token
-    flops_per_token = model.flops_per_token \
-        + 6.0 * c.num_layers * TRAIN_S * c.d_model
-    profile = profile_train_step(torch, eng, batch())   # gas 1
-    report = {"phase": "bf16_train", "model": "gpt2-760m",
-              "n_params": model.meta["n_params"], "micro_batch": TRAIN_B,
-              "seq": TRAIN_S, "init_s": init_s, "timed_steps": len(timed),
-              "step_s": step_s, "tokens_per_s": tokens_per_s,
-              "flops_per_token": flops_per_token,
-              "step_flops": flops_per_token * TRAIN_B * TRAIN_S,
-              "mfu": flops_per_token * tokens_per_s / BF16_FLOPS,
-              "peak_allocated_gb": peak / 1e9, "first_loss": losses[0],
-              "last_loss": losses[-1], "losses": losses,
-              "launches": launches, "train_profile": profile}
-    emit(report)
-    L = c.num_layers
-    want = {"ds_flash_fwd": 2 * L * len(timed),
-            "ds_flash_bwd_dkv": L * len(timed),
-            "ds_flash_bwd_dq": L * len(timed)}
-    check(launches == want, f"bf16 train: launches {launches} != {want}")
-    check(all(math.isfinite(x) for x in losses),
-          f"bf16 train: non-finite loss {losses}")
-    check(abs(losses[0] - math.log(c.vocab_size)) <= 0.5,
-          f"bf16 train: first loss {losses[0]} not near ln(V) = "
-          f"{math.log(c.vocab_size)}")
-    return launches, report
+    report = bf16_train_arm(torch, dt, fa, "gpt2", "gpt2_760m_train_bf16",
+                            model, TRAIN_B, TRAIN_S, 3, 10, lm_batch,
+                            profile=True)
+    V = model.config.vocab_size
+    check(abs(report["first_loss"] - math.log(V)) <= 0.5,
+          f"bf16 train: first loss {report['first_loss']} not near ln(V) = "
+          f"{math.log(V)}")
+    return report["launches"], report
 
 
 #: the hand grouped-GEMM kernels' category of the profiled train step
@@ -2779,10 +2714,13 @@ def mixtral_parity_phase(torch, gg, da, fa):
 
 
 class capture_grouped:
-    """Within the block, the grouped wrappers' launches through ``names``
-    (``ggemm_slots_cuda``, ``ggemm_q_cuda``: what the MoE layer reaches
-    through ds_ggemm_slots and ds_ggemm) also keep their arguments and
-    outputs in ``calls``; the wrappers are restored after."""
+    """Within the block, the launches through the wrappers ``names`` of
+    module ``gg`` also keep their arguments and outputs in ``calls``; the
+    wrappers are restored after.  The grouped wrappers (``ggemm_slots_cuda``,
+    ``ggemm_q_cuda``: what the MoE layer reaches through ds_ggemm_slots
+    and ds_ggemm) and the flash launchers (``flash_attention_fwd_cuda``,
+    ``flash_attention_bwd_cuda``) count their own launches, so the
+    counts stay where they are."""
 
     def __init__(self, gg, names):
         self.gg, self.names, self.calls = gg, names, []
@@ -6065,8 +6003,536 @@ def no_qgemm_tile(label, fn):
     return out
 
 
+# --------------------------------- BERT and the families' training (slice 10)
+#: bench.py's BERT arm (BASELINE row 1): (seq, micro-batch) arms
+BERT_ARMS = ((512, 32), (128, 128))
+BERT_H, BERT_HD = 16, 64                # bert-large
+#: fp32 BERT parity at BERT-Large's widths, depth cut for the time limit
+BERT_PARITY = dict(layers=4, micro=2, gas=2, seq=512, steps=3)
+#: fp32 parity of the trained families at their served configs' widths
+FAMILY_PARITY = dict(layers=2, micro=2, gas=2, seq=512, steps=3)
+#: bf16 training at full width: (family, size, layers run, layers of the
+#: published model); depth cut for the smoke's time limit
+FAMILY_TRAIN = (("llama", "7b", 4, 32), ("neox", "20b", 4, 44),
+                ("bloom", "560m", 24, 24), ("gptneo", "2.7b", 8, 32))
+FAMILY_SEQ, FAMILY_MICRO = 1024, 4
+FAMILY_WARMUP, FAMILY_TIMED = 2, 5
+#: families whose attention is the flash kernels (the others run the
+#: reference's plain einsum forms, ALiBi and banded)
+FLASH_FAMILIES = ("gpt2", "bert", "llama", "neox")
+
+
+def family_model(family, size, **over):
+    from deepspeed_tpu_torch.serving.server import model_from_spec
+    return model_from_spec(f"{family}:{size}", **over)
+
+
+def trailing_pads(np, rows, S):
+    """[rows, S] int32 padding mask (1 real, 0 pad): trailing pads of a
+    different length, 1 to S / 2, in each row after the first."""
+    mask = np.ones((rows, S), np.int32)
+    for r in range(1, rows):
+        mask[r, S - 1 - (r * 37) % (S // 2):] = 0
+    return mask
+
+
+def real_rows_err(torch, o, q, k, v, seg):
+    """Max abs difference of the flash route's output ``o`` from the plain
+    bidirectional attention on the real-token rows (segment 1) only: the
+    plain route masks keys alone, so its pad rows differ by design."""
+    from deepspeed_tpu_torch.ops.attention import \
+        plain_bidirectional_attention
+    po = plain_bidirectional_attention(q, k, v, seg)
+    return float((o.float() - po.float()).abs()[seg.bool()].max())
+
+
+def mlm_batch(np, rng, lead, S, V, pad=False, types=False):
+    """bench.py's BERT batch: ids in [0, V), 15 % of the positions
+    labelled with their id and -100 elsewhere (position 0 always
+    labelled).  ``pad``: trailing pads of a different length in each row
+    after the first (1 to S / 2), labels -100 there, ``attention_mask``
+    1 real / 0 pad; ``types``: token types 0, then 1 from the middle."""
+    ids = rng.integers(0, V, lead + (S,), dtype=np.int32)
+    picked = rng.random(ids.shape) < 0.15
+    picked[..., 0] = True
+    b = {"input_ids": ids}
+    if pad:
+        mask = trailing_pads(np, ids.size // S, S).reshape(ids.shape)
+        picked &= mask == 1
+        b["attention_mask"] = mask
+    if types:
+        b["token_type_ids"] = np.broadcast_to(
+            (np.arange(S) >= S // 2).astype(np.int32), ids.shape).copy()
+    b["labels"] = np.where(picked, ids, -100).astype(np.int32)
+    return b
+
+
+def lm_batch(np, rng, lead, S, V):
+    return {"input_ids": rng.integers(0, V, lead + (S,), dtype=np.int32)}
+
+
+def flash_want(family, L, micro_steps):
+    """Exact flash launches of ``micro_steps`` micro-steps under full
+    remat: 2 L forward (the recompute launches it again), L dK/dV, L dQ;
+    none for the plain-attention families."""
+    n = L * micro_steps if family in FLASH_FAMILIES else 0
+    return {"ds_flash_fwd": 2 * n, "ds_flash_bwd_dkv": n,
+            "ds_flash_bwd_dq": n}
+
+
+def path_flash_check(torch, fa, eng, mb, label):
+    """One micro-step of a training path with its flash launches kept
+    (``capture_grouped``), the first forward and backward launch each held
+    against the kernels' plain versions on the same inputs (the path's
+    own q, k, v, dO, lse, delta and segment ids; fp32 o / lse /
+    gradients <= 1e-4 abs, bf16 o <= 2e-2 abs, lse <= 1e-3, gradients
+    <= 2e-2 of each output's max); with segment ids also the forward's
+    real-token rows against the plain route (``real_rows_err``).
+    Launches here are not the path's count (the counts were read
+    before)."""
+    names = ("flash_attention_fwd_cuda", "flash_attention_bwd_cuda")
+    with capture_grouped(fa, names) as cap:
+        eng._loss_and_grads(mb)
+    torch.cuda.synchronize()
+    first = {}
+    for name, args, out in cap.calls:
+        first.setdefault(name, (args, out))
+    del cap
+    with torch.no_grad():
+        return _path_flash_check(torch, fa, first, names, label)
+
+
+def _path_flash_check(torch, fa, calls, names, label):
+    (q, k, v, seg, causal, sm), (o, lse) = calls[names[0]]
+    dt_name = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    ro, rl = fa.flash_attention_fwd_plain(q, k, v, seg, causal, sm)
+    r = {"check": "path_flash", "path": label, "dtype": dt_name,
+         "shape": list(q.shape), "causal": bool(causal),
+         "segments": seg is not None,
+         "max_abs_err_o": float((o.float() - ro.float()).abs().max()),
+         "max_abs_err_lse": float((lse - rl).abs().max())}
+    tol = TOL[dt_name]
+    ok = r["max_abs_err_o"] <= tol["o"] and r["max_abs_err_lse"] <= tol["lse"]
+    if seg is not None and not causal:
+        real = seg.bool()
+        r["max_abs_err_o_real_rows_vs_plain_route"] = e = real_rows_err(
+            torch, o, q, k, v, seg)
+        r["real_rows"], r["pad_rows"] = int(real.sum()), int((~real).sum())
+        ok = ok and e <= tol["o"]
+    args, got = calls[names[1]]
+    ref = fa.flash_attention_bwd_plain(*args)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        e, held = err_of(torch, a, b, dt_name)
+        r[f"max_abs_err_{name}"], r[f"held_{name}"] = e, held
+        ok = ok and held <= BWD_TOL[dt_name]
+    r["tol"], r["bwd_tol"] = tol, BWD_TOL[dt_name]
+    emit(r)
+    check(ok, f"{label}: the path's flash launches vs plain: {r}")
+    return r
+
+
+def named_leaves(tree, prefix=""):
+    out = {}
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            out.update(named_leaves(v, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = v
+    return out
+
+
+def key_bias_cols(family, cfg):
+    """The key bias's columns of ``blocks/qkv_b`` (an analytically zero
+    gradient: a per-query shift of every score; its rounding noise turns
+    into +-lr Adam steps): fused [q | k | v] for GPT-2, BERT and GPT-Neo,
+    head-major [h: q | k | v] for NeoX and BLOOM; none for Llama."""
+    D, H = cfg.d_model, cfg.num_heads
+    hd = D // H
+    if family in ("gpt2", "bert", "gptneo"):
+        return list(range(D, 2 * D))
+    if family in ("neox", "bloom"):
+        return [h * 3 * hd + hd + i for h in range(H) for i in range(hd)]
+    return None
+
+
+def train_parity(torch, dt, fa, family, label, make_model, arms, batches,
+                 lr, L):
+    """fp32 parity through initialize -> train_batch: ``make_model(arm)``
+    for the two arms (the flash kernels against the plain attention, or
+    for the plain-attention families remat against no remat), from the
+    same params drawn on the card and the same batches (gas 2, WarmupLR,
+    clipping): per-step losses within 1e-4 relative, each leaf's
+    difference within PARAM_TOL of its movement from the init (the key
+    bias within Adam's bound), exact flash launches per step (the first
+    arm 2 L / L / L per micro-step under remat for the flash families,
+    0 otherwise; the plain arm none); then the path's first flash
+    launches against the plain versions (``path_flash_check``)."""
+    gas = batches[0]["input_ids"].shape[0]
+    cfg = train_config(batches[0]["input_ids"].shape[1], gas, lr,
+                       gradient_clipping=1.0,
+                       scheduler={"type": "WarmupLR",
+                                  "params": {"warmup_num_steps": 3}})
+    init, runs, path = None, {}, None
+    for arm in arms:
+        model = make_model(arm)
+        if init is None:
+            init = model.init(0, "cuda", torch.float32)
+        eng, *_ = dt.initialize(model=model, config=cfg,
+                                model_parameters=init)
+        losses, per_step = [], []
+        for b in batches:
+            reset_flash(fa)
+            losses.append(float(eng.train_batch(batch=b)))
+            per_step.append(launch_counts(fa))
+        if arm == arms[0] and family in FLASH_FAMILIES:
+            path = path_flash_check(torch, fa, eng, {
+                k: v[0] for k, v in batches[0].items()}, label)
+        runs[arm] = ({k: t.detach() for k, t in
+                      named_leaves(eng.params).items()}, losses, per_step)
+        sched = eng.lr_schedule
+        del eng
+        torch.cuda.empty_cache()
+    (pa, la, ca), (pb, lb, cb) = runs[arms[0]], runs[arms[1]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(la, lb)]
+    kcols = key_bias_cols(family, model.config)
+    adam_bound = 2 * sum(sched(t) for t in range(len(batches)))
+    ratios, kbias = {}, None
+    init_named = named_leaves(init)
+    for name, a in pa.items():
+        b, p0 = pb[name], init_named[name]
+        if name == "blocks/qkv_b" and kcols is not None:
+            kbias = float((a[:, kcols] - b[:, kcols]).abs().max())
+            skip = set(kcols)
+            keep = [c for c in range(a.shape[1]) if c not in skip]
+            a, b, p0 = a[:, keep], b[:, keep], p0[:, keep]
+        ratios[name] = _diff_ratio(torch, a, b, p0)
+    want = flash_want(family, L, gas)
+    plain_want = want if arms[1] == "no_remat" else flash_want("plain", L, 0)
+    report = {"phase": "train_parity", "path": label, "arms": list(arms),
+              "layers": L, "micro": cfg["train_micro_batch_size_per_gpu"],
+              "gas": gas, "seq": batches[0]["input_ids"].shape[-1],
+              "steps": len(batches), f"losses_{arms[0]}": la,
+              f"losses_{arms[1]}": lb, "loss_rel_err": rel,
+              f"launches_per_step_{arms[0]}": ca,
+              f"launches_per_step_{arms[1]}": cb,
+              "want_per_step": want, "param_diff_over_movement": ratios,
+              "max_param_ratio": max(ratios.values()),
+              "key_bias_max_abs_diff": kbias, "key_bias_adam_bound":
+              adam_bound, "param_tol": PARAM_TOL, "path_flash": path}
+    emit(report)
+    check(all(math.isfinite(x) for x in la + lb),
+          f"{label}: non-finite loss {la} {lb}")
+    check(all(r <= 1e-4 for r in rel), f"{label}: losses differ {rel}")
+    check(all(c == want for c in ca), f"{label}: {arms[0]} launches {ca} "
+          f"!= {want} per step")
+    check(all(c == plain_want for c in cb),
+          f"{label}: {arms[1]} launches {cb} != {plain_want} per step")
+    check(max(ratios.values()) <= PARAM_TOL,
+          f"{label}: params differ {ratios}")
+    check(kbias is None or kbias <= adam_bound,
+          f"{label}: key bias {kbias} beyond Adam's bound {adam_bound}")
+    del init
+    torch.cuda.empty_cache()
+    return report
+
+
+def bf16_train_arm(torch, dt, fa, family, label, model, micro, S, warmup,
+                   timed, make_batch, profile=False, path_check=False):
+    """bf16 training at full width through initialize -> train_batch
+    with bench.py's optimizer byte diet (Kahan bf16 masters, bf16
+    moments and gradient accumulation), ZeRO stage 2 on one device, gas
+    1, weights drawn on the card: ``warmup`` steps, then ``timed`` steps
+    with the counts set to 0 just before and read just after (exact
+    flash launches, ``flash_want``); step time, tokens/s, MFU by
+    bench.py's formula ((6 N + 6 L S D) flops a token: its attention
+    term is the causal half of 12 L S D, for BERT too) against 989
+    TFLOP/s, peak memory, losses; optionally one profiled step and the
+    path's first flash launches against the plain versions."""
+    import numpy as np
+    c = model.config
+    cfg = train_config(micro, 1, 1e-4,
+                       bf16={"enabled": True,
+                             "master_weights_dtype": "bfloat16",
+                             "optimizer_states_dtype": "bfloat16"},
+                       data_types={"grad_accum_dtype": "bf16"})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng, *_ = dt.initialize(model=model, config=cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+
+    def batch():
+        return make_batch(np, rng, (1, micro), S, c.vocab_size)
+    losses = [eng.train_batch(batch=batch()) for _ in range(warmup)]
+    steps = [batch() for _ in range(timed)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash(fa)
+    t0 = time.perf_counter()
+    losses += [eng.train_batch(batch=b) for b in steps]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_s = wall / timed
+    tokens_per_s = micro * S / step_s
+    flops_per_token = model.flops_per_token \
+        + 6.0 * c.num_layers * S * c.d_model
+    report = {"phase": "bf16_train", "path": label,
+              "model": model.meta["name"], "layers": c.num_layers,
+              "n_params": model.meta["n_params"], "micro_batch": micro,
+              "seq": S, "init_s": init_s, "warmup_steps": warmup,
+              "timed_steps": timed, "step_s": step_s,
+              "tokens_per_s": tokens_per_s,
+              "flops_per_token": flops_per_token,
+              "mfu": flops_per_token * tokens_per_s / BF16_FLOPS,
+              "peak_allocated_gb": peak / 1e9, "first_loss": losses[0],
+              "last_loss": losses[-1], "losses": losses,
+              "launches": launches}
+    if profile:
+        report["train_profile"] = profile_train_step(torch, eng, batch())
+    if path_check:
+        report["path_flash"] = path_flash_check(
+            torch, fa, eng, {k: v[0] for k, v in batch().items()}, label)
+    emit(report)
+    want = flash_want(family, c.num_layers, timed)
+    check(launches == want, f"{label}: launches {launches} != {want}")
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: non-finite loss {losses}")
+    del eng
+    torch.cuda.empty_cache()
+    return report
+
+
+def bert_shape_inputs(torch, fa, g, B, S, H, hd, seg):
+    """BERT-Large attention inputs as the path gives them: q / k / v
+    strided views of one fused [B, S, 3 H hd] projection (V drawn in
+    [-1, 1)), dO, and ``seg``: trailing pads of 1 to S / 2 positions in
+    each row after the first as segment ids (real 1, pad 0); the forward
+    kernel's lse and delta."""
+    qkv = torch.randn(B, S, 3 * H * hd, generator=g)
+    qkv[..., 2 * H * hd:] = torch.rand(B, S, H * hd, generator=g) * 2 - 1
+    q, k, v = (t.unflatten(-1, (H, hd)) for t in
+               qkv.to("cuda", torch.bfloat16).split(H * hd, dim=-1))
+    do = (torch.rand(B, S, H, hd, generator=g) * 2 - 1).to(
+        "cuda", torch.bfloat16)
+    sg = None
+    if seg:
+        import numpy as np
+        sg = torch.from_numpy(trailing_pads(np, B, S)).cuda()
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, sg, False)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, sg
+
+
+def seg_bound(B, S, H, hd, sg, products, q_side, kv_side, rows):
+    """(bound_ms, bound_by) of non-causal attention work: ``products``
+    matrix products over the (query, key) pairs this run's segment ids
+    leave (every pair without them), tensors moved once as
+    ``attn_bound``."""
+    if sg is None:
+        pairs = B * S * S
+    else:
+        real = sg.sum(-1).double()
+        pairs = int((real ** 2 + (S - real) ** 2).sum())
+    flops = products * 2.0 * pairs * hd * H
+    bytes_ = (q_side + kv_side) * B * S * H * hd * 2 + rows * B * H * S * 4
+    t_ops, t_bytes = flops / BF16_FLOPS, bytes_ / HBM_BPS
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def bert_kernel_phase(torch, F, fa):
+    """Phase 28: the flash forward and backward pair at BERT-Large's
+    pretraining shape (B 32, S 512, H 16, hd 64, bf16, non-causal, the
+    fused-QKV views), without segment ids (bench.py's batch) and with a
+    padding mask as segment ids: each kernel against its plain version
+    (o <= 2e-2 abs, lse <= 1e-3, gradients <= 2e-2 of each output's max;
+    with segments the forward's real rows also against the plain
+    bidirectional attention), then timed (CUDA events; device time)
+    beside the plain version, SDPA (a boolean same-segment mask with
+    segments) and the bound (the pairs the segments leave)."""
+    S, B = BERT_ARMS[0]
+    H, hd = BERT_H, BERT_HD
+    g = torch.Generator(device="cpu").manual_seed(28)
+    out, errs, rel = {}, {}, {}
+    for seg in (False, True):
+        label = "segments" if seg else "no_segments"
+        q, k, v, do, lse, delta, sg = bert_shape_inputs(
+            torch, fa, g, B, S, H, hd, seg)
+        tol = TOL["bfloat16"]
+        o, lk = fa.flash_attention_fwd_cuda(q, k, v, sg, False)
+        ro, rl = fa.flash_attention_fwd_plain(q, k, v, sg, False)
+        row = {"check": "ds_flash_bert_shape", "segments": seg,
+               "shape": [B, S, H, hd], "dtype": "bfloat16",
+               "causal": False, "fused_qkv_views": True,
+               "max_abs_err_o": float((o.float() - ro.float()).abs().max()),
+               "max_abs_err_lse": float((lk - rl).abs().max())}
+        ok = (row["max_abs_err_o"] <= tol["o"]
+              and row["max_abs_err_lse"] <= tol["lse"])
+        if seg:
+            row["max_abs_err_o_real_rows_vs_plain_route"] = e = \
+                real_rows_err(torch, o, q, k, v, sg)
+            ok = ok and e <= tol["o"]
+        errs["ds_flash_fwd"] = max(errs.get("ds_flash_fwd", 0.0),
+                                   row["max_abs_err_o"])
+        got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, delta, sg,
+                                          False)
+        ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, sg,
+                                           False)
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            e, r = err_of(torch, a, b, "bfloat16")
+            row[f"max_abs_err_{name}"], row[f"rel_err_{name}"] = e, r
+            kern = "ds_flash_bwd_dq" if name == "dq" else "ds_flash_bwd_dkv"
+            errs[kern] = max(errs.get(kern, 0.0), e)
+            rel[kern] = max(rel.get(kern, 0.0), r)
+            ok = ok and r <= BWD_TOL["bfloat16"]
+        emit(row)
+        check(ok, f"flash at BERT-Large's shape ({label}): {row}")
+        del o, ro, rl, lk, got, ref
+        torch.cuda.empty_cache()
+        # ---- times on the same inputs
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kw = ({"attn_mask": (sg[:, None, :, None] == sg[:, None, None, :])}
+              if seg else {"is_causal": False})
+        args = (q, k, v, do, lse, delta, sg, False)
+        fwd = {"kernel_ms": time_ms(
+                   lambda: fa.flash_attention_fwd_cuda(q, k, v, sg, False)),
+               "device_ms": device_ms(torch, [
+                   lambda: fa.flash_attention_fwd_cuda(q, k, v, sg, False)],
+                   reps=20, one_kernel=True)[0],
+               "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(
+                   q, k, v, sg, False), reps=5, inner=2),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, **kw)),
+               "library_device_ms": device_ms(torch, [
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)],
+                   reps=20)[0]}
+        fwd["bound_ms"], fwd["bound_by"] = seg_bound(B, S, H, hd, sg, 2, 2,
+                                                     2, 1)
+        dkv = {"kernel_ms": time_ms(
+                   lambda: fa.flash_attention_bwd_dkv_cuda(*args)),
+               "device_ms": device_ms(torch, [
+                   lambda: fa.flash_attention_bwd_dkv_cuda(*args)], reps=20,
+                   one_kernel=True)[0]}
+        dq = {"kernel_ms": time_ms(
+                  lambda: fa.flash_attention_bwd_dq_cuda(*args)),
+              "device_ms": device_ms(torch, [
+                  lambda: fa.flash_attention_bwd_dq_cuda(*args)], reps=20,
+                  one_kernel=True)[0]}
+        dkv["bound_ms"], dkv["bound_by"] = seg_bound(B, S, H, hd, sg, 4, 2,
+                                                     4, 2)
+        dq["bound_ms"], dq["bound_by"] = seg_bound(B, S, H, hd, sg, 3, 3,
+                                                   2, 2)
+        plain = time_ms(lambda: fa.flash_attention_bwd_plain(*args),
+                        reps=5, inner=2)
+        lib = sdpa_bwd_device_ms(torch, F, q, k, v, do, sdpa_kw=kw)
+        for r in (dkv, dq):
+            r.update(plain_ms=plain, library_ms=lib["library"],
+                     library_device_ms=lib["library"],
+                     library_kernels_per_call=lib["library_kernels_per_call"],
+                     plain_and_library_are_for_the_pair=True)
+        pair_bound = seg_bound(B, S, H, hd, sg, 7, 4, 3, 2)
+        out[label] = {"ds_flash_fwd": fwd, "ds_flash_bwd_dkv": dkv,
+                      "ds_flash_bwd_dq": dq, "pair_bound_ms": pair_bound[0],
+                      "pair_bound_by": pair_bound[1],
+                      "real_tokens": int(sg.sum()) if seg else B * S}
+        del q, k, v, do, lse, delta, sg, qt, kt, vt, kw, args
+        torch.cuda.empty_cache()
+    emit({"phase": "bert_kernel_times", "shape": [B, S, H, hd],
+          "dtype": "bfloat16", "causal": False,
+          "times_by": "kernel_ms and library_ms: CUDA events; device_ms and "
+          "library_device_ms: the profiler (SDPA's backward: forward + "
+          "backward less forward)", **out})
+    return out, errs, rel
+
+
+def bert_parity_phase(torch, dt, fa):
+    """Phase 29: fp32 BERT at BERT-Large's widths (4 of its 24 layers),
+    padded MLM batches with token types (``mlm_batch``), the flash
+    kernels (impl "auto": segment ids from the padding mask) against the
+    plain attention (impl "plain") through initialize -> train_batch
+    (``train_parity``)."""
+    import numpy as np
+    from deepspeed_tpu_torch.models.bert import bert_model
+    p = BERT_PARITY
+    rng = np.random.default_rng(29)
+    batches = [mlm_batch(np, rng, (p["gas"], p["micro"]), p["seq"], 30522,
+                         pad=True, types=True) for _ in range(p["steps"])]
+    return train_parity(
+        torch, dt, fa, "bert", "bert_large_fp32_parity",
+        lambda arm: bert_model("large", num_layers=p["layers"],
+                               max_seq_len=p["seq"], dtype="float32",
+                               remat=True, attention_impl=
+                               "auto" if arm == "flash" else "plain"),
+        ("flash", "plain"), batches, 1e-4, p["layers"])
+
+
+def bert_train_phase(torch, dt, fa):
+    """Phase 30, the slice's main path: BERT-Large MLM pretraining at
+    bench.py's BERT arm (24 layers, d 1024, 16 heads, vocab 30522; S 512
+    micro-batch 32, and S 128 micro-batch 128), full remat, the byte
+    diet, 3 warm-up and 10 timed steps (``bf16_train_arm``), a profiled
+    step and the path's own flash launches held at S 512."""
+    from deepspeed_tpu_torch.models.bert import bert_model
+    runs = {}
+    for S, micro in BERT_ARMS:
+        model = bert_model("large", max_seq_len=S, dtype="bfloat16",
+                           remat=True, remat_policy="nothing")
+        label = f"bert_large_s{S}_b{micro}"
+        runs[label] = bf16_train_arm(
+            torch, dt, fa, "bert", label, model, micro, S, 3, 10, mlm_batch,
+            profile=True, path_check=(S, micro) == BERT_ARMS[0])
+        check(abs(runs[label]["first_loss"]
+                  - math.log(model.config.vocab_size)) <= 0.5,
+              f"{label}: first loss {runs[label]['first_loss']} not near "
+              f"ln(V) = {math.log(model.config.vocab_size)}")
+    return runs
+
+
+def family_train_phase(torch, dt, fa):
+    """Phase 31: the families' training.  fp32 parity at 2 layers of each
+    served config's widths (Llama-2 7B, GPT-NeoX-20B: the flash kernels
+    against the plain attention; BLOOM-560m, GPT-Neo 2.7B, whose
+    attention is plain as in the reference: remat against no remat;
+    ``train_parity``), then bf16 at full width with the depth cut for the
+    time limit (``FAMILY_TRAIN``), S 1024, micro-batch 4, 2 warm-up and 5
+    timed steps (``bf16_train_arm``)."""
+    import numpy as np
+    p = FAMILY_PARITY
+    parity, train = {}, {}
+    for family, size, _, _ in FAMILY_TRAIN:
+        arms = (("flash", "plain") if family in FLASH_FAMILIES
+                else ("remat", "no_remat"))
+        rng = np.random.default_rng(31)
+        V = family_model(family, size).config.vocab_size
+        batches = [lm_batch(np, rng, (p["gas"], p["micro"]), p["seq"], V)
+                   for _ in range(p["steps"])]
+
+        def make(arm, family=family, size=size):
+            over = dict(num_layers=p["layers"], dtype="float32",
+                        remat=arm != "no_remat")
+            if family in FLASH_FAMILIES:
+                over["attention_impl"] = "plain" if arm == "plain" else "auto"
+            return family_model(family, size, **over)
+        parity[family] = train_parity(
+            torch, dt, fa, family, f"{family}_{size}_fp32_parity", make,
+            arms, batches, 1e-4, p["layers"])
+    for family, size, layers, of in FAMILY_TRAIN:
+        label = f"{family}_{size}_train_bf16"
+        model = family_model(family, size, num_layers=layers,
+                             dtype="bfloat16", remat=True)
+        train[label] = bf16_train_arm(
+            torch, dt, fa, family, label, model, FAMILY_MICRO, FAMILY_SEQ,
+            FAMILY_WARMUP, FAMILY_TIMED, lm_batch)
+        train[label]["layers_of_published"] = of
+    return parity, train
+
+
 def run_only(torch, only, da, fa):
-    """``--only``: the listed phases among 2, 3, 7, 8 and 11-27 alone,
+    """``--only``: the listed phases among 2, 3, 7, 8 and 11-31 alone,
     after the build, for work on one path (no kernels line)."""
     import torch.nn.functional as F
     import deepspeed_tpu_torch as dt
@@ -6104,7 +6570,11 @@ def run_only(torch, only, da, fa):
         24: lambda: moe_train_kernel_phase(torch, gg, fa),
         25: lambda: moe_train_parity_phase(torch, dt, gg, fa),
         26: lambda: moe_train_bf16_phase(torch, dt, gg, fa),
-        27: lambda: sparse_attention_phase(torch, F, fa)}
+        27: lambda: sparse_attention_phase(torch, F, fa),
+        28: lambda: bert_kernel_phase(torch, F, fa),
+        29: lambda: bert_parity_phase(torch, dt, fa),
+        30: lambda: bert_train_phase(torch, dt, fa),
+        31: lambda: family_train_phase(torch, dt, fa)}
     for n in only:
         check(n in table, f"--only: phase {n} is not one of {sorted(table)}")
         table[n]()
@@ -6261,6 +6731,12 @@ def main():
     torch.cuda.empty_cache()
     sparse = sparse_attention_phase(torch, F, fa)
     torch.cuda.empty_cache()
+    bert_t, bert_errs, bert_rel = bert_kernel_phase(torch, F, fa)
+    torch.cuda.empty_cache()
+    bert_parity_phase(torch, dt, fa)
+    bert_runs = bert_train_phase(torch, dt, fa)
+    _, fam_train = family_train_phase(torch, dt, fa)
+    train10 = {**bert_runs, **fam_train}
     s7 = {f"neox_http_{arm}": run["launches"] for arm, run in neox.items()}
     s7_loads = {"neox_int8_load": neox_loads}
     for fam, label in (("bloom_560m", "bloom"), ("gptneo_2.7b", "gptneo")):
@@ -6289,12 +6765,18 @@ def main():
         errs["decode_attention"] = max(errs["decode_attention"],
                                        e["decode_attention"])
         errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"], e["ds_flash_fwd"])
-    # the flash kernels at the MoE training shape (phase 24)
-    errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"],
-                               mt_flash["errs"]["ds_flash_fwd"])
-    for kern in ("ds_flash_bwd_dkv", "ds_flash_bwd_dq"):
-        bwd_errs[kern] = max(bwd_errs[kern], mt_flash["errs"][kern])
-        bwd_rel[kern] = max(bwd_rel[kern], mt_flash["rel"][kern])
+    # the flash kernels at the MoE training shape (phase 24) and at
+    # BERT-Large's (phase 28)
+    for fl in (mt_flash, {"errs": bert_errs, "rel": bert_rel}):
+        errs["ds_flash_fwd"] = max(errs["ds_flash_fwd"],
+                                   fl["errs"]["ds_flash_fwd"])
+        for kern in ("ds_flash_bwd_dkv", "ds_flash_bwd_dq"):
+            bwd_errs[kern] = max(bwd_errs[kern], fl["errs"][kern])
+            bwd_rel[kern] = max(bwd_rel[kern], fl["rel"][kern])
+
+    def train10_paths(name):
+        """The kernel's launches on slice 10's bf16 training paths."""
+        return {r["path"]: r["launches"][name] for r in train10.values()}
     mtrain = "mixtral_train_bf16"
     llama_load_q = llama_loads["int8"]["launches"]["block_quantize_int8"]
     s7_load_q = {k: v["int8"]["launches"]["block_quantize_int8"]
@@ -6313,18 +6795,21 @@ def main():
                   serve_http=serve_launches["ds_flash_fwd"],
                   train_bf16=train_launches["ds_flash_fwd"],
                   mixtral_http=mix_n["ds_flash_fwd"],
-                  **{mtrain: mt_n["ds_flash_fwd"]}),
+                  **{mtrain: mt_n["ds_flash_fwd"]},
+                  **train10_paths("ds_flash_fwd")),
          errs["ds_flash_fwd"], tols["ds_flash_fwd"]),
         ("ds_flash_bwd_dkv", train_t["ds_flash_bwd_dkv"], "ds_flash_bwd.cu",
          "ds_flash_attention.py:86", *paths_of(
              "ds_flash_bwd_dkv",
              train_bf16=train_launches["ds_flash_bwd_dkv"],
-             **{mtrain: mt_n["ds_flash_bwd_dkv"]}),
+             **{mtrain: mt_n["ds_flash_bwd_dkv"]},
+             **train10_paths("ds_flash_bwd_dkv")),
          bwd_errs["ds_flash_bwd_dkv"], BWD_TOL),
         ("ds_flash_bwd_dq", train_t["ds_flash_bwd_dq"], "ds_flash_bwd.cu",
          "ds_flash_attention.py:160", *paths_of(
              "ds_flash_bwd_dq", train_bf16=train_launches["ds_flash_bwd_dq"],
-             **{mtrain: mt_n["ds_flash_bwd_dq"]}),
+             **{mtrain: mt_n["ds_flash_bwd_dq"]},
+             **train10_paths("ds_flash_bwd_dq")),
          bwd_errs["ds_flash_bwd_dq"], BWD_TOL),
         ("block_quantize_int8", int8_t["block_quantize_int8"],
          "quantization.cu", "quantization.py:57",
@@ -6474,6 +6959,10 @@ def main():
         if name in mt_flash["times"]:
             kernels[-1]["times_at_moe_train_shape"] = \
                 mt_flash["times"][name]
+        if name in bert_t["segments"]:
+            # phase 28: BERT-Large's shape, without and with segment ids
+            kernels[-1]["times_at_bert_shape"] = {
+                label: t10[name] for label, t10 in bert_t.items()}
         if name in moeq_t:
             # context only: torch._grouped_mm on the dequantized bf16 stack
             kernels[-1]["times_by_proj"] = moeq_t[name]

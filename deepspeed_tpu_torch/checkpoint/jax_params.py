@@ -15,8 +15,10 @@ by leaf with the JAX engine's.  ``mixtral_params_from_numpy`` /
 ``neox_params_to_numpy`` for a GPT-NeoX tree (the untied ``embed_out``,
 and ``embed_out_b`` where GPT-J's ``head_bias`` gives one) and
 ``bloom_params_from_numpy`` / ``bloom_params_to_numpy`` for a BLOOM tree
-(the embedding LayerNorm, the head tied to ``wte``).  GPT-Neo has GPT-2's
-layout and takes GPT-2's converters.
+(the embedding LayerNorm, the head tied to ``wte``), and
+``bert_params_from_numpy`` / ``bert_params_to_numpy`` for a BERT tree (the
+MLM head's decoder tied to ``wte``: one leaf, no copy).  GPT-Neo has
+GPT-2's layout and takes GPT-2's converters.
 
 An int8 engine's block weights carry across as they are: a leaf given as
 a ``(q, s)`` pair, or as any object with ``q`` and ``s`` arrays (the JAX
@@ -227,4 +229,35 @@ def bloom_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
 def bloom_params_to_numpy(params: dict) -> dict:
     """The reverse of :func:`bloom_params_from_numpy` (fp32 for floating
     leaves; int8 leaves as ``(q, s)``)."""
+    return _to_numpy(params)
+
+
+BERT_TOP_KEYS = ("wte", "wpe", "wtype", "emb_ln_scale", "emb_ln_bias",
+                 "blocks", "mlm_dense_w", "mlm_dense_b", "mlm_ln_scale",
+                 "mlm_ln_bias", "mlm_bias")
+BERT_BLOCK_KEYS = ("qkv_w", "qkv_b", "proj_w", "proj_b", "ln1_scale",
+                   "ln1_bias", "mlp_in_w", "mlp_in_b", "mlp_out_w",
+                   "mlp_out_b", "ln2_scale", "ln2_bias")
+
+
+def bert_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
+    """numpy BERT params tree (``jax.device_get`` of the JAX package's
+    ``init_params`` or engine params) -> the port's params: the same names
+    and stacked layout on ``device`` (``None``: the GPU), floating leaves
+    cast to ``dtype`` when given.  The MLM decoder has no leaf of its own:
+    it is ``wte``, so the tied weight stays one tensor."""
+    fn = "bert_params_from_numpy"
+    _check_keys(tree, BERT_TOP_KEYS, "top-level", fn)
+    _check_keys(tree["blocks"], BERT_BLOCK_KEYS, "blocks", fn)
+    device = resolve_device(device)
+    out = {k: to_tensor(v, device, dtype) for k, v in tree.items()
+           if k != "blocks"}
+    out["blocks"] = {k: block_leaf(v, device, dtype)
+                     for k, v in tree["blocks"].items()}
+    return out
+
+
+def bert_params_to_numpy(params: dict) -> dict:
+    """The reverse of :func:`bert_params_from_numpy` (fp32 for floating
+    leaves, since numpy has no bfloat16)."""
     return _to_numpy(params)

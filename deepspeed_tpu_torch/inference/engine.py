@@ -5,7 +5,8 @@ the static generate loop.
 KV-cache path (default): prefill fills a [L, B, S_max, KV, hd] cache and
 each decode step runs the decode-attention kernel per layer, so a token
 costs O(S) cache streaming.  ``use_cache=False`` keeps the O(S^2)
-full-recompute loop as the numerics oracle.  Sampling: greedy /
+full-recompute loop as the numerics oracle; a model without the KV-cache
+surface (BERT) takes that loop, as in the reference.  Sampling: greedy /
 temperature / top-k / top-p with EOS early-stop.
 
 Int8 serving, as the reference: ``quant.enabled`` stores every >= 3-dim
@@ -209,7 +210,10 @@ class InferenceEngine:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         sampler = dict(do_sample=do_sample, temperature=temperature,
                        top_k=int(top_k), top_p=float(top_p))
-        if use_cache:
+        cached_ok = (use_cache and self.model.init_cache_fn is not None
+                     and self.model.prefill_fn is not None
+                     and self.model.decode_fn is not None)
+        if cached_ok:
             out = self._generate_cached(input_ids, max_new_tokens, gen,
                                         sampler, eos_token_id, max_ctx,
                                         fused_decode)

@@ -16,7 +16,10 @@ kernel per layer with the reference's spec (head-major QKV, ALiBi).
 Initialisation: :func:`init_params` (on the device),
 :func:`init_quantized_params` (int8 projections, quantized as drawn) and
 :func:`numpy_init_params` (the host init with the reference's scales,
-for the tests).  Not ported here: training (``remat`` raises).
+for the tests).  Training differentiates :func:`forward` under the
+causal-LM loss; its ALiBi attention is the plain einsum, as in the
+reference, with gradients by autograd; with ``remat`` each layer runs
+under ``torch.utils.checkpoint`` (``run_block``, the "nothing" policy).
 """
 from dataclasses import dataclass
 from functools import partial
@@ -26,9 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.models import serving
-from deepspeed_tpu_torch.models.model import (Model, layer_params,
-                                              maybe_stream, numpy_seeded_init,
-                                              qdot, resolve_size,
+from deepspeed_tpu_torch.models.model import (Model, check_remat_policy,
+                                              layer_params, maybe_stream,
+                                              numpy_seeded_init, qdot,
+                                              resolve_size, run_block,
                                               seeded_device_init)
 from deepspeed_tpu_torch.models.neox import _ln, cache_fn, fused_weights
 
@@ -48,10 +52,7 @@ class BloomConfig:
 
     def __post_init__(self):
         if self.remat:
-            raise NotImplementedError(
-                "BloomConfig.remat=True: BLOOM training is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP.md Queue A: other "
-                "families); the port serves BLOOM")
+            check_remat_policy(self.remat_policy)
 
     @property
     def head_dim(self) -> int:
@@ -202,18 +203,25 @@ def head(params, x, config: BloomConfig):
     return x @ params["wte"].to(x.dtype).T
 
 
+def _block(x, layer, slopes, config: BloomConfig, seg=None):
+    """One layer of the full causal forward; x [B, S, D]."""
+    B, S, _ = x.shape
+    q, kk, v = _block_qkv(x, layer, config)
+    attn = _alibi_attention(q, kk, v, slopes, seg)
+    return _block_finish(x, attn.reshape(B, S, -1), layer, config)
+
+
 def forward(params, batch, config: BloomConfig):
-    """Token ids [B, S] -> logits [B, S, V] (the full causal forward)."""
+    """Token ids [B, S] -> logits [B, S, V] (the full causal forward, each
+    layer under ``torch.utils.checkpoint`` with ``remat``)."""
     tokens = batch["input_ids"]
-    B, S = tokens.shape
     slopes = slopes_on(config.num_heads, tokens.device)
     x = embed(params, tokens, config)
     seg = batch.get("segment_ids") if isinstance(batch, dict) else None
     for l in range(config.num_layers):
-        layer = maybe_stream(layer_params(params["blocks"], l))
-        q, kk, v = _block_qkv(x, layer, config)
-        attn = _alibi_attention(q, kk, v, slopes, seg)
-        x = _block_finish(x, attn.reshape(B, S, -1), layer, config)
+        x = run_block(_block, config.remat, x,
+                      maybe_stream(layer_params(params["blocks"], l)),
+                      slopes, config, seg)
     return head(params, x, config)
 
 

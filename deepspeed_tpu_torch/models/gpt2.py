@@ -24,11 +24,9 @@ from functools import partial
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
-
-from deepspeed_tpu_torch.models.model import (Model, layer_params,
-                                              maybe_stream, qdot,
-                                              resolve_size)
+from deepspeed_tpu_torch.models.model import (Model, check_remat_policy,
+                                              layer_params, maybe_stream,
+                                              qdot, resolve_size, run_block)
 from deepspeed_tpu_torch.models.serving import (_fused_layer_pass,
                                                 fused_decode_active,
                                                 qgemm_active, write_token)
@@ -72,24 +70,6 @@ class GPT2Config:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
-
-
-#: the reference's remat policies (``models/gpt2.py`` ``remat_policy``);
-#: only full per-layer remat ("nothing") is ported
-REMAT_POLICIES = ("nothing", "nothing_saveable", "save_attn", "dots",
-                  "dots_saveable", "offload_attn")
-
-
-def check_remat_policy(name):
-    """Refuse an unknown policy (ValueError, as the reference) and an
-    unported one (NotImplementedError naming its ROADMAP item)."""
-    if name not in REMAT_POLICIES and name is not None:
-        raise ValueError(f"unknown remat policy {name!r}")
-    if name not in (None, "nothing", "nothing_saveable"):
-        raise NotImplementedError(
-            f"remat_policy={name!r}: not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP.md Queue A: remat policies); the port runs full "
-            "per-layer remat (\"nothing\")")
 
 
 GPT2_SIZES = {
@@ -238,12 +218,8 @@ def forward(params, batch, config: GPT2Config):
     x = embed(params, batch, config)
     seg = batch.get("segment_ids") if isinstance(batch, dict) else None
     for l in range(config.num_layers):
-        layer = layer_params(params["blocks"], l)
-        if config.remat:
-            x = checkpoint(_block, x, layer, config, seg,
-                           use_reentrant=False)
-        else:
-            x = _block(x, layer, config, seg)
+        x = run_block(_block, config.remat, x,
+                      layer_params(params["blocks"], l), config, seg)
     return head(params, x, config)
 
 

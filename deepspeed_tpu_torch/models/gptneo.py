@@ -16,8 +16,11 @@ reference's never fuses GPT-Neo either (fused decode raises here).
 
 GPT-Neo 2.7B (2.65 B params) is drawn on the device
 (``models/model.py seeded_device_init`` over GPT-2's
-``param_shapes``); the host init is GPT-2's ``numpy_init_params``.  Not
-ported here: training (``remat`` raises).
+``param_shapes``); the host init is GPT-2's ``numpy_init_params``.
+Training differentiates :func:`forward` under the causal-LM loss; the
+banded attention is the plain einsum, as in the reference, with gradients
+by autograd; with ``remat`` each layer runs under
+``torch.utils.checkpoint`` (``run_block``, the "nothing" policy).
 """
 from dataclasses import dataclass
 from functools import partial
@@ -26,8 +29,9 @@ from typing import Tuple
 import torch
 
 from deepspeed_tpu_torch.models import gpt2 as _g
-from deepspeed_tpu_torch.models.model import (Model, layer_params,
-                                              maybe_stream, resolve_size,
+from deepspeed_tpu_torch.models.model import (Model, check_remat_policy,
+                                              layer_params, maybe_stream,
+                                              resolve_size, run_block,
                                               seeded_device_init)
 
 
@@ -53,10 +57,7 @@ class GPTNeoConfig:
 
     def __post_init__(self):
         if self.remat:
-            raise NotImplementedError(
-                "GPTNeoConfig.remat=True: GPT-Neo training is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP.md Queue A: other "
-                "families); the port serves GPT-Neo")
+            check_remat_policy(self.remat_policy)
         if self.attention_layers \
                 and len(self.attention_layers) != self.num_layers:
             raise ValueError(f"GPTNeoConfig: {len(self.attention_layers)} "
@@ -128,18 +129,25 @@ def _banded_attention(q, k, v, window: int, segment_ids=None):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _block(x, layer, window: int, g2: _g.GPT2Config, seg=None):
+    """One layer of the full forward (GPT-2's, the banded attention in
+    place of the causal one); x [B, S, D]."""
+    B, S, D = x.shape
+    q, kk, v = _g._block_qkv(x, layer, g2)
+    attn = _banded_attention(q, kk, v, window, seg)
+    return _g._block_finish(x, attn.reshape(B, S, D), layer, g2)
+
+
 def forward(params, batch, config: GPTNeoConfig):
-    """Token ids [B, S] -> logits [B, S, V] (the full forward)."""
+    """Token ids [B, S] -> logits [B, S, V] (the full forward, each layer
+    under ``torch.utils.checkpoint`` with ``remat``)."""
     g2 = _gpt2_cfg(config)
-    B, S = batch["input_ids"].shape
     x = _g.embed(params, batch, g2)
     seg = batch.get("segment_ids") if isinstance(batch, dict) else None
     for l, window in enumerate(config.windows):
-        layer = maybe_stream(layer_params(params["blocks"], l))
-        q, kk, v = _g._block_qkv(x, layer, g2)
-        attn = _banded_attention(q, kk, v, window, seg)
-        x = _g._block_finish(x, attn.reshape(B, S, config.d_model), layer,
-                             g2)
+        x = run_block(_block, config.remat, x,
+                      maybe_stream(layer_params(params["blocks"], l)),
+                      window, g2, seg)
     return _g.head(params, x, g2)
 
 

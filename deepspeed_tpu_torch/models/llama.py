@@ -23,8 +23,11 @@ a ``torch.Generator`` (``models/model.py seeded_device_init``), and
 is a copy of the reference's host init, so tests give both packages the
 same weights.
 
-Not ported here: training (``remat`` raises; Llama through
-``train_batch`` is a later slice), LoRA serving (a ``lora=`` argument to
+Training differentiates :func:`forward` with autograd under the causal-LM
+loss (``models/model.py default_lm_loss``); the flash kernels run forward
+and backward at the model's head dim, GQA included, and with ``remat``
+each layer runs under ``torch.utils.checkpoint`` (``run_block``, the
+"nothing" policy).  Not ported here: LoRA serving (a ``lora=`` argument to
 prefill / decode raises: ROADMAP.md Queue A: serving extensions), and the
 speculative ``verify_fn`` (speculative decoding is refused by the serving
 config: ROADMAP.md Queue A: serving extensions).
@@ -37,9 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.models import serving
-from deepspeed_tpu_torch.models.model import (Model, layer_params,
-                                              maybe_stream, qdot,
-                                              resolve_size,
+from deepspeed_tpu_torch.models.model import (Model, check_remat_policy,
+                                              layer_params, maybe_stream,
+                                              qdot, resolve_size, run_block,
                                               seeded_device_init)
 from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
 
@@ -129,10 +132,7 @@ class LlamaConfig:
                              f"{self.attention_impl!r}: choose one of "
                              f"{ATTENTION_IMPLS}")
         if self.remat:
-            raise NotImplementedError(
-                "LlamaConfig.remat=True: Llama training is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP.md Queue A: other "
-                "families); the port serves Llama")
+            check_remat_policy(self.remat_policy)
 
     @property
     def head_dim(self) -> int:
@@ -280,19 +280,25 @@ def _block_finish(x, attn_flat, layer, config: LlamaConfig):
     return x + qdot(gated, layer["w_down"])
 
 
+def _block(x, layer, config: LlamaConfig, seg=None):
+    """One decoder layer of the full causal forward; x [B, S, D]."""
+    B, S, _ = x.shape
+    q, kk, v = _block_qkv(x, layer, config)
+    attn = causal_attention(q, kk, v, impl=config.attention_impl,
+                            segment_ids=seg)
+    return _block_finish(x, attn.reshape(B, S, -1), layer, config)
+
+
 def forward(params, batch, config: LlamaConfig):
     """Token ids [B, S] -> logits [B, S, V]: the full causal forward (the
-    tests' oracle)."""
-    tokens = batch["input_ids"]
-    B, S = tokens.shape
-    x = embed(params, tokens, config)
+    training forward, each layer under ``torch.utils.checkpoint`` with
+    ``remat``; the tests' oracle)."""
+    x = embed(params, batch["input_ids"], config)
     seg = batch.get("segment_ids") if isinstance(batch, dict) else None
     for l in range(config.num_layers):
-        layer = maybe_stream(layer_params(params["blocks"], l))
-        q, kk, v = _block_qkv(x, layer, config)
-        attn = causal_attention(q, kk, v, impl=config.attention_impl,
-                                segment_ids=seg)
-        x = _block_finish(x, attn.reshape(B, S, -1), layer, config)
+        x = run_block(_block, config.remat, x,
+                      maybe_stream(layer_params(params["blocks"], l)),
+                      config, seg)
     return head(params, x, config)
 
 

@@ -54,14 +54,12 @@ from functools import partial
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.models import serving
-from deepspeed_tpu_torch.models.gpt2 import check_remat_policy
 from deepspeed_tpu_torch.models.llama import _rms_norm, rope
-from deepspeed_tpu_torch.models.model import (Model, layer_params,
-                                              maybe_stream, qdot,
-                                              resolve_size,
+from deepspeed_tpu_torch.models.model import (Model, check_remat_policy,
+                                              layer_params, maybe_stream,
+                                              qdot, resolve_size, run_block,
                                               seeded_device_init)
 from deepspeed_tpu_torch.moe.layer import MoEConfig, moe_layer
 from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
@@ -243,11 +241,7 @@ def forward_with_aux(params, batch, config: MixtralConfig,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(config.num_layers):
         layer = maybe_stream(layer_params(params["blocks"], l))
-        if config.remat:
-            x, a = checkpoint(_block, x, layer, config, train, seg,
-                              use_reentrant=False)
-        else:
-            x, a = _block(x, layer, config, train, seg)
+        x, a = run_block(_block, config.remat, x, layer, config, train, seg)
         aux = aux + a
     return head(params, x, config), aux
 

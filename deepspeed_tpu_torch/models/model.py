@@ -13,6 +13,7 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.utils.tree import tree_map
@@ -106,6 +107,35 @@ def layer_params(blocks, l: int) -> dict:
     slice both their codes and scales), nested dicts such as Mixtral's
     ``moe`` keeping their structure."""
     return tree_map(lambda a: a[l], blocks)
+
+
+#: the reference's remat policies (``models/gpt2.py`` ``remat_policy``);
+#: only full per-layer remat ("nothing") is ported
+REMAT_POLICIES = ("nothing", "nothing_saveable", "save_attn", "dots",
+                  "dots_saveable", "offload_attn")
+
+
+def check_remat_policy(name):
+    """Refuse an unknown policy (ValueError, as the reference) and an
+    unported one (NotImplementedError naming its ROADMAP item)."""
+    if name not in REMAT_POLICIES and name is not None:
+        raise ValueError(f"unknown remat policy {name!r}")
+    if name not in (None, "nothing", "nothing_saveable"):
+        raise NotImplementedError(
+            f"remat_policy={name!r}: not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP.md Queue A: remat policies); the port runs full "
+            "per-layer remat (\"nothing\")")
+
+
+def run_block(block_fn, remat: bool, *args):
+    """``block_fn(*args)``, one layer of a training forward.  ``remat``:
+    under ``torch.utils.checkpoint`` (non-reentrant), the reference's
+    ``jax.checkpoint`` with the "nothing" policy: only the layer's inputs
+    are kept, and the backward pass runs the whole layer again (its
+    attention kernel's forward included) before differentiating it."""
+    if remat:
+        return checkpoint(block_fn, *args, use_reentrant=False)
+    return block_fn(*args)
 
 
 def seeded_device_init(shapes: dict, seed, device, dtype,

@@ -26,7 +26,9 @@ the same values and quantizes each [layer] slice of the four projection
 stacks as it is drawn; :func:`numpy_init_params` is a host init with the
 reference's scales, for the tests (the reference draws with
 ``jax.random``, so the tests hand the same numpy tree to both packages).
-Not ported here: training (``remat`` raises).
+Training differentiates :func:`forward` under the causal-LM loss, the
+flash kernels forward and backward; with ``remat`` each layer runs under
+``torch.utils.checkpoint`` (``run_block``, the "nothing" policy).
 """
 from dataclasses import dataclass
 from functools import partial
@@ -37,9 +39,10 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.models import serving
 from deepspeed_tpu_torch.models.gpt2 import _layer_norm
 from deepspeed_tpu_torch.models.llama import rope
-from deepspeed_tpu_torch.models.model import (Model, layer_params,
-                                              maybe_stream, numpy_seeded_init,
-                                              qdot, resolve_size,
+from deepspeed_tpu_torch.models.model import (Model, check_remat_policy,
+                                              layer_params, maybe_stream,
+                                              numpy_seeded_init, qdot,
+                                              resolve_size, run_block,
                                               seeded_device_init)
 from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
 
@@ -73,10 +76,7 @@ class NeoXConfig:
                              f"{self.attention_impl!r}: choose one of "
                              f"{ATTENTION_IMPLS}")
         if self.remat:
-            raise NotImplementedError(
-                "NeoXConfig.remat=True: GPT-NeoX training is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP.md Queue A: other "
-                "families); the port serves GPT-NeoX")
+            check_remat_policy(self.remat_policy)
 
     @property
     def head_dim(self) -> int:
@@ -207,18 +207,24 @@ def head(params, x, config: NeoXConfig):
     return logits
 
 
+def _block(x, layer, config: NeoXConfig, seg=None):
+    """One layer of the full causal forward; x [B, S, D]."""
+    B, S, _ = x.shape
+    q, kk, v = _block_qkv(x, layer, config)
+    attn = causal_attention(q, kk, v, impl=config.attention_impl,
+                            segment_ids=seg)
+    return _block_finish(x, attn.reshape(B, S, -1), layer, config)
+
+
 def forward(params, batch, config: NeoXConfig):
-    """Token ids [B, S] -> logits [B, S, V] (the full causal forward)."""
-    tokens = batch["input_ids"]
-    B, S = tokens.shape
-    x = embed(params, tokens, config)
+    """Token ids [B, S] -> logits [B, S, V] (the full causal forward, each
+    layer under ``torch.utils.checkpoint`` with ``remat``)."""
+    x = embed(params, batch["input_ids"], config)
     seg = batch.get("segment_ids") if isinstance(batch, dict) else None
     for l in range(config.num_layers):
-        layer = maybe_stream(layer_params(params["blocks"], l))
-        q, kk, v = _block_qkv(x, layer, config)
-        attn = causal_attention(q, kk, v, impl=config.attention_impl,
-                                segment_ids=seg)
-        x = _block_finish(x, attn.reshape(B, S, -1), layer, config)
+        x = run_block(_block, config.remat, x,
+                      maybe_stream(layer_params(params["blocks"], l)),
+                      config, seg)
     return head(params, x, config)
 
 

@@ -66,8 +66,10 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 def model_from_spec(spec: str, **overrides):
     """``arch:size`` -> Model, e.g. ``gpt2:760m``, ``llama:7b``,
-    ``mixtral:8x7b``, ``neox:20b``, ``bloom:560m`` or ``gptneo:2.7b``.
-    Other architectures (BERT) raise."""
+    ``mixtral:8x7b``, ``neox:20b``, ``bloom:560m``, ``gptneo:2.7b`` or
+    ``bert:large`` (the reference's registry).  BERT has no KV-cache
+    serving surface, so the scheduler refuses it, as the reference's."""
+    from deepspeed_tpu_torch.models.bert import bert_model
     from deepspeed_tpu_torch.models.bloom import bloom_model
     from deepspeed_tpu_torch.models.gpt2 import gpt2_model
     from deepspeed_tpu_torch.models.gptneo import gptneo_model
@@ -76,13 +78,12 @@ def model_from_spec(spec: str, **overrides):
     from deepspeed_tpu_torch.models.neox import neox_model
     registry = {"gpt2": gpt2_model, "llama": llama_model,
                 "mixtral": mixtral_model, "neox": neox_model,
-                "bloom": bloom_model, "gptneo": gptneo_model}
+                "bloom": bloom_model, "gptneo": gptneo_model,
+                "bert": bert_model}
     arch, _, size = spec.partition(":")
     if arch not in registry:
-        raise ValueError(
-            f"model arch {arch!r} is not ported to deepspeed_tpu_torch yet "
-            f"(ROADMAP.md Queue A: other families); choose from "
-            f"{sorted(registry)}")
+        raise ValueError(f"unknown model arch {arch!r}; "
+                         f"choose from {sorted(registry)}")
     return registry[arch](size or "custom", **overrides)
 
 

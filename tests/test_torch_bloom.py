@@ -143,13 +143,14 @@ def test_device_init_is_seeded_and_quantizes_as_drawn():
 
 def test_spec_and_refusals():
     """The fused spec is the reference's (head-major QKV, ALiBi, tanh
-    GELU, serial residual); training is refused."""
+    GELU, serial residual); remat policies other than "nothing" are
+    refused (training itself: tests/test_torch_family_train.py)."""
     s = pbl.bloom_model("560m").fused_spec
     assert (s.qkv, s.alibi, s.residual, s.mlp, s.rotary_dims,
             s.head_dim) == ("headmajor", True, "serial", "gelu_tanh", 0, 64)
     assert s.supported()
-    with pytest.raises(NotImplementedError, match="Queue A: other families"):
-        pbl.BloomConfig(remat=True)
+    with pytest.raises(NotImplementedError, match="remat policies"):
+        pbl.BloomConfig(remat=True, remat_policy="offload_attn")
 
 
 # ------------------------------------------------------------ serving

@@ -83,6 +83,7 @@ print(json.dumps({"modules": mods, "bad": bad}))
               "deepspeed_tpu_torch.models.neox",
               "deepspeed_tpu_torch.models.bloom",
               "deepspeed_tpu_torch.models.gptneo",
+              "deepspeed_tpu_torch.models.bert",
               "deepspeed_tpu_torch.ops.sparse_attention",
               "deepspeed_tpu_torch.ops.kernels.block_sparse_attention"):
         assert m in res["modules"]
@@ -94,7 +95,7 @@ print(json.dumps({"modules": mods, "bad": bad}))
     "models.model", "serving.server", "ops.kernels.grouped_gemm",
     "moe.layer", "models.mixtral", "models.serving", "models.neox",
     "models.bloom", "models.gptneo", "ops.sparse_attention",
-    "ops.kernels.block_sparse_attention"])
+    "ops.kernels.block_sparse_attention", "models.bert", "ops.attention"])
 def test_each_module_imports_on_its_own(module):
     """Imported first in a fresh interpreter (as chip_smoke.py and a user
     script may): no import cycle between the kernels and the models."""

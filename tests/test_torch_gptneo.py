@@ -105,7 +105,8 @@ def test_device_init_has_the_gpt2_layout():
 
 def test_fused_decode_and_training_refused():
     """No fused spec takes a window: asking for fused decode raises (the
-    reference quietly runs GPT-Neo unfused)."""
+    reference quietly runs GPT-Neo unfused); so does an unported remat
+    policy (training itself: tests/test_torch_family_train.py)."""
     _, _, pm, peng = _engines()
     assert pm.fused_spec is None
     with pytest.raises(NotImplementedError, match="wires no fused-layer"):
@@ -115,8 +116,8 @@ def test_fused_decode_and_training_refused():
     with pytest.raises(NotImplementedError, match="wires no fused-layer"):
         pm.decode_fn(peng.params, torch.tensor([3]), cache,
                      torch.tensor([4], dtype=torch.int32), fused=True)
-    with pytest.raises(NotImplementedError, match="Queue A: other families"):
-        pgn.GPTNeoConfig(remat=True)
+    with pytest.raises(NotImplementedError, match="remat policies"):
+        pgn.GPTNeoConfig(remat=True, remat_policy="save_attn")
 
 
 # ------------------------------------------------------------ serving

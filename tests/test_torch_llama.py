@@ -144,8 +144,8 @@ def test_device_init_is_seeded_and_quantizes_as_drawn():
 
 
 def test_refusals_name_their_queue():
-    with pytest.raises(NotImplementedError, match="Queue A: other families"):
-        pll.LlamaConfig(remat=True)
+    with pytest.raises(NotImplementedError, match="remat policies"):
+        pll.LlamaConfig(remat=True, remat_policy="save_attn")
     pm = pll.llama_model("tiny", dtype="float32")
     with pytest.raises(NotImplementedError, match="serving extensions"):
         pm.prefill_fn({}, {"input_ids": torch.zeros(1, 4)}, {}, lora={})

@@ -150,8 +150,8 @@ def test_spec_and_refusals():
     with pytest.raises(NotImplementedError, match="rotary_interleaved"):
         ContinuousBatchingScheduler(gptj, params,
                                     ServingConfig(fused_decode=True))
-    with pytest.raises(NotImplementedError, match="Queue A: other families"):
-        pnx.NeoXConfig(remat=True)
+    with pytest.raises(NotImplementedError, match="remat policies"):
+        pnx.NeoXConfig(remat=True, remat_policy="dots")
 
 
 # ------------------------------------------------------------ serving

@@ -121,8 +121,16 @@ def test_parse_generate_body_defaults():
 
 
 def test_unported_arch_refused():
-    with pytest.raises(ValueError, match="not ported"):
-        model_from_spec("bert:tiny")
+    """Every arch of the reference's registry builds (BERT since it was
+    ported); another arch raises, and the scheduler refuses BERT, which
+    has no KV-cache serving surface (as the reference's does)."""
+    with pytest.raises(ValueError, match="unknown model arch"):
+        model_from_spec("t5:small")
+    bert = model_from_spec("bert:custom", vocab_size=64, max_seq_len=16,
+                           num_layers=1, num_heads=2, d_model=32)
+    params = bert.init(0, "cpu")
+    with pytest.raises(ValueError, match="KV-cache serving surface"):
+        ContinuousBatchingScheduler(bert, params, ServingConfig())
 
 
 def test_drain_stops_the_loop():
