@@ -12,11 +12,15 @@ width with the grouped MoE dispatch, runs block-sparse attention
 forward and backward at GPT-2 760M's attention width and S 16384, trains
 BERT-Large (MLM pretraining at bench.py's BERT arm) and Llama-2 7B,
 GPT-NeoX-20B, BLOOM-560m and GPT-Neo 2.7B at full width (depth cut),
-through the port's own entry points.
+trains GPT-2 760M in fp16 on the fp16 forms of the flash kernels and
+checkpoints it (async save, a fresh engine loads and resumes bit for
+bit), checkpoints MoE training with the residual MoE and the noisy gate
+and the bf16 byte diet the same way, and serves Mixtral's einsum
+dispatch, through the port's own entry points.
 
     python3 chip_smoke.py                # every phase
-    python3 chip_smoke.py --only 20,21   # the build, then phases 2, 3, 7,
-                                         # 8, 11-31 as listed (no
+    python3 chip_smoke.py --only 20,21   # the build, then phases 2-4,
+                                         # 7-9, 11-36 as listed (no
                                          # kernels line)
 
 Phases (any failed check exits non-zero before the final line):
@@ -69,8 +73,9 @@ Phases (any failed check exits non-zero before the final line):
   4. fp32 serving at full width: init_inference -> scheduler with a pool
      small enough to force a preemption; eight greedy requests must be
      token-identical to the static generate, two last-step decode logits
-     within 1e-3 of a full forward with the plain attention, and the
-     kernel launch counts must be 24 per prefill / per decode step;
+     within 1e-3 of a full forward with the plain attention and head, and
+     the kernel launch counts must be 24 per prefill / per decode step
+     and one tied fp32 head (ds_ggemm_t, through rows_matmul) each;
   5. bf16 over HTTP (the serving main path): eight concurrent requests,
      one of them sampled and repeated; prefill / decode / gather times,
      tokens/s and TTFT;
@@ -128,8 +133,9 @@ Phases (any failed check exits non-zero before the final line):
      layer's attention half) token-identical to it; exact launch counts
      (per decode step 3 L slot + L decode, fused 3 L slot + L fused; per
      prefill L flash + 3 L ggemm above a 64-token bucket, else 3 L
-     slot), teacher-forced decode logits within 1e-3 of a full forward
-     with the plain kernels;
+     slot; one fp32 head, ds_ggemm through rows_matmul, a prefill and a
+     decode step), teacher-forced decode logits within 1e-3 of a full
+     forward with the plain kernels and head;
   13. bf16 Mixtral-8x7B widths at 4 of its 32 layers over HTTP (slice
      4's main path, its depth cut for the smoke's time limit): the
      device init, phase 5's eight requests,
@@ -162,8 +168,10 @@ Phases (any failed check exits non-zero before the final line):
      grouped or qgemm launch in prefill); the scheduler token-identical
      to the static generate (int8 cache: every request not preempted,
      at 8 and 96; the rows of qgemm at M 1, 8 and 96 and of the expert
-     GEMMs at R 2, 16 and 192 held equal, the rows that still change with
-     M reported), the
+     GEMMs at R 2, 16 and 192 and the fp32 lm_head at M 1, 8 and 96
+     held equal, none left changing with M; head_dot held against an
+     fp64 product at every fp32 head of the smoke's models, rows 1, 8,
+     96 and 912), the
      fused arm to the unfused one; on the
      float cache teacher-forced
      decode logits within 1e-3 of a full forward with the plain kernels;
@@ -323,6 +331,35 @@ Phases (any failed check exits non-zero before the final line):
      24, GPT-Neo 2.7B 8 of 32), S 1024, micro-batch 4, the byte diet, 2
      warm-up and 5 timed steps: step time, tokens/s, MFU, peak memory,
      exact launch counts.
+  32. the fp16 forms of the flash forward, dK/dV and dQ kernels against
+     their plain versions at every head dim (the training shape, GQA,
+     segment ids, non-causal, a ragged S, fused-QKV views; o <= 5e-3 abs,
+     lse <= 1e-3, gradients <= 1e-2 of each output's max), two launches
+     and row 0 at B 1 vs B 4 bit-identical, the range sweep (dO times
+     2^0 .. 2^15 at GPT-2's head shape: the kernels and the plain
+     versions overflow the same outputs at every scale, max |dS| beside
+     it), then GPT-2 760M's training shape without and with segment ids
+     timed (CUDA events, device time) beside the plain versions, SDPA in
+     fp16 and the bound;
+  33. GPT-2 760M in fp16 (the slice's main path: bench.py's shapes, 24
+     layers, micro-batch 12, seq 1024, full remat, dynamic loss scale
+     from 2^16, fp32 masters and moments): 3 steps, an async
+     save_checkpoint, 3 more steps at once; a fresh engine (params zeros)
+     load_checkpoints and takes the same 3 steps: losses, loss scales,
+     skipped steps and params bit-identical; exact flash launches, all
+     fp16 forms; step time, MFU, peak memory, the scale trajectory, the
+     checkpoint's bytes, the save, commit and load times;
+  34. mixtral:1b-moe at full width, bf16 with the byte diet, grouped
+     dispatch, the residual MoE and the noisy gate ("Jitter"): the same
+     round trip, bit-identical, exact grouped and flash launches;
+  35. the bf16 byte-diet GPT-2 at the 760M widths, 4 of 24 layers (cut
+     for time): the same round trip (synchronous save), bit-identical
+     (the Kahan compensation is saved);
+  36. Mixtral-8x7B widths at 2 layers, fp32, serving.moe_dispatch
+     "einsum" through init_inference -> the scheduler (a pool that forces
+     a preemption): greedy tokens identical to the static generate under
+     the same dispatch, no expert GEMM launch (ds_ggemm: the fp32 head
+     alone, one a prefill and a decode step).
 Every serving phase (9, 10, 15, 16, 18, 19, 21-23) also holds qgemm's tile
 form (M > 128) at no launch.
 Earlier lines are JSON objects; the line before the last two is the
@@ -954,8 +991,10 @@ def fp32_phase(torch, dt, da, fa):
     # growth then runs the pool dry and forces a preemption
     scfg = ServingConfig(num_blocks=140)
     sched = ContinuousBatchingScheduler(model, eng.params, scfg)
+    from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
     da.decode_attention.launches = 0
     fa.flash_attention_fwd.launches = 0
+    gg.ds_ggemm.transpose_launches = 0
     t0 = time.perf_counter()
     reqs = [sched.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
             for p in prompts]
@@ -963,8 +1002,10 @@ def fp32_phase(torch, dt, da, fa):
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     c = sched.metrics.counters
+    # the tied fp32 head (head_dot -> rows_matmul) is ds_ggemm_t's
     launches = {"decode_attention": da.decode_attention.launches,
-                "ds_flash_fwd": fa.flash_attention_fwd.launches}
+                "ds_flash_fwd": fa.flash_attention_fwd.launches,
+                "ds_ggemm_t": gg.ds_ggemm.transpose_launches}
     emit({"phase": "fp32_serve", "init_s": init_s, "serve_s": serve_s,
           "prefills": c["prefills"], "decode_steps": c["decode_steps"],
           "preemptions": c["preemptions"], "resumed": c["resumed"],
@@ -979,6 +1020,9 @@ def fp32_phase(torch, dt, da, fa):
     check(launches["decode_attention"] == LAYERS * c["decode_steps"],
           f"fp32: decode launches {launches['decode_attention']} != "
           f"{LAYERS} x {c['decode_steps']} decode steps")
+    check(launches["ds_ggemm_t"] == c["prefills"] + c["decode_steps"],
+          f"fp32: head launches {launches['ds_ggemm_t']} != one a prefill "
+          f"and one a decode step")
     mismatched = []
     for p, r in zip(prompts, reqs):
         ref = eng.generate(p, max_new_tokens=MAX_NEW)[0, p.size:]
@@ -1007,7 +1051,8 @@ def fp32_phase(torch, dt, da, fa):
                     eng.params, ids[:, pos],
                     cache, torch.tensor([pos], dtype=torch.int32,
                                         device="cuda"))
-            full = plain.apply(eng.params, {"input_ids": ids})[:, -1]
+            with plain_head():
+                full = plain.apply(eng.params, {"input_ids": ids})[:, -1]
             e = float((logits - full).abs().max())
             worst = max(worst, e)
             emit({"phase": "fp32_logits", "prompt_len": n,
@@ -1385,6 +1430,16 @@ def reset_flash(fa):
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.dkv_launches = 0
     fa.flash_attention_bwd.dq_launches = 0
+    fa.flash_attention_fwd.f16_launches = 0
+    fa.flash_attention_bwd.dkv_f16_launches = 0
+    fa.flash_attention_bwd.dq_f16_launches = 0
+
+
+def f16_launch_counts(fa):
+    """The fp16 forms' launches among ``launch_counts``."""
+    return {"ds_flash_fwd_f16": fa.flash_attention_fwd.f16_launches,
+            "ds_flash_bwd_dkv_f16": fa.flash_attention_bwd.dkv_f16_launches,
+            "ds_flash_bwd_dq_f16": fa.flash_attention_bwd.dq_f16_launches}
 
 
 def fp32_train_phase(torch, dt, da, fa):
@@ -1440,8 +1495,9 @@ GROUPED_CATEGORY = "grouped GEMM (hand kernels)"
 KERNEL_CATEGORIES = (
     (GROUPED_CATEGORY, ("ggemm_kernel", "ggemm_t_kernel", "tgmm_kernel",
                         "ggemm_hopper")),
-    ("flash attention (hand kernels)", ("flash_fwd_bf16", "flash_bwd_bf16",
-                                        "dkv_bf16", "dq_bf16")),
+    ("flash attention (hand kernels)", ("flash_fwd_h", "flash_bwd_h",
+                                        "dkv_f32", "dq_f32",
+                                        "flash_fwd_f32")),
     ("GEMM (cuBLAS / CUTLASS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("reductions (softmax, LayerNorm, norms)", ("reduce", "softmax",
                                                  "norm", "nll")),
@@ -2571,6 +2627,22 @@ def reset_moe_counts(gg, da, fa):
     da.decode_attention.launches = da.decode_attention.int8_launches = 0
 
 
+class plain_head:
+    """Within the block, the fp32 LM head on the card (``head_dot``)
+    takes the plain product ``x @ w`` instead of ``rows_matmul``: a
+    plain reference's head stays independent of the kernel under test.
+    The wrapper is restored after."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
+        self.gg, self.saved = gg, gg.rows_matmul
+        gg.rows_matmul = lambda x, w, transpose_w=False: \
+            x @ (w.T if transpose_w else w)
+
+    def __exit__(self, *exc):
+        self.gg.rows_matmul = self.saved
+
+
 class plain_grouped_gemm:
     """Within the block, the MoE layer's grouped GEMMs take their plain
     versions on the card (the full-forward oracle); the wrappers and
@@ -2605,10 +2677,11 @@ def mixtral_parity_phase(torch, gg, da, fa):
     layer's attention half, the experts after it) token-identical to the
     unfused scheduler on both caches; exact launch counts (per decode
     step 3 L slot + L decode, fused: 3 L slot + L fused and no decode,
-    no ggemm; per
+    no expert ggemm; per
     prefill L flash plus 3 L ggemm for a prompt bucket above 64 tokens,
-    else 3 L slot); teacher-forced decode logits within 1e-3 of a full
-    forward with the plain kernels."""
+    else 3 L slot; the fp32 head, ds_ggemm through rows_matmul, once a
+    prefill and once a decode step); teacher-forced decode logits within
+    1e-3 of a full forward with the plain kernels and head."""
     from deepspeed_tpu_torch.inference.config import \
         DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
@@ -2649,8 +2722,10 @@ def mixtral_parity_phase(torch, gg, da, fa):
             big = sum(1 for _, sp, _ in sched.metrics.prefill_s
                       if 2 * sp > 128)
             dec = 0 if fused else L * steps
+            # ds_ggemm: the experts, and the fp32 head (rows_matmul) once
+            # a prefill and once a decode step
             want = {"ds_fused_layer": L * steps if fused else 0,
-                    "ds_ggemm": 3 * L * big,
+                    "ds_ggemm": 3 * L * big + prefills + steps,
                     "ds_ggemm_slots": 3 * L * (steps + prefills - big),
                     "ds_flash_fwd": L * prefills,
                     "decode_attention": 0 if kv else dec,
@@ -2703,7 +2778,7 @@ def mixtral_parity_phase(torch, gg, da, fa):
                 logits, cache = model.decode_fn(
                     eng.params, ids[:, pos], cache,
                     torch.tensor([pos], dtype=torch.int32, device="cuda"))
-            with plain_grouped_gemm(gg):
+            with plain_grouped_gemm(gg), plain_head():
                 full = plain.apply(eng.params, {"input_ids": ids})[:, -1]
             e = float((logits - full).abs().max())
             worst = max(worst, e)
@@ -3195,8 +3270,12 @@ def row_dependence(torch, gg, qg, params, D):
     M), held equal; the gate experts through ds_ggemm_slots_q at R 2 (one
     token's two routed rows, as the generate runs them) and R 16, and
     ds_ggemm_q at R 192 (96 tokens), the first token's rows compared, held
-    equal (both sum a row in one fmaf chain over K in order); the lm_head
-    GEMM (cuBLAS) at M 1, 8 and 96 (reported)."""
+    equal (both sum a row in one fmaf chain over K in order); the fp32
+    lm_head through the model's ``head_dot`` (``rows_matmul``: the grouped
+    GEMM's fp32 kernel over one group) at M 1, 8 and 96, held equal, with
+    cuBLAS's ``x @ lm_head`` beside it (reported), and the cost at the
+    phase's largest prefill (M 912) and the 96-row decode: both timed
+    (CUDA events, ms a call)."""
     from deepspeed_tpu_torch.models.model import layer_params
     g = torch.Generator(device="cuda").manual_seed(71)
     x = torch.randn(96, D, generator=g, device="cuda")
@@ -3213,8 +3292,24 @@ def row_dependence(torch, gg, qg, params, D):
                          (1, 8, 96))
         check(all(out[name].values()), f"row_dependence {name}: row 0's "
               f"bits change with M {out[name]}")
-    out["cublas_lm_head"] = same(lambda M: (x[:M] @ params["lm_head"])[0],
-                                 (1, 8, 96))
+    from deepspeed_tpu_torch.models.model import head_dot
+    with torch.no_grad():
+        out["lm_head"] = same(lambda M: head_dot(x[:M],
+                                                 params["lm_head"])[0],
+                              (1, 8, 96))
+        check(all(out["lm_head"].values()), f"row_dependence lm_head: row "
+              f"0's bits change with M {out['lm_head']}")
+        cub = same(lambda M: (x[:M] @ params["lm_head"])[0], (1, 8, 96))
+        xp = torch.randn(912, D, generator=g, device="cuda")
+        cost = {}
+        for label, rows in (("prefill_912", xp), ("decode_96", x)):
+            cost[label] = {
+                "rows_matmul_ms": time_ms(lambda: head_dot(
+                    rows, params["lm_head"]), reps=5, inner=3),
+                "cublas_ms": time_ms(lambda: rows @ params["lm_head"],
+                                     reps=5, inner=3)}
+    emit({"check": "rows_matmul_lm_head", "cublas_row_0": cub,
+          "cost": cost, "shape": [D, int(params["lm_head"].shape[1])]})
     wg = layer["moe"]["w_gate"]
     E = wg.q.shape[0]
     eids = torch.randint(0, E, (192,), generator=g, device="cuda")
@@ -3237,6 +3332,77 @@ def row_dependence(torch, gg, qg, params, D):
     return out
 
 
+#: head_dot against an fp64 product: max |error| over logits of O(1)
+#: (x ~ N(0, 1), weights ~ N(0, 0.02))
+HEAD_TOL = 1e-4
+#: the rows the serving paths give the head: phase 15's largest prefill
+#: bucket, the 96-sequence decode, the 8-sequence decode, the generate
+HEAD_ROWS = (912, 96, 8, 1)
+
+
+def head_value_checks(torch, gg):
+    """Every fp32 LM head the smoke's models serve, through the models'
+    ``head_dot`` (``rows_matmul``: ds_ggemm, or ds_ggemm_t for a tied
+    [V, D] head), at HEAD_ROWS rows: held within HEAD_TOL of the fp64
+    product on the same inputs (the ragged vocabulary tail included),
+    each call one launch of its kernel, and row 0's bits the same at
+    every row count; cuBLAS's fp32 ``x @ w`` error beside it
+    (reported)."""
+    from deepspeed_tpu_torch.models.bloom import bloom_model
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_model
+    from deepspeed_tpu_torch.models.gptneo import gptneo_model
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    from deepspeed_tpu_torch.models.model import head_dot
+    from deepspeed_tpu_torch.models.neox import neox_model
+    heads = {"gpt2_760m_wte": (gpt2_model("760m").config, True),
+             "gptneo_2.7b_wte": (gptneo_model("2.7b").config, True),
+             "bloom_560m_wte": (bloom_model("560m").config, True),
+             "mixtral_8x7b_llama_7b_lm_head":
+                 (mixtral_model("8x7b").config, False),
+             "neox_20b_embed_out": (neox_model("20b").config, False)}
+    g = torch.Generator(device="cuda").manual_seed(73)
+    out = {}
+    for name, (cfg, tied) in heads.items():
+        D, V = cfg.d_model, cfg.vocab_size
+        x = torch.randn(max(HEAD_ROWS), D, generator=g, device="cuda")
+        w = torch.randn(*((V, D) if tied else (D, V)), generator=g,
+                        device="cuda") * 0.02
+        ref = x.double() @ (w.T if tied else w).double()
+        row = {"shape": [D, V], "tied": tied}
+        with torch.no_grad():
+            first = None
+            for M in HEAD_ROWS:
+                gg.ds_ggemm.launches = gg.ds_ggemm.transpose_launches = 0
+                got = head_dot(x[:M], w, transpose_w=tied)
+                n = gg.ds_ggemm.transpose_launches if tied \
+                    else gg.ds_ggemm.launches
+                cub = x[:M] @ (w.T if tied else w)
+                torch.cuda.synchronize()
+                first = got[:1] if first is None else first
+                row[f"M_{M}"] = {
+                    "max_abs_err": float((got.double() - ref[:M]).abs()
+                                         .max()),
+                    "tail_max_abs_err": float((got[:, -64:].double()
+                                               - ref[:M, -64:]).abs().max()),
+                    "cublas_max_abs_err": float((cub.double() - ref[:M])
+                                                .abs().max()),
+                    "launches": n,
+                    "row_0_equals_max_rows": bool(torch.equal(got[:1],
+                                                              first)),
+                    "finite": bool(torch.isfinite(got).all())}
+                del got, cub
+        out[name] = row
+        bad = {M: r for M, r in row.items() if isinstance(r, dict) and not (
+            r["max_abs_err"] <= HEAD_TOL and r["launches"] == 1
+            and r["row_0_equals_max_rows"] and r["finite"])}
+        emit({"check": "head_dot_values", "head": name, "tol": HEAD_TOL,
+              **row})
+        check(not bad, f"head_dot {name}: {bad}")
+        del x, w, ref
+        torch.cuda.empty_cache()
+    return out
+
+
 def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
     """Phase 15: fp32 int8 Mixtral-8x7B widths at 2 layers, at
     max_num_seqs 8 (the slot arm, unfused and fused) and 96 (the
@@ -3252,8 +3418,9 @@ def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
     scheduler's 16-token bucket, so at max_num_seqs 8 and 96 every request
     that was not preempted is held token-identical to the static generate
     (at 96 the decode runs ds_ggemm_q where the one-row generate runs the
-    slot kernel: ``row_dependence`` holds their rows, and qgemm's at M 1,
-    8 and 96, equal, and names the rows that still change with M); a
+    slot kernel: ``row_dependence`` holds their rows, qgemm's at M 1, 8
+    and 96 and the fp32 lm_head's, equal, and no row left changing with
+    M); a
     preempted request re-prefills its generated tail (its K/V then come
     from the prefill's GEMMs, not the decode's, and an int8 cache turns
     a last-bit difference into a whole code step), so its identity is
@@ -3324,7 +3491,8 @@ def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
                         "ds_ggemm_q": 0 if slot else 3 * L * steps,
                         "qgemm": (1 if fused else 5) * L * steps,
                         "block_quantize_int8": 0,
-                        "ds_ggemm": 3 * L * big,
+                        # the experts, and the fp32 head (rows_matmul)
+                        "ds_ggemm": 3 * L * big + prefills + steps,
                         "ds_ggemm_slots": 3 * L * (prefills - big),
                         "ds_flash_fwd": L * prefills,
                         "decode_attention": 0 if kv else dec,
@@ -3378,11 +3546,14 @@ def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
                 del sched
     report["row_dependence"] = row_dependence(torch, gg, qg, params,
                                               model.config.d_model)
-    # what still changes with the rows beside it (cuBLAS's fp32 lm_head,
-    # queue C 2: the logits, not the cache), beside the wide int8 arm
+    report["head_values"] = head_value_checks(torch, gg)
+    # no product of the path changes with the rows beside it (queue C 2,
+    # closed: the fp32 lm_head on rows_matmul), beside the wide int8 arm
     report["rows_depending_on_M"] = sorted(
         name for name, same in report["row_dependence"].items()
         if not all(same.values()))
+    check(not report["rows_depending_on_M"], f"fp32 int8 mixtral: rows "
+          f"that change with M {report['rows_depending_on_M']}")
     del engines[None]
     # teacher-forced decode through the int8 kernels (float cache) against
     # a full forward on the dequantized layers with the plain kernels
@@ -3402,7 +3573,7 @@ def mixtral_int8_parity_phase(torch, gg, qz, qg, da, fa):
                 logits, cache = model.decode_fn(
                     params, ids[:, pos], cache,
                     torch.tensor([pos], dtype=torch.int32, device="cuda"))
-            with plain_grouped_gemm(gg):
+            with plain_grouped_gemm(gg), plain_head():
                 full = plain.apply(params, {"input_ids": ids})[:, -1]
             worst = max(worst, float((logits - full).abs().max()))
     report.update(teacher_forced_max_abs_err=worst, tol=1e-3)
@@ -3532,7 +3703,7 @@ def mixtral_int8_http_phase(torch, gg, qz, qg, da, fa):
 
 # --------------------------------------------- Llama serving (slice 6)
 LLAMA_D, LLAMA_M, LLAMA_KV, LLAMA_HD = 4096, 11008, 32, 128
-LLAMA_LAYERS = 32           # llama:7b, nothing cut
+LLAMA_LAYERS = 32           # llama:7b, nothing cut (phases 17, 19)
 LLAMA_PARITY_LAYERS = 4
 
 
@@ -3819,7 +3990,8 @@ def llama_parity_phase(torch, da, fa):
                 toks = list(prompts[i]) + outs[False][i][:-1]
                 n0 = len(prompts[i])
                 ids = torch.tensor([toks], dtype=torch.int32, device="cuda")
-                full = plain.apply(params, {"input_ids": ids})[:, -1]
+                with plain_head():
+                    full = plain.apply(params, {"input_ids": ids})[:, -1]
                 for fused in (False, True):
                     cache = model.init_cache_fn(1, -(-len(toks) // 64) * 64,
                                                 torch.float32, "cuda")
@@ -3858,7 +4030,8 @@ def llama_http_phase(torch, da, fa):
     qz, qg, fd = int8_modules()
     gc.collect()
     torch.cuda.empty_cache()
-    model = llama_model("7b", dtype="bfloat16")
+    model = llama_model("7b", dtype="bfloat16",
+                        num_layers=LLAMA_LAYERS)
     L = model.config.num_layers
     prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=1)
     out = {"phase": "bf16_llama_http", "layers": L,
@@ -3926,7 +4099,7 @@ def llama_http_phase(torch, da, fa):
 
 
 # ------------------------------------------- slice 7: NeoX, BLOOM, GPT-Neo
-NEOX_LAYERS = 44            # neox:20b, nothing cut
+NEOX_LAYERS = 44            # neox:20b, nothing cut (phases 20, 22)
 FAMILY_PARITY_LAYERS = 4
 GPTNEO_WINDOW = 256
 
@@ -4578,7 +4751,9 @@ def slice7_parity_phase(torch, da, fa):
                     n0 = len(prompts[i])
                     ids = torch.tensor([toks], dtype=torch.int32,
                                        device="cuda")
-                    full = plain.apply(params, {"input_ids": ids})[:, -1]
+                    with plain_head():
+                        full = plain.apply(params,
+                                           {"input_ids": ids})[:, -1]
                     for fused in ((False, True) if has_fused else (False,)):
                         cache = model.init_cache_fn(
                             1, -(-len(toks) // 64) * 64, torch.float32,
@@ -4678,7 +4853,7 @@ def neox_http_phase(torch, da, fa):
     at all 44 layers and full width, bf16, over HTTP: bf16 fused off and
     on, then int8 weights + int8 KV cache fused on."""
     from deepspeed_tpu_torch.models.neox import neox_model
-    model = neox_model("20b", dtype="bfloat16")
+    model = neox_model("20b", dtype="bfloat16", num_layers=NEOX_LAYERS)
     L = model.config.num_layers
     loads, runs = family_http(
         torch, da, fa, model, "neox",
@@ -6531,8 +6706,510 @@ def family_train_phase(torch, dt, fa):
     return parity, train
 
 
+# ------------------------------------------------------ fp16 (slice 11)
+#: the fp16 forms' tolerances: o abs (v in [-1, 1), where one fp16 ulp is
+#: 2^-10), lse abs; gradients relative to each output's max
+TOL16 = {"o": 5e-3, "lse": 1e-3}
+BWD_TOL16 = 1e-2
+#: dO scales of the fp16 range sweep (powers of two, as a loss scale; dO
+#: is drawn in [-1, 1), so up to 2^15 it stays finite in fp16 while its
+#: dS passes fp16's 65504)
+F16_SCALE_POWERS = (0, 4, 8, 10, 12, 14, 15)
+
+
+def f16_case(torch, fa, g, B, S, H, KV, hd, causal, seg, fused,
+             do_scale=1.0):
+    """One fp16 case against the plain versions: the forward's o and lse,
+    then the backward on the kernel forward's (o, lse) with dO times
+    ``do_scale``.  Returns (row, errs, rel, (got, ref)) with got / ref the
+    backward's (dq, dk, dv)."""
+    q, k, v, do, lse, delta, sg = bwd_inputs(
+        torch, fa, g, B, S, H, KV, hd, torch.float16, causal, seg, fused)
+    if do_scale != 1.0:
+        do = (do.float() * do_scale).half()
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v, sg, causal)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+    o, lk = fa.flash_attention_fwd_cuda(q, k, v, sg, causal)
+    ro, rl = fa.flash_attention_fwd_plain(q, k, v, sg, causal)
+    got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, delta, sg, causal)
+    ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta, sg, causal)
+    torch.cuda.synchronize()
+    errs = {"ds_flash_fwd_f16": float((o.float() - ro.float()).abs().max())}
+    row = {"check": "ds_flash_f16", "shape": [B, S, H, KV, hd],
+           "causal": causal, "segments": seg, "fused_qkv_views": fused,
+           "do_scale": do_scale, "max_abs_err_o": errs["ds_flash_fwd_f16"],
+           "max_abs_err_lse": float((lk - rl).abs().max()),
+           "tol_o": TOL16["o"], "tol_lse": TOL16["lse"],
+           "tol_grads_rel_to_max": BWD_TOL16}
+    rel = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        fin = torch.isfinite(b.float())
+        e = float((a.float() - b.float())[fin].abs().max()) \
+            if bool(fin.any()) else 0.0
+        r = e / max(float(b.float()[fin].abs().max()) if bool(fin.any())
+                    else 0.0, 1e-30)
+        row[f"max_abs_err_{name}"], row[f"rel_err_{name}"] = e, r
+        kern = "ds_flash_bwd_dq_f16" if name == "dq" \
+            else "ds_flash_bwd_dkv_f16"
+        errs[kern] = max(errs.get(kern, 0.0), e)
+        rel[kern] = max(rel.get(kern, 0.0), r)
+    return row, errs, rel, (got, ref), (q, k, v, do, lse, delta, sg)
+
+
+def f16_kernel_phase(torch, F, fa):
+    """Phase 32: the fp16 forms of the flash forward, dK/dV and dQ
+    kernels against their plain versions at every head dim (the training
+    shape, GQA, segment ids, non-causal, a ragged S, strided fused-QKV
+    views), the identity checks, the range sweep (dO times 2^0 .. 2^15:
+    the kernels and the plain versions overflow the same outputs at
+    every scale, the loss scaler's skip decision), then GPT-2 760M's
+    training shape with and without segment ids, timed (CUDA events,
+    device time, each kernel's one launch a call, held at or above its
+    bound) beside the plain versions, SDPA in fp16 and the bound.
+    Returns (times, errs, rel)."""
+    g = torch.Generator(device="cpu").manual_seed(1616)
+    H = TRAIN_H
+    cases = [(2, TRAIN_S, H, H, True, False, False),
+             (2, TRAIN_S, 8, 2, True, False, False),
+             (2, 272, H, 4, True, True, False),
+             (2, 272, H, H, False, False, False),
+             (1, 912, H, H, True, False, True)]
+    errs, rel = {}, {}
+
+    def hold(row, e, r, label):
+        for d, src in ((errs, e), (rel, r)):
+            for kname, val in src.items():
+                d[kname] = max(d.get(kname, 0.0), val)
+        emit(row)
+        check(row["max_abs_err_o"] <= TOL16["o"]
+              and row["max_abs_err_lse"] <= TOL16["lse"]
+              and max(row[f"rel_err_{n}"] for n in ("dq", "dk", "dv"))
+              <= BWD_TOL16, f"fp16 flash {label}: {row}")
+    for hd in fa.HEAD_DIMS:
+        for (B, S, Hq, KV, causal, seg, fused) in cases:
+            row, e, r, _, _ = f16_case(torch, fa, g, B, S, Hq, KV, hd,
+                                       causal, seg, fused)
+            hold(row, e, r, f"{(B, S, Hq, KV, hd)}")
+    # identity: two launches, and batch row 0 at B 1 vs B 4
+    for hd in fa.HEAD_DIMS:
+        q, k, v, do, lse, delta, _ = bwd_inputs(
+            torch, fa, g, 4, 1024, 16, 16, hd, torch.float16, True, False,
+            False)
+        f1 = fa.flash_attention_fwd_cuda(q, k, v)
+        f2 = fa.flash_attention_fwd_cuda(q, k, v)
+        fb = fa.flash_attention_fwd_cuda(q[:1], k[:1], v[:1])
+        b1 = fa.flash_attention_bwd_cuda(q, k, v, do, lse, delta)
+        b2 = fa.flash_attention_bwd_cuda(q, k, v, do, lse, delta)
+        bb = fa.flash_attention_bwd_cuda(q[:1], k[:1], v[:1], do[:1],
+                                         lse[:1], delta[:1])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(f1 + b1, f2 + b2))
+        row0 = all(torch.equal(a[:1], b) for a, b in zip(f1 + b1, fb + bb))
+        emit({"check": "ds_flash_f16_identity", "shape": [4, 1024, 16, 16,
+                                                          hd],
+              "two_launches_bit_identical": same,
+              "row_0_at_B_1_vs_B_4_bit_identical": row0})
+        check(same and row0, f"fp16 flash hd {hd}: two launches identical "
+              f"{same}, row 0 at B 1 vs B 4 {row0}")
+    # the range sweep at GPT-2's head shape: the kernels and the plain
+    # versions must overflow the same outputs (the loss scaler's skip),
+    # and agree where finite; max |dS| beside it (fp16 ends at 65504)
+    sweep = []
+    for pw in F16_SCALE_POWERS:
+        row, e, r, (got, ref), ins = f16_case(
+            torch, fa, torch.Generator(device="cpu").manual_seed(1617),
+            2, TRAIN_S, H, H, TRAIN_HD, True, False, False,
+            do_scale=float(2 ** pw))
+        q, k, v, do, lse, delta, _ = ins
+        with torch.no_grad():      # max |P (dP - delta)| in fp32
+            s_ = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+                * TRAIN_HD ** -0.5
+            s_ = s_.masked_fill(~torch.ones(TRAIN_S, TRAIN_S, dtype=torch.bool,
+                                            device="cuda").tril(),
+                                float("-inf"))
+            pp = torch.exp(s_ - lse[..., None])
+            dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+            ds_max = float((pp * (dp - delta[..., None])).abs().max())
+            del s_, pp, dp
+        flags = {n: [bool((~torch.isfinite(a)).any()),
+                     bool((~torch.isfinite(b)).any())]
+                 for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
+        row.update(scale_power=pw, max_abs_ds=ds_max,
+                   ds_beyond_fp16=ds_max > 65504.0,
+                   nonfinite_kernel_vs_plain=flags)
+        emit(row)
+        sweep.append({"scale_power": pw, "max_abs_ds": ds_max,
+                      "nonfinite_kernel_vs_plain": flags})
+        check(all(a == b for a, b in flags.values()),
+              f"fp16 flash at dO x 2^{pw}: the kernels and the plain "
+              f"versions overflow different outputs {flags}")
+        check(max(row[f"rel_err_{n}"] for n in ("dq", "dk", "dv"))
+              <= BWD_TOL16, f"fp16 flash at dO x 2^{pw}: {row}")
+        del got, ref, ins
+    # GPT-2 760M's training shape, the main path's inputs (fused views),
+    # without and with segment ids; timed
+    times = {}
+    for label, seg in (("no_segments", False), ("segments", True)):
+        B, S, hd = TRAIN_B, TRAIN_S, TRAIN_HD
+        row, e, r, _, ins = f16_case(torch, fa, g, B, S, H, H, hd, True,
+                                     seg, True)
+        hold(row, e, r, f"training shape {label}")
+        q, k, v, do, lse, delta, sg = ins
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        mask = None
+        if seg:
+            mask = (sg[:, None, :, None] == sg[:, None, None, :]) & \
+                torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+        kw = {"is_causal": True} if mask is None else {"attn_mask": mask}
+        fwd = {"kernel_ms": time_ms(
+                   lambda: fa.flash_attention_fwd_cuda(q, k, v, sg)),
+               "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(
+                   q, k, v, sg), reps=5, inner=3),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, **kw)),
+               "device_ms": device_ms(torch, [
+                   lambda: fa.flash_attention_fwd_cuda(q, k, v, sg)],
+                   reps=20, one_kernel=True)[0],
+               "library_device_ms": device_ms(torch, [
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)],
+                   reps=20)[0]}
+        fwd["bound_ms"], fwd["bound_by"] = attn_bound(B, S, H, H, hd, 2,
+                                                      True, 2, 2, 1)
+        args = (q, k, v, do, lse, delta, sg)
+        dkv = {"kernel_ms": time_ms(
+                   lambda: fa.flash_attention_bwd_dkv_cuda(*args)),
+               "device_ms": device_ms(torch, [
+                   lambda: fa.flash_attention_bwd_dkv_cuda(*args)], reps=20,
+                   one_kernel=True)[0]}
+        dq = {"kernel_ms": time_ms(
+                  lambda: fa.flash_attention_bwd_dq_cuda(*args)),
+              "device_ms": device_ms(torch, [
+                  lambda: fa.flash_attention_bwd_dq_cuda(*args)], reps=20,
+                  one_kernel=True)[0]}
+        dkv["bound_ms"], dkv["bound_by"] = attn_bound(B, S, H, H, hd, 4,
+                                                      True, 2, 4, 2)
+        dq["bound_ms"], dq["bound_by"] = attn_bound(B, S, H, H, hd, 3, True,
+                                                    3, 2, 2)
+        plain = time_ms(lambda: fa.flash_attention_bwd_plain(*args),
+                        reps=5, inner=3)
+        ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(ql, kl, vl, **kw)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (ql, kl, vl), dot)
+        lib = time_ms(sdpa_fwd_bwd) - time_ms(sdpa)
+        lib_dev = sdpa_bwd_device_ms(torch, F, q, k, v, do, sdpa_kw=kw)
+        for r_ in (dkv, dq):
+            r_.update(plain_ms=plain, library_ms=lib,
+                      library_device_ms=lib_dev["library"],
+                      library_kernels_per_call=lib_dev[
+                          "library_kernels_per_call"],
+                      plain_and_library_are_for_the_pair=True)
+        times[label] = {"ds_flash_fwd_f16": fwd, "ds_flash_bwd_dkv_f16": dkv,
+                        "ds_flash_bwd_dq_f16": dq}
+        # a device time under the bound is a measurement that lost records
+        low = {n: (t["device_ms"], t["bound_ms"])
+               for n, t in times[label].items()
+               if not t["device_ms"] >= t["bound_ms"]}
+        check(not low, f"fp16 flash {label}: device ms under the bound {low}")
+        del ins, args, q, k, v, do, ql, kl, vl
+        torch.cuda.empty_cache()
+    emit({"phase": "f16_kernel_times", "dtype": "float16",
+          "shape": [TRAIN_B, TRAIN_S, TRAIN_H, TRAIN_HD], "causal": True,
+          "fused_qkv_views": True, "range_sweep": sweep, **times})
+    return times, errs, rel
+
+
+#: the round trips' steps: before the save, after it (the uninterrupted
+#: run) and again from a fresh engine that loads the checkpoint
+RT_STEPS = 3
+
+
+def ckpt_root(torch, need_bytes, label):
+    """A fresh temporary directory on local disk for one round trip's
+    checkpoint; fails when the filesystem has less than twice the state's
+    bytes free (the npz is written beside the state it replaces)."""
+    import shutil
+    import tempfile
+    base = tempfile.gettempdir()
+    free = shutil.disk_usage(base).free
+    check(free >= 2 * need_bytes, f"{label}: {free / 1e9:.1f} GB free under "
+          f"{base}, the checkpoint needs {2 * need_bytes / 1e9:.1f} GB")
+    return tempfile.mkdtemp(prefix=f"ds_ckpt_{label}_", dir=base), free
+
+
+def roundtrip_arm(torch, dt, label, make_model, cfg, micro, S, counts,
+                  reset, want=None):
+    """One training round trip through the port's entry points: a fresh
+    engine (weights drawn on the card) takes RT_STEPS steps and
+    ``save_checkpoint`` (``checkpoint.async_save`` in ``cfg`` puts the
+    write in the background), then RT_STEPS more at once; a second fresh
+    engine (its params zeros) ``load_checkpoint``s the tag and takes the
+    same RT_STEPS.
+    Returns the report; ``resume_bit_identical``: the resumed losses,
+    loss scales, skipped steps and final params equal the uninterrupted
+    run's bit for bit.  ``counts`` / ``reset`` read and zero the kernel
+    launch counts: zeroed before the first step, read after the
+    uninterrupted run's last (``want``: the exact counts, if given)."""
+    import numpy as np
+    import shutil
+    from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
+    model = make_model()
+    c = model.config
+    rng = np.random.default_rng(0)
+    batches = [lm_batch(np, rng, (1, micro), S, c.vocab_size)
+               for _ in range(2 * RT_STEPS)]
+
+    def steps(eng, bs):
+        out = {"losses": [], "loss_scales": [], "step_ms": []}
+        for b in bs:
+            t0 = time.perf_counter()
+            loss = float(eng.train_batch(batch=b))
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(loss)
+            out["loss_scales"].append(eng.loss_scale)
+        out["skipped_steps"] = eng.skipped_steps
+        return out
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng, *_ = dt.initialize(model=model, config=cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = sum(
+        (v.numel() * v.element_size() if torch.is_tensor(v) else 4)
+        for v in eng.state_leaves().values())
+    root, free = ckpt_root(torch, state_bytes, label)
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    before = steps(eng, batches[:RT_STEPS])
+    t0 = time.perf_counter()
+    eng.save_checkpoint(root)
+    save_s = time.perf_counter() - t0
+    after = steps(eng, batches[RT_STEPS:])
+    launches = counts()
+    eng.wait_pending_checkpoint()
+    times = dict(eng.checkpoint_times)
+    peak = torch.cuda.max_memory_allocated()
+    final = [p.detach().clone() for p in tree_leaves(eng.params)]
+    # the fresh engine starts from zeros (the load must set every leaf;
+    # a second host init of the weights would only cost time)
+    zeros = tree_map(lambda p: torch.zeros_like(p.detach()), eng.params)
+    del eng
+    torch.cuda.empty_cache()
+    eng2, *_ = dt.initialize(model=make_model(), config=cfg,
+                             model_parameters=zeros)
+    del zeros
+    t0 = time.perf_counter()
+    path, _ = eng2.load_checkpoint(root)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    resumed = steps(eng2, batches[RT_STEPS:])
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(final, tree_leaves(eng2.params)))
+    worst = max(float((a.detach().float() - b.detach().float()).abs().max())
+                for a, b in zip(final, tree_leaves(eng2.params)))
+    ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(path) for f in fs)
+    shutil.rmtree(root, ignore_errors=True)
+    del eng2, final
+    torch.cuda.empty_cache()
+    same = {k: after[k] == resumed[k]
+            for k in ("losses", "loss_scales", "skipped_steps")}
+    same["params"] = same_params
+    report = {"path": label, "model": model.meta["name"],
+              "layers": c.num_layers, "n_params": model.meta["n_params"],
+              "micro_batch": micro, "seq": S, "init_s": init_s,
+              "before_save": before, "after_save": after,
+              "resumed": resumed, "launches": launches,
+              "peak_allocated_gb": peak / 1e9,
+              "step_ms_steady": statistics.median(
+                  before["step_ms"][1:] + after["step_ms"]),
+              "checkpoint_bytes": ckpt_bytes, "state_bytes": state_bytes,
+              "disk_free_gb": free / 1e9, "save_s": save_s,
+              "save_blocking_s": times.get("save_s"),
+              "commit_s": times.get("commit_s"), "load_s": load_s,
+              "identical": same, "resume_max_abs_param_diff": worst,
+              "resume_bit_identical": all(same.values())}
+    check(all(math.isfinite(x) for x in before["losses"] + after["losses"]
+              + resumed["losses"]) or before["skipped_steps"] > 0,
+          f"{label}: non-finite loss {report}")
+    if want is not None:
+        check(launches == want, f"{label}: launches {launches} != {want}")
+    return report
+
+
+def f16_train_phase(torch, dt, fa):
+    """Phase 33, the slice's main path: GPT-2 760M at bench.py's shapes
+    (24 layers, d 1536, micro-batch 12, seq 1024, full remat) in fp16
+    with dynamic loss scaling (initial_scale_power 16), Adam's moments
+    and the masters fp32, ``checkpoint.async_save``; the round trip of
+    ``roundtrip_arm`` held bit-identical; exact flash launches, every one
+    an fp16 form's."""
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_model
+    cfg = train_config(TRAIN_B, 1, 1e-4, fp16={"enabled": True},
+                       checkpoint={"async_save": True})
+
+    def make():
+        return gpt2_model("760m", max_seq_len=TRAIN_S, dtype="float16",
+                          remat=True, remat_policy="nothing")
+    want = flash_want("gpt2", 24, 2 * RT_STEPS)
+    report = roundtrip_arm(
+        torch, dt, "gpt2_760m_train_fp16", make, cfg, TRAIN_B, TRAIN_S,
+        lambda: {**launch_counts(fa), **f16_launch_counts(fa)},
+        lambda: reset_flash(fa),
+        want={**want, **{k + "_f16": v for k, v in want.items()}})
+    # fp16 MoE on the card is refused until the grouped kernels have an
+    # fp16 form, by the queue item's name
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    try:
+        dt.initialize(model=mixtral_model("tiny", dtype="float16"),
+                      config=train_config(2, 1, 1e-4,
+                                          fp16={"enabled": True}))
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    check(refused is not None and "fp16 grouped and block-sparse kernels"
+          in refused, f"fp16 MoE on the card was not refused: {refused}")
+    report["fp16_moe_refusal"] = refused
+    model = make()
+    flops = model.flops_per_token + 6.0 * 24 * TRAIN_S * 1536
+    report.update(phase="fp16_train", flops_per_token=flops,
+                  tokens_per_s=TRAIN_B * TRAIN_S
+                  / (report["step_ms_steady"] / 1e3),
+                  mfu=flops * TRAIN_B * TRAIN_S
+                  / (report["step_ms_steady"] / 1e3) / BF16_FLOPS)
+    emit(report)
+    check(report["resume_bit_identical"], f"fp16 GPT-2 760M: the resumed "
+          f"run differs from the uninterrupted one {report['identical']}")
+    return report
+
+
+def moe_roundtrip_phase(torch, dt, gg, fa):
+    """Phase 34: mixtral:1b-moe at full width (8 layers, nothing cut),
+    bf16 with bench.py's byte diet, grouped dispatch, the residual MoE
+    and the noisy gate ("Jitter"), seq 1024, micro-batch 8, full remat:
+    the round trip (``roundtrip_arm``) and exact grouped / flash launches
+    of its uninterrupted run; bit-identity reported (an atomic op on the
+    path would break it: none is known)."""
+    cfg = train_config(MT_B, 1, 1e-4,
+                       bf16={"enabled": True,
+                             "master_weights_dtype": "bfloat16",
+                             "optimizer_states_dtype": "bfloat16"},
+                       data_types={"grad_accum_dtype": "bf16"},
+                       checkpoint={"async_save": True})
+
+    def make():
+        return mt_model("bfloat16", max_seq_len=MT_S, moe_dispatch="grouped",
+                        use_residual=True, noisy_gate_policy="Jitter")
+    report = roundtrip_arm(
+        torch, dt, "mixtral_1b_moe_residual_jitter_bf16", make, cfg, MT_B,
+        MT_S, lambda: moe_train_counts(gg, fa),
+        lambda: reset_moe_train_counts(gg, fa),
+        want=moe_train_want(8, 2 * RT_STEPS))
+    report["phase"] = "moe_roundtrip"
+    emit(report)
+    check(report["resume_bit_identical"], f"MoE round trip: the resumed "
+          f"run differs from the uninterrupted one {report['identical']}, "
+          f"max param diff {report['resume_max_abs_param_diff']}")
+    return report
+
+
+def diet_roundtrip_phase(torch, dt, fa):
+    """Phase 35: the bf16 byte-diet GPT-2 (Kahan bf16 masters, bf16
+    moments and gradients) at the 760M widths, 4 of 24 layers (cut for
+    time), micro-batch 12, seq 1024: the round trip (synchronous save)
+    held bit-identical, which needs the Kahan compensation saved."""
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_model
+    cfg = train_config(TRAIN_B, 1, 1e-4,
+                       bf16={"enabled": True,
+                             "master_weights_dtype": "bfloat16",
+                             "optimizer_states_dtype": "bfloat16"},
+                       data_types={"grad_accum_dtype": "bf16"})
+
+    def make():
+        return gpt2_model("760m", max_seq_len=TRAIN_S, dtype="bfloat16",
+                          num_layers=4, remat=True, remat_policy="nothing")
+    report = roundtrip_arm(
+        torch, dt, "gpt2_760m_4_layers_bf16_diet", make, cfg, TRAIN_B,
+        TRAIN_S, lambda: launch_counts(fa), lambda: reset_flash(fa),
+        want=flash_want("gpt2", 4, 2 * RT_STEPS))
+    report["phase"] = "diet_roundtrip"
+    emit(report)
+    check(report["resume_bit_identical"], f"bf16 diet round trip: the "
+          f"resumed run differs {report['identical']}")
+    return report
+
+
+def einsum_serving_phase(torch, gg, da, fa):
+    """Phase 36: Mixtral-8x7B widths at 2 layers in fp32 with
+    ``serving.moe_dispatch="einsum"`` (the GShard capacity tensors in
+    plain PyTorch; eval capacity drop-free) through init_inference -> the
+    scheduler (a pool that forces a preemption): the greedy tokens equal
+    the static generate's under the same dispatch; no expert GEMM launch
+    (ds_ggemm counts the fp32 head alone), the flash and decode kernels
+    as phase 12 counts them."""
+    from deepspeed_tpu_torch.models.mixtral import mixtral_model
+    from deepspeed_tpu_torch.moe.layer import dispatch_scope
+    from deepspeed_tpu_torch.runtime.config import ServingConfig
+    from deepspeed_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                             RequestState, SamplingParams)
+    import deepspeed_tpu_torch as dt
+    L = 2
+    t0 = time.perf_counter()
+    model = mixtral_model("8x7b", num_layers=L, dtype="float32")
+    eng = dt.init_inference(model, {"dtype": "float32"})
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = prompts_for(PROMPT_LENS, model.config.vocab_size, seed=7)
+    sched = ContinuousBatchingScheduler(
+        model, eng.params, ServingConfig(num_blocks=140,
+                                         moe_dispatch="einsum"))
+    reset_moe_counts(gg, da, fa)
+    t0 = time.perf_counter()
+    reqs = [sched.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
+            for p in prompts]
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = moe_counts(gg, da, fa)
+    c = sched.metrics.counters
+    mismatched = []
+    with dispatch_scope("einsum"):
+        for p, r in zip(prompts, reqs):
+            ref = eng.generate(p, max_new_tokens=MAX_NEW)[0, p.size:]
+            if list(ref) != list(r.output_ids):
+                mismatched.append(int(p.size))
+    # ds_ggemm: the fp32 head (rows_matmul) alone, once a prefill and
+    # once a decode step; no expert GEMM
+    want = {"ds_ggemm": c["prefills"] + c["decode_steps"],
+            "ds_ggemm_slots": 0, "ds_fused_layer": 0,
+            "ds_flash_fwd": L * c["prefills"],
+            "decode_attention": L * c["decode_steps"],
+            "decode_attention_int8": 0}
+    report = {"phase": "einsum_serving", "layers": L, "init_s": init_s,
+              "wall_s": wall, "prefills": c["prefills"],
+              "decode_steps": c["decode_steps"],
+              "preemptions": c["preemptions"], "launches": n, "want": want,
+              "token_identical_to_static_generate": not mismatched,
+              "mismatched_prompts": mismatched}
+    emit(report)
+    check(all(r.state == RequestState.FINISHED
+              and r.num_generated == MAX_NEW for r in reqs),
+          "einsum serving: not every request finished")
+    check(c["preemptions"] >= 1, "einsum serving: no preemption forced")
+    check(n == want, f"einsum serving: launches {n} != {want}")
+    check(not mismatched, f"einsum serving: scheduler != static generate "
+          f"for prompt lengths {mismatched}")
+    del sched, eng
+    torch.cuda.empty_cache()
+    return report
+
+
 def run_only(torch, only, da, fa):
-    """``--only``: the listed phases among 2, 3, 7, 8 and 11-31 alone,
+    """``--only``: the listed phases among 2-4, 7-9 and 11-36 alone,
     after the build, for work on one path (no kernels line)."""
     import torch.nn.functional as F
     import deepspeed_tpu_torch as dt
@@ -6541,6 +7218,9 @@ def run_only(torch, only, da, fa):
     table = {
         2: lambda: (kernel_phase(torch, da, fa),
                     kernel_times_phase(torch, F, da, fa)),
+        4: lambda: fp32_phase(torch, dt, da, fa),
+        9: lambda: no_qgemm_tile(9, lambda: int8_parity_phase(torch, da,
+                                                              fa)),
         3: lambda: (bwd_kernel_phase(torch, fa), emit(
             {"phase": "train_kernel_times", **train_kernel_times(
                 torch, F, fa)[0]})),
@@ -6574,7 +7254,12 @@ def run_only(torch, only, da, fa):
         28: lambda: bert_kernel_phase(torch, F, fa),
         29: lambda: bert_parity_phase(torch, dt, fa),
         30: lambda: bert_train_phase(torch, dt, fa),
-        31: lambda: family_train_phase(torch, dt, fa)}
+        31: lambda: family_train_phase(torch, dt, fa),
+        32: lambda: f16_kernel_phase(torch, F, fa),
+        33: lambda: f16_train_phase(torch, dt, fa),
+        34: lambda: moe_roundtrip_phase(torch, dt, gg, fa),
+        35: lambda: diet_roundtrip_phase(torch, dt, fa),
+        36: lambda: einsum_serving_phase(torch, gg, da, fa)}
     for n in only:
         check(n in table, f"--only: phase {n} is not one of {sorted(table)}")
         table[n]()
@@ -6737,6 +7422,16 @@ def main():
     bert_runs = bert_train_phase(torch, dt, fa)
     _, fam_train = family_train_phase(torch, dt, fa)
     train10 = {**bert_runs, **fam_train}
+    torch.cuda.empty_cache()
+    f16_t, f16_errs, f16_rel = f16_kernel_phase(torch, F, fa)
+    torch.cuda.empty_cache()
+    f16_run = f16_train_phase(torch, dt, fa)
+    moe_rt = moe_roundtrip_phase(torch, dt, gg, fa)
+    diet_rt = diet_roundtrip_phase(torch, dt, fa)
+    einsum_serving_phase(torch, gg, da, fa)
+    #: slice 11's bf16 round trips, by path: their uninterrupted runs'
+    #: launches
+    rt_paths = {r["path"]: r["launches"] for r in (moe_rt, diet_rt)}
     s7 = {f"neox_http_{arm}": run["launches"] for arm, run in neox.items()}
     s7_loads = {"neox_int8_load": neox_loads}
     for fam, label in (("bloom_560m", "bloom"), ("gptneo_2.7b", "gptneo")):
@@ -6775,8 +7470,12 @@ def main():
             bwd_rel[kern] = max(bwd_rel[kern], fl["rel"][kern])
 
     def train10_paths(name):
-        """The kernel's launches on slice 10's bf16 training paths."""
-        return {r["path"]: r["launches"][name] for r in train10.values()}
+        """The kernel's launches on slice 10's bf16 training paths and
+        slice 11's bf16 round trips."""
+        return {path: n for path, n in (
+            *((r["path"], r["launches"].get(name, 0))
+              for r in train10.values()),
+            *((path, n.get(name, 0)) for path, n in rt_paths.items())) if n}
     mtrain = "mixtral_train_bf16"
     llama_load_q = llama_loads["int8"]["launches"]["block_quantize_int8"]
     s7_load_q = {k: v["int8"]["launches"]["block_quantize_int8"]
@@ -6811,6 +7510,15 @@ def main():
              **{mtrain: mt_n["ds_flash_bwd_dq"]},
              **train10_paths("ds_flash_bwd_dq")),
          bwd_errs["ds_flash_bwd_dq"], BWD_TOL),
+        *((f"{name}_f16", f16_t["no_segments"][f"{name}_f16"],
+           f"{name}.cu".replace("_dkv", "").replace("_dq", ""),
+           f"ds_flash_attention.py:{line} (fp16 form)",
+           f16_run["launches"][f"{name}_f16"],
+           {f16_run["path"]: f16_run["launches"][f"{name}_f16"]},
+           f16_errs[f"{name}_f16"], TOL16 if name.endswith("fwd")
+           else BWD_TOL16)
+          for name, line in (("ds_flash_fwd", 35), ("ds_flash_bwd_dkv", 86),
+                             ("ds_flash_bwd_dq", 160))),
         ("block_quantize_int8", int8_t["block_quantize_int8"],
          "quantization.cu", "quantization.py:57",
          int8_load["launches"]["block_quantize_int8"]
@@ -6862,15 +7570,18 @@ def main():
         ("ds_ggemm", moe_t["ds_ggemm"]["gate_in"], "grouped_gemm_hopper.cu",
          "grouped_gemm.py:163",
          *paths_of("ds_ggemm", mixtral_http=mix_n["ds_ggemm"],
-                   **{mtrain: mt_n["ds_ggemm"]}),
+                   **{mtrain: mt_n["ds_ggemm"]},
+                   **train10_paths("ds_ggemm")),
          max(moe_errs["ds_ggemm"], mt_errs["ds_ggemm"]), INT8_TOL),
         ("ds_ggemm_t", mt_t["ds_ggemm_t"]["gate_in"],
          "grouped_gemm_hopper.cu", "grouped_gemm.py:163", *paths_of(
-             "ds_ggemm_t", **{mtrain: mt_n["ds_ggemm_t"]}),
+             "ds_ggemm_t", **{mtrain: mt_n["ds_ggemm_t"]},
+             **train10_paths("ds_ggemm_t")),
          mt_errs["ds_ggemm_t"], INT8_TOL),
         ("ds_tgmm", mt_t["ds_tgmm"]["gate_in"], "grouped_gemm_hopper.cu",
          "grouped_gemm.py:222", *paths_of(
-             "ds_tgmm", **{mtrain: mt_n["ds_tgmm"]}),
+             "ds_tgmm", **{mtrain: mt_n["ds_tgmm"]},
+             **train10_paths("ds_tgmm")),
          mt_errs["ds_tgmm"], INT8_TOL),
         ("ds_ggemm_slots", moe_t["ds_ggemm_slots"]["gate_in"],
          "grouped_gemm_stream.cu", "grouped_gemm.py:433",
@@ -6902,8 +7613,15 @@ def main():
             "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
-        if name.startswith("ds_flash_bwd"):
+        if name in bwd_rel:
             kernels[-1]["max_rel_err_bf16"] = bwd_rel[name]
+        if name.endswith("_f16"):
+            # phase 32: GPT-2 760M's training shape in fp16, without and
+            # with segment ids; the range sweep of the loss scale
+            kernels[-1].update(
+                dtype="float16", times_with_segments=f16_t["segments"][name],
+                max_rel_err_f16=f16_rel.get(name),
+                err_kind="o abs / gradients rel_to_max")
         if name.startswith("decode_attention"):
             # device time over the model's layers' own caches; one launch
             # a call (held), Mixtral's GQA shape beside the model's

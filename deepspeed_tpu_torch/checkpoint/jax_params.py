@@ -27,7 +27,16 @@ port's ``QuantizedTensor`` with the same int8 codes and fp32 scales, so
 both packages serve the same bytes (for Mixtral: the 3-D projections and
 router, and the 4-D expert stacks under ``moe``; for Llama: the seven
 projections).  The ``*_to_numpy``
-functions give such leaves back as ``(q, s)`` pairs.
+functions give such leaves back as ``(q, s)`` pairs.  A Mixtral tree
+with the residual MoE carries its ``res_*`` / ``coef_*`` leaves too.
+
+A training engine's whole state (params, optimizer moments and count,
+the loss scaler, the step) crosses as a flat ``{key: array}`` dict with
+the JAX package's ``NpzCheckpointEngine`` keys:
+:func:`train_state_to_numpy` gives it, :func:`train_state_from_numpy`
+puts one (a JAX engine's state flattened the way its npz engine does)
+into a port engine; ``save_checkpoint`` / ``load_checkpoint`` write and
+read the same dict.
 """
 import numpy as np
 import torch
@@ -64,6 +73,8 @@ def to_tensor(a, device, dtype):
 MIXTRAL_TOP_KEYS = ("wte", "blocks", "final_norm", "lm_head")
 MIXTRAL_BLOCK_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "moe")
 MIXTRAL_MOE_KEYS = ("router", "w_gate", "w_in", "w_out")
+#: the residual MoE's extra ``moe`` leaves (``MoEConfig.use_residual``)
+MOE_RESIDUAL_KEYS = ("res_in", "res_gate", "res_out", "coef_w", "coef_b")
 
 
 def _check_keys(tree: dict, want, where: str, fn="gpt2_params_from_numpy"):
@@ -127,7 +138,9 @@ def mixtral_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     fn = "mixtral_params_from_numpy"
     _check_keys(tree, MIXTRAL_TOP_KEYS, "top-level", fn)
     _check_keys(tree["blocks"], MIXTRAL_BLOCK_KEYS, "blocks", fn)
-    _check_keys(tree["blocks"]["moe"], MIXTRAL_MOE_KEYS, "blocks.moe", fn)
+    moe = tree["blocks"]["moe"]
+    _check_keys(moe, MIXTRAL_MOE_KEYS + (
+        MOE_RESIDUAL_KEYS if "res_in" in moe else ()), "blocks.moe", fn)
     device = resolve_device(device)
 
     def conv(t):
@@ -261,3 +274,19 @@ def bert_params_to_numpy(params: dict) -> dict:
     """The reverse of :func:`bert_params_from_numpy` (fp32 for floating
     leaves, since numpy has no bfloat16)."""
     return _to_numpy(params)
+
+
+def train_state_to_numpy(engine) -> dict:
+    """A port training engine's state as ``{JAX npz key: numpy array}``
+    (bf16 leaves as their 2-byte words, as the npz engines store them)."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import to_host
+    return {k: to_host(v) for k, v in engine.state_leaves().items()}
+
+
+def train_state_from_numpy(engine, flat: dict,
+                           load_optimizer_states: bool = True):
+    """Put a flat state (``{JAX npz key: array}``, e.g. a JAX engine's
+    state flattened by its ``NpzCheckpointEngine`` rule) into a port
+    training engine of the same configuration: params in place, the
+    optimizer state (when asked), the optimizer step and the scaler."""
+    engine._load_leaves(flat, load_optimizer_states)

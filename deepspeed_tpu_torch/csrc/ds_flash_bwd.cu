@@ -18,7 +18,7 @@
 // bytes of q/k/v/dO, far above the ~295 flops per byte where the tensor
 // cores become the limit; only wgmma reaches their rate, and the
 // elementwise step (an exp2 per score) must hide behind it.  What the bf16
-// design does about it (namespace hbwd, kernel flash_bwd_bf16<HD, DKV>):
+// design does about it (namespace hbwd, kernel flash_bwd_h<HD, DKV, T>):
 //   - two kernels, as the reference splits them, so each output tile is
 //     summed by one CTA in a fixed order: no atomics, and dQ, dK, dV are
 //     bit-identical from launch to launch and a row's bits do not depend
@@ -58,6 +58,13 @@
 //   - head dims 64 and 128 stage in 64-column chunks with 128-byte
 //     swizzle, 80 and 96 in 32-column chunks with 64-byte swizzle (80's
 //     third chunk half zero-filled by TMA), as csrc/ds_flash_fwd.cu.
+// The fp16 form is the same kernel over __half (fp16 tensor maps, .f16
+// wgmma, P and dS packed to fp16), with one addition for range: fp16 ends
+// at 65504, bf16 has fp32's exponents, and under a loss scale dS can pass
+// fp16's range where the fp32 outputs do not.  Each accumulator row of dK
+// (or dQ) carries a power-of-two factor by which its dS is packed, lowered
+// when a tile's row would leave fp16's range and undone in the epilogue
+// (fit_f16); P needs none (it is in [0, 1]).
 // The fp32 kernels (dkv_f32, dq_f32) keep plain fp32 FMA, two threads per
 // row, so fp32 results carry no TF32 rounding.
 //
@@ -67,11 +74,14 @@
 // address is 16-byte aligned (checked by the Python wrapper; the TMA maps
 // need it).  lse and delta are contiguous [B, H, S] fp32, segment ids
 // contiguous [B, S] int32 or null.  Outputs are contiguous: dq
-// [B, S, H, HD], dk / dv [B, S, KV, HD], all in the input dtype.
+// [B, S, H, HD], dk / dv [B, S, KV, HD], all in the input dtype.  The dtype
+// code (the entry points' last int): 0 fp32, 1 bf16, 2 fp16; any other is
+// refused.
 #include <atomic>
 #include <climits>
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,6 +90,10 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+// the entry points' dtype codes (the wrapper's _DTYPE_CODES)
+constexpr int kFp32 = 0, kBf16 = 1, kFp16 = 2;
 
 // the fp32 kernels' tiling
 constexpr int BM = 64;   // query rows per tile
@@ -136,8 +150,9 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* dlt_s,
   }
 }
 
-// ------------------------------------------------------------------ bf16
-// The Hopper backward: a CTA of three warpgroups per SM.  Warpgroup 0
+// ------------------------------------------------------------ bf16 / fp16
+// The Hopper backward (16-bit element type T: bf16 or fp16): a CTA of
+// three warpgroups per SM.  Warpgroup 0
 // gives up its registers and one of its warps loads by TMA: the resident
 // pair once per output tile (k and v for dK/dV, q and dO for dQ, 128 rows
 // each) and the streamed pair (q and dO, or k and v, 64 rows each) through
@@ -184,8 +199,8 @@ struct Params {
   const float* lse;
   const float* delta;
   const int* seg;
-  bf16* out0;          // dK, or dQ
-  bf16* out1;          // dV (dK/dV only)
+  void* out0;          // dK, or dQ (of the element type)
+  void* out1;          // dV (dK/dV only)
   int S, H, KV, rep;
   int n_rt;            // output row tiles (kRows) per head
   int n_st;            // streamed tiles (kTile) per head
@@ -364,19 +379,96 @@ __device__ __forceinline__ void produce(const CUtensorMap* tr0,
 
 // the shared products (csrc/hopper.cuh) on this file's staging: the
 // resident tile's chunks hold kRows rows, the streamed tile's kTile
-template <int HD>
+template <int HD, typename T>
 __device__ __forceinline__ void issue_ss(float (&d)[kTile / 2], uint64_t da,
                                          const unsigned char* b_tile) {
   using L = Smem<HD>;
-  hopper::issue_ss<HD, L::CH, L::RES_CHUNK, L::STR_CHUNK>(d, da, b_tile);
+  hopper::issue_ss<HD, L::CH, L::RES_CHUNK, L::STR_CHUNK, T>(d, da, b_tile);
 }
 
-template <int HD>
+template <int HD, typename T>
 __device__ __forceinline__ void issue_rs(float (&acc)[HD / 2],
                                          const uint32_t (&a)[kTile / 16][4],
                                          const unsigned char* b_tile) {
   using L = Smem<HD>;
-  hopper::issue_rs<HD, L::CH, L::STR_CHUNK>(acc, a, b_tile);
+  hopper::issue_rs<HD, L::CH, L::STR_CHUNK, T>(acc, a, b_tile);
+}
+
+// fp16's range for dS (see the header): a tile's row whose max |dS| times
+// its factor c passes kF16Fit lowers c to 2^(14 - floor(log2 max)), so
+// that row's packed values stay under 2^15, and multiplies the row's
+// accumulator by the ratio of the factors; both are powers of two, so the
+// accumulator's value is unchanged but for the factor.  c starts at 1 and
+// only falls: where no row passes kF16Fit the kernel computes what it
+// would without it.  An infinite max leaves c alone, so a non-finite dS
+// still reaches the output (and the loss scaler's overflow check); NaN is
+// ignored by the max and stays NaN.  ds and acc: accumulator fragments
+// (rows r0 and r0 + 8 in elements e < 2 and e >= 2 of each group of 4).
+constexpr float kF16Fit = 32768.f;
+
+template <int N>
+__device__ __forceinline__ void fit_f16(float (&ds)[kTile / 2],
+                                        float (&acc)[N], float (&c)[2]) {
+  float m[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    m[0] = fmaxf(m[0], fmaxf(fabsf(ds[4 * j]), fabsf(ds[4 * j + 1])));
+    m[1] = fmaxf(m[1], fmaxf(fabsf(ds[4 * j + 2]), fabsf(ds[4 * j + 3])));
+  }
+  float f[2] = {1.f, 1.f};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      m[e] = fmaxf(m[e], __shfl_xor_sync(0xffffffffu, m[e], off));
+    if (m[e] * c[e] > kF16Fit && m[e] < INFINITY) {
+      const float cn = ldexpf(1.f, 14 - ilogbf(m[e]));
+      f[e] = cn / c[e];
+      c[e] = cn;
+    }
+  }
+  if (f[0] != 1.f || f[1] != 1.f) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      acc[4 * j] *= f[0];
+      acc[4 * j + 1] *= f[0];
+      acc[4 * j + 2] *= f[1];
+      acc[4 * j + 3] *= f[1];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    ds[4 * j] *= c[0];
+    ds[4 * j + 1] *= c[0];
+    ds[4 * j + 2] *= c[1];
+    ds[4 * j + 3] *= c[1];
+  }
+}
+
+// dS packed as wgmma's A operand: in fp16 through fit_f16 first (acc's
+// products must have landed), in bf16 as it is
+template <typename T, int N>
+__device__ __forceinline__ void pack_ds(uint32_t (&ga)[kTile / 16][4],
+                                       float (&ds)[kTile / 2],
+                                       float (&acc)[N], float (&c)[2]) {
+  if constexpr (hopper::kIsF16<T>) fit_f16<N>(ds, acc, c);
+  hopper::pack_a<T>(ga, ds);
+}
+
+// the epilogue's undoing of fit_f16's factors (exact: powers of two)
+template <typename T, int N>
+__device__ __forceinline__ void unfit_f16(float (&acc)[N],
+                                          const float (&c)[2]) {
+  if constexpr (hopper::kIsF16<T>) {
+    const float i0 = 1.f / c[0], i1 = 1.f / c[1];
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      acc[4 * j] *= i0;
+      acc[4 * j + 1] *= i0;
+      acc[4 * j + 2] *= i1;
+      acc[4 * j + 3] *= i1;
+    }
+  }
 }
 
 // dK/dV's elementwise step on one query tile, transposed: sc holds s^T
@@ -528,7 +620,7 @@ constexpr bool kDkvPipelined = HD <= 96;
 // the tile's streamed query tiles, ring positions it .. it + n_items - 1.
 // Per query tile: s^T and dP^T, the elementwise step, then dV += P^T dO
 // and dK += dS^T q.
-template <int HD>
+template <int HD, typename T>
 __device__ __forceinline__ void consume_dkv(const Params& p,
                                             unsigned char* sm,
                                             const Bars& bar, const Tile& w,
@@ -551,6 +643,7 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
   for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
   float sc[kTile / 2], dp[kTile / 2];
   uint32_t pa[kTile / 16][4], ga[kTile / 16][4];
+  float c[2] = {1.f, 1.f};   // fp16: dS^T's factor for rows key0, key0 + 8
 
   // k and v: this warpgroup's 64 rows start 64 rows into each chunk
   const uint32_t res = hopper::smem_u32(sm) + cw * 64 * L::ROW;
@@ -564,9 +657,9 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
       const uint32_t ph = (it / kStages) & 1;
       hopper::mbar_wait(bar.s0_full + s, ph);
       hopper::wgmma_fence();
-      issue_ss<HD>(sc, dk_a, sm + L::STR0 + s * L::STR_BYTES);
+      issue_ss<HD, T>(sc, dk_a, sm + L::STR0 + s * L::STR_BYTES);
       hopper::mbar_wait(bar.s1_full + s, ph);
-      issue_ss<HD>(dp, dv_a, sm + L::STR1 + s * L::STR_BYTES);
+      issue_ss<HD, T>(dp, dv_a, sm + L::STR1 + s * L::STR_BYTES);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
@@ -574,8 +667,8 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
       if (w.n_items == 1 && lane == 0) hopper::mbar_arrive(bar.res_empty);
       grad_dkv<HD>(sc, dp, p, sm, s, w.first * kTile, r_lo, key0, segk0,
                    segk1, cq);
-      hopper::pack_a(pa, sc);
-      hopper::pack_a(ga, dp);
+      hopper::pack_a<T>(pa, sc);
+      pack_ds<T>(ga, dp, dk, c);
     }
     for (int i = 1; i < w.n_items; ++i) {
       const int s = (it + i) % kStages;
@@ -587,12 +680,12 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
       hopper::fence_regs(dv);
       hopper::fence_regs(dk);
       hopper::wgmma_fence();
-      issue_ss<HD>(sc, dk_a, sm + L::STR0 + s * L::STR_BYTES);
+      issue_ss<HD, T>(sc, dk_a, sm + L::STR0 + s * L::STR_BYTES);
       hopper::mbar_wait(bar.s1_full + s, ph);
-      issue_ss<HD>(dp, dv_a, sm + L::STR1 + s * L::STR_BYTES);
+      issue_ss<HD, T>(dp, dv_a, sm + L::STR1 + s * L::STR_BYTES);
       hopper::wgmma_commit();
-      issue_rs<HD>(dv, pa, sm + L::STR1 + sp * L::STR_BYTES);
-      issue_rs<HD>(dk, ga, sm + L::STR0 + sp * L::STR_BYTES);
+      issue_rs<HD, T>(dv, pa, sm + L::STR1 + sp * L::STR_BYTES);
+      issue_rs<HD, T>(dk, ga, sm + L::STR0 + sp * L::STR_BYTES);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();   // tile i's s^T and dP^T have landed
       hopper::fence_regs(sc);
@@ -606,16 +699,16 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
       hopper::fence_regs(pa);    // its A registers are free only now
       hopper::fence_regs(ga);
       if (lane == 0) hopper::mbar_arrive(bar.empty + sp);
-      hopper::pack_a(pa, sc);
-      hopper::pack_a(ga, dp);
+      hopper::pack_a<T>(pa, sc);
+      pack_ds<T>(ga, dp, dk, c);
     }
     {   // the last query tile's dV and dK
       const int sp = (it + w.n_items - 1) % kStages;
       hopper::fence_regs(dv);
       hopper::fence_regs(dk);
       hopper::wgmma_fence();
-      issue_rs<HD>(dv, pa, sm + L::STR1 + sp * L::STR_BYTES);
-      issue_rs<HD>(dk, ga, sm + L::STR0 + sp * L::STR_BYTES);
+      issue_rs<HD, T>(dv, pa, sm + L::STR1 + sp * L::STR_BYTES);
+      issue_rs<HD, T>(dk, ga, sm + L::STR0 + sp * L::STR_BYTES);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dv);
@@ -632,9 +725,9 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
       const unsigned char* do_tile = sm + L::STR1 + s * L::STR_BYTES;
       hopper::mbar_wait(bar.s0_full + s, ph);
       hopper::wgmma_fence();
-      issue_ss<HD>(sc, dk_a, q_tile);
+      issue_ss<HD, T>(sc, dk_a, q_tile);
       hopper::mbar_wait(bar.s1_full + s, ph);
-      issue_ss<HD>(dp, dv_a, do_tile);
+      issue_ss<HD, T>(dp, dv_a, do_tile);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
@@ -643,13 +736,13 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
       if (i == w.n_items - 1 && lane == 0)
         hopper::mbar_arrive(bar.res_empty);
       grad_dkv<HD>(sc, dp, p, sm, s, q0, r_lo, key0, segk0, segk1, cq);
-      hopper::pack_a(pa, sc);
-      hopper::pack_a(ga, dp);
+      hopper::pack_a<T>(pa, sc);
+      pack_ds<T>(ga, dp, dk, c);
       hopper::fence_regs(dv);
       hopper::fence_regs(dk);
       hopper::wgmma_fence();
-      issue_rs<HD>(dv, pa, do_tile);
-      issue_rs<HD>(dk, ga, q_tile);
+      issue_rs<HD, T>(dv, pa, do_tile);
+      issue_rs<HD, T>(dk, ga, q_tile);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dv);
@@ -660,15 +753,17 @@ __device__ __forceinline__ void consume_dkv(const Params& p,
       if (lane == 0) hopper::mbar_arrive(bar.empty + s);
     }
   }
-  hopper::store_rows<HD>(p.out0, dk, p.sm_scale, w.b, p.S, p.KV, w.oh, key0,
-                         cq);
-  hopper::store_rows<HD>(p.out1, dv, 1.f, w.b, p.S, p.KV, w.oh, key0, cq);
+  unfit_f16<T>(dk, c);
+  hopper::store_rows<HD>(static_cast<T*>(p.out0), dk, p.sm_scale, w.b, p.S,
+                         p.KV, w.oh, key0, cq);
+  hopper::store_rows<HD>(static_cast<T*>(p.out1), dv, 1.f, w.b, p.S, p.KV,
+                         w.oh, key0, cq);
 }
 
 // One dQ output tile for one consumer warpgroup: its 64 queries against
 // the tile's key tiles.  Per key tile: s and dP, the elementwise step,
 // then dQ += dS k.
-template <int HD>
+template <int HD, typename T>
 __device__ __forceinline__ void consume_dq(const Params& p, unsigned char* sm,
                                            const Bars& bar, const Tile& w,
                                            int it, uint32_t res_parity,
@@ -696,6 +791,7 @@ __device__ __forceinline__ void consume_dq(const Params& p, unsigned char* sm,
   for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
   float sc[kTile / 2], dp[kTile / 2];
   uint32_t ga[kTile / 16][4];
+  float c[2] = {1.f, 1.f};   // fp16: dS's factor for rows row0, row0 + 8
 
   // q and dO: this warpgroup's 64 rows start 64 rows into each chunk
   const uint32_t res = hopper::smem_u32(sm) + cw * 64 * L::ROW;
@@ -708,16 +804,16 @@ __device__ __forceinline__ void consume_dq(const Params& p, unsigned char* sm,
     const uint32_t ph = (it / kStages) & 1;
     hopper::mbar_wait(bar.s0_full + s, ph);
     hopper::wgmma_fence();
-    issue_ss<HD>(sc, dq_a, sm + L::STR0 + s * L::STR_BYTES);
+    issue_ss<HD, T>(sc, dq_a, sm + L::STR0 + s * L::STR_BYTES);
     hopper::mbar_wait(bar.s1_full + s, ph);
-    issue_ss<HD>(dp, do_a, sm + L::STR1 + s * L::STR_BYTES);
+    issue_ss<HD, T>(dp, do_a, sm + L::STR1 + s * L::STR_BYTES);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
     hopper::fence_regs(dp);
     if (w.n_items == 1 && lane == 0) hopper::mbar_arrive(bar.res_empty);
     grad_dq<HD>(sc, dp, p, sm, s, 0, r_lo, row0, l2, dl, segq, cq);
-    hopper::pack_a(ga, dp);
+    pack_ds<T>(ga, dp, dq, c);
   }
   for (int i = 1; i < w.n_items; ++i) {
     const int s = (it + i) % kStages;
@@ -726,11 +822,11 @@ __device__ __forceinline__ void consume_dq(const Params& p, unsigned char* sm,
     hopper::mbar_wait(bar.s0_full + s, ph);
     hopper::fence_regs(dq);
     hopper::wgmma_fence();
-    issue_ss<HD>(sc, dq_a, sm + L::STR0 + s * L::STR_BYTES);
+    issue_ss<HD, T>(sc, dq_a, sm + L::STR0 + s * L::STR_BYTES);
     hopper::mbar_wait(bar.s1_full + s, ph);
-    issue_ss<HD>(dp, do_a, sm + L::STR1 + s * L::STR_BYTES);
+    issue_ss<HD, T>(dp, do_a, sm + L::STR1 + s * L::STR_BYTES);
     hopper::wgmma_commit();
-    issue_rs<HD>(dq, ga, sm + L::STR0 + sp * L::STR_BYTES);
+    issue_rs<HD, T>(dq, ga, sm + L::STR0 + sp * L::STR_BYTES);
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();   // key tile i's s and dP have landed
     hopper::fence_regs(sc);
@@ -742,23 +838,24 @@ __device__ __forceinline__ void consume_dq(const Params& p, unsigned char* sm,
     hopper::fence_regs(dq);
     hopper::fence_regs(ga);    // its A registers are free only now
     if (lane == 0) hopper::mbar_arrive(bar.empty + sp);
-    hopper::pack_a(ga, dp);
+    pack_ds<T>(ga, dp, dq, c);
   }
   {   // the last key tile's dQ product
     const int sp = (it + w.n_items - 1) % kStages;
     hopper::fence_regs(dq);
     hopper::wgmma_fence();
-    issue_rs<HD>(dq, ga, sm + L::STR0 + sp * L::STR_BYTES);
+    issue_rs<HD, T>(dq, ga, sm + L::STR0 + sp * L::STR_BYTES);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dq);
     if (lane == 0) hopper::mbar_arrive(bar.empty + sp);
   }
-  hopper::store_rows<HD>(p.out0, dq, p.sm_scale, w.b, p.S, p.H, w.oh, row0,
-                         cq);
+  unfit_f16<T>(dq, c);
+  hopper::store_rows<HD>(static_cast<T*>(p.out0), dq, p.sm_scale, w.b, p.S,
+                         p.H, w.oh, row0, cq);
 }
 
-template <int HD, bool DKV>
+template <int HD, bool DKV, typename T>
 __device__ __forceinline__ void consume(const Params& p, unsigned char* sm,
                                         const Bars& bar, int cw) {
   int it = 0;   // ring position
@@ -767,9 +864,9 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* sm,
     if (t >= p.n_tiles) break;
     const Tile w = tile_of<DKV>(p, t);
     if constexpr (DKV)
-      consume_dkv<HD>(p, sm, bar, w, it, n & 1, cw);
+      consume_dkv<HD, T>(p, sm, bar, w, it, n & 1, cw);
     else
-      consume_dq<HD>(p, sm, bar, w, it, n & 1, cw);
+      consume_dq<HD, T>(p, sm, bar, w, it, n & 1, cw);
     it += w.n_items;
   }
 }
@@ -779,9 +876,9 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* sm,
 // loads.  DKV: the dK/dV kernel (resident k / v, streamed q / dO), else
 // the dQ kernel (resident q / dO, streamed k / v).  The producer
 // warpgroup keeps 40 registers, each consumer one takes 232.
-template <int HD, bool DKV>
+template <int HD, bool DKV, typename T>
 __global__ void __launch_bounds__(kCtaThreads, 1)
-    flash_bwd_bf16(const __grid_constant__ CUtensorMap tm_r0,
+    flash_bwd_h(const __grid_constant__ CUtensorMap tm_r0,
                    const __grid_constant__ CUtensorMap tm_r1,
                    const __grid_constant__ CUtensorMap tm_s0,
                    const __grid_constant__ CUtensorMap tm_s1,
@@ -811,7 +908,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
       produce<HD, DKV>(&tm_r0, &tm_r1, &tm_s0, &tm_s1, p, sm, bar);
   } else {
     hopper::reg_alloc<232>();
-    consume<HD, DKV>(p, sm, bar, threadIdx.x / 128 - 1);
+    consume<HD, DKV, T>(p, sm, bar, threadIdx.x / 128 - 1);
   }
 }
 
@@ -828,15 +925,15 @@ inline int paired_order(int n_rt, int n_tiles, bool causal, int grid) {
   return can && units * 100 >= rounds * grid * 85;
 }
 
-template <int HD, bool DKV>
+template <int HD, bool DKV, typename T>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   using L = Smem<HD>;
   Params p{};
   p.lse = a.lse;
   p.delta = a.delta;
   p.seg = a.seg;
-  p.out0 = static_cast<bf16*>(DKV ? a.dk : a.dq);
-  p.out1 = static_cast<bf16*>(a.dv);
+  p.out0 = DKV ? a.dk : a.dq;
+  p.out1 = a.dv;
   p.S = a.S;
   p.H = a.H;
   p.KV = a.KV;
@@ -863,14 +960,14 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const uint32_t k_rows = DKV ? kRows : kTile;
   const auto swz = L::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : CU_TENSOR_MAP_SWIZZLE_64B;
-  if (!hopper::make_map_bf16_4d(&tq, a.q, qd, qs, L::CH, q_rows, swz) ||
-      !hopper::make_map_bf16_4d(&tdo, a.dout, qd, os, L::CH, q_rows, swz) ||
-      !hopper::make_map_bf16_4d(&tk, a.k, kd, ks, L::CH, k_rows, swz) ||
-      !hopper::make_map_bf16_4d(&tv, a.v, kd, vs, L::CH, k_rows, swz))
+  if (!hopper::make_map_16_4d<T>(&tq, a.q, qd, qs, L::CH, q_rows, swz) ||
+      !hopper::make_map_16_4d<T>(&tdo, a.dout, qd, os, L::CH, q_rows, swz) ||
+      !hopper::make_map_16_4d<T>(&tk, a.k, kd, ks, L::CH, k_rows, swz) ||
+      !hopper::make_map_16_4d<T>(&tv, a.v, kd, vs, L::CH, k_rows, swz))
     return cudaErrorInvalidValue;
   static std::atomic<unsigned long long> opted_in{0};
   cudaError_t e = hopper::opt_in_smem(
-      reinterpret_cast<const void*>(flash_bwd_bf16<HD, DKV>), L::ALLOC,
+      reinterpret_cast<const void*>(flash_bwd_h<HD, DKV, T>), L::ALLOC,
       opted_in);
   if (e != cudaSuccess) return e;
   int n_sm = 0;
@@ -879,7 +976,7 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const int grid = min(p.n_tiles, n_sm);
   p.paired = paired_order(p.n_rt, p.n_tiles, p.causal, grid);
   // resident pair, then streamed pair
-  flash_bwd_bf16<HD, DKV><<<grid, kCtaThreads, L::ALLOC, stream>>>(
+  flash_bwd_h<HD, DKV, T><<<grid, kCtaThreads, L::ALLOC, stream>>>(
       DKV ? tk : tq, DKV ? tv : tdo, DKV ? tq : tk, DKV ? tdo : tv, p);
   return cudaGetLastError();
 }
@@ -1087,9 +1184,10 @@ cudaError_t launch_with(K kernel, dim3 grid, size_t smem,
 }
 
 template <int HD>
-cudaError_t launch_dkv(const Args& a, int B, int is_bf16,
+cudaError_t launch_dkv(const Args& a, int B, int dtype,
                        cudaStream_t stream) {
-  if (is_bf16) return hbwd::launch<HD, true>(a, B, stream);
+  if (dtype == kBf16) return hbwd::launch<HD, true, bf16>(a, B, stream);
+  if (dtype == kFp16) return hbwd::launch<HD, true, f16>(a, B, stream);
   const dim3 grid((a.S + BN - 1) / BN, B * a.KV);
   const size_t smem = (size_t)(2 * BN + 2 * BM) * (HD + 1) * sizeof(float) +
                       (size_t)BM * (2 * sizeof(float) + sizeof(int));
@@ -1097,9 +1195,10 @@ cudaError_t launch_dkv(const Args& a, int B, int is_bf16,
 }
 
 template <int HD>
-cudaError_t launch_dq(const Args& a, int B, int is_bf16,
+cudaError_t launch_dq(const Args& a, int B, int dtype,
                       cudaStream_t stream) {
-  if (is_bf16) return hbwd::launch<HD, false>(a, B, stream);
+  if (dtype == kBf16) return hbwd::launch<HD, false, bf16>(a, B, stream);
+  if (dtype == kFp16) return hbwd::launch<HD, false, f16>(a, B, stream);
   const dim3 grid((a.S + BM - 1) / BM, B * a.H);
   const size_t smem = (size_t)(2 * BM + 2 * BN) * (HD + 1) * sizeof(float) +
                       (size_t)BN * sizeof(int);
@@ -1128,18 +1227,19 @@ extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* delta, const void* seg, void* dk,
                                 void* dv, int B, int S, int H, int KV,
                                 int head_dim, const long long* strides,
-                                int causal, float sm_scale, int is_bf16,
+                                int causal, float sm_scale, int dtype,
                                 void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0)
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || dtype < kFp32 ||
+      dtype > kFp16)
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, seg, nullptr, dk, dv,
                            S, H, KV, strides, causal, sm_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return (int)launch_dkv<64>(a, B, is_bf16, st);
-    case 80: return (int)launch_dkv<80>(a, B, is_bf16, st);
-    case 96: return (int)launch_dkv<96>(a, B, is_bf16, st);
-    case 128: return (int)launch_dkv<128>(a, B, is_bf16, st);
+    case 64: return (int)launch_dkv<64>(a, B, dtype, st);
+    case 80: return (int)launch_dkv<80>(a, B, dtype, st);
+    case 96: return (int)launch_dkv<96>(a, B, dtype, st);
+    case 128: return (int)launch_dkv<128>(a, B, dtype, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1149,17 +1249,18 @@ extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* delta, const void* seg, void* dq,
                                int B, int S, int H, int KV, int head_dim,
                                const long long* strides, int causal,
-                               float sm_scale, int is_bf16, void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0)
+                               float sm_scale, int dtype, void* stream) {
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || dtype < kFp32 ||
+      dtype > kFp16)
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, seg, dq, nullptr,
                            nullptr, S, H, KV, strides, causal, sm_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return (int)launch_dq<64>(a, B, is_bf16, st);
-    case 80: return (int)launch_dq<80>(a, B, is_bf16, st);
-    case 96: return (int)launch_dq<96>(a, B, is_bf16, st);
-    case 128: return (int)launch_dq<128>(a, B, is_bf16, st);
+    case 64: return (int)launch_dq<64>(a, B, dtype, st);
+    case 80: return (int)launch_dq<80>(a, B, dtype, st);
+    case 96: return (int)launch_dq<96>(a, B, dtype, st);
+    case 128: return (int)launch_dq<128>(a, B, dtype, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

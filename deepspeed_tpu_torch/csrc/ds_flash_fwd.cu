@@ -14,7 +14,7 @@
 // where the tensor cores become the limit; only wgmma reaches their rate,
 // and the softmax's exp2 (16 a cycle per SM) must hide behind it.  At
 // S 1024 the K/V re-reads can also hit device memory unless they stay in
-// L2.  What the bf16 design does about it (flash_fwd_bf16, namespace hfwd):
+// L2.  What the bf16 design does about it (flash_fwd_h, namespace hfwd):
 //   - a persistent grid, one CTA per SM walking 128-row query tiles of
 //     one (batch, head) in an order that keeps k / v in L2 and the CTAs'
 //     key-tile counts even (cta_tile); the key loop inside the CTA takes
@@ -47,6 +47,10 @@
 //     are (fused-QKV slices need no copy); rows past S land as zeros;
 //   - deterministic: one CTA per output tile, no atomics, no split of the
 //     keys, so a row's bits do not depend on B or on the other rows.
+// The fp16 form is the same kernel instantiated over __half: fp16 tensor
+// maps, .f16 wgmma, p and o packed to fp16 (p in [0, 1]; o a convex
+// combination of v rows, so in range wherever v is), the softmax
+// statistics and lse in fp32 as in bf16.
 // The fp32 kernel (flash_fwd_f32) keeps plain fp32 FMA, two threads per
 // query row, so fp32 results carry no TF32 rounding.
 //
@@ -54,11 +58,13 @@
 // caller passes batch, sequence and head strides in elements; the last
 // dimension is contiguous and every stride and base address is 16-byte
 // aligned (checked by the Python wrapper).  Outputs are contiguous:
-// o [B, S, H, HD] in the input dtype, lse [B, H, S] fp32.
+// o [B, S, H, HD] in the input dtype, lse [B, H, S] fp32.  The dtype code
+// (ds_flash_fwd's last int): 0 fp32, 1 bf16, 2 fp16; any other is refused.
 #include <atomic>
 #include <climits>
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,6 +73,10 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+// ds_flash_fwd's dtype codes (the wrapper's _DTYPE_CODES)
+constexpr int kFp32 = 0, kBf16 = 1, kFp16 = 2;
 
 constexpr float kNegInfLse = -1e30f;
 // the fp32 kernel's tiling
@@ -216,8 +226,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Args a) {
   }
 }
 
-// ------------------------------------------------------------------ bf16
-// The Hopper forward: a CTA of three warpgroups per SM, each output tile a
+// ------------------------------------------------------------ bf16 / fp16
+// The Hopper forward (16-bit element type T: bf16 or fp16): a CTA of three
+// warpgroups per SM, each output tile a
 // 128-row query tile of one (batch, head).  Warpgroup 0 gives up its
 // registers and one of its warps loads by TMA: q per output tile, k and v
 // tiles of 128 keys into a three-stage ring (k and v of a stage on
@@ -276,7 +287,7 @@ struct Smem {
 
 struct Params {
   const int* seg;
-  bf16* o;
+  void* o;            // [B, S, H, HD] of the element type
   float* lse;
   int S, H, KV, n_qt, causal;
   int n_tiles;        // n_qt * B * H output tiles
@@ -502,14 +513,15 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2],
   r.l1 = r.l1 * alpha1 + ls1;
 }
 
-// p in bf16, laid out as wgmma's register A operand (k16 slice kk)
+// p in T, laid out as wgmma's register A operand (k16 slice kk)
+template <typename T>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[kBN / 16][4],
                                        const float (&sc)[kBN / 2]) {
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      pa[kk][r] = hopper::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      pa[kk][r] = hopper::pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
   }
 }
 
@@ -528,7 +540,7 @@ __device__ __forceinline__ void rescale_o(float (&o)[HD / 2], float alpha0,
 // s = q k^T for one key tile: [64 x kBN] per warpgroup, HD / 16 k-slices
 // (no wgmma sits in a branch: a data-dependent one makes the compiler
 // serialise every wgmma of the kernel)
-template <int HD>
+template <int HD, typename T>
 __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint64_t dq,
                                          const unsigned char* sm, int s) {
   using L = Smem<HD>;
@@ -540,14 +552,14 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint64_t dq,
         (kk / L::SLICES) * L::Q_CHUNK + (kk % L::SLICES) * 32;
     const uint32_t off_k =
         (kk / L::SLICES) * L::KV_CHUNK + (kk % L::SLICES) * 32;
-    hopper::wgmma_m64n128k16_ss(sc, dq + (off_q >> 4), dk + (off_k >> 4),
-                                kk > 0);
+    hopper::wgmma_m64n128k16_ss<T>(sc, dq + (off_q >> 4), dk + (off_k >> 4),
+                                   kk > 0);
   }
   hopper::wgmma_commit();
 }
 
 // o += p v: v [kBN keys x HD] read MN-major, 16 keys a slice
-template <int HD>
+template <int HD, typename T>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
                                          const uint32_t (&pa)[kBN / 16][4],
                                          const unsigned char* sm, int s) {
@@ -557,8 +569,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
       L::ROW);
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk)
-    hopper::wgmma_m64k16_rs<HD>(o, pa[kk], dv + ((kk * 16 * L::ROW) >> 4),
-                                1);
+    hopper::wgmma_m64k16_rs<HD, T>(o, pa[kk],
+                                   dv + ((kk * 16 * L::ROW) >> 4), 1);
   hopper::wgmma_commit();
 }
 
@@ -578,7 +590,7 @@ __device__ __forceinline__ void turn_pass(int cw) {
 // software-pipelined inside the warpgroup: key tile i's q k^T is issued
 // before key tile i - 1's p v, so tile i's softmax runs on the CUDA cores
 // while p v runs on the tensor cores.
-template <int HD>
+template <int HD, typename T>
 __device__ __forceinline__ void consume_tile(const Params& p,
                                              unsigned char* sm,
                                              const Bars& bar, const Tile& w,
@@ -618,7 +630,7 @@ __device__ __forceinline__ void consume_tile(const Params& p,
     hopper::mbar_wait(bar.k_full + s, (it / kStages) & 1);
     turn_wait(cw);
     hopper::wgmma_fence();
-    issue_qk<HD>(sc, dq, sm, s);
+    issue_qk<HD, T>(sc, dq, sm, s);
     turn_pass(cw);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
@@ -626,7 +638,7 @@ __device__ __forceinline__ void consume_tile(const Params& p,
     softmax_tile<HD>(sc, r, p, sm, s, 0, r_lo, cq, alpha0, alpha1);
     // the stage's k and its segment ids are read: release them
     if (lane == 0) hopper::mbar_arrive(bar.k_empty + s);
-    pack_p(pa, sc);
+    pack_p<T>(pa, sc);
   }
   for (int i = 1; i < w.n_kt; ++i) {
     const int s = (it + i) % kStages;
@@ -635,9 +647,9 @@ __device__ __forceinline__ void consume_tile(const Params& p,
     turn_wait(cw);
     hopper::fence_regs(o);
     hopper::wgmma_fence();
-    issue_qk<HD>(sc, dq, sm, s);
+    issue_qk<HD, T>(sc, dq, sm, s);
     hopper::mbar_wait(bar.v_full + sp, ((it + i - 1) / kStages) & 1);
-    issue_pv<HD>(o, pa, sm, sp);
+    issue_pv<HD, T>(o, pa, sm, sp);
     turn_pass(cw);
     hopper::wgmma_wait<1>();   // q k^T of key tile i has landed
     hopper::fence_regs(sc);
@@ -649,7 +661,7 @@ __device__ __forceinline__ void consume_tile(const Params& p,
     hopper::fence_regs(pa);    // its p registers are free only now
     if (lane == 0) hopper::mbar_arrive(bar.v_empty + sp);
     rescale_o<HD>(o, alpha0, alpha1);
-    pack_p(pa, sc);
+    pack_p<T>(pa, sc);
   }
   {   // the last key tile's p v
     const int sp = (it + w.n_kt - 1) % kStages;
@@ -657,14 +669,14 @@ __device__ __forceinline__ void consume_tile(const Params& p,
     turn_wait(cw);
     hopper::fence_regs(o);
     hopper::wgmma_fence();
-    issue_pv<HD>(o, pa, sm, sp);
+    issue_pv<HD, T>(o, pa, sm, sp);
     turn_pass(cw);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(o);
     if (lane == 0) hopper::mbar_arrive(bar.v_empty + sp);
   }
 
-  // ---- epilogue: row sums across the quad, o / l in bf16, lse in ln units
+  // ---- epilogue: row sums across the quad, o / l in T, lse in ln units
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     r.l0 += __shfl_xor_sync(0xffffffffu, r.l0, off);
@@ -673,28 +685,30 @@ __device__ __forceinline__ void consume_tile(const Params& p,
   const float inv0 = r.l0 > 0.f ? 1.f / r.l0 : 0.f;
   const float inv1 = r.l1 > 0.f ? 1.f / r.l1 : 0.f;
   if (r.row0 < p.S) {
-    bf16* orow = p.o + (((size_t)w.b * p.S + r.row0) * p.H + w.h) * HD + cq;
+    T* orow = static_cast<T*>(p.o) +
+              (((size_t)w.b * p.S + r.row0) * p.H + w.h) * HD + cq;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          hopper::pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+          hopper::pack2<T>(o[4 * j] * inv0, o[4 * j + 1] * inv0);
     if ((lane & 3) == 0)
       p.lse[((size_t)w.b * p.H + w.h) * p.S + r.row0] =
           r.l0 > 0.f ? (r.m0 + log2f(r.l0)) * kLn2 : kNegInfLse;
   }
   if (r.row1 < p.S) {
-    bf16* orow = p.o + (((size_t)w.b * p.S + r.row1) * p.H + w.h) * HD + cq;
+    T* orow = static_cast<T*>(p.o) +
+              (((size_t)w.b * p.S + r.row1) * p.H + w.h) * HD + cq;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          hopper::pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+          hopper::pack2<T>(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     if ((lane & 3) == 0)
       p.lse[((size_t)w.b * p.H + w.h) * p.S + r.row1] =
           r.l1 > 0.f ? (r.m1 + log2f(r.l1)) * kLn2 : kNegInfLse;
   }
 }
 
-template <int HD>
+template <int HD, typename T>
 __device__ __forceinline__ void consume(const Params& p, unsigned char* sm,
                                         const Bars& bar, int cw) {
   if (cw == 1) turn_pass(cw);   // warpgroup 0 takes the first turn
@@ -703,7 +717,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* sm,
     const int t = cta_tile(p, n);
     if (t >= p.n_tiles) break;
     const Tile w = tile_of(p, t);
-    consume_tile<HD>(p, sm, bar, w, it, n & 1, cw);
+    consume_tile<HD, T>(p, sm, bar, w, it, n & 1, cw);
     it += w.n_kt;
   }
 }
@@ -711,9 +725,9 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* sm,
 // A persistent grid: one CTA per SM walks the output tiles cta_tile(p, 0),
 // cta_tile(p, 1), ..., so one tile's softmax tail and epilogue overlap the
 // next tile's loads.
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kCtaThreads, 1)
-    flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
+    flash_fwd_h(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const Params p) {
@@ -746,7 +760,7 @@ __global__ void __launch_bounds__(kCtaThreads, 1)
     if (threadIdx.x < 32) produce<HD>(&tm_q, &tm_k, &tm_v, p, sm, bar);
   } else {
     hopper::reg_alloc<kConsumerRegs>();
-    consume<HD>(p, sm, bar, threadIdx.x / 128 - 1);
+    consume<HD, T>(p, sm, bar, threadIdx.x / 128 - 1);
   }
 }
 
@@ -766,7 +780,7 @@ inline int paired_order(const Params& p, int B, int HD, int grid) {
          units * 100 >= rounds * grid * 85;
 }
 
-template <int HD>
+template <int HD, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const Params& p, int B, const long long qs[3],
                    const long long ks[3], const long long vs[3],
@@ -780,13 +794,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const uint64_t kd[4] = {HD, (uint64_t)p.S, (uint64_t)p.KV, (uint64_t)B};
   const auto swz = L::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : CU_TENSOR_MAP_SWIZZLE_64B;
-  if (!hopper::make_map_bf16_4d(&tq, q, qd, qs, L::CH, kBM, swz) ||
-      !hopper::make_map_bf16_4d(&tk, k, kd, ks, L::CH, kBN, swz) ||
-      !hopper::make_map_bf16_4d(&tv, v, kd, vs, L::CH, kBN, swz))
+  if (!hopper::make_map_16_4d<T>(&tq, q, qd, qs, L::CH, kBM, swz) ||
+      !hopper::make_map_16_4d<T>(&tk, k, kd, ks, L::CH, kBN, swz) ||
+      !hopper::make_map_16_4d<T>(&tv, v, kd, vs, L::CH, kBN, swz))
     return cudaErrorInvalidValue;
   static std::atomic<unsigned long long> opted_in{0};
   cudaError_t e = hopper::opt_in_smem(
-      reinterpret_cast<const void*>(flash_fwd_bf16<HD>), L::ALLOC,
+      reinterpret_cast<const void*>(flash_fwd_h<HD, T>), L::ALLOC,
       opted_in);
   if (e != cudaSuccess) return e;
   int n_sm = 0;
@@ -795,16 +809,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const int grid = min(p.n_tiles, n_sm);
   Params pl = p;
   pl.paired = paired_order(p, B, HD, grid);
-  flash_fwd_bf16<HD><<<grid, kCtaThreads, L::ALLOC, stream>>>(tq, tk, tv,
+  flash_fwd_h<HD, T><<<grid, kCtaThreads, L::ALLOC, stream>>>(tq, tk, tv,
                                                                pl);
   return cudaGetLastError();
 }
 
 }  // namespace hfwd
 
-inline hfwd::Params bf16_params(const Args& a, int B) {
+inline hfwd::Params h16_params(const Args& a, int B) {
   const int n_qt = (a.S + hfwd::kBM - 1) / hfwd::kBM;
-  return hfwd::Params{a.seg,    static_cast<bf16*>(a.o),
+  return hfwd::Params{a.seg,    a.o,
                       a.lse,    a.S,
                       a.H,      a.KV,
                       n_qt,     a.causal,
@@ -812,13 +826,13 @@ inline hfwd::Params bf16_params(const Args& a, int B) {
                       0,        a.sm_scale * 1.4426950408889634f};
 }
 
-template <int HD>
-cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
+template <int HD, typename T>
+cudaError_t launch_h16(const Args& a, int B, cudaStream_t stream) {
   const long long qs[3] = {a.q_ss, a.q_sh, a.q_sb};
   const long long ks[3] = {a.k_ss, a.k_sh, a.k_sb};
   const long long vs[3] = {a.v_ss, a.v_sh, a.v_sb};
-  return hfwd::launch<HD>(a.q, a.k, a.v, bf16_params(a, B), B, qs, ks, vs,
-                          stream);
+  return hfwd::launch<HD, T>(a.q, a.k, a.v, h16_params(a, B), B, qs, ks, vs,
+                             stream);
 }
 
 template <int HD>
@@ -836,8 +850,13 @@ cudaError_t launch_f32(const Args& a, int B, cudaStream_t stream) {
 }
 
 template <int HD>
-cudaError_t launch(const Args& a, int B, int is_bf16, cudaStream_t stream) {
-  return is_bf16 ? launch_bf16<HD>(a, B, stream) : launch_f32<HD>(a, B, stream);
+cudaError_t launch(const Args& a, int B, int dtype, cudaStream_t stream) {
+  switch (dtype) {
+    case kFp32: return launch_f32<HD>(a, B, stream);
+    case kBf16: return launch_h16<HD, bf16>(a, B, stream);
+    case kFp16: return launch_h16<HD, f16>(a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -848,8 +867,9 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
                             long long q_ss, long long q_sh, long long k_sb,
                             long long k_ss, long long k_sh, long long v_sb,
                             long long v_ss, long long v_sh, int causal,
-                            float sm_scale, int is_bf16, void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0)
+                            float sm_scale, int dtype, void* stream) {
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || dtype < kFp32 ||
+      dtype > kFp16)
     return (int)cudaErrorInvalidValue;
   Args a{q,    k,    v,    static_cast<const int*>(seg),
          o,    static_cast<float*>(lse),
@@ -857,15 +877,16 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
          v_sb, v_ss, v_sh, causal, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return (int)launch<64>(a, B, is_bf16, st);
-    case 80: return (int)launch<80>(a, B, is_bf16, st);
-    case 96: return (int)launch<96>(a, B, is_bf16, st);
-    case 128: return (int)launch<128>(a, B, is_bf16, st);
+    case 64: return (int)launch<64>(a, B, dtype, st);
+    case 80: return (int)launch<80>(a, B, dtype, st);
+    case 96: return (int)launch<96>(a, B, dtype, st);
+    case 128: return (int)launch<128>(a, B, dtype, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The tile order a bf16 launch of this shape takes on the current device:
+// The tile order a bf16 or fp16 launch of this shape takes on the current
+// device:
 // 1 by (batch, head), 0 by level (see cta_tile); a negative cudaError_t
 // on bad arguments.
 extern "C" int ds_flash_fwd_tile_order(int B, int S, int H, int KV,
@@ -879,7 +900,7 @@ extern "C" int ds_flash_fwd_tile_order(int B, int S, int H, int KV,
   a.H = H;
   a.KV = KV;
   a.causal = causal;
-  const hfwd::Params p = bf16_params(a, B);
+  const hfwd::Params p = h16_params(a, B);
   int n_sm = 0;
   const cudaError_t e = hopper::sm_count(&n_sm);
   if (e != cudaSuccess) return -(int)e;

@@ -3,7 +3,8 @@
 // host-side tensor map encoder and its cache, a persistent grid's tile
 // order and launch set-up, wgmma matrix descriptors, the wgmma fence /
 // commit / wait trio, register hand-off between warpgroups (setmaxnreg)
-// and the wgmma instructions themselves (bf16 in, fp32 accumulate).  Raw
+// and the wgmma instructions themselves (bf16 or fp16 in, fp32
+// accumulate; the element type a template argument, bf16 by default).  Raw
 // PTX, written from the PTX ISA's descriptions of these instructions;
 // used by csrc/ds_flash_fwd.cu, csrc/ds_flash_bwd.cu,
 // csrc/grouped_gemm_hopper.cu, csrc/grouped_gemm_stream.cu and
@@ -26,13 +27,25 @@
 #pragma once
 #include <cuda.h>   // CUtensorMap and its enums (types only; no libcuda link)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
 #include <mutex>
+#include <type_traits>
 
 namespace hopper {
+
+// The 16-bit element types the wgmma helpers take: bf16 and fp16 share
+// every layout and differ in the instruction's type string, the packing
+// conversion and the tensor map's data type.
+template <typename T>
+constexpr bool kIsF16 = std::is_same<T, __half>::value;
+template <typename T>
+constexpr CUtensorMapDataType kMapType =
+    kIsF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
 // ------------------------------------------------------------ addresses
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -218,6 +231,16 @@ inline bool make_map_bf16_4d(CUtensorMap* map, const void* base,
                      strides, box0, box1, swizzle);
 }
 
+// the same over 16-bit elements of type T (bf16 or fp16)
+template <typename T>
+inline bool make_map_16_4d(CUtensorMap* map, const void* base,
+                           const uint64_t dims[4], const long long strides[3],
+                           uint32_t box0, uint32_t box1,
+                           CUtensorMapSwizzle swizzle) {
+  return make_map_4d(map, kMapType<T>, 2, base, dims, strides, box0, box1,
+                     swizzle);
+}
+
 // One box from shared memory to a 4-D tensor map, as a bulk async-group
 // of this thread (elements past an extent are not written); the writes
 // into `src` must be fenced to the async proxy first (fence_proxy_async).
@@ -388,12 +411,31 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return r;
 }
 
-// wgmma instructions, m64nNk16, bf16 inputs, fp32 accumulators.  The
+// two floats as an fp16 pair, the first in the low half (round to
+// nearest; beyond 65504 inf, as a cast to fp16 gives)
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// the pair in T (bf16 or fp16)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsF16<T>)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
+}
+
+// wgmma instructions, m64nNk16, bf16 (or, where a helper takes T, fp16)
+// inputs, fp32 accumulators.  The
 // accumulator fragment of thread t (warp w = t / 32 of the warpgroup, lane
 // l): d[4 j + e] holds (row 16 w + l / 4, column 8 j + 2 (l % 4) + e) for
 // e < 2 and row + 8 for e >= 2.  scale_d = 0 overwrites D.  A register A
 // operand of one k16 slice is that same fragment of a [64 x 16] tile
-// packed in bf16 pairs: {d[0,1], d[2,3], d[4,5], d[6,7]} of columns 0-15.
+// packed in pairs of the input type: {d[0,1], d[2,3], d[4,5], d[6,7]} of
+// columns 0-15.
 //
 // An m64nN instruction takes N / 2 accumulators a thread, operands %0 ..
 // %(N / 2 - 1) of the asm; the operands after them are numbered by hand
@@ -430,38 +472,48 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // D[64 x N] (+)= A[64 x 16] B[16 x N]: NACC = N / 2 accumulators, then
 // a[0..3] as operands A .. A + 3, db as A + 4 and scale_d as A + 5 (A =
 // NACC); A in registers, B MN-major in shared memory (read through the
-// descriptor's transpose bit)
-#define HOPPER_WGMMA_RS(N, NACC, A0, A1, A2, A3, DB, SC)                   \
+// descriptor's transpose bit); TY the input type's string ("bf16", "f16")
+#define HOPPER_WGMMA_RS(N, NACC, A0, A1, A2, A3, DB, SC, TY)               \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #SC ", 0;\n"          \
                "wgmma.mma_async.sync.aligned.m64n" #N                     \
-               "k16.f32.bf16.bf16 {" HOPPER_REG##NACC "}, {%" #A0 ", %" #A1 \
-               ", %" #A2 ", %" #A3 "}, %" #DB ", p, 1, 1, 1;\n}\n"       \
+               "k16.f32." TY "." TY " {" HOPPER_REG##NACC "}, {%" #A0       \
+               ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DB                     \
+               ", p, 1, 1, 1;\n}\n"                                       \
                : HOPPER_ACC##NACC                                         \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
                  "r"(scale_d))
 
+// D[64 x N] (+)= A[64 x 16] B[16 x N], both K-major in shared memory:
+// NACC = N / 2 accumulators, then da, db and scale_d as operands NACC ..
+// NACC + 2
+#define HOPPER_WGMMA_SS(N, NACC, DA, DB, SC, TY)                           \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #SC ", 0;\n"          \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
+               " {" HOPPER_REG##NACC "}, %" #DA ", %" #DB                 \
+               ", p, 1, 1, 0, 0;\n}\n"                                    \
+               : HOPPER_ACC##NACC                                         \
+               : "l"(da), "l"(db), "r"(scale_d))
+
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], both K-major in shared memory
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
                                                   uint64_t da, uint64_t db,
                                                   int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" HOPPER_REG64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_ACC64
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kIsF16<T>)
+    HOPPER_WGMMA_SS(128, 64, 64, 65, 66, "f16");
+  else
+    HOPPER_WGMMA_SS(128, 64, 64, 65, 66, "bf16");
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], both K-major in shared memory
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
                                                  uint64_t da, uint64_t db,
                                                  int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" HOPPER_REG32
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_ACC32
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kIsF16<T>)
+    HOPPER_WGMMA_SS(64, 32, 32, 33, 34, "f16");
+  else
+    HOPPER_WGMMA_SS(64, 32, 32, 33, 34, "bf16");
 }
 
 // D[64 x 256] (+)= A[64 x 16] B[16 x 256], both in shared memory; TA /
@@ -480,21 +532,26 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
 }
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N] for N = 64, 80, 96, 128 (the head
-// dims), A in registers, B MN-major in shared memory
-template <int N>
+// dims), A in registers, B MN-major in shared memory, inputs in T
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
   static_assert(N == 64 || N == 80 || N == 96 || N == 128,
                 "wgmma_m64k16_rs: N is 64, 80, 96 or 128");
+  constexpr bool h = kIsF16<T>;
   if constexpr (N == 64) {
-    HOPPER_WGMMA_RS(64, 32, 32, 33, 34, 35, 36, 37);
+    if constexpr (h) HOPPER_WGMMA_RS(64, 32, 32, 33, 34, 35, 36, 37, "f16");
+    else HOPPER_WGMMA_RS(64, 32, 32, 33, 34, 35, 36, 37, "bf16");
   } else if constexpr (N == 80) {
-    HOPPER_WGMMA_RS(80, 40, 40, 41, 42, 43, 44, 45);
+    if constexpr (h) HOPPER_WGMMA_RS(80, 40, 40, 41, 42, 43, 44, 45, "f16");
+    else HOPPER_WGMMA_RS(80, 40, 40, 41, 42, 43, 44, 45, "bf16");
   } else if constexpr (N == 96) {
-    HOPPER_WGMMA_RS(96, 48, 48, 49, 50, 51, 52, 53);
+    if constexpr (h) HOPPER_WGMMA_RS(96, 48, 48, 49, 50, 51, 52, 53, "f16");
+    else HOPPER_WGMMA_RS(96, 48, 48, 49, 50, 51, 52, 53, "bf16");
   } else {
-    HOPPER_WGMMA_RS(128, 64, 64, 65, 66, 67, 68, 69);
+    if constexpr (h) HOPPER_WGMMA_RS(128, 64, 64, 65, 66, 67, 68, 69, "f16");
+    else HOPPER_WGMMA_RS(128, 64, 64, 65, 66, 67, 68, 69, "bf16");
   }
 }
 
@@ -507,7 +564,8 @@ __device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2],
 // HD / 16 k-slices, A's chunks A_CHUNK bytes apart and B's B_CHUNK (no
 // wgmma may sit in a data-dependent branch: ptxas then serialises every
 // wgmma of the kernel, C7520)
-template <int HD, int CH, int A_CHUNK, int B_CHUNK>
+template <int HD, int CH, int A_CHUNK, int B_CHUNK,
+          typename T = __nv_bfloat16>
 __device__ __forceinline__ void issue_ss(float (&d)[32], uint64_t da,
                                          const unsigned char* b_tile) {
   constexpr int ROW = CH * 2, SLICES = CH / 16;
@@ -516,13 +574,13 @@ __device__ __forceinline__ void issue_ss(float (&d)[32], uint64_t da,
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t off_a = (kk / SLICES) * A_CHUNK + (kk % SLICES) * 32;
     const uint32_t off_b = (kk / SLICES) * B_CHUNK + (kk % SLICES) * 32;
-    wgmma_m64n64k16_ss(d, da + (off_a >> 4), db + (off_b >> 4), kk > 0);
+    wgmma_m64n64k16_ss<T>(d, da + (off_a >> 4), db + (off_b >> 4), kk > 0);
   }
 }
 
 // acc[64 x HD] += A (registers, [64 x 64]) B[streamed tile: 64 rows x HD],
 // B read MN-major, 16 rows a slice, its chunks B_CHUNK bytes apart
-template <int HD, int CH, int B_CHUNK>
+template <int HD, int CH, int B_CHUNK, typename T = __nv_bfloat16>
 __device__ __forceinline__ void issue_rs(float (&acc)[HD / 2],
                                          const uint32_t (&a)[4][4],
                                          const unsigned char* b_tile) {
@@ -530,46 +588,44 @@ __device__ __forceinline__ void issue_rs(float (&acc)[HD / 2],
   const uint64_t db = smem_desc(smem_u32(b_tile), B_CHUNK, 8 * ROW, ROW);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_m64k16_rs<HD>(acc, a[kk], db + ((kk * 16 * ROW) >> 4), 1);
+    wgmma_m64k16_rs<HD, T>(acc, a[kk], db + ((kk * 16 * ROW) >> 4), 1);
 }
 
-// a [64 x 64] tile's fp32 fragment in bf16, laid out as wgmma's register
-// A operand (k16 slice kk)
+// a [64 x 64] tile's fp32 fragment in T (bf16 by default), laid out as
+// wgmma's register A operand (k16 slice kk)
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void pack_a(uint32_t (&pa)[4][4],
                                        const float (&x)[32]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      pa[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+      pa[kk][r] = pack2<T>(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
   }
 }
 
 // One thread's two fragment rows (row0 = 16 w + l / 4 of the warpgroup's
 // 64, and row0 + 8) of a [64 x HD] fp32 accumulator, times mul, into
-// head `head` of a contiguous [B, S, heads, HD] bf16 output; rows past S
-// dropped.
-template <int HD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
-                                           const float (&acc)[HD / 2],
+// head `head` of a contiguous [B, S, heads, HD] output of 16-bit T (bf16
+// or fp16); rows past S dropped.
+template <int HD, typename T>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[HD / 2],
                                            float mul, int b, int S,
                                            int heads, int head, int row0,
                                            int cq) {
   if (row0 < S) {
-    __nv_bfloat16* o =
-        out + (((size_t)b * S + row0) * heads + head) * HD + cq;
+    T* o = out + (((size_t)b * S + row0) * heads + head) * HD + cq;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<uint32_t*>(o + 8 * j) =
-          pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+          pack2<T>(acc[4 * j] * mul, acc[4 * j + 1] * mul);
   }
   if (row0 + 8 < S) {
-    __nv_bfloat16* o =
-        out + (((size_t)b * S + row0 + 8) * heads + head) * HD + cq;
+    T* o = out + (((size_t)b * S + row0 + 8) * heads + head) * HD + cq;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<uint32_t*>(o + 8 * j) =
-          pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+          pack2<T>(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
   }
 }
 

@@ -30,9 +30,9 @@ import torch.nn.functional as F
 
 from deepspeed_tpu_torch.models import serving
 from deepspeed_tpu_torch.models.model import (Model, check_remat_policy,
-                                              layer_params, maybe_stream,
-                                              numpy_seeded_init, qdot,
-                                              resolve_size, run_block,
+                                              head_dot, layer_params,
+                                              maybe_stream, numpy_seeded_init,
+                                              qdot, resolve_size, run_block,
                                               seeded_device_init)
 from deepspeed_tpu_torch.models.neox import _ln, cache_fn, fused_weights
 
@@ -200,7 +200,7 @@ def embed(params, tokens, config: BloomConfig):
 def head(params, x, config: BloomConfig):
     """Final LN + the head tied to the word embeddings."""
     x = _ln(x, params["lnf_scale"], params["lnf_bias"], config.layer_norm_eps)
-    return x @ params["wte"].to(x.dtype).T
+    return head_dot(x, params["wte"], transpose_w=True)
 
 
 def _block(x, layer, slopes, config: BloomConfig, seg=None):

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from deepspeed_tpu_torch.models.model import (Model, check_remat_policy,
                                               layer_params, maybe_stream,
-                                              qdot, resolve_size, run_block)
+                                              head_dot, qdot, resolve_size,
+                                              run_block)
 from deepspeed_tpu_torch.models.serving import (_fused_layer_pass,
                                                 fused_decode_active,
                                                 qgemm_active, write_token)
@@ -201,7 +202,7 @@ def head(params, x, config: GPT2Config):
     """Final LN + tied-embedding logits."""
     x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"],
                     config.layer_norm_eps)
-    return x @ params["wte"].to(x.dtype).T
+    return head_dot(x, params["wte"], transpose_w=True)
 
 
 def _block(x, layer, config: GPT2Config, segment_ids=None):

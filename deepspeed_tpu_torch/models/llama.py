@@ -41,9 +41,9 @@ import torch.nn.functional as F
 
 from deepspeed_tpu_torch.models import serving
 from deepspeed_tpu_torch.models.model import (Model, check_remat_policy,
-                                              layer_params, maybe_stream,
-                                              qdot, resolve_size, run_block,
-                                              seeded_device_init)
+                                              head_dot, layer_params,
+                                              maybe_stream, qdot, resolve_size,
+                                              run_block, seeded_device_init)
 from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
 
 
@@ -247,7 +247,7 @@ def embed(params, tokens, config: LlamaConfig):
 def head(params, x, config: LlamaConfig):
     """Final RMSNorm + the (untied) LM head."""
     x = _rms_norm(x, params["final_norm"], config.rms_norm_eps)
-    return qdot(x, params["lm_head"])
+    return head_dot(x, params["lm_head"])
 
 
 def _block_qkv(x, layer, config: LlamaConfig, positions=None):

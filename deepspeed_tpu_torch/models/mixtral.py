@@ -58,10 +58,12 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.models import serving
 from deepspeed_tpu_torch.models.llama import _rms_norm, rope
 from deepspeed_tpu_torch.models.model import (Model, check_remat_policy,
-                                              layer_params, maybe_stream,
-                                              qdot, resolve_size, run_block,
+                                              head_dot, layer_params,
+                                              maybe_stream, noise_seed, qdot,
+                                              resolve_size, run_block,
                                               seeded_device_init)
-from deepspeed_tpu_torch.moe.layer import MoEConfig, moe_layer
+from deepspeed_tpu_torch.moe.layer import (MoEConfig, moe_layer,
+                                           residual_shapes)
 from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
 
 
@@ -91,6 +93,11 @@ class MixtralConfig:
     remat: bool = False             # activation checkpointing per layer
     remat_policy: str = "nothing"   # the only policy ported ("nothing")
     attention_impl: str = "auto"    # auto | flash (kernel) | plain
+    #: the MoE layer's residual branch and noisy gate (``MoEConfig``);
+    #: the reference's MixtralConfig does not expose them (its
+    #: ``moe_layer`` does), the port's takes them to train them
+    use_residual: bool = False
+    noisy_gate_policy: "str | None" = None
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
@@ -119,7 +126,9 @@ class MixtralConfig:
                          eval_capacity_factor=eval_cf,
                          aux_loss_coef=self.aux_loss_coef,
                          activation="silu_glu",
-                         dispatch_mode=self.moe_dispatch)
+                         dispatch_mode=self.moe_dispatch,
+                         use_residual=self.use_residual,
+                         noisy_gate_policy=self.noisy_gate_policy)
 
 
 MIXTRAL_SIZES = {
@@ -153,6 +162,8 @@ def _shapes(config: MixtralConfig) -> dict:
                 "w_gate": ((L, E, D, F), std),
                 "w_in": ((L, E, D, F), std),
                 "w_out": ((L, E, F, D), res),
+                # the residual MoE's dense FFN and coefficient head
+                **residual_shapes(config.moe, (L,), std),
             },
         },
         "final_norm": ((D,), None),
@@ -195,7 +206,7 @@ def embed(params, tokens, config: MixtralConfig):
 def head(params, x, config: MixtralConfig):
     """Final RMSNorm + the (untied) LM head."""
     x = _rms_norm(x, params["final_norm"], config.rms_norm_eps)
-    return x @ params["lm_head"].to(x.dtype)
+    return head_dot(x, params["lm_head"])
 
 
 def _qkv(x, layer, config: MixtralConfig, positions=None):
@@ -213,45 +224,54 @@ def _qkv(x, layer, config: MixtralConfig, positions=None):
 
 
 def _moe_finish(x, attn_flat, layer, config: MixtralConfig,
-                train: bool = False):
+                train: bool = False, rng=None):
     """Attention-out projection + residual + the routed-expert FFN +
     residual; returns (x, aux loss)."""
     x = x + qdot(attn_flat, layer["wo"])
     h = _rms_norm(x, layer["mlp_norm"], config.rms_norm_eps)
-    moe_out, aux = moe_layer(layer["moe"], h, config.moe, train=train)
+    moe_out, aux = moe_layer(layer["moe"], h, config.moe, train=train,
+                             rng=rng)
     return x + moe_out, aux
 
 
-def _block(x, layer, config: MixtralConfig, train: bool, seg=None):
+def _block(x, layer, config: MixtralConfig, train: bool, seg=None,
+           rng=None):
     """One decoder layer; x [B, S, D] -> (x, aux loss)."""
     B, S, _ = x.shape
     q, kk, v = _qkv(x, layer, config)
     attn = causal_attention(q, kk, v, impl=config.attention_impl,
                             segment_ids=seg)
-    return _moe_finish(x, attn.reshape(B, S, -1), layer, config, train)
+    return _moe_finish(x, attn.reshape(B, S, -1), layer, config, train,
+                       rng)
 
 
 def forward_with_aux(params, batch, config: MixtralConfig,
-                     train: bool = False):
+                     train: bool = False, rng=None):
     """Token ids [B, S] -> (logits [B, S, V], summed aux loss): the full
     causal forward, each layer under ``torch.utils.checkpoint`` with
-    ``remat``."""
+    ``remat``.  ``rng``: the noisy gate's key, (seed, step, micro-step);
+    layer l draws from a generator seeded ``noise_seed(rng, l)``, made
+    inside the layer, so a remat recompute draws the same noise (the
+    reference hands every layer of its scan the same key)."""
     x = embed(params, batch["input_ids"], config)
     seg = batch.get("segment_ids") if isinstance(batch, dict) else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(config.num_layers):
         layer = maybe_stream(layer_params(params["blocks"], l))
-        x, a = run_block(_block, config.remat, x, layer, config, train, seg)
+        seed = None if rng is None else noise_seed(rng, l)
+        x, a = run_block(_block, config.remat, x, layer, config, train, seg,
+                         seed)
         aux = aux + a
     return head(params, x, config), aux
 
 
-def loss_fn(params, batch, config: MixtralConfig):
+def loss_fn(params, batch, config: MixtralConfig, rng=None):
     """The reference's Mixtral loss: the mean fp32 cross-entropy of
     ``logits[:, :-1]`` against ``input_ids[:, 1:]`` plus the summed aux
-    losses of a training forward."""
+    losses of a training forward (``rng``: the noisy gate's key)."""
     tokens = batch["input_ids"]
-    logits, aux = forward_with_aux(params, batch, config, train=True)
+    logits, aux = forward_with_aux(params, batch, config, train=True,
+                                   rng=rng)
     ce = F.cross_entropy(logits[:, :-1].float().flatten(0, 1),
                          tokens[:, 1:].long().flatten())
     return ce + aux

@@ -7,6 +7,7 @@ A model is a set of plain functions over a params dict of tensors with
 the reference's names and stacked ``[L, ...]`` block layout, so weights
 carry across from the JAX package unchanged
 (``checkpoint/jax_params.py``)."""
+import inspect
 import itertools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
@@ -81,6 +82,24 @@ def qdot(x, w):
         return torch.cat([r @ w for r in flat.split(1)]).reshape(
             *x.shape[:-1], w.shape[-1])
     return x @ w
+
+
+def head_dot(x, w, transpose_w: bool = False):
+    """The LM head's product, ``x @ w`` (``transpose_w``: ``x @ w.T``, a
+    tied head such as GPT-2's ``wte`` [V, D]).  On the card in fp32
+    outside autograd (serving, evaluation) at any row count it takes
+    ``rows_matmul`` (``ops/kernels/grouped_gemm.py``: the grouped GEMM's
+    fp32 kernel, a row's bits following its own x row alone), where
+    cuBLAS's fp32 GEMM would give a row other logits beside other rows;
+    an int8 head goes to qgemm as :func:`qdot`'s."""
+    if isinstance(w, QuantizedTensor):
+        return qdot(x, w)
+    w = w.to(x.dtype)
+    if x.is_cuda and x.dtype == torch.float32 \
+            and not torch.is_grad_enabled():
+        from deepspeed_tpu_torch.ops.kernels.grouped_gemm import rows_matmul
+        return rows_matmul(x, w, transpose_w=transpose_w)
+    return x @ (w.T if transpose_w else w)
 
 
 def maybe_stream(layer, keep_quantized: bool = False):
@@ -253,6 +272,8 @@ class Model:
     def __post_init__(self):
         if self.loss_fn is None and self.apply_fn is not None:
             self.loss_fn = default_lm_loss(self.apply_fn)
+        self._loss_takes_rng = self.loss_fn is not None and "rng" in \
+            inspect.signature(self.loss_fn).parameters
 
     def init(self, seed: int = 0, device=None, dtype=None):
         """Seeded params on ``device`` (``None``: the GPU, see
@@ -266,8 +287,24 @@ class Model:
     def apply(self, params, batch):
         return self.apply_fn(params, batch)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, rng=None):
+        """The training loss; ``rng`` (a :func:`noise_seed` key) reaches a
+        loss that draws noise (the MoE noisy gate) and is dropped for the
+        rest."""
+        if rng is not None and self._loss_takes_rng:
+            return self.loss_fn(params, batch, rng=rng)
         return self.loss_fn(params, batch)
+
+
+def noise_seed(key, layer: int) -> int:
+    """A generator seed for one layer's training noise from ``key`` =
+    (config seed, global step, micro-step): a fixed mix of the four
+    numbers, so a resumed run draws the same noise without saved
+    generator state (the reference splits a JAX key it saves instead)."""
+    h = 0
+    for v in (*key, layer):
+        h = (h * 0x100000001B3 + int(v) + 0x9E3779B9) % (1 << 63)
+    return h
 
 
 def default_lm_loss(apply_fn):

@@ -40,9 +40,9 @@ from deepspeed_tpu_torch.models import serving
 from deepspeed_tpu_torch.models.gpt2 import _layer_norm
 from deepspeed_tpu_torch.models.llama import rope
 from deepspeed_tpu_torch.models.model import (Model, check_remat_policy,
-                                              layer_params, maybe_stream,
-                                              numpy_seeded_init, qdot,
-                                              resolve_size, run_block,
+                                              head_dot, layer_params,
+                                              maybe_stream, numpy_seeded_init,
+                                              qdot, resolve_size, run_block,
                                               seeded_device_init)
 from deepspeed_tpu_torch.ops.attention import ATTENTION_IMPLS, causal_attention
 
@@ -201,7 +201,7 @@ def embed(params, tokens, config: NeoXConfig):
 def head(params, x, config: NeoXConfig):
     """Final LN + the untied head (+ its bias, GPT-J)."""
     x = _ln(x, params["lnf_scale"], params["lnf_bias"], config.layer_norm_eps)
-    logits = x @ params["embed_out"].to(x.dtype)
+    logits = head_dot(x, params["embed_out"])
     if config.head_bias:
         logits = logits + params["embed_out_b"].to(x.dtype)
     return logits

@@ -1,8 +1,8 @@
 """MoE layer (counterpart of ``deepspeed_tpu/moe/layer.py``: ``MoEConfig``
-:43, ``resolve_dispatch_mode`` :143, ``_expert_ffn`` :260,
-``_grouped_moe`` :285, ``_glu`` :334, ``_routing_logits`` :350,
-``moe_layer`` :357; ``_finish_residual`` :419 is the identity without
-``use_residual``, and its residual branch is refused).
+:43, ``resolve_dispatch_mode`` :143,
+``dispatch_scope`` :130, ``_expert_ffn`` :260, ``_grouped_moe`` :285,
+``_glu`` :334, ``_routing_logits`` :350, ``moe_layer`` :357,
+``_finish_residual`` :419).
 
 Two dispatch formulations, as the reference's:
 
@@ -24,11 +24,24 @@ Two dispatch formulations, as the reference's:
   tokens past capacity drop), two einsums around a batched expert FFN.
   It is what ``"auto"`` resolves to when training.
 
-Refused, each raising ``NotImplementedError`` naming its ROADMAP item:
-the noisy gate (``noisy_gate_policy``), the residual MoE
-(``use_residual``).  Router-health telemetry is left out (ROADMAP.md
-Queue A: telemetry), and so is expert parallelism (one device).
+The noisy gate (``noisy_gate_policy``, when training) adds Gumbel noise
+to the selection logits (``moe/sharded_moe.py``); ``moe_layer``'s
+``rng`` is the noise itself, a ``torch.Generator`` or an int seed of one
+(the models derive it from the config seed, the step, the micro-step and
+the layer, so a resumed run draws the same noise with no saved generator
+state, and a remat recompute draws it again).  The residual MoE
+(``use_residual``, PR-MoE) runs a dense FFN beside the experts and mixes
+the two per token by a softmax coefficient computed in fp32 and cast
+back to the compute dtype.  Router-health telemetry is left out
+(ROADMAP.md Queue A: telemetry), and so is expert parallelism (one
+device).
+
+A serving scheduler picks the dispatch for the calls it makes with
+:func:`dispatch_scope` (``serving.moe_dispatch``), as the reference's
+``set_dispatch_override``; the einsum dispatch at eval drops tokens
+beyond ``eval_capacity_factor`` as the reference's does.
 """
+import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -36,13 +49,14 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.models.model import qdot
-from deepspeed_tpu_torch.moe.sharded_moe import (NOISY_GATE_ITEM,
-                                                 topk_routing, topkgating)
+from deepspeed_tpu_torch.moe.sharded_moe import topk_routing, topkgating
 from deepspeed_tpu_torch.ops.kernels import grouped_gemm as gg
 
 #: dispatch formulations the reference accepts
 DISPATCH_MODES = ("auto", "einsum", "grouped")
-RESIDUAL_ITEM = "ROADMAP.md Queue A: MoE training — residual MoE"
+#: the serving scheduler's ``serving.moe_dispatch`` (None: defer to the
+#: layer config), set around its model calls by ``dispatch_scope``
+_dispatch_override: Optional[str] = None
 
 
 @dataclass(frozen=True)
@@ -55,7 +69,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     eval_capacity_factor: float = 2.0
     min_capacity: int = 4
-    noisy_gate_policy: Optional[str] = None    # None; 'Jitter' is refused
+    noisy_gate_policy: Optional[str] = None    # None | 'Jitter' 
     activation: str = "silu_glu"               # silu_glu (Mixtral) | gelu
     aux_loss_coef: float = 0.01
     z_loss_coef: float = 0.0
@@ -63,12 +77,29 @@ class MoEConfig:
     dispatch_mode: str = "einsum"
 
 
+@contextlib.contextmanager
+def dispatch_scope(mode: Optional[str]):
+    """Force a dispatch mode (``serving.moe_dispatch``) for the MoE layers
+    called inside this scope; None defers to each layer's config."""
+    global _dispatch_override
+    if mode is not None and mode not in DISPATCH_MODES:
+        raise ValueError(f"moe dispatch mode {mode!r}: choose one of "
+                         f"{DISPATCH_MODES}")
+    prev, _dispatch_override = _dispatch_override, mode
+    try:
+        yield
+    finally:
+        _dispatch_override = prev
+
+
 def resolve_dispatch_mode(config: MoEConfig, train: bool,
                           override: Optional[str] = None) -> str:
-    """-> ``"einsum"`` or ``"grouped"`` for this call.  ``override`` is
-    ``serving.moe_dispatch`` (it wins over the layer config, as in the
-    reference); ``"auto"`` is einsum when training and grouped at eval."""
-    mode = override or config.dispatch_mode or "auto"
+    """-> ``"einsum"`` or ``"grouped"`` for this call.  ``override`` (or
+    the enclosing :func:`dispatch_scope`) is ``serving.moe_dispatch`` (it
+    wins over the layer config, as in the reference); ``"auto"`` is
+    einsum when training and grouped at eval."""
+    mode = (override or _dispatch_override or config.dispatch_mode
+            or "auto")
     if mode not in DISPATCH_MODES:
         raise ValueError(f"moe dispatch mode {mode!r}: choose one of "
                          f"{DISPATCH_MODES}")
@@ -90,7 +121,45 @@ def _glu(mm, x, w_gate, w_in, config: MoEConfig):
     return F.gelu(mm(x, w_in), approximate="tanh")
 
 
-def _grouped_moe(params, xt, config: MoEConfig, train: bool):
+def moe_shapes(config: MoEConfig, lead=(), std: float = 0.02) -> dict:
+    """Leaf shapes and init scales of one layer's MoE params (``lead``:
+    stacked dims in front, such as the layer count)."""
+    E, D, F = config.num_experts, config.d_model, config.d_ff
+    lead = tuple(lead)
+    out = {"router": (lead + (D, E), std),
+           "w_in": (lead + (E, D, F), std),
+           "w_out": (lead + (E, F, D), std)}
+    if config.activation == "silu_glu":
+        out["w_gate"] = (lead + (E, D, F), std)
+    out.update(residual_shapes(config, lead, std))
+    return out
+
+
+def residual_shapes(config: MoEConfig, lead=(), std: float = 0.02) -> dict:
+    """The residual MoE's leaves (none without ``use_residual``)."""
+    if not config.use_residual:
+        return {}
+    D, F = config.d_model, config.d_ff
+    lead = tuple(lead)
+    out = {"res_in": (lead + (D, F), std), "res_out": (lead + (F, D), std),
+           "coef_w": (lead + (D, 2), std), "coef_b": (lead + (2,), 0)}
+    if config.activation == "silu_glu":
+        out["res_gate"] = (lead + (D, F), std)
+    return out
+
+
+def _noise_source(rng, config: MoEConfig, train: bool, device):
+    """The noisy gate's noise for ``topk_routing``: None unless training
+    with a ``noisy_gate_policy``; an int ``rng`` seeds a generator on
+    ``device``."""
+    if not (train and config.noisy_gate_policy) or rng is None:
+        return None
+    if isinstance(rng, (torch.Tensor, torch.Generator)):
+        return rng
+    return torch.Generator(device=device).manual_seed(int(rng))
+
+
+def _grouped_moe(params, xt, config: MoEConfig, train: bool, noise=None):
     """Drop-free grouped dispatch: route, run the expert FFN as grouped
     GEMMs over the routed rows, combine each token's k outputs weighted by
     its normalised gates.  Returns (combined [T, D], aux scalar)."""
@@ -98,11 +167,14 @@ def _grouped_moe(params, xt, config: MoEConfig, train: bool):
     E, k = config.num_experts, config.top_k
     dt = xt.dtype
     logits = _routing_logits(params, xt)
-    routing = topk_routing(logits, k, None, config.z_loss_coef)
+    routing = topk_routing(logits, k, noise, config.z_loss_coef)
     eids = routing.expert_idx.reshape(-1)                 # [T * k]
     gates = routing.gate_weights.reshape(-1)              # [T * k] fp32
-    tids = torch.arange(T * k, device=xt.device) // k
-    rows = xt.index_select(0, tids)                       # [T * k, D]
+    # each token's k rows (token-major, as the reference's gather by
+    # arange(T k) // k); by expand, whose backward sums a token's k row
+    # gradients in a fixed order (an index_select's backward would add
+    # them with atomics, in an order that changes from run to run)
+    rows = xt[:, None, :].expand(T, k, D).reshape(T * k, D).contiguous()
     w_gate = params.get("w_gate")
     w_in, w_out = params["w_in"], params["w_out"]
     if not train and T * k <= gg.SLOT_MAX_ROWS:
@@ -138,13 +210,13 @@ def _expert_ffn(params, x, config: MoEConfig):
     return h @ w_out
 
 
-def _einsum_moe(params, xt, config: MoEConfig, train: bool):
+def _einsum_moe(params, xt, config: MoEConfig, train: bool, noise=None):
     """The GShard capacity formulation: dispatch [T, E, C] x [T, D] ->
     [E, C, D], the experts, combine [T, E, C] x [E, C, D] -> [T, D].
     Returns (combined [T, D], aux scalar)."""
     logits = _routing_logits(params, xt)
     cf = config.capacity_factor if train else config.eval_capacity_factor
-    routing = topk_routing(logits, config.top_k, None, config.z_loss_coef)
+    routing = topk_routing(logits, config.top_k, noise, config.z_loss_coef)
     gate = topkgating(logits, config.top_k, cf, config.min_capacity, None,
                       config.z_loss_coef, routing=routing)
     dt = xt.dtype
@@ -155,19 +227,36 @@ def _einsum_moe(params, xt, config: MoEConfig, train: bool):
     return combined, aux
 
 
-def moe_layer(params: dict, x, config: MoEConfig, train: bool = False):
+def moe_layer(params: dict, x, config: MoEConfig, train: bool = False,
+              rng=None):
     """x [B, S, D] -> (out [B, S, D], aux loss scalar) by the resolved
-    dispatch (see :func:`resolve_dispatch_mode`)."""
+    dispatch (see :func:`resolve_dispatch_mode`).  ``rng``: the noisy
+    gate's noise source when training with ``noisy_gate_policy`` (the
+    [T, E] noise, a ``torch.Generator`` or an int seed)."""
     mode = resolve_dispatch_mode(config, train)
-    if config.use_residual:
-        raise NotImplementedError(
-            "MoEConfig.use_residual (residual MoE): not ported to "
-            f"deepspeed_tpu_torch yet ({RESIDUAL_ITEM})")
-    if train and config.noisy_gate_policy:
-        raise NotImplementedError(
-            f"MoEConfig.noisy_gate_policy={config.noisy_gate_policy!r}: "
-            f"not ported to deepspeed_tpu_torch yet ({NOISY_GATE_ITEM})")
     B, S, D = x.shape
+    noise = _noise_source(rng, config, train, x.device)
     moe = _grouped_moe if mode == "grouped" else _einsum_moe
-    combined, aux = moe(params, x.reshape(B * S, D), config, train)
-    return combined.reshape(B, S, D), aux
+    combined, aux = moe(params, x.reshape(B * S, D), config, train, noise)
+    return _finish_residual(params, x, combined.reshape(B, S, D), aux,
+                            config)
+
+
+def _finish_residual(params, x, moe_out, aux, config: MoEConfig):
+    """Residual MoE (the reference's ``_finish_residual``): a dense FFN
+    beside the experts, mixed per token by a 2-way softmax coefficient
+    (computed in fp32, cast to the compute dtype); the identity without
+    ``use_residual``."""
+    if config.use_residual:
+        dt = x.dtype
+        if config.activation == "silu_glu":
+            h = F.silu(qdot(x, params["res_gate"])) * qdot(x,
+                                                           params["res_in"])
+        else:
+            h = F.gelu(qdot(x, params["res_in"]), approximate="tanh")
+        res = qdot(h, params["res_out"])
+        coef = torch.softmax(
+            (qdot(x, params["coef_w"]) + params["coef_b"].to(dt)).float(),
+            dim=-1).to(dt)
+        moe_out = moe_out * coef[..., 0:1] + res * coef[..., 1:]
+    return moe_out, aux

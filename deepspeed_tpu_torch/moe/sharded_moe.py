@@ -13,9 +13,15 @@ not ``torch.topk`` (whose tie-break differs); ``torch.argmax``, like
 ``jnp.argmax``, returns the first maximum.  The losses are differentiable
 through the router as ``jax.grad`` sees them: the aux loss through the
 mean softmax gates (the top-1 fractions are counts), the z loss through
-the logsumexp, the combine weights through the chosen gates.  The noisy
-gate (``noise_rng``, gumbel jitter on the selection logits) is refused
-(ROADMAP.md Queue A: MoE training — noisy gate).
+the logsumexp, the combine weights through the chosen gates.
+
+The noisy gate (``noise_rng``; the reference's ``noisy_gate_policy=
+"Jitter"``) adds Gumbel noise to the selection logits only: the top-1
+counts of the aux loss and the k argmax rounds see the noisy logits, the
+gates and the z loss the clean ones.  ``noise_rng`` is the [T, E] noise
+itself (a test hands in ``jax.random.gumbel``'s draw) or a
+``torch.Generator`` to draw it from (:func:`gumbel`); the reference takes
+a JAX key.
 """
 from typing import NamedTuple
 
@@ -23,14 +29,27 @@ import torch
 import torch.nn.functional as F
 
 
-NOISY_GATE_ITEM = "ROADMAP.md Queue A: MoE training — noisy gate"
+def gumbel(shape, generator, device) -> torch.Tensor:
+    """Standard Gumbel noise, -log(-log(u)) with u uniform in [tiny, 1)
+    (``jax.random.gumbel``'s formula; torch draws other numbers)."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
 
 
-def _refuse_noise(noise_rng, what):
-    if noise_rng is not None:
-        raise NotImplementedError(
-            f"{what}(noise_rng=...): the noisy gate is not ported to "
-            f"deepspeed_tpu_torch yet ({NOISY_GATE_ITEM})")
+def _noise(noise_rng, logits):
+    """The [T, E] fp32 noise for ``logits``: ``noise_rng`` itself (a
+    tensor), a draw from it (a generator), or None."""
+    if noise_rng is None:
+        return None
+    if isinstance(noise_rng, torch.Generator):
+        return gumbel(logits.shape, noise_rng, logits.device)
+    noise = torch.as_tensor(noise_rng).to(logits.device, torch.float32)
+    if noise.shape != logits.shape:
+        raise ValueError(f"noise shape {tuple(noise.shape)} != logits "
+                         f"{tuple(logits.shape)}")
+    return noise
 
 
 class GateOutput(NamedTuple):
@@ -52,19 +71,21 @@ def topk_routing(logits, k: int, noise_rng=None,
     """``logits`` [T, E] -> :class:`TopKRouting`: softmax gates in fp32,
     the top-1 load-balancing loss, k rounds of argmax with the chosen
     expert suppressed by -1e9, and the chosen gates normalised by their
-    sum (clamped at fp32 eps).  The noisy gate (``noise_rng``) is
-    refused."""
-    _refuse_noise(noise_rng, "topk_routing")
+    sum (clamped at fp32 eps).  ``noise_rng``: the noisy gate's Gumbel
+    noise on the selection logits (see the module docstring)."""
     T, E = logits.shape
+    gates = torch.softmax(logits.float(), dim=-1)
     select = logits.float()
-    gates = torch.softmax(select, dim=-1)
+    noise = _noise(noise_rng, logits)
+    if noise is not None:
+        select = select + noise
     top1 = torch.argmax(select, dim=-1)
     me = gates.mean(0)
     ce = F.one_hot(top1, E).float().mean(0)
     l_aux = (me * ce).sum() * E
     z_loss = torch.zeros((), dtype=torch.float32, device=logits.device)
     if z_loss_coef > 0:
-        z = torch.logsumexp(select, dim=-1)
+        z = torch.logsumexp(logits.float(), dim=-1)
         z_loss = z_loss_coef * (z ** 2).mean()
     remaining = select
     chosen_gates, chosen_idx = [], []
@@ -136,11 +157,13 @@ def topkgating(logits, k: int, capacity_factor: float = 1.0,
 def top1gating(logits, capacity_factor: float = 1.0, min_capacity: int = 4,
                noise_rng=None) -> GateOutput:
     """The reference's ``top1gating`` (its gate value is not normalised
-    for k = 1)."""
-    _refuse_noise(noise_rng, "top1gating")
+    for k = 1); ``noise_rng`` as :func:`topk_routing`'s."""
     T, E = logits.shape
+    gates = torch.softmax(logits.float(), dim=-1)
     select = logits.float()
-    gates = torch.softmax(select, dim=-1)
+    noise = _noise(noise_rng, logits)
+    if noise is not None:
+        select = select + noise
     capacity = _capacity(T, E, capacity_factor, min_capacity, 1)
     idx = torch.argmax(select, dim=-1)
     me = gates.mean(0)

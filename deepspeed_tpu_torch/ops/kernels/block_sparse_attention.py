@@ -480,11 +480,13 @@ def _check_cuda(q, k, v, plan, extra=()):
     """The kernels' argument rules; returns (B, S, H, hd, block)."""
     B, S, H, hd, block = _dims(q, k, v, plan)
     if block not in BLOCKS or hd not in HEAD_DIMS or q.dtype not in _DTYPES:
+        f16 = ("; fp16: ROADMAP.md Queue A: fp16 grouped and block-sparse "
+               "kernels" if q.dtype == torch.float16 else "")
         raise NotImplementedError(
             f"block_sparse_attention: no CUDA kernel for block {block}, "
             f"head_dim {hd}, dtype {q.dtype} (blocks {BLOCKS}, head dims "
             f"{HEAD_DIMS}, dtypes float32 / bfloat16); the plain version "
-            f"on CPU tensors takes any ({_REFUSED_ITEM})")
+            f"on CPU tensors takes any ({_REFUSED_ITEM}{f16})")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.dtype != q.dtype or t.device != q.device:

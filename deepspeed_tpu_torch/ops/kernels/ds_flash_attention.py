@@ -16,6 +16,10 @@ Layouts (the reference's public ones): q [B, S, H, hd], k/v
 [B, S, KV, hd] (KV divides H), segment_ids None or [B, S] (a pair attends
 only within one segment) -> o [B, S, H, hd] in the input dtype and
 lse [B, H, S] fp32 (-1e30 for a row that sees no key).  Any S >= 1.
+Dtypes fp32, bf16 and fp16: the 16-bit kernels compute the softmax
+statistics in fp32 and the products on the tensor cores in the input
+dtype (the fp16 backward keeps dS within fp16's range by a per-row
+power-of-two factor, ``csrc/ds_flash_bwd.cu fit_f16``).
 """
 import ctypes
 
@@ -25,7 +29,10 @@ from deepspeed_tpu_torch.ops.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 80, 96, 128)
-_DTYPES = (torch.float32, torch.bfloat16)
+#: the kernels' dtype codes (csrc/ds_flash_fwd.cu, ds_flash_bwd.cu: the
+#: entry points' last int; the C code refuses any other)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPES = tuple(_DTYPE_CODES)
 
 
 def _repeat_kv(k, v, rep):
@@ -205,9 +212,11 @@ def flash_attention_fwd_cuda(q, k, v, segment_ids=None, causal=True,
                         o.data_ptr(), lse.data_ptr(), B, S, H, KV, hd,
                         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                         int(bool(causal)), float(sm),
-                        int(q.dtype == torch.bfloat16), _stream(q.device))
+                        _DTYPE_CODES[q.dtype], _stream(q.device))
     build.check(rc, "ds_flash_fwd")
     flash_attention_fwd.launches += 1
+    if q.dtype == torch.float16:
+        flash_attention_fwd.f16_launches += 1
     return o, lse
 
 
@@ -234,7 +243,7 @@ def _bwd_args(q, k, v, do, lse, delta, segment_ids, causal, sm_scale):
     # the tensors are held by the tuples until the launch returns
     head = (q, k, v, do, *rows, seg)
     tail = (B, S, H, KV, hd, strides, int(bool(causal)), float(sm),
-            int(q.dtype == torch.bfloat16))
+            _DTYPE_CODES[q.dtype])
     return head, tail, (B, S, H, KV, hd)
 
 
@@ -253,6 +262,8 @@ def _launch_dkv(head, tail, dims):
                                          _stream(q.device))
     build.check(rc, "ds_flash_bwd_dkv")
     flash_attention_bwd.dkv_launches += 1
+    if q.dtype == torch.float16:
+        flash_attention_bwd.dkv_f16_launches += 1
     return dk, dv
 
 
@@ -265,6 +276,8 @@ def _launch_dq(head, tail, dims):
                                         _stream(q.device))
     build.check(rc, "ds_flash_bwd_dq")
     flash_attention_bwd.dq_launches += 1
+    if q.dtype == torch.float16:
+        flash_attention_bwd.dq_f16_launches += 1
     return dq
 
 
@@ -321,10 +334,14 @@ def flash_attention_bwd(q, k, v, do, lse, delta, segment_ids=None,
     raise ValueError(f"ds_flash_attention: unsupported device {q.device}")
 
 
-#: kernel launches since the counts were last set to 0
+#: kernel launches since the counts were last set to 0 (all dtypes; the
+#: ``f16_`` counts the fp16 forms' launches among them)
 flash_attention_fwd.launches = 0
 flash_attention_bwd.dkv_launches = 0
 flash_attention_bwd.dq_launches = 0
+flash_attention_fwd.f16_launches = 0
+flash_attention_bwd.dkv_f16_launches = 0
+flash_attention_bwd.dq_f16_launches = 0
 
 
 class DSFlashAttention(torch.autograd.Function):

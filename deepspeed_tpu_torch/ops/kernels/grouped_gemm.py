@@ -102,6 +102,20 @@ STREAM_SLOT_BN, STREAM_SLOT_BK, STREAM_SLOT_ROWS = 256, 64, 16
 #: kernel's (STREAM_SLOT_ROWS rows, one wgmma's N)
 STREAM_Q_BN, STREAM_Q_BK, STREAM_Q_MAX_SPLIT = 256, 64, 8
 _DTYPES = (torch.float32, torch.bfloat16)
+#: fp16 is taken by the plain versions (CPU tensors) and refused on the
+#: card, where the kernels have no fp16 form yet
+FP16_ITEM = "ROADMAP.md Queue A: fp16 grouped and block-sparse kernels"
+
+
+def _dtypes_for(t):
+    """The dtypes the grouped GEMMs take for tensors on ``t``'s device:
+    fp16 on the CPU only; an fp16 CUDA tensor raises NotImplementedError
+    naming the queue item."""
+    if t.dtype == torch.float16 and t.device.type == "cuda":
+        raise NotImplementedError(
+            "grouped GEMM: no fp16 form of the CUDA kernels yet "
+            f"({FP16_ITEM}); train MoE models in bf16 or fp32")
+    return _DTYPES + ((torch.float16,) if t.device.type == "cpu" else ())
 
 
 def _round_up(n: int, m: int) -> int:
@@ -549,9 +563,9 @@ def _check_common(what, x, w, ints):
     if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
         raise ValueError(f"{what}: x {tuple(x.shape)} against w "
                          f"{tuple(w.shape)} (need x [M, K], w [E, K, N])")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+    if x.dtype not in _dtypes_for(x) or w.dtype != x.dtype:
         raise ValueError(f"{what}: dtypes x {x.dtype}, w {w.dtype}; need "
-                         f"both one of {_DTYPES}")
+                         f"both one of {_dtypes_for(x)}")
     _check_placed(what, x, (("w", w),), ints)
 
 
@@ -559,9 +573,9 @@ def _check_t(what, dy, w, ints):
     if dy.dim() != 2 or w.dim() != 3 or dy.shape[1] != w.shape[2]:
         raise ValueError(f"{what}: dy {tuple(dy.shape)} against w "
                          f"{tuple(w.shape)} (need dy [M, N], w [E, K, N])")
-    if dy.dtype not in _DTYPES or w.dtype != dy.dtype:
+    if dy.dtype not in _dtypes_for(dy) or w.dtype != dy.dtype:
         raise ValueError(f"{what}: dtypes dy {dy.dtype}, w {w.dtype}; need "
-                         f"both one of {_DTYPES}")
+                         f"both one of {_dtypes_for(dy)}")
     _check_placed(what, dy, (("w", w),), ints)
 
 
@@ -703,7 +717,7 @@ def _check_tgmm(x, dy, plan: GroupPlan, out_dtype):
         raise ValueError(f"ds_tgmm: x {tuple(x.shape)} and dy "
                          f"{tuple(dy.shape)} (need [Mp, K] and [Mp, N], Mp "
                          f"the plan's {plan.padded_rows} padded rows)")
-    if x.dtype not in _DTYPES or dy.dtype != x.dtype \
+    if x.dtype not in _dtypes_for(x) or dy.dtype != x.dtype \
             or out_dtype not in (x.dtype, torch.float32):
         raise ValueError(f"ds_tgmm: dtypes x {x.dtype}, dy {dy.dtype}, out "
                          f"{out_dtype}; need x and dy one of {_DTYPES}, out "
@@ -946,6 +960,31 @@ class GroupedGemm(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = ds_tgmm(x, dy, plan, out_dtype=w.dtype)
         return dx, dw, None
+
+
+def rows_matmul(x, w, transpose_w: bool = False):
+    """``x @ w`` (``transpose_w``: ``x @ w.T``) for fp32 CUDA tensors whose
+    rows' bits do not depend on the rows beside them: the grouped GEMM's
+    fp32 kernel (``layout_tile``, an fmaf chain in K order) over one
+    group, where cuBLAS's fp32 GEMM picks its summation by the row count.
+    x [..., K]; w [K, N] (``transpose_w``: [N, K], as GPT-2's tied
+    ``wte``); returns [..., N] fp32.  Counted where it launches:
+    ``ds_ggemm.launches`` (``transpose_w``: ``ds_ggemm.transpose_launches``).
+    Raises on anything else."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 \
+            or w.dtype != torch.float32 or w.dim() != 2:
+        raise ValueError(f"rows_matmul: fp32 CUDA x and 2-D w, got "
+                         f"{x.dtype} {x.device}, {w.dtype} {tuple(w.shape)}")
+    lead = x.shape[:-1]
+    flat = x.reshape(-1, x.shape[-1])
+    M = flat.shape[0]
+    plan = make_group_plan(torch.zeros(M, dtype=torch.int64,
+                                       device=x.device), 1)
+    xp = scatter_to_groups(flat, plan)
+    w1 = w.contiguous()[None]
+    out = (ggemm_t_cuda(xp, w1, plan) if transpose_w
+           else ggemm_cuda(xp, w1, plan))
+    return out[:M].reshape(*lead, out.shape[-1])
 
 
 def grouped_gemm(x, w, plan: GroupPlan):

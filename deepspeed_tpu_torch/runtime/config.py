@@ -15,6 +15,8 @@ import json
 import os
 from typing import Any, Dict, Optional, Union
 
+from pydantic import Field
+
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
 from deepspeed_tpu_torch.utils.logging import logger
@@ -601,8 +603,81 @@ def refuse_unported(cfg: ServingConfig):
 
 # ------------------------------------------------------------------ training
 class FP16Config(DeepSpeedConfigModel):
-    """``fp16``: only ``enabled`` is read, and refused."""
+    """``fp16``: compute in fp16 with a static or dynamic loss scale
+    (runtime/fp16/loss_scaler.py); the reference's keys and defaults."""
     enabled: bool = False
+    loss_scale: float = 0.0           # 0 = dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    consecutive_hysteresis: bool = False
+    min_loss_scale: float = 1.0
+
+
+class CheckpointConfig(DeepSpeedConfigModel):
+    """``checkpoint``: ``async_save`` runs the npz write on a background
+    thread after a host snapshot (runtime/checkpoint_engine/engine.py);
+    ``tag_validation`` is accepted ("Ignore" / "Warn" / "Fail") and, with
+    one process, has no other rank's tag to compare."""
+    tag_validation: str = "Warn"
+    async_save: bool = False
+
+    def __init__(self, **data):
+        super().__init__(**data)
+        if str(self.tag_validation).lower() not in ("ignore", "warn",
+                                                    "fail"):
+            raise ValueError(
+                f"checkpoint.tag_validation={self.tag_validation!r}: "
+                "expected Ignore, Warn or Fail")
+
+
+class RetryConfig(DeepSpeedConfigModel):
+    """Backoff policy for checkpoint I/O (resilience/retry.py
+    retry_call: exponential backoff + full jitter + deadline)."""
+    attempts: int = 4
+    base_delay_s: float = 0.05
+    max_delay_s: float = 2.0
+    #: wall-clock budget across all attempts; None = attempts-bounded only
+    deadline_s: Optional[float] = None
+
+    def __init__(self, **data):
+        super().__init__(**data)
+        if self.attempts < 1:
+            raise ValueError(
+                f"resilience.retry.attempts={self.attempts}: must be >= 1")
+        if self.base_delay_s < 0 or self.max_delay_s < 0:
+            raise ValueError("resilience.retry delays must be >= 0")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError(
+                f"resilience.retry.deadline_s={self.deadline_s}: must be "
+                "> 0 (omit for no deadline)")
+
+
+class ResilienceConfig(DeepSpeedConfigModel):
+    """``resilience``: the crash-safe checkpoint protocol's knobs
+    (resilience/ckpt.py).  Fault injection (``faults``) is refused until
+    it is ported."""
+    faults: str = ""
+    #: retain only the newest k VALID checkpoint tags after each publish
+    #: (0 = keep everything); the fallback tag is never deleted
+    keep_last_k: int = 0
+    #: record per-leaf crc32s in the checkpoint manifest
+    checkpoint_checksums: bool = True
+    #: load-time verification: "off", "manifest" (the manifest parses and
+    #: its file inventory matches on disk) or "full" (also re-checksums
+    #: every restored leaf)
+    verify_checkpoint: str = "manifest"
+    retry: RetryConfig = Field(default_factory=RetryConfig)
+
+    def __init__(self, **data):
+        super().__init__(**data)
+        if self.verify_checkpoint not in ("off", "manifest", "full"):
+            raise ValueError(
+                f"resilience.verify_checkpoint={self.verify_checkpoint!r}: "
+                "expected off | manifest | full")
+        if self.keep_last_k < 0:
+            raise ValueError(
+                f"resilience.keep_last_k={self.keep_last_k}: must be >= 0")
 
 
 class BF16Config(DeepSpeedConfigModel):
@@ -697,6 +772,8 @@ class DeepSpeedConfig:
         self.scheduler_params = sched.get("params", {}) if sched else {}
 
         self.fp16 = FP16Config(**d.get(C.FP16, {}))
+        self.checkpoint_config = CheckpointConfig(**d.get("checkpoint", {}))
+        self.resilience_config = ResilienceConfig(**d.get("resilience", {}))
         self.bf16 = BF16Config(**d.get(C.BF16, d.get("bfloat16", {})))
         self.zero_config = ZeroConfig(**d.get(C.ZERO_OPTIMIZATION, {}))
         self.mesh_config = MeshConfig(**d.get("mesh", {}))
@@ -783,7 +860,8 @@ def refuse_unported_training(cfg: DeepSpeedConfig):
                  ("zero_quantized_weights", "zero_quantized_gradients")
                  if getattr(zc, k)]
     checks = (
-        (cfg.fp16.enabled, "fp16.enabled", "Queue A: fp16 loss scaling"),
+        (bool(cfg.resilience_config.faults), "resilience.faults",
+         "Queue A: resilience"),
         (bool(offload), ", ".join(offload), "Queue A: offload"),
         (bool(quantized), ", ".join(quantized),
          "Queue A: remaining parallelism (ZeRO++)"),

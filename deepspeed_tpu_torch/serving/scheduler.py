@@ -25,8 +25,11 @@ int8 codes plus one fp32 scale per cached head vector, gathered and
 scattered alongside.  ``serving.fused_decode`` runs each decode step
 through the fused per-layer kernel instead of the unfused composition
 (a family whose spec the kernel does not cover raises).  A mixture-of-
-experts model serves its experts through the grouped dispatch
-(``serving.moe_dispatch`` "auto" or "grouped"; "einsum" raises).
+experts model serves its experts through the dispatch
+``serving.moe_dispatch`` names ("auto" and "grouped": the grouped
+kernels, drop-free; "einsum": the GShard capacity tensors in plain
+PyTorch, which drop tokens beyond ``eval_capacity_factor`` as the
+reference's do), set around every model call (``dispatch_scope``).
 
 The decode batch is always ``max_num_seqs`` rows wide and ``S_pad`` long
 — padding rows point at the reserved trash block and are ignored — so a
@@ -63,7 +66,7 @@ from deepspeed_tpu_torch.ops.kernels.decode_attention import decode_attention
 from deepspeed_tpu_torch.ops.kernels.ds_flash_attention import \
     flash_attention_fwd
 from deepspeed_tpu_torch.models.serving import fused_decode_active
-from deepspeed_tpu_torch.moe.layer import resolve_dispatch_mode
+from deepspeed_tpu_torch.moe.layer import dispatch_scope
 from deepspeed_tpu_torch.ops.kernels.fused_decode import ds_fused_layer
 from deepspeed_tpu_torch.ops.kernels.grouped_gemm import (ds_ggemm,
                                                           ds_ggemm_slots)
@@ -232,14 +235,8 @@ class ContinuousBatchingScheduler:
         # raises here, not at the first decode step
         self.fused_decode = fused_decode_active(
             getattr(model, "fused_spec", None), config.fused_decode)
-        moe = getattr(model.config, "moe", None)
-        if moe is not None and resolve_dispatch_mode(
-                moe, train=False, override=config.moe_dispatch) != "grouped":
-            raise NotImplementedError(
-                "moe dispatch 'einsum' at serving: not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP.md Queue A: MoE training "
-                "— einsum serving); the scheduler serves the grouped "
-                "dispatch ('auto' or 'grouped')")
+        #: the MoE layers' dispatch for this scheduler's model calls
+        self.moe_dispatch = config.moe_dispatch
         self.block_mgr = BlockManager(config.num_blocks, config.block_size)
         bs = config.block_size
         model_ctx = int(getattr(model.config, "max_seq_len", 1 << 30))
@@ -451,7 +448,7 @@ class ContinuousBatchingScheduler:
         dest = (np.arange(sp) % self.block_mgr.block_size).astype(np.int64)
         dest[:n] = self._pos_idx_row(req.request_id)[:n]
         dev = self.device
-        with torch.no_grad():
+        with torch.no_grad(), dispatch_scope(self.moe_dispatch):
             cache = self.model.init_cache_fn(1, _round_up(sp, 64),
                                              self.cache_dtype, dev)
             logits, cache = self.model.prefill_fn(
@@ -578,7 +575,7 @@ class ContinuousBatchingScheduler:
             temps[b], top_ps[b] = s.temperature, s.top_p
             do_flags[b] = s.do_sample
         dev = self.device
-        with torch.no_grad():
+        with torch.no_grad(), dispatch_scope(self.moe_dispatch):
             toks = torch.from_numpy(tokens).to(dev)
             lens = torch.from_numpy(lengths).to(dev)
             dests_t = torch.from_numpy(dests).to(dev)

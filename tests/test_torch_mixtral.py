@@ -338,9 +338,13 @@ def test_unported_settings_raise(served):
         InferenceEngine(pm, DeepSpeedInferenceConfig(
             dtype="float32", moe={"ep_size": 2}), model_parameters=tree,
             device="cpu")
-    with pytest.raises(NotImplementedError, match="einsum"):
-        ContinuousBatchingScheduler(pm, peng.params,
-                                    ServingConfig(moe_dispatch="einsum"))
+    # einsum serving is served now (test_torch_moe_extras holds its
+    # tokens against the JAX scheduler's); a bogus dispatch is refused
+    assert ContinuousBatchingScheduler(
+        pm, peng.params, ServingConfig(moe_dispatch="einsum")
+    ).moe_dispatch == "einsum"
+    with pytest.raises(ValueError, match="moe_dispatch"):
+        ServingConfig(moe_dispatch="bogus")
     for mode in ("auto", "grouped"):
         ContinuousBatchingScheduler(pm, peng.params,
                                     ServingConfig(moe_dispatch=mode))

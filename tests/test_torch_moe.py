@@ -145,11 +145,13 @@ def test_refusals():
     grouped = MoEConfig(d_model=D, d_ff=F, num_experts=E, top_k=K,
                         dispatch_mode="grouped")
     assert moe_layer(pp, x, grouped, train=True)[0].shape == x.shape
-    with pytest.raises(NotImplementedError, match="residual MoE"):
+    # residual MoE and the noisy gate are served now: the residual
+    # branch needs its own leaves, and noise must match the logits
+    with pytest.raises(KeyError, match="res_gate"):
         moe_layer(pp, x, MoEConfig(d_model=D, d_ff=F, num_experts=E,
                                    top_k=K, dispatch_mode="grouped",
                                    use_residual=True))
-    with pytest.raises(NotImplementedError, match="noisy gate"):
-        topk_routing(torch.zeros(3, E), K, noise_rng=0)
+    with pytest.raises(ValueError, match="noise shape"):
+        topk_routing(torch.zeros(3, E), K, noise_rng=torch.zeros(2, E))
     with pytest.raises(ValueError, match="dispatch mode"):
         resolve_dispatch_mode(cfg, False, override="bogus")

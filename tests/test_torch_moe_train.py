@@ -296,8 +296,15 @@ def test_top1_top2_gating_match_jax(which):
                                rtol=0)
     np.testing.assert_allclose(float(got.l_aux), float(ref.l_aux),
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="noisy gate"):
-        pf(torch.from_numpy(lg), noise_rng=0)
+    # the noisy gate: the same Gumbel draw on both sides
+    noise = np.asarray(jax.random.gumbel(jax.random.PRNGKey(3), lg.shape))
+    ref = jf(jnp.asarray(lg), 1.0, 2, noise_rng=jax.random.PRNGKey(3))
+    got = pf(torch.from_numpy(lg), 1.0, 2, noise_rng=torch.from_numpy(noise))
+    np.testing.assert_array_equal(got.dispatch_mask.numpy(),
+                                  np.asarray(ref.dispatch_mask))
+    np.testing.assert_allclose(_np(got.combine_weights),
+                               np.asarray(ref.combine_weights), atol=1e-6,
+                               rtol=0)
 
 
 # ------------------------------------------------------------------ layer
@@ -388,12 +395,14 @@ def test_refused_training_features():
     pp = {k: torch.from_numpy(np.array(v))
           for k, v in _layer_params(0).items()}
     x = torch.zeros(1, 8, D)
-    with pytest.raises(NotImplementedError, match="residual MoE"):
+    # residual MoE and the noisy gate train now (test_torch_moe_extras):
+    # the residual branch needs its leaves, the noise its logits' shape
+    with pytest.raises(KeyError, match="res_gate"):
         moe_layer(pp, x, MoEConfig(D, F, E, K, use_residual=True),
                   train=True)
-    with pytest.raises(NotImplementedError, match="noisy gate"):
+    with pytest.raises(ValueError, match="noise shape"):
         moe_layer(pp, x, MoEConfig(D, F, E, K, noisy_gate_policy="Jitter"),
-                  train=True)
+                  train=True, rng=torch.zeros(2, E))
     with pytest.raises(NotImplementedError, match="remat policies"):
         pmix.mixtral_model("tiny", remat=True, remat_policy="dots")
     # einsum at eval: the capacity formulation at eval_capacity_factor

@@ -367,7 +367,8 @@ def test_data_loader_paths_match_explicit_batches():
 
 
 @pytest.mark.parametrize("section", [
-    {"fp16": {"enabled": True}},
+    # fp16 trains since the fp16 slice; fault injection is still refused
+    {"resilience": {"faults": "ckpt.save:deny@0"}},
     {"zero_optimization": {"stage": 2,
                            "offload_optimizer": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
